@@ -1,0 +1,92 @@
+"""tpu_pathtracer_torch's config against the reference's, its JAX-free
+import, and the NotImplementedError of every configuration it does not
+cover yet."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+from tpu_pathtracer import config as jcfg
+from tpu_pathtracer_torch import config as tcfg
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_config_fields_and_defaults_match_reference():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jcfg.RenderConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tcfg.RenderConfig)]
+    assert tf == jf
+    assert (tcfg.PI, tcfg.IOR_AIR) == (jcfg.PI, jcfg.IOR_AIR)
+    assert list(tcfg.NoiseMode) == list(jcfg.NoiseMode)
+    assert list(tcfg.ComparisonMode) == list(jcfg.ComparisonMode)
+    tcfg.check_supported(tcfg.RenderConfig())  # the main path is covered
+
+
+def test_config_validation_matches_reference():
+    for kw in ({"tritest": "nope"}, {"sort_bounce_skip": "9"},
+               {"sort_bounce_skip": "1", "prefix_sort": True}):
+        with pytest.raises(ValueError):
+            jcfg.RenderConfig(**kw)
+        with pytest.raises(ValueError):
+            tcfg.RenderConfig(**kw)
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax made unimportable."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import tpu_pathtracer_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("kw", [
+    {"spectrum_samples": 8}, {"hero_wavelengths": 2},
+    {"refract_dielectric": True}, {"noise_mode": tcfg.NoiseMode.TILED},
+    {"sampler": "r2"}, {"samples_per_frame": 2}, {"row_tiles": 2},
+    {"prefix_sort": True}, {"sort_bounce_skip": "1"}, {"cull_zero_nee": True},
+    {"bake_materials": True}, {"fuse_shadow_walk": True},
+    {"traversal_kernel": "minwalk"}, {"traversal_kernel": "sweep"},
+    {"tritest": "mt"}, {"occlusion_anyhit": "on"}, {"intersector": "brute"},
+    {"use_pallas": False}, {"sort_rays": False},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_unsupported_config_raises(kw):
+    cfg = tcfg.RenderConfig(**kw)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue \d item \d+"):
+        tcfg.check_supported(cfg)
+
+
+def test_unsupported_entry_points_raise():
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.models.camera import Camera, generate_rays_flat
+    from tpu_pathtracer_torch.scene import load_scene, scene_path
+
+    match = r"ROADMAP\.md queue 1 item \d+"
+    with pytest.raises(NotImplementedError, match=match):
+        Renderer("cornellbox", 8, 8, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        Renderer("cornellbox", 8, 8, tcfg.RenderConfig(sort_rays=False), device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        load_scene(scene_path("cornellbox"), rough_materials=True, device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        load_scene(scene_path("cornellbox"), samples=8, device="cpu")
+    scene = load_scene(scene_path("cornellbox"), device="cpu")
+    from tpu_pathtracer_torch.accel import build_layout
+    with pytest.raises(NotImplementedError, match=match):
+        build_layout(scene, builder="lbvh")
+    import torch
+    z = torch.zeros(4)
+    with pytest.raises(NotImplementedError, match=match):
+        generate_rays_flat(Camera(aperture=0.1), z, z, torch.zeros(2, 4), 2, 2)

@@ -1,0 +1,78 @@
+"""tpu_pathtracer_torch's CUDA kernels on the card: each against its plain
+torch version, and a whole frame against the CPU's.  Every test here needs
+an NVIDIA GPU and skips without one.  The file imports no JAX, so it also
+runs on a host without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_pathtracer_torch import Renderer, RenderConfig
+from tpu_pathtracer_torch.accel import build_layout
+from tpu_pathtracer_torch.ops import hopper_traverse as ht
+from tpu_pathtracer_torch.scene import load_scene, scene_path
+from torch_parity import assert_hits_agree, cuda_device, random_rays  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_kernels_match_plain_on_card(name, cuda_device):
+    """Kernel == plain version on the same card: t bit-equal (both keep the
+    same operation order and the kernels build with --fmad=false), ids
+    equal except equal-t ties on >= 99.99% of the hits."""
+    scene = load_scene(scene_path(name), device=cuda_device)
+    lay, occl = build_layout(scene, 56), build_layout(scene, 8)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=3))
+    act = torch.arange(8192, device=cuda_device) % 9 != 4
+    t_max = torch.full((8192,), torch.inf, device=cuda_device)
+    n0 = ht.window_walk.launches
+    tk, rk = ht.window_walk(o, d, act, t_max, lay)
+    assert ht.window_walk.launches == n0 + 1
+    tp, rp = ht.window_walk_plain(o, d, act, t_max, lay)
+    assert_hits_agree(tk.cpu(), rk.cpu(), tp.cpu(), rp.cpu(), rtol=0, atol=0,
+                      min_agree=0.9999)
+    cap = torch.where(torch.isfinite(tk), tk * 1.25, 2.0)
+    n0 = ht.capped_walk.launches
+    outk = ht.capped_walk(o, d, act, cap, occl)
+    assert ht.capped_walk.launches == n0 + 1
+    outp = ht.capped_walk_plain(o, d, act, cap, occl)
+    hit = lambda out: torch.where(out[0] < cap, out[0], torch.inf).cpu()  # noqa: E731
+    assert_hits_agree(hit(outk), outk[3].cpu(), hit(outp), outp[3].cpu(),
+                      rtol=0, atol=0, min_agree=0.9999)
+
+
+def test_kernel_wrappers_check_inputs(cuda_device):
+    scene = load_scene(scene_path("cornellbox"), device=cuda_device)
+    lay = build_layout(scene, 8)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(64, seed=1))
+    act = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    t = torch.full((64,), torch.inf, device=cuda_device)
+    with pytest.raises(ValueError):
+        ht.window_walk(o.double(), d, act, t, lay)
+    with pytest.raises(ValueError):
+        ht.window_walk(o.t().contiguous().t(), d, act, t, lay)
+    with pytest.raises(ValueError):
+        ht.capped_walk(o, d, act.float(), t, lay)
+    with pytest.raises(ValueError):
+        ht.capped_walk(o, d, act, t, build_layout(load_scene(
+            scene_path("cornellbox"), device="cpu"), 8))
+
+
+def test_renderer_on_card_matches_cpu(cuda_device):
+    """A Water-plastic frame through the kernels == the same frame through
+    the plain versions on the CPU, to atol 1e-4 (CUDA's sqrt/sin/cos round
+    differently from the CPU's, and a bounce carries that forward)."""
+    cfg = RenderConfig(max_path_length=4)
+    gpu = Renderer("CornellBox-Water-plastic", 64, 48, cfg, device=cuda_device)
+    cpu = Renderer("CornellBox-Water-plastic", 64, 48, cfg, device="cpu")
+    n0 = (ht.window_walk.launches, ht.capped_walk.launches)
+    gpu.run(2)
+    cpu.run(2)
+    assert ht.window_walk.launches > n0[0] and ht.capped_walk.launches > n0[1]
+    img = gpu.image()
+    assert np.isfinite(img).all()
+    np.testing.assert_allclose(img, cpu.image(), rtol=0, atol=1e-4)

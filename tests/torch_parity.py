@@ -1,0 +1,59 @@
+"""Shared helpers of the tests that hold tpu_pathtracer_torch against
+tpu_pathtracer: numpy views of the reference's pytrees, seeded rays, the
+nearest-hit agreement rule, and the fixture of the tests that need a card."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+def arrays(nt) -> dict:
+    """A reference NamedTuple (Scene, BVHLayout) -> dict of numpy arrays
+    (non-array fields as they are), for tpu_pathtracer_torch.interop."""
+    return {k: (np.asarray(v) if hasattr(v, "shape") else v)
+            for k, v in nt._asdict().items()}
+
+
+def random_rays(n: int, seed: int):
+    """(3, n) float32 origins inside the Cornell box and unit directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (3, n)).astype(np.float32)
+    o[1] += 1.0
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return o, d
+
+
+def assert_hits_agree(t_a, id_a, t_b, id_b, rtol: float = 1e-6, atol: float = 1e-6,
+                      min_agree: float = 0.999) -> np.ndarray:
+    """Same hit/miss per lane and t to ``rtol`` or ``atol``; triangle ids
+    equal except equal-t ties (a ray through a shared edge hits both
+    triangles at the same t, and an ulp decides which one wins), and equal
+    or tied on at least ``min_agree`` of the hits.  Returns the lanes whose
+    ids agree.
+
+    Why the absolute floor: XLA's CPU compiler contracts ``a * b + c`` into
+    one FMA inside the reference's jitted kernels, torch's CPU ops do not,
+    so the same test order differs by an ulp per multiply-add; a grazing
+    hit's 1/den (or 1/det) amplifies that, up to ~3e-7 on a scene 2 units
+    across.  1e-6 is half a millionth of the scene's extent."""
+    t_a, t_b = np.asarray(t_a), np.asarray(t_b)
+    id_a, id_b = np.asarray(id_a), np.asarray(id_b)
+    fin = np.isfinite(t_a)
+    np.testing.assert_array_equal(fin, np.isfinite(t_b))
+    np.testing.assert_allclose(t_a[fin], t_b[fin], rtol=rtol, atol=atol)
+    same = id_a == id_b
+    ties = ~same & fin & np.isclose(t_a, t_b, rtol=rtol, atol=atol)
+    assert (same | ties | ~fin).all()
+    assert (same | ties)[fin].mean() >= min_agree
+    return same & fin
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return torch.device("cuda")

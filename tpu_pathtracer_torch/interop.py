@@ -1,0 +1,47 @@
+"""Carry the reference's arrays into the port's objects.
+
+Takes plain numpy dicts — ``tpu_pathtracer``'s ``Scene._asdict()`` and
+``BVHLayout._asdict()`` with every array passed through ``np.asarray`` — so
+the tests can feed the reference's exact tables to the port's kernels and
+frame, which separates kernel faults from layout faults.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .accel.layout import BVHLayout, layout_to
+from .render.state import RenderState
+from .scene.scene import Scene, scene_to
+
+# Scene fields of the reference that the port does not carry yet
+# (ROADMAP.md queue 1 item 10).
+_SCENE_EXTENSIONS = ("env", "tri_uv", "mat_tex", "textures", "mat_ior_bins",
+                     "mat_roughness")
+
+
+def scene_from_arrays(d: dict, device="cpu") -> Scene:
+    """The reference's ``Scene._asdict()`` -> the port's :class:`Scene`."""
+    used = [k for k in _SCENE_EXTENSIONS if d.get(k) is not None]
+    if used:
+        raise NotImplementedError(
+            f"scene extensions {used} are not ported to tpu_pathtracer_torch "
+            "yet (ROADMAP.md queue 1 item 10)")
+    return scene_to(d, device)
+
+
+def layout_from_arrays(d: dict, device="cpu") -> BVHLayout:
+    """The reference's ``BVHLayout._asdict()`` -> the port's
+    :class:`BVHLayout` (the tables the port reads)."""
+    return layout_to(d, device)
+
+
+def state_from_arrays(accum, frame_index, key_data, device="cpu") -> RenderState:
+    """The reference's ``RenderState`` parts -> the port's: ``accum``
+    (H, W, S), ``frame_index`` and ``jax.random.key_data(key)``."""
+    return RenderState(
+        accum=torch.tensor(np.asarray(accum, np.float32), device=device),
+        frame_index=int(frame_index),
+        key=np.asarray(key_data, np.uint32).reshape(2),
+    )

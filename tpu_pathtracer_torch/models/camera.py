@@ -1,0 +1,70 @@
+"""Pinhole camera and primary-ray generation.
+
+Equivalent of the ``rayGenerator`` kernel (reference:
+renderer/Shaders.metal:75-103): camera at ``up - view*2.35`` = (0, 1, 2.35)
+looking down -z, 90-degree horizontal FOV, aspect-corrected, with an AA
+jitter of +-1/(dim-1) in normalized coords.  Rows count top-down; the
+reference's ``threadId.y`` is ``H-1-row``.  The port of
+``tpu_pathtracer/models/camera.py``; the thin-lens extension is not ported
+yet (ROADMAP.md queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.math3d import normalize
+
+
+class Camera(NamedTuple):
+    t: float = 0.0          # turntable angle, 0.0 in the reference
+    aperture: float = 0.0   # thin-lens radius (extension; 0 = pinhole)
+    focus: float = 3.35
+
+    @staticmethod
+    def reference_default() -> "Camera":
+        return Camera()
+
+
+def generate_rays_flat(camera: Camera, rows: torch.Tensor, cols: torch.Tensor,
+                       jitter: torch.Tensor, full_height: int, full_width: int):
+    """Primary rays for an arbitrary pixel enumeration.
+
+    ``rows``/``cols``: (N,) absolute pixel coordinates; ``jitter``: (2, N)
+    AA uniforms (the reference's noiseSample.xy).  Returns origins (3, N)
+    and directions (3, N), float32."""
+    if camera.aperture > 0.0:
+        raise NotImplementedError(
+            "the thin-lens camera is not ported to tpu_pathtracer_torch yet "
+            "(ROADMAP.md queue 1 item 10)")
+    dev = jitter.device
+    f32 = np.float32
+    aspect = float(f32(full_height) / f32(full_width))
+    ct, st = float(np.cos(f32(camera.t))), float(np.sin(f32(camera.t)))
+    side = torch.tensor([ct, 0.0, st], dtype=torch.float32, device=dev)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    view = torch.tensor([st, 0.0, -ct], dtype=torch.float32, device=dev)
+
+    x = cols.to(torch.float32)
+    y = float(full_height - 1) - rows.to(torch.float32)  # rows count bottom-up
+
+    wm1 = float(max(full_width - 1, 1))
+    hm1 = float(max(full_height - 1, 1))
+    du = (jitter[0] * 2.0 - 1.0) / wm1
+    dv = (jitter[1] * 2.0 - 1.0) / hm1
+    ncx = 2.0 * x / wm1 - 1.0
+    ncy = 2.0 * y / hm1 - 1.0
+
+    dx = du + ncx
+    # parity quirk: aspect scales only the pixel coordinate, NOT the jitter
+    # (renderer/Shaders.metal:92-98)
+    dy = dv + ncy * aspect
+    directions = side[:, None] * dx[None, :] + up[:, None] * dy[None, :] + view[:, None]
+    directions = normalize(directions)
+    origin = up - view * 2.35
+    origins = origin[:, None].expand(directions.shape).contiguous()
+    return origins, directions
+

@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels (``tpu_pathtracer_torch/csrc``).
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, loaded with ctypes.  The library goes into
+``tpu_pathtracer_torch/_build/``, named by a hash of the sources and flags,
+so an edit rebuilds on first use and an unchanged tree reuses the build.
+``--fmad=false`` keeps the kernels' arithmetic bit-comparable with their
+plain torch versions.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the kernels' launchers (csrc/*.cu); each returns
+# cudaGetLastError() after its launch.
+_SIGNATURES = {
+    # o, d, active, t_max, nodes, meta, tris, pre, n_prepass, ax, ay, az,
+    # num_nodes, num_tris, t_min, n, out_t, out_row, stream
+    "tpupt_window_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _P, _P, _P],
+    # o, d, active, cap, nodes, meta, tris, num_nodes, t_min, n, out, stream
+    "tpupt_capped_walk": [_P] * 7 + [_I, _F, _I, _P, _P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtpupt_cuda_{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build() -> tuple[str, float, str]:
+    """Compile the kernels unless this source hash is already built.
+    Returns (library path, seconds spent compiling, compiler output);
+    raises ``RuntimeError`` with the compiler output when nvcc fails."""
+    path = library_path()
+    log_path = path + ".log"
+    if os.path.exists(path):
+        with open(log_path) as f:
+            return path, 0.0, f.read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    return path, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernels' library (once per process)."""
+    lib = ctypes.CDLL(build()[0])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

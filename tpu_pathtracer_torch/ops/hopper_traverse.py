@@ -1,0 +1,376 @@
+"""BVH traversal on Hopper: the two CUDA kernels of the main render path,
+their plain torch versions, and the intersector the frame uses.
+
+The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
+
+* **window walk** (``csrc/window_walk.cu``, replaces ``_window_kernel``):
+  nearest hit over the leaf-56 layout — a 32-row big-triangle prepass, then
+  a stackless DFS walk over ``nodes``/``nodes_meta`` with Baldwin-Weber tests
+  on the leaf rows of ``tris8bw`` evaluated at ``o - anchor``.  Returns
+  ``(t, row)``; :func:`resolve_window_payload` then recomputes u/v and the
+  shading payload from one row gather of ``tris`` (plain torch, as the TPU
+  path left it to XLA).
+* **capped walk** (``csrc/capped_walk.cu``, replaces ``_traverse_kernel``
+  with ``resolve=False, prepass=0``): the range-capped shadow query over the
+  leaf-8 layout with Moller-Trumbore rows; returns t, u, v and the original
+  triangle id.
+
+Both are one thread per ray.  The contract is the outputs: the same nearest
+hit, strict ``<`` in visit order (prepass rows, then leaf rows in DFS order,
+ascending within a leaf), which is the winner the TPU kernels' lowest-row
+tie-break picks.
+
+Each kernel's wrapper takes its plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel (counting the launch in its
+``launches`` attribute) or raises.  The plain versions walk every running
+lane one node per step, vectorised across lanes and across a leaf's rows,
+with the kernels' operation order; a leaf's rows fold in with a first-minimum
+pick, which equals the kernels' sequential strict-``<`` latch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..accel.layout import BVHLayout
+from .cuda_build import load_library
+from .intersect import HitShade
+from .traverse import safe_inverse
+
+DEFAULT_PREPASS = 32
+
+
+def _latch(tt, ok, best_t, best_id, ids):
+    """Fold (L, K) candidate rows into per-lane bests: the first of the
+    minimal accepted t, if it beats best_t (a sequential strict-< latch)."""
+    ttm = torch.where(ok, tt, torch.inf)
+    tmin, kmin = torch.min(ttm, dim=1)
+    upd = tmin < best_t
+    pick = ids.gather(1, kmin[:, None])[:, 0] if ids.dim() == 2 else ids[kmin]
+    return torch.where(upd, tmin, best_t), torch.where(upd, pick, best_id), upd, kmin
+
+
+def _slab(rows, o, inv, t_min, best_t):
+    """(L, 8) node rows against L rays -> hit_box (L,)."""
+    t0x = (rows[:, 0] - o[0]) * inv[0]
+    t1x = (rows[:, 3] - o[0]) * inv[0]
+    t0y = (rows[:, 1] - o[1]) * inv[1]
+    t1y = (rows[:, 4] - o[1]) * inv[1]
+    t0z = (rows[:, 2] - o[2]) * inv[2]
+    t1z = (rows[:, 5] - o[2]) * inv[2]
+    enter = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+        torch.minimum(t0z, t1z),
+    )
+    exit_ = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+        torch.maximum(t0z, t1z),
+    )
+    return (enter <= exit_) & (exit_ > t_min) & (enter < best_t)
+
+
+def _bw(rows, o, d, t_min):
+    """Baldwin-Weber rows (..., 16) against broadcastable anchored origins
+    ``o`` and directions ``d`` (3-tuples) -> (t, ok)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    den = rows[..., 0] * dx + rows[..., 1] * dy + rows[..., 2] * dz
+    num = rows[..., 0] * ox + rows[..., 1] * oy + rows[..., 2] * oz + rows[..., 3]
+    nz = den != 0.0
+    inv = torch.where(nz, 1.0 / den, 0.0)
+    tt = -num * inv
+    px = ox + tt * dx
+    py = oy + tt * dy
+    pz = oz + tt * dz
+    u = rows[..., 4] * px + rows[..., 5] * py + rows[..., 6] * pz + rows[..., 7]
+    v = rows[..., 8] * px + rows[..., 9] * py + rows[..., 10] * pz + rows[..., 11]
+    ok = nz & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > t_min)
+    return tt, ok
+
+
+def _mt(rows, o, d, t_min):
+    """Moller-Trumbore rows (..., 24) [p0, e1, e2, orig, ...] against
+    broadcastable rays (3-tuples) -> (t, u, v, ok), in _mt_row's order."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    px = dy * rows[..., 8] - dz * rows[..., 7]
+    py = dz * rows[..., 6] - dx * rows[..., 8]
+    pz = dx * rows[..., 7] - dy * rows[..., 6]
+    det = rows[..., 3] * px + rows[..., 4] * py + rows[..., 5] * pz
+    nz = det != 0.0
+    inv = torch.where(nz, 1.0 / det, 0.0)
+    tx = ox - rows[..., 0]
+    ty = oy - rows[..., 1]
+    tz = oz - rows[..., 2]
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * rows[..., 5] - tz * rows[..., 4]
+    qy = tz * rows[..., 3] - tx * rows[..., 5]
+    qz = tx * rows[..., 4] - ty * rows[..., 3]
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    tt = (rows[..., 6] * qx + rows[..., 7] * qy + rows[..., 8] * qz) * inv
+    ok = nz & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > t_min)
+    return tt, u, v, ok
+
+
+def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test):
+    """The stackless DFS walk shared by both plain versions.
+
+    ``best``: per-lane tensors whose first entry is best_t; ``leaf_test(lanes,
+    rowid, valid, best)`` folds one leaf's rows (L, max_leaf) into ``best``
+    for the given lanes and returns the updated per-lane tuple."""
+    lanes = active.nonzero()[:, 0]
+    inv = safe_inverse(d[0], d[1], d[2])
+    inv = torch.stack(inv)
+    cur = torch.zeros(o.shape[1], dtype=torch.int64, device=o.device)
+    k = torch.arange(lay.max_leaf, device=o.device)
+    while lanes.numel():
+        c = cur[lanes]
+        hit = _slab(lay.nodes[c], o[:, lanes], inv[:, lanes], t_min, best[0][lanes])
+        meta = lay.nodes_meta[c]
+        count = meta[:, 1] & 63
+        leaf = hit & (count > 0)
+        if bool(leaf.any()):
+            leaf_lanes = lanes[leaf]
+            rowid = (meta[leaf, 1] >> 6).to(torch.int64)[:, None] + k[None]
+            valid = k[None] < count[leaf][:, None]
+            rowid = torch.where(valid, rowid, lay.num_tris)  # zero row: no hit
+            new = leaf_test(leaf_lanes, rowid, valid,
+                            tuple(b[leaf_lanes] for b in best))
+            for b, nb in zip(best, new):
+                b[leaf_lanes] = nb
+        nxt = torch.where(hit & (count == 0), c + 1, meta[:, 0].to(torch.int64))
+        cur[lanes] = nxt
+        lanes = lanes[nxt < lay.num_nodes]
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: nearest-hit window walk (BW rows)
+# ---------------------------------------------------------------------------
+
+def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                      prepass: int = DEFAULT_PREPASS):
+    """Plain torch version of ``csrc/window_walk.cu`` -> (t (N,) f32, row
+    (N,) int32); inactive lanes get (t_max, num_tris)."""
+    best_t = t_max.clone()
+    best_row = torch.full_like(t_max, lay.num_tris, dtype=torch.int32)
+    ax, ay, az = lay.anchor
+    ob = torch.stack([o[0] - ax, o[1] - ay, o[2] - az])
+
+    act = active.nonzero()[:, 0]
+    if prepass and act.numel():
+        rows = lay.prepassbw[:prepass]
+        ol = tuple(c[act][:, None] for c in ob)
+        dl = tuple(c[act][:, None] for c in d)
+        tt, ok = _bw(rows[None], ol, dl, t_min)
+        bt, br, _, _ = _latch(tt, ok, best_t[act], best_row[act],
+                              rows[:, 12].to(torch.int32))
+        best_t[act] = bt
+        best_row[act] = br
+
+    def leaf_test(lanes, rowid, valid, best):
+        rows = lay.tris8bw[rowid]
+        tt, ok = _bw(rows, tuple(c[lanes][:, None] for c in ob),
+                     tuple(c[lanes][:, None] for c in d), t_min)
+        bt, br, _, _ = _latch(tt, ok & valid, best[0], best[1],
+                              rowid.to(torch.int32))
+        return bt, br
+
+    _walk(o, d, active, lay, t_min, (best_t, best_row), leaf_test)
+    return best_t, best_row
+
+
+def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                prepass: int = DEFAULT_PREPASS):
+    """Nearest-hit walk -> (t (N,) f32, row (N,) int32): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors.
+
+    ``o``/``d``: (3, N) float32; ``active``: (N,) bool; ``t_max``: (N,)
+    float32 (best_t seed); ``prepass``: leading rows of ``lay.prepassbw``."""
+    if o.device.type == "cpu":
+        return window_walk_plain(o, d, active, t_max, lay, t_min, prepass)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    _check_layout(lay, ("nodes", "nodes_meta", "tris8bw", "prepassbw"), o.device)
+    if not 0 <= prepass <= lay.prepassbw.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {lay.prepassbw.shape[0]}]")
+    out_t = torch.empty(n, dtype=torch.float32, device=o.device)
+    out_row = torch.empty(n, dtype=torch.int32, device=o.device)
+    ax, ay, az = lay.anchor
+    rc = load_library().tpupt_window_walk(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris8bw.data_ptr(),
+        lay.prepassbw.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
+        lay.num_tris, t_min, n, out_t.data_ptr(), out_row.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"window_walk kernel launch failed: cudaError {rc}")
+    window_walk.launches += 1
+    return out_t, out_row
+
+
+window_walk.launches = 0
+
+
+def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
+    """Kernel rows (t, row) -> HitShade: one row gather of ``lay.tris``, u/v
+    recomputed with Moller-Trumbore (the sentinel row is all zeros, so
+    misses get u = v = 0), position and normal interpolated from the row."""
+    t = torch.where(t_raw < t_max, t_raw, torch.inf)
+    rows = lay.tris[row.to(torch.int64)]                 # (N, 24)
+
+    def col(k):
+        return rows[:, k]
+
+    e1 = (col(3), col(4), col(5))
+    e2 = (col(6), col(7), col(8))
+    pvx = d[1] * e2[2] - d[2] * e2[1]
+    pvy = d[2] * e2[0] - d[0] * e2[2]
+    pvz = d[0] * e2[1] - d[1] * e2[0]
+    det = e1[0] * pvx + e1[1] * pvy + e1[2] * pvz
+    inv = torch.where(det != 0.0, 1.0 / det, 0.0)
+    tx = o[0] - col(0)
+    ty = o[1] - col(1)
+    tz = o[2] - col(2)
+    u = (tx * pvx + ty * pvy + tz * pvz) * inv
+    qx = ty * e1[2] - tz * e1[1]
+    qy = tz * e1[0] - tx * e1[2]
+    qz = tx * e1[1] - ty * e1[0]
+    v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv
+    hit_ok = torch.isfinite(t)
+    u = torch.where(hit_ok, torch.clamp(u, 0.0, 1.0), 0.0)
+    v = torch.where(hit_ok, torch.clamp(v, 0.0, 1.0), 0.0)
+    w0 = 1.0 - u - v
+    px = col(0) + u * col(3) + v * col(6)
+    py = col(1) + u * col(4) + v * col(7)
+    pz = col(2) + u * col(5) + v * col(8)
+    nx = col(10) * w0 + col(13) * u + col(16) * v
+    ny = col(11) * w0 + col(14) * u + col(17) * v
+    nz = col(12) * w0 + col(15) * u + col(18) * v
+    rlen = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    return HitShade(
+        t=t, u=u, v=v,
+        tri=col(9).to(torch.int64),
+        mat=col(19).to(torch.int64),
+        light=col(20).to(torch.int64) - 1,
+        pos=torch.stack([px, py, pz]),
+        normal=torch.stack([nx * rlen, ny * rlen, nz * rlen]),
+    )
+
+
+def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
+                         t_max=None, prepass: int = DEFAULT_PREPASS) -> HitShade:
+    """(3, N) rays -> fully resolved nearest-hit HitShade."""
+    n = o.shape[1]
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=o.device)
+    t_max = (torch.full((n,), torch.inf, device=o.device) if t_max is None
+             else torch.broadcast_to(t_max, (n,)).to(torch.float32).contiguous())
+    prepass = min(prepass, lay.prepassbw.shape[0], lay.num_tris)
+    prepass -= prepass % 8  # the reference tests whole 8-row blocks
+    o = o.contiguous()
+    d = d.contiguous()
+    t, row = window_walk(o, d, active.contiguous(), t_max, lay, t_min, prepass)
+    return resolve_window_payload(lay, t, row, t_max, o, d)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: range-capped walk (MT rows), the shadow query
+# ---------------------------------------------------------------------------
+
+def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
+    """Plain torch version of ``csrc/capped_walk.cu`` -> (4, N) float32
+    rows [t, u, v, orig]; t stays at ``cap`` where nothing nearer was hit."""
+    n = o.shape[1]
+    best = (cap.clone(),) + tuple(torch.zeros(n, device=o.device) for _ in range(3))
+
+    def leaf_test(lanes, rowid, valid, best):
+        rows = lay.tris[rowid]
+        tt, u, v, ok = _mt(rows, tuple(c[lanes][:, None] for c in o),
+                           tuple(c[lanes][:, None] for c in d), t_min)
+        bt, orig, upd, kmin = _latch(tt, ok & valid, best[0], best[3], rows[..., 9])
+        pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
+        return (bt, torch.where(upd, pick(u), best[1]),
+                torch.where(upd, pick(v), best[2]), orig)
+
+    _walk(o, d, active, lay, t_min, best, leaf_test)
+    return torch.stack(best)
+
+
+def capped_walk(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
+    """Range-capped walk -> (4, N) float32 rows [t, u, v, orig]: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if o.device.type == "cpu":
+        return capped_walk_plain(o, d, active, cap, lay, t_min)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(cap, torch.float32, (n,), "cap")
+    _check_layout(lay, ("nodes", "nodes_meta", "tris"), o.device)
+    out = torch.empty((4, n), dtype=torch.float32, device=o.device)
+    rc = load_library().tpupt_capped_walk(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
+        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris.data_ptr(),
+        lay.num_nodes, t_min, n, out.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"capped_walk kernel launch failed: cudaError {rc}")
+    capped_walk.launches += 1
+    return out
+
+
+capped_walk.launches = 0
+
+
+def intersect_bvh_capped(o, d, lay: BVHLayout, active, t_max,
+                         t_min: float = 0.0) -> HitShade:
+    """Range-capped nearest hit (shadow rays): t (inf at or beyond the cap),
+    u, v and the original triangle id; no shading payload."""
+    n = o.shape[1]
+    cap = torch.broadcast_to(t_max, (n,)).to(torch.float32).contiguous()
+    out = capped_walk(o.contiguous(), d.contiguous(), active.contiguous(), cap,
+                      lay, t_min)
+    return HitShade(t=torch.where(out[0] < cap, out[0], torch.inf), u=out[1],
+                    v=out[2], tri=out[3].to(torch.int64), mat=None, light=None,
+                    pos=None, normal=None)
+
+
+def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
+                          t_min: float = 0.0, prepass: int = DEFAULT_PREPASS):
+    """The frame's intersection callable, ``fn(o, d, active, t_max=None,
+    coherent=False) -> HitShade`` (the contract of the reference's
+    ``make_pallas_intersector``): nearest-hit queries take the window walk on
+    ``lay``; ``t_max``-capped queries take the capped walk on ``lay_occl``
+    (the small-leaf shadow layout; ``lay`` when None).  ``coherent`` was a
+    TPU tile-shape hint and changes nothing here."""
+    occl = lay_occl if lay_occl is not None else lay
+
+    def fn(o, d, active, t_max=None, coherent=False):
+        del coherent
+        if t_max is not None:
+            return intersect_bvh_capped(o, d, occl, active, t_max, t_min)
+        return intersect_bvh_window(o, d, lay, t_min, active, prepass=prepass)
+
+    return fn
+
+
+def _check(t: torch.Tensor, dtype, shape, name: str) -> None:
+    if 3 * t.shape[-1] >= 2 ** 31:
+        raise ValueError(f"{name}: {t.shape[-1]} lanes overflow the kernels' "
+                         "int32 plane offsets")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {shape}, got "
+                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _check_layout(lay: BVHLayout, names, device) -> None:
+    for name in names:
+        t = getattr(lay, name)
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"layout.{name}: expected a contiguous, 16-byte "
+                             f"aligned tensor on {device}")

@@ -1,0 +1,376 @@
+"""The wavefront path-tracing pipeline (sorted, deferred-shadow form).
+
+The port of ``tpu_pathtracer/render/wavefront.py`` for the main path:
+per-frame kernel sequence of the reference (renderer/Renderer.mm:500-585),
+
+    rayGenerator -> [ intersect -> intersectionHandler -> shadow-intersect
+                      -> lightSamplingHandler ] x MAX_PATH_LENGTH -> accumulate
+
+as eager torch ops on component-major SoA tensors.  Before each secondary
+bounce the wavefront is sorted (dead lanes last, then origin cell and
+direction bin) with the previous bounce's NEE shadow pack riding along; the
+pack resolves right after the sort (its origin is the same hit point), and
+the bounce then runs on the shortest live prefix of the live-prefix ladder.
+
+Estimator notes (reference-exact when ``cfg.reference_quirks``):
+  * NEE: contribution = emissive * mat.diffuse * throughput * W * bsdf /
+    lightPdf with W = powerHeuristic(lightPdf, materialPdf)
+    (renderer/Shaders.metal:166-169).
+  * BSDF-arm MIS on emitter hits: radiance += emissive * throughput * W * mPdf
+    (renderer/Shaders.metal:189-193); with quirks off the mPdf is dropped.
+  * A nearest hit closer than DISTANCE_EPSILON kills the path
+    (renderer/Shaders.metal:122-126).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config import IOR_AIR, RenderConfig, check_supported
+from ..core.geometry import interpolate
+from ..core.math3d import dot, length, where3
+from ..core.sampling import balance_heuristic, barycentric, select_light_index
+from ..models import bsdf as bsdf_lib
+from ..models.camera import Camera, generate_rays_flat
+from ..ops.intersect import HitShade
+from ..ops.rng import fold_in
+from ..scene.scene import Scene
+from .noise import bounce_uniforms, camera_jitter, pids_from_order
+from .order import make_order
+
+IntersectFn = Callable[..., HitShade]
+# (origins (3, N), directions (3, N), active (N,) bool, t_max=None,
+#  coherent=False) -> HitShade
+
+
+class PathState(NamedTuple):
+    """SoA ray state (the reference's Ray struct, renderer/Raytracing.h:54-69,
+    plus the owning pixel id so the wavefront can be re-sorted)."""
+
+    origin: torch.Tensor        # (3, N)
+    direction: torch.Tensor     # (3, N)
+    throughput: torch.Tensor    # (S, N)
+    radiance: torch.Tensor      # (S, N)
+    pdf: torch.Tensor           # (N,) previous bounce's material pdf
+    prev_diffuse: torch.Tensor  # (N,) 1.0 if the previous lobe had a finite pdf
+    ior: torch.Tensor           # (N,) current medium IoR
+    alive: torch.Tensor         # (N,) bool
+    pixel: torch.Tensor         # (N,) int64 absolute pixel id of this lane
+
+
+class ShadowPack(NamedTuple):
+    """A deferred NEE shadow query (the reference's LightSamplingRay,
+    renderer/Raytracing.h:71-83); its origin is the next path origin."""
+
+    to_light: torch.Tensor      # (3, N) unit direction to the light sample
+    cap: torch.Tensor           # (N,) range cap just past the light sample
+    target: torch.Tensor        # (N,) int64 light triangle that must be nearest
+    contrib: torch.Tensor       # (S, N) radiance added if unoccluded
+    ok: torch.Tensor            # (N,) bool: query live
+
+
+def initial_path_state(origins, directions, samples: int, pixel) -> PathState:
+    num = origins.shape[1]
+    dev = origins.device
+    return PathState(
+        origin=origins,
+        direction=directions,
+        throughput=torch.ones((samples, num), device=dev),
+        radiance=torch.zeros((samples, num), device=dev),
+        pdf=torch.ones(num, device=dev),
+        prev_diffuse=torch.zeros(num, device=dev),
+        ior=torch.full((num,), IOR_AIR, device=dev),
+        alive=torch.ones(num, dtype=torch.bool, device=dev),
+        pixel=pixel,
+    )
+
+
+def _morton5(q: torch.Tensor) -> torch.Tensor:
+    """Spread 5 bits to every 3rd position (for the 15-bit sort cell)."""
+    q = (q | (q << 8)) & 0x100F
+    q = (q | (q << 4)) & 0x10C3
+    q = (q | (q << 2)) & 0x1249
+    return q
+
+
+def ray_sort_key(state: PathState, wmin, winv) -> torch.Tensor:
+    """Wavefront sort key (int64 holding 31 bits): dead bit 30, then the
+    8^3 origin cell, a 16x16 octahedral direction bin, and the finer
+    32^3 Morton bits."""
+    d = state.direction
+    o = state.origin
+    anorm = torch.abs(d[0]) + torch.abs(d[1]) + torch.abs(d[2])
+    u = d[0] / anorm
+    v = d[1] / anorm
+    back = d[2] < 0
+    uo = torch.where(back, (1.0 - torch.abs(v)) * torch.sign(u), u)
+    vo = torch.where(back, (1.0 - torch.abs(u)) * torch.sign(v), v)
+    qu = torch.clamp((uo * 0.5 + 0.5) * 16.0, 0.0, 15.0).to(torch.int64)
+    qv = torch.clamp((vo * 0.5 + 0.5) * 16.0, 0.0, 15.0).to(torch.int64)
+    octa = (qu << 4) | qv
+
+    mort = torch.zeros_like(octa)
+    for axis in range(3):
+        q = torch.clamp((o[axis] - wmin[axis]) * winv[axis] * 32.0, 0.0, 31.0)
+        mort = mort | (_morton5(q.to(torch.int64)) << (2 - axis))
+    coarse = mort >> 6     # top 9 bits: 8^3 cell
+    fine = mort & 63       # bottom 6 bits
+    dead = (~state.alive).to(torch.int64)
+    return (dead << 30) | (coarse << 20) | (octa << 12) | fine
+
+
+def scene_sort_bounds(scene: Scene):
+    """Scene-AABB (wmin, winv) of the sort key's spatial cell, as float32
+    values held in Python floats."""
+    lo = torch.minimum(torch.minimum(scene.p0, scene.p1), scene.p2).amin(dim=1)
+    hi = torch.maximum(torch.maximum(scene.p0, scene.p1), scene.p2).amax(dim=1)
+    inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
+    return tuple(lo.tolist()), tuple(inv.tolist())
+
+
+def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
+    """Re-order the wavefront and its shadow pack by :func:`ray_sort_key`,
+    pixel id breaking ties: one int64 key ``(key << 32) | pixel`` sorted
+    stably, then one gather per plane -> (state, pack)."""
+    key = (ray_sort_key(state, wmin, winv) << 32) | state.pixel
+    perm = torch.sort(key, stable=True).indices
+
+    def take(x):
+        return x.index_select(-1, perm)
+
+    return (PathState(*(take(x) for x in state)),
+            ShadowPack(*(take(x) for x in pack)))
+
+
+def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
+                 bounce: int, state: PathState, uniforms: dict,
+                 coherent: bool = False):
+    """One wavefront stage group: intersect + shade + NEE sample
+    (reference: renderer/Shaders.metal:105-211).  The NEE occlusion query
+    is returned as a :class:`ShadowPack` for :func:`resolve_shadow` after
+    the next sort -> (new state, pack, {"path": n, "shadow": n})."""
+    eps = cfg.distance_epsilon
+    aeps = cfg.angle_epsilon
+
+    hit = intersect(state.origin, state.direction, state.alive, coherent=coherent)
+    # A hit nearer than DISTANCE_EPSILON (or a miss) kills the path
+    # (reference: renderer/Shaders.metal:122-126).
+    valid = state.alive & hit.valid & (hit.t >= eps)
+
+    tri = torch.where(valid, hit.tri, 0)
+    mat = hit.mat
+    m_diffuse = scene.mat_diffuse[:, mat]
+    m_emissive = scene.mat_emissive[:, mat]
+    m_ior = scene.mat_ior[mat]
+    m_type = scene.mat_type[mat]
+    hp, hn = hit.pos, hit.normal
+
+    w_i = state.direction
+    lobe_u = uniforms["lobe"]
+
+    # ---- next-event estimation (reference: renderer/Shaders.metal:149-176) ----
+    li = select_light_index(uniforms["light_select"], scene.light_cdf)
+    lw = barycentric(uniforms["light_bary"])
+    lp, ln_ = interpolate(
+        scene.light_p[0][:, li], scene.light_p[1][:, li], scene.light_p[2][:, li],
+        scene.light_n[0][:, li], scene.light_n[1][:, li], scene.light_n[2][:, li],
+        lw,
+    )
+    to_light_full = lp - hp
+    dist = length(to_light_full)
+    to_light = to_light_full / torch.clamp(dist, min=1e-30)[None]
+    l_dot_d = -dot(to_light, ln_)
+    dir_ok = (dist >= eps) & (l_dot_d >= aeps)
+    # solid-angle pdf (reference: renderer/KernelHelpers.h:181-190)
+    light_pdf = torch.where(
+        dir_ok,
+        scene.light_pdf[li] * (dist * dist) / (scene.light_area[li] * l_dot_d),
+        0.0,
+    )
+    target = scene.light_tri[li]
+    nee_emit = scene.light_emissive[:, li]
+    nee_bsdf, nee_mpdf = bsdf_lib.eval_material(
+        m_type, m_ior, w_i, to_light, hn, lobe_u, aeps)
+    nee_weight = balance_heuristic(light_pdf, nee_mpdf)
+    light_ok = valid & (light_pdf > 0.0) & (target != tri)
+    if bounce + 1 >= cfg.max_path_length:
+        light_ok = torch.zeros_like(light_ok)
+    if not cfg.reference_quirks:
+        light_ok = light_ok & (dot(to_light, hn) > 0.0)
+    nee_scale = torch.where(
+        light_ok, nee_weight * nee_bsdf / torch.where(light_ok, light_pdf, 1.0), 0.0
+    )
+    nee_contrib = nee_emit * m_diffuse * state.throughput * nee_scale[None]
+
+    # ---- BSDF-arm MIS when the path hits an emitter ----
+    # (reference: renderer/Shaders.metal:180-197)
+    lti = hit.light
+    is_light = valid & (lti >= 0)
+    lts = torch.where(is_light, lti, scene.num_lights)  # sentinel row when unused
+    to_emitter_full = hp - state.origin
+    e_dist = length(to_emitter_full)
+    to_emitter = to_emitter_full / torch.clamp(e_dist, min=1e-30)[None]
+    e_cos = -dot(to_emitter, hn)
+    e_ok = (e_dist >= eps) & (e_cos >= aeps)
+    emit_lpdf = torch.where(
+        e_ok & is_light,
+        scene.light_pdf[lts] * (e_dist * e_dist)
+        / torch.clamp(scene.light_area[lts] * e_cos, min=1e-30),
+        0.0,
+    )
+    emit_lpdf = state.prev_diffuse * emit_lpdf
+    emit_weight = balance_heuristic(state.pdf, emit_lpdf)
+    emit_factor = emit_weight * state.pdf if cfg.reference_quirks else emit_weight
+    emit_contrib = (
+        m_emissive * state.throughput * torch.where(is_light, emit_factor, 0.0)[None]
+    )
+
+    # ---- sample the next bounce (reference: renderer/Shaders.metal:199-211) ----
+    w_o, nb_bsdf, nb_pdf, nb_ior, nb_finite = bsdf_lib.sample_bounce(
+        m_type, m_ior, w_i, hn, lobe_u, uniforms["bounce_dir"], state.ior,
+        quirks=cfg.reference_quirks,
+    )
+    safe_pdf = torch.where(torch.abs(nb_pdf) > cfg.pdf_floor, nb_pdf, cfg.pdf_floor)
+    throughput_scale = m_diffuse * (nb_bsdf / safe_pdf)[None]
+
+    new_state = PathState(
+        origin=where3(valid, hp + hn * eps, state.origin),
+        direction=where3(valid, w_o, state.direction),
+        throughput=where3(valid, state.throughput * throughput_scale, state.throughput),
+        radiance=state.radiance + emit_contrib,
+        pdf=torch.where(valid, nb_pdf, state.pdf),
+        prev_diffuse=torch.where(valid, nb_finite, state.prev_diffuse),
+        ior=torch.where(valid, nb_ior, state.ior),
+        alive=valid,
+        pixel=state.pixel,
+    )
+    # range cap just past the sampled light point: a pure traversal cull
+    pack = ShadowPack(to_light=to_light, cap=dist + 4.0 * eps, target=target,
+                      contrib=nee_contrib, ok=light_ok)
+    # rays the traversal processes (the reference's MPS skips lanes with
+    # maxDistance < 0)
+    stats = {"path": state.alive.sum(), "shadow": light_ok.sum()}
+    return new_state, pack, stats
+
+
+def occlusion_clear(intersect: IntersectFn, o, d, ok, cap, target,
+                    eps: float) -> torch.Tensor:
+    """Shadow visibility, reference semantics: the NEAREST hit within the
+    range cap must BE the targeted light triangle (reference:
+    renderer/Shaders.metal:214-231)."""
+    hit = intersect(o, d, ok, t_max=cap)
+    return ok & hit.valid & (hit.t >= eps) & (hit.tri == target)
+
+
+def resolve_shadow(intersect: IntersectFn, state: PathState, pack: ShadowPack,
+                   eps: float) -> PathState:
+    """Resolve a deferred NEE pack against the sorted wavefront (the shadow
+    origin is the lane's current path origin)."""
+    clear = occlusion_clear(intersect, state.origin, pack.to_light, pack.ok,
+                            pack.cap, pack.target, eps)
+    return state._replace(
+        radiance=state.radiance + torch.where(clear[None], pack.contrib, 0.0))
+
+
+def ladder_sizes(n_lanes: int, cfg: RenderConfig) -> list[int]:
+    """Live-prefix ladder widths N, N/2, ... (RenderConfig.live_ladder);
+    every width stays >= 4 secondary tiles and halves exactly, as in the
+    reference."""
+    sizes = [n_lanes]
+    for _ in range(cfg.live_ladder):
+        s = sizes[-1] // 2
+        if sizes[-1] % 2 or s < 4 * cfg.secondary_tile:
+            break
+        sizes.append(s)
+    return sizes
+
+
+def _prefix(tensors: NamedTuple, s: int):
+    return type(tensors)(*(x[..., :s].contiguous() for x in tensors))
+
+
+def _splice(full: NamedTuple, prefix: NamedTuple):
+    """Write the prefix lanes back in place (the full tensors are the sort's
+    fresh outputs, owned here)."""
+    for f, p in zip(full, prefix):
+        f[..., :p.shape[-1]] = p
+    return full
+
+
+def _timed_intersect(intersect: IntersectFn, timer) -> IntersectFn:
+    def fn(o, d, active, t_max=None, coherent=False):
+        name = "walk_nearest" if t_max is None else "walk_shadow"
+        with timer.span(name):
+            return intersect(o, d, active, t_max=t_max, coherent=coherent)
+    return fn
+
+
+def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
+                  width: int, key, frame_index: int, intersect: IntersectFn,
+                  with_ray_count: bool = False, timer=None):
+    """Trace one path-traced sample per pixel -> (H, W, S) radiance.
+
+    ``key``: the wavefront's raw uint32[2] key (render/state.py derives it).
+    ``with_ray_count`` also returns the EXACT number of rays the traversal
+    processed (live path rays per bounce + live NEE shadow rays) as an int64
+    tensor — the Mrays/s numerator.  ``timer`` (render/timing.py) records the
+    sort, walks and whole sample as CUDA-event spans."""
+    check_supported(cfg)
+    span = timer.span if timer is not None else lambda name: contextlib.nullcontext()
+    if timer is not None:
+        intersect = _timed_intersect(intersect, timer)
+    eps = cfg.distance_epsilon
+    dev = scene.p0.device
+    with span("sample"):
+        order = make_order(height, width, 0, cfg.traversal_tile, device=dev)
+        pids = pids_from_order(order, width)
+        jitter = camera_jitter(fold_in(key, 0xC0FFEE), frame_index, pids)
+        origins, directions = generate_rays_flat(
+            camera, order.rows, order.cols, jitter[0:2], height, width)
+        state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
+        wmin, winv = scene_sort_bounds(scene)
+
+        def shade(b, st, coherent=False):
+            uniforms = bounce_uniforms(key, frame_index, b, st.pixel)
+            return trace_bounce(scene, cfg, intersect, b, st, uniforms,
+                                coherent=coherent)
+
+        # bounce 0 is camera-coherent already (block order)
+        state, pack, stats = shade(0, state, coherent=True)
+        nrays = stats["path"] + stats["shadow"]
+        sizes = ladder_sizes(state.alive.shape[0], cfg)
+        for b in range(1, cfg.max_path_length):
+            # one sort carries the next path wavefront and the previous
+            # bounce's NEE pack (same hit point); the pack resolves after it
+            with span("sort"):
+                state, pack = sort_wavefront(state, wmin, winv, pack)
+            s = sizes[0]
+            if len(sizes) > 1:
+                # every live lane sits in the sorted prefix: take the
+                # shortest ladder width that holds them all
+                live = int(state.alive.sum())
+                s = sizes[sum(live <= w for w in sizes[1:])]
+            st, pk = (state, pack) if s == sizes[0] else (
+                _prefix(state, s), _prefix(pack, s))
+            st = resolve_shadow(intersect, st, pk, eps)
+            st, pk, stats = shade(b, st)
+            nrays = nrays + stats["path"] + stats["shadow"]
+            if s == sizes[0]:
+                state, pack = st, pk
+            else:
+                # dead suffix lanes are untouched by a bounce (every update
+                # is alive-masked), so splicing the prefix back is exact
+                state, pack = _splice(state, st), _splice(pack, pk)
+        # the final bounce's pack is empty by construction: NEE is gated by
+        # bounce + 1 < max_path_length (reference: renderer/Shaders.metal:158)
+
+        # raster restore: pixel ids are unique, so one scatter is exact
+        flat = torch.zeros((cfg.spectrum_samples, height * width), device=dev)
+        flat[:, state.pixel] = state.radiance
+        img = flat.reshape(cfg.spectrum_samples, height, width).permute(1, 2, 0)
+    if with_ray_count:
+        return img, nrays
+    return img

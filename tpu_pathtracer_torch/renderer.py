@@ -1,0 +1,143 @@
+"""Host orchestrator: progressive renderer with HUD and EXR save.
+
+The port of ``tpu_pathtracer/renderer.py``: owns the scene tensors and both
+BVH layouts (fat leaves for nearest-hit queries, small leaves for shadow
+queries), drives the frame step, tracks the EMA performance HUD (reference:
+renderer/Renderer.mm:631-637) and saves EXRs.
+
+Frames in flight: the frame step only enqueues work on the current CUDA
+stream; the host waits for the device when ``cfg.frames_in_flight`` steps
+are queued, or when an image or the HUD needs the result — the reference's
+triple buffering (renderer/Renderer.mm:16,593-600).  Each bounce reads its
+live-lane count on the host (the live-prefix ladder), so in this version a
+queued frame still waits for the device once per bounce.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .accel import build_layout
+from .config import RenderConfig, check_supported
+from .models.camera import Camera
+from .ops.hopper_traverse import make_cuda_intersector
+from .render.state import init_state, render_frame
+from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
+
+
+class Renderer:
+    def __init__(
+        self,
+        scene: Scene | str = DEFAULT_SCENE,
+        width: int = 960,
+        height: int = 540,
+        cfg: RenderConfig | None = None,
+        seed: int = 0,
+        camera: Camera | None = None,
+        leaf_size: int | None = None,
+        builder: str = "auto",
+        mesh=None,
+        device="cuda",
+    ):
+        """``device``: where every tensor lives; the kernels run for
+        "cuda", their plain torch versions for "cpu".  ``mesh`` (the
+        multi-device split) is not ported yet."""
+        self.cfg = cfg or RenderConfig()
+        check_supported(self.cfg)
+        if mesh is not None:
+            raise NotImplementedError(
+                "the multi-device mesh is not ported to tpu_pathtracer_torch "
+                "yet (ROADMAP.md queue 1 item 12)")
+        self.device = torch.device(device)
+        self.scene = (
+            scene if isinstance(scene, Scene)
+            else load_scene(scene_path(scene), samples=self.cfg.spectrum_samples,
+                            device=self.device)
+        )
+        self.camera = camera or Camera.reference_default()
+        leaf = leaf_size if leaf_size is not None else self.cfg.leaf_size
+        occl_leaf = self.cfg.occlusion_leaf_size
+        self.layout = build_layout(self.scene, leaf_size=leaf, builder=builder)
+        # shadow queries get their own (small-leaf) layout when configured
+        self.layout_occl = (
+            build_layout(self.scene, leaf_size=occl_leaf, builder=builder)
+            if occl_leaf not in (None, leaf) else None
+        )
+        self._intersect = make_cuda_intersector(
+            self.layout, self.layout_occl, prepass=self.cfg.traversal_prepass)
+        self._seed = seed
+        self.reset(width, height)
+
+    # -- reference: mtkView:drawableSizeWillChange: (Renderer.mm:640-657) --
+    def reset(self, width: int | None = None, height: int | None = None) -> None:
+        width = width or self.state.width
+        height = height or self.state.height
+        self.state = init_state(height, width, self._seed,
+                                self.cfg.spectrum_samples, self.device)
+        self._avg_rays_per_sec = 0.0
+        self._avg_frame_time = 0.0
+        self._frame_count = 0
+        self._in_flight = 0
+        self._window_t0 = None
+
+    @property
+    def frame_index(self) -> int:
+        """Frames completed and visible (waits for queued frames first)."""
+        self.sync()
+        return self.state.frame_index
+
+    def sync(self) -> None:
+        """Wait until every queued frame has run on the device, and fold the
+        elapsed window into the HUD EMA."""
+        if self._in_flight == 0:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        frame_time = (time.perf_counter() - self._window_t0) / self._in_flight
+        pixels = self.state.height * self.state.width
+        # EMA-smoothed HUD, same blend as the reference (Renderer.mm:631-637)
+        for _ in range(self._in_flight):
+            self._avg_rays_per_sec = 0.5 * (self._avg_rays_per_sec + pixels / frame_time)
+            self._avg_frame_time = 0.5 * (self._avg_frame_time + frame_time)
+        self._in_flight = 0
+        self._window_t0 = None
+
+    def step(self) -> None:
+        """Queue one progressive frame (respects cfg.max_frames like the
+        reference's MAX_FRAMES gate, renderer/Renderer.mm:589-591)."""
+        if self.cfg.max_frames and self._frame_count >= self.cfg.max_frames:
+            return
+        if self._window_t0 is None:
+            self._window_t0 = time.perf_counter()
+        self.state = render_frame(self.state, self.scene, self.cfg, self.camera,
+                                  self._intersect)
+        self._frame_count += 1
+        self._in_flight += 1
+        if self._in_flight >= max(1, self.cfg.frames_in_flight):
+            self.sync()
+
+    def run(self, frames: int) -> None:
+        for _ in range(frames):
+            self.step()
+        self.sync()
+
+    def hud(self) -> str:
+        """Window-title HUD string (reference: renderer/Renderer.mm:636-637)."""
+        return (
+            f"Frame: {self.frame_index} "
+            f"[{self._avg_rays_per_sec / 1e6:0.2f} Mrays/s, "
+            f"{self._avg_frame_time * 1e3:.2f} ms/frame]"
+        )
+
+    def image(self) -> np.ndarray:
+        """(H, W, 3) accumulated RGB radiance as numpy."""
+        self.sync()
+        return self.state.accum.cpu().numpy()
+
+    def save_exr(self, path: str) -> None:
+        from .io.exr import write_exr
+
+        write_exr(path, self.image(), half=True)

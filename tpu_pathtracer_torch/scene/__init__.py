@@ -1,0 +1,3 @@
+from .assets import DEFAULT_SCENE, SCENE_NAMES, golden_path, scene_path  # noqa: F401
+from .objmtl import ObjMesh, load_obj, parse_mtl  # noqa: F401
+from .scene import Scene, load_scene, scene_arrays, scene_to  # noqa: F401

@@ -1,0 +1,147 @@
+"""Flat SoA scene tensors on one device.
+
+The port of ``tpu_pathtracer/scene/scene.py``: the reference's five GPU
+buffers (vertex/index/reference/material/lightTriangle, reference:
+renderer/Renderer.mm:450-454) as one immutable NamedTuple of torch tensors.
+Triangles are stored fully gathered, component-major ``(3, T)``.
+
+The light table mirrors the reference exactly: per-emissive-triangle
+area = 0.5*|cross|, pdf = area/totalArea, exclusive-prefix cdf, plus a
+sentinel entry {cdf=sum, pdf=1, area=0} used by the CDF walk
+(reference: renderer/Renderer.mm:393-448).
+
+Index-valued fields are int64 (torch has no general uint32 arithmetic);
+their values equal the reference's int32/uint32 fields.  The reference's
+extension fields (environment light, textures, dispersion, GGX roughness)
+are not ported yet (ROADMAP.md queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import spectrum as spec
+from .materials import classify
+from .objmtl import ObjMesh, load_obj
+
+
+class Scene(NamedTuple):
+    # --- triangle geometry, gathered component-major SoA: (3, T) each ---
+    p0: torch.Tensor
+    p1: torch.Tensor
+    p2: torch.Tensor
+    n0: torch.Tensor
+    n1: torch.Tensor
+    n2: torch.Tensor
+    # --- per-triangle references (reference: Raytracing.h:106-111) ---
+    material_id: torch.Tensor     # (T,) int64
+    light_index: torch.Tensor     # (T,) int64, -1 when not emissive
+    # --- material table (reference: Raytracing.h:98-104) ---
+    mat_diffuse: torch.Tensor     # (S, M)
+    mat_emissive: torch.Tensor    # (S, M)
+    mat_ior: torch.Tensor         # (M,)
+    mat_type: torch.Tensor        # (M,) int64
+    # --- light table incl. sentinel row (reference: Raytracing.h:113-123) ---
+    light_emissive: torch.Tensor  # (S, L+1)
+    light_p: torch.Tensor         # (3 vertices, 3 components, L+1)
+    light_n: torch.Tensor         # (3 vertices, 3 components, L+1)
+    light_area: torch.Tensor      # (L+1,)
+    light_pdf: torch.Tensor       # (L+1,)
+    light_cdf: torch.Tensor       # (L+1,) exclusive prefix; sentinel = total
+    light_tri: torch.Tensor       # (L+1,) int64 triangle index of each light
+
+    @property
+    def num_triangles(self) -> int:
+        return self.p0.shape[1]
+
+    @property
+    def num_lights(self) -> int:
+        return self.light_area.shape[0] - 1
+
+
+def scene_arrays(mesh: ObjMesh, samples: int = 3) -> dict:
+    """OBJ mesh -> numpy arrays of every :class:`Scene` field."""
+    mats = classify(mesh.materials)
+    if mesh.texcoords is not None and any(m.map_kd for m in mesh.materials):
+        raise NotImplementedError(
+            "map_Kd textures are not ported to tpu_pathtracer_torch yet "
+            "(ROADMAP.md queue 1 item 10)")
+
+    tris = mesh.triangles.astype(np.int64)
+    pos, nrm = mesh.positions, mesh.normals
+    p = [pos[tris[:, k]] for k in range(3)]
+    n = [nrm[tris[:, k]] for k in range(3)]
+
+    # --- light table (reference: renderer/Renderer.mm:393-448) ---
+    mat_ids = mesh.material_ids
+    is_emitter = (mats.emissive[mat_ids] > 0.0).any(axis=1)
+    light_tri = np.nonzero(is_emitter)[0]
+    num_lights = len(light_tri)
+
+    light_index = np.full(len(tris), -1, np.int64)
+    light_index[light_tri] = np.arange(num_lights)
+
+    lp = np.stack([p[0][light_tri], p[1][light_tri], p[2][light_tri]], axis=1)
+    ln = np.stack([n[0][light_tri], n[1][light_tri], n[2][light_tri]], axis=1)
+    cross = np.cross(lp[:, 1] - lp[:, 0], lp[:, 2] - lp[:, 0])
+    area = 0.5 * np.linalg.norm(cross, axis=1)
+    total_area = area.sum() if num_lights else 1.0
+    pdf = area / total_area
+    cdf = np.concatenate([[0.0], np.cumsum(pdf)[:-1]]) if num_lights else np.zeros(0)
+    l_emissive = mats.emissive[mat_ids[light_tri]]
+
+    # sentinel row {cdf = sum(pdf), pdf = 1, area = 0}
+    def with_sentinel(arr, sentinel):
+        return np.concatenate([arr, np.asarray([sentinel], arr.dtype)], axis=0)
+
+    light_emissive = np.concatenate([l_emissive, np.zeros((1, 3), np.float32)])
+    light_p = np.concatenate([lp, np.zeros((1, 3, 3), np.float32)])
+    light_n = np.concatenate([ln, np.zeros((1, 3, 3), np.float32)])
+
+    # (rows, 3) RGB table -> (S, rows) component-major spectrum table
+    def up(rgb):
+        return spec.from_rgb(rgb, samples).T
+
+    return dict(
+        p0=p[0].T, p1=p[1].T, p2=p[2].T, n0=n[0].T, n1=n[1].T, n2=n[2].T,
+        material_id=mat_ids.astype(np.int64),
+        light_index=light_index,
+        mat_diffuse=up(mats.diffuse),
+        mat_emissive=up(mats.emissive),
+        mat_ior=mats.ior,
+        mat_type=mats.mtype.astype(np.int64),
+        light_emissive=up(light_emissive),
+        # (L+1, vertex, comp) -> (vertex, comp, L+1)
+        light_p=np.transpose(light_p, (1, 2, 0)),
+        light_n=np.transpose(light_n, (1, 2, 0)),
+        light_area=with_sentinel(area.astype(np.float32), 0.0),
+        light_pdf=with_sentinel(pdf.astype(np.float32), 1.0),
+        light_cdf=with_sentinel(
+            cdf.astype(np.float32),
+            np.float32(pdf.sum()) if num_lights else 1.0),
+        light_tri=with_sentinel(light_tri.astype(np.int64), 0),
+    )
+
+
+def scene_to(arrays: dict, device) -> Scene:
+    """numpy field arrays -> a :class:`Scene` on ``device``."""
+    def put(name):
+        a = np.ascontiguousarray(arrays[name])
+        dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return Scene(**{name: put(name) for name in Scene._fields})
+
+
+def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
+               device="cuda") -> Scene:
+    """OBJ path -> :class:`Scene` on ``device``.  ``rough_materials`` (the
+    GGX extension types) is not ported yet."""
+    if rough_materials:
+        raise NotImplementedError(
+            "rough_materials (GGX) is not ported to tpu_pathtracer_torch yet "
+            "(ROADMAP.md queue 1 item 10)")
+    return scene_to(scene_arrays(load_obj(path), samples), device)
