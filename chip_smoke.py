@@ -6,16 +6,24 @@
 Phases (any failure raises, so the exit code is not 0):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA kernels from tpu_pathtracer_torch/csrc;
+2. build: compiles the CUDA kernels from tpu_pathtracer_torch/csrc, one
+   nvcc per source, in parallel;
 3. kernels: each kernel against its plain torch version on the card, on
    65,536 lanes of the real CornellBox-Water-plastic 1080p camera, bounce-1
-   and shadow wavefronts; times both at that size and the kernel on the
-   full wavefront;
+   and shadow wavefronts (the any-hit walk on the shadow pack of the same
+   frame lit by a synthetic 1024x2048 environment map); times both at that
+   size and the kernel on the full wavefront, and the capped walk on the
+   full env-lit pack beside the any-hit walk;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
    event breakdown, and each kernel's launch count in that run;
 5. parity: 150x200, depth 8, 16 frames against the committed self-golden
-   (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001).
+   (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001);
+6. CLI env path: ``tpu_pathtracer_torch.cli.main`` at 1920x1080, depth 8,
+   5 frames with ``--env`` (the map written as EXR), EXR + PNG +
+   checkpoint, then a resumed 1-frame run; and a 150x200 thin-lens frame;
+7. env parity: 150x200, depth 8, 16 frames with the map, any-hit walk
+   against the capped walk (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
@@ -23,10 +31,14 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +49,8 @@ WIDTH, HEIGHT = 1920, 1080
 SAMPLE_LANES = 65536
 ID_AGREE = 0.9999      # ids equal, or an equal-t tie, on at least this share
 T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
+PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
+KERNELS = ("window_walk", "capped_walk", "anyhit_walk")
 
 
 def log(msg: str) -> None:
@@ -81,6 +95,23 @@ def phase_build() -> None:
     cuda_build.load_library()
 
 
+def sky_map(height: int = 1024, width: int = 2048, seed: int = 2026) -> np.ndarray:
+    """A synthetic lat-long HDR map from a fixed seed: a sky gradient over a
+    dim ground, a small bright sun, and 5% texel noise."""
+    rng = np.random.default_rng(seed)
+    theta = np.pi * (np.arange(height) + 0.5) / height          # 0 = zenith
+    phi = 2.0 * np.pi * (np.arange(width) + 0.5) / width - np.pi
+    up = np.clip(np.cos(theta), 0.0, 1.0)[:, None, None]
+    sky = np.asarray([0.35, 0.55, 0.95]) * (0.4 + 0.6 * up) + 0.1
+    img = np.where(np.cos(theta)[:, None, None] > 0, sky, 0.12) * np.ones((1, width, 1))
+    ts, ps = rng.uniform(0.3, 1.1), rng.uniform(-np.pi, np.pi)
+    cos_g = (np.sin(theta)[:, None] * np.sin(ts) * np.cos(phi[None] - ps)
+             + np.cos(theta)[:, None] * np.cos(ts))
+    img[cos_g > np.cos(0.03)] = (800.0, 760.0, 700.0)
+    img *= rng.uniform(0.95, 1.05, img.shape)
+    return img.astype(np.float32)
+
+
 def wavefronts(scene, layout, layout_occl, cfg):
     """The port's own 1080p frame-0 wavefronts: camera rays, the sorted
     bounce-1 path rays, and bounce 0's shadow rays (after that sort)."""
@@ -99,16 +130,16 @@ def wavefronts(scene, layout, layout_occl, cfg):
                               HEIGHT, WIDTH)
     st0 = wavefront.initial_path_state(o, d, cfg.spectrum_samples, pids)
     isect = make_cuda_intersector(layout, layout_occl, prepass=cfg.traversal_prepass)
-    st1, pack, _ = wavefront.trace_bounce(
-        scene, cfg, isect, 0, st0, noise.bounce_uniforms(key, 0, 0, pids),
-        coherent=True)
+    uniforms = noise.bounce_uniforms(key, 0, 0, pids, with_env=scene.env is not None)
+    st1, pack, _ = wavefront.trace_bounce(scene, cfg, isect, 0, st0, uniforms,
+                                          coherent=True)
     wmin, winv = wavefront.scene_sort_bounds(scene)
     st1, pack = wavefront.sort_wavefront(st1, wmin, winv, pack)
     return {
         "camera": (o, d, st0.alive),
         "bounce1": (st1.origin.contiguous(), st1.direction.contiguous(), st1.alive),
         "shadow": (st1.origin.contiguous(), pack.to_light.contiguous(), pack.ok,
-                   pack.cap.contiguous()),
+                   pack.cap.contiguous(), pack.target.to(torch.int32).contiguous()),
     }
 
 
@@ -147,6 +178,7 @@ def agree(name, t_k, id_k, t_p, id_p):
 
 def phase_kernels(renderer) -> list[dict]:
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.scene import attach_env
 
     lay, occl, cfg = renderer.layout, renderer.layout_occl, renderer.cfg
     waves = wavefronts(renderer.scene, lay, occl, cfg)
@@ -170,7 +202,7 @@ def phase_kernels(renderer) -> list[dict]:
         f"plain {plain_a:.3f} ms; full camera wavefront ({o.shape[1]} lanes): "
         f"{full_a:.3f} ms")
 
-    o, d, ok, cap = draw(waves["shadow"], SAMPLE_LANES, gen)
+    o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen)
     outk = ht.capped_walk(o, d, ok, cap, occl)
     outp = ht.capped_walk_plain(o, d, ok, cap, occl)
     torch.cuda.synchronize()
@@ -179,11 +211,37 @@ def phase_kernels(renderer) -> list[dict]:
     b_in = (o, d, ok, cap, occl)
     ms_b = cuda_ms(lambda: ht.capped_walk(*b_in))
     plain_b = cuda_ms(lambda: ht.capped_walk_plain(*b_in), iters=2)
-    o, d, ok, cap = waves["shadow"]
+    o, d, ok, cap, _ = waves["shadow"]
     full_b = cuda_ms(lambda: ht.capped_walk(o, d, ok, cap, occl))
     log(f"  capped_walk at {SAMPLE_LANES} shadow lanes: kernel {ms_b:.3f} ms, "
         f"plain {plain_b:.3f} ms; full shadow wavefront ({o.shape[1]} lanes, "
         f"{int(ok.sum())} live): {full_b:.3f} ms")
+
+    # kernel C on the env-lit frame's shadow pack (area-light and env lanes)
+    env_scene = attach_env(renderer.scene, sky_map())
+    o, d, ok, cap, tgt = wavefronts(env_scene, lay, occl, cfg)["shadow"]
+    eps = cfg.distance_epsilon
+    live = int(ok.sum())
+    env_share = float((ok & (tgt < 0)).sum()) / max(live, 1)
+    log(f"  env-lit shadow pack: {o.shape[1]} lanes, {live} live, env share "
+        f"{env_share:.4f} (select_p {float(env_scene.env.select_p):.4f})")
+    c_in = draw((o, d, ok, cap, tgt), SAMPLE_LANES, gen)
+    ck = ht.anyhit_walk(*c_in, occl, eps)
+    cp = ht.anyhit_walk_plain(*c_in, occl, eps)
+    torch.cuda.synchronize()
+    bad = int((ck != cp).sum())
+    if bad:
+        raise AssertionError(f"anyhit_walk: clear masks differ on {bad} lanes")
+    log(f"  anyhit_walk/shadow+env: clear masks equal on all {SAMPLE_LANES} lanes "
+        f"({int(ck.sum())} clear of {int(c_in[2].sum())} live)")
+    ms_c = cuda_ms(lambda: ht.anyhit_walk(*c_in, occl, eps))
+    plain_c = cuda_ms(lambda: ht.anyhit_walk_plain(*c_in, occl, eps), iters=2)
+    full_c = cuda_ms(lambda: ht.anyhit_walk(o, d, ok, cap, tgt, occl, eps))
+    full_bc = cuda_ms(lambda: ht.capped_walk(o, d, ok, cap, occl))
+    log(f"  anyhit_walk at {SAMPLE_LANES} env-lit shadow lanes: kernel {ms_c:.3f} ms, "
+        f"plain {plain_c:.3f} ms; full env-lit pack ({o.shape[1]} lanes, {live} "
+        f"live): any-hit {full_c:.3f} ms vs capped walk (nearest-hit rule) "
+        f"{full_bc:.3f} ms")
     return [
         {"name": "window_walk", "route": "cuda",
          "source": "tpu_pathtracer_torch/csrc/window_walk.cu",
@@ -195,19 +253,22 @@ def phase_kernels(renderer) -> list[dict]:
          "replaces": "tpu_pathtracer/ops/pallas_traverse.py:106",
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "full_ms": full_b},
+        {"name": "anyhit_walk", "route": "cuda",
+         "source": "tpu_pathtracer_torch/csrc/anyhit_walk.cu",
+         "replaces": "tpu_pathtracer/ops/pallas_traverse.py:274",
+         "max_abs_err": float(bad), "ms": ms_c, "plain_ms": plain_c,
+         "full_ms": full_c, "capped_full_ms": full_bc, "env_share": env_share},
     ]
 
 
-def phase_main_path(renderer) -> dict:
-    """Drive the main path; returns each kernel's launches in that run."""
+@contextlib.contextmanager
+def counted_run():
+    """Zero every kernel's launch count and count plain-version calls on
+    CUDA tensors for the run inside; yields {"launches": ..., "plain_cuda":
+    ...}, filled in when the run ends."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
-    from tpu_pathtracer_torch.render.state import (frame_rng_key,
-                                                   fused_wavefront_key,
-                                                   render_frame)
-    from tpu_pathtracer_torch.render.timing import StageTimer
-    from tpu_pathtracer_torch.render.wavefront import render_sample
 
-    plain_cuda = {"window_walk_plain": 0, "capped_walk_plain": 0}
+    plain_cuda = {f"{k}_plain": 0 for k in KERNELS}
 
     def counted(name, fn):
         def wrapper(o, *args, **kw):
@@ -219,64 +280,243 @@ def phase_main_path(renderer) -> dict:
     saved = {name: getattr(ht, name) for name in plain_cuda}
     for name, fn in saved.items():
         setattr(ht, name, counted(name, fn))
-    ht.window_walk.launches = 0
-    ht.capped_walk.launches = 0
+    for k in KERNELS:
+        getattr(ht, k).launches = 0
+    out = {"plain_cuda": plain_cuda}
     try:
-        renderer.run(2)                      # warm-up
-        t0 = time.perf_counter()
-        renderer.run(3)
-        ms = (time.perf_counter() - t0) / 3 * 1e3
+        yield out
+    finally:
+        out["launches"] = {k: getattr(ht, k).launches for k in KERNELS}
+        for name, fn in saved.items():
+            setattr(ht, name, fn)
+
+
+def timed_frames(renderer) -> tuple[float, dict]:
+    """2 warm-up + 3 timed frames (host clock, ending in a synchronize) and
+    one more frame under the CUDA-event StageTimer -> (ms/frame, stages)."""
+    from tpu_pathtracer_torch.render.state import render_frame
+    from tpu_pathtracer_torch.render.timing import StageTimer
+
+    renderer.run(2)
+    t0 = time.perf_counter()
+    renderer.run(3)
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    timer = StageTimer()
+    renderer.state = render_frame(renderer.state, renderer.scene, renderer.cfg,
+                                  renderer.camera, renderer._intersect, timer=timer)
+    return ms, timer.totals()
+
+
+def stage_line(stages: dict) -> str:
+    walks = stages.get("walk_nearest", 0.0) + stages.get("walk_shadow", 0.0)
+    other = stages["sample"] - stages.get("sort", 0.0) - walks
+    return ("  stages (ms, one frame): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(stages.items()))
+        + f", shading+rest {other:.2f}")
+
+
+def phase_main_path(renderer) -> dict:
+    """Drive the main path; returns each kernel's launches in that run."""
+    from tpu_pathtracer_torch.render.state import (frame_rng_key,
+                                                   fused_wavefront_key)
+    from tpu_pathtracer_torch.render.wavefront import render_sample
+
+    with counted_run() as run:
+        ms, stages = timed_frames(renderer)
         key = fused_wavefront_key(frame_rng_key(renderer.state.key,
                                                 renderer.state.frame_index))
         _, nrays = render_sample(
             renderer.scene, renderer.cfg, renderer.camera, HEIGHT, WIDTH, key,
             renderer.state.frame_index, renderer._intersect, with_ray_count=True)
         nrays = int(nrays)
-        timer = StageTimer()
-        renderer.state = render_frame(renderer.state, renderer.scene, renderer.cfg,
-                                      renderer.camera, renderer._intersect,
-                                      timer=timer)
-        stages = timer.totals()
-        launches = {"window_walk": ht.window_walk.launches,
-                    "capped_walk": ht.capped_walk.launches}
-    finally:
-        for name, fn in saved.items():
-            setattr(ht, name, fn)
+    launches, plain_cuda = run["launches"], run["plain_cuda"]
     img = renderer.image()
     log(f"main path: {ms:.2f} ms/frame at {WIDTH}x{HEIGHT} depth "
         f"{renderer.cfg.max_path_length}; {nrays} traced rays/frame = "
         f"{nrays / ms / 1e3:.2f} Mrays/s; HUD {renderer.hud()}")
-    walks = stages.get("walk_nearest", 0.0) + stages.get("walk_shadow", 0.0)
-    other = stages["sample"] - stages.get("sort", 0.0) - walks
-    log("  stages (ms, one frame): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-        + f", shading+rest {other:.2f}")
+    log(stage_line(stages))
     log(f"  kernel launches in the main-path run: {launches}; plain versions "
         f"on CUDA tensors: {plain_cuda}")
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
         raise AssertionError(f"main path image not finite / wrong shape {img.shape}")
-    if min(launches.values()) <= 0:
+    if min(launches["window_walk"], launches["capped_walk"]) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["anyhit_walk"]:
+        raise AssertionError(f"the env-free main path launched the any-hit walk: "
+                             f"{launches}")
     if any(plain_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
     return launches
 
 
+def check_parity(what: str, img, gold) -> dict:
+    from tpu_pathtracer_torch.utils.compare import metrics
+
+    m = metrics(img, gold)
+    log(f"{what}: {m}")
+    rel, lo, hi = PARITY
+    if not np.isfinite(img).all() or not (m["rel_mse"] < rel and lo < m["mean_ratio"] < hi):
+        raise AssertionError(f"{what} gate failed: {m}")
+    return m
+
+
 def phase_parity() -> dict:
     from tpu_pathtracer_torch import Renderer, RenderConfig
     from tpu_pathtracer_torch.io.exr import read_exr
-    from tpu_pathtracer_torch.utils.compare import metrics
 
     here = os.path.dirname(os.path.abspath(__file__))
     gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
     r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8))
     r.run(16)
-    img = r.image()
-    m = metrics(img, gold)
-    log(f"parity vs self-golden (150x200, depth 8, 16 frames): {m}")
-    if not np.isfinite(img).all() or not (m["rel_mse"] < 1e-3 and 0.999 < m["mean_ratio"] < 1.001):
-        raise AssertionError(f"self-golden gate failed: {m}")
-    return m
+    return check_parity("parity vs self-golden (150x200, depth 8, 16 frames)",
+                        r.image(), gold)
+
+
+def run_cli(argv: list[str]) -> tuple[int, str, float]:
+    """``tpu_pathtracer_torch.cli.main(argv)`` in this process -> (rc, its
+    stdout, wall seconds); the output is echoed indented."""
+    from tpu_pathtracer_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    return rc, buf.getvalue(), seconds
+
+
+@contextlib.contextmanager
+def frame_clock():
+    """Wall clock of Renderer frame loops run inside: from the first step to
+    the end of the last sync that waited for frames; yields {"frames": n,
+    "seconds": s}, filled in as frames run."""
+    from tpu_pathtracer_torch.renderer import Renderer
+
+    step, sync = Renderer.step, Renderer.sync
+    clock = {"frames": 0, "seconds": 0.0, "t0": None}
+
+    def timed_step(self):
+        if clock["t0"] is None:
+            clock["t0"] = time.perf_counter()
+        clock["frames"] += 1
+        step(self)
+
+    def timed_sync(self):
+        waited = self._in_flight > 0
+        sync(self)
+        if waited and clock["t0"] is not None:
+            clock["seconds"] = time.perf_counter() - clock["t0"]
+
+    Renderer.step, Renderer.sync = timed_step, timed_sync
+    try:
+        yield clock
+    finally:
+        Renderer.step, Renderer.sync = step, sync
+
+
+def phase_cli_env(tmp: str) -> dict:
+    """The CLI with --env at full width; returns each kernel's launches in
+    the 5-frame env run."""
+    from tpu_pathtracer_torch.io.checkpoint import load_checkpoint
+    from tpu_pathtracer_torch.io.exr import read_exr, write_exr
+    from tpu_pathtracer_torch.io.png import read_png
+
+    env = os.path.join(tmp, "sky.exr")
+    write_exr(env, sky_map(), half=False)
+    out = {k: os.path.join(tmp, k) for k in ("a.exr", "a.png", "a.npz",
+                                             "b.exr", "b.png", "b.npz", "lens.exr")}
+    common = ["--scene", SCENE, "--width", str(WIDTH), "--height", str(HEIGHT),
+              "--depth", "8", "--env", env, "--hud-every", "1"]
+    with counted_run() as run, frame_clock() as clock:
+        rc_a, text_a, sec_a = run_cli(common + ["--frames", "5", "--exr", out["a.exr"],
+                                                "--png", out["a.png"],
+                                                "--checkpoint", out["a.npz"]])
+    launches, plain_cuda = run["launches"], run["plain_cuda"]
+    with counted_run() as run_b:
+        rc_b, text_b, sec_b = run_cli(common + ["--frames", "1", "--resume", out["a.npz"],
+                                                "--exr", out["b.exr"], "--png", out["b.png"],
+                                                "--checkpoint", out["b.npz"]])
+    rc_l, _, _ = run_cli(["--scene", SCENE, "--width", "200", "--height", "150",
+                          "--depth", "8", "--frames", "1", "--aperture", "0.02",
+                          "--exr", out["lens.exr"]])
+    if (rc_a, rc_b, rc_l) != (0, 0, 0):
+        raise AssertionError(f"CLI exit codes {(rc_a, rc_b, rc_l)}")
+    missing = [k for k, v in out.items() if not os.path.exists(v)]
+    if missing:
+        raise AssertionError(f"CLI did not write {missing}")
+    png = read_png(out["a.png"])
+    img, _ = read_exr(out["a.exr"])
+    lens, _ = read_exr(out["lens.exr"])
+    if png.shape != (HEIGHT, WIDTH, 3) or img.shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"CLI image shapes: png {png.shape}, exr {img.shape}")
+    if not (np.isfinite(img).all() and np.isfinite(lens).all() and img.mean() > 0):
+        raise AssertionError("CLI image not finite or black")
+    if "resumed at frame 5" not in text_b or load_checkpoint(out["b.npz"]).frame_index != 6:
+        raise AssertionError("the resumed run did not continue at frame 5")
+    huds = [float(x) for x in re.findall(r"([0-9.]+) ms/frame", text_a)]
+    per_frame = clock["seconds"] / clock["frames"] * 1e3
+    log(f"CLI env path ({WIDTH}x{HEIGHT}, depth 8, 1024x2048 map): HUD "
+        f"{huds[-1]:.2f} ms/frame (EMA after 5 frames); wall clock of the frame "
+        f"loop {per_frame:.2f} ms/frame over {clock['frames']} frames (HUD sync "
+        f"every frame); whole calls {sec_a:.2f} s (5 frames) and {sec_b:.2f} s "
+        f"(1 frame), set-up, env build and outputs included")
+    log(f"  kernel launches in the 5-frame env run: {launches}; plain versions "
+        f"on CUDA tensors: {plain_cuda}; resumed run: {run_b['launches']}")
+    if launches["anyhit_walk"] <= 0 or launches["window_walk"] <= 0:
+        raise AssertionError(f"a kernel of the env path never launched: {launches}")
+    if any(plain_cuda.values()) or any(run_b["plain_cuda"].values()):
+        raise AssertionError("plain versions ran on CUDA tensors")
+
+    # the same env-lit frame through Renderer, as phase 4 times the main path
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+
+    r = Renderer(attach_env(load_scene(scene_path(SCENE)), env), WIDTH, HEIGHT)
+    ms, stages = timed_frames(r)
+    log(f"  env-lit frame through Renderer: {ms:.2f} ms/frame at {WIDTH}x{HEIGHT} "
+        f"depth 8 (2 warm-up + 3 timed frames, no HUD sync per frame)")
+    log(stage_line(stages))
+    # Renderer.profile's torch.profiler trace of one env-lit frame: device
+    # kernel time by kind
+    prof = os.path.join(tmp, "prof")
+    r.profile(prof, frames=1)
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    by_kind: dict[str, float] = {}
+    for e in events:
+        kind = next((k for k in KERNELS if k in e["name"]), "torch ops")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
+    if not events:
+        log("  profiler, one env-lit frame: the trace holds no device kernels "
+            "(device time not measured)")
+        return launches
+    log(f"  profiler, one env-lit frame: {len(events)} kernels, "
+        f"{sum(by_kind.values()):.2f} ms device time; by kind (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_kind.items())))
+    return launches
+
+
+def phase_env_parity() -> dict:
+    """Any-hit walk against the capped walk on the same env-lit frames."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+
+    scene = attach_env(load_scene(scene_path(SCENE)), sky_map())
+    imgs = {}
+    for mode in ("auto", "off"):
+        n0 = ht.anyhit_walk.launches
+        r = Renderer(scene, 200, 150, RenderConfig(max_path_length=8,
+                                                   occlusion_anyhit=mode))
+        r.run(16)
+        imgs[mode] = r.image()
+        used = ht.anyhit_walk.launches - n0
+        if (used > 0) != (mode == "auto"):
+            raise AssertionError(f"occlusion_anyhit={mode}: {used} any-hit launches")
+    return check_parity("env parity, any-hit vs capped walk (150x200, depth 8, "
+                        "16 frames)", imgs["auto"], imgs["off"])
 
 
 def main() -> int:
@@ -291,6 +531,11 @@ def main() -> int:
     kernels = phase_kernels(renderer)
     launches = phase_main_path(renderer)
     phase_parity()
+    del renderer
+    with tempfile.TemporaryDirectory() as tmp:
+        env_launches = phase_cli_env(tmp)
+    phase_env_parity()
+    launches["anyhit_walk"] = env_launches["anyhit_walk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(smi)

@@ -59,7 +59,7 @@ def test_port_imports_without_jax():
     {"prefix_sort": True}, {"sort_bounce_skip": "1"}, {"cull_zero_nee": True},
     {"bake_materials": True}, {"fuse_shadow_walk": True},
     {"traversal_kernel": "minwalk"}, {"traversal_kernel": "sweep"},
-    {"tritest": "mt"}, {"occlusion_anyhit": "on"}, {"intersector": "brute"},
+    {"tritest": "mt"}, {"intersector": "brute"},
     {"use_pallas": False}, {"sort_rays": False},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_config_raises(kw):
@@ -86,7 +86,14 @@ def test_unsupported_entry_points_raise():
     from tpu_pathtracer_torch.accel import build_layout
     with pytest.raises(NotImplementedError, match=match):
         build_layout(scene, builder="lbvh")
+    # the thin lens is ported: an aperture renders, and the Orbax checkpoint
+    # directory form still raises
     import torch
     z = torch.zeros(4)
+    o, _ = generate_rays_flat(Camera(aperture=0.1), z, z, torch.zeros(2, 4), 2, 2,
+                              lens_u=torch.full((2, 4), 0.5))
+    assert not torch.equal(o, generate_rays_flat(Camera(), z, z, torch.zeros(2, 4),
+                                                 2, 2)[0])
+    from tpu_pathtracer_torch.io.checkpoint import load_checkpoint
     with pytest.raises(NotImplementedError, match=match):
-        generate_rays_flat(Camera(aperture=0.1), z, z, torch.zeros(2, 4), 2, 2)
+        load_checkpoint("state_dir")

@@ -14,7 +14,8 @@ from tpu_pathtracer_torch import Renderer, RenderConfig
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.scene import load_scene, scene_path
-from torch_parity import assert_hits_agree, cuda_device, random_rays  # noqa: F401
+from torch_parity import (assert_hits_agree, cuda_device, nee_shadow_rays,  # noqa: F401
+                          random_rays)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +44,24 @@ def test_kernels_match_plain_on_card(name, cuda_device):
     hit = lambda out: torch.where(out[0] < cap, out[0], torch.inf).cpu()  # noqa: E731
     assert_hits_agree(hit(outk), outk[3].cpu(), hit(outp), outp[3].cpu(),
                       rtol=0, atol=0, min_agree=0.9999)
+
+
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_anyhit_matches_plain_on_card(name, cuda_device):
+    """The any-hit kernel's clear mask == its plain version's on every lane
+    (the same op order, built with --fmad=false), on NEE-shaped shadow
+    queries with every fifth lane an environment sample."""
+    rays = nee_shadow_rays(load_scene(scene_path(name), device="cpu"), 8192, seed=7)
+    o, d, act, cap, tgt = (torch.from_numpy(a).to(cuda_device) for a in rays)
+    occl = build_layout(load_scene(scene_path(name), device=cuda_device), 8)
+    n0 = ht.anyhit_walk.launches
+    ck = ht.anyhit_walk(o, d, act, cap, tgt, occl, 1e-4)
+    assert ht.anyhit_walk.launches == n0 + 1
+    cp = ht.anyhit_walk_plain(o, d, act, cap, tgt, occl, 1e-4)
+    assert ck.dtype == torch.uint8 and torch.equal(ck, cp)
+    assert 0 < int(ck.sum()) < int(act.sum())
+    with pytest.raises(ValueError):
+        ht.anyhit_walk(o, d, act, cap, tgt.long(), occl, 1e-4)
 
 
 def test_kernel_wrappers_check_inputs(cuda_device):

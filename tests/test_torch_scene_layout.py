@@ -22,9 +22,17 @@ def scenes(request):
     return jload_scene(path), load_scene(path, device="cpu")
 
 
+def _tensor_fields(scene):
+    """Every field but the optional environment light (None until
+    attach_env; tests/test_torch_envlight.py holds it)."""
+    assert scene.env is None
+    return [name for name in scene._fields if name != "env"]
+
+
 def test_scene_fields_exact(scenes):
     js, ts = scenes
-    for name in ts._fields:
+    assert js.env is None
+    for name in _tensor_fields(ts):
         ref = np.asarray(getattr(js, name))
         got = getattr(ts, name).numpy()
         assert got.shape == ref.shape, name
@@ -59,6 +67,7 @@ def test_layout_tables_exact(scenes, leaf):
 def test_scene_from_arrays_exact(scenes):
     js, ts = scenes
     carried = interop.scene_from_arrays(arrays(js))
-    for name in ts._fields:
+    assert carried.env is None
+    for name in _tensor_fields(ts):
         np.testing.assert_array_equal(getattr(carried, name).numpy(),
                                       getattr(ts, name).numpy(), err_msg=name)

@@ -57,3 +57,38 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA)")
     return torch.device("cuda")
+
+
+def nee_shadow_rays(scene, n: int, seed: int, eps: float = 1e-4,
+                    env_every: int = 5):
+    """NEE-shaped shadow queries in a port ``Scene`` (the pattern of
+    tests/test_accel.py's any-hit test): origins on surface points (brute
+    hits of random rays, backed off by ``eps`` along the ray), directions to
+    a random point of a random light triangle, caps at that distance +
+    4*eps, targets the light's triangle id; every ``env_every``-th lane is
+    an environment sample (a random direction, target -1, cap 1e30).  Lanes whose ray missed
+    are inactive.  Returns numpy (o, d, active, cap, target int32)."""
+    from tpu_pathtracer_torch.ops.intersect import intersect_brute
+
+    o0, d0 = random_rays(n, seed)
+    p = [x.cpu() for x in (scene.p0, scene.p1, scene.p2)]
+    t = intersect_brute(torch.from_numpy(o0), torch.from_numpy(d0), *p).t.numpy()
+    active = np.isfinite(t)
+    origin = o0 + np.where(active, t, 1.0)[None] * d0 - d0 * np.float32(eps)
+    rng = np.random.default_rng(seed + 1)
+    lights = scene.light_tri.cpu().numpy()[:-1]
+    tgt = lights[rng.integers(0, len(lights), n)]
+    r1, r2 = rng.random(n), rng.random(n)
+    su, sv = 1.0 - np.sqrt(r1), np.sqrt(r1) * r2
+    v0, v1, v2 = (x.numpy()[:, tgt] for x in p)
+    lp = v0 + su[None] * (v1 - v0) + sv[None] * (v2 - v0)
+    delta = lp - origin
+    dist = np.linalg.norm(delta, axis=0)
+    d = delta / np.maximum(dist, 1e-12)[None]
+    cap = dist + 4.0 * eps
+    env = np.arange(n) % env_every == 0
+    d_env = rng.normal(size=(3, n))
+    d = np.where(env[None], d_env / np.linalg.norm(d_env, axis=0, keepdims=True), d)
+    return (origin.astype(np.float32), d.astype(np.float32), active,
+            np.where(env, 1e30, cap).astype(np.float32),
+            np.where(env, -1, tgt).astype(np.int32))

@@ -109,9 +109,9 @@ class RenderConfig:
     sweep_mtblock: int = 56
     # TPU-only (inert): ray-tile width of the TPU occlusion kernel.
     occlusion_tile: int = 6144
-    # Any-hit occlusion kernel: "auto" = on iff the scene carries an
-    # environment light (never, until the env light is ported); "on" is not
-    # ported yet; "off" = nearest-hit-must-be-target shadow test.
+    # Any-hit occlusion kernel (csrc/anyhit_walk.cu): "auto" = on iff the
+    # scene carries an environment light; "on" = always; "off" = the
+    # nearest-hit-must-be-target shadow test through the capped walk.
     occlusion_anyhit: str = "auto"
     # Leaf triangle test: "bw" (Baldwin-Weber planes, ported) or "mt"
     # (Moller-Trumbore window variant, not ported yet).
@@ -230,8 +230,6 @@ _UNSUPPORTED = (
     (lambda c: c.traversal_kernel == "sweep", "traversal_kernel='sweep'",
      "queue 2 item 9"),
     (lambda c: c.tritest != "bw", "tritest='mt'", "queue 2 item 5"),
-    (lambda c: c.occlusion_anyhit == "on", "occlusion_anyhit='on'",
-     "queue 2 item 4"),
     (lambda c: c.intersector != "bvh", "intersector='brute' as a frame backend",
      "queue 1 item 5"),
     (lambda c: not c.use_pallas, "use_pallas=False (portable walker backend)",

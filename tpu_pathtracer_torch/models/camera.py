@@ -5,8 +5,8 @@ renderer/Shaders.metal:75-103): camera at ``up - view*2.35`` = (0, 1, 2.35)
 looking down -z, 90-degree horizontal FOV, aspect-corrected, with an AA
 jitter of +-1/(dim-1) in normalized coords.  Rows count top-down; the
 reference's ``threadId.y`` is ``H-1-row``.  The port of
-``tpu_pathtracer/models/camera.py``; the thin-lens extension is not ported
-yet (ROADMAP.md queue 1 item 10).
+``tpu_pathtracer/models/camera.py``, with its thin-lens extension
+(``aperture > 0``).
 """
 
 from __future__ import annotations
@@ -30,16 +30,14 @@ class Camera(NamedTuple):
 
 
 def generate_rays_flat(camera: Camera, rows: torch.Tensor, cols: torch.Tensor,
-                       jitter: torch.Tensor, full_height: int, full_width: int):
+                       jitter: torch.Tensor, full_height: int, full_width: int,
+                       lens_u: torch.Tensor | None = None):
     """Primary rays for an arbitrary pixel enumeration.
 
     ``rows``/``cols``: (N,) absolute pixel coordinates; ``jitter``: (2, N)
-    AA uniforms (the reference's noiseSample.xy).  Returns origins (3, N)
-    and directions (3, N), float32."""
-    if camera.aperture > 0.0:
-        raise NotImplementedError(
-            "the thin-lens camera is not ported to tpu_pathtracer_torch yet "
-            "(ROADMAP.md queue 1 item 10)")
+    AA uniforms (the reference's noiseSample.xy); ``lens_u``: (2, N)
+    thin-lens disk uniforms, used only when ``camera.aperture > 0``.
+    Returns origins (3, N) and directions (3, N), float32."""
     dev = jitter.device
     f32 = np.float32
     aspect = float(f32(full_height) / f32(full_width))
@@ -66,5 +64,17 @@ def generate_rays_flat(camera: Camera, rows: torch.Tensor, cols: torch.Tensor,
     directions = normalize(directions)
     origin = up - view * 2.35
     origins = origin[:, None].expand(directions.shape).contiguous()
+    if camera.aperture > 0.0 and lens_u is not None:
+        # thin lens: every lens point aims at the pinhole ray's focal-plane
+        # point, so geometry at ``focus`` (along the view axis) stays sharp
+        ft = float(np.float32(camera.focus)) / torch.clamp(
+            (directions * view[:, None]).sum(0), min=1e-6)
+        target = origins + directions * ft[None]
+        r = float(np.float32(camera.aperture)) * torch.sqrt(lens_u[0])
+        th = float(np.float32(2.0 * 3.14159265358979)) * lens_u[1]
+        lx = r * torch.cos(th)
+        ly = r * torch.sin(th)
+        origins = origins + side[:, None] * lx[None] + up[:, None] * ly[None]
+        directions = normalize(target - origins)
     return origins, directions
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``tpu_pathtracer_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per source,
+all started together, then links them into one shared library with a plain C
 interface, loaded with ctypes.  The library goes into
 ``tpu_pathtracer_torch/_build/``, named by a hash of the sources and flags,
 so an edit rebuilds on first use and an unchanged tree reuses the build.
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,9 @@ _SIGNATURES = {
     "tpupt_window_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _P, _P, _P],
     # o, d, active, cap, nodes, meta, tris, num_nodes, t_min, n, out, stream
     "tpupt_capped_walk": [_P] * 7 + [_I, _F, _I, _P, _P],
+    # o, d, active, cap, target, nodes, meta, tris, num_nodes, t_min, eps,
+    # four_eps, n, out, stream
+    "tpupt_anyhit_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
 }
 
 
@@ -64,6 +68,23 @@ def _nvcc() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
+def _run(procs) -> tuple[int, str]:
+    """Wait for (cmd, Popen) pairs -> (first failing return code, output)."""
+    rc, out = 0, []
+    for cmd, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+            raise
+        out.append(text)
+        if proc.returncode and not rc:
+            rc = proc.returncode
+            out.append(" ".join(cmd))
+    return rc, "".join(out)
+
+
 def build() -> tuple[str, float, str]:
     """Compile the kernels unless this source hash is already built.
     Returns (library path, seconds spent compiling, compiler output);
@@ -74,18 +95,32 @@ def build() -> tuple[str, float, str]:
         with open(log_path) as f:
             return path, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tmp = f"{path}.{os.getpid()}"
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    objects = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    try:
+        rc, log = _run([start([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src])
+                        for src, obj in zip(sources, objects)])
+        if not rc:
+            rc, link_log = _run([start([_nvcc(), *NVCC_FLAGS[:2], "-shared",
+                                        "-o", f"{tmp}.tmp", *objects])])
+            log += link_log
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    if rc:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
-    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    os.replace(f"{tmp}.tmp", path)  # atomic: a concurrent build sees all or nothing
     return path, seconds, log
 
 

@@ -1,5 +1,5 @@
-"""BVH traversal on Hopper: the two CUDA kernels of the main render path,
-their plain torch versions, and the intersector the frame uses.
+"""BVH traversal on Hopper: the CUDA kernels of the render path, their plain
+torch versions, and the intersector the frame uses.
 
 The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
 
@@ -14,8 +14,12 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   with ``resolve=False, prepass=0``): the range-capped shadow query over the
   leaf-8 layout with Moller-Trumbore rows; returns t, u, v and the original
   triangle id.
+* **any-hit walk** (``csrc/anyhit_walk.cu``, replaces
+  ``_occlusion_anyhit_kernel``): the shadow query of scenes with an
+  environment light, over the leaf-8 layout; a lane stops at its first
+  occluder and returns a clear mask.
 
-Both are one thread per ray.  The contract is the outputs: the same nearest
+All are one thread per ray.  The contract is the outputs: the same nearest
 hit, strict ``<`` in visit order (prepass rows, then leaf rows in DFS order,
 ascending within a leaf), which is the winner the TPU kernels' lowest-row
 tie-break picks.
@@ -112,12 +116,14 @@ def _mt(rows, o, d, t_min):
     return tt, u, v, ok
 
 
-def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test):
-    """The stackless DFS walk shared by both plain versions.
+def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test, stop=None):
+    """The stackless DFS walk shared by the plain versions.
 
     ``best``: per-lane tensors whose first entry is best_t; ``leaf_test(lanes,
     rowid, valid, best)`` folds one leaf's rows (L, max_leaf) into ``best``
-    for the given lanes and returns the updated per-lane tuple."""
+    for the given lanes and returns the updated per-lane tuple.  ``stop``:
+    one of the ``best`` tensors (bool); a lane whose entry turns true ends
+    its walk after that node."""
     lanes = active.nonzero()[:, 0]
     inv = safe_inverse(d[0], d[1], d[2])
     inv = torch.stack(inv)
@@ -139,6 +145,8 @@ def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test):
             for b, nb in zip(best, new):
                 b[leaf_lanes] = nb
         nxt = torch.where(hit & (count == 0), c + 1, meta[:, 0].to(torch.int64))
+        if stop is not None:
+            nxt = torch.where(stop[lanes], lay.num_nodes, nxt)
         cur[lanes] = nxt
         lanes = lanes[nxt < lay.num_nodes]
 
@@ -338,14 +346,97 @@ def intersect_bvh_capped(o, d, lay: BVHLayout, active, t_max,
                     pos=None, normal=None)
 
 
+# ---------------------------------------------------------------------------
+# Kernel C: any-hit occlusion walk (MT rows), the env-lit shadow query
+# ---------------------------------------------------------------------------
+
+def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                      t_min: float = 0.0):
+    """Plain torch version of ``csrc/anyhit_walk.cu`` -> (N,) uint8 clear
+    mask: ``target >= 0 ? (target hit and no occluder) : no occluder``, 0 on
+    inactive lanes.  Occluders are non-target hits nearer than
+    ``cap - 4*eps``; the target counts when ``eps <= t < cap``."""
+    n = o.shape[1]
+    # float32 constants, as the kernel receives them
+    eps32 = torch.tensor(eps, dtype=torch.float32, device=o.device)
+    thresh = cap - torch.tensor(4.0 * eps, dtype=torch.float32, device=o.device)
+    best = (cap.clone(), torch.zeros(n, dtype=torch.bool, device=o.device),
+            torch.zeros(n, dtype=torch.bool, device=o.device))
+
+    def leaf_test(lanes, rowid, valid, best):
+        rows = lay.tris[rowid]
+        tt, _, _, ok = _mt(rows, tuple(c[lanes][:, None] for c in o),
+                           tuple(c[lanes][:, None] for c in d), t_min)
+        acc = ok & valid
+        is_tgt = rows[..., 9].to(torch.int32) == target[lanes][:, None]
+        c = cap[lanes][:, None]
+        occ = (acc & ~is_tgt & (tt < thresh[lanes][:, None])).any(dim=1)
+        tgt = (acc & is_tgt & (tt >= eps32) & (tt < c)).any(dim=1)
+        return best[0], best[1] | occ, best[2] | tgt
+
+    _walk(o, d, active, lay, t_min, best, leaf_test, stop=best[1])
+    _, occ, tgt = best
+    clear = active & torch.where(target >= 0, tgt & ~occ, ~occ)
+    return clear.to(torch.uint8)
+
+
+def anyhit_walk(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                t_min: float = 0.0):
+    """Any-hit clear mask -> (N,) uint8: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.
+
+    ``o``/``d``: (3, N) float32; ``active``: (N,) bool; ``cap``: (N,)
+    float32 range cap; ``target``: (N,) int32 original triangle id of the
+    sampled light, -1 for environment samples."""
+    if o.device.type == "cpu":
+        return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(cap, torch.float32, (n,), "cap")
+    _check(target, torch.int32, (n,), "target")
+    _check_layout(lay, ("nodes", "nodes_meta", "tris"), o.device)
+    out = torch.empty(n, dtype=torch.uint8, device=o.device)
+    rc = load_library().tpupt_anyhit_walk(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
+        target.data_ptr(), lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(),
+        lay.tris.data_ptr(), lay.num_nodes, t_min, eps, 4.0 * eps, n,
+        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"anyhit_walk kernel launch failed: cudaError {rc}")
+    anyhit_walk.launches += 1
+    return out
+
+
+anyhit_walk.launches = 0
+
+
+def occlusion_clear_anyhit(o, d, lay: BVHLayout, active, t_max, target,
+                           eps: float, t_min: float = 0.0) -> torch.Tensor:
+    """Shadow visibility through the any-hit walk -> (N,) bool ``clear``
+    (False on inactive lanes).  ``target``: the sampled light's original
+    triangle id, or -1 for environment samples (clear iff nothing is hit)."""
+    n = o.shape[1]
+    cap = torch.broadcast_to(t_max, (n,)).to(torch.float32).contiguous()
+    clear = anyhit_walk(o.contiguous(), d.contiguous(), active.contiguous(), cap,
+                        target.to(torch.int32).contiguous(), lay, eps, t_min)
+    return clear.to(torch.bool)
+
+
 def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
-                          t_min: float = 0.0, prepass: int = DEFAULT_PREPASS):
+                          t_min: float = 0.0, prepass: int = DEFAULT_PREPASS,
+                          anyhit: bool = False, eps: float = 1e-4):
     """The frame's intersection callable, ``fn(o, d, active, t_max=None,
     coherent=False) -> HitShade`` (the contract of the reference's
     ``make_pallas_intersector``): nearest-hit queries take the window walk on
     ``lay``; ``t_max``-capped queries take the capped walk on ``lay_occl``
     (the small-leaf shadow layout; ``lay`` when None).  ``coherent`` was a
-    TPU tile-shape hint and changes nothing here."""
+    TPU tile-shape hint and changes nothing here.
+
+    With ``anyhit``, ``fn.occlusion(o, d, active, t_max, target) -> clear``
+    answers shadow queries through the any-hit walk on the same shadow
+    layout (render/wavefront.py:occlusion_clear uses it when present)."""
     occl = lay_occl if lay_occl is not None else lay
 
     def fn(o, d, active, t_max=None, coherent=False):
@@ -354,6 +445,12 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
             return intersect_bvh_capped(o, d, occl, active, t_max, t_min)
         return intersect_bvh_window(o, d, lay, t_min, active, prepass=prepass)
 
+    if anyhit:
+        def occlusion(o, d, active, t_max, target):
+            return occlusion_clear_anyhit(o, d, occl, active, t_max, target,
+                                          eps, t_min)
+
+        fn.occlusion = occlusion
     return fn
 
 

@@ -34,13 +34,19 @@ def camera_jitter(key, frame: int, pids: torch.Tensor) -> torch.Tensor:
     return rng_ops.uniforms(pids, frame, 0, key_salt(key) ^ _CAMERA_SALT, 4)
 
 
-def bounce_uniforms(key, frame: int, bounce: int, pids: torch.Tensor) -> dict:
+def bounce_uniforms(key, frame: int, bounce: int, pids: torch.Tensor,
+                    with_env: bool = False) -> dict:
     """Per-bounce uniforms for one wavefront of N rays: ``light_select``
-    (N,), ``light_bary`` (2, N), ``lobe`` (N,), ``bounce_dir`` (2, N)."""
-    u = rng_ops.uniforms(pids, frame, bounce, key_salt(key), 6)
-    return {
+    (N,), ``light_bary`` (2, N), ``lobe`` (N,), ``bounce_dir`` (2, N); with
+    ``with_env`` (the scene carries an environment light) also
+    ``env_select`` (N,), ``env_alias`` (N,) and ``env_jit`` (2, N)."""
+    u = rng_ops.uniforms(pids, frame, bounce, key_salt(key), 10 if with_env else 6)
+    out = {
         "light_select": u[0],
         "light_bary": u[1:3],
         "lobe": u[3],
         "bounce_dir": u[4:6],
     }
+    if with_env:
+        out.update(env_select=u[6], env_alias=u[7], env_jit=u[8:10])
+    return out

@@ -35,6 +35,7 @@ from ..core.math3d import dot, length, where3
 from ..core.sampling import balance_heuristic, barycentric, select_light_index
 from ..models import bsdf as bsdf_lib
 from ..models.camera import Camera, generate_rays_flat
+from ..models.envlight import eval_env, sample_env
 from ..ops.intersect import HitShade
 from ..ops.rng import fold_in
 from ..scene.scene import Scene
@@ -191,15 +192,39 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         0.0,
     )
     target = scene.light_tri[li]
-    nee_emit = scene.light_emissive[:, li]
+    env = scene.env
+    if env is not None:
+        # Unified NEE over {area lights, environment} (an extension of the
+        # reference): each lane samples the env with probability select_p,
+        # and each branch pdf carries its selection probability, so one MIS
+        # weight covers both.
+        sel_p = env.select_p
+        use_env = uniforms["env_select"] < sel_p
+        e_dir, e_pdf, e_rad = sample_env(env, uniforms["env_alias"], uniforms["env_jit"])
+        nee_dir = where3(use_env, e_dir, to_light)
+        light_pdf = torch.where(use_env, e_pdf * sel_p, light_pdf * (1.0 - sel_p))
+        nee_emit = torch.where(use_env[None], e_rad, scene.light_emissive[:, li])
+        # Below-horizon env samples could only add negative radiance through
+        # the signed diffuse eval: gated out.  Area-light lanes keep the
+        # reference's ungated behaviour.
+        not_self = (use_env | (target != tri)) & (~use_env | (dot(nee_dir, hn) > 0.0))
+        # env shadow rays are unbounded (any scene hit occludes), and target
+        # -1 marks "clear iff nothing is hit"
+        shadow_cap = torch.where(use_env, 1e30, dist + 4.0 * eps)
+        target = torch.where(use_env, -1, target)
+    else:
+        nee_dir = to_light
+        nee_emit = scene.light_emissive[:, li]
+        not_self = target != tri
+        shadow_cap = dist + 4.0 * eps
     nee_bsdf, nee_mpdf = bsdf_lib.eval_material(
-        m_type, m_ior, w_i, to_light, hn, lobe_u, aeps)
+        m_type, m_ior, w_i, nee_dir, hn, lobe_u, aeps)
     nee_weight = balance_heuristic(light_pdf, nee_mpdf)
-    light_ok = valid & (light_pdf > 0.0) & (target != tri)
+    light_ok = valid & (light_pdf > 0.0) & not_self
     if bounce + 1 >= cfg.max_path_length:
         light_ok = torch.zeros_like(light_ok)
     if not cfg.reference_quirks:
-        light_ok = light_ok & (dot(to_light, hn) > 0.0)
+        light_ok = light_ok & (dot(nee_dir, hn) > 0.0)
     nee_scale = torch.where(
         light_ok, nee_weight * nee_bsdf / torch.where(light_ok, light_pdf, 1.0), 0.0
     )
@@ -221,12 +246,26 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         / torch.clamp(scene.light_area[lts] * e_cos, min=1e-30),
         0.0,
     )
+    if env is not None:
+        # NEE reaches an emitter point with density light_pdf * (1 - select_p)
+        # under the unified strategy: the BSDF arm's competitor must match
+        emit_lpdf = emit_lpdf * (1.0 - env.select_p)
     emit_lpdf = state.prev_diffuse * emit_lpdf
     emit_weight = balance_heuristic(state.pdf, emit_lpdf)
     emit_factor = emit_weight * state.pdf if cfg.reference_quirks else emit_weight
     emit_contrib = (
         m_emissive * state.throughput * torch.where(is_light, emit_factor, 0.0)[None]
     )
+    if env is not None:
+        # BSDF-arm env radiance: a live lane whose ray escapes sees the env,
+        # MIS-weighted against the NEE env arm (the conventional weight; the
+        # reference's x-pdf quirk applies only to its area lights)
+        miss_env = state.alive & ~hit.valid
+        env_rad, env_pdf = eval_env(env, state.direction)
+        env_lpdf = state.prev_diffuse * env.select_p * env_pdf
+        env_w = balance_heuristic(state.pdf, env_lpdf)
+        emit_contrib = emit_contrib + (
+            env_rad * state.throughput * torch.where(miss_env, env_w, 0.0)[None])
 
     # ---- sample the next bounce (reference: renderer/Shaders.metal:199-211) ----
     w_o, nb_bsdf, nb_pdf, nb_ior, nb_finite = bsdf_lib.sample_bounce(
@@ -248,7 +287,7 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         pixel=state.pixel,
     )
     # range cap just past the sampled light point: a pure traversal cull
-    pack = ShadowPack(to_light=to_light, cap=dist + 4.0 * eps, target=target,
+    pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
                       contrib=nee_contrib, ok=light_ok)
     # rays the traversal processes (the reference's MPS skips lanes with
     # maxDistance < 0)
@@ -260,9 +299,17 @@ def occlusion_clear(intersect: IntersectFn, o, d, ok, cap, target,
                     eps: float) -> torch.Tensor:
     """Shadow visibility, reference semantics: the NEAREST hit within the
     range cap must BE the targeted light triangle (reference:
-    renderer/Shaders.metal:214-231)."""
+    renderer/Shaders.metal:214-231); env samples (target -1) are clear iff
+    nothing is hit.  When the intersector carries the any-hit walk
+    (``intersect.occlusion``, cfg.occlusion_anyhit) that answers instead:
+    the same semantics, but a shadowed lane stops at its first occluder."""
+    occl = getattr(intersect, "occlusion", None)
+    if occl is not None:
+        return ok & occl(o, d, ok, cap, target)
     hit = intersect(o, d, ok, t_max=cap)
-    return ok & hit.valid & (hit.t >= eps) & (hit.tri == target)
+    return ok & torch.where(target >= 0,
+                            hit.valid & (hit.t >= eps) & (hit.tri == target),
+                            ~hit.valid)
 
 
 def resolve_shadow(intersect: IntersectFn, state: PathState, pack: ShadowPack,
@@ -301,10 +348,20 @@ def _splice(full: NamedTuple, prefix: NamedTuple):
 
 
 def _timed_intersect(intersect: IntersectFn, timer) -> IntersectFn:
+    """``intersect`` with each query recorded as a timer span; the any-hit
+    ``occlusion`` hook, when present, passes through as "walk_shadow"."""
     def fn(o, d, active, t_max=None, coherent=False):
         name = "walk_nearest" if t_max is None else "walk_shadow"
         with timer.span(name):
             return intersect(o, d, active, t_max=t_max, coherent=coherent)
+
+    occl = getattr(intersect, "occlusion", None)
+    if occl is not None:
+        def occlusion(o, d, active, t_max, target):
+            with timer.span("walk_shadow"):
+                return occl(o, d, active, t_max, target)
+
+        fn.occlusion = occlusion
     return fn
 
 
@@ -329,12 +386,14 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         pids = pids_from_order(order, width)
         jitter = camera_jitter(fold_in(key, 0xC0FFEE), frame_index, pids)
         origins, directions = generate_rays_flat(
-            camera, order.rows, order.cols, jitter[0:2], height, width)
+            camera, order.rows, order.cols, jitter[0:2], height, width,
+            lens_u=jitter[2:4])
         state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
         wmin, winv = scene_sort_bounds(scene)
 
         def shade(b, st, coherent=False):
-            uniforms = bounce_uniforms(key, frame_index, b, st.pixel)
+            uniforms = bounce_uniforms(key, frame_index, b, st.pixel,
+                                       with_env=scene.env is not None)
             return trace_bounce(scene, cfg, intersect, b, st, uniforms,
                                 coherent=coherent)
 

@@ -1,9 +1,10 @@
-"""Host orchestrator: progressive renderer with HUD and EXR save.
+"""Host orchestrator: progressive renderer with HUD, save and checkpointing.
 
 The port of ``tpu_pathtracer/renderer.py``: owns the scene tensors and both
 BVH layouts (fat leaves for nearest-hit queries, small leaves for shadow
 queries), drives the frame step, tracks the EMA performance HUD (reference:
-renderer/Renderer.mm:631-637) and saves EXRs.
+renderer/Renderer.mm:631-637), saves EXR and PNG images and ``.npz``
+checkpoints, and captures ``torch.profiler`` traces.
 
 Frames in flight: the frame step only enqueues work on the current CUDA
 stream; the host waits for the device when ``cfg.frames_in_flight`` steps
@@ -66,8 +67,14 @@ class Renderer:
             build_layout(self.scene, leaf_size=occl_leaf, builder=builder)
             if occl_leaf not in (None, leaf) else None
         )
+        # the any-hit shadow walk, on exactly when the reference turns it on
+        # (tpu_pathtracer/render/wavefront.py:make_intersector)
+        anyhit = (self.cfg.occlusion_anyhit == "on"
+                  or (self.cfg.occlusion_anyhit == "auto"
+                      and self.scene.env is not None))
         self._intersect = make_cuda_intersector(
-            self.layout, self.layout_occl, prepass=self.cfg.traversal_prepass)
+            self.layout, self.layout_occl, prepass=self.cfg.traversal_prepass,
+            anyhit=anyhit, eps=self.cfg.distance_epsilon)
         self._seed = seed
         self.reset(width, height)
 
@@ -132,12 +139,58 @@ class Renderer:
             f"{self._avg_frame_time * 1e3:.2f} ms/frame]"
         )
 
-    def image(self) -> np.ndarray:
-        """(H, W, 3) accumulated RGB radiance as numpy."""
+    def image(self, tonemapped: bool = False, rgb: bool = False) -> np.ndarray:
+        """(H, W, 3) accumulated radiance as numpy, optionally display-
+        transformed (exposure tonemap when cfg.enable_tone_mapping, then
+        sRGB).  ``rgb`` is the identity at S = 3, the only S ported."""
+        del rgb
         self.sync()
-        return self.state.accum.cpu().numpy()
+        img = self.state.accum.cpu().numpy()
+        if tonemapped:
+            from .core.color import to_srgb, tonemap_exposure
+
+            if self.cfg.enable_tone_mapping:
+                img = tonemap_exposure(img)
+            img = to_srgb(img)
+        return img
 
     def save_exr(self, path: str) -> None:
         from .io.exr import write_exr
 
-        write_exr(path, self.image(), half=True)
+        write_exr(path, self.image(rgb=True), half=True)
+
+    def save_png(self, path: str) -> None:
+        from .io.png import write_png
+
+        write_png(path, self.image(tonemapped=True, rgb=True))
+
+    def save_checkpoint(self, path: str) -> None:
+        from .io.checkpoint import save_checkpoint
+
+        self.sync()
+        save_checkpoint(path, self.state)
+
+    def load_checkpoint(self, path: str) -> None:
+        from .io.checkpoint import load_checkpoint
+
+        self.sync()
+        self.state = load_checkpoint(path, device=self.device)
+        self._frame_count = self.state.frame_index
+        self._in_flight = 0
+        self._window_t0 = None
+
+    def profile(self, trace_dir: str, frames: int = 3) -> None:
+        """Run ``frames`` frames under ``torch.profiler`` and write a Chrome
+        trace into ``trace_dir`` (the counterpart of the reference's
+        ``jax.profiler.trace``)."""
+        import os
+
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            self.run(frames)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -11,9 +11,10 @@ sentinel entry {cdf=sum, pdf=1, area=0} used by the CDF walk
 (reference: renderer/Renderer.mm:393-448).
 
 Index-valued fields are int64 (torch has no general uint32 arithmetic);
-their values equal the reference's int32/uint32 fields.  The reference's
-extension fields (environment light, textures, dispersion, GGX roughness)
-are not ported yet (ROADMAP.md queue 1 item 10).
+their values equal the reference's int32/uint32 fields.  The environment
+light (``env``, :func:`attach_env`) is ported; the reference's other
+extension fields (textures, dispersion, GGX roughness) are not yet
+(ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import spectrum as spec
+from ..models.envlight import EnvLight
 from .materials import classify
 from .objmtl import ObjMesh, load_obj
 
@@ -52,6 +54,8 @@ class Scene(NamedTuple):
     light_pdf: torch.Tensor       # (L+1,)
     light_cdf: torch.Tensor       # (L+1,) exclusive prefix; sentinel = total
     light_tri: torch.Tensor       # (L+1,) int64 triangle index of each light
+    # --- extension: HDR environment light (attach_env); None = no env ---
+    env: EnvLight | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -133,7 +137,7 @@ def scene_to(arrays: dict, device) -> Scene:
         dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
 
-    return Scene(**{name: put(name) for name in Scene._fields})
+    return Scene(**{name: put(name) for name in Scene._fields if name != "env"})
 
 
 def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
@@ -145,3 +149,30 @@ def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
             "rough_materials (GGX) is not ported to tpu_pathtracer_torch yet "
             "(ROADMAP.md queue 1 item 10)")
     return scene_to(scene_arrays(load_obj(path), samples), device)
+
+
+def area_light_power(scene: Scene) -> float:
+    """Total emitted power of the area lights (for the env's select_p):
+    sum over lights of luminance(emissive) * area * pi, in the reference's
+    float32 numpy order."""
+    rgb = scene.light_emissive.cpu().numpy()  # (3, L+1); RGB at S = 3
+    lum = 0.2126 * rgb[0] + 0.7152 * rgb[1] + 0.0722 * rgb[2]
+    return float((lum[:-1] * scene.light_area.cpu().numpy()[:-1]).sum() * np.pi)
+
+
+def attach_env(scene: Scene, image, strength: float = 1.0, rotation: float = 0.0,
+               select_p: float | None = None) -> Scene:
+    """Attach an HDR lat-long environment light ((Eh, Ew, 3) array or an EXR
+    path) to a scene.  NEE then samples env vs area lights by emitted power
+    unless ``select_p`` overrides."""
+    from ..models.envlight import build_env
+
+    if isinstance(image, str):
+        from ..io.exr import read_exr
+
+        image, _ = read_exr(image)
+    env = build_env(np.asarray(image, np.float32), strength=strength,
+                    rotation=rotation, select_p=select_p,
+                    area_light_power=area_light_power(scene),
+                    samples=scene.mat_diffuse.shape[0], device=scene.p0.device)
+    return scene._replace(env=env)
