@@ -23,10 +23,26 @@ Phases (any failure raises, so the exit code is not 0):
    5 frames with ``--env`` (the map written as EXR), EXR + PNG +
    checkpoint, then a resumed 1-frame run; and a 150x200 thin-lens frame;
 7. env parity: 150x200, depth 8, 16 frames with the map, any-hit walk
-   against the capped walk (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001).
+   against the capped walk (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001);
+8. bench: ``tpu_pathtracer_torch.bench.main`` at 1920x1080, depth 8, with
+   the default flags (5 frames, with the utilization block), then
+   ``--kernel minwalk``, ``--kernel sweep`` and ``--fuse-shadow`` (3 frames
+   each); each JSON line echoed, each run's own kernel launched and no plain
+   version run on a CUDA tensor;
+9. variant parity: the self-golden gate of phase 5 for minwalk, sweep and
+   the fused path+shadow walk.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Imports no JAX.
+Phase 3 also holds the bench's four kernels against their plain versions
+on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
+lanes (payload to atol 1e-6), the sweep on bounce-1, the window walk with
+the original-id latch on bounce-1 paths plus their shadow pack (clear masks
+equal), and the counting walk on bounce-1 and the shadow pack (useful rows
+equal, spent within its warp bounds).
+
+The line before the last is the kernel table as JSON (launches: the main
+path's run for the window, capped and any-hit walks' main paths, the bench
+runs for the other four); the last line is {"ok": true, "device": {...}}.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,7 +66,14 @@ SAMPLE_LANES = 65536
 ID_AGREE = 0.9999      # ids equal, or an equal-t tie, on at least this share
 T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
-KERNELS = ("window_walk", "capped_walk", "anyhit_walk")
+KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
+           "window_walk_orig", "window_walk_counts")
+PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
+VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
+    "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
+    "sweep": ({"traversal_kernel": "sweep"}, "sweep"),
+    "fused": ({"fuse_shadow_walk": True}, "window_walk_orig"),
+}
 
 
 def log(msg: str) -> None:
@@ -261,6 +284,163 @@ def phase_kernels(renderer) -> list[dict]:
     ]
 
 
+def check_counts(name, t_k, row_k, useful_k, spent_k, plain) -> float:
+    """The counting walk against its plain version: hits as ``agree``,
+    useful rows equal, spent within its warp bounds and equal across each
+    warp.  Returns the useful share of spent."""
+    t_p, row_p, useful_p, lo, hi = plain
+    err = agree(name, t_k, row_k, t_p, row_p)
+    if not torch.equal(useful_k, useful_p):
+        raise AssertionError(f"{name}: useful differs on "
+                             f"{int((useful_k != useful_p).sum())} lanes")
+    if not bool(((lo <= spent_k) & (spent_k <= hi)).all()):
+        raise AssertionError(f"{name}: spent outside its warp bounds")
+    w = spent_k[:spent_k.shape[0] // 32 * 32].view(-1, 32)
+    if not bool((w == w[:, :1]).all()):
+        raise AssertionError(f"{name}: spent differs inside a warp")
+    share = float(useful_k.double().sum() / spent_k.double().sum().clamp(min=1))
+    log(f"  {name}: useful equal, spent within warp bounds; useful/spent "
+        f"{share:.4f} (bounds give {float(useful_p.double().sum() / hi.double().sum()):.4f}"
+        f"..{float(useful_p.double().sum() / lo.double().sum()):.4f})")
+    return err
+
+
+def phase_bench_kernels(renderer) -> list[dict]:
+    """The bench's four kernels against their plain versions on 65,536
+    lanes of the 1080p wavefronts, and their times."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    lay, cfg = renderer.layout, renderer.cfg
+    waves = wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)
+    gen = torch.Generator().manual_seed(4321)
+    pp_win = ht.window_prepass(lay, cfg.traversal_prepass)
+    pp_min = min(cfg.traversal_prepass, lay.prepass.shape[0], lay.num_tris)
+    eps = cfg.distance_epsilon
+    inf = {w: torch.full_like(waves[w][0][0], torch.inf) for w in ("camera", "bounce1")}
+    pair = waves["bounce1"] + waves["shadow"][1:]  # path lanes and their shadow pack
+
+    # kernel a: minwalk on camera and bounce-1 lanes
+    errs, pay = [], 0.0
+    for which in ("camera", "bounce1"):
+        o, d, act = draw(waves[which], SAMPLE_LANES, gen)
+        t_max = torch.full_like(o[0], torch.inf)
+        outk = ht.minwalk(o, d, act, t_max, lay, prepass=pp_min)
+        outp = ht.minwalk_plain(o, d, act, t_max, lay, prepass=pp_min)
+        torch.cuda.synchronize()
+        hit = lambda out: torch.where(out[0] < t_max, out[0], torch.inf)  # noqa: E731
+        errs.append(agree(f"minwalk/{which}", hit(outk), outk[3], hit(outp), outp[3]))
+        same = outk[3] == outp[3]
+        pay = max(pay, float((outk[6:] - outp[6:]).abs()[:, same].max()))
+    log(f"  minwalk: payload (position, normal) max |diff| {pay:.3g} where ids agree")
+    if pay > PAYLOAD_ATOL:
+        raise AssertionError(f"minwalk payload differs by {pay} > {PAYLOAD_ATOL}")
+    a_in = (o, d, act, t_max, lay)
+    ms_a = cuda_ms(lambda: ht.minwalk(*a_in, prepass=pp_min))
+    plain_a = cuda_ms(lambda: ht.minwalk_plain(*a_in, prepass=pp_min), iters=2)
+    full_a = {w: cuda_ms(lambda: ht.minwalk(*waves[w], inf[w], lay, prepass=pp_min))
+              for w in ("camera", "bounce1")}
+    win_b1 = cuda_ms(lambda: ht.window_walk(*waves["bounce1"], inf["bounce1"], lay,
+                                            prepass=pp_win))
+    log(f"  minwalk at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_a:.3f} ms, plain "
+        f"{plain_a:.3f} ms; full camera {full_a['camera']:.3f} ms, full bounce-1 "
+        f"{full_a['bounce1']:.3f} ms (window walk on full bounce-1: {win_b1:.3f} ms)")
+
+    # kernel b: the sweep on bounce-1 lanes
+    o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen)
+    t_max = torch.full_like(o[0], torch.inf)
+    tk, rk, ok_ = ht.sweep(o, d, act, t_max, lay, with_orig=True)
+    tp, rp, op = ht.sweep_plain(o, d, act, t_max, lay, with_orig=True)
+    torch.cuda.synchronize()
+    err_b = agree("sweep/bounce1", tk, rk, tp, rp)
+    if not torch.equal(ok_[rk == rp], op[rk == rp]):
+        raise AssertionError("sweep: the latched original ids differ")
+    tw, rw = ht.window_walk(o, d, act, t_max, lay, prepass=pp_win)
+    log(f"  sweep vs window walk on the same lanes: rows differ on "
+        f"{int((rw != rk).sum())}, max |dt| {float((tw - tk)[torch.isfinite(tk)].abs().max()):.3g}")
+    b_in = (o, d, act, t_max, lay)
+    ms_b = cuda_ms(lambda: ht.sweep(*b_in))
+    plain_b = cuda_ms(lambda: ht.sweep_plain(*b_in), iters=2)
+    full_b = cuda_ms(lambda: ht.sweep(*waves["bounce1"], inf["bounce1"], lay), iters=2)
+    log(f"  sweep at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_b:.3f} ms, plain "
+        f"{plain_b:.3f} ms; full bounce-1 ({waves['bounce1'][0].shape[1]} lanes, "
+        f"{int(waves['bounce1'][2].sum())} live): {full_b:.3f} ms")
+
+    # kernel c: the fused walk's 2N lanes, bounce-1 paths + bounce-0 shadow pack
+    def two_n(o, d, alive, sdir, sok, scap, tgt):
+        return (torch.cat([o, o], 1).contiguous(), torch.cat([d, sdir], 1).contiguous(),
+                torch.cat([alive, sok]).contiguous(),
+                torch.cat([torch.full_like(scap, torch.inf), scap]).contiguous())
+
+    lanes = draw(pair, SAMPLE_LANES, gen)
+    c_in = two_n(*lanes)
+    tk, rk, ok_ = ht.window_walk_orig(*c_in, lay, prepass=pp_win)
+    tp, rp, op = ht.window_walk_orig_plain(*c_in, lay, prepass=pp_win)
+    torch.cuda.synchronize()
+    hit = lambda t: torch.where(t < c_in[3], t, torch.inf)  # noqa: E731
+    err_c = agree("window_walk_orig/bounce1+shadow", hit(tk), rk, hit(tp), rp)
+    if not torch.equal(ok_[rk == rp], op[rk == rp]):
+        raise AssertionError("window_walk_orig: the latched original ids differ")
+    n = SAMPLE_LANES
+    _, _, _, sdir, sok, scap, tgt = lanes
+    clear_k = ht.fused_clear(tk[n:], ok_[n:], sok, scap, tgt, eps)
+    clear_p = ht.fused_clear(tp[n:], op[n:], sok, scap, tgt, eps)
+    if not torch.equal(clear_k, clear_p):
+        raise AssertionError(f"fused clear masks differ on "
+                             f"{int((clear_k != clear_p).sum())} lanes")
+    sep = renderer._intersect(lanes[0], sdir, sok, t_max=scap)
+    sep_clear = sok & torch.where(tgt >= 0, sep.valid & (sep.t >= eps) & (sep.tri == tgt),
+                                  ~sep.valid)
+    log(f"  fused clear masks equal on all {n} shadow lanes ({int(clear_k.sum())} "
+        f"clear of {int(sok.sum())} live); against the separate capped walk on the "
+        f"leaf-8 layout they differ on {int((clear_k != sep_clear).sum())} lanes")
+    ms_c = cuda_ms(lambda: ht.window_walk_orig(*c_in, lay, prepass=pp_win))
+    plain_c = cuda_ms(lambda: ht.window_walk_orig_plain(*c_in, lay, prepass=pp_win),
+                      iters=2)
+    full_in = two_n(*pair)
+    full_c = cuda_ms(lambda: ht.window_walk_orig(*full_in, lay, prepass=pp_win))
+    log(f"  window_walk_orig at 2x{n} lanes: kernel {ms_c:.3f} ms, plain "
+        f"{plain_c:.3f} ms; full bounce-1 + shadow ({full_in[0].shape[1]} lanes): "
+        f"{full_c:.3f} ms")
+
+    # kernel d: the counting walk on bounce-1 lanes and on the shadow pack
+    o, d, alive, sdir, sok, scap, _ = draw(pair, SAMPLE_LANES, gen)
+    t_max = torch.full_like(scap, torch.inf)
+    errs_d = []
+    for which, args in (("bounce1", (o, d, alive, t_max)), ("shadow", (o, sdir, sok, scap))):
+        got = ht.window_walk_counts(*args, lay, prepass=pp_win)
+        plain = ht.window_walk_counts_plain(*args, lay, prepass=pp_win)
+        torch.cuda.synchronize()
+        cap = args[3]
+        errs_d.append(check_counts(
+            f"window_walk_counts/{which}",
+            torch.where(got[0] < cap, got[0], torch.inf), got[1], got[2], got[3],
+            (torch.where(plain[0] < cap, plain[0], torch.inf), *plain[1:])))
+    d_in = (o, d, alive, t_max, lay)
+    ms_d = cuda_ms(lambda: ht.window_walk_counts(*d_in, prepass=pp_win))
+    plain_d = cuda_ms(lambda: ht.window_walk_counts_plain(*d_in, prepass=pp_win), iters=2)
+    full_d = cuda_ms(lambda: ht.window_walk_counts(*waves["bounce1"], inf["bounce1"], lay,
+                                                   prepass=pp_win))
+    log(f"  window_walk_counts at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_d:.3f} ms, "
+        f"plain {plain_d:.3f} ms; full bounce-1: {full_d:.3f} ms")
+    src = "tpu_pathtracer_torch/csrc/"
+    ref = "tpu_pathtracer/ops/pallas_traverse.py:"
+    return [
+        {"name": "minwalk", "route": "cuda", "source": src + "minwalk.cu",
+         "replaces": ref + "106", "max_abs_err": max(errs), "payload_max_abs_err": pay,
+         "ms": ms_a, "plain_ms": plain_a, "full_ms": full_a["bounce1"],
+         "full_camera_ms": full_a["camera"], "window_full_bounce1_ms": win_b1},
+        {"name": "sweep", "route": "cuda", "source": src + "sweep.cu",
+         "replaces": ref + "1152", "max_abs_err": err_b, "ms": ms_b,
+         "plain_ms": plain_b, "full_ms": full_b},
+        {"name": "window_walk_orig", "route": "cuda", "source": src + "window_walk.cu",
+         "replaces": ref + "698", "max_abs_err": err_c, "ms": ms_c,
+         "plain_ms": plain_c, "full_ms": full_c},
+        {"name": "window_walk_counts", "route": "cuda", "source": src + "window_walk.cu",
+         "replaces": ref + "698", "max_abs_err": max(errs_d), "ms": ms_d,
+         "plain_ms": plain_d, "full_ms": full_d},
+    ]
+
+
 @contextlib.contextmanager
 def counted_run():
     """Zero every kernel's launch count and count plain-version calls on
@@ -308,7 +488,7 @@ def timed_frames(renderer) -> tuple[float, dict]:
 
 
 def stage_line(stages: dict) -> str:
-    walks = stages.get("walk_nearest", 0.0) + stages.get("walk_shadow", 0.0)
+    walks = sum(stages.get(k, 0.0) for k in ("walk_nearest", "walk_shadow", "walk_fused"))
     other = stages["sample"] - stages.get("sort", 0.0) - walks
     return ("  stages (ms, one frame): " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(stages.items()))
@@ -341,9 +521,9 @@ def phase_main_path(renderer) -> dict:
         raise AssertionError(f"main path image not finite / wrong shape {img.shape}")
     if min(launches["window_walk"], launches["capped_walk"]) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if launches["anyhit_walk"]:
-        raise AssertionError(f"the env-free main path launched the any-hit walk: "
-                             f"{launches}")
+    extra = {k: launches[k] for k in KERNELS[2:] if launches[k]}
+    if extra:
+        raise AssertionError(f"the default main path launched other kernels: {extra}")
     if any(plain_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
     return launches
@@ -360,16 +540,23 @@ def check_parity(what: str, img, gold) -> dict:
     return m
 
 
-def phase_parity() -> dict:
+def phase_parity(variant: str | None = None) -> dict:
+    """The self-golden gate for the default config or one of VARIANTS."""
     from tpu_pathtracer_torch import Renderer, RenderConfig
     from tpu_pathtracer_torch.io.exr import read_exr
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
     here = os.path.dirname(os.path.abspath(__file__))
     gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
-    r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8))
+    kw, kernel = VARIANTS[variant] if variant else ({}, "window_walk")
+    n0 = getattr(ht, kernel).launches
+    r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8,
+                                               **kw))
     r.run(16)
-    return check_parity("parity vs self-golden (150x200, depth 8, 16 frames)",
-                        r.image(), gold)
+    if getattr(ht, kernel).launches == n0:
+        raise AssertionError(f"parity run {variant} never launched {kernel}")
+    return check_parity(f"parity{f' ({variant})' if variant else ''} vs self-golden "
+                        "(150x200, depth 8, 16 frames)", r.image(), gold)
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, float]:
@@ -385,6 +572,14 @@ def run_cli(argv: list[str]) -> tuple[int, str, float]:
     for line in buf.getvalue().splitlines():
         log(f"  | {line}")
     return rc, buf.getvalue(), seconds
+
+
+def kernel_kind(name: str) -> str:
+    """A profiler kernel name -> the port's kernel it launches ("torch ops"
+    for any other).  Matched on the kernels' own symbols (``sweep_kernel``,
+    ...): CUB's radix sort has ``Upsweep``/``Downsweep`` kernels, and the
+    window walk's variants share ``window_walk_kernel``."""
+    return next((k for k in KERNELS if re.search(rf"\b{k}_kernel\b", name)), "torch ops")
 
 
 @contextlib.contextmanager
@@ -486,7 +681,7 @@ def phase_cli_env(tmp: str) -> dict:
         events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     by_kind: dict[str, float] = {}
     for e in events:
-        kind = next((k for k in KERNELS if k in e["name"]), "torch ops")
+        kind = kernel_kind(e["name"])
         by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
     if not events:
         log("  profiler, one env-lit frame: the trace holds no device kernels "
@@ -519,6 +714,47 @@ def phase_env_parity() -> dict:
                         "16 frames)", imgs["auto"], imgs["off"])
 
 
+def phase_bench() -> dict:
+    """``tpu_pathtracer_torch.bench.main`` at 1920x1080, depth 8: the
+    default flags with 5 frames, then each of VARIANTS with 3 frames and no
+    utilization block.  Returns each bench kernel's launches in the run
+    that drives it."""
+    from tpu_pathtracer_torch import bench
+
+    runs = [("default", ["--frames", "5"], ("window_walk", "capped_walk",
+                                            "window_walk_counts"))]
+    flags = {"minwalk": ["--kernel", "minwalk"], "sweep": ["--kernel", "sweep"],
+             "fused": ["--fuse-shadow"]}
+    runs += [(v, flags[v] + ["--frames", "3", "--no-utilization"], (k,))
+             for v, (_, k) in VARIANTS.items()]
+    launches = {}
+    for name, argv, kernels in runs:
+        buf = io.StringIO()
+        with counted_run() as run, contextlib.redirect_stdout(buf):
+            rc = bench.main(["--width", str(WIDTH), "--height", str(HEIGHT),
+                             "--depth", "8"] + argv)
+        line = buf.getvalue().strip().splitlines()[-1]
+        log(f"bench {name}: {line}")
+        out = json.loads(line)
+        log(f"  kernel launches: {run['launches']}; plain versions on CUDA tensors: "
+            f"{run['plain_cuda']}")
+        if rc or not out["finite"] or out["value"] <= 0 or out["rays_traced_per_frame"] <= 0:
+            raise AssertionError(f"bench {name}: rc {rc}, {out}")
+        if out["package"] != "tpu_pathtracer_torch" or "," not in out["device"]:
+            raise AssertionError(f"bench {name}: package/device fields {out}")
+        if any(run["plain_cuda"].values()):
+            raise AssertionError(f"bench {name}: plain versions ran on CUDA tensors")
+        if min(run["launches"][k] for k in kernels) <= 0:
+            raise AssertionError(f"bench {name} never launched {kernels}: "
+                                 f"{run['launches']}")
+        if name == "default":
+            u = out["utilization"]
+            if not u["spent_lane_ops_per_ray"] >= u["useful_lane_ops_per_ray"] > 0:
+                raise AssertionError(f"bench utilization block: {u}")
+        launches[kernels[-1]] = run["launches"][kernels[-1]]
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -528,7 +764,7 @@ def main() -> int:
     from tpu_pathtracer_torch import Renderer
 
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    kernels = phase_kernels(renderer)
+    kernels = phase_kernels(renderer) + phase_bench_kernels(renderer)
     launches = phase_main_path(renderer)
     phase_parity()
     del renderer
@@ -536,6 +772,9 @@ def main() -> int:
         env_launches = phase_cli_env(tmp)
     phase_env_parity()
     launches["anyhit_walk"] = env_launches["anyhit_walk"]
+    launches.update(phase_bench())
+    for variant in VARIANTS:
+        phase_parity(variant)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(smi)

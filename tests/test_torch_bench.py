@@ -1,0 +1,100 @@
+"""tpu_pathtracer_torch.bench on the CPU: one JSON line with the root
+bench.py's fields, its exact ray count, and the flags that are not ported
+yet.  Counts exact (integers)."""
+
+import contextlib
+import io
+import json
+
+import pytest
+
+from tpu_pathtracer_torch import RenderConfig, bench
+from tpu_pathtracer_torch.render.stats import count_traced_rays_exact
+from tpu_pathtracer_torch.scene import load_scene, scene_path
+
+# the fields of the root bench.py's line (bench.py:233-253), less
+# vs_baseline (the TPU north star)
+REFERENCE_FIELDS = {
+    "metric", "value", "unit", "hud_mrays_per_s", "rays_traced_per_frame",
+    "ms_per_frame", "mean_ms_per_frame", "best_ms_per_frame", "best_mrays_per_s",
+    "frame_times_ms", "spp_per_sec", "scene", "resolution", "path_depth", "device",
+    "mesh", "finite", "image_mean", "traced_count_s",
+}
+TINY = ["--platform", "cpu", "--width", "32", "--height", "24", "--depth", "3",
+        "--frames", "1", "--warmup", "0"]
+
+
+def run_bench(argv) -> dict:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert bench.main(argv) == 0
+    lines = buf.getvalue().strip().splitlines()
+    assert len(lines) == 1
+    return json.loads(lines[0])
+
+
+@pytest.mark.parametrize("flags,cfg", [
+    ([], {}),
+    (["--kernel", "sweep", "--no-utilization"], {"traversal_kernel": "sweep"}),
+    (["--fuse-shadow", "--no-utilization"], {"fuse_shadow_walk": True}),
+], ids=["default", "sweep", "fused"])
+def test_bench_prints_one_line(flags, cfg):
+    """The line carries the reference's fields plus package; its ray count
+    is the exact count of the measured frame; the default run carries the
+    utilization block."""
+    out = run_bench(TINY + flags)
+    assert REFERENCE_FIELDS <= set(out) and "vs_baseline" not in out
+    assert out["package"] == "tpu_pathtracer_torch" and out["device"] == "cpu"
+    assert out["finite"] and out["ms_per_frame"] > 0 and out["resolution"] == "32x24"
+    # value: traced Mrays/s over the median frame, rounded to 3 decimals (a
+    # slow CPU frame can round it to 0)
+    mrays = out["rays_traced_per_frame"] / out["ms_per_frame"] / 1e3
+    assert abs(out["value"] - mrays) <= 1e-3
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device="cpu")
+    want = count_traced_rays_exact(scene, RenderConfig(max_path_length=3, **cfg),
+                                   24, 32, frame_indices=(0,))
+    assert out["rays_traced_per_frame"] == int(want) > 24 * 32
+    if flags:
+        assert "utilization" not in out
+    else:
+        u = out["utilization"]
+        assert u["lane_unit"] == "warp32"
+        assert u["spent_lane_ops_per_ray"] >= u["useful_lane_ops_per_ray"] > 0
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--mesh", "2x1"], "queue 1 item 12"), (["--spp", "2"], "queue 1 item 10"),
+    (["--row-tiles", "2"], "queue 1 item 10"), (["--fuse", "2"], "queue 1 item 10"),
+    (["--prefix-sort"], "queue 1 item 10"), (["--sort-skip", "1"], "queue 1 item 10"),
+    (["--cull-zero-nee"], "queue 1 item 10"), (["--bake-materials"], "queue 1 item 10"),
+    (["--intersector", "brute"], "queue 1 item 5"),
+], ids=lambda x: x if isinstance(x, str) else " ".join(x))
+def test_bench_unported_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        bench.main(TINY + flags)
+
+
+def test_bench_needs_a_device_without_platform_cpu(monkeypatch):
+    """No silent CPU fallback: auto and gpu raise without a CUDA device."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(TINY[2:])
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void cub::DeviceRadixSortUpsweepKernel<Policy900, false, long, int>(long const*)",
+     "torch ops"),
+    ("void cub::DeviceRadixSortDownsweepKernel<Policy900, false, long, int>(long const*)",
+     "torch ops"),
+    ("void (anonymous namespace)::sweep_kernel<true>(float const*, float const*)", "sweep"),
+    ("void (anonymous namespace)::window_walk_kernel<false, true>(float const*)",
+     "window_walk"),
+    ("(anonymous namespace)::minwalk_kernel(float const*, float const*)", "minwalk"),
+], ids=["upsweep", "downsweep", "sweep", "window", "minwalk"])
+def test_profiler_kernel_kind(name, kind):
+    """chip_smoke's profiler breakdown attributes a device kernel to a port
+    kernel by its symbol: CUB's radix-sort Upsweep/Downsweep kernels are
+    torch ops, not the sweep (a substring match counted them as the sweep)."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_kind(name) == kind

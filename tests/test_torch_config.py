@@ -57,15 +57,28 @@ def test_port_imports_without_jax():
     {"refract_dielectric": True}, {"noise_mode": tcfg.NoiseMode.TILED},
     {"sampler": "r2"}, {"samples_per_frame": 2}, {"row_tiles": 2},
     {"prefix_sort": True}, {"sort_bounce_skip": "1"}, {"cull_zero_nee": True},
-    {"bake_materials": True}, {"fuse_shadow_walk": True},
-    {"traversal_kernel": "minwalk"}, {"traversal_kernel": "sweep"},
-    {"tritest": "mt"}, {"intersector": "brute"},
+    {"bake_materials": True}, {"tritest": "mt"}, {"intersector": "brute"},
     {"use_pallas": False}, {"sort_rays": False},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_config_raises(kw):
     cfg = tcfg.RenderConfig(**kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue \d item \d+"):
         tcfg.check_supported(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    {"fuse_shadow_walk": True}, {"traversal_kernel": "minwalk"},
+    {"traversal_kernel": "sweep"},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_traversal_switches_are_supported(kw):
+    """The bench's kernel switches are ported: check_supported passes and
+    the Renderer's intersector carries the fused walk."""
+    from tpu_pathtracer_torch import Renderer
+
+    cfg = tcfg.RenderConfig(**kw)
+    tcfg.check_supported(cfg)
+    r = Renderer("cornellbox", 8, 8, cfg, device="cpu")
+    assert callable(r._intersect.fused)
 
 
 def test_unsupported_entry_points_raise():

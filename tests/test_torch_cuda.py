@@ -64,6 +64,54 @@ def test_anyhit_matches_plain_on_card(name, cuda_device):
         ht.anyhit_walk(o, d, act, cap, tgt.long(), occl, 1e-4)
 
 
+@pytest.mark.parametrize("kernel", ["minwalk", "sweep", "window_walk_orig",
+                                    "window_walk_counts"])
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_bench_kernels_match_plain_on_card(name, kernel, cuda_device):
+    """The bench's four kernels == their plain versions on the same card:
+    t bit-equal, ids equal except equal-t ties on >= 99.99% of the hits;
+    minwalk's payload to atol 1e-6 (rsqrt); the latched original id equal
+    where the rows agree; the counting walk's useful rows exact and its
+    warp-issued spent within the warp bounds and equal across each warp."""
+    scene = load_scene(scene_path(name), device=cuda_device)
+    lay = build_layout(scene, 56)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=13))
+    act = torch.arange(8192, device=cuda_device) % 9 != 4
+    t_max = torch.where(torch.arange(8192, device=cuda_device) % 3 == 0, 1.5,
+                        torch.inf).contiguous()
+    fn = getattr(ht, kernel)
+    n0 = fn.launches
+    if kernel == "minwalk":
+        outk = ht.minwalk(o, d, act, t_max, lay, prepass=32)
+        outp = ht.minwalk_plain(o, d, act, t_max, lay, prepass=32)
+        hit = lambda out: torch.where(out[0] < t_max, out[0], torch.inf).cpu()  # noqa: E731
+        same = assert_hits_agree(hit(outk), outk[3].cpu(), hit(outp), outp[3].cpu(),
+                                 rtol=0, atol=0, min_agree=0.9999)
+        np.testing.assert_allclose(outk[6:].cpu().numpy()[:, same],
+                                   outp[6:].cpu().numpy()[:, same], rtol=0, atol=1e-6)
+    elif kernel == "sweep":
+        tk, rk, ok_ = ht.sweep(o, d, act, t_max, lay, with_orig=True)
+        tp, rp, op = ht.sweep_plain(o, d, act, t_max, lay, with_orig=True)
+        assert torch.equal(tk, tp) and torch.equal(rk, rp) and torch.equal(ok_, op)
+    elif kernel == "window_walk_orig":
+        tk, rk, ok_ = ht.window_walk_orig(o, d, act, t_max, lay)
+        tp, rp, op = ht.window_walk_orig_plain(o, d, act, t_max, lay)
+        hit = lambda t: torch.where(t < t_max, t, torch.inf).cpu()  # noqa: E731
+        same = assert_hits_agree(hit(tk), rk.cpu(), hit(tp), rp.cpu(), rtol=0,
+                                 atol=0, min_agree=0.9999)
+        assert torch.equal(ok_.cpu()[same], op.cpu()[same])
+        assert (ok_.cpu()[~torch.isfinite(hit(tk))] == -1).all()
+    else:
+        tk, rk, useful, spent = ht.window_walk_counts(o, d, act, t_max, lay)
+        tp, rp, up, lo, hi = ht.window_walk_counts_plain(o, d, act, t_max, lay)
+        assert torch.equal(tk, tp) and torch.equal(rk, rp)
+        assert torch.equal(useful, up)
+        assert bool(((lo <= spent) & (spent <= hi)).all())
+        assert bool((spent.view(-1, 32) == spent.view(-1, 32)[:, :1]).all())
+        assert int(useful.sum()) > 0 and bool((useful <= spent).all())
+    assert fn.launches == n0 + 1
+
+
 def test_kernel_wrappers_check_inputs(cuda_device):
     scene = load_scene(scene_path("cornellbox"), device=cuda_device)
     lay = build_layout(scene, 8)

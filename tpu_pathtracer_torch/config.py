@@ -90,8 +90,10 @@ class RenderConfig:
     # here (one thread per ray); it still sets the pixel block order
     # (render/order.py), which does not change the image.
     traversal_tile: int = 1536
-    # Nearest-hit kernel: "window" is the one ported (per-thread walk);
-    # "minwalk" and "sweep" are not ported yet.
+    # Nearest-hit kernel: "window" (csrc/window_walk.cu), "minwalk" (MT rows
+    # with the payload resolved in-kernel, csrc/minwalk.cu) or "sweep" (the
+    # dense march for incoherent bounces, csrc/sweep.cu; camera rays keep
+    # the window walk).
     traversal_kernel: str = "window"
     # TPU-only (inert): window chain depth of the TPU window kernel.
     traversal_chain: int = 4
@@ -104,7 +106,8 @@ class RenderConfig:
     secondary_window: int = 8
     secondary_mtblock: int = 16
     secondary_chain: int = 6
-    # TPU-only (inert): dense-sweep kernel tile and row block.
+    # TPU-only (inert): dense-sweep kernel tile and row block (the sweep
+    # here is one thread per ray over every row).
     sweep_tile: int = 6144
     sweep_mtblock: int = 56
     # TPU-only (inert): ray-tile width of the TPU occlusion kernel.
@@ -116,7 +119,8 @@ class RenderConfig:
     # Leaf triangle test: "bw" (Baldwin-Weber planes, ported) or "mt"
     # (Moller-Trumbore window variant, not ported yet).
     tritest: str = "bw"
-    # One fused path+shadow walk per bounce (not ported yet).
+    # One fused path+shadow walk per bounce: the bounce's nearest hit and
+    # the previous bounce's shadow query share one 2N-lane launch.
     fuse_shadow_walk: bool = False
     # BVH leaf sizes: nearest-hit layout and the shadow-query layout (None =
     # share the nearest-hit layout).  Both were tuned for TPU tiles; a
@@ -224,11 +228,6 @@ _UNSUPPORTED = (
     (lambda c: bool(c.sort_bounce_skip), "sort_bounce_skip", "queue 1 item 10"),
     (lambda c: c.cull_zero_nee, "cull_zero_nee", "queue 1 item 10"),
     (lambda c: c.bake_materials, "bake_materials", "queue 1 item 10"),
-    (lambda c: c.fuse_shadow_walk, "fuse_shadow_walk", "queue 2 item 7"),
-    (lambda c: c.traversal_kernel == "minwalk", "traversal_kernel='minwalk'",
-     "queue 2 item 3"),
-    (lambda c: c.traversal_kernel == "sweep", "traversal_kernel='sweep'",
-     "queue 2 item 9"),
     (lambda c: c.tritest != "bw", "tritest='mt'", "queue 2 item 5"),
     (lambda c: c.intersector != "bvh", "intersector='brute' as a frame backend",
      "queue 1 item 5"),

@@ -14,6 +14,23 @@
 // winner as _argmin_pick's lowest-row rule.  best_t starts at t_max.
 // Inactive lanes write (t_max, num_tris).
 //
+// Two compile-time variants of the same walk replace the TPU kernel's flags:
+//
+// * kOrig (with_orig=True, the fused path+shadow walk): also latches the
+//   winner's original triangle id (BW col 13; -1 on a miss), so the shadow
+//   lanes' nearest-hit-is-the-target test needs no gather.
+// * kCounts (with_counts=True, the walk-utilization telemetry): two int32
+//   rows beside the hits.  useful = the leaf rows this lane tested (the sum
+//   of count over the leaves whose box it entered; prepass rows excluded) --
+//   hardware-independent.  spent = n_prepass + the leaf-row test slots this
+//   lane's WARP issued: the TPU charged every lane of a ray tile for each row
+//   the tile tested, and Hopper's lockstep unit is the 32-lane warp, so at
+//   each leaf-row iteration the lowest lane of __activemask() counts one
+//   slot for the warp, and every lane of the warp writes the warp's total.
+//   spent depends on how the warp's lanes diverge and reconverge, so it lies
+//   between n_prepass + max(useful) and n_prepass + sum(useful) over the
+//   warp's 32 consecutive lanes.
+//
 // What bounds it on an H100: the scene tables are small (Water-plastic at
 // leaf 56: 18 KB of nodes, 459 KB of BW rows) and stay in the 50 MB L2 for
 // the whole frame, so the walk is bound by per-thread divergence and the
@@ -24,42 +41,25 @@
 
 namespace {
 
-// One Baldwin-Weber row [n0 d0 | n1 d1 | n2 d2 | leaf orig pad2] against a
-// ray whose origin is already anchored (o - anchor): the op order of the
-// reference's _hit8 "bw" branch.
-__device__ __forceinline__ bool bw_row(const float* __restrict__ row,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       float t_min, float* t_out) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
-  const float4 c = __ldg(reinterpret_cast<const float4*>(row) + 2);
-  const float den = a.x * dx + a.y * dy + a.z * dz;
-  const float num = a.x * ox + a.y * oy + a.z * oz + a.w;
-  const float inv = den != 0.0f ? 1.0f / den : 0.0f;
-  const float tt = -num * inv;
-  const float px = ox + tt * dx;
-  const float py = oy + tt * dy;
-  const float pz = oz + tt * dz;
-  const float u = b.x * px + b.y * py + b.z * pz + b.w;
-  const float v = c.x * px + c.y * py + c.z * pz + c.w;
-  *t_out = tt;
-  return (den != 0.0f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-         (tt > t_min);
-}
-
+template <bool kOrig, bool kCounts>
 __global__ void window_walk_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const unsigned char* __restrict__ active, const float* __restrict__ t_max,
     const float* __restrict__ nodes, const int* __restrict__ meta,
     const float* __restrict__ tris, const float* __restrict__ pre,
     int n_prepass, float ax, float ay, float az, int num_nodes, int num_tris,
-    float t_min, int n, float* __restrict__ out_t, int* __restrict__ out_row) {
+    float t_min, int n, float* __restrict__ out_t, int* __restrict__ out_row,
+    int* __restrict__ out_orig, int* __restrict__ out_spent,
+    int* __restrict__ out_useful) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float best_t = t_max[i];
+  // the counting variant keeps every lane of the warp to the final warp sum
+  if (!kCounts && i >= n) return;
+  const bool lane = kCounts ? i < n : true;
+  float best_t = lane ? t_max[i] : 0.0f;
   int best_row = num_tris;
-  if (active[i]) {
+  float best_orig = -1.0f;
+  int useful = 0, slots = 0;
+  if (lane && active[i]) {
     const float ox = o[i], oy = o[n + i], oz = o[2 * n + i];
     const float dx = d[i], dy = d[n + i], dz = d[2 * n + i];
     const float ix = tpupt::safe_inv(dx);
@@ -72,9 +72,10 @@ __global__ void window_walk_kernel(
     // phase 0: big-triangle prepass; col 12 holds the global row id
     for (int k = 0; k < n_prepass; ++k) {
       const float* row = pre + 16 * k;
-      if (bw_row(row, bx, by, bz, dx, dy, dz, t_min, &tt) && tt < best_t) {
+      if (tpupt::bw_row(row, bx, by, bz, dx, dy, dz, t_min, &tt) && tt < best_t) {
         best_t = tt;
         best_row = static_cast<int>(__ldg(row + 12));
+        if (kOrig) best_orig = __ldg(row + 13);
       }
     }
 
@@ -88,18 +89,54 @@ __global__ void window_walk_kernel(
       if (hit && count > 0) {
         const int first = m.y >> 6;
         for (int k = 0; k < count; ++k) {
-          if (bw_row(tris + 16 * (first + k), bx, by, bz, dx, dy, dz, t_min, &tt) &&
+          if (kCounts) {
+            const unsigned mask = __activemask();
+            if ((threadIdx.x & 31) == __ffs(mask) - 1) ++slots;
+            ++useful;
+          }
+          const float* row = tris + 16 * (first + k);
+          if (tpupt::bw_row(row, bx, by, bz, dx, dy, dz, t_min, &tt) &&
               tt < best_t) {
             best_t = tt;
             best_row = first + k;
+            if (kOrig) best_orig = __ldg(row + 13);
           }
         }
       }
       cur = (hit && count == 0) ? cur + 1 : m.x;
     }
   }
-  out_t[i] = best_t;
-  out_row[i] = best_row;
+  if (kCounts) {
+    const int warp_slots = __reduce_add_sync(0xffffffffu, slots);
+    if (lane) {
+      out_spent[i] = n_prepass + warp_slots;
+      out_useful[i] = useful;
+    }
+  }
+  if (lane) {
+    out_t[i] = best_t;
+    out_row[i] = best_row;
+    if (kOrig) out_orig[i] = static_cast<int>(best_orig);
+  }
+}
+
+template <bool kOrig, bool kCounts>
+int launch(const float* o, const float* d, const unsigned char* active,
+           const float* t_max, const float* nodes, const int* meta,
+           const float* tris, const float* pre, int n_prepass, float ax,
+           float ay, float az, int num_nodes, int num_tris, float t_min, int n,
+           float* out_t, int* out_row, int* out_orig, int* out_spent,
+           int* out_useful, void* stream) {
+  if (n > 0) {
+    const int threads = 128;  // a multiple of 32: warps are 32 consecutive lanes
+    const int blocks = (n + threads - 1) / threads;
+    window_walk_kernel<kOrig, kCounts>
+        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            o, d, active, t_max, nodes, meta, tris, pre, n_prepass, ax, ay, az,
+            num_nodes, num_tris, t_min, n, out_t, out_row, out_orig, out_spent,
+            out_useful);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -110,12 +147,32 @@ extern "C" int tpupt_window_walk(
     const float* pre, int n_prepass, float ax, float ay, float az,
     int num_nodes, int num_tris, float t_min, int n, float* out_t, int* out_row,
     void* stream) {
-  if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    window_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, active, t_max, nodes, meta, tris, pre, n_prepass, ax, ay, az,
-        num_nodes, num_tris, t_min, n, out_t, out_row);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, false>(o, d, active, t_max, nodes, meta, tris, pre,
+                              n_prepass, ax, ay, az, num_nodes, num_tris, t_min,
+                              n, out_t, out_row, nullptr, nullptr, nullptr,
+                              stream);
+}
+
+extern "C" int tpupt_window_walk_orig(
+    const float* o, const float* d, const unsigned char* active,
+    const float* t_max, const float* nodes, const int* meta, const float* tris,
+    const float* pre, int n_prepass, float ax, float ay, float az,
+    int num_nodes, int num_tris, float t_min, int n, float* out_t, int* out_row,
+    int* out_orig, void* stream) {
+  return launch<true, false>(o, d, active, t_max, nodes, meta, tris, pre,
+                             n_prepass, ax, ay, az, num_nodes, num_tris, t_min,
+                             n, out_t, out_row, out_orig, nullptr, nullptr,
+                             stream);
+}
+
+extern "C" int tpupt_window_walk_counts(
+    const float* o, const float* d, const unsigned char* active,
+    const float* t_max, const float* nodes, const int* meta, const float* tris,
+    const float* pre, int n_prepass, float ax, float ay, float az,
+    int num_nodes, int num_tris, float t_min, int n, float* out_t, int* out_row,
+    int* out_spent, int* out_useful, void* stream) {
+  return launch<false, true>(o, d, active, t_max, nodes, meta, tris, pre,
+                             n_prepass, ax, ay, az, num_nodes, num_tris, t_min,
+                             n, out_t, out_row, nullptr, out_spent, out_useful,
+                             stream);
 }

@@ -9,7 +9,19 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   on the leaf rows of ``tris8bw`` evaluated at ``o - anchor``.  Returns
   ``(t, row)``; :func:`resolve_window_payload` then recomputes u/v and the
   shading payload from one row gather of ``tris`` (plain torch, as the TPU
-  path left it to XLA).
+  path left it to XLA).  Two compile-time variants of the same source
+  replace the TPU kernel's flags: ``window_walk_orig`` (``with_orig``, the
+  fused path+shadow walk) also latches the winner's original triangle id;
+  ``window_walk_counts`` (``with_counts``, the walk-utilization telemetry)
+  also counts the leaf rows each lane tested and the row-test slots its
+  32-lane warp issued.
+* **minwalk** (``csrc/minwalk.cu``, replaces ``_traverse_kernel`` with
+  ``resolve=True`` and the prepass; cfg.traversal_kernel="minwalk"):
+  nearest hit over the leaf-56 layout's Moller-Trumbore rows with the
+  shading payload read from the winning row in the kernel.
+* **sweep** (``csrc/sweep.cu``, replaces ``_sweep_kernel``;
+  cfg.traversal_kernel="sweep"): every active lane against every BW row,
+  no navigation, for incoherent nearest-hit queries.
 * **capped walk** (``csrc/capped_walk.cu``, replaces ``_traverse_kernel``
   with ``resolve=False, prepass=0``): the range-capped shadow query over the
   leaf-8 layout with Moller-Trumbore rows; returns t, u, v and the original
@@ -155,12 +167,17 @@ def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test, stop=None):
 # Kernel A: nearest-hit window walk (BW rows)
 # ---------------------------------------------------------------------------
 
-def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                      prepass: int = DEFAULT_PREPASS):
-    """Plain torch version of ``csrc/window_walk.cu`` -> (t (N,) f32, row
-    (N,) int32); inactive lanes get (t_max, num_tris)."""
-    best_t = t_max.clone()
-    best_row = torch.full_like(t_max, lay.num_tris, dtype=torch.int32)
+def _window_plain(o, d, active, t_max, lay: BVHLayout, t_min: float, prepass: int,
+                  orig: bool = False, counts: bool = False):
+    """The window walk's plain version and its two variants -> (t, row) plus
+    the latched original triangle id (int32, -1 on a miss) with ``orig``
+    and the per-lane useful leaf-row count (int32) with ``counts``."""
+    n = o.shape[1]
+    best = [t_max.clone(), torch.full_like(t_max, lay.num_tris, dtype=torch.int32)]
+    if orig:
+        best.append(torch.full((n,), -1, dtype=torch.int32, device=o.device))
+    if counts:
+        best.append(torch.zeros(n, dtype=torch.int32, device=o.device))
     ax, ay, az = lay.anchor
     ob = torch.stack([o[0] - ax, o[1] - ay, o[2] - az])
 
@@ -170,21 +187,63 @@ def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         ol = tuple(c[act][:, None] for c in ob)
         dl = tuple(c[act][:, None] for c in d)
         tt, ok = _bw(rows[None], ol, dl, t_min)
-        bt, br, _, _ = _latch(tt, ok, best_t[act], best_row[act],
-                              rows[:, 12].to(torch.int32))
-        best_t[act] = bt
-        best_row[act] = br
+        bt, br, upd, kmin = _latch(tt, ok, best[0][act], best[1][act],
+                                   rows[:, 12].to(torch.int32))
+        best[0][act] = bt
+        best[1][act] = br
+        if orig:
+            best[2][act] = torch.where(upd, rows[:, 13].to(torch.int32)[kmin],
+                                       best[2][act])
 
     def leaf_test(lanes, rowid, valid, best):
         rows = lay.tris8bw[rowid]
         tt, ok = _bw(rows, tuple(c[lanes][:, None] for c in ob),
                      tuple(c[lanes][:, None] for c in d), t_min)
-        bt, br, _, _ = _latch(tt, ok & valid, best[0], best[1],
-                              rowid.to(torch.int32))
-        return bt, br
+        bt, br, upd, kmin = _latch(tt, ok & valid, best[0], best[1],
+                                   rowid.to(torch.int32))
+        new = [bt, br]
+        if orig:
+            pick = rows[..., 13].gather(1, kmin[:, None])[:, 0].to(torch.int32)
+            new.append(torch.where(upd, pick, best[2]))
+        if counts:
+            new.append(best[-1] + valid.sum(1).to(torch.int32))
+        return tuple(new)
 
-    _walk(o, d, active, lay, t_min, (best_t, best_row), leaf_test)
-    return best_t, best_row
+    _walk(o, d, active, lay, t_min, tuple(best), leaf_test)
+    return tuple(best)
+
+
+def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                      prepass: int = DEFAULT_PREPASS):
+    """Plain torch version of ``csrc/window_walk.cu`` -> (t (N,) f32, row
+    (N,) int32); inactive lanes get (t_max, num_tris)."""
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass)
+
+
+def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
+                   t_min: float, prepass: int, extra: int):
+    """Check the inputs and launch ``tpupt_<variant>`` -> (t, row, *extra
+    int32 rows)."""
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    _check_layout(lay, ("nodes", "nodes_meta", "tris8bw", "prepassbw"), o.device)
+    if not 0 <= prepass <= lay.prepassbw.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {lay.prepassbw.shape[0]}]")
+    out_t = torch.empty(n, dtype=torch.float32, device=o.device)
+    outs = [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(1 + extra)]
+    ax, ay, az = lay.anchor
+    rc = getattr(load_library(), f"tpupt_{variant}")(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris8bw.data_ptr(),
+        lay.prepassbw.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
+        lay.num_tris, t_min, n, out_t.data_ptr(), *(x.data_ptr() for x in outs),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+    return (out_t, *outs)
 
 
 def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
@@ -196,30 +255,80 @@ def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     float32 (best_t seed); ``prepass``: leading rows of ``lay.prepassbw``."""
     if o.device.type == "cpu":
         return window_walk_plain(o, d, active, t_max, lay, t_min, prepass)
-    n = o.shape[1]
-    _check(o, torch.float32, (3, n), "o")
-    _check(d, torch.float32, (3, n), "d")
-    _check(active, torch.bool, (n,), "active")
-    _check(t_max, torch.float32, (n,), "t_max")
-    _check_layout(lay, ("nodes", "nodes_meta", "tris8bw", "prepassbw"), o.device)
-    if not 0 <= prepass <= lay.prepassbw.shape[0]:
-        raise ValueError(f"prepass={prepass} outside [0, {lay.prepassbw.shape[0]}]")
-    out_t = torch.empty(n, dtype=torch.float32, device=o.device)
-    out_row = torch.empty(n, dtype=torch.int32, device=o.device)
-    ax, ay, az = lay.anchor
-    rc = load_library().tpupt_window_walk(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris8bw.data_ptr(),
-        lay.prepassbw.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
-        lay.num_tris, t_min, n, out_t.data_ptr(), out_row.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"window_walk kernel launch failed: cudaError {rc}")
+    out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass, 0)
     window_walk.launches += 1
-    return out_t, out_row
+    return out
 
 
 window_walk.launches = 0
+
+
+def window_walk_orig_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                           prepass: int = DEFAULT_PREPASS):
+    """Plain version of the window walk's ``kOrig`` variant -> (t, row, orig
+    (N,) int32, -1 where nothing was latched)."""
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, orig=True)
+
+
+def window_walk_orig(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                     prepass: int = DEFAULT_PREPASS):
+    """The window walk that also latches the winner's original triangle id
+    (replaces ``_window_kernel`` with ``with_orig=True``) -> (t, row, orig);
+    inputs as :func:`window_walk`."""
+    if o.device.type == "cpu":
+        return window_walk_orig_plain(o, d, active, t_max, lay, t_min, prepass)
+    out = _launch_window("window_walk_orig", o, d, active, t_max, lay, t_min,
+                         prepass, 1)
+    window_walk_orig.launches += 1
+    return out
+
+
+window_walk_orig.launches = 0
+
+
+def warp_spent_bounds(useful, n_prepass: int):
+    """The bounds of the counting walk's ``spent`` per warp of 32 consecutive
+    lanes -> (lo, hi) int32: ``n_prepass + max(useful)`` (the warp issued at
+    least the busiest lane's row tests) and ``n_prepass + sum(useful)`` (it
+    never issued a row test that no lane needed)."""
+    n = useful.shape[0]
+    u = torch.nn.functional.pad(useful, (0, (-n) % 32)).view(-1, 32)
+    lo = u.max(dim=1).values.repeat_interleave(32)[:n] + n_prepass
+    hi = u.sum(dim=1).repeat_interleave(32)[:n] + n_prepass
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def window_walk_counts_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                             prepass: int = DEFAULT_PREPASS):
+    """Plain version of the window walk's ``kCounts`` variant -> (t, row,
+    useful, spent_lo, spent_hi).  ``useful`` is exact; ``spent`` depends on
+    how the card schedules a warp, so the plain version returns its bounds
+    (:func:`warp_spent_bounds`)."""
+    t, row, useful = _window_plain(o, d, active, t_max, lay, t_min, prepass,
+                                   counts=True)
+    return (t, row, useful, *warp_spent_bounds(useful, prepass))
+
+
+def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                       prepass: int = DEFAULT_PREPASS):
+    """The window walk with lane-op telemetry (replaces ``_window_kernel``
+    with ``with_counts=True``) -> (t, row, useful, spent), all per lane;
+    ``useful`` = leaf rows this lane tested, ``spent`` = ``prepass`` + the
+    leaf-row test slots its warp issued (csrc/window_walk.cu).  A CPU has no
+    warps: for CPU tensors ``spent`` is the plain version's lower bound, the
+    slots of a warp that reconverges perfectly (``prepass`` + its busiest
+    lane's rows)."""
+    if o.device.type == "cpu":
+        t, row, useful, lo, _ = window_walk_counts_plain(o, d, active, t_max, lay,
+                                                         t_min, prepass)
+        return t, row, useful, lo
+    t, row, spent, useful = _launch_window("window_walk_counts", o, d, active,
+                                           t_max, lay, t_min, prepass, 2)
+    window_walk_counts.launches += 1
+    return t, row, useful, spent
+
+
+window_walk_counts.launches = 0
 
 
 def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
@@ -271,16 +380,191 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
 def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
                          t_max=None, prepass: int = DEFAULT_PREPASS) -> HitShade:
     """(3, N) rays -> fully resolved nearest-hit HitShade."""
+    o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
+    t, row = window_walk(o, d, active, t_max, lay, t_min, window_prepass(lay, prepass))
+    return resolve_window_payload(lay, t, row, t_max, o, d)
+
+
+def _nearest_inputs(o, d, active, t_max):
+    """Contiguous (o, d, active, t_max) for a nearest-hit kernel; ``active``
+    None = every lane, ``t_max`` None = unbounded."""
     n = o.shape[1]
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=o.device)
     t_max = (torch.full((n,), torch.inf, device=o.device) if t_max is None
              else torch.broadcast_to(t_max, (n,)).to(torch.float32).contiguous())
+    return o.contiguous(), d.contiguous(), active.contiguous(), t_max
+
+
+def window_prepass(lay: BVHLayout, prepass: int) -> int:
+    """Prepass rows the window walk tests: whole 8-row blocks, as the
+    reference's window kernel."""
     prepass = min(prepass, lay.prepassbw.shape[0], lay.num_tris)
-    prepass -= prepass % 8  # the reference tests whole 8-row blocks
-    o = o.contiguous()
-    d = d.contiguous()
-    t, row = window_walk(o, d, active.contiguous(), t_max, lay, t_min, prepass)
+    return prepass - prepass % 8
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: minwalk, nearest hit on MT rows with the payload resolved in-kernel
+# ---------------------------------------------------------------------------
+
+def minwalk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                  prepass: int = DEFAULT_PREPASS):
+    """Plain torch version of ``csrc/minwalk.cu`` -> (12, N) float32 rows
+    [t, u, v, orig, mat, light+1, pos.xyz, normal.xyz]; t stays at t_max
+    where nothing nearer was hit, and such lanes resolve the sentinel row."""
+    n = o.shape[1]
+    zeros = torch.zeros(n, device=o.device)
+    best_t, best_u, best_v = t_max.clone(), zeros.clone(), zeros.clone()
+    best_row = torch.full((n,), lay.num_tris, dtype=torch.int64, device=o.device)
+
+    act = active.nonzero()[:, 0]
+    if prepass and act.numel():
+        rows = lay.prepass[:prepass]
+        tt, u, v, ok = _mt(rows[None], tuple(c[act][:, None] for c in o),
+                           tuple(c[act][:, None] for c in d), t_min)
+        bt, br, upd, kmin = _latch(tt, ok, best_t[act], best_row[act],
+                                   rows[:, 21].to(torch.int64))
+        pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
+        best_u[act] = torch.where(upd, pick(u), best_u[act])
+        best_v[act] = torch.where(upd, pick(v), best_v[act])
+        best_t[act] = bt
+        best_row[act] = br
+
+    def leaf_test(lanes, rowid, valid, best):
+        tt, u, v, ok = _mt(lay.tris[rowid], tuple(c[lanes][:, None] for c in o),
+                           tuple(c[lanes][:, None] for c in d), t_min)
+        bt, br, upd, kmin = _latch(tt, ok & valid, best[0], best[1], rowid)
+        pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
+        return (bt, br, torch.where(upd, pick(u), best[2]),
+                torch.where(upd, pick(v), best[3]))
+
+    _walk(o, d, active, lay, t_min, (best_t, best_row, best_u, best_v), leaf_test)
+    rows = lay.tris[best_row]
+    u, v = best_u, best_v
+    w0 = 1.0 - u - v
+    pos = [rows[:, k] + u * rows[:, k + 3] + v * rows[:, k + 6] for k in range(3)]
+    nrm = [rows[:, 10 + k] * w0 + rows[:, 13 + k] * u + rows[:, 16 + k] * v
+           for k in range(3)]
+    rlen = torch.rsqrt(torch.clamp(nrm[0] * nrm[0] + nrm[1] * nrm[1] + nrm[2] * nrm[2],
+                                   min=1e-20))
+    return torch.stack([best_t, u, v, rows[:, 9], rows[:, 19], rows[:, 20], *pos,
+                        *(c * rlen for c in nrm)])
+
+
+def minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+            prepass: int = DEFAULT_PREPASS):
+    """Nearest hit with the in-kernel payload resolve -> (12, N) float32
+    rows (see :func:`minwalk_plain`): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  ``prepass``: leading rows of
+    ``lay.prepass`` (MT rows, col 21 = the global row id)."""
+    if o.device.type == "cpu":
+        return minwalk_plain(o, d, active, t_max, lay, t_min, prepass)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    _check_layout(lay, ("nodes", "nodes_meta", "tris", "prepass"), o.device)
+    if not 0 <= prepass <= lay.prepass.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {lay.prepass.shape[0]}]")
+    out = torch.empty((12, n), dtype=torch.float32, device=o.device)
+    rc = load_library().tpupt_minwalk(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris.data_ptr(),
+        lay.prepass.data_ptr(), prepass, lay.num_nodes, lay.num_tris, t_min, n,
+        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"minwalk kernel launch failed: cudaError {rc}")
+    minwalk.launches += 1
+    return out
+
+
+minwalk.launches = 0
+
+
+def intersect_bvh_minwalk(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
+                          t_max=None, prepass: int = DEFAULT_PREPASS) -> HitShade:
+    """(3, N) rays -> fully resolved nearest-hit HitShade through the
+    minwalk kernel (the reference's ``intersect_bvh_pallas`` with
+    ``resolve=True``)."""
+    o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
+    prepass = min(prepass, lay.prepass.shape[0], lay.num_tris)
+    out = minwalk(o, d, active, t_max, lay, t_min, prepass)
+    return HitShade(t=torch.where(out[0] < t_max, out[0], torch.inf), u=out[1],
+                    v=out[2], tri=out[3].to(torch.int64),
+                    mat=out[4].to(torch.int64), light=out[5].to(torch.int64) - 1,
+                    pos=out[6:9], normal=out[9:12])
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: dense sweep (BW rows), incoherent nearest-hit queries
+# ---------------------------------------------------------------------------
+
+SWEEP_CHUNK = 256  # rows per step of the plain version
+
+
+def sweep_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                with_orig: bool = False):
+    """Plain torch version of ``csrc/sweep.cu`` -> (t, row[, orig]): every
+    active lane against rows 0 .. num_tris-1 of ``lay.tris8bw`` in ascending
+    order (chunks of rows folded with a first-minimum pick, which equals the
+    kernel's sequential strict-< latch)."""
+    n = o.shape[1]
+    best_t = t_max.clone()
+    best_row = torch.full((n,), lay.num_tris, dtype=torch.int32, device=o.device)
+    best_orig = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    act = active.nonzero()[:, 0]
+    ax, ay, az = lay.anchor
+    ol = ((o[0, act] - ax)[:, None], (o[1, act] - ay)[:, None], (o[2, act] - az)[:, None])
+    dl = tuple(c[act][:, None] for c in d)
+    bt, br, bo = best_t[act], best_row[act], best_orig[act]
+    for r0 in range(0, lay.num_tris, SWEEP_CHUNK):
+        rows = lay.tris8bw[r0:min(r0 + SWEEP_CHUNK, lay.num_tris)]
+        tt, ok = _bw(rows[None], ol, dl, t_min)
+        ids = torch.arange(r0, r0 + rows.shape[0], dtype=torch.int32, device=o.device)
+        bt, br, upd, kmin = _latch(tt, ok, bt, br, ids)
+        bo = torch.where(upd, rows[:, 13].to(torch.int32)[kmin], bo)
+    best_t[act], best_row[act], best_orig[act] = bt, br, bo
+    return (best_t, best_row, best_orig) if with_orig else (best_t, best_row)
+
+
+def sweep(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+          with_orig: bool = False):
+    """Dense sweep -> (t (N,) f32, row (N,) int32[, orig (N,) int32]): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.  Inputs
+    as :func:`window_walk`."""
+    if o.device.type == "cpu":
+        return sweep_plain(o, d, active, t_max, lay, t_min, with_orig)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    _check_layout(lay, ("tris8bw",), o.device)
+    out_t = torch.empty(n, dtype=torch.float32, device=o.device)
+    out_row = torch.empty(n, dtype=torch.int32, device=o.device)
+    out_orig = torch.empty(n if with_orig else 0, dtype=torch.int32, device=o.device)
+    ax, ay, az = lay.anchor
+    rc = load_library().tpupt_sweep(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.tris8bw.data_ptr(), ax, ay, az, lay.num_tris, t_min, n, int(with_orig),
+        out_t.data_ptr(), out_row.data_ptr(), out_orig.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
+    sweep.launches += 1
+    return (out_t, out_row, out_orig) if with_orig else (out_t, out_row)
+
+
+sweep.launches = 0
+
+
+def intersect_bvh_sweep(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
+                        t_max=None) -> HitShade:
+    """(3, N) rays -> fully resolved nearest-hit HitShade through the dense
+    sweep and :func:`resolve_window_payload`."""
+    o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
+    t, row = sweep(o, d, active, t_max, lay, t_min)
     return resolve_window_payload(lay, t, row, t_max, o, d)
 
 
@@ -424,27 +708,76 @@ def occlusion_clear_anyhit(o, d, lay: BVHLayout, active, t_max, target,
     return clear.to(torch.bool)
 
 
+def fused_clear(ts, origs, sok, scap, target, eps: float):
+    """The shadow half of the fused walk -> (N,) bool clear: live, and the
+    nearest hit inside the cap is the target light triangle (nothing hit
+    for target -1) -- pallas_traverse.py's fused rule, gather-free from the
+    latched original id."""
+    s_hit = ts < scap  # a nearest hit latched inside the range cap
+    return sok & torch.where(target >= 0, s_hit & (ts >= eps) & (origs == target),
+                             ~s_hit)
+
+
 def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
                           t_min: float = 0.0, prepass: int = DEFAULT_PREPASS,
-                          anyhit: bool = False, eps: float = 1e-4):
+                          anyhit: bool = False, eps: float = 1e-4,
+                          kernel: str = "window"):
     """The frame's intersection callable, ``fn(o, d, active, t_max=None,
     coherent=False) -> HitShade`` (the contract of the reference's
-    ``make_pallas_intersector``): nearest-hit queries take the window walk on
-    ``lay``; ``t_max``-capped queries take the capped walk on ``lay_occl``
-    (the small-leaf shadow layout; ``lay`` when None).  ``coherent`` was a
-    TPU tile-shape hint and changes nothing here.
+    ``make_pallas_intersector``).  ``t_max``-capped queries take the capped
+    walk on ``lay_occl`` (the small-leaf shadow layout; ``lay`` when None).
+    Nearest-hit queries on ``lay`` take, by ``kernel`` (cfg.traversal_kernel):
+
+    * ``"window"``: the window walk;
+    * ``"minwalk"``: the minwalk kernel (MT rows, payload in-kernel);
+    * ``"sweep"``: the dense sweep for incoherent queries, the window walk
+      for ``coherent`` ones (camera rays).
+
+    ``fn.fused(o, d, alive, sdir, sok, scap, target) -> (HitShade, clear)``
+    is the fused path+shadow walk (cfg.fuse_shadow_walk): one 2N-lane launch
+    of the window walk with the original-id latch (the sweep's, with
+    ``kernel="sweep"``) serves the bounce's nearest hit and the previous
+    bounce's shadow query from the same origins.  The TPU interleaved the
+    two halves in half-tile blocks so each tile's union stayed small; a
+    thread walks its own lane, so ``[path | shadow]`` concatenated gives the
+    same per-lane results.  ``clear``: the nearest hit inside the cap must be
+    the target light triangle (no hit at all for target -1), as
+    :func:`render.wavefront.occlusion_clear`.
 
     With ``anyhit``, ``fn.occlusion(o, d, active, t_max, target) -> clear``
     answers shadow queries through the any-hit walk on the same shadow
     layout (render/wavefront.py:occlusion_clear uses it when present)."""
+    if kernel not in ("window", "minwalk", "sweep"):
+        raise ValueError(f"kernel={kernel!r}: expected window, minwalk or sweep")
     occl = lay_occl if lay_occl is not None else lay
 
     def fn(o, d, active, t_max=None, coherent=False):
-        del coherent
         if t_max is not None:
             return intersect_bvh_capped(o, d, occl, active, t_max, t_min)
+        if kernel == "minwalk":
+            return intersect_bvh_minwalk(o, d, lay, t_min, active, prepass=prepass)
+        if kernel == "sweep" and not coherent:
+            return intersect_bvh_sweep(o, d, lay, t_min, active)
         return intersect_bvh_window(o, d, lay, t_min, active, prepass=prepass)
 
+    def fused(o, d, alive, sdir, sok, scap, target):
+        n = o.shape[1]
+        inf = torch.full((n,), torch.inf, device=o.device)
+        scap = torch.broadcast_to(scap, (n,)).to(torch.float32)
+        o2 = torch.cat([o, o], dim=1).contiguous()
+        d2 = torch.cat([d, sdir], dim=1).contiguous()
+        act2 = torch.cat([alive, sok]).contiguous()
+        cap2 = torch.cat([inf, scap]).contiguous()
+        if kernel == "sweep":
+            t2, row2, orig2 = sweep(o2, d2, act2, cap2, lay, t_min, with_orig=True)
+        else:
+            t2, row2, orig2 = window_walk_orig(o2, d2, act2, cap2, lay, t_min,
+                                               window_prepass(lay, prepass))
+        hit = resolve_window_payload(lay, t2[:n], row2[:n], inf, o.contiguous(),
+                                     d.contiguous())
+        return hit, fused_clear(t2[n:], orig2[n:], sok, scap, target, eps)
+
+    fn.fused = fused
     if anyhit:
         def occlusion(o, d, active, t_max, target):
             return occlusion_clear_anyhit(o, d, occl, active, t_max, target,

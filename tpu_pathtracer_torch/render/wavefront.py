@@ -148,15 +148,19 @@ def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
 
 def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
                  bounce: int, state: PathState, uniforms: dict,
-                 coherent: bool = False):
+                 coherent: bool = False, hit: HitShade | None = None):
     """One wavefront stage group: intersect + shade + NEE sample
     (reference: renderer/Shaders.metal:105-211).  The NEE occlusion query
     is returned as a :class:`ShadowPack` for :func:`resolve_shadow` after
-    the next sort -> (new state, pack, {"path": n, "shadow": n})."""
+    the next sort -> (new state, pack, {"path": n, "shadow": n}).  ``hit``
+    supplies a precomputed nearest hit (the fused path+shadow walk,
+    cfg.fuse_shadow_walk) instead of tracing here."""
     eps = cfg.distance_epsilon
     aeps = cfg.angle_epsilon
 
-    hit = intersect(state.origin, state.direction, state.alive, coherent=coherent)
+    if hit is None:
+        hit = intersect(state.origin, state.direction, state.alive,
+                        coherent=coherent)
     # A hit nearer than DISTANCE_EPSILON (or a miss) kills the path
     # (reference: renderer/Shaders.metal:122-126).
     valid = state.alive & hit.valid & (hit.t >= eps)
@@ -349,19 +353,23 @@ def _splice(full: NamedTuple, prefix: NamedTuple):
 
 def _timed_intersect(intersect: IntersectFn, timer) -> IntersectFn:
     """``intersect`` with each query recorded as a timer span; the any-hit
-    ``occlusion`` hook, when present, passes through as "walk_shadow"."""
+    ``occlusion`` hook passes through as "walk_shadow" and the fused walk
+    ``fused`` as "walk_fused", when present."""
     def fn(o, d, active, t_max=None, coherent=False):
         name = "walk_nearest" if t_max is None else "walk_shadow"
         with timer.span(name):
             return intersect(o, d, active, t_max=t_max, coherent=coherent)
 
-    occl = getattr(intersect, "occlusion", None)
-    if occl is not None:
-        def occlusion(o, d, active, t_max, target):
-            with timer.span("walk_shadow"):
-                return occl(o, d, active, t_max, target)
+    def timed(name, hook):
+        def call(*args):
+            with timer.span(name):
+                return hook(*args)
+        return call
 
-        fn.occlusion = occlusion
+    for attr, name in (("occlusion", "walk_shadow"), ("fused", "walk_fused")):
+        hook = getattr(intersect, attr, None)
+        if hook is not None:
+            setattr(fn, attr, timed(name, hook))
     return fn
 
 
@@ -374,11 +382,22 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     ``with_ray_count`` also returns the EXACT number of rays the traversal
     processed (live path rays per bounce + live NEE shadow rays) as an int64
     tensor — the Mrays/s numerator.  ``timer`` (render/timing.py) records the
-    sort, walks and whole sample as CUDA-event spans."""
+    sort, walks and whole sample as CUDA-event spans.
+
+    With cfg.fuse_shadow_walk each secondary bounce makes one
+    ``intersect.fused`` call for its nearest hit and the previous bounce's
+    shadow query (the any-hit hook is then unused, as in the reference);
+    the traced-ray count is the same in both forms."""
     check_supported(cfg)
     span = timer.span if timer is not None else lambda name: contextlib.nullcontext()
     if timer is not None:
         intersect = _timed_intersect(intersect, timer)
+    fused = getattr(intersect, "fused", None) if cfg.fuse_shadow_walk else None
+    if cfg.fuse_shadow_walk and fused is None:
+        # the reference warns and walks separately; the port computes no
+        # other configuration than the one asked for
+        raise ValueError("cfg.fuse_shadow_walk needs an intersector with a "
+                         "fused walk (ops/hopper_traverse.py:make_cuda_intersector)")
     eps = cfg.distance_epsilon
     dev = scene.p0.device
     with span("sample"):
@@ -391,11 +410,24 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
         wmin, winv = scene_sort_bounds(scene)
 
-        def shade(b, st, coherent=False):
+        def shade(b, st, coherent=False, hit=None):
             uniforms = bounce_uniforms(key, frame_index, b, st.pixel,
                                        with_env=scene.env is not None)
             return trace_bounce(scene, cfg, intersect, b, st, uniforms,
-                                coherent=coherent)
+                                coherent=coherent, hit=hit)
+
+        def stage(b, st, pk):
+            """Resolve the previous bounce's shadow pack and shade bounce b;
+            with the fused walk both queries share one launch (the
+            reference's two per-bounce intersection encodes,
+            renderer/Renderer.mm:519-523,545-553, collapsed)."""
+            if fused is None:
+                return shade(b, resolve_shadow(intersect, st, pk, eps))
+            hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
+                               pk.ok, pk.cap, pk.target)
+            st = st._replace(
+                radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
+            return shade(b, st, hit=hit)
 
         # bounce 0 is camera-coherent already (block order)
         state, pack, stats = shade(0, state, coherent=True)
@@ -414,8 +446,7 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                 s = sizes[sum(live <= w for w in sizes[1:])]
             st, pk = (state, pack) if s == sizes[0] else (
                 _prefix(state, s), _prefix(pack, s))
-            st = resolve_shadow(intersect, st, pk, eps)
-            st, pk, stats = shade(b, st)
+            st, pk, stats = stage(b, st, pk)
             nrays = nrays + stats["path"] + stats["shadow"]
             if s == sizes[0]:
                 state, pack = st, pk

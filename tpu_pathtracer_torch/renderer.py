@@ -29,6 +29,26 @@ from .render.state import init_state, render_frame
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
 
 
+def build_intersector(scene: Scene, cfg: RenderConfig, leaf_size: int | None = None,
+                      builder: str = "auto"):
+    """The frame's BVH layouts and intersection callable for ``cfg`` ->
+    (layout, shadow layout or None, intersect): fat leaves for nearest-hit
+    queries, small leaves for shadow queries, the nearest-hit kernel of
+    cfg.traversal_kernel, and the any-hit shadow walk exactly when the
+    reference turns it on (tpu_pathtracer/render/wavefront.py:make_intersector)."""
+    leaf = leaf_size if leaf_size is not None else cfg.leaf_size
+    occl_leaf = cfg.occlusion_leaf_size
+    layout = build_layout(scene, leaf_size=leaf, builder=builder)
+    layout_occl = (build_layout(scene, leaf_size=occl_leaf, builder=builder)
+                   if occl_leaf not in (None, leaf) else None)
+    anyhit = (cfg.occlusion_anyhit == "on"
+              or (cfg.occlusion_anyhit == "auto" and scene.env is not None))
+    intersect = make_cuda_intersector(
+        layout, layout_occl, prepass=cfg.traversal_prepass, anyhit=anyhit,
+        eps=cfg.distance_epsilon, kernel=cfg.traversal_kernel)
+    return layout, layout_occl, intersect
+
+
 class Renderer:
     def __init__(
         self,
@@ -59,22 +79,8 @@ class Renderer:
                             device=self.device)
         )
         self.camera = camera or Camera.reference_default()
-        leaf = leaf_size if leaf_size is not None else self.cfg.leaf_size
-        occl_leaf = self.cfg.occlusion_leaf_size
-        self.layout = build_layout(self.scene, leaf_size=leaf, builder=builder)
-        # shadow queries get their own (small-leaf) layout when configured
-        self.layout_occl = (
-            build_layout(self.scene, leaf_size=occl_leaf, builder=builder)
-            if occl_leaf not in (None, leaf) else None
-        )
-        # the any-hit shadow walk, on exactly when the reference turns it on
-        # (tpu_pathtracer/render/wavefront.py:make_intersector)
-        anyhit = (self.cfg.occlusion_anyhit == "on"
-                  or (self.cfg.occlusion_anyhit == "auto"
-                      and self.scene.env is not None))
-        self._intersect = make_cuda_intersector(
-            self.layout, self.layout_occl, prepass=self.cfg.traversal_prepass,
-            anyhit=anyhit, eps=self.cfg.distance_epsilon)
+        self.layout, self.layout_occl, self._intersect = build_intersector(
+            self.scene, self.cfg, leaf_size, builder)
         self._seed = seed
         self.reset(width, height)
 
