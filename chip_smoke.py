@@ -2,6 +2,7 @@
 """Smoke test of tpu_pathtracer_torch on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases build,terrain-kernels   # a subset
 
 Phases (any failure raises, so the exit code is not 0):
 
@@ -30,7 +31,32 @@ Phases (any failure raises, so the exit code is not 0):
    each); each JSON line echoed, each run's own kernel launched and no plain
    version run on a CUDA tensor;
 9. variant parity: the self-golden gate of phase 5 for minwalk, sweep and
-   the fused path+shadow walk.
+   the fused path+shadow walk, and for tritest="mt" alone, with the sweep
+   and with the fused walk;
+10. terrain kernels: the production-scale scenes, tests/test_scale.py's
+    procedural terrain at GRID 256 (130,052 triangles) and GRID 724
+    (1,045,460), built with ``build_scene``; on 65,536 lanes of each
+    terrain's 1080p camera, bounce-1 and shadow wavefronts, the MT window
+    walk and its original-id and counting forms, the HBM route's window
+    walk (nearest and t_max-capped), and at GRID 256 the MT sweep, each
+    against its plain version and timed there and on the full wavefront;
+11. terrain path: Renderer(build_scene(terrain), 1920, 1080), default
+    config, SAH: the route must be the HBM route, as the reference's
+    selection gives; 2 warm-up + 3 timed frames, exact rays and spans, the
+    HBM window walk launched and no other kernel; again with
+    tritest="mt" (every launch the MT form; and its counting walk through
+    the utilization block), and at GRID 724 with 2 timed frames; then the
+    HBM route and the whole-table route (hbm_tables="off") in turns at both
+    sizes, with each route's walk time per frame beside its frame time (the
+    default camera sees the terrain in ~13% of its pixels, so the walks are
+    a fifth to a third of a frame);
+12. LBVH on the card: the GRID 256 layout built with builder="lbvh" on
+    CUDA tensors equals the CPU build table for table;
+13. terrain and backend parity (150x200, depth 8, 16 frames, the limits of
+    phase 5): the terrain's HBM-route image against its whole-table-route
+    image, the LBVH-built terrain against the SAH-built one, and cornellbox
+    through the portable walker (use_pallas=False) and the brute backend
+    against its kernel route.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -39,10 +65,24 @@ the original-id latch on bounce-1 paths plus their shadow pack (clear masks
 equal), and the counting walk on bounce-1 and the shadow pack (useful rows
 equal, spent within its warp bounds).
 
-The line before the last is the kernel table as JSON (launches: the main
-path's run for the window, capped and any-hit walks' main paths, the bench
-runs for the other four); the last line is {"ok": true, "device": {...}}.
-Imports no JAX.
+Every kernel's bound is the larger of the bytes it must move over
+3.35 TB/s and the float32 operations its walk did on these lanes, as
+FMA-equivalent flops, over 67 TFLOP/s (the H100 SXM data sheet's rates at
+700 W).  That rate counts an FMA as 2 flops; the kernels (built with
+--fmad=false) issue each add, mul, min, max and compare on its own, each
+in an FMA's slot, so each counts 2.  Both count what these lanes need,
+from the plain version's walk (ops/traverse.py:Tally): each ray read once,
+each output written once, each distinct node and leaf row the walk read
+moved once (the sweep: every row), the prepass block once; a box test per
+node visit and a row test per row tested.
+
+The line before the last is the kernel table as JSON (launches: the run of
+the path that drives each kernel -- the main path for the window, capped
+and any-hit walks, the bench runs for the bench's four, the terrain path
+for the HBM route and, with tritest="mt", for the MT window walk and its
+counting form, the tritest="mt" gates for the MT fused walk and sweep,
+which the terrain's HBM route does not run); the last line is
+{"ok": true, "device": {...}}.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +96,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,14 +107,29 @@ SAMPLE_LANES = 65536
 ID_AGREE = 0.9999      # ids equal, or an equal-t tie, on at least this share
 T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
+PARITY_FRAMES = 16
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
-           "window_walk_orig", "window_walk_counts")
+           "window_walk_orig", "window_walk_counts", "window_walk_hbm")
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
     "sweep": ({"traversal_kernel": "sweep"}, "sweep"),
     "fused": ({"fuse_shadow_walk": True}, "window_walk_orig"),
 }
+MT_VARIANTS = {        # the self-golden gates of tritest="mt": config, kernel form
+    "mt": ({"tritest": "mt"}, "window_walk"),
+    "mt+sweep": ({"tritest": "mt", "traversal_kernel": "sweep"}, "sweep"),
+    "mt+fused": ({"tritest": "mt", "fuse_shadow_walk": True}, "window_walk_orig"),
+}
+TERRAIN_GRIDS = (256, 724)  # 130,052 and 1,045,460 triangles
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, at 700 W
+FP32_FLOPS_PER_S = 67e12    # the same sheet; an FMA counts 2 flops
+FLOPS_PER_OP = 2            # a lone add, mul, min, max or compare takes an FMA's slot
+# float32 operations of one test (each add, mul, div, min, max, compare 1):
+OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max, 3 compares
+OPS_ROW = {"bw": 38, "mt": 52}  # a Baldwin-Weber / Moller-Trumbore row test
+SRC = "tpu_pathtracer_torch/csrc/"
+REF = "tpu_pathtracer/ops/pallas_traverse.py:"
 
 
 def log(msg: str) -> None:
@@ -166,10 +222,24 @@ def wavefronts(scene, layout, layout_occl, cfg):
     }
 
 
-def draw(arrays, n: int, gen: torch.Generator):
-    idx = torch.randperm(arrays[0].shape[-1], generator=gen, device="cpu")[:n]
+def draw(arrays, n: int, gen: torch.Generator, live=None):
+    """``n`` lanes of the wavefront ``arrays`` drawn at random (from the
+    lanes where ``live`` is true, when given)."""
+    pool = live.nonzero()[:, 0].cpu() if live is not None else None
+    size = pool.shape[0] if pool is not None else arrays[0].shape[-1]
+    idx = torch.randperm(size, generator=gen, device="cpu")[:n]
+    if pool is not None:
+        idx = pool[idx]
     idx = idx.to(arrays[0].device)
     return tuple(a.index_select(-1, idx).contiguous() for a in arrays)
+
+
+def two_n(o, d, alive, sdir, sok, scap, tgt):
+    """The fused walk's 2N lanes (o, d, active, t_max): the path lanes
+    (uncapped), then their shadow lanes from the same origins."""
+    return (torch.cat([o, o], 1).contiguous(), torch.cat([d, sdir], 1).contiguous(),
+            torch.cat([alive, sok]).contiguous(),
+            torch.cat([torch.full_like(scap, torch.inf), scap]).contiguous())
 
 
 def agree(name, t_k, id_k, t_p, id_p):
@@ -199,6 +269,84 @@ def agree(name, t_k, id_k, t_p, id_p):
     return max_err
 
 
+class Work(NamedTuple):
+    """What a walk does on its lanes (ops/traverse.py:Tally)."""
+    visits: int   # node visits, summed over lanes
+    tests: int    # leaf-row tests, summed over lanes
+    nodes: int    # distinct nodes read
+    rows: int     # distinct leaf rows read
+
+
+def plain_work(fn, *args, **kw):
+    """A plain version's output and the work of its walk on these inputs ->
+    (out, :class:`Work`)."""
+    from tpu_pathtracer_torch.ops.traverse import Tally
+
+    tally = Tally()
+    out = fn(*args, **kw, tally=tally)
+    if tally.nodes is None:  # no lane walked
+        return out, Work(0, 0, 0, 0)
+    return out, Work(tally.visits, tally.tests, int(tally.nodes.sum()),
+                     int(tally.rows.sum()))
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and float32 operations, as FMA-equivalent flops, over its
+    peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops * FLOPS_PER_OP / FP32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def row_bytes(table) -> int:
+    return table.shape[1] * table.element_size()
+
+
+RAY_BYTES = 12 + 12 + 1 + 4  # o, d, active, t_max (or cap) of one lane
+
+
+def walk_bound(lanes: int, in_bytes_per_lane: int, out_bytes_per_lane: int, lay,
+               rows, work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0) -> dict:
+    """A walk's bound on these lanes: rays and outputs moved once, each
+    distinct node (``nodes`` + ``nodes_meta``) and leaf row of ``rows`` the
+    walk read moved once, and the ``pre_rows`` prepass block (tested
+    ``pre_tests`` times); a box test per node visit and a row test per row
+    tested."""
+    node_bytes = row_bytes(lay.nodes) + row_bytes(lay.nodes_meta)
+    pre = 0 if pre_rows is None else pre_rows.numel() * pre_rows.element_size()
+    return bound(lanes * (in_bytes_per_lane + out_bytes_per_lane) + work.nodes * node_bytes
+                 + work.rows * row_bytes(rows) + pre,
+                 work.visits * OPS_BOX + (work.tests + pre_tests) * row_ops)
+
+
+def window_bound(lay, act, work: Work, prepass: int, tritest: str, out_ints: int) -> dict:
+    """The window walk's bound on these lanes: every active lane also tests
+    the first ``prepass`` rows of the prepass block; outputs t plus
+    ``out_ints`` int32 rows."""
+    rows, pre = (lay.tris8, lay.prepass) if tritest == "mt" else (lay.tris8bw, lay.prepassbw)
+    return walk_bound(act.shape[0], RAY_BYTES, 4 + 4 * out_ints, lay, rows, work,
+                      OPS_ROW[tritest], pre[:prepass], int(act.sum()) * prepass)
+
+
+def sweep_bound(lay, act, tritest: str) -> dict:
+    """The sweep's bound: every active lane tests rows 0 .. num_tris-1, each
+    row moved once; outputs t and row."""
+    rows = lay.tris8 if tritest == "mt" else lay.tris8bw
+    work = Work(0, int(act.sum()) * lay.num_tris, 0, lay.num_tris)
+    return walk_bound(act.shape[0], RAY_BYTES, 8, lay, rows, work, OPS_ROW[tritest])
+
+
+def kernel_entry(name: str, source: str, line: int, err: float, ms: float,
+                 plain_ms: float, full_ms: float, bnd: dict, **extra) -> dict:
+    """One kernel's row of the JSON table (launches are filled in later)."""
+    return {"name": name, "route": "cuda", "source": SRC + source,
+            "replaces": f"{REF}{line}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "full_ms": full_ms, **bnd, "library_ms": None,
+            **extra}
+
+
 def phase_kernels(renderer) -> list[dict]:
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.scene import attach_env
@@ -212,9 +360,11 @@ def phase_kernels(renderer) -> list[dict]:
         o, d, act = draw(waves[which], SAMPLE_LANES, gen)
         t_max = torch.full_like(o[0], torch.inf)
         tk, rk = ht.window_walk(o, d, act, t_max, lay, prepass=prepass)
-        tp, rp = ht.window_walk_plain(o, d, act, t_max, lay, prepass=prepass)
+        (tp, rp), work_a = plain_work(ht.window_walk_plain, o, d, act, t_max, lay,
+                                       prepass=prepass)
         torch.cuda.synchronize()
         errs_a.append(agree(f"window_walk/{which}", tk, rk, tp, rp))
+    bound_a = window_bound(lay, act, work_a, prepass, "bw", 1)
     a_in = (o, d, act, t_max, lay)
     ms_a = cuda_ms(lambda: ht.window_walk(*a_in, prepass=prepass))
     plain_a = cuda_ms(lambda: ht.window_walk_plain(*a_in, prepass=prepass), iters=2)
@@ -227,7 +377,8 @@ def phase_kernels(renderer) -> list[dict]:
 
     o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen)
     outk = ht.capped_walk(o, d, ok, cap, occl)
-    outp = ht.capped_walk_plain(o, d, ok, cap, occl)
+    outp, work = plain_work(ht.capped_walk_plain, o, d, ok, cap, occl)
+    bound_b = walk_bound(o.shape[1], RAY_BYTES, 16, occl, occl.tris, work, OPS_ROW["mt"])
     torch.cuda.synchronize()
     miss = lambda out: torch.where(out[0] < cap, out[0], torch.inf)  # noqa: E731
     err_b = agree("capped_walk/shadow", miss(outk), outk[3], miss(outp), outp[3])
@@ -250,7 +401,9 @@ def phase_kernels(renderer) -> list[dict]:
         f"{env_share:.4f} (select_p {float(env_scene.env.select_p):.4f})")
     c_in = draw((o, d, ok, cap, tgt), SAMPLE_LANES, gen)
     ck = ht.anyhit_walk(*c_in, occl, eps)
-    cp = ht.anyhit_walk_plain(*c_in, occl, eps)
+    cp, work = plain_work(ht.anyhit_walk_plain, *c_in, occl, eps)
+    bound_c = walk_bound(SAMPLE_LANES, RAY_BYTES + 4, 1, occl, occl.tris, work,
+                         OPS_ROW["mt"])
     torch.cuda.synchronize()
     bad = int((ck != cp).sum())
     if bad:
@@ -266,21 +419,12 @@ def phase_kernels(renderer) -> list[dict]:
         f"live): any-hit {full_c:.3f} ms vs capped walk (nearest-hit rule) "
         f"{full_bc:.3f} ms")
     return [
-        {"name": "window_walk", "route": "cuda",
-         "source": "tpu_pathtracer_torch/csrc/window_walk.cu",
-         "replaces": "tpu_pathtracer/ops/pallas_traverse.py:698",
-         "max_abs_err": max(errs_a), "ms": ms_a, "plain_ms": plain_a,
-         "full_ms": full_a},
-        {"name": "capped_walk", "route": "cuda",
-         "source": "tpu_pathtracer_torch/csrc/capped_walk.cu",
-         "replaces": "tpu_pathtracer/ops/pallas_traverse.py:106",
-         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-         "full_ms": full_b},
-        {"name": "anyhit_walk", "route": "cuda",
-         "source": "tpu_pathtracer_torch/csrc/anyhit_walk.cu",
-         "replaces": "tpu_pathtracer/ops/pallas_traverse.py:274",
-         "max_abs_err": float(bad), "ms": ms_c, "plain_ms": plain_c,
-         "full_ms": full_c, "capped_full_ms": full_bc, "env_share": env_share},
+        kernel_entry("window_walk", "window_walk.cu", 698, max(errs_a), ms_a, plain_a,
+                     full_a, bound_a),
+        kernel_entry("capped_walk", "capped_walk.cu", 106, err_b, ms_b, plain_b,
+                     full_b, bound_b),
+        kernel_entry("anyhit_walk", "anyhit_walk.cu", 274, float(bad), ms_c, plain_c,
+                     full_c, bound_c, capped_full_ms=full_bc, env_share=env_share),
     ]
 
 
@@ -325,7 +469,7 @@ def phase_bench_kernels(renderer) -> list[dict]:
         o, d, act = draw(waves[which], SAMPLE_LANES, gen)
         t_max = torch.full_like(o[0], torch.inf)
         outk = ht.minwalk(o, d, act, t_max, lay, prepass=pp_min)
-        outp = ht.minwalk_plain(o, d, act, t_max, lay, prepass=pp_min)
+        outp, work = plain_work(ht.minwalk_plain, o, d, act, t_max, lay, prepass=pp_min)
         torch.cuda.synchronize()
         hit = lambda out: torch.where(out[0] < t_max, out[0], torch.inf)  # noqa: E731
         errs.append(agree(f"minwalk/{which}", hit(outk), outk[3], hit(outp), outp[3]))
@@ -334,6 +478,8 @@ def phase_bench_kernels(renderer) -> list[dict]:
     log(f"  minwalk: payload (position, normal) max |diff| {pay:.3g} where ids agree")
     if pay > PAYLOAD_ATOL:
         raise AssertionError(f"minwalk payload differs by {pay} > {PAYLOAD_ATOL}")
+    bound_a = walk_bound(SAMPLE_LANES, RAY_BYTES, 48, lay, lay.tris, work, OPS_ROW["mt"],
+                         lay.prepass[:pp_min], int(act.sum()) * pp_min)
     a_in = (o, d, act, t_max, lay)
     ms_a = cuda_ms(lambda: ht.minwalk(*a_in, prepass=pp_min))
     plain_a = cuda_ms(lambda: ht.minwalk_plain(*a_in, prepass=pp_min), iters=2)
@@ -357,6 +503,7 @@ def phase_bench_kernels(renderer) -> list[dict]:
     tw, rw = ht.window_walk(o, d, act, t_max, lay, prepass=pp_win)
     log(f"  sweep vs window walk on the same lanes: rows differ on "
         f"{int((rw != rk).sum())}, max |dt| {float((tw - tk)[torch.isfinite(tk)].abs().max()):.3g}")
+    bound_b = sweep_bound(lay, act, "bw")
     b_in = (o, d, act, t_max, lay)
     ms_b = cuda_ms(lambda: ht.sweep(*b_in))
     plain_b = cuda_ms(lambda: ht.sweep_plain(*b_in), iters=2)
@@ -366,15 +513,12 @@ def phase_bench_kernels(renderer) -> list[dict]:
         f"{int(waves['bounce1'][2].sum())} live): {full_b:.3f} ms")
 
     # kernel c: the fused walk's 2N lanes, bounce-1 paths + bounce-0 shadow pack
-    def two_n(o, d, alive, sdir, sok, scap, tgt):
-        return (torch.cat([o, o], 1).contiguous(), torch.cat([d, sdir], 1).contiguous(),
-                torch.cat([alive, sok]).contiguous(),
-                torch.cat([torch.full_like(scap, torch.inf), scap]).contiguous())
-
     lanes = draw(pair, SAMPLE_LANES, gen)
     c_in = two_n(*lanes)
     tk, rk, ok_ = ht.window_walk_orig(*c_in, lay, prepass=pp_win)
-    tp, rp, op = ht.window_walk_orig_plain(*c_in, lay, prepass=pp_win)
+    (tp, rp, op), work_c = plain_work(ht.window_walk_orig_plain, *c_in, lay,
+                                       prepass=pp_win)
+    bound_c = window_bound(lay, c_in[2], work_c, pp_win, "bw", 2)
     torch.cuda.synchronize()
     hit = lambda t: torch.where(t < c_in[3], t, torch.inf)  # noqa: E731
     err_c = agree("window_walk_orig/bounce1+shadow", hit(tk), rk, hit(tp), rp)
@@ -408,7 +552,10 @@ def phase_bench_kernels(renderer) -> list[dict]:
     errs_d = []
     for which, args in (("bounce1", (o, d, alive, t_max)), ("shadow", (o, sdir, sok, scap))):
         got = ht.window_walk_counts(*args, lay, prepass=pp_win)
-        plain = ht.window_walk_counts_plain(*args, lay, prepass=pp_win)
+        plain, work_d = plain_work(ht.window_walk_counts_plain, *args, lay,
+                                    prepass=pp_win)
+        if which == "bounce1":
+            bound_d = window_bound(lay, alive, work_d, pp_win, "bw", 3)
         torch.cuda.synchronize()
         cap = args[3]
         errs_d.append(check_counts(
@@ -422,30 +569,179 @@ def phase_bench_kernels(renderer) -> list[dict]:
                                                    prepass=pp_win))
     log(f"  window_walk_counts at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_d:.3f} ms, "
         f"plain {plain_d:.3f} ms; full bounce-1: {full_d:.3f} ms")
-    src = "tpu_pathtracer_torch/csrc/"
-    ref = "tpu_pathtracer/ops/pallas_traverse.py:"
     return [
-        {"name": "minwalk", "route": "cuda", "source": src + "minwalk.cu",
-         "replaces": ref + "106", "max_abs_err": max(errs), "payload_max_abs_err": pay,
-         "ms": ms_a, "plain_ms": plain_a, "full_ms": full_a["bounce1"],
-         "full_camera_ms": full_a["camera"], "window_full_bounce1_ms": win_b1},
-        {"name": "sweep", "route": "cuda", "source": src + "sweep.cu",
-         "replaces": ref + "1152", "max_abs_err": err_b, "ms": ms_b,
-         "plain_ms": plain_b, "full_ms": full_b},
-        {"name": "window_walk_orig", "route": "cuda", "source": src + "window_walk.cu",
-         "replaces": ref + "698", "max_abs_err": err_c, "ms": ms_c,
-         "plain_ms": plain_c, "full_ms": full_c},
-        {"name": "window_walk_counts", "route": "cuda", "source": src + "window_walk.cu",
-         "replaces": ref + "698", "max_abs_err": max(errs_d), "ms": ms_d,
-         "plain_ms": plain_d, "full_ms": full_d},
+        kernel_entry("minwalk", "minwalk.cu", 106, max(errs), ms_a, plain_a,
+                     full_a["bounce1"], bound_a, payload_max_abs_err=pay,
+                     full_camera_ms=full_a["camera"], window_full_bounce1_ms=win_b1),
+        kernel_entry("sweep", "sweep.cu", 1152, err_b, ms_b, plain_b, full_b, bound_b),
+        kernel_entry("window_walk_orig", "window_walk.cu", 698, err_c, ms_c, plain_c,
+                     full_c, bound_c),
+        kernel_entry("window_walk_counts", "window_walk.cu", 698, max(errs_d), ms_d,
+                     plain_d, full_d, bound_d),
     ]
+
+
+def terrain_scene(grid: int, device="cuda"):
+    """tests/test_scale.py's terrain at ``grid`` (tests/torch_terrain.py,
+    the JAX-free copy) through ``build_scene``."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_terrain import terrain_scene as build
+
+    return build(grid, device)
+
+
+def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
+    """The MT and HBM-route kernel forms, each against its plain version on 65,536
+    lanes of the terrain's 1080p wavefronts (camera lanes, and the live
+    lanes of bounce 1 and the shadow pack: the default camera sees the
+    terrain in ~13% of its pixels), and their times; returns {name: row of
+    the kernel table}."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    lay, cfg = renderer.layout, renderer.cfg
+    waves = wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)
+    gen = torch.Generator().manual_seed(grid)
+    pp = ht.window_prepass(lay, cfg.traversal_prepass)
+    eps = cfg.distance_epsilon
+    inf = {w: torch.full_like(waves[w][0][0], torch.inf) for w in ("camera", "bounce1")}
+    pair = waves["bounce1"] + waves["shadow"][1:]
+    live = {"camera": None, "bounce1": waves["bounce1"][2], "shadow": waves["shadow"][2]}
+    tag = f"grid {grid}, {lay.num_tris} triangles"
+    log(f"terrain kernels ({tag}): camera {waves['camera'][0].shape[1]} lanes, bounce-1 "
+        f"{int(waves['bounce1'][2].sum())} live, shadow {int(waves['shadow'][2].sum())} "
+        f"live")
+    out = {}
+
+    # kernel 5: the MT window walk on camera and bounce-1 lanes
+    errs = []
+    for which in ("camera", "bounce1"):
+        o, d, act = draw(waves[which], SAMPLE_LANES, gen, live[which])
+        t_max = torch.full_like(o[0], torch.inf)
+        tk, rk = ht.window_walk(o, d, act, t_max, lay, prepass=pp, tritest="mt")
+        (tp, rp), work = plain_work(ht.window_walk_plain, o, d, act, t_max, lay,
+                                     prepass=pp, tritest="mt")
+        torch.cuda.synchronize()
+        errs.append(agree(f"window_walk mt/{which} ({tag})", tk, rk, tp, rp))
+    a_in = (o, d, act, t_max, lay)
+    bw = cuda_ms(lambda: ht.window_walk(*a_in, prepass=pp))
+    out["window_walk_mt"] = kernel_entry(
+        "window_walk_mt", "window_walk.cu", 698, max(errs),
+        cuda_ms(lambda: ht.window_walk(*a_in, prepass=pp, tritest="mt")),
+        cuda_ms(lambda: ht.window_walk_plain(*a_in, prepass=pp, tritest="mt"), iters=1),
+        cuda_ms(lambda: ht.window_walk(*waves["bounce1"], inf["bounce1"], lay,
+                                       prepass=pp, tritest="mt")),
+        window_bound(lay, act, work, pp, "mt", 1), bw_ms=bw,
+        full_camera_ms=cuda_ms(lambda: ht.window_walk(*waves["camera"], inf["camera"],
+                                                      lay, prepass=pp, tritest="mt")))
+
+    # kernel 7's MT form: 2N lanes, bounce-1 paths + bounce-0 shadow pack
+    lanes = draw(pair, SAMPLE_LANES, gen, live["bounce1"])
+    c_in = two_n(*lanes)
+    tk, rk, ok_ = ht.window_walk_orig(*c_in, lay, prepass=pp, tritest="mt")
+    (tp, rp, op), work = plain_work(ht.window_walk_orig_plain, *c_in, lay, prepass=pp,
+                                     tritest="mt")
+    torch.cuda.synchronize()
+    hit = lambda t: torch.where(t < c_in[3], t, torch.inf)  # noqa: E731
+    err = agree(f"window_walk_orig mt/bounce1+shadow ({tag})", hit(tk), rk, hit(tp), rp)
+    if not torch.equal(ok_[rk == rp], op[rk == rp]):
+        raise AssertionError("window_walk_orig mt: the latched original ids differ")
+    n = lanes[0].shape[1]
+    _, _, _, sdir, sok, scap, tgt = lanes
+    if not torch.equal(ht.fused_clear(tk[n:], ok_[n:], sok, scap, tgt, eps),
+                       ht.fused_clear(tp[n:], op[n:], sok, scap, tgt, eps)):
+        raise AssertionError("window_walk_orig mt: fused clear masks differ")
+    full_in = two_n(*pair)
+    out["window_walk_orig_mt"] = kernel_entry(
+        "window_walk_orig_mt", "window_walk.cu", 698, err,
+        cuda_ms(lambda: ht.window_walk_orig(*c_in, lay, prepass=pp, tritest="mt")),
+        cuda_ms(lambda: ht.window_walk_orig_plain(*c_in, lay, prepass=pp, tritest="mt"),
+                iters=1),
+        cuda_ms(lambda: ht.window_walk_orig(*full_in, lay, prepass=pp, tritest="mt")),
+        window_bound(lay, c_in[2], work, pp, "mt", 2))
+
+    # kernel 8's MT form: the counting walk on bounce-1 lanes
+    o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen, live["bounce1"])
+    t_max = torch.full_like(o[0], torch.inf)
+    got = ht.window_walk_counts(o, d, act, t_max, lay, prepass=pp, tritest="mt")
+    plain, work = plain_work(ht.window_walk_counts_plain, o, d, act, t_max, lay,
+                              prepass=pp, tritest="mt")
+    torch.cuda.synchronize()
+    err = check_counts(f"window_walk_counts mt/bounce1 ({tag})", *got, plain)
+    d_in = (o, d, act, t_max, lay)
+    out["window_walk_counts_mt"] = kernel_entry(
+        "window_walk_counts_mt", "window_walk.cu", 698, err,
+        cuda_ms(lambda: ht.window_walk_counts(*d_in, prepass=pp, tritest="mt")),
+        cuda_ms(lambda: ht.window_walk_counts_plain(*d_in, prepass=pp, tritest="mt"),
+                iters=1),
+        cuda_ms(lambda: ht.window_walk_counts(*waves["bounce1"], inf["bounce1"], lay,
+                                              prepass=pp, tritest="mt")),
+        window_bound(lay, act, work, pp, "mt", 3))
+
+    # kernel 6: the HBM route's window walk, nearest (bounce-1) and capped
+    # (the shadow pack, t_max = the range cap, as the route's shadow query)
+    o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen, live["bounce1"])
+    t_max = torch.full_like(o[0], torch.inf)
+    tk, rk = ht.window_walk_hbm(o, d, act, t_max, lay, prepass=pp)
+    tp, rp = ht.window_walk_hbm_plain(o, d, act, t_max, lay, prepass=pp)
+    torch.cuda.synchronize()
+    errs = [agree(f"window_walk_hbm/bounce1 ({tag})", tk, rk, tp, rp)]
+    o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen, live["shadow"])
+    tk, rk = ht.window_walk_hbm(o, d, ok, cap, lay, prepass=pp)
+    (tp, rp), work = plain_work(ht.window_walk_hbm_plain, o, d, ok, cap, lay, prepass=pp)
+    torch.cuda.synchronize()
+    capped = lambda t: torch.where(t < cap, t, torch.inf)  # noqa: E731
+    errs.append(agree(f"window_walk_hbm/shadow capped ({tag})", capped(tk), rk,
+                      capped(tp), rp))
+    h_in = (o, d, ok, cap, lay)
+    so, sd, sok, scap, _ = waves["shadow"]
+    out["window_walk_hbm"] = kernel_entry(
+        "window_walk_hbm", "window_walk.cu", 698, max(errs),
+        cuda_ms(lambda: ht.window_walk_hbm(*h_in, prepass=pp)),
+        cuda_ms(lambda: ht.window_walk_hbm_plain(*h_in, prepass=pp), iters=1),
+        cuda_ms(lambda: ht.window_walk_hbm(so, sd, sok, scap, lay, prepass=pp)),
+        window_bound(lay, ok, work, pp, "bw", 1),
+        full_bounce1_ms=cuda_ms(lambda: ht.window_walk_hbm(*waves["bounce1"],
+                                                           inf["bounce1"], lay,
+                                                           prepass=pp)),
+        capped_walk_full_ms=cuda_ms(lambda: ht.capped_walk(so, sd, sok, scap,
+                                                           renderer.layout_occl)))
+
+    if grid == TERRAIN_GRIDS[0]:
+        # kernel 9's MT form: the sweep on bounce-1 lanes (O(rows): GRID 256 only)
+        o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen, live["bounce1"])
+        t_max = torch.full_like(o[0], torch.inf)
+        tk, rk, ok_ = ht.sweep(o, d, act, t_max, lay, with_orig=True, tritest="mt")
+        tp, rp, op = ht.sweep_plain(o, d, act, t_max, lay, with_orig=True, tritest="mt")
+        torch.cuda.synchronize()
+        err = agree(f"sweep mt/bounce1 ({tag})", tk, rk, tp, rp)
+        if not torch.equal(ok_[rk == rp], op[rk == rp]):
+            raise AssertionError("sweep mt: the latched original ids differ")
+        b_in = (o, d, act, t_max, lay)
+        out["sweep_mt"] = kernel_entry(
+            "sweep_mt", "sweep.cu", 1152, err,
+            cuda_ms(lambda: ht.sweep(*b_in, tritest="mt"), iters=2),
+            cuda_ms(lambda: ht.sweep_plain(*b_in, tritest="mt"), iters=1),
+            cuda_ms(lambda: ht.sweep(*waves["bounce1"], inf["bounce1"], lay,
+                                     tritest="mt"), iters=1),
+            sweep_bound(lay, act, "mt"))
+    for k, e in out.items():
+        log(f"  {k} ({tag}) at {SAMPLE_LANES} lanes: kernel {e['ms']:.3f} ms, plain "
+            f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+            f"full wavefront {e['full_ms']:.3f} ms"
+            + "".join(f", {x} {e[x]:.3f} ms" for x in e if x.endswith("_ms")
+                      and x not in ("ms", "plain_ms", "full_ms", "bound_ms",
+                                    "library_ms")))
+    return out
 
 
 @contextlib.contextmanager
 def counted_run():
     """Zero every kernel's launch count and count plain-version calls on
-    CUDA tensors for the run inside; yields {"launches": ..., "plain_cuda":
-    ...}, filled in when the run ends."""
+    CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
+    ..., "plain_cuda": ...}, filled in when the run ends ("launches_mt": the
+    Moller-Trumbore form's launches of the wrappers that take tritest)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
     plain_cuda = {f"{k}_plain": 0 for k in KERNELS}
@@ -460,43 +756,60 @@ def counted_run():
     saved = {name: getattr(ht, name) for name in plain_cuda}
     for name, fn in saved.items():
         setattr(ht, name, counted(name, fn))
+    mt = [k for k in KERNELS if hasattr(getattr(ht, k), "launches_mt")]
     for k in KERNELS:
         getattr(ht, k).launches = 0
+    for k in mt:
+        getattr(ht, k).launches_mt = 0
     out = {"plain_cuda": plain_cuda}
     try:
         yield out
     finally:
         out["launches"] = {k: getattr(ht, k).launches for k in KERNELS}
+        out["launches_mt"] = {k: getattr(ht, k).launches_mt for k in mt}
         for name, fn in saved.items():
             setattr(ht, name, fn)
 
 
-def timed_frames(renderer) -> tuple[float, dict]:
-    """2 warm-up + 3 timed frames (host clock, ending in a synchronize) and
-    one more frame under the CUDA-event StageTimer -> (ms/frame, stages)."""
+def timed_frames(renderer, timed: int = 3) -> tuple[float, dict]:
+    """2 warm-up + ``timed`` frames (host clock, ending in a synchronize)
+    and one more frame under the CUDA-event StageTimer -> (ms/frame,
+    stages); renders ``timed + 3`` frames."""
+    renderer.run(2)
+    t0 = time.perf_counter()
+    renderer.run(timed)
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    return ms, staged_frame(renderer)
+
+
+def staged_frame(renderer) -> dict:
+    """One more frame under the CUDA-event StageTimer -> {stage: ms}."""
     from tpu_pathtracer_torch.render.state import render_frame
     from tpu_pathtracer_torch.render.timing import StageTimer
 
-    renderer.run(2)
-    t0 = time.perf_counter()
-    renderer.run(3)
-    ms = (time.perf_counter() - t0) / 3 * 1e3
     timer = StageTimer()
     renderer.state = render_frame(renderer.state, renderer.scene, renderer.cfg,
                                   renderer.camera, renderer._intersect, timer=timer)
-    return ms, timer.totals()
+    return timer.totals()
+
+
+def walk_ms(stages: dict) -> float:
+    """The walks' share of a staged frame, in ms."""
+    return sum(stages.get(k, 0.0) for k in ("walk_nearest", "walk_shadow", "walk_fused"))
 
 
 def stage_line(stages: dict) -> str:
-    walks = sum(stages.get(k, 0.0) for k in ("walk_nearest", "walk_shadow", "walk_fused"))
+    walks = walk_ms(stages)
     other = stages["sample"] - stages.get("sort", 0.0) - walks
     return ("  stages (ms, one frame): " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-        + f", shading+rest {other:.2f}")
+        + f", shading+rest {other:.2f}; walks {walks:.2f} = "
+        f"{walks / stages['sample']:.2%} of sample")
 
 
-def phase_main_path(renderer) -> dict:
-    """Drive the main path; returns each kernel's launches in that run."""
+def phase_main_path(renderer) -> tuple[dict, int]:
+    """Drive the main path -> (each kernel's launches in that run, frames
+    rendered)."""
     from tpu_pathtracer_torch.render.state import (frame_rng_key,
                                                    fused_wavefront_key)
     from tpu_pathtracer_torch.render.wavefront import render_sample
@@ -526,7 +839,7 @@ def phase_main_path(renderer) -> dict:
         raise AssertionError(f"the default main path launched other kernels: {extra}")
     if any(plain_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
-    return launches
+    return launches, 3 + 3 + 1  # timed_frames(timed=3), then the counted frame
 
 
 def check_parity(what: str, img, gold) -> dict:
@@ -541,22 +854,25 @@ def check_parity(what: str, img, gold) -> dict:
 
 
 def phase_parity(variant: str | None = None) -> dict:
-    """The self-golden gate for the default config or one of VARIANTS."""
+    """The self-golden gate for the default config or one of VARIANTS or
+    MT_VARIANTS -> the run's counts (:func:`counted_run`)."""
     from tpu_pathtracer_torch import Renderer, RenderConfig
     from tpu_pathtracer_torch.io.exr import read_exr
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
     here = os.path.dirname(os.path.abspath(__file__))
     gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
-    kw, kernel = VARIANTS[variant] if variant else ({}, "window_walk")
-    n0 = getattr(ht, kernel).launches
-    r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8,
-                                               **kw))
-    r.run(16)
-    if getattr(ht, kernel).launches == n0:
-        raise AssertionError(f"parity run {variant} never launched {kernel}")
-    return check_parity(f"parity{f' ({variant})' if variant else ''} vs self-golden "
-                        "(150x200, depth 8, 16 frames)", r.image(), gold)
+    kw, kernel = {**VARIANTS, **MT_VARIANTS}[variant] if variant else ({}, "window_walk")
+    with counted_run() as run:
+        r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8,
+                                                   **kw))
+        r.run(PARITY_FRAMES)
+    if not run["launches"][kernel] or any(run["plain_cuda"].values()):
+        raise AssertionError(f"parity run {variant}: {run}")
+    if "tritest" in kw and run["launches_mt"][kernel] != run["launches"][kernel]:
+        raise AssertionError(f"parity run {variant}: not every launch the MT form: {run}")
+    check_parity(f"parity{f' ({variant})' if variant else ''} vs self-golden "
+                 "(150x200, depth 8, 16 frames)", r.image(), gold)
+    return run
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, float]:
@@ -755,28 +1071,235 @@ def phase_bench() -> dict:
     return launches
 
 
+def terrain_renderer(scene, **kw):
+    """Renderer(scene, WIDTH, HEIGHT) with the default camera and SAH
+    builder; ``kw`` are RenderConfig fields.  Prints the table bytes the
+    route choice reads."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.render import wavefront as wf
+
+    t0 = time.perf_counter()
+    r = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw), builder="sah")
+    torch.cuda.synchronize()
+    log(f"  Renderer(build_scene(terrain)) {WIDTH}x{HEIGHT} {kw or 'default'}: "
+        f"{scene.num_triangles} triangles, {r.layout.num_nodes} + "
+        f"{r.layout_occl.num_nodes} nodes, set-up {time.perf_counter() - t0:.2f} s; "
+        f"table bytes {wf.layout_vmem_bytes(r.layout)} (leaf 56), "
+        f"{wf.layout_vmem_bytes(r.layout_occl)} (leaf 8), HBM-route resident "
+        f"{wf.layout_hbm_vmem_bytes(r.layout)}; route "
+        f"{'HBM' if r._intersect.hbm else 'whole-table'}")
+    return r
+
+
+def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, int]:
+    """The terrain frame at 1920x1080, depth 8, through Renderer: the route
+    must be the HBM route; 2 warm-up + ``timed`` frames, exact rays, spans;
+    the HBM window walk launched, every launch in the config's tritest form,
+    and no other kernel -> (the run's counts, frames rendered)."""
+    from tpu_pathtracer_torch.render.state import frame_rng_key, fused_wavefront_key
+    from tpu_pathtracer_torch.render.wavefront import hbm_route, render_sample
+
+    r = terrain_renderer(scene, **kw)
+    if not (r._intersect.hbm and hbm_route(r.cfg, r.layout, r.layout_occl)):
+        raise AssertionError(f"terrain {label}: the default config did not take the "
+                             "HBM route")
+    with counted_run() as run:
+        ms, stages = timed_frames(r, timed)
+        key = fused_wavefront_key(frame_rng_key(r.state.key, r.state.frame_index))
+        _, nrays = render_sample(r.scene, r.cfg, r.camera, HEIGHT, WIDTH, key,
+                                 r.state.frame_index, r._intersect, with_ray_count=True)
+        nrays = int(nrays)
+    img = r.image()
+    launches = run["launches"]
+    log(f"terrain path {label}: {ms:.2f} ms/frame at {WIDTH}x{HEIGHT} depth 8 "
+        f"(2 warm-up + {timed} timed); {nrays} traced rays/frame = "
+        f"{nrays / ms / 1e3:.2f} Mrays/s; image mean {float(img.mean()):.5f}")
+    log(stage_line(stages))
+    log(f"  kernel launches: {launches}; plain versions on CUDA tensors: "
+        f"{run['plain_cuda']}")
+    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or img.mean() <= 0:
+        raise AssertionError(f"terrain {label}: image not finite, lit, or of its shape")
+    others = {k: v for k, v in launches.items() if v and k != "window_walk_hbm"}
+    if launches["window_walk_hbm"] <= 0 or others or any(run["plain_cuda"].values()):
+        raise AssertionError(f"terrain {label}: expected only window_walk_hbm: {run}")
+    mt = launches["window_walk_hbm"] if r.cfg.tritest == "mt" else 0
+    if run["launches_mt"]["window_walk_hbm"] != mt:
+        raise AssertionError(f"terrain {label}: MT launches {run['launches_mt']}, "
+                             f"expected {mt} (tritest={r.cfg.tritest})")
+    return run, timed + 3 + 1
+
+
+def phase_terrain_counts(scene) -> dict:
+    """The utilization block on the GRID 256 terrain with tritest="mt": the
+    MT counting walk on its sorted bounce-1 wavefront -> its MT launches."""
+    from tpu_pathtracer_torch.render.stats import utilization_report
+
+    r = terrain_renderer(scene, tritest="mt")
+    with counted_run() as run:
+        rep = utilization_report(r.scene, r.cfg, r.layout, HEIGHT, WIDTH, r._intersect,
+                                 1.0, 1.0)
+    keys = ("live_rays", "spent_lane_ops_per_ray", "useful_lane_ops_per_ray",
+            "mt_lane_utilization")
+    log(f"terrain utilization (tritest=mt, {scene.num_triangles} triangles): "
+        f"{ {k: rep[k] for k in keys} }")
+    n = run["launches_mt"]["window_walk_counts"]
+    if not n or n != run["launches"]["window_walk_counts"] or any(
+            run["plain_cuda"].values()):
+        raise AssertionError(f"terrain utilization: {run}")
+    return n
+
+
+def route_turns(scene, frames: int = 3) -> dict:
+    """The HBM route and the whole-table route (hbm_tables "auto" and "off")
+    on the same terrain layouts, in turns hbm, tables, tables, hbm: 1
+    warm-up + ``frames`` frames each (host clock ending in a synchronise),
+    then one frame under the StageTimer for the walks' time -> {route:
+    [ms/frame per turn]} and {route: [walk ms per turn]}."""
+    from tpu_pathtracer_torch.render.wavefront import make_intersector
+
+    r = terrain_renderer(scene)
+    fns = {"hbm": r._intersect,
+           "tables": make_intersector(r.scene, r.cfg.replace(hbm_tables="off"),
+                                      r.layout, r.layout_occl)}
+    if not fns["hbm"].hbm or fns["tables"].hbm:
+        raise AssertionError("route turns: the routes are not the ones asked for")
+    out = {"hbm": [], "tables": []}
+    walks = {"hbm": [], "tables": []}
+    for route in ("hbm", "tables", "tables", "hbm"):
+        r._intersect = fns[route]
+        r.run(1)
+        t0 = time.perf_counter()
+        r.run(frames)
+        out[route].append((time.perf_counter() - t0) / frames * 1e3)
+        walks[route].append(walk_ms(staged_frame(r)))
+    log(f"route turns ({scene.num_triangles} triangles, {WIDTH}x{HEIGHT}, depth 8, "
+        f"{frames} frames a turn, ms/frame): HBM {out['hbm']}, whole-table "
+        f"{out['tables']}; walks (ms, one staged frame a turn): HBM {walks['hbm']}, "
+        f"whole-table {walks['tables']}")
+    return out, walks
+
+
+def phase_lbvh(scene_cuda, scene_cpu) -> None:
+    """builder="lbvh" on CUDA tensors == the CPU build, table for table."""
+    from tpu_pathtracer_torch.accel import build_layout
+
+    t0 = time.perf_counter()
+    lay_c = build_layout(scene_cuda, leaf_size=56, builder="lbvh")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lay_h = build_layout(scene_cpu, leaf_size=56, builder="lbvh")
+    t_host = time.perf_counter() - t0
+    for name, a in lay_h._asdict().items():
+        b = getattr(lay_c, name)
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"LBVH on the card: table {name} differs")
+        elif a != b:
+            raise AssertionError(f"LBVH on the card: {name} {b} != {a}")
+    log(f"LBVH ({scene_cpu.num_triangles} triangles, leaf 56): the card's layout "
+        f"equals the CPU's in every table ({lay_c.num_nodes} nodes); build + layout "
+        f"{t_card:.2f} s with the build on the card, {t_host:.2f} s on the CPU")
+
+
+def phase_backend_parity(terrain) -> None:
+    """The route, builder and backend gates (150x200, depth 8, 16 frames,
+    PARITY): each image against the same scene through another route."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    def image(scene, builder="sah", **kw):
+        r = Renderer(scene, 200, 150, RenderConfig(max_path_length=8, **kw),
+                     builder=builder)
+        r.run(16)
+        return r.image(), r
+
+    hbm, rh = image(terrain)
+    tables, rt = image(terrain, hbm_tables="off")
+    if not rh._intersect.hbm or rt._intersect.hbm:
+        raise AssertionError("terrain parity: the routes are not the ones asked for")
+    check_parity("terrain parity, HBM route vs whole-table route", hbm, tables)
+    lbvh, _ = image(terrain, builder="lbvh")
+    check_parity("terrain parity, LBVH vs SAH build", lbvh, hbm)
+    box = "cornellbox"
+    kernels, _ = image(box)
+    for kw in ({"use_pallas": False}, {"intersector": "brute"}):
+        with counted_run() as run:
+            img, _ = image(box, **kw)
+        if any(run["launches"].values()) or any(run["plain_cuda"].values()):
+            raise AssertionError(f"{kw}: the portable backend ran a kernel: {run}")
+        check_parity(f"cornellbox {kw} vs the kernel route", img, kernels)
+
+
 def main() -> int:
     smi = phase_device()
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     phase_build()
-    log(f"build phase: {time.perf_counter() - t0:.1f} s")
+    log(f"build phase: {time.perf_counter() - t_start:.1f} s")
 
     from tpu_pathtracer_torch import Renderer
 
+    # launches: each kernel's count in the run of its path; per_frame: the
+    # same over that run's frames (the counting walk runs once per bench
+    # line or utilization block, not per frame)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
     kernels = phase_kernels(renderer) + phase_bench_kernels(renderer)
-    launches = phase_main_path(renderer)
+    launches, frames = phase_main_path(renderer)
+    per_frame = {k: launches[k] / frames for k in ("window_walk", "capped_walk")}
     phase_parity()
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
-        env_launches = phase_cli_env(tmp)
+        launches["anyhit_walk"] = phase_cli_env(tmp)["anyhit_walk"]
+        per_frame["anyhit_walk"] = launches["anyhit_walk"] / 5  # the 5-frame run
     phase_env_parity()
-    launches["anyhit_walk"] = env_launches["anyhit_walk"]
     launches.update(phase_bench())
-    for variant in VARIANTS:
-        phase_parity(variant)
+    for variant, (_, kernel) in VARIANTS.items():
+        per_frame[kernel] = phase_parity(variant)["launches"][kernel] / PARITY_FRAMES
+    for variant, (_, kernel) in MT_VARIANTS.items():
+        run = phase_parity(variant)  # "mt" alone: a parity gate; the terrain counts it
+        if variant != "mt":
+            launches[f"{kernel}_mt"] = run["launches_mt"][kernel]
+            per_frame[f"{kernel}_mt"] = launches[f"{kernel}_mt"] / PARITY_FRAMES
+    terrains = {}
+    for grid in TERRAIN_GRIDS:
+        t0 = time.perf_counter()
+        terrains[grid] = terrain_scene(grid)
+        log(f"terrain grid {grid}: {terrains[grid].num_triangles} triangles, "
+            f"build_scene {time.perf_counter() - t0:.2f} s")
+    rows = {}
+    for grid in TERRAIN_GRIDS:
+        r = terrain_renderer(terrains[grid])
+        for name, row in phase_terrain_kernels(r, grid).items():
+            if name in rows:  # the larger terrain's numbers beside the first's
+                rows[name].update({f"{k}_grid{grid}": v for k, v in row.items()
+                                   if k in ("max_abs_err", "ms", "plain_ms",
+                                            "full_ms", "bound_ms", "bound_by")
+                                   or k.endswith("_ms")})
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                row["max_abs_err"])
+            else:
+                rows[name] = row
+        del r
+    kernels += list(rows.values())
+    small, large = (terrains[g] for g in TERRAIN_GRIDS)
+    run, frames = phase_terrain_path(small, "grid 256")
+    launches["window_walk_hbm"] = run["launches"]["window_walk_hbm"]
+    per_frame["window_walk_hbm"] = launches["window_walk_hbm"] / frames
+    run, frames = phase_terrain_path(small, "grid 256, tritest=mt", tritest="mt")
+    launches["window_walk_mt"] = run["launches_mt"]["window_walk_hbm"]
+    per_frame["window_walk_mt"] = launches["window_walk_mt"] / frames
+    phase_terrain_path(large, "grid 724", timed=2)
+    launches["window_walk_counts_mt"] = phase_terrain_counts(small)
+    for scene in (small, large):
+        route_turns(scene)
+    phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
+    phase_backend_parity(small)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"])
+        k["launches_per_frame"] = per_frame.get(k["name"])
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

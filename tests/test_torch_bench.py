@@ -37,11 +37,12 @@ def run_bench(argv) -> dict:
     ([], {}),
     (["--kernel", "sweep", "--no-utilization"], {"traversal_kernel": "sweep"}),
     (["--fuse-shadow", "--no-utilization"], {"fuse_shadow_walk": True}),
-], ids=["default", "sweep", "fused"])
+    (["--intersector", "brute"], {"intersector": "brute"}),
+], ids=["default", "sweep", "fused", "brute"])
 def test_bench_prints_one_line(flags, cfg):
     """The line carries the reference's fields plus package; its ray count
     is the exact count of the measured frame; the default run carries the
-    utilization block."""
+    utilization block (the brute backend has no walk to price)."""
     out = run_bench(TINY + flags)
     assert REFERENCE_FIELDS <= set(out) and "vs_baseline" not in out
     assert out["package"] == "tpu_pathtracer_torch" and out["device"] == "cpu"
@@ -67,7 +68,6 @@ def test_bench_prints_one_line(flags, cfg):
     (["--row-tiles", "2"], "queue 1 item 10"), (["--fuse", "2"], "queue 1 item 10"),
     (["--prefix-sort"], "queue 1 item 10"), (["--sort-skip", "1"], "queue 1 item 10"),
     (["--cull-zero-nee"], "queue 1 item 10"), (["--bake-materials"], "queue 1 item 10"),
-    (["--intersector", "brute"], "queue 1 item 5"),
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_bench_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):

@@ -138,8 +138,6 @@ def test_cli_env_render_and_resume(tmp_path):
     (["--fuse-samples", "2"], "queue 1 item 10"), (["--row-tiles", "2"], "queue 1 item 10"),
     (["--prefix-sort"], "queue 1 item 10"), (["--cull-zero-nee"], "queue 1 item 10"),
     (["--sort-skip", "1"], "queue 1 item 10"), (["--mesh", "2x1"], "queue 1 item 12"),
-    (["--intersector", "brute"], "queue 1 item 5"), (["--no-pallas"], "queue 1 item 5"),
-    (["--builder", "lbvh"], "queue 1 item 14"),
     (["--checkpoint", "state_dir"], "queue 1 item 9"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_cli_unported_flag_raises(flags, item, tmp_path):
@@ -150,6 +148,24 @@ def test_cli_unported_flag_raises(flags, item, tmp_path):
                   "--frames", "1", "--depth", "1",
                   "--png", str(tmp_path / "x.png")] + flags)
     assert not os.path.exists(tmp_path / "x.png")
+
+
+@pytest.mark.parametrize("flags", [["--builder", "lbvh"], ["--no-pallas"],
+                                   ["--intersector", "brute"]],
+                         ids=lambda f: " ".join(f))
+def test_cli_backends(flags, tmp_path):
+    """The CLI's builder and backend flags on the CPU: --builder lbvh (the
+    torch LBVH), --no-pallas (the portable walker) and --intersector brute
+    render a finite, lit image; the backends launch no kernel."""
+    png = str(tmp_path / "x.png")
+    n0 = tuple(getattr(ht, k).launches for k in ("window_walk", "capped_walk"))
+    assert cli.main(["--platform", "cpu", "--scene", "cornellbox", "--width", "16",
+                     "--height", "12", "--depth", "3", "--frames", "1", "--png", png,
+                     "-o", str(tmp_path / "x.exr")] + flags) == 0
+    img, _ = read_exr(str(tmp_path / "x.exr"))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+    assert tpng.read_png(png).shape == (12, 16, 3)
+    assert tuple(getattr(ht, k).launches for k in ("window_walk", "capped_walk")) == n0
 
 
 @pytest.mark.parametrize("platform", ["auto", "gpu"])

@@ -57,8 +57,7 @@ def test_port_imports_without_jax():
     {"refract_dielectric": True}, {"noise_mode": tcfg.NoiseMode.TILED},
     {"sampler": "r2"}, {"samples_per_frame": 2}, {"row_tiles": 2},
     {"prefix_sort": True}, {"sort_bounce_skip": "1"}, {"cull_zero_nee": True},
-    {"bake_materials": True}, {"tritest": "mt"}, {"intersector": "brute"},
-    {"use_pallas": False}, {"sort_rays": False},
+    {"bake_materials": True}, {"sort_rays": False},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_config_raises(kw):
     cfg = tcfg.RenderConfig(**kw)
@@ -81,6 +80,29 @@ def test_traversal_switches_are_supported(kw):
     assert callable(r._intersect.fused)
 
 
+@pytest.mark.parametrize("kw", [
+    {"tritest": "mt"}, {"intersector": "brute"}, {"use_pallas": False},
+    {"hbm_tables": "on"},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_backend_configs_are_supported(kw):
+    """The production-scale path's configurations are ported: check_supported
+    passes and the Renderer builds the backend the reference's
+    make_intersector picks (brute: no layout; the walker: no fused walk;
+    the kernels: the route hbm_tables gives)."""
+    from tpu_pathtracer_torch import Renderer
+
+    cfg = tcfg.RenderConfig(**kw)
+    tcfg.check_supported(cfg)
+    r = Renderer("cornellbox", 8, 8, cfg, device="cpu")
+    kernels = cfg.intersector == "bvh" and cfg.use_pallas
+    assert (r.layout is None) == (cfg.intersector == "brute")
+    assert hasattr(r._intersect, "fused") == kernels
+    if kernels:
+        assert r._intersect.hbm == (cfg.hbm_tables == "on")
+    r.run(1)
+    assert r.image().shape == (8, 8, 3)
+
+
 def test_unsupported_entry_points_raise():
     from tpu_pathtracer_torch import Renderer
     from tpu_pathtracer_torch.models.camera import Camera, generate_rays_flat
@@ -98,7 +120,9 @@ def test_unsupported_entry_points_raise():
     scene = load_scene(scene_path("cornellbox"), device="cpu")
     from tpu_pathtracer_torch.accel import build_layout
     with pytest.raises(NotImplementedError, match=match):
-        build_layout(scene, builder="lbvh")
+        build_layout(scene, bake_materials=True)
+    with pytest.raises(ValueError, match="lies on"):
+        Renderer(scene, 8, 8, device="meta")
     # the thin lens is ported: an aperture renders, and the Orbax checkpoint
     # directory form still raises
     import torch

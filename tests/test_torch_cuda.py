@@ -16,6 +16,7 @@ from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.scene import load_scene, scene_path
 from torch_parity import (assert_hits_agree, cuda_device, nee_shadow_rays,  # noqa: F401
                           random_rays)
+from torch_terrain import terrain_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +144,53 @@ def test_renderer_on_card_matches_cpu(cuda_device):
     img = gpu.image()
     assert np.isfinite(img).all()
     np.testing.assert_allclose(img, cpu.image(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["window_walk", "window_walk_orig", "window_walk_counts",
+                                  "sweep", "window_walk_hbm"])
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_mt_and_hbm_forms_match_plain_on_card(name, form, cuda_device):
+    """The production-scale path's forms == their plain versions on the same
+    card: each window-walk form and the sweep with tritest="mt", and the
+    HBM route's wrapper with t_max caps; t and rows bit-equal, the latched
+    original ids and useful rows equal, one launch counted."""
+    scene = load_scene(scene_path(name), device=cuda_device)
+    lay = build_layout(scene, 56)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=17))
+    act = torch.arange(8192, device=cuda_device) % 9 != 4
+    t_max = torch.where(torch.arange(8192, device=cuda_device) % 3 == 0, 1.5,
+                        torch.inf).contiguous()
+    fn = getattr(ht, form)
+    n0 = fn.launches
+    kw = {} if form == "window_walk_hbm" else {"tritest": "mt"}
+    if form == "sweep":
+        kw["with_orig"] = True
+    outk = fn(o, d, act, t_max, lay, **kw)
+    outp = getattr(ht, f"{form}_plain")(o, d, act, t_max, lay, **kw)
+    assert fn.launches == n0 + 1
+    assert torch.equal(outk[0], outp[0]) and torch.equal(outk[1], outp[1])
+    if form in ("window_walk_orig", "sweep"):
+        assert torch.equal(outk[2], outp[2])
+    if form == "window_walk_counts":
+        assert torch.equal(outk[2], outp[2])
+        assert bool(((outp[3] <= outk[3]) & (outk[3] <= outp[4])).all())
+    assert bool(torch.isfinite(torch.where(outk[0] < t_max, outk[0], torch.inf)).any())
+
+
+def test_terrain_route_and_lbvh_on_card(cuda_device):
+    """A GRID 256 terrain through build_scene on the card takes the HBM
+    route under the default config, launches only the HBM window walk, and
+    its LBVH layout equals the CPU build."""
+    scene = terrain_scene(256, device=cuda_device)
+    r = Renderer(scene, 64, 48, RenderConfig(max_path_length=3), device=cuda_device)
+    assert r._intersect.hbm
+    n0 = {k: getattr(ht, k).launches for k in ("window_walk_hbm", "capped_walk",
+                                                "anyhit_walk", "window_walk")}
+    r.run(1)
+    grew = {k: getattr(ht, k).launches - v for k, v in n0.items()}
+    assert grew["window_walk_hbm"] > 0 and grew["capped_walk"] == grew["anyhit_walk"] == 0
+    assert grew["window_walk"] == 0 and np.isfinite(r.image()).all()
+    gpu = build_layout(scene, 56, builder="lbvh")
+    cpu = build_layout(terrain_scene(256, device="cpu"), 56, builder="lbvh")
+    for k in ("nodes", "nodes_meta", "tris", "tris8", "tris8bw", "sorted_to_orig"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k

@@ -11,9 +11,9 @@ from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.scene import load_scene
 from torch_parity import arrays
 
-# the tables the main path reads (accel/layout.py)
+# the tables the kernels read (accel/layout.py); tris8 = the MT window rows
 _TABLES = ("nodes", "nodes_meta", "tris", "sorted_to_orig", "prepass",
-           "nodes8", "meta4", "tris8bw", "prepassbw")
+           "nodes8", "meta4", "tris8", "tris8bw", "prepassbw")
 
 
 @pytest.fixture(scope="module", params=SCENE_NAMES)

@@ -20,9 +20,13 @@ exact small floats):
   * ``tris8bw`` (T8, 16) / ``prepassbw`` (64, 16) Baldwin-Weber plane rows
     [n0 d0 | n1 d1 | n2 d2 | leaf_id, orig_id, pad2] anchored at ``anchor``
     (the scene-AABB centre; col 12 of ``prepassbw`` is the row index);
+  * ``tris8`` (T8, 24): ``tris`` padded with zero rows to a multiple of 8
+    plus 72, col 21 = the DFS leaf id owning the row: the Moller-Trumbore
+    rows of the window walk and the sweep with ``tritest="mt"``;
   * ``nodes8`` / ``meta4``: the TPU window kernel's padded node tables
     (the same rows as ``nodes``/``nodes_meta`` plus ``tri_start``), kept so
-    the layout round-trips with the reference's.
+    the layout round-trips with the reference's (and its byte counts,
+    render/wavefront.py:layout_vmem_bytes, match).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ PREPASS_MAX = 64  # rows in the big-triangle pre-pass block
 # (field, kind) of every table; "i" tables are int32, "f" float32.
 _TABLES = (
     ("nodes", "f"), ("nodes_meta", "i"), ("tris", "f"), ("sorted_to_orig", "i"),
-    ("prepass", "f"), ("nodes8", "f"), ("meta4", "i"), ("tris8bw", "f"),
-    ("prepassbw", "f"),
+    ("prepass", "f"), ("nodes8", "f"), ("meta4", "i"), ("tris8", "f"),
+    ("tris8bw", "f"), ("prepassbw", "f"),
 )
 
 
@@ -53,6 +57,7 @@ class BVHLayout(NamedTuple):
     prepass: torch.Tensor         # (PREPASS_MAX, 24) float32
     nodes8: torch.Tensor          # (M8, 8) float32
     meta4: torch.Tensor           # (M8 + 8, 4) int32
+    tris8: torch.Tensor           # (T8, 24) float32
     tris8bw: torch.Tensor         # (T8, 16) float32
     prepassbw: torch.Tensor       # (PREPASS_MAX, 16) float32
     anchor: tuple                 # (ax, ay, az) floats of the BW planes
@@ -63,8 +68,10 @@ class BVHLayout(NamedTuple):
 
 def layout_arrays(bvh: BVH, normals, material_id, light_index) -> dict:
     """Flatten the effective (leaf-collapsed) tree into DFS preorder ->
-    numpy arrays of every :class:`BVHLayout` field.  ``normals`` ((3, T) x3),
-    ``material_id`` and ``light_index`` are in ORIGINAL triangle order."""
+    numpy arrays of every :class:`BVHLayout` field.  ``bvh``: the native SAH
+    tree or the LBVH's (accel/lbvh.py), as numpy arrays; ``normals`` ((3, T)
+    x3), ``material_id`` and ``light_index`` are in ORIGINAL triangle
+    order."""
     left, right, is_leaf = bvh.left, bvh.right, bvh.is_leaf
     first_tri, tri_count = bvh.first_tri, bvh.tri_count
 
@@ -226,7 +233,8 @@ def layout_arrays(bvh: BVH, normals, material_id, light_index) -> dict:
     return dict(
         nodes=nodes, nodes_meta=nodes_meta, tris=tris,
         sorted_to_orig=s2o.astype(np.int32), prepass=prepass,
-        nodes8=nodes8, meta4=meta4, tris8bw=tris8bw, prepassbw=prepassbw,
+        nodes8=nodes8, meta4=meta4, tris8=tris8, tris8bw=tris8bw,
+        prepassbw=prepassbw,
         anchor=tuple(float(a) for a in anchor),
         num_nodes=m, num_tris=num_tris, max_leaf=max_leaf,
     )

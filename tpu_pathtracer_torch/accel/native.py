@@ -2,9 +2,10 @@
 
 The same ``native/libtpupt.so`` that ``tpu_pathtracer`` uses, built from
 ``native/sah_bvh.cc`` by ``native/Makefile`` on first use (and again when
-the source is newer than the library).  Returns numpy arrays.  There is no
-fallback: the LBVH build is not ported yet (ROADMAP.md queue 1 item 14),
-so a failed build raises.
+the source is newer than the library).  Returns numpy arrays.
+:func:`available` says whether the library builds and loads; the layout
+builder's "auto" falls back to the LBVH (accel/lbvh.py) when it does not,
+as the reference's does.
 """
 
 from __future__ import annotations
@@ -68,6 +69,15 @@ def load_library() -> ctypes.CDLL:
         + [i32p, i32p, i32p, i32p, u8p, f32p, f32p, i32p]
     )
     return lib
+
+
+def available() -> bool:
+    """True when the native library builds (if needed) and loads."""
+    try:
+        load_library()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def build_sah(p0, p1, p2, leaf_size: int = 4) -> BVH:

@@ -200,7 +200,9 @@ def main(argv=None) -> int:
         "image_mean": round(float(img.mean()), 5),
         "package": "tpu_pathtracer_torch",
     }
-    if args.utilization:
+    # the utilization block prices the kernel walk: no layout (brute) or no
+    # kernels (the portable walker) has none, as in the reference
+    if args.utilization and r.layout is not None and cfg.use_pallas:
         if cfg.traversal_kernel != "window":
             # the reference prints the same error field: only the window
             # walk is instrumented

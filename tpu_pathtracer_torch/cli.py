@@ -47,14 +47,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="max samples fused into one wavefront (not ported yet)")
     p.add_argument("--depth", type=int, default=8, help="MAX_PATH_LENGTH")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--intersector", choices=("bvh", "brute"), default="bvh",
-                   help="'brute' is not ported as a frame backend yet")
+    p.add_argument("--intersector", choices=("bvh", "brute"), default="bvh")
     p.add_argument("--no-pallas", action="store_true",
-                   help="the portable walker backend (not ported yet)")
+                   help="the portable torch walker instead of the CUDA kernels")
     p.add_argument("--leaf-size", type=int, default=None,
                    help="override cfg.leaf_size (nearest-hit BVH leaf)")
     p.add_argument("--builder", choices=("auto", "sah", "lbvh"), default="auto",
-                   help="BVH builder: native C++ SAH ('lbvh' not ported yet)")
+                   help="BVH builder: native C++ SAH or the torch LBVH")
     p.add_argument("--no-accumulate", action="store_true")
     p.add_argument("--tone-map", action="store_true")
     p.add_argument("--noise", choices=("prng", "tiled", "r2"), default="prng",
@@ -145,9 +144,6 @@ def _unported(args) -> list[tuple[bool, str, str]]:
         (args.cull_zero_nee, "--cull-zero-nee", "queue 1 item 10"),
         (bool(args.sort_skip), "--sort-skip", "queue 1 item 10"),
         (args.mesh is not None, "--mesh", "queue 1 item 12"),
-        (args.intersector != "bvh", "--intersector brute", "queue 1 item 5"),
-        (args.no_pallas, "--no-pallas", "queue 1 item 5"),
-        (args.builder == "lbvh", "--builder lbvh", "queue 1 item 14"),
         *((bool(path) and not path.endswith(".npz"),
            f"{flag} {path} (the Orbax directory form)", "queue 1 item 9")
           for flag, path in (("--checkpoint", args.checkpoint),
@@ -193,6 +189,8 @@ def main(argv=None) -> int:
         accumulate_image=not args.no_accumulate,
         enable_tone_mapping=args.tone_map,
         reference_quirks=not args.no_quirks,
+        intersector=args.intersector,
+        use_pallas=not args.no_pallas,
         comparison_mode=ComparisonMode(args.compare_mode),
         comparison_scale=args.compare_scale,
         sort_lowering=args.sort_lowering,

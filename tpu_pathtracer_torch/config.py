@@ -6,8 +6,8 @@ reference renderer configures everything at compile time via a macro block
 (reference: renderer/Raytracing.h:11-33); here every knob is a runtime field
 of a frozen dataclass.
 
-Fields that only steer the TPU kernels (tile widths, VMEM budgets, XLA
-lowering switches) are kept as inert fields and say so in their comment.
+Fields that only steer the TPU kernels (tile widths, XLA lowering
+switches) are kept as inert fields and say so in their comment.
 Configurations this port does not cover yet raise ``NotImplementedError``
 in :func:`check_supported`, naming their ROADMAP.md item.
 """
@@ -80,11 +80,11 @@ class RenderConfig:
     fuse_samples: int = 2
     # Sequential row tiles per frame (> 1 not ported yet).
     row_tiles: int = 1
-    # Intersection backend: "bvh" (the hand-written traversal kernels) or
-    # "brute" (dense oracle; not ported as a frame backend yet).
+    # Intersection backend: "bvh" (BVH traversal) or "brute" (every ray
+    # against every triangle, no BVH).
     intersector: str = "bvh"
-    # Use the traversal kernels (False selects the reference's portable
-    # walker, not ported as a frame backend yet).
+    # Use the traversal kernels; False selects the portable torch walker
+    # (ops/traverse.py:intersect_bvh), the reference's pure-JAX backend.
     use_pallas: bool = True
     # Ray-tile width of the TPU camera-ray kernel.  Inert for the kernels
     # here (one thread per ray); it still sets the pixel block order
@@ -116,8 +116,8 @@ class RenderConfig:
     # scene carries an environment light; "on" = always; "off" = the
     # nearest-hit-must-be-target shadow test through the capped walk.
     occlusion_anyhit: str = "auto"
-    # Leaf triangle test: "bw" (Baldwin-Weber planes, ported) or "mt"
-    # (Moller-Trumbore window variant, not ported yet).
+    # Leaf triangle test of the window walk and the sweep: "bw"
+    # (Baldwin-Weber planes, tris8bw) or "mt" (Moller-Trumbore rows, tris8).
     tritest: str = "bw"
     # One fused path+shadow walk per bounce: the bounce's nearest hit and
     # the previous bounce's shadow query share one 2N-lane launch.
@@ -152,10 +152,15 @@ class RenderConfig:
     # TPU-only (inert): XLA sort lowering ("variadic" / "gather"); the port
     # always sorts one int64 key and gathers the planes.
     sort_lowering: str = "variadic"
-    # TPU-only (inert): per-kernel VMEM table budget.
+    # Table budget of the route choice (render/wavefront.py:hbm_route): the
+    # TPU's per-kernel VMEM budget, kept so that a scene takes the
+    # reference's route; past it "auto" takes the HBM route.
     vmem_table_budget_mb: float = 12.0
-    # TPU-only (inert): HBM-streaming triangle table of the TPU window
-    # kernel.  On Hopper every table lives in device memory.
+    # The HBM route: "on" always, "auto" past the table budget, "off" never.
+    # The route sends every query through the window walk on the leaf-56
+    # layout (capped shadow queries too) and drops the any-hit walk, as the
+    # reference's HBM-streaming window kernel; on the card every table lives
+    # in device memory either way.
     hbm_tables: str = "auto"
     # Guard against 0/0 -> NaN when a sampled pdf underflows to exactly zero.
     pdf_floor: float = 1e-20
@@ -228,11 +233,6 @@ _UNSUPPORTED = (
     (lambda c: bool(c.sort_bounce_skip), "sort_bounce_skip", "queue 1 item 10"),
     (lambda c: c.cull_zero_nee, "cull_zero_nee", "queue 1 item 10"),
     (lambda c: c.bake_materials, "bake_materials", "queue 1 item 10"),
-    (lambda c: c.tritest != "bw", "tritest='mt'", "queue 2 item 5"),
-    (lambda c: c.intersector != "bvh", "intersector='brute' as a frame backend",
-     "queue 1 item 5"),
-    (lambda c: not c.use_pallas, "use_pallas=False (portable walker backend)",
-     "queue 1 item 5"),
     (lambda c: not c.sort_rays, "sort_rays=False (unsorted pipeline)",
      "queue 1 item 6"),
 )

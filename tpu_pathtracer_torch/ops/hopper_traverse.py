@@ -5,23 +5,25 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
 
 * **window walk** (``csrc/window_walk.cu``, replaces ``_window_kernel``):
   nearest hit over the leaf-56 layout — a 32-row big-triangle prepass, then
-  a stackless DFS walk over ``nodes``/``nodes_meta`` with Baldwin-Weber tests
-  on the leaf rows of ``tris8bw`` evaluated at ``o - anchor``.  Returns
-  ``(t, row)``; :func:`resolve_window_payload` then recomputes u/v and the
-  shading payload from one row gather of ``tris`` (plain torch, as the TPU
-  path left it to XLA).  Two compile-time variants of the same source
-  replace the TPU kernel's flags: ``window_walk_orig`` (``with_orig``, the
-  fused path+shadow walk) also latches the winner's original triangle id;
-  ``window_walk_counts`` (``with_counts``, the walk-utilization telemetry)
-  also counts the leaf rows each lane tested and the row-test slots its
-  32-lane warp issued.
+  a stackless DFS walk over ``nodes``/``nodes_meta`` with, by ``tritest``,
+  Baldwin-Weber tests on the rows of ``tris8bw`` evaluated at
+  ``o - anchor`` or Moller-Trumbore tests on the world-space rows of
+  ``tris8``.  Returns ``(t, row)``; :func:`resolve_window_payload` then
+  recomputes u/v and the shading payload from one row gather of ``tris``
+  (plain torch, as the TPU path left it to XLA).  Two compile-time variants
+  of the same source replace the TPU kernel's flags: ``window_walk_orig``
+  (``with_orig``, the fused path+shadow walk) also latches the winner's
+  original triangle id; ``window_walk_counts`` (``with_counts``, the
+  walk-utilization telemetry) also counts the leaf rows each lane tested and
+  the row-test slots its 32-lane warp issued.  ``window_walk_hbm`` launches
+  the same kernel on the HBM route (``hbm=True``), counted apart.
 * **minwalk** (``csrc/minwalk.cu``, replaces ``_traverse_kernel`` with
   ``resolve=True`` and the prepass; cfg.traversal_kernel="minwalk"):
   nearest hit over the leaf-56 layout's Moller-Trumbore rows with the
   shading payload read from the winning row in the kernel.
 * **sweep** (``csrc/sweep.cu``, replaces ``_sweep_kernel``;
-  cfg.traversal_kernel="sweep"): every active lane against every BW row,
-  no navigation, for incoherent nearest-hit queries.
+  cfg.traversal_kernel="sweep"): every active lane against every BW or MT
+  row, no navigation, for incoherent nearest-hit queries.
 * **capped walk** (``csrc/capped_walk.cu``, replaces ``_traverse_kernel``
   with ``resolve=False, prepass=0``): the range-capped shadow query over the
   leaf-8 layout with Moller-Trumbore rows; returns t, u, v and the original
@@ -38,51 +40,26 @@ tie-break picks.
 
 Each kernel's wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel (counting the launch in its
-``launches`` attribute) or raises.  The plain versions walk every running
-lane one node per step, vectorised across lanes and across a leaf's rows,
-with the kernels' operation order; a leaf's rows fold in with a first-minimum
-pick, which equals the kernels' sequential strict-``<`` latch.
+``launches`` attribute, and for the wrappers that take ``tritest`` the
+Moller-Trumbore form's launches also in ``launches_mt``) or raises.  The
+plain versions walk every running lane one node per step, vectorised across
+lanes and across a leaf's rows, with the kernels' operation order; a leaf's
+rows fold in with a first-minimum pick, which equals the kernels'
+sequential strict-``<`` latch.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..accel.layout import BVHLayout
 from .cuda_build import load_library
 from .intersect import HitShade
-from .traverse import safe_inverse
+from .traverse import Tally, latch, mt_rows, walk
 
 DEFAULT_PREPASS = 32
-
-
-def _latch(tt, ok, best_t, best_id, ids):
-    """Fold (L, K) candidate rows into per-lane bests: the first of the
-    minimal accepted t, if it beats best_t (a sequential strict-< latch)."""
-    ttm = torch.where(ok, tt, torch.inf)
-    tmin, kmin = torch.min(ttm, dim=1)
-    upd = tmin < best_t
-    pick = ids.gather(1, kmin[:, None])[:, 0] if ids.dim() == 2 else ids[kmin]
-    return torch.where(upd, tmin, best_t), torch.where(upd, pick, best_id), upd, kmin
-
-
-def _slab(rows, o, inv, t_min, best_t):
-    """(L, 8) node rows against L rays -> hit_box (L,)."""
-    t0x = (rows[:, 0] - o[0]) * inv[0]
-    t1x = (rows[:, 3] - o[0]) * inv[0]
-    t0y = (rows[:, 1] - o[1]) * inv[1]
-    t1y = (rows[:, 4] - o[1]) * inv[1]
-    t0z = (rows[:, 2] - o[2]) * inv[2]
-    t1z = (rows[:, 5] - o[2]) * inv[2]
-    enter = torch.maximum(
-        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.minimum(t0z, t1z),
-    )
-    exit_ = torch.minimum(
-        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-        torch.maximum(t0z, t1z),
-    )
-    return (enter <= exit_) & (exit_ > t_min) & (enter < best_t)
 
 
 def _bw(rows, o, d, t_min):
@@ -104,186 +81,198 @@ def _bw(rows, o, d, t_min):
     return tt, ok
 
 
-def _mt(rows, o, d, t_min):
-    """Moller-Trumbore rows (..., 24) [p0, e1, e2, orig, ...] against
-    broadcastable rays (3-tuples) -> (t, u, v, ok), in _mt_row's order."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    px = dy * rows[..., 8] - dz * rows[..., 7]
-    py = dz * rows[..., 6] - dx * rows[..., 8]
-    pz = dx * rows[..., 7] - dy * rows[..., 6]
-    det = rows[..., 3] * px + rows[..., 4] * py + rows[..., 5] * pz
-    nz = det != 0.0
-    inv = torch.where(nz, 1.0 / det, 0.0)
-    tx = ox - rows[..., 0]
-    ty = oy - rows[..., 1]
-    tz = oz - rows[..., 2]
-    u = (tx * px + ty * py + tz * pz) * inv
-    qx = ty * rows[..., 5] - tz * rows[..., 4]
-    qy = tz * rows[..., 3] - tx * rows[..., 5]
-    qz = tx * rows[..., 4] - ty * rows[..., 3]
-    v = (dx * qx + dy * qy + dz * qz) * inv
-    tt = (rows[..., 6] * qx + rows[..., 7] * qy + rows[..., 8] * qz) * inv
-    ok = nz & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > t_min)
-    return tt, u, v, ok
-
-
-def _walk(o, d, active, lay: BVHLayout, t_min, best, leaf_test, stop=None):
-    """The stackless DFS walk shared by the plain versions.
-
-    ``best``: per-lane tensors whose first entry is best_t; ``leaf_test(lanes,
-    rowid, valid, best)`` folds one leaf's rows (L, max_leaf) into ``best``
-    for the given lanes and returns the updated per-lane tuple.  ``stop``:
-    one of the ``best`` tensors (bool); a lane whose entry turns true ends
-    its walk after that node."""
-    lanes = active.nonzero()[:, 0]
-    inv = safe_inverse(d[0], d[1], d[2])
-    inv = torch.stack(inv)
-    cur = torch.zeros(o.shape[1], dtype=torch.int64, device=o.device)
-    k = torch.arange(lay.max_leaf, device=o.device)
-    while lanes.numel():
-        c = cur[lanes]
-        hit = _slab(lay.nodes[c], o[:, lanes], inv[:, lanes], t_min, best[0][lanes])
-        meta = lay.nodes_meta[c]
-        count = meta[:, 1] & 63
-        leaf = hit & (count > 0)
-        if bool(leaf.any()):
-            leaf_lanes = lanes[leaf]
-            rowid = (meta[leaf, 1] >> 6).to(torch.int64)[:, None] + k[None]
-            valid = k[None] < count[leaf][:, None]
-            rowid = torch.where(valid, rowid, lay.num_tris)  # zero row: no hit
-            new = leaf_test(leaf_lanes, rowid, valid,
-                            tuple(b[leaf_lanes] for b in best))
-            for b, nb in zip(best, new):
-                b[leaf_lanes] = nb
-        nxt = torch.where(hit & (count == 0), c + 1, meta[:, 0].to(torch.int64))
-        if stop is not None:
-            nxt = torch.where(stop[lanes], lay.num_nodes, nxt)
-        cur[lanes] = nxt
-        lanes = lanes[nxt < lay.num_nodes]
-
-
 # ---------------------------------------------------------------------------
-# Kernel A: nearest-hit window walk (BW rows)
+# Kernel A: nearest-hit window walk (BW or MT rows)
 # ---------------------------------------------------------------------------
+
+def _mt_ok(rows, o, d, t_min):
+    """Moller-Trumbore rows against world-space rays -> (t, ok)."""
+    tt, _, _, ok = mt_rows(rows, o, d, t_min)
+    return tt, ok
+
+
+class _Rows(NamedTuple):
+    """The leaf-row form of a ``tritest`` (csrc/walk_common.cuh: Rows)."""
+    table: torch.Tensor     # leaf rows, indexed like tris
+    prepass: torch.Tensor   # big-triangle rows
+    test: Callable          # (rows, o, d, t_min) -> (t, ok)
+    index: int              # prepass column holding the global row id
+    orig: int               # column holding the original triangle id
+    anchor: tuple | None    # origin shift of the row test (BW planes only)
+
+    def origin(self, o):
+        """(3, N) origins as the row test takes them: ``o - anchor`` for BW
+        planes, ``o`` for the world-space MT rows."""
+        if self.anchor is None:
+            return o
+        ax, ay, az = self.anchor
+        return torch.stack([o[0] - ax, o[1] - ay, o[2] - az])
+
+
+def _rows(lay: BVHLayout, tritest: str) -> _Rows:
+    if tritest == "bw":
+        return _Rows(lay.tris8bw, lay.prepassbw, _bw, 12, 13, lay.anchor)
+    if tritest == "mt":
+        return _Rows(lay.tris8, lay.prepass, _mt_ok, 21, 9, None)
+    raise ValueError(f"tritest={tritest!r}: expected 'bw' or 'mt'")
+
 
 def _window_plain(o, d, active, t_max, lay: BVHLayout, t_min: float, prepass: int,
-                  orig: bool = False, counts: bool = False):
-    """The window walk's plain version and its two variants -> (t, row) plus
-    the latched original triangle id (int32, -1 on a miss) with ``orig``
-    and the per-lane useful leaf-row count (int32) with ``counts``."""
+                  tritest: str = "bw", orig: bool = False, counts: bool = False,
+                  tally: Tally | None = None):
+    """The window walk's plain version and its variants -> (t, row) plus the
+    latched original triangle id (int32, -1 on a miss) with ``orig`` and the
+    per-lane useful leaf-row count (int32) with ``counts``; ``tally``
+    receives the walk's work (prepass rows not included)."""
     n = o.shape[1]
+    rs = _rows(lay, tritest)
     best = [t_max.clone(), torch.full_like(t_max, lay.num_tris, dtype=torch.int32)]
     if orig:
         best.append(torch.full((n,), -1, dtype=torch.int32, device=o.device))
     if counts:
         best.append(torch.zeros(n, dtype=torch.int32, device=o.device))
-    ax, ay, az = lay.anchor
-    ob = torch.stack([o[0] - ax, o[1] - ay, o[2] - az])
-
+    ob = rs.origin(o)
     act = active.nonzero()[:, 0]
     if prepass and act.numel():
-        rows = lay.prepassbw[:prepass]
+        rows = rs.prepass[:prepass]
         ol = tuple(c[act][:, None] for c in ob)
         dl = tuple(c[act][:, None] for c in d)
-        tt, ok = _bw(rows[None], ol, dl, t_min)
-        bt, br, upd, kmin = _latch(tt, ok, best[0][act], best[1][act],
-                                   rows[:, 12].to(torch.int32))
+        tt, ok = rs.test(rows[None], ol, dl, t_min)
+        bt, br, upd, kmin = latch(tt, ok, best[0][act], best[1][act],
+                                  rows[:, rs.index].to(torch.int32))
         best[0][act] = bt
         best[1][act] = br
         if orig:
-            best[2][act] = torch.where(upd, rows[:, 13].to(torch.int32)[kmin],
+            best[2][act] = torch.where(upd, rows[:, rs.orig].to(torch.int32)[kmin],
                                        best[2][act])
 
     def leaf_test(lanes, rowid, valid, best):
-        rows = lay.tris8bw[rowid]
-        tt, ok = _bw(rows, tuple(c[lanes][:, None] for c in ob),
-                     tuple(c[lanes][:, None] for c in d), t_min)
-        bt, br, upd, kmin = _latch(tt, ok & valid, best[0], best[1],
-                                   rowid.to(torch.int32))
+        rows = rs.table[rowid]
+        tt, ok = rs.test(rows, tuple(c[lanes][:, None] for c in ob),
+                         tuple(c[lanes][:, None] for c in d), t_min)
+        bt, br, upd, kmin = latch(tt, ok & valid, best[0], best[1],
+                                  rowid.to(torch.int32))
         new = [bt, br]
         if orig:
-            pick = rows[..., 13].gather(1, kmin[:, None])[:, 0].to(torch.int32)
+            pick = rows[..., rs.orig].gather(1, kmin[:, None])[:, 0].to(torch.int32)
             new.append(torch.where(upd, pick, best[2]))
         if counts:
             new.append(best[-1] + valid.sum(1).to(torch.int32))
         return tuple(new)
 
-    _walk(o, d, active, lay, t_min, tuple(best), leaf_test)
+    walk(o, d, active, lay, t_min, tuple(best), leaf_test, tally=tally)
     return tuple(best)
 
 
 def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                      prepass: int = DEFAULT_PREPASS):
+                      prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                      tally: Tally | None = None):
     """Plain torch version of ``csrc/window_walk.cu`` -> (t (N,) f32, row
-    (N,) int32); inactive lanes get (t_max, num_tris)."""
-    return _window_plain(o, d, active, t_max, lay, t_min, prepass)
+    (N,) int32); inactive lanes get (t_max, num_tris).  ``tally``, here and
+    in the other plain versions: receives the walk's work
+    (ops/traverse.py:Tally)."""
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
 
 
 def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
-                   t_min: float, prepass: int, extra: int):
+                   t_min: float, prepass: int, tritest: str, extra: int):
     """Check the inputs and launch ``tpupt_<variant>`` -> (t, row, *extra
     int32 rows)."""
     n = o.shape[1]
+    rs = _rows(lay, tritest)
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(t_max, torch.float32, (n,), "t_max")
-    _check_layout(lay, ("nodes", "nodes_meta", "tris8bw", "prepassbw"), o.device)
-    if not 0 <= prepass <= lay.prepassbw.shape[0]:
-        raise ValueError(f"prepass={prepass} outside [0, {lay.prepassbw.shape[0]}]")
+    tables = ("tris8", "prepass") if tritest == "mt" else ("tris8bw", "prepassbw")
+    _check_layout(lay, ("nodes", "nodes_meta") + tables, o.device)
+    if not 0 <= prepass <= rs.prepass.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {rs.prepass.shape[0]}]")
     out_t = torch.empty(n, dtype=torch.float32, device=o.device)
     outs = [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(1 + extra)]
     ax, ay, az = lay.anchor
     rc = getattr(load_library(), f"tpupt_{variant}")(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris8bw.data_ptr(),
-        lay.prepassbw.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
-        lay.num_tris, t_min, n, out_t.data_ptr(), *(x.data_ptr() for x in outs),
-        torch.cuda.current_stream(o.device).cuda_stream)
+        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), rs.table.data_ptr(),
+        rs.prepass.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
+        lay.num_tris, t_min, n, int(tritest == "mt"), out_t.data_ptr(),
+        *(x.data_ptr() for x in outs), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
     return (out_t, *outs)
 
 
 def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                prepass: int = DEFAULT_PREPASS):
+                prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
     """Nearest-hit walk -> (t (N,) f32, row (N,) int32): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors.
 
     ``o``/``d``: (3, N) float32; ``active``: (N,) bool; ``t_max``: (N,)
-    float32 (best_t seed); ``prepass``: leading rows of ``lay.prepassbw``."""
+    float32 (best_t seed); ``prepass``: leading rows of the prepass table;
+    ``tritest``: "bw" (``tris8bw``/``prepassbw``) or "mt"
+    (``tris8``/``prepass``)."""
     if o.device.type == "cpu":
-        return window_walk_plain(o, d, active, t_max, lay, t_min, prepass)
-    out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass, 0)
+        return window_walk_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
+                         tritest, 0)
     window_walk.launches += 1
+    window_walk.launches_mt += tritest == "mt"
     return out
 
 
-window_walk.launches = 0
+window_walk.launches = window_walk.launches_mt = 0
+
+
+def window_walk_hbm_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                          prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                          tally: Tally | None = None):
+    """Plain version of the HBM route's window walk: the window walk's."""
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+
+
+def window_walk_hbm(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                    prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
+    """The window walk on the HBM route (replaces ``_window_kernel`` with
+    ``hbm=True``): the same kernel as :func:`window_walk`, counted apart so a
+    run shows which route it took.  The TPU streamed demanded row blocks
+    from HBM through VMEM scratch; on the card every table is in device
+    memory already, and the walk reads its rows through L1/L2."""
+    if o.device.type == "cpu":
+        return window_walk_hbm_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
+                         tritest, 0)
+    window_walk_hbm.launches += 1
+    window_walk_hbm.launches_mt += tritest == "mt"
+    return out
+
+
+window_walk_hbm.launches = window_walk_hbm.launches_mt = 0
 
 
 def window_walk_orig_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                           prepass: int = DEFAULT_PREPASS):
+                           prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                           tally: Tally | None = None):
     """Plain version of the window walk's ``kOrig`` variant -> (t, row, orig
     (N,) int32, -1 where nothing was latched)."""
-    return _window_plain(o, d, active, t_max, lay, t_min, prepass, orig=True)
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, orig=True,
+                         tally=tally)
 
 
 def window_walk_orig(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                     prepass: int = DEFAULT_PREPASS):
+                     prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
     """The window walk that also latches the winner's original triangle id
     (replaces ``_window_kernel`` with ``with_orig=True``) -> (t, row, orig);
     inputs as :func:`window_walk`."""
     if o.device.type == "cpu":
-        return window_walk_orig_plain(o, d, active, t_max, lay, t_min, prepass)
+        return window_walk_orig_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
     out = _launch_window("window_walk_orig", o, d, active, t_max, lay, t_min,
-                         prepass, 1)
+                         prepass, tritest, 1)
     window_walk_orig.launches += 1
+    window_walk_orig.launches_mt += tritest == "mt"
     return out
 
 
-window_walk_orig.launches = 0
+window_walk_orig.launches = window_walk_orig.launches_mt = 0
 
 
 def warp_spent_bounds(useful, n_prepass: int):
@@ -299,18 +288,19 @@ def warp_spent_bounds(useful, n_prepass: int):
 
 
 def window_walk_counts_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                             prepass: int = DEFAULT_PREPASS):
+                             prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                             tally: Tally | None = None):
     """Plain version of the window walk's ``kCounts`` variant -> (t, row,
     useful, spent_lo, spent_hi).  ``useful`` is exact; ``spent`` depends on
     how the card schedules a warp, so the plain version returns its bounds
     (:func:`warp_spent_bounds`)."""
-    t, row, useful = _window_plain(o, d, active, t_max, lay, t_min, prepass,
-                                   counts=True)
+    t, row, useful = _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest,
+                                   counts=True, tally=tally)
     return (t, row, useful, *warp_spent_bounds(useful, prepass))
 
 
 def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                       prepass: int = DEFAULT_PREPASS):
+                       prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
     """The window walk with lane-op telemetry (replaces ``_window_kernel``
     with ``with_counts=True``) -> (t, row, useful, spent), all per lane;
     ``useful`` = leaf rows this lane tested, ``spent`` = ``prepass`` + the
@@ -320,21 +310,26 @@ def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     lane's rows)."""
     if o.device.type == "cpu":
         t, row, useful, lo, _ = window_walk_counts_plain(o, d, active, t_max, lay,
-                                                         t_min, prepass)
+                                                         t_min, prepass, tritest)
         return t, row, useful, lo
     t, row, spent, useful = _launch_window("window_walk_counts", o, d, active,
-                                           t_max, lay, t_min, prepass, 2)
+                                           t_max, lay, t_min, prepass, tritest, 2)
     window_walk_counts.launches += 1
+    window_walk_counts.launches_mt += tritest == "mt"
     return t, row, useful, spent
 
 
-window_walk_counts.launches = 0
+window_walk_counts.launches = window_walk_counts.launches_mt = 0
 
 
-def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
+def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
+                           resolve: bool = True) -> HitShade:
     """Kernel rows (t, row) -> HitShade: one row gather of ``lay.tris``, u/v
     recomputed with Moller-Trumbore (the sentinel row is all zeros, so
-    misses get u = v = 0), position and normal interpolated from the row."""
+    misses get u = v = 0), position and normal interpolated from the row.
+    ``resolve=False`` (the HBM route's capped shadow queries) stops after t,
+    u, v and the original triangle id: mat 0, light -1, position and normal
+    0, the reference's fill values."""
     t = torch.where(t_raw < t_max, t_raw, torch.inf)
     rows = lay.tris[row.to(torch.int64)]                 # (N, 24)
 
@@ -359,6 +354,16 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
     hit_ok = torch.isfinite(t)
     u = torch.where(hit_ok, torch.clamp(u, 0.0, 1.0), 0.0)
     v = torch.where(hit_ok, torch.clamp(v, 0.0, 1.0), 0.0)
+    tri = col(9).to(torch.int64)
+    if not resolve:
+        n = t.shape[0]
+        return HitShade(
+            t=t, u=u, v=v, tri=tri,
+            mat=torch.zeros(n, dtype=torch.int64, device=t.device),
+            light=torch.full((n,), -1, dtype=torch.int64, device=t.device),
+            pos=torch.zeros((3, n), device=t.device),
+            normal=torch.zeros((3, n), device=t.device),
+        )
     w0 = 1.0 - u - v
     px = col(0) + u * col(3) + v * col(6)
     py = col(1) + u * col(4) + v * col(7)
@@ -368,8 +373,7 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
     nz = col(12) * w0 + col(15) * u + col(18) * v
     rlen = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
     return HitShade(
-        t=t, u=u, v=v,
-        tri=col(9).to(torch.int64),
+        t=t, u=u, v=v, tri=tri,
         mat=col(19).to(torch.int64),
         light=col(20).to(torch.int64) - 1,
         pos=torch.stack([px, py, pz]),
@@ -378,11 +382,17 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
 
 
 def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
-                         t_max=None, prepass: int = DEFAULT_PREPASS) -> HitShade:
-    """(3, N) rays -> fully resolved nearest-hit HitShade."""
+                         t_max=None, prepass: int = DEFAULT_PREPASS,
+                         tritest: str = "bw", hbm: bool = False,
+                         resolve: bool = True) -> HitShade:
+    """(3, N) rays -> nearest-hit HitShade (resolved as
+    :func:`resolve_window_payload` says).  ``hbm`` launches through
+    :func:`window_walk_hbm`, the HBM route's wrapper."""
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
-    t, row = window_walk(o, d, active, t_max, lay, t_min, window_prepass(lay, prepass))
-    return resolve_window_payload(lay, t, row, t_max, o, d)
+    walk_fn = window_walk_hbm if hbm else window_walk
+    t, row = walk_fn(o, d, active, t_max, lay, t_min, window_prepass(lay, prepass),
+                     tritest)
+    return resolve_window_payload(lay, t, row, t_max, o, d, resolve)
 
 
 def _nearest_inputs(o, d, active, t_max):
@@ -408,7 +418,7 @@ def window_prepass(lay: BVHLayout, prepass: int) -> int:
 # ---------------------------------------------------------------------------
 
 def minwalk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                  prepass: int = DEFAULT_PREPASS):
+                  prepass: int = DEFAULT_PREPASS, tally: Tally | None = None):
     """Plain torch version of ``csrc/minwalk.cu`` -> (12, N) float32 rows
     [t, u, v, orig, mat, light+1, pos.xyz, normal.xyz]; t stays at t_max
     where nothing nearer was hit, and such lanes resolve the sentinel row."""
@@ -420,9 +430,9 @@ def minwalk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     act = active.nonzero()[:, 0]
     if prepass and act.numel():
         rows = lay.prepass[:prepass]
-        tt, u, v, ok = _mt(rows[None], tuple(c[act][:, None] for c in o),
+        tt, u, v, ok = mt_rows(rows[None], tuple(c[act][:, None] for c in o),
                            tuple(c[act][:, None] for c in d), t_min)
-        bt, br, upd, kmin = _latch(tt, ok, best_t[act], best_row[act],
+        bt, br, upd, kmin = latch(tt, ok, best_t[act], best_row[act],
                                    rows[:, 21].to(torch.int64))
         pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
         best_u[act] = torch.where(upd, pick(u), best_u[act])
@@ -431,14 +441,15 @@ def minwalk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         best_row[act] = br
 
     def leaf_test(lanes, rowid, valid, best):
-        tt, u, v, ok = _mt(lay.tris[rowid], tuple(c[lanes][:, None] for c in o),
+        tt, u, v, ok = mt_rows(lay.tris[rowid], tuple(c[lanes][:, None] for c in o),
                            tuple(c[lanes][:, None] for c in d), t_min)
-        bt, br, upd, kmin = _latch(tt, ok & valid, best[0], best[1], rowid)
+        bt, br, upd, kmin = latch(tt, ok & valid, best[0], best[1], rowid)
         pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
         return (bt, br, torch.where(upd, pick(u), best[2]),
                 torch.where(upd, pick(v), best[3]))
 
-    _walk(o, d, active, lay, t_min, (best_t, best_row, best_u, best_v), leaf_test)
+    walk(o, d, active, lay, t_min, (best_t, best_row, best_u, best_v), leaf_test,
+         tally=tally)
     rows = lay.tris[best_row]
     u, v = best_u, best_v
     w0 = 1.0 - u - v
@@ -497,74 +508,76 @@ def intersect_bvh_minwalk(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
 
 
 # ---------------------------------------------------------------------------
-# Kernel E: dense sweep (BW rows), incoherent nearest-hit queries
+# Kernel E: dense sweep (BW or MT rows), incoherent nearest-hit queries
 # ---------------------------------------------------------------------------
 
 SWEEP_CHUNK = 256  # rows per step of the plain version
 
 
 def sweep_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                with_orig: bool = False):
+                with_orig: bool = False, tritest: str = "bw"):
     """Plain torch version of ``csrc/sweep.cu`` -> (t, row[, orig]): every
-    active lane against rows 0 .. num_tris-1 of ``lay.tris8bw`` in ascending
-    order (chunks of rows folded with a first-minimum pick, which equals the
-    kernel's sequential strict-< latch)."""
+    active lane against rows 0 .. num_tris-1 of the ``tritest`` rows in
+    ascending order (chunks of rows folded with a first-minimum pick, which
+    equals the kernel's sequential strict-< latch)."""
     n = o.shape[1]
+    rs = _rows(lay, tritest)
     best_t = t_max.clone()
     best_row = torch.full((n,), lay.num_tris, dtype=torch.int32, device=o.device)
     best_orig = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     act = active.nonzero()[:, 0]
-    ax, ay, az = lay.anchor
-    ol = ((o[0, act] - ax)[:, None], (o[1, act] - ay)[:, None], (o[2, act] - az)[:, None])
+    ol = tuple(c[act][:, None] for c in rs.origin(o))
     dl = tuple(c[act][:, None] for c in d)
     bt, br, bo = best_t[act], best_row[act], best_orig[act]
     for r0 in range(0, lay.num_tris, SWEEP_CHUNK):
-        rows = lay.tris8bw[r0:min(r0 + SWEEP_CHUNK, lay.num_tris)]
-        tt, ok = _bw(rows[None], ol, dl, t_min)
+        rows = rs.table[r0:min(r0 + SWEEP_CHUNK, lay.num_tris)]
+        tt, ok = rs.test(rows[None], ol, dl, t_min)
         ids = torch.arange(r0, r0 + rows.shape[0], dtype=torch.int32, device=o.device)
-        bt, br, upd, kmin = _latch(tt, ok, bt, br, ids)
-        bo = torch.where(upd, rows[:, 13].to(torch.int32)[kmin], bo)
+        bt, br, upd, kmin = latch(tt, ok, bt, br, ids)
+        bo = torch.where(upd, rows[:, rs.orig].to(torch.int32)[kmin], bo)
     best_t[act], best_row[act], best_orig[act] = bt, br, bo
     return (best_t, best_row, best_orig) if with_orig else (best_t, best_row)
 
 
 def sweep(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-          with_orig: bool = False):
+          with_orig: bool = False, tritest: str = "bw"):
     """Dense sweep -> (t (N,) f32, row (N,) int32[, orig (N,) int32]): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.  Inputs
     as :func:`window_walk`."""
     if o.device.type == "cpu":
-        return sweep_plain(o, d, active, t_max, lay, t_min, with_orig)
+        return sweep_plain(o, d, active, t_max, lay, t_min, with_orig, tritest)
     n = o.shape[1]
+    rs = _rows(lay, tritest)
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(t_max, torch.float32, (n,), "t_max")
-    _check_layout(lay, ("tris8bw",), o.device)
+    _check_layout(lay, ("tris8" if tritest == "mt" else "tris8bw",), o.device)
     out_t = torch.empty(n, dtype=torch.float32, device=o.device)
     out_row = torch.empty(n, dtype=torch.int32, device=o.device)
     out_orig = torch.empty(n if with_orig else 0, dtype=torch.int32, device=o.device)
     ax, ay, az = lay.anchor
     rc = load_library().tpupt_sweep(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.tris8bw.data_ptr(), ax, ay, az, lay.num_tris, t_min, n, int(with_orig),
-        out_t.data_ptr(), out_row.data_ptr(), out_orig.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
+        rs.table.data_ptr(), ax, ay, az, lay.num_tris, t_min, n,
+        int(tritest == "mt"), int(with_orig), out_t.data_ptr(), out_row.data_ptr(),
+        out_orig.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
     sweep.launches += 1
+    sweep.launches_mt += tritest == "mt"
     return (out_t, out_row, out_orig) if with_orig else (out_t, out_row)
 
 
-sweep.launches = 0
+sweep.launches = sweep.launches_mt = 0
 
 
 def intersect_bvh_sweep(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
-                        t_max=None) -> HitShade:
+                        t_max=None, tritest: str = "bw") -> HitShade:
     """(3, N) rays -> fully resolved nearest-hit HitShade through the dense
     sweep and :func:`resolve_window_payload`."""
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
-    t, row = sweep(o, d, active, t_max, lay, t_min)
+    t, row = sweep(o, d, active, t_max, lay, t_min, tritest=tritest)
     return resolve_window_payload(lay, t, row, t_max, o, d)
 
 
@@ -572,7 +585,8 @@ def intersect_bvh_sweep(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
 # Kernel B: range-capped walk (MT rows), the shadow query
 # ---------------------------------------------------------------------------
 
-def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
+def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
+                      tally: Tally | None = None):
     """Plain torch version of ``csrc/capped_walk.cu`` -> (4, N) float32
     rows [t, u, v, orig]; t stays at ``cap`` where nothing nearer was hit."""
     n = o.shape[1]
@@ -580,14 +594,14 @@ def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
 
     def leaf_test(lanes, rowid, valid, best):
         rows = lay.tris[rowid]
-        tt, u, v, ok = _mt(rows, tuple(c[lanes][:, None] for c in o),
+        tt, u, v, ok = mt_rows(rows, tuple(c[lanes][:, None] for c in o),
                            tuple(c[lanes][:, None] for c in d), t_min)
-        bt, orig, upd, kmin = _latch(tt, ok & valid, best[0], best[3], rows[..., 9])
+        bt, orig, upd, kmin = latch(tt, ok & valid, best[0], best[3], rows[..., 9])
         pick = lambda x: x.gather(1, kmin[:, None])[:, 0]  # noqa: E731
         return (bt, torch.where(upd, pick(u), best[1]),
                 torch.where(upd, pick(v), best[2]), orig)
 
-    _walk(o, d, active, lay, t_min, best, leaf_test)
+    walk(o, d, active, lay, t_min, best, leaf_test, tally=tally)
     return torch.stack(best)
 
 
@@ -635,7 +649,7 @@ def intersect_bvh_capped(o, d, lay: BVHLayout, active, t_max,
 # ---------------------------------------------------------------------------
 
 def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
-                      t_min: float = 0.0):
+                      t_min: float = 0.0, tally: Tally | None = None):
     """Plain torch version of ``csrc/anyhit_walk.cu`` -> (N,) uint8 clear
     mask: ``target >= 0 ? (target hit and no occluder) : no occluder``, 0 on
     inactive lanes.  Occluders are non-target hits nearer than
@@ -649,7 +663,7 @@ def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
 
     def leaf_test(lanes, rowid, valid, best):
         rows = lay.tris[rowid]
-        tt, _, _, ok = _mt(rows, tuple(c[lanes][:, None] for c in o),
+        tt, _, _, ok = mt_rows(rows, tuple(c[lanes][:, None] for c in o),
                            tuple(c[lanes][:, None] for c in d), t_min)
         acc = ok & valid
         is_tgt = rows[..., 9].to(torch.int32) == target[lanes][:, None]
@@ -658,7 +672,7 @@ def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
         tgt = (acc & is_tgt & (tt >= eps32) & (tt < c)).any(dim=1)
         return best[0], best[1] | occ, best[2] | tgt
 
-    _walk(o, d, active, lay, t_min, best, leaf_test, stop=best[1])
+    walk(o, d, active, lay, t_min, best, leaf_test, stop=best[1], tally=tally)
     _, occ, tgt = best
     clear = active & torch.where(target >= 0, tgt & ~occ, ~occ)
     return clear.to(torch.uint8)
@@ -721,44 +735,64 @@ def fused_clear(ts, origs, sok, scap, target, eps: float):
 def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
                           t_min: float = 0.0, prepass: int = DEFAULT_PREPASS,
                           anyhit: bool = False, eps: float = 1e-4,
-                          kernel: str = "window"):
+                          kernel: str = "window", hbm: bool = False,
+                          tritest: str = "bw"):
     """The frame's intersection callable, ``fn(o, d, active, t_max=None,
     coherent=False) -> HitShade`` (the contract of the reference's
-    ``make_pallas_intersector``).  ``t_max``-capped queries take the capped
-    walk on ``lay_occl`` (the small-leaf shadow layout; ``lay`` when None).
-    Nearest-hit queries on ``lay`` take, by ``kernel`` (cfg.traversal_kernel):
+    ``make_pallas_intersector``, routed as it routes).  ``tritest`` picks
+    the leaf rows of the window walk and the sweep ("bw" or "mt").
+
+    The whole-table route (``hbm`` False): ``t_max``-capped queries take the
+    capped walk on ``lay_occl`` (the small-leaf shadow layout; ``lay`` when
+    None); nearest-hit queries on ``lay`` take, by ``kernel``
+    (cfg.traversal_kernel):
 
     * ``"window"``: the window walk;
     * ``"minwalk"``: the minwalk kernel (MT rows, payload in-kernel);
     * ``"sweep"``: the dense sweep for incoherent queries, the window walk
       for ``coherent`` ones (camera rays).
 
+    The HBM route (``hbm``, render/wavefront.py:make_intersector picks it
+    for scenes past the table budget): every query takes the window walk on
+    ``lay`` through :func:`window_walk_hbm` -- nearest hits as above with
+    ``minwalk`` and ``sweep`` giving way, capped queries with ``t_max`` as
+    the best_t seed, the prepass, and the unresolved payload
+    (``resolve=False``) -- and there is no any-hit hook.
+
     ``fn.fused(o, d, alive, sdir, sok, scap, target) -> (HitShade, clear)``
     is the fused path+shadow walk (cfg.fuse_shadow_walk): one 2N-lane launch
     of the window walk with the original-id latch (the sweep's, with
-    ``kernel="sweep"``) serves the bounce's nearest hit and the previous
-    bounce's shadow query from the same origins.  The TPU interleaved the
-    two halves in half-tile blocks so each tile's union stayed small; a
-    thread walks its own lane, so ``[path | shadow]`` concatenated gives the
-    same per-lane results.  ``clear``: the nearest hit inside the cap must be
-    the target light triangle (no hit at all for target -1), as
-    :func:`render.wavefront.occlusion_clear`.
+    ``kernel="sweep"`` off the HBM route) serves the bounce's nearest hit and
+    the previous bounce's shadow query from the same origins.  The TPU
+    interleaved the two halves in half-tile blocks so each tile's union
+    stayed small; a thread walks its own lane, so ``[path | shadow]``
+    concatenated gives the same per-lane results.  ``clear``: the nearest
+    hit inside the cap must be the target light triangle (no hit at all for
+    target -1), as :func:`render.wavefront.occlusion_clear`.
 
-    With ``anyhit``, ``fn.occlusion(o, d, active, t_max, target) -> clear``
-    answers shadow queries through the any-hit walk on the same shadow
-    layout (render/wavefront.py:occlusion_clear uses it when present)."""
+    With ``anyhit`` (off the HBM route), ``fn.occlusion(o, d, active, t_max,
+    target) -> clear`` answers shadow queries through the any-hit walk on
+    the same shadow layout (render/wavefront.py:occlusion_clear uses it when
+    present).  ``fn.hbm`` records the route."""
     if kernel not in ("window", "minwalk", "sweep"):
         raise ValueError(f"kernel={kernel!r}: expected window, minwalk or sweep")
+    _rows(lay, tritest)  # validates tritest
     occl = lay_occl if lay_occl is not None else lay
+    use_sweep = kernel == "sweep" and not hbm
 
     def fn(o, d, active, t_max=None, coherent=False):
         if t_max is not None:
+            if hbm:
+                return intersect_bvh_window(o, d, lay, t_min, active, t_max=t_max,
+                                            prepass=prepass, tritest=tritest,
+                                            hbm=True, resolve=False)
             return intersect_bvh_capped(o, d, occl, active, t_max, t_min)
-        if kernel == "minwalk":
+        if kernel == "minwalk" and not hbm:
             return intersect_bvh_minwalk(o, d, lay, t_min, active, prepass=prepass)
-        if kernel == "sweep" and not coherent:
-            return intersect_bvh_sweep(o, d, lay, t_min, active)
-        return intersect_bvh_window(o, d, lay, t_min, active, prepass=prepass)
+        if use_sweep and not coherent:
+            return intersect_bvh_sweep(o, d, lay, t_min, active, tritest=tritest)
+        return intersect_bvh_window(o, d, lay, t_min, active, prepass=prepass,
+                                    tritest=tritest, hbm=hbm)
 
     def fused(o, d, alive, sdir, sok, scap, target):
         n = o.shape[1]
@@ -768,17 +802,19 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
         d2 = torch.cat([d, sdir], dim=1).contiguous()
         act2 = torch.cat([alive, sok]).contiguous()
         cap2 = torch.cat([inf, scap]).contiguous()
-        if kernel == "sweep":
-            t2, row2, orig2 = sweep(o2, d2, act2, cap2, lay, t_min, with_orig=True)
+        if use_sweep:
+            t2, row2, orig2 = sweep(o2, d2, act2, cap2, lay, t_min, with_orig=True,
+                                    tritest=tritest)
         else:
             t2, row2, orig2 = window_walk_orig(o2, d2, act2, cap2, lay, t_min,
-                                               window_prepass(lay, prepass))
+                                               window_prepass(lay, prepass), tritest)
         hit = resolve_window_payload(lay, t2[:n], row2[:n], inf, o.contiguous(),
                                      d.contiguous())
         return hit, fused_clear(t2[n:], orig2[n:], sok, scap, target, eps)
 
     fn.fused = fused
-    if anyhit:
+    fn.hbm = hbm
+    if anyhit and not hbm:
         def occlusion(o, d, active, t_max, target):
             return occlusion_clear_anyhit(o, d, occl, active, t_max, target,
                                           eps, t_min)

@@ -9,8 +9,8 @@ frames' own key schedule.  :func:`utilization_report` prices the frame's
 first secondary wavefront in lane-ops with the counting window walk
 (``window_walk_counts``).
 
-The reference's scaled brute-force probe (``count_traced_rays``) waits for
-the brute frame backend (ROADMAP.md queue 1 item 5).
+The reference's scaled brute-force probe (``count_traced_rays``) is not
+ported: the exact count replaces it.
 """
 
 from __future__ import annotations
@@ -95,12 +95,13 @@ def walk_lane_ops(lay, cfg: RenderConfig, o, d, active, t_max=None):
                  (csrc/window_walk.cu, kCounts) -- the SIMT counterpart of
                  the TPU's per-tile row count;
     ``useful`` = leaf rows each lane's own walk tested (the demand served).
-    Box/navigation lane-ops are excluded, as in the reference."""
+    Box/navigation lane-ops are excluded, as in the reference.  The walk
+    tests cfg.tritest's rows (reference stats.py:214)."""
     t_max = (torch.full((o.shape[1],), torch.inf, device=o.device) if t_max is None
              else t_max.to(torch.float32).contiguous())
     _, _, useful, spent = window_walk_counts(
         o.contiguous(), d.contiguous(), active.contiguous(), t_max, lay,
-        prepass=window_prepass(lay, cfg.traversal_prepass))
+        prepass=window_prepass(lay, cfg.traversal_prepass), tritest=cfg.tritest)
     return (float(spent.double().sum()), float(useful.double().sum()),
             float(active.double().sum()))
 

@@ -24,29 +24,25 @@ import torch
 from .accel import build_layout
 from .config import RenderConfig, check_supported
 from .models.camera import Camera
-from .ops.hopper_traverse import make_cuda_intersector
 from .render.state import init_state, render_frame
+from .render.wavefront import make_intersector
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
 
 
 def build_intersector(scene: Scene, cfg: RenderConfig, leaf_size: int | None = None,
                       builder: str = "auto"):
     """The frame's BVH layouts and intersection callable for ``cfg`` ->
-    (layout, shadow layout or None, intersect): fat leaves for nearest-hit
-    queries, small leaves for shadow queries, the nearest-hit kernel of
-    cfg.traversal_kernel, and the any-hit shadow walk exactly when the
-    reference turns it on (tpu_pathtracer/render/wavefront.py:make_intersector)."""
+    (layout or None, shadow layout or None, intersect), as the reference's
+    Renderer builds them: fat leaves for nearest-hit queries, small leaves
+    for shadow queries, no layout for the brute backend, and the backend
+    and route of render/wavefront.py:make_intersector."""
     leaf = leaf_size if leaf_size is not None else cfg.leaf_size
     occl_leaf = cfg.occlusion_leaf_size
-    layout = build_layout(scene, leaf_size=leaf, builder=builder)
+    layout = (None if cfg.intersector == "brute"
+              else build_layout(scene, leaf_size=leaf, builder=builder))
     layout_occl = (build_layout(scene, leaf_size=occl_leaf, builder=builder)
-                   if occl_leaf not in (None, leaf) else None)
-    anyhit = (cfg.occlusion_anyhit == "on"
-              or (cfg.occlusion_anyhit == "auto" and scene.env is not None))
-    intersect = make_cuda_intersector(
-        layout, layout_occl, prepass=cfg.traversal_prepass, anyhit=anyhit,
-        eps=cfg.distance_epsilon, kernel=cfg.traversal_kernel)
-    return layout, layout_occl, intersect
+                   if layout is not None and occl_leaf not in (None, leaf) else None)
+    return layout, layout_occl, make_intersector(scene, cfg, layout, layout_occl)
 
 
 class Renderer:
@@ -64,8 +60,10 @@ class Renderer:
         device="cuda",
     ):
         """``device``: where every tensor lives; the kernels run for
-        "cuda", their plain torch versions for "cpu".  ``mesh`` (the
-        multi-device split) is not ported yet."""
+        "cuda", their plain torch versions for "cpu".  ``scene``: a bundled
+        scene's name, or a :class:`Scene` on ``device`` (``load_scene``,
+        ``build_scene``).  ``mesh`` (the multi-device split) is not ported
+        yet."""
         self.cfg = cfg or RenderConfig()
         check_supported(self.cfg)
         if mesh is not None:
@@ -78,6 +76,9 @@ class Renderer:
             else load_scene(scene_path(scene), samples=self.cfg.spectrum_samples,
                             device=self.device)
         )
+        if self.scene.p0.device.type != self.device.type:
+            raise ValueError(f"the scene lies on {self.scene.p0.device}, the "
+                             f"renderer on {self.device}")
         self.camera = camera or Camera.reference_default()
         self.layout, self.layout_occl, self._intersect = build_intersector(
             self.scene, self.cfg, leaf_size, builder)

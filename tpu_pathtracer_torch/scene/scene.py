@@ -140,15 +140,22 @@ def scene_to(arrays: dict, device) -> Scene:
     return Scene(**{name: put(name) for name in Scene._fields if name != "env"})
 
 
-def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
-               device="cuda") -> Scene:
-    """OBJ path -> :class:`Scene` on ``device``.  ``rough_materials`` (the
-    GGX extension types) is not ported yet."""
+def build_scene(mesh: ObjMesh, samples: int = 3, rough_materials: bool = False,
+                device="cuda") -> Scene:
+    """An :class:`ObjMesh` (loaded, or made procedurally) -> :class:`Scene`
+    on ``device``: the reference's ``build_scene``.  ``rough_materials``
+    (the GGX extension types) is not ported yet."""
     if rough_materials:
         raise NotImplementedError(
             "rough_materials (GGX) is not ported to tpu_pathtracer_torch yet "
             "(ROADMAP.md queue 1 item 10)")
-    return scene_to(scene_arrays(load_obj(path), samples), device)
+    return scene_to(scene_arrays(mesh, samples), device)
+
+
+def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
+               device="cuda") -> Scene:
+    """OBJ path -> :class:`Scene` on ``device``."""
+    return build_scene(load_obj(path), samples, rough_materials, device)
 
 
 def area_light_power(scene: Scene) -> float:
