@@ -2,7 +2,6 @@
 """Smoke test of tpu_pathtracer_torch on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases build,terrain-kernels   # a subset
 
 Phases (any failure raises, so the exit code is not 0):
 
@@ -56,7 +55,32 @@ Phases (any failure raises, so the exit code is not 0):
     phase 5): the terrain's HBM-route image against its whole-table-route
     image, the LBVH-built terrain against the SAH-built one, and cornellbox
     through the portable walker (use_pallas=False) and the brute backend
-    against its kernel route.
+    against its kernel route;
+14. candidate-sweep kernels: on 65,536 lanes of the Water-plastic 1080p
+    camera and bounce-1 wavefronts, on the leaf-56 layout (prepass 32) and
+    the leaf-8 layout, ``sweep_count`` and ``intersect_sweep1``
+    (scripts/experimental_sweep.py) against their plain versions: counts
+    and first leaves equal on every lane, t, u, v, row and orig equal;
+15. candidate split at full width: on the whole 2,073,600-lane camera and
+    bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
+    terrain (65,536 live lanes on both layouts, the whole wavefronts on
+    leaf 56): ``sweep_count``, then ``intersect_sweep1`` on the lanes with
+    at most one candidate leaf, then the MT window walk with the same
+    prepass on all lanes; on every such lane the resolved hit must equal the
+    window walk's (hit or miss, triangle id, t bit for bit: both test the
+    same rows in the same order with the same arithmetic), and a lane
+    with no candidate must be a miss or a prepass hit; prints the share of
+    lanes with 0, 1 and more candidates, the mean and p95 count, and the ms
+    of the count kernel, the targeted kernel, the window walk on all lanes
+    and the window walk on the lanes with more than one candidate;
+16. launch probe: the no-op against its plain version at each tile, then
+    ``scripts/perf_launch.main()`` at 1080p, its lines echoed; the no-op and
+    the all-dead capped and window walks must have launched, and no plain
+    version may have run on a CUDA tensor;
+17. row-test probe: each of the six variants against its plain version on
+    65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
+    on every 32nd lane; then ``scripts/perf_ophit_probe.main()`` with the
+    default flags (1080p lanes, 7112 rows), its ``ROW`` lines echoed.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -74,14 +98,20 @@ in an FMA's slot, so each counts 2.  Both count what these lanes need,
 from the plain version's walk (ops/traverse.py:Tally): each ray read once,
 each output written once, each distinct node and leaf row the walk read
 moved once (the sweep: every row), the prepass block once; a box test per
-node visit and a row test per row tested.
+node visit and a row test per row tested.  The targeted sweep ends at its
+lowest candidate leaf, so its box tests are the ones up to that leaf (every
+leaf on a lane with no candidate); the count kernel needs every leaf.
 
 The line before the last is the kernel table as JSON (launches: the run of
 the path that drives each kernel -- the main path for the window, capped
 and any-hit walks, the bench runs for the bench's four, the terrain path
 for the HBM route and, with tritest="mt", for the MT window walk and its
 counting form, the tritest="mt" gates for the MT fused walk and sweep,
-which the terrain's HBM route does not run); the last line is
+which the terrain's HBM route does not run; the kernel-research tools are on
+no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
+15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
+``perf_ophit_probe.main()`` run, none of them the launches that compare a
+kernel with its plain version or time it); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -109,7 +139,14 @@ T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
 PARITY_FRAMES = 16
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
-           "window_walk_orig", "window_walk_counts", "window_walk_hbm")
+           "window_walk_orig", "window_walk_counts", "window_walk_hbm",
+           "sweep_count", "sweep1", "noop", "rowtest_probe")
+# the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
+# tpu_pathtracer_torch.scripts, wrapper (its plain version is <wrapper>_plain)
+TOOL_KERNELS = {"sweep_count": ("experimental_sweep", "sweep_count"),
+                "sweep1": ("experimental_sweep", "intersect_sweep1"),
+                "noop": ("perf_launch", "noop"),
+                "rowtest_probe": ("perf_ophit_probe", "rowtest_probe")}
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -128,8 +165,11 @@ FLOPS_PER_OP = 2            # a lone add, mul, min, max or compare takes an FMA'
 # float32 operations of one test (each add, mul, div, min, max, compare 1):
 OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max, 3 compares
 OPS_ROW = {"bw": 38, "mt": 52}  # a Baldwin-Weber / Moller-Trumbore row test
+FULL_STRIDE = 32  # the row-test probe's full-width check holds every 32nd lane
+OPS_LEAF_BOX = OPS_BOX + 1  # a candidate sweep's box test and its first-leaf min
 SRC = "tpu_pathtracer_torch/csrc/"
 REF = "tpu_pathtracer/ops/pallas_traverse.py:"
+REF_SCRIPTS = "scripts/"
 
 
 def log(msg: str) -> None:
@@ -338,13 +378,16 @@ def sweep_bound(lay, act, tritest: str) -> dict:
     return walk_bound(act.shape[0], RAY_BYTES, 8, lay, rows, work, OPS_ROW[tritest])
 
 
-def kernel_entry(name: str, source: str, line: int, err: float, ms: float,
+def kernel_entry(name: str, source: str, line, err: float, ms: float,
                  plain_ms: float, full_ms: float, bnd: dict, **extra) -> dict:
-    """One kernel's row of the JSON table (launches are filled in later)."""
+    """One kernel's row of the JSON table (launches are filled in later).
+    ``line``: a line of ops/pallas_traverse.py, or "file.py:line" under the
+    reference's scripts/."""
+    replaces = f"{REF}{line}" if isinstance(line, int) else REF_SCRIPTS + line
     return {"name": name, "route": "cuda", "source": SRC + source,
-            "replaces": f"{REF}{line}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "full_ms": full_ms, **bnd, "library_ms": None,
-            **extra}
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "full_ms": full_ms, **bnd,
+            **{"library_ms": None, **extra}}
 
 
 def phase_kernels(renderer) -> list[dict]:
@@ -736,39 +779,51 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
     return out
 
 
+def kernel_home(name: str):
+    """One of KERNELS -> (the module that holds its wrapper, the wrapper's
+    name there); its plain version is ``<wrapper>_plain`` beside it."""
+    import importlib
+
+    if name in TOOL_KERNELS:
+        mod, attr = TOOL_KERNELS[name]
+        return importlib.import_module(f"tpu_pathtracer_torch.scripts.{mod}"), attr
+    return importlib.import_module("tpu_pathtracer_torch.ops.hopper_traverse"), name
+
+
 @contextlib.contextmanager
 def counted_run():
     """Zero every kernel's launch count and count plain-version calls on
     CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
     ..., "plain_cuda": ...}, filled in when the run ends ("launches_mt": the
     Moller-Trumbore form's launches of the wrappers that take tritest)."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
+    where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper name)
     plain_cuda = {f"{k}_plain": 0 for k in KERNELS}
 
     def counted(name, fn):
-        def wrapper(o, *args, **kw):
-            if o.is_cuda:
+        def wrapper(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
                 plain_cuda[name] += 1
-            return fn(o, *args, **kw)
+            return fn(*args, **kw)
         return wrapper
 
-    saved = {name: getattr(ht, name) for name in plain_cuda}
-    for name, fn in saved.items():
-        setattr(ht, name, counted(name, fn))
-    mt = [k for k in KERNELS if hasattr(getattr(ht, k), "launches_mt")]
+    saved = {k: getattr(mod, f"{attr}_plain") for k, (mod, attr) in where.items()}
+    for k, fn in saved.items():
+        setattr(where[k][0], f"{where[k][1]}_plain", counted(f"{k}_plain", fn))
+    fns = {k: getattr(mod, attr) for k, (mod, attr) in where.items()}
+    mt = [k for k in KERNELS if hasattr(fns[k], "launches_mt")]
     for k in KERNELS:
-        getattr(ht, k).launches = 0
+        fns[k].launches = 0
     for k in mt:
-        getattr(ht, k).launches_mt = 0
+        fns[k].launches_mt = 0
     out = {"plain_cuda": plain_cuda}
     try:
         yield out
     finally:
-        out["launches"] = {k: getattr(ht, k).launches for k in KERNELS}
-        out["launches_mt"] = {k: getattr(ht, k).launches_mt for k in mt}
-        for name, fn in saved.items():
-            setattr(ht, name, fn)
+        out["launches"] = {k: fns[k].launches for k in KERNELS}
+        out["launches_mt"] = {k: fns[k].launches_mt for k in mt}
+        for k, fn in saved.items():
+            setattr(where[k][0], f"{where[k][1]}_plain", fn)
 
 
 def timed_frames(renderer, timed: int = 3) -> tuple[float, dict]:
@@ -1230,6 +1285,339 @@ def phase_backend_parity(terrain) -> None:
         check_parity(f"cornellbox {kw} vs the kernel route", img, kernels)
 
 
+def max_diff(a, b) -> float:
+    """max |a - b| over the lanes where both are finite; raises when one is
+    finite where the other is not."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        raise AssertionError(f"finite on {int(fa.sum())} lanes against {int(fb.sum())}")
+    return float((a - b)[fa].abs().max()) if bool(fa.any()) else 0.0
+
+
+def sweep_bounds(lay, act, first, n_prepass: int, tests: int,
+                 boxes: int) -> tuple[dict, dict]:
+    """The bounds of the candidate-sweep pair on these lanes -> (count
+    kernel's, targeted kernel's).  Both: o, d and the active mask read once
+    (25 B a lane), the leaf boxes and the prepass block once, every live
+    lane against every prepass row.  The count kernel needs every leaf box
+    on every live lane (a count has no early end), adds one to its count per
+    box test and writes 8 B a lane.  The targeted kernel needs only the
+    boxes up to its lowest candidate: ``boxes`` box tests (first + 1 a lane
+    with a candidate, every leaf a lane without, the plain version's tally);
+    it also reads t_max, ``leafmeta`` and the rows of each distinct tested
+    leaf, writes 20 B a lane and runs ``tests`` Moller-Trumbore row tests
+    (the same tally)."""
+    lanes, live = act.shape[0], int(act.sum())
+    shared = (lay.num_leaves * row_bytes(lay.leafbox) + n_prepass * row_bytes(lay.prepass))
+    prime = live * n_prepass * OPS_ROW["mt"]
+    leaves = torch.unique(first[act & (first < lay.num_leaves)]).to(torch.int64)
+    leaf_rows = int(lay.leafmeta[leaves, 1].sum())
+    return (bound(lanes * (25 + 8) + shared,
+                  prime + live * lay.num_leaves * (OPS_LEAF_BOX + 1)),
+            bound(lanes * (RAY_BYTES + 20) + shared + lay.num_leaves * row_bytes(lay.leafmeta)
+                  + leaf_rows * row_bytes(lay.tris8),
+                  prime + boxes * OPS_LEAF_BOX + tests * OPS_ROW["mt"]))
+
+
+def phase_sweep_kernels(renderer) -> list[dict]:
+    """The candidate-sweep pair against its plain versions on 65,536 lanes
+    of the Water-plastic camera and bounce-1 wavefronts, on the leaf-56 and
+    the leaf-8 layout; timed on the bounce-1 lanes (and the full bounce-1
+    wavefront) of the leaf-56 layout, with the leaf-8 times beside."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.ops.traverse import Tally
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    cfg = renderer.cfg
+    layouts = {"leaf 56": renderer.layout, "leaf 8": renderer.layout_occl}
+    waves = wavefronts(renderer.scene, renderer.layout, renderer.layout_occl, cfg)
+    gen = torch.Generator().manual_seed(2468)
+    err_count, err_one, rows, timed = 0.0, 0.0, {}, {}
+    for which in ("camera", "bounce1"):
+        o, d, act = draw(waves[which], SAMPLE_LANES, gen)
+        for label, lay in layouts.items():
+            pp = ht.window_prepass(lay, cfg.traversal_prepass)
+            ck, fk = es.sweep_count(o, d, lay, active=act, prepass=pp)
+            cp, fp = es.sweep_count_plain(o, d, lay, active=act, prepass=pp)
+            sel = act & (ck <= 1)
+            rk, _ = es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
+            tally = Tally()
+            rp, _ = es.intersect_sweep1_plain(o, d, lay, active=sel, prepass=pp,
+                                              tally=tally)
+            torch.cuda.synchronize()
+            bad = int((ck != cp).sum() + (fk != fp).sum())
+            if bad:
+                raise AssertionError(f"sweep_count/{which} ({label}): counts or first "
+                                     f"leaves differ on {bad} lanes")
+            if not (torch.equal(rk.row, rp.row) and torch.equal(rk.orig, rp.orig)):
+                raise AssertionError(f"sweep1/{which} ({label}): rows or original ids "
+                                     f"differ on {int((rk.row != rp.row).sum())} lanes")
+            err = max(max_diff(rk.t, rp.t), max_diff(rk.u, rp.u), max_diff(rk.v, rp.v))
+            if err > 0.0:
+                raise AssertionError(f"sweep1/{which} ({label}): t, u or v differ by {err}")
+            err_count, err_one = max(err_count, float(bad)), max(err_one, err)
+            log(f"  sweep_count, sweep1/{which} ({label}, {lay.num_leaves} leaves, prepass "
+                f"{pp}): counts, first leaves, t, u, v, row, orig equal on all "
+                f"{SAMPLE_LANES} lanes; {int(sel.sum())} lanes with <= 1 candidate, "
+                f"{int(torch.isfinite(rk.t[sel]).sum())} of them hit")
+            timed[label] = (o, d, act, sel, lay, pp, fk, tally.tests, tally.visits)
+    fo, fd, fact = waves["bounce1"]
+    for label, (o, d, act, sel, lay, pp, first, tests, boxes) in timed.items():
+        bnd_c, _ = sweep_bounds(lay, act, first, pp, 0, 0)            # every live lane
+        _, bnd_1 = sweep_bounds(lay, sel, first, pp, tests, boxes)    # the <= 1 lanes
+        fc, _ = es.sweep_count(fo, fd, lay, active=fact, prepass=pp)
+        fsel = fact & (fc <= 1)
+        rows[label] = (
+            dict(ms=cuda_ms(lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)),
+                 plain_ms=cuda_ms(lambda: es.sweep_count_plain(o, d, lay, active=act,
+                                                               prepass=pp), iters=2),
+                 full_ms=cuda_ms(lambda: es.sweep_count(fo, fd, lay, active=fact,
+                                                        prepass=pp), iters=3), **bnd_c),
+            dict(ms=cuda_ms(lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)),
+                 plain_ms=cuda_ms(lambda: es.intersect_sweep1_plain(
+                     o, d, lay, active=sel, prepass=pp), iters=2),
+                 full_ms=cuda_ms(lambda: es.intersect_sweep1(fo, fd, lay, active=fsel,
+                                                             prepass=pp), iters=3), **bnd_1))
+        for name, r in zip(("sweep_count", "sweep1"), rows[label]):
+            log(f"  {name} ({label}) at {SAMPLE_LANES} bounce-1 lanes: kernel "
+                f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}); full bounce-1 "
+                f"({fo.shape[1]} lanes) {r['full_ms']:.3f} ms")
+    out = []
+    for k, (name, line, err) in enumerate((("sweep_count", 82, err_count),
+                                           ("sweep1", 156, err_one))):
+        main, other = rows["leaf 56"][k], rows["leaf 8"][k]
+        ms, plain_ms, full_ms = (main.pop(x) for x in ("ms", "plain_ms", "full_ms"))
+        out.append(kernel_entry(
+            name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
+            plain_ms, full_ms, main, **{f"{x}_leaf8": v for x, v in other.items()
+                                        if x.endswith("ms") or x == "bound_by"}))
+    return out
+
+
+def split_run(label: str, o, d, act, lay, prepass: int) -> dict:
+    """The candidate split on one wavefront and layout: the count kernel,
+    the targeted kernel on the lanes with at most one candidate leaf, the MT
+    window walk on all lanes; asserts the split property and returns the
+    kernels' launches in that run; then times the four launches."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    pp = ht.window_prepass(lay, prepass)
+    with counted_run() as run:
+        cnt, first = es.sweep_count(o, d, lay, active=act, prepass=pp)
+        sel = act & (cnt <= 1)
+        raw, tmax = es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
+        tw, rw = ht.window_walk(o, d, act, tmax, lay, prepass=pp, tritest="mt")
+        hs = ht.resolve_window_payload(lay, raw.t, raw.row, tmax, o, d)
+        hw = ht.resolve_window_payload(lay, tw, rw, tmax, o, d)
+    torch.cuda.synchronize()
+    if any(run["plain_cuda"].values()):
+        raise AssertionError(f"split {label}: plain versions ran on CUDA tensors: {run}")
+    fin_s, fin_w = torch.isfinite(hs.t[sel]), torch.isfinite(hw.t[sel])
+    if not torch.equal(fin_s, fin_w):
+        raise AssertionError(f"split {label}: hit/miss differs from the window walk on "
+                             f"{int((fin_s != fin_w).sum())} lanes with <= 1 candidate")
+    if not torch.equal(hs.tri[sel], hw.tri[sel]):
+        raise AssertionError(f"split {label}: triangle ids differ on "
+                             f"{int((hs.tri[sel] != hw.tri[sel]).sum())} lanes")
+    if not torch.equal(hs.t[sel], hw.t[sel]):  # tolerance 0: the same rows, order, arithmetic
+        raise AssertionError(f"split {label}: t differs by up to "
+                             f"{max_diff(hs.t[sel], hw.t[sel])}")
+    hit = sel & torch.isfinite(hs.t)
+    if not torch.equal(raw.orig[hit].to(torch.int64), hw.tri[hit]):
+        raise AssertionError(f"split {label}: the targeted kernel's original ids differ")
+    none = act & (cnt == 0)
+    pre_rows = lay.prepass[:pp, 21].to(torch.int32)
+    if not bool(((raw.row[none] == lay.num_tris) | torch.isin(raw.row[none], pre_rows)).all()):
+        raise AssertionError(f"split {label}: a lane with no candidate is neither a miss "
+                             "nor a prepass hit")
+    live = max(int(act.sum()), 1)
+    c = cnt[act].to(torch.float32)
+    many = act & (cnt > 1)
+    out = {
+        "label": label, "lanes": o.shape[1], "live": int(act.sum()),
+        "leaves": lay.num_leaves, "prepass": pp,
+        "share_0": int(none.sum()) / live, "share_1": int((act & (cnt == 1)).sum()) / live,
+        "share_many": int(many.sum()) / live, "mean_count": float(c.mean()),
+        "p95_count": float(c.sort().values[int(0.95 * (c.numel() - 1))]),
+        "hits_le1": int(hit.sum()),
+        "count_ms": cuda_ms(lambda: es.sweep_count(o, d, lay, active=act, prepass=pp), 3),
+        "sweep1_ms": cuda_ms(lambda: es.intersect_sweep1(o, d, lay, active=sel,
+                                                         prepass=pp), 3),
+        "window_all_ms": cuda_ms(lambda: ht.window_walk(o, d, act, tmax, lay, prepass=pp,
+                                                        tritest="mt"), 3),
+        "window_many_ms": cuda_ms(lambda: ht.window_walk(o, d, many, tmax, lay, prepass=pp,
+                                                         tritest="mt"), 3),
+        "launches": run["launches"],
+    }
+    log(f"split {label}: {out['lanes']} lanes ({out['live']} live), {out['leaves']} leaves, "
+        f"prepass {pp}: candidates 0 / 1 / >1 on {out['share_0']:.4f} / "
+        f"{out['share_1']:.4f} / {out['share_many']:.4f} of the live lanes, mean "
+        f"{out['mean_count']:.3f}, p95 {out['p95_count']:.0f}; the targeted result equals "
+        f"the MT window walk on all {int(sel.sum())} lanes with <= 1 candidate "
+        f"({out['hits_le1']} hits, t bit-equal); ms: count {out['count_ms']:.3f}, targeted "
+        f"{out['sweep1_ms']:.3f}, window walk on all lanes {out['window_all_ms']:.3f}, on "
+        f"the >1 lanes only {out['window_many_ms']:.3f}")
+    return out
+
+
+def phase_split(renderer, terrain) -> dict:
+    """The candidate split at full width -> the launches of ``sweep_count``
+    and ``sweep1`` over all its runs."""
+    cfg = renderer.cfg
+    runs = []
+    waves = wavefronts(renderer.scene, renderer.layout, renderer.layout_occl, cfg)
+    for which in ("camera", "bounce1"):
+        for leaf, lay in ((56, renderer.layout), (8, renderer.layout_occl)):
+            runs.append(split_run(f"{SCENE} {which}, leaf {leaf}", *waves[which], lay,
+                                  cfg.traversal_prepass))
+    del waves
+    r = terrain_renderer(terrain)
+    waves = wavefronts(r.scene, r.layout, r.layout_occl, r.cfg)
+    tris = terrain.num_triangles
+    gen = torch.Generator().manual_seed(1357)
+    for which, live in (("camera", None), ("bounce1", waves["bounce1"][2])):
+        lanes = draw(waves[which], SAMPLE_LANES, gen, live)
+        for leaf, lay in ((56, r.layout), (8, r.layout_occl)):
+            runs.append(split_run(f"terrain ({tris} triangles) {which}, {SAMPLE_LANES} "
+                                  f"lanes, leaf {leaf}", *lanes, lay,
+                                  r.cfg.traversal_prepass))
+        runs.append(split_run(f"terrain ({tris} triangles) {which}, whole wavefront, "
+                              f"leaf 56", *waves[which], r.layout, r.cfg.traversal_prepass))
+    return {k: sum(x["launches"][k] for x in runs) for k in ("sweep_count", "sweep1")}
+
+
+def echo_main(main, what: str) -> tuple[dict, list[str]]:
+    """Run a tool's ``main([])`` under :func:`counted_run`, echo its lines
+    -> (the run's counts, the lines)."""
+    buf = io.StringIO()
+    with counted_run() as run, contextlib.redirect_stdout(buf):
+        rc = main([])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    if rc or any(run["plain_cuda"].values()):
+        raise AssertionError(f"{what}: rc {rc}, plain versions on CUDA tensors "
+                             f"{run['plain_cuda']}")
+    return run, lines
+
+
+def phase_launch_probe(smi: str) -> tuple[dict, int]:
+    """The no-op against its plain version at each tile, its times beside
+    the PyTorch call pair that computes the same function, then the launch
+    probe's ``main()`` -> (the no-op's row of the kernel table, its launches
+    in that run)."""
+    from tpu_pathtracer_torch.scripts import perf_launch as pl
+
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    full = torch.randn((8, pl.N), generator=gen, device="cuda")
+    tables = [torch.zeros((64, 8), device="cuda") for _ in range(3)]
+    err = 0.0
+    for tile in pl.TILES:
+        for tbl in ([], tables):
+            err = max(err, float((pl.noop(full, tbl, tile)
+                                  - pl.noop_plain(full, tbl, tile)).abs().max()))
+    if err > 0.0:
+        raise AssertionError(f"noop differs from its plain version by {err}")
+    log(f"  noop == its plain version at tiles {pl.TILES}, with 0 and 3 tables, on "
+        f"{pl.N} lanes")
+
+    def library(x):
+        out = torch.zeros_like(x)
+        out[0].copy_(x[0])
+        return out
+
+    small = full[:, :SAMPLE_LANES].contiguous()
+    tile = pl.TILES[0]
+    times = {f"{name}{tag}": cuda_ms(lambda: fn(x), iters=20)
+             for tag, x in (("", small), ("_full", full))
+             for name, fn in (("ms", lambda x: pl.noop(x, [], tile)),
+                              ("plain_ms", lambda x: pl.noop_plain(x, [], tile)),
+                              ("library_ms", library))}
+    bnd = bound(SAMPLE_LANES * 36, 0)
+    entry = kernel_entry("noop", "probes.cu", "perf_launch.py:47", err, times["ms"],
+                         times["plain_ms"], times["ms_full"], bnd,
+                         library_ms=times["library_ms"],
+                         plain_full_ms=times["plain_ms_full"],
+                         library_full_ms=times["library_ms_full"],
+                         bound_full_ms=bound(pl.N * 36, 0)["bound_ms"])
+    log(f"  noop at tile {tile}, {SAMPLE_LANES} lanes: kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, zeros + copy_ {entry['library_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms (bytes); {pl.N} lanes: {entry['full_ms']:.4f}, "
+        f"{entry['plain_full_ms']:.4f}, {entry['library_full_ms']:.4f}, "
+        f"{entry['bound_full_ms']:.5f} ms")
+    run, lines = echo_main(pl.main, "launch probe")
+    launches = run["launches"]
+    if min(launches[k] for k in ("noop", "capped_walk", "window_walk")) <= 0:
+        raise AssertionError(f"launch probe: a kernel never launched: {launches}")
+    if not lines[0].endswith(smi) or sum(ln.startswith("tile=") for ln in lines) != len(pl.TILES):
+        raise AssertionError("launch probe: its lines are not the ones expected")
+    return entry, launches["noop"]
+
+
+def phase_rowtest_probe() -> tuple[dict, int]:
+    """Each of the six probe variants against its plain version on 65,536
+    lanes and, at the tool's own width and inputs, on every 32nd lane; then
+    the probe's ``main()`` with the default flags -> (the probe's
+    row of the kernel table: the anchor variant's numbers, every variant's
+    beside; its launches in that run)."""
+    from tpu_pathtracer_torch.scripts import perf_ophit_probe as pp
+
+    rays, tris = pp.probe_inputs(SAMPLE_LANES, pp.T8, "cuda", seed=1)
+    tile, mtblock = 768, 16
+    rows = pp.T8 // mtblock * mtblock
+    per = {}
+    for v in pp.VARIANTS:
+        tk, ik = pp.rowtest_probe(v, rays, tris, tile, mtblock)
+        tp, ip = pp.rowtest_probe_plain(v, rays, tris, mtblock)
+        torch.cuda.synchronize()
+        err = agree(f"rowtest_probe/{v}", tk, ik, tp, ip)
+        if not (torch.equal(tk, tp) and torch.equal(ik, ip)):
+            raise AssertionError(f"rowtest_probe/{v}: not bit-equal to its plain version")
+        per[v] = {"max_abs_err": err,
+                  "ms": cuda_ms(lambda: pp.rowtest_probe(v, rays, tris, tile, mtblock)),
+                  "plain_ms": cuda_ms(lambda: pp.rowtest_probe_plain(v, rays, tris,
+                                                                     mtblock), iters=1),
+                  **bound(SAMPLE_LANES * (32 + 8) + tris.numel() * 4,
+                          SAMPLE_LANES * rows * pp.ROWTEST_OPS[v])}
+        log(f"  rowtest_probe/{v} at {SAMPLE_LANES} lanes x {rows} rows: kernel "
+            f"{per[v]['ms']:.3f} ms, plain {per[v]['plain_ms']:.1f} ms, bound "
+            f"{per[v]['bound_ms']:.3f} ms ({per[v]['bound_by']})")
+    # the launch the tool times: its own inputs at all its lanes, every 32nd
+    # lane held against the plain version
+    frays, ftris = pp.probe_inputs(pp.N, pp.T8, "cuda")
+    srays = frays[:, ::FULL_STRIDE].contiguous()
+    for v in pp.VARIANTS:
+        tk, ik = pp.rowtest_probe(v, frays, ftris, tile, mtblock)
+        tp, ip = pp.rowtest_probe_plain(v, srays, ftris, mtblock)
+        torch.cuda.synchronize()
+        if not (torch.equal(tk[::FULL_STRIDE], tp) and torch.equal(ik[::FULL_STRIDE], ip)):
+            raise AssertionError(f"rowtest_probe/{v} at {pp.N} lanes: not bit-equal to "
+                                 f"its plain version on one lane in {FULL_STRIDE}")
+    log(f"  rowtest_probe at {pp.N} lanes (the tool's inputs): all {len(pp.VARIANTS)} "
+        f"variants bit-equal to their plain versions on one lane in {FULL_STRIDE} "
+        f"({srays.shape[1]} lanes)")
+    del frays, srays, ftris
+    run, lines = echo_main(pp.main, "row-test probe")
+    full = {m[1]: float(m[2]) for m in (re.match(r"ROW (\S+)\s+([0-9.]+) ms", ln)
+                                        for ln in lines) if m}
+    if tuple(full) != pp.VARIANTS or run["launches"]["rowtest_probe"] <= 0:
+        raise AssertionError(f"row-test probe: ROW lines {tuple(full)}, launches "
+                             f"{run['launches']}")
+    anchor = per["full-bw"]
+    entry = kernel_entry(
+        "rowtest_probe", "probes.cu", "perf_ophit_probe.py:101",
+        max(x["max_abs_err"] for x in per.values()), anchor["ms"], anchor["plain_ms"],
+        full["full-bw"], {k: anchor[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                                 "bound_ops")},
+        variants={v: {"ms": per[v]["ms"], "plain_ms": per[v]["plain_ms"],
+                      "full_ms": full[v], "bound_ms": per[v]["bound_ms"],
+                      "bound_full_ms": per[v]["bound_ms"] * pp.N / SAMPLE_LANES,
+                      "ops_per_rowtest": pp.ROWTEST_OPS[v]} for v in pp.VARIANTS})
+    return entry, run["launches"]["rowtest_probe"]
+
+
 def main() -> int:
     smi = phase_device()
     t_start = time.perf_counter()
@@ -1293,6 +1681,13 @@ def main() -> int:
         route_turns(scene)
     phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
     phase_backend_parity(small)
+    renderer = Renderer(SCENE, WIDTH, HEIGHT)
+    kernels += phase_sweep_kernels(renderer)
+    launches.update(phase_split(renderer, small))
+    del renderer
+    for entry, count in (phase_launch_probe(smi), phase_rowtest_probe()):
+        kernels.append(entry)
+        launches[entry["name"]] = count
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])

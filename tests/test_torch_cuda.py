@@ -14,6 +14,8 @@ from tpu_pathtracer_torch import Renderer, RenderConfig
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.scene import load_scene, scene_path
+from tpu_pathtracer_torch.scripts import experimental_sweep as es
+from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
 from torch_parity import (assert_hits_agree, cuda_device, nee_shadow_rays,  # noqa: F401
                           random_rays)
 from torch_terrain import terrain_scene
@@ -194,3 +196,68 @@ def test_terrain_route_and_lbvh_on_card(cuda_device):
     cpu = build_layout(terrain_scene(256, device="cpu"), 56, builder="lbvh")
     for k in ("nodes", "nodes_meta", "tris", "tris8", "tris8bw", "sorted_to_orig"):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+
+
+@pytest.mark.parametrize("leaf", [56, 8])
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_candidate_sweep_matches_plain_on_card(name, leaf, cuda_device):
+    """The candidate-sweep pair == its plain versions on the same card, every
+    output bit-equal (counts, first leaves, t, u, v, row, orig), one launch
+    counted each; and the split property on the kernels: the targeted result
+    == the MT window walk on every lane with at most one candidate."""
+    scene = load_scene(scene_path(name), device=cuda_device)
+    lay = build_layout(scene, leaf)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=19))
+    act = torch.arange(8192, device=cuda_device) % 9 != 4
+    n0 = (es.sweep_count.launches, es.intersect_sweep1.launches)
+    ck, fk = es.sweep_count(o, d, lay, active=act)
+    cp, fp = es.sweep_count_plain(o, d, lay, active=act)
+    assert torch.equal(ck, cp) and torch.equal(fk, fp)
+    assert int(ck.max()) > 1 or lay.num_leaves == 1  # cornellbox at leaf 56: one leaf
+    sel = act & (ck <= 1)
+    t_max = torch.where(torch.arange(8192, device=cuda_device) % 3 == 0, 1.5, torch.inf)
+    rk, _ = es.intersect_sweep1(o, d, lay, active=sel, t_max=t_max)
+    rp, _ = es.intersect_sweep1_plain(o, d, lay, active=sel, t_max=t_max)
+    for a, b in zip(rk, rp):
+        assert torch.equal(a, b)
+    raw, tmax = es.intersect_sweep1(o, d, lay, active=sel)
+    assert (es.sweep_count.launches, es.intersect_sweep1.launches) == (n0[0] + 1, n0[1] + 2)
+    tw, rw = ht.window_walk(o, d, act, tmax, lay, prepass=ht.window_prepass(lay, 32),
+                            tritest="mt")
+    assert torch.equal(raw.t[sel], tw[sel]) and torch.equal(raw.row[sel], rw[sel])
+    assert bool(torch.isfinite(raw.t[sel]).any()) and float(sel.float().mean()) > 0.05
+    with pytest.raises(ValueError):
+        es.sweep_count(o.double(), d, lay)
+    with pytest.raises(ValueError):
+        es.intersect_sweep1(o, d, build_layout(load_scene(scene_path(name), device="cpu"),
+                                               leaf))
+
+
+def test_probes_match_plain_on_card(cuda_device):
+    """The no-op and the six row-test probe variants == their plain versions
+    on the same card, exactly: ragged last tiles, 0 and 3 table pointers,
+    two block sizes of the latch; launches counted; bad shapes raise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rays = torch.randn((8, 10000), generator=gen, device=cuda_device)
+    tables = [torch.zeros((7, 8), device=cuda_device) for _ in range(3)]
+    n0 = perf_launch.noop.launches
+    for tile in (768, 6144):
+        for tbl in ([], tables):
+            out = perf_launch.noop(rays, tbl, tile)
+            assert torch.equal(out, perf_launch.noop_plain(rays, tbl, tile))
+            assert float(perf_launch.run_noop(rays, tbl, tile)) == float(
+                perf_launch.run_noop_plain(rays, tbl, tile))
+    assert perf_launch.noop.launches == n0 + 8
+    with pytest.raises(ValueError):
+        perf_launch.noop(rays[:7].contiguous(), [], 768)
+    rays, tris = perf_ophit_probe.probe_inputs(4096, 200, cuda_device, seed=7)
+    n0 = perf_ophit_probe.rowtest_probe.launches
+    for variant in perf_ophit_probe.VARIANTS:
+        for mtblock, tile in ((16, 768), (7, 96)):
+            tk, ik = perf_ophit_probe.rowtest_probe(variant, rays, tris, tile, mtblock)
+            tp, ip = perf_ophit_probe.rowtest_probe_plain(variant, rays, tris, mtblock)
+            assert torch.equal(tk, tp) and torch.equal(ik, ip), (variant, mtblock)
+            assert bool(torch.isfinite(tk).any())
+    assert perf_ophit_probe.rowtest_probe.launches == n0 + 12
+    with pytest.raises(ValueError):
+        perf_ophit_probe.rowtest_probe("full-bw", rays, tris, tile=100)

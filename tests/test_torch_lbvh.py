@@ -65,12 +65,12 @@ def test_lbvh_layout_tables_exact(scenes):
     ref = jbuild_layout(js, leaf_size=56, builder="lbvh")
     got = build_layout(ts, leaf_size=56, builder="lbvh")
     for name in ("nodes", "nodes_meta", "tris", "sorted_to_orig", "prepass", "nodes8",
-                 "meta4", "tris8", "tris8bw", "prepassbw"):
+                 "meta4", "tris8", "tris8bw", "prepassbw", "leafbox", "leafmeta"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
     assert got.anchor == ref.anchor
-    assert (got.num_nodes, got.num_tris, got.max_leaf) == (
-        ref.num_nodes, ref.num_tris, ref.max_leaf)
+    assert (got.num_nodes, got.num_tris, got.max_leaf, got.num_leaves) == (
+        ref.num_nodes, ref.num_tris, ref.max_leaf, ref.num_leaves)
 
 
 def test_morton_and_clz():

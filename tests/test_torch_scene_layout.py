@@ -11,9 +11,10 @@ from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.scene import load_scene
 from torch_parity import arrays
 
-# the tables the kernels read (accel/layout.py); tris8 = the MT window rows
+# the tables the kernels read (accel/layout.py); tris8 = the MT window rows,
+# leafbox / leafmeta = the candidate-sweep kernels' per-leaf tables
 _TABLES = ("nodes", "nodes_meta", "tris", "sorted_to_orig", "prepass",
-           "nodes8", "meta4", "tris8", "tris8bw", "prepassbw")
+           "nodes8", "meta4", "tris8", "tris8bw", "prepassbw", "leafbox", "leafmeta")
 
 
 @pytest.fixture(scope="module", params=SCENE_NAMES)
@@ -55,13 +56,17 @@ def test_layout_tables_exact(scenes, leaf):
         assert g.shape == r.shape, name
         np.testing.assert_array_equal(g, r, err_msg=name)
     assert got.anchor == ref.anchor
-    assert (got.num_nodes, got.num_tris, got.max_leaf) == (
-        ref.num_nodes, ref.num_tris, ref.max_leaf)
+    assert (got.num_nodes, got.num_tris, got.max_leaf, got.num_leaves) == (
+        ref.num_nodes, ref.num_tris, ref.max_leaf, ref.num_leaves)
+    # the pad rows of leafbox keep the far point-box that no ray can enter
+    pad = got.leafbox.numpy()[got.num_leaves:, :6]
+    assert (pad == np.float32([1e30, -1e30, 1e30] * 2)).all()
     # the interop bridge carries the reference's layout over unchanged
     carried = interop.layout_from_arrays(arrays(ref))
     for name in _TABLES:
         np.testing.assert_array_equal(getattr(carried, name).numpy(),
                                       getattr(got, name).numpy(), err_msg=name)
+    assert carried.num_leaves == got.num_leaves
 
 
 def test_scene_from_arrays_exact(scenes):

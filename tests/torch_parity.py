@@ -16,6 +16,29 @@ def arrays(nt) -> dict:
             for k, v in nt._asdict().items()}
 
 
+def load_reference_script(name: str):
+    """The reference's ``scripts/<name>.py`` as a module (the scripts are
+    not a package), with the JAX compilation-cache settings that its import
+    overwrites put back."""
+    import importlib.util
+    import os
+
+    import jax
+
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"reference_{name}", os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return mod
+
+
 def random_rays(n: int, seed: int):
     """(3, n) float32 origins inside the Cornell box and unit directions."""
     rng = np.random.default_rng(seed)

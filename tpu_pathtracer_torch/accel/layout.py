@@ -26,7 +26,12 @@ exact small floats):
   * ``nodes8`` / ``meta4``: the TPU window kernel's padded node tables
     (the same rows as ``nodes``/``nodes_meta`` plus ``tri_start``), kept so
     the layout round-trips with the reference's (and its byte counts,
-    render/wavefront.py:layout_vmem_bytes, match).
+    render/wavefront.py:layout_vmem_bytes, match);
+  * ``leafbox`` (L16, 8) f32 [bmin.xyz, bmax.xyz, pad2] / ``leafmeta``
+    (L16, 4) i32 [first_tri, tri_count, dfs_node_id, 0]: one row per leaf in
+    DFS order, padded to a multiple of 16 rows, for the candidate-sweep
+    kernels (scripts/experimental_sweep.py); ``num_leaves`` counts the real
+    rows.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ PREPASS_MAX = 64  # rows in the big-triangle pre-pass block
 _TABLES = (
     ("nodes", "f"), ("nodes_meta", "i"), ("tris", "f"), ("sorted_to_orig", "i"),
     ("prepass", "f"), ("nodes8", "f"), ("meta4", "i"), ("tris8", "f"),
-    ("tris8bw", "f"), ("prepassbw", "f"),
+    ("tris8bw", "f"), ("prepassbw", "f"), ("leafbox", "f"), ("leafmeta", "i"),
 )
 
 
@@ -60,10 +65,13 @@ class BVHLayout(NamedTuple):
     tris8: torch.Tensor           # (T8, 24) float32
     tris8bw: torch.Tensor         # (T8, 16) float32
     prepassbw: torch.Tensor       # (PREPASS_MAX, 16) float32
+    leafbox: torch.Tensor         # (L16, 8) float32
+    leafmeta: torch.Tensor        # (L16, 4) int32
     anchor: tuple                 # (ax, ay, az) floats of the BW planes
     num_nodes: int                # M (sentinel id == M)
     num_tris: int
     max_leaf: int                 # max tri_count over leaves
+    num_leaves: int               # real rows of leafbox / leafmeta
 
 
 def layout_arrays(bvh: BVH, normals, material_id, light_index) -> dict:
@@ -230,13 +238,32 @@ def layout_arrays(bvh: BVH, normals, material_id, light_index) -> dict:
     prepassbw = bw_rows(prepass, prepass[:, 21])
     prepassbw[by_area.size:] = 0.0
 
+    # ---- leaf-box tables (candidate-sweep kernels) ----
+    num_leaves = len(leaf_pos)
+    l16 = max(-(-num_leaves // 16) * 16, 16)
+    leafbox = np.zeros((l16, 8), np.float32)
+    # pad rows: a degenerate far point-box with alternating axis signs: its
+    # slab enter is +inf (or enter > exit) for every combination of direction
+    # signs, so ``enter < best_t`` can never pass.  (An inverted box, bmin =
+    # +B / bmax = -B, is not safe here: with mixed direction signs each axis
+    # interval becomes [-inf, +inf] and the test passes.)
+    leafbox[:, 0:3] = (1e30, -1e30, 1e30)
+    leafbox[:, 3:6] = (1e30, -1e30, 1e30)
+    leafbox[:num_leaves, 0:3] = out_bmin[:, leaf_pos].T
+    leafbox[:num_leaves, 3:6] = out_bmax[:, leaf_pos].T
+    leafmeta = np.zeros((l16, 4), np.int32)
+    leafmeta[:num_leaves, 0] = out_first[leaf_pos]
+    leafmeta[:num_leaves, 1] = counts[leaf_pos]
+    leafmeta[:num_leaves, 2] = leaf_pos
+
     return dict(
         nodes=nodes, nodes_meta=nodes_meta, tris=tris,
         sorted_to_orig=s2o.astype(np.int32), prepass=prepass,
         nodes8=nodes8, meta4=meta4, tris8=tris8, tris8bw=tris8bw,
-        prepassbw=prepassbw,
+        prepassbw=prepassbw, leafbox=leafbox, leafmeta=leafmeta,
         anchor=tuple(float(a) for a in anchor),
         num_nodes=m, num_tris=num_tris, max_leaf=max_leaf,
+        num_leaves=num_leaves,
     )
 
 
@@ -254,4 +281,5 @@ def layout_to(arrays: dict, device) -> BVHLayout:
         num_nodes=int(arrays["num_nodes"]),
         num_tris=int(arrays["num_tris"]),
         max_leaf=int(arrays["max_leaf"]),
+        num_leaves=int(arrays["num_leaves"]),
     )

@@ -30,15 +30,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from .cli import device_for
 from .config import RenderConfig
+from .device import device_for, device_label
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -106,19 +105,6 @@ def _unported(args) -> list[tuple[bool, str, str]]:
         (bool(args.cull_zero_nee), "--cull-zero-nee", "queue 1 item 10"),
         (bool(args.bake_materials), "--bake-materials", "queue 1 item 10"),
     ]
-
-
-def device_label(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi prints them ("cpu" for
-    the CPU), after one op on the device: a missing or broken card fails
-    here, not mid-benchmark."""
-    float(torch.ones((8, 8), device=device).sum())
-    if device.type == "cpu":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         f"--id={torch.cuda.current_device()}"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def _frame_times(renderer, warmup: int, frames: int) -> list[float]:

@@ -23,6 +23,7 @@ import sys
 import tempfile
 
 from .config import ComparisonMode, RenderConfig
+from .device import device_for
 from .scene.assets import DEFAULT_SCENE, SCENE_NAMES, golden_path
 
 
@@ -149,21 +150,6 @@ def _unported(args) -> list[tuple[bool, str, str]]:
           for flag, path in (("--checkpoint", args.checkpoint),
                              ("--resume", args.resume))),
     ]
-
-
-def device_for(platform: str):
-    """``--platform`` -> torch device.  No silent CPU fallback: ``auto`` and
-    ``gpu`` raise when no CUDA device is present."""
-    import torch
-
-    if platform == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--platform {platform}: no CUDA device (torch.cuda.is_available() "
-            "is False); pass --platform cpu to run the plain torch versions "
-            "on the CPU")
-    return torch.device("cuda")
 
 
 def main(argv=None) -> int:

@@ -41,7 +41,8 @@ def scene_from_arrays(d: dict, device="cpu") -> Scene:
 
 def layout_from_arrays(d: dict, device="cpu") -> BVHLayout:
     """The reference's ``BVHLayout._asdict()`` -> the port's
-    :class:`BVHLayout` (the tables the port reads)."""
+    :class:`BVHLayout` (the tables the port reads, the candidate-sweep
+    kernels' ``leafbox`` / ``leafmeta`` / ``num_leaves`` included)."""
     return layout_to(d, device)
 
 

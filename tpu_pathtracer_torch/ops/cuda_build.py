@@ -54,6 +54,17 @@ _SIGNATURES = {
     # o, d, active, cap, target, nodes, meta, tris, num_nodes, t_min, eps,
     # four_eps, n, out, stream
     "tpupt_anyhit_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
+    # o, d, active, leafbox, pre, n_prepass, num_leaves, t_min, n, out_count,
+    # out_first, stream
+    "tpupt_sweep_count": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
+    # o, d, active, t_max, leafbox, leafmeta, tris8, pre, n_prepass,
+    # num_leaves, num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig,
+    # stream
+    "tpupt_sweep1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
+    # rays, table0..3 (never read; null when absent), tile, n, out, stream
+    "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
+    # rays, tris, variant, nblocks, mtblock, threads, n, out_t, out_i, stream
+    "tpupt_rowtest_probe": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
