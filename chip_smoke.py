@@ -13,7 +13,16 @@ Phases (any failure raises, so the exit code is not 0):
    and shadow wavefronts (the any-hit walk on the shadow pack of the same
    frame lit by a synthetic 1024x2048 environment map); times both at that
    size and the kernel on the full wavefront, and the capped walk on the
-   full env-lit pack beside the any-hit walk;
+   full env-lit pack beside the any-hit walk; every form of the redesigned
+   window walk (default, original-id, counting; bw and mt rows) and minwalk
+   against the per-thread yardsticks (csrc/walk_v1.cu) on every lane of the
+   whole camera, bounce-1 and shadow wavefronts (t and row equal, minwalk's
+   12 rows equal); the window walk, the capped walk, minwalk and the sweep
+   also get their bound on the whole wavefront (the plain walk run over it in
+   chunks under one tally) beside their time there; then the edge shapes: 1,
+   31, 33 and 65,537 lanes, every lane dead, one live lane a warp, prepass 0
+   and 32, and the leaf-16 and leaf-8 layouts, each form bit-equal to its
+   plain version;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
    event breakdown, and each kernel's launch count in that run;
@@ -39,6 +48,10 @@ Phases (any failure raises, so the exit code is not 0):
     walk and its original-id and counting forms, the HBM route's window
     walk (nearest and t_max-capped), and at GRID 256 the MT sweep, each
     against its plain version and timed there and on the full wavefront;
+    every window-walk form (and the HBM route's wrapper) against the
+    per-thread yardstick on every lane of the whole camera, bounce-1 and
+    capped shadow wavefronts, bw and mt; the MT walk's and the HBM route's
+    bounds on the whole wavefronts;
 11. terrain path: Renderer(build_scene(terrain), 1920, 1080), default
     config, SAH: the route must be the HBM route, as the reference's
     selection gives; 2 warm-up + 3 timed frames, exact rays and spans, the
@@ -80,7 +93,22 @@ Phases (any failure raises, so the exit code is not 0):
 17. row-test probe: each of the six variants against its plain version on
     65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
     on every 32nd lane; then ``scripts/perf_ophit_probe.main()`` with the
-    default flags (1080p lanes, 7112 rows), its ``ROW`` lines echoed.
+    default flags (1080p lanes, 7112 rows), its ``ROW`` lines echoed;
+18. walk A/B: the redesigned nearest-hit walks against the per-thread
+    yardsticks ``window_walk_v1`` / ``minwalk_v1`` in turns (every version
+    first to last and back, so new and old read new, old, old, new), by CUDA
+    events, on the whole camera, bounce-1 and capped shadow wavefronts of
+    Water-plastic and both terrains, bw and mt, with each step of the design
+    between them through ``window_walk_steps`` (WALK_STEPS: the packed node
+    record alone, the node table staged in shared memory, persistent
+    blocks, other block sizes), every version equal to the yardstick on every lane, ms and share
+    of the whole wavefront's bound for both; the new walk on the leaf-56,
+    leaf-16 and leaf-8 layouts of Water-plastic (a measurement only); then
+    the main path and the minwalk path on the new kernels and on the
+    yardsticks in turns, 1 warm-up + 3 frames a turn: ms/frame, the
+    walk_nearest span and the frame's device time from torch.profiler; then
+    the self-golden gate of phase 5 once more.  Only this phase may launch a
+    yardstick: any other counted run that does fails.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -98,7 +126,9 @@ in an FMA's slot, so each counts 2.  Both count what these lanes need,
 from the plain version's walk (ops/traverse.py:Tally): each ray read once,
 each output written once, each distinct node and leaf row the walk read
 moved once (the sweep: every row), the prepass block once; a box test per
-node visit and a row test per row tested.  The targeted sweep ends at its
+node visit and a row test per row tested (a node is 40 bytes of ``nodes``
+and ``nodes_meta`` for the per-thread walks, the 32 bytes of its
+``nodes_packed`` row for the redesigned ones).  The targeted sweep ends at its
 lowest candidate leaf, so its box tests are the ones up to that leaf (every
 leaf on a lane with no candidate); the count kernel needs every leaf.
 
@@ -110,7 +140,8 @@ counting form, the tritest="mt" gates for the MT fused walk and sweep,
 which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
-``perf_ophit_probe.main()`` run, none of them the launches that compare a
+``perf_ophit_probe.main()`` run, and the two per-thread yardsticks the
+Water-plastic part of the walk A/B, none of them the launches that compare a
 kernel with its plain version or time it); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -140,7 +171,10 @@ PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
 PARITY_FRAMES = 16
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
-           "sweep_count", "sweep1", "noop", "rowtest_probe")
+           "sweep_count", "sweep1", "noop", "rowtest_probe",
+           "window_walk_v1", "minwalk_v1", "window_walk_steps")
+# the yardsticks of the walk A/B (phase 18): no other phase may launch them
+YARDSTICKS = KERNELS[-3:]
 # the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
 # tpu_pathtracer_torch.scripts, wrapper (its plain version is <wrapper>_plain)
 TOOL_KERNELS = {"sweep_count": ("experimental_sweep", "sweep_count"),
@@ -166,6 +200,21 @@ FLOPS_PER_OP = 2            # a lone add, mul, min, max or compare takes an FMA'
 OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max, 3 compares
 OPS_ROW = {"bw": 38, "mt": 52}  # a Baldwin-Weber / Moller-Trumbore row test
 FULL_STRIDE = 32  # the row-test probe's full-width check holds every 32nd lane
+FULL_CHUNK = 524288  # lanes a plain walk takes at once when it prices a whole wavefront
+PACKED_NODE_BYTES = 32  # a node of the redesigned walks: one nodes_packed row
+# the steps of the nearest-hit walk's design that window_walk does not launch,
+# as window_walk_steps takes them (window_walk itself: stage=False, coop=True,
+# persist=False, threads=128)
+WALK_STEPS = {
+    "packed": dict(stage=False, coop=False, persist=False, threads=128),
+    "staged": dict(stage=True, coop=True, persist=False, threads=128),
+    "persistent": dict(stage=False, coop=True, persist=True, threads=512),
+    "persistent+staged": dict(stage=True, coop=True, persist=True, threads=512),
+    "64 threads": dict(stage=False, coop=True, persist=False, threads=64),
+    "256 threads": dict(stage=False, coop=True, persist=False, threads=256),
+}
+SHARED_LIMIT = 232448  # bytes of shared memory a block may ask for on an H100
+EDGE_LANES = (1, 31, 33, 65537)
 OPS_LEAF_BOX = OPS_BOX + 1  # a candidate sweep's box test and its first-leaf min
 SRC = "tpu_pathtracer_torch/csrc/"
 REF = "tpu_pathtracer/ops/pallas_traverse.py:"
@@ -348,13 +397,15 @@ RAY_BYTES = 12 + 12 + 1 + 4  # o, d, active, t_max (or cap) of one lane
 
 
 def walk_bound(lanes: int, in_bytes_per_lane: int, out_bytes_per_lane: int, lay,
-               rows, work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0) -> dict:
+               rows, work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0,
+               node_bytes: int | None = None) -> dict:
     """A walk's bound on these lanes: rays and outputs moved once, each
-    distinct node (``nodes`` + ``nodes_meta``) and leaf row of ``rows`` the
-    walk read moved once, and the ``pre_rows`` prepass block (tested
-    ``pre_tests`` times); a box test per node visit and a row test per row
-    tested."""
-    node_bytes = row_bytes(lay.nodes) + row_bytes(lay.nodes_meta)
+    distinct node (``nodes`` + ``nodes_meta``, or ``node_bytes`` for a walk
+    that reads the packed table) and leaf row of ``rows`` the walk read moved
+    once, and the ``pre_rows`` prepass block (tested ``pre_tests`` times); a
+    box test per node visit and a row test per row tested."""
+    if node_bytes is None:
+        node_bytes = row_bytes(lay.nodes) + row_bytes(lay.nodes_meta)
     pre = 0 if pre_rows is None else pre_rows.numel() * pre_rows.element_size()
     return bound(lanes * (in_bytes_per_lane + out_bytes_per_lane) + work.nodes * node_bytes
                  + work.rows * row_bytes(rows) + pre,
@@ -367,7 +418,67 @@ def window_bound(lay, act, work: Work, prepass: int, tritest: str, out_ints: int
     ``out_ints`` int32 rows."""
     rows, pre = (lay.tris8, lay.prepass) if tritest == "mt" else (lay.tris8bw, lay.prepassbw)
     return walk_bound(act.shape[0], RAY_BYTES, 4 + 4 * out_ints, lay, rows, work,
-                      OPS_ROW[tritest], pre[:prepass], int(act.sum()) * prepass)
+                      OPS_ROW[tritest], pre[:prepass], int(act.sum()) * prepass,
+                      node_bytes=PACKED_NODE_BYTES)
+
+
+def minwalk_bound(lay, act, work: Work, prepass: int) -> dict:
+    """Minwalk's bound on these lanes: the MT window walk's work on
+    ``lay.tris``, 12 float32 output rows."""
+    return walk_bound(act.shape[0], RAY_BYTES, 48, lay, lay.tris, work, OPS_ROW["mt"],
+                      lay.prepass[:prepass], int(act.sum()) * prepass,
+                      node_bytes=PACKED_NODE_BYTES)
+
+
+def full_work(fn, lanes, *rest, **kw) -> Work:
+    """The work of the plain walk ``fn`` on a whole wavefront: ``lanes``
+    (per-lane tensors, lanes last) go through it FULL_CHUNK at a time under
+    one tally."""
+    from tpu_pathtracer_torch.ops.traverse import Tally
+
+    tally = Tally()
+    for s in range(0, lanes[0].shape[-1], FULL_CHUNK):
+        fn(*(a[..., s:s + FULL_CHUNK].contiguous() for a in lanes), *rest, **kw,
+           tally=tally)
+    if tally.nodes is None:
+        return Work(0, 0, 0, 0)
+    return Work(tally.visits, tally.tests, int(tally.nodes.sum()), int(tally.rows.sum()))
+
+
+def at_full_width(name: str, what: str, ms: float, bnd: dict) -> dict:
+    """A kernel's time on a whole wavefront beside its bound there -> the
+    keys its row of the kernel table gains."""
+    pct = 100.0 * bnd["bound_ms"] / ms
+    log(f"  {name} on the full {what}: kernel {ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {pct:.2f}% of bound")
+    return {"full_what": what, "bound_full_ms": bnd["bound_ms"],
+            "bound_full_by": bnd["bound_by"], "full_pct_of_bound": pct}
+
+
+def equal_on_every_lane(what: str, got, want) -> None:
+    """Two kernels' outputs equal on every lane, bit for bit."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {k} differs on "
+                                 f"{int((a != b).sum())} lanes")
+
+
+def forms_equal_v1(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
+                   hbm: bool = False) -> None:
+    """Every form of the redesigned window walk against the per-thread
+    yardstick on a whole wavefront: t and row equal on every lane (both are
+    exact)."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    want = ht.window_walk_v1(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
+    forms = ("window_walk", "window_walk_orig", "window_walk_counts") + (
+        ("window_walk_hbm",) if hbm else ())
+    for form in forms:
+        got = getattr(ht, form)(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
+        equal_on_every_lane(f"{form} vs window_walk_v1, {label}", got[:2], want)
+    torch.cuda.synchronize()
+    log(f"  {', '.join(forms)} == window_walk_v1 on all {o.shape[1]} lanes of {label} "
+        f"({tritest}, {int(act.sum())} live, {'capped' if bool(torch.isfinite(t_max).any()) else 'nearest'})")
 
 
 def sweep_bound(lay, act, tritest: str) -> dict:
@@ -417,6 +528,25 @@ def phase_kernels(renderer) -> list[dict]:
     log(f"  window_walk at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_a:.3f} ms, "
         f"plain {plain_a:.3f} ms; full camera wavefront ({o.shape[1]} lanes): "
         f"{full_a:.3f} ms")
+    # every form against the per-thread yardstick on the whole wavefronts,
+    # nearest and capped, both row layouts
+    so, sd, sok, scap, _ = waves["shadow"]
+    for tritest in ("bw", "mt"):
+        for which in ("camera", "bounce1"):
+            forms_equal_v1(f"{SCENE} {which}", lay, *waves[which], full_t, prepass, tritest)
+        forms_equal_v1(f"{SCENE} shadow pack", lay, so, sd, sok, scap, prepass, tritest)
+    full_extra = at_full_width(
+        "window_walk", "camera wavefront", full_a,
+        window_bound(lay, act, full_work(ht.window_walk_plain, (o, d, act, full_t), lay,
+                                         prepass=prepass), prepass, "bw", 1))
+    b1 = waves["bounce1"]
+    full_b1 = cuda_ms(lambda: ht.window_walk(*b1, full_t, lay, prepass=prepass))
+    b1_extra = at_full_width(
+        "window_walk", "bounce-1 wavefront", full_b1,
+        window_bound(lay, b1[2], full_work(ht.window_walk_plain, (*b1, full_t), lay,
+                                           prepass=prepass), prepass, "bw", 1))
+    full_extra.update(full_bounce1_ms=full_b1,
+                      **{f"{k}_bounce1": v for k, v in b1_extra.items()})
 
     o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen)
     outk = ht.capped_walk(o, d, ok, cap, occl)
@@ -433,6 +563,10 @@ def phase_kernels(renderer) -> list[dict]:
     log(f"  capped_walk at {SAMPLE_LANES} shadow lanes: kernel {ms_b:.3f} ms, "
         f"plain {plain_b:.3f} ms; full shadow wavefront ({o.shape[1]} lanes, "
         f"{int(ok.sum())} live): {full_b:.3f} ms")
+    capped_extra = at_full_width(
+        "capped_walk", "shadow wavefront", full_b,
+        walk_bound(o.shape[1], RAY_BYTES, 16, occl, occl.tris,
+                   full_work(ht.capped_walk_plain, (o, d, ok, cap), occl), OPS_ROW["mt"]))
 
     # kernel C on the env-lit frame's shadow pack (area-light and env lanes)
     env_scene = attach_env(renderer.scene, sky_map())
@@ -463,9 +597,9 @@ def phase_kernels(renderer) -> list[dict]:
         f"{full_bc:.3f} ms")
     return [
         kernel_entry("window_walk", "window_walk.cu", 698, max(errs_a), ms_a, plain_a,
-                     full_a, bound_a),
+                     full_a, bound_a, **full_extra),
         kernel_entry("capped_walk", "capped_walk.cu", 106, err_b, ms_b, plain_b,
-                     full_b, bound_b),
+                     full_b, bound_b, **capped_extra),
         kernel_entry("anyhit_walk", "anyhit_walk.cu", 274, float(bad), ms_c, plain_c,
                      full_c, bound_c, capped_full_ms=full_bc, env_share=env_share),
     ]
@@ -521,8 +655,7 @@ def phase_bench_kernels(renderer) -> list[dict]:
     log(f"  minwalk: payload (position, normal) max |diff| {pay:.3g} where ids agree")
     if pay > PAYLOAD_ATOL:
         raise AssertionError(f"minwalk payload differs by {pay} > {PAYLOAD_ATOL}")
-    bound_a = walk_bound(SAMPLE_LANES, RAY_BYTES, 48, lay, lay.tris, work, OPS_ROW["mt"],
-                         lay.prepass[:pp_min], int(act.sum()) * pp_min)
+    bound_a = minwalk_bound(lay, act, work, pp_min)
     a_in = (o, d, act, t_max, lay)
     ms_a = cuda_ms(lambda: ht.minwalk(*a_in, prepass=pp_min))
     plain_a = cuda_ms(lambda: ht.minwalk_plain(*a_in, prepass=pp_min), iters=2)
@@ -533,6 +666,21 @@ def phase_bench_kernels(renderer) -> list[dict]:
     log(f"  minwalk at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_a:.3f} ms, plain "
         f"{plain_a:.3f} ms; full camera {full_a['camera']:.3f} ms, full bounce-1 "
         f"{full_a['bounce1']:.3f} ms (window walk on full bounce-1: {win_b1:.3f} ms)")
+    min_extra = {}
+    for w, what in (("bounce1", "bounce-1 wavefront"), ("camera", "camera wavefront")):
+        equal_on_every_lane(
+            f"minwalk vs minwalk_v1, {w}",
+            (ht.minwalk(*waves[w], inf[w], lay, prepass=pp_min),),
+            (ht.minwalk_v1(*waves[w], inf[w], lay, prepass=pp_min),))
+        extra = at_full_width(
+            "minwalk", what, full_a[w],
+            minwalk_bound(lay, waves[w][2],
+                          full_work(ht.minwalk_plain, (*waves[w], inf[w]), lay,
+                                    prepass=pp_min), pp_min))
+        min_extra.update(extra if w == "bounce1" else
+                         {f"{k}_camera": v for k, v in extra.items()})
+    log(f"  minwalk == minwalk_v1 (all 12 rows) on every lane of the full camera and "
+        f"bounce-1 wavefronts")
 
     # kernel b: the sweep on bounce-1 lanes
     o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen)
@@ -554,6 +702,8 @@ def phase_bench_kernels(renderer) -> list[dict]:
     log(f"  sweep at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_b:.3f} ms, plain "
         f"{plain_b:.3f} ms; full bounce-1 ({waves['bounce1'][0].shape[1]} lanes, "
         f"{int(waves['bounce1'][2].sum())} live): {full_b:.3f} ms")
+    sweep_extra = at_full_width("sweep", "bounce-1 wavefront", full_b,
+                                sweep_bound(lay, waves["bounce1"][2], "bw"))
 
     # kernel c: the fused walk's 2N lanes, bounce-1 paths + bounce-0 shadow pack
     lanes = draw(pair, SAMPLE_LANES, gen)
@@ -615,8 +765,10 @@ def phase_bench_kernels(renderer) -> list[dict]:
     return [
         kernel_entry("minwalk", "minwalk.cu", 106, max(errs), ms_a, plain_a,
                      full_a["bounce1"], bound_a, payload_max_abs_err=pay,
-                     full_camera_ms=full_a["camera"], window_full_bounce1_ms=win_b1),
-        kernel_entry("sweep", "sweep.cu", 1152, err_b, ms_b, plain_b, full_b, bound_b),
+                     full_camera_ms=full_a["camera"], window_full_bounce1_ms=win_b1,
+                     **min_extra),
+        kernel_entry("sweep", "sweep.cu", 1152, err_b, ms_b, plain_b, full_b, bound_b,
+                     **sweep_extra),
         kernel_entry("window_walk_orig", "window_walk.cu", 698, err_c, ms_c, plain_c,
                      full_c, bound_c),
         kernel_entry("window_walk_counts", "window_walk.cu", 698, max(errs_d), ms_d,
@@ -751,6 +903,35 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
         capped_walk_full_ms=cuda_ms(lambda: ht.capped_walk(so, sd, sok, scap,
                                                            renderer.layout_occl)))
 
+    # every form against the per-thread yardstick on the whole wavefronts, and
+    # the bounds of kernels 5 and 6 there
+    for tritest in ("bw", "mt"):
+        for which in ("camera", "bounce1"):
+            forms_equal_v1(f"{which} ({tag})", lay, *waves[which], inf[which], pp, tritest,
+                           hbm=True)
+        forms_equal_v1(f"shadow pack ({tag})", lay, so, sd, sok, scap, pp, tritest, hbm=True)
+    mt = out["window_walk_mt"]
+    mt.update(at_full_width(
+        f"window_walk mt ({tag})", "bounce-1 wavefront", mt["full_ms"],
+        window_bound(lay, waves["bounce1"][2],
+                     full_work(ht.window_walk_plain, (*waves["bounce1"], inf["bounce1"]), lay,
+                               prepass=pp, tritest="mt"), pp, "mt", 1)))
+    mt.update({f"{k}_camera": v for k, v in at_full_width(
+        f"window_walk mt ({tag})", "camera wavefront", mt["full_camera_ms"],
+        window_bound(lay, waves["camera"][2],
+                     full_work(ht.window_walk_plain, (*waves["camera"], inf["camera"]), lay,
+                               prepass=pp, tritest="mt"), pp, "mt", 1)).items()})
+    hb = out["window_walk_hbm"]
+    hb.update(at_full_width(
+        f"window_walk_hbm ({tag})", "capped shadow pack", hb["full_ms"],
+        window_bound(lay, sok, full_work(ht.window_walk_hbm_plain, (so, sd, sok, scap), lay,
+                                         prepass=pp), pp, "bw", 1)))
+    hb.update({f"{k}_bounce1": v for k, v in at_full_width(
+        f"window_walk_hbm ({tag})", "bounce-1 wavefront", hb["full_bounce1_ms"],
+        window_bound(lay, waves["bounce1"][2],
+                     full_work(ht.window_walk_hbm_plain, (*waves["bounce1"], inf["bounce1"]),
+                               lay, prepass=pp), pp, "bw", 1)).items()})
+
     if grid == TERRAIN_GRIDS[0]:
         # kernel 9's MT form: the sweep on bounce-1 lanes (O(rows): GRID 256 only)
         o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen, live["bounce1"])
@@ -791,11 +972,13 @@ def kernel_home(name: str):
 
 
 @contextlib.contextmanager
-def counted_run():
+def counted_run(yardsticks: bool = False):
     """Zero every kernel's launch count and count plain-version calls on
     CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
     ..., "plain_cuda": ...}, filled in when the run ends ("launches_mt": the
-    Moller-Trumbore form's launches of the wrappers that take tritest)."""
+    Moller-Trumbore form's launches of the wrappers that take tritest).
+    Unless ``yardsticks``, a run that launched one of YARDSTICKS fails: only
+    the walk A/B may."""
     where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper name)
     plain_cuda = {f"{k}_plain": 0 for k in KERNELS}
 
@@ -824,6 +1007,9 @@ def counted_run():
         out["launches_mt"] = {k: fns[k].launches_mt for k in mt}
         for k, fn in saved.items():
             setattr(where[k][0], f"{where[k][1]}_plain", fn)
+    used = {k: out["launches"][k] for k in YARDSTICKS if out["launches"][k]}
+    if used and not yardsticks:
+        raise AssertionError(f"a yardstick kernel ran outside the walk A/B: {used}")
 
 
 def timed_frames(renderer, timed: int = 3) -> tuple[float, dict]:
@@ -1285,6 +1471,236 @@ def phase_backend_parity(terrain) -> None:
         check_parity(f"cornellbox {kw} vs the kernel route", img, kernels)
 
 
+def phase_edge_shapes(renderer) -> None:
+    """The redesigned walks on the shapes a warp-cooperative kernel can get
+    wrong, each against its plain version, bit for bit: lane counts around a
+    warp (EDGE_LANES), every lane dead, one live lane a warp, prepass 0 and
+    32, and the leaf-8 and leaf-16 layouts of the same scene."""
+    from tpu_pathtracer_torch.accel import build_layout
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    waves = wavefronts(renderer.scene, renderer.layout, renderer.layout_occl, renderer.cfg)
+    gen = torch.Generator().manual_seed(97531)
+    pool = draw(waves["bounce1"], max(EDGE_LANES), gen, waves["bounce1"][2])
+    layouts = {56: renderer.layout, 16: build_layout(renderer.scene, 16),
+               8: renderer.layout_occl}
+
+    def check(what, o, d, act, t_max, lay, prepass, tritest):
+        pp = ht.window_prepass(lay, prepass)
+        for form in ("window_walk", "window_walk_orig", "window_walk_counts"):
+            got = getattr(ht, form)(o, d, act, t_max, lay, prepass=pp, tritest=tritest)
+            want = getattr(ht, f"{form}_plain")(o, d, act, t_max, lay, prepass=pp,
+                                                tritest=tritest)
+            if form == "window_walk_counts":
+                lo, hi = want[3], want[4]
+                if not bool(((lo <= got[3]) & (got[3] <= hi)).all()):
+                    raise AssertionError(f"edge {what}: spent outside its warp bounds")
+                got, want = got[:3], want[:3]
+            equal_on_every_lane(f"edge {what}: {form} ({tritest}) vs plain", got, want)
+        if tritest == "mt":
+            pm = min(prepass, lay.prepass.shape[0], lay.num_tris)
+            got = ht.minwalk(o, d, act, t_max, lay, prepass=pm)
+            want = ht.minwalk_plain(o, d, act, t_max, lay, prepass=pm)
+            equal_on_every_lane(f"edge {what}: minwalk rows 0-5 vs plain", got[:6], want[:6])
+            if float((got[6:] - want[6:]).abs().max()) > PAYLOAD_ATOL:
+                raise AssertionError(f"edge {what}: minwalk payload beyond {PAYLOAD_ATOL}")
+
+    cases = 0
+    for n in EDGE_LANES:
+        o, d, act = (a[..., :n].contiguous() for a in pool)
+        inf = torch.full((n,), torch.inf, device=o.device)
+        capped = torch.where(torch.arange(n, device=o.device) % 3 == 0, 1.5, torch.inf)
+        one = torch.arange(n, device=o.device) % 32 == 7     # one live lane a warp
+        masks = {"live": act, "dead": torch.zeros_like(act), "one-a-warp": one | (n < 8)}
+        # the plain walk takes ~0.3 s a call at 65,537 lanes: there each mask
+        # runs with one prepass
+        combos = [(m, pre) for m in masks for pre in (0, 32)] if n < 64 else [
+            ("live", 32), ("dead", 32), ("one-a-warp", 0)]
+        for tritest in ("bw", "mt"):
+            for mask_name, prepass in combos:
+                check(f"n={n} {mask_name} prepass={prepass}", o, d, masks[mask_name],
+                      capped if prepass else inf, layouts[56], prepass, tritest)
+                cases += 1
+            for leaf in (16, 8):
+                check(f"n={n} leaf {leaf}", o, d, act, inf, layouts[leaf], 32, tritest)
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"edge shapes: {cases} cases (lanes {EDGE_LANES}; live, all dead and one live lane a "
+        f"warp; prepass 0 and 32; leaf 56, 16 and 8; bw and mt): every form of the window "
+        f"walk and minwalk bit-equal to its plain version")
+
+
+def turns(fns: dict, iters: int = 5) -> dict:
+    """Each of ``fns`` timed in turns, first to last and back (so two
+    versions read new, old, old, new) -> {name: [ms, ms]}."""
+    names = list(fns)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        out[k].append(cuda_ms(fns[k], iters))
+    return out
+
+
+def walk_ab(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
+            steps: bool = True) -> dict:
+    """The redesigned window walk against the per-thread yardstick on one
+    whole wavefront, in turns, with each step of the design between them
+    (those the layout allows: a node table past SHARED_LIMIT cannot be
+    staged); every version's t and row must equal the yardstick's.  Returns
+    {version: [ms, ms]}."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    args = (o, d, act, t_max, lay)
+    fns = {"v1": lambda: ht.window_walk_v1(*args, prepass=prepass, tritest=tritest)}
+    if steps:
+        fits = lay.num_nodes * PACKED_NODE_BYTES <= SHARED_LIMIT
+        for name, kw in WALK_STEPS.items():
+            if fits or not kw["stage"]:
+                fns[name] = (lambda kw=kw: ht.window_walk_steps(
+                    *args, prepass=prepass, tritest=tritest, **kw))
+    fns["new"] = lambda: ht.window_walk(*args, prepass=prepass, tritest=tritest)
+    want = fns["v1"]()
+    for name, fn in fns.items():
+        equal_on_every_lane(f"walk A/B {label}: {name} vs v1", fn(), want)
+    ms = turns(fns)
+    new, old = min(ms["new"]), min(ms["v1"])
+    line = (f"  A/B {label} ({tritest}, {o.shape[1]} lanes, {int(act.sum())} live), ms in "
+            "turns: " + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in ms.items())
+            + f"; v1/new {old / new:.2f}x")
+    if steps:  # the whole wavefront's bound (the leaf-size runs go without)
+        work = full_work(ht.window_walk_plain, (o, d, act, t_max), lay, prepass=prepass,
+                         tritest=tritest)
+        bnd = window_bound(lay, act, work, prepass, tritest, 1)
+        line += (f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): new "
+                 f"{100 * bnd['bound_ms'] / new:.2f}%, v1 {100 * bnd['bound_ms'] / old:.2f}% "
+                 "of bound")
+    log(line)
+    return ms
+
+
+@contextlib.contextmanager
+def per_thread_walks():
+    """The frame paths on the per-thread yardsticks for the run inside: the
+    wrappers ``window_walk`` and ``minwalk`` of ops/hopper_traverse.py stand
+    aside for ``window_walk_v1`` and ``minwalk_v1`` (the default form only:
+    the A/B frames use no other)."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    saved = ht.window_walk, ht.minwalk
+    ht.window_walk, ht.minwalk = ht.window_walk_v1, ht.minwalk_v1
+    try:
+        yield
+    finally:
+        ht.window_walk, ht.minwalk = saved
+
+
+def device_ms(renderer, tmp: str) -> tuple[float, int]:
+    """One frame under torch.profiler -> (device kernel ms, kernels), (nan,
+    0) when the trace holds no device kernels."""
+    renderer.profile(tmp, frames=1)
+    with open(os.path.join(tmp, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    return (sum(e["dur"] for e in events) / 1e3 if events else float("nan")), len(events)
+
+
+def frame_ab(label: str, tmp: str, **kw) -> None:
+    """A frame path on the redesigned walks and on the per-thread yardsticks
+    in turns (new, v1, v1, new): 1 warm-up + 3 frames a turn by the host
+    clock, then the walk_nearest span of one staged frame and the device
+    time of one profiled frame."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    r = Renderer(SCENE, WIDTH, HEIGHT, RenderConfig(**kw))
+    rows = []
+    for which in ("new", "v1", "v1", "new"):
+        with per_thread_walks() if which == "v1" else contextlib.nullcontext():
+            r.run(1)
+            t0 = time.perf_counter()
+            r.run(3)
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            span = staged_frame(r).get("walk_nearest", float("nan"))
+            dev, count = device_ms(r, os.path.join(tmp, f"turn{len(rows)}"))
+        rows.append(f"{which}: {ms:.2f} ms/frame, walk_nearest {span:.2f} ms, device "
+                    f"{dev:.2f} ms in {count} kernels")
+    log(f"frame A/B, {label} ({WIDTH}x{HEIGHT}, depth 8, 1 warm-up + 3 frames a turn): "
+        + "; ".join(rows))
+
+
+def phase_walk_ab(renderer, terrains: dict, smi: str) -> tuple[list[dict], dict]:
+    """Phase 18: the redesigned nearest-hit walks against the per-thread
+    yardsticks inside one run -> (the yardsticks' rows of the kernel table,
+    their launches here)."""
+    from tpu_pathtracer_torch.accel import build_layout
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    log(f"walk A/B on {smi}")
+    lay, cfg = renderer.layout, renderer.cfg
+    waves = wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)
+    pp = ht.window_prepass(lay, cfg.traversal_prepass)
+    pm = min(cfg.traversal_prepass, lay.prepass.shape[0], lay.num_tris)
+    inf = torch.full_like(waves["camera"][0][0], torch.inf)
+    so, sd, sok, scap, _ = waves["shadow"]
+    with counted_run(yardsticks=True) as run:
+        ab = {}
+        for tritest in ("bw", "mt"):
+            for which in ("camera", "bounce1"):
+                ab[which, tritest] = walk_ab(f"{SCENE} {which}", lay, *waves[which], inf,
+                                             pp, tritest)
+        walk_ab(f"{SCENE} shadow pack, capped", lay, so, sd, sok, scap, pp, "bw")
+        min_ms = {}
+        for which in ("camera", "bounce1"):
+            args = (*waves[which], inf, lay)
+            min_ms[which] = turns({"new": lambda: ht.minwalk(*args, prepass=pm),
+                                   "v1": lambda: ht.minwalk_v1(*args, prepass=pm)})
+            log(f"  A/B minwalk {SCENE} {which}, ms in turns: "
+                + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in min_ms[which].items()))
+        # a measurement only: the cooperative walk on smaller leaves
+        for leaf in (56, 16, 8):
+            walk_ab(f"{SCENE} bounce1, leaf-{leaf} layout",
+                    lay if leaf == 56 else build_layout(renderer.scene, leaf),
+                    *waves["bounce1"], inf, pp, "bw", steps=False)
+    del waves
+    for grid, scene in terrains.items():
+        r = terrain_renderer(scene)
+        tw = wavefronts(r.scene, r.layout, r.layout_occl, r.cfg)
+        tpp = ht.window_prepass(r.layout, r.cfg.traversal_prepass)
+        so, sd, sok, scap, _ = tw["shadow"]
+        for tritest in ("bw", "mt"):
+            for which in ("camera", "bounce1"):
+                walk_ab(f"terrain grid {grid} {which}", r.layout, *tw[which], inf, tpp,
+                        tritest)
+        walk_ab(f"terrain grid {grid} shadow pack, capped", r.layout, so, sd, sok, scap,
+                tpp, "bw")
+        del r, tw
+    with tempfile.TemporaryDirectory() as tmp:
+        frame_ab("main path", tmp)
+        frame_ab("minwalk path", tmp, traversal_kernel="minwalk")
+    phase_parity()
+
+    # the yardsticks' rows: the numbers of the kernels they are held against
+    # (same inputs, same plain version), their own times
+    v1 = ab["bounce1", "bw"]
+    m1 = min_ms["bounce1"]
+    o, d, act = draw(wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)["bounce1"],
+                     SAMPLE_LANES, torch.Generator().manual_seed(1234))
+    t_max = torch.full_like(o[0], torch.inf)
+    rows = []
+    for name, fn, plain, prepass, full, line, bound_fn in (
+            ("window_walk_v1", ht.window_walk_v1, ht.window_walk_v1_plain, pp, v1["v1"],
+             698, lambda w: window_bound(lay, act, w, pp, "bw", 1)),
+            ("minwalk_v1", ht.minwalk_v1, ht.minwalk_v1_plain, pm, m1["v1"], 106,
+             lambda w: minwalk_bound(lay, act, w, pm))):
+        got = fn(o, d, act, t_max, lay, prepass=prepass)
+        want, work = plain_work(plain, o, d, act, t_max, lay, prepass=prepass)
+        got, want = (got, want) if name == "window_walk_v1" else ((got[:6],), (want[:6],))
+        equal_on_every_lane(f"{name} vs its plain version", got, want)
+        rows.append(kernel_entry(
+            name, "walk_v1.cu", line, 0.0,
+            cuda_ms(lambda: fn(o, d, act, t_max, lay, prepass=prepass)),
+            cuda_ms(lambda: plain(o, d, act, t_max, lay, prepass=prepass), iters=1),
+            min(full), bound_fn(work), yardstick_of=name[:-3]))
+    return rows, run["launches"]
+
+
 def max_diff(a, b) -> float:
     """max |a - b| over the lanes where both are finite; raises when one is
     finite where the other is not."""
@@ -1631,6 +2047,7 @@ def main() -> int:
     # line or utilization block, not per frame)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
     kernels = phase_kernels(renderer) + phase_bench_kernels(renderer)
+    phase_edge_shapes(renderer)
     launches, frames = phase_main_path(renderer)
     per_frame = {k: launches[k] / frames for k in ("window_walk", "capped_walk")}
     phase_parity()
@@ -1661,7 +2078,8 @@ def main() -> int:
                 rows[name].update({f"{k}_grid{grid}": v for k, v in row.items()
                                    if k in ("max_abs_err", "ms", "plain_ms",
                                             "full_ms", "bound_ms", "bound_by")
-                                   or k.endswith("_ms")})
+                                   or k.endswith("_ms") or "_by" in k
+                                   or "pct_of_bound" in k})
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                                 row["max_abs_err"])
             else:
@@ -1684,10 +2102,13 @@ def main() -> int:
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
     kernels += phase_sweep_kernels(renderer)
     launches.update(phase_split(renderer, small))
-    del renderer
     for entry, count in (phase_launch_probe(smi), phase_rowtest_probe()):
         kernels.append(entry)
         launches[entry["name"]] = count
+    rows, ab_launches = phase_walk_ab(renderer, terrains, smi)
+    kernels += rows
+    launches.update({k: ab_launches[k] for k in YARDSTICKS[:2]})
+    del renderer
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])

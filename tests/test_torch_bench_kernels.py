@@ -151,7 +151,8 @@ def test_fused_matches_reference(setup, kernel):
 def test_window_counts_against_reference(setup):
     """Kernel d's plain version: hits unchanged, useful = the leaf rows the
     lane's own walk tested, never more than the reference's row 7, and the
-    warp bounds of spent.
+    warp bounds of spent (prepass + ceil(the warp's useful rows / 32) and
+    prepass + the warp's useful rows: a slot is one row test on 32 lanes).
 
     Not equal to row 7 lane by lane: the TPU tile walk tests a window's
     leaves against best_t as it stood when the window was fetched, and tests
@@ -180,8 +181,9 @@ def test_window_counts_against_reference(setup):
     assert (useful <= raw[7]).all()
     lo, hi = lo.numpy().reshape(-1, 32), hi.numpy().reshape(-1, 32)
     u32 = useful.reshape(-1, 32)
-    np.testing.assert_array_equal(lo, 8 + u32.max(1, keepdims=True) + 0 * u32)
-    np.testing.assert_array_equal(hi, 8 + u32.sum(1, keepdims=True) + 0 * u32)
+    total = u32.sum(1, keepdims=True)
+    np.testing.assert_array_equal(lo, 8 + (total + 31) // 32 + 0 * u32)
+    np.testing.assert_array_equal(hi, 8 + total + 0 * u32)
 
 
 VARIANTS = {

@@ -75,7 +75,8 @@ def test_bench_kernels_match_plain_on_card(name, kernel, cuda_device):
     t bit-equal, ids equal except equal-t ties on >= 99.99% of the hits;
     minwalk's payload to atol 1e-6 (rsqrt); the latched original id equal
     where the rows agree; the counting walk's useful rows exact and its
-    warp-issued spent within the warp bounds and equal across each warp."""
+    warp-issued spent within the warp bounds, equal across each warp and,
+    summed over a warp, never below its useful rows."""
     scene = load_scene(scene_path(name), device=cuda_device)
     lay = build_layout(scene, 56)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=13))
@@ -111,7 +112,8 @@ def test_bench_kernels_match_plain_on_card(name, kernel, cuda_device):
         assert torch.equal(useful, up)
         assert bool(((lo <= spent) & (spent <= hi)).all())
         assert bool((spent.view(-1, 32) == spent.view(-1, 32)[:, :1]).all())
-        assert int(useful.sum()) > 0 and bool((useful <= spent).all())
+        per_warp = lambda x: x.view(-1, 32).sum(1)  # noqa: E731
+        assert int(useful.sum()) > 0 and bool((per_warp(useful) <= per_warp(spent)).all())
     assert fn.launches == n0 + 1
 
 
@@ -261,3 +263,71 @@ def test_probes_match_plain_on_card(cuda_device):
     assert perf_ophit_probe.rowtest_probe.launches == n0 + 12
     with pytest.raises(ValueError):
         perf_ophit_probe.rowtest_probe("full-bw", rays, tris, tile=100)
+
+
+@pytest.mark.parametrize("leaf", [56, 16, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+def test_redesigned_walks_edge_shapes_on_card(n, leaf, cuda_device):
+    """The warp-cooperative walks on lane counts around a warp, with every
+    lane live, every lane dead and one live lane a warp, prepass 0 and 32,
+    on the leaf-56, leaf-16 and leaf-8 layouts: every form of the window walk
+    and minwalk bit-equal to its plain version (minwalk's position and normal
+    to atol 1e-6: rsqrt), spent within its warp bounds, and the default form
+    equal to the per-thread yardsticks on every lane."""
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device)
+    lay = build_layout(scene, leaf)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(n, seed=23))
+    lanes = torch.arange(n, device=cuda_device)
+    t_max = torch.where(lanes % 3 == 0, 1.5, torch.inf).contiguous()
+    masks = (torch.ones(n, dtype=torch.bool, device=cuda_device),
+             torch.zeros(n, dtype=torch.bool, device=cuda_device), lanes % 32 == 7)
+    for act, prepass, tritest in ((masks[0], 32, "bw"), (masks[0], 0, "mt"),
+                                  (masks[1], 32, "bw"), (masks[2], 32, "mt"),
+                                  (masks[2], 0, "bw")):
+        args = (o, d, act, t_max, lay)
+        kw = dict(prepass=prepass, tritest=tritest)
+        want = ht.window_walk_plain(*args, **kw)
+        for got in (ht.window_walk(*args, **kw), ht.window_walk_v1(*args, **kw),
+                    ht.window_walk_orig(*args, **kw)[:2]):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(ht.window_walk_orig(*args, **kw)[2],
+                           ht.window_walk_orig_plain(*args, **kw)[2])
+        tk, rk, useful, spent = ht.window_walk_counts(*args, **kw)
+        _, _, up, lo, hi = ht.window_walk_counts_plain(*args, **kw)
+        assert torch.equal(tk, want[0]) and torch.equal(rk, want[1])
+        assert torch.equal(useful, up) and bool(((lo <= spent) & (spent <= hi)).all())
+        if tritest == "mt":
+            mk = ht.minwalk(*args, prepass=prepass)
+            mp = ht.minwalk_plain(*args, prepass=prepass)
+            assert torch.equal(mk[:6], mp[:6])
+            assert torch.equal(mk, ht.minwalk_v1(*args, prepass=prepass))
+            np.testing.assert_allclose(mk[6:].cpu().numpy(), mp[6:].cpu().numpy(),
+                                       rtol=0, atol=1e-6)
+    assert bool((want[1][~act] == lay.num_tris).all())
+
+
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+def test_walk_steps_match_yardstick_on_card(tritest, cuda_device):
+    """Every step of the walk's design (node table staged or not, leaves
+    cooperative or per lane, blocks persistent or one a tile, 64 to 1024
+    threads) gives the per-thread yardstick's t and row on every lane; each
+    launch counted on its own wrapper; a block shape the kernel cannot take
+    raises."""
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device)
+    lay = build_layout(scene, 56)
+    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(40000, seed=29))
+    act = torch.arange(40000, device=cuda_device) % 9 != 4
+    t_max = torch.full((40000,), torch.inf, device=cuda_device)
+    n0 = (ht.window_walk_v1.launches, ht.window_walk_steps.launches, ht.window_walk.launches)
+    want = ht.window_walk_v1(o, d, act, t_max, lay, tritest=tritest)
+    shapes = [(s, c, p, t) for s in (False, True) for c in (False, True)
+              for p in (False, True) for t in (64, 128, 1024)]
+    for stage, coop, persist, threads in shapes:
+        got = ht.window_walk_steps(o, d, act, t_max, lay, tritest=tritest, stage=stage,
+                                   coop=coop, persist=persist, threads=threads)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (ht.window_walk_v1.launches, ht.window_walk_steps.launches,
+            ht.window_walk.launches) == (n0[0] + 1, n0[1] + len(shapes), n0[2])
+    with pytest.raises(RuntimeError):
+        ht.window_walk_steps(o, d, act, t_max, lay, stage=False, coop=True, persist=False,
+                             threads=100)

@@ -115,8 +115,8 @@ def test_utilization_report_invariants(cornell):
 
 def test_walk_lane_ops_counts_rows(cornell):
     """walk_lane_ops sums the counting walk's rows: useful equals the plain
-    version's per-lane count, spent its warp lower bound, live the active
-    lanes."""
+    version's per-lane count, spent its warp lower bound (prepass + ceil(the
+    warp's useful rows / 32) on every lane), live the active lanes."""
     o, d = (torch.from_numpy(x) for x in random_rays(100, seed=3))
     act = torch.arange(100) % 4 != 0
     cfg = RenderConfig(traversal_prepass=8)

@@ -67,6 +67,7 @@ class BVHLayout(NamedTuple):
     prepassbw: torch.Tensor       # (PREPASS_MAX, 16) float32
     leafbox: torch.Tensor         # (L16, 8) float32
     leafmeta: torch.Tensor        # (L16, 4) int32
+    nodes_packed: torch.Tensor    # (M, 8) float32, cols 6-7 = nodes_meta's bits
     anchor: tuple                 # (ax, ay, az) floats of the BW planes
     num_nodes: int                # M (sentinel id == M)
     num_tris: int
@@ -267,8 +268,25 @@ def layout_arrays(bvh: BVH, normals, material_id, light_index) -> dict:
     )
 
 
+def pack_nodes(nodes: torch.Tensor, nodes_meta: torch.Tensor) -> torch.Tensor:
+    """``nodes`` (M, 8) f32 and ``nodes_meta`` (M, 2) i32 -> the packed node
+    table (M, 8) f32: the int32 bits of [miss, first_tri*64 + tri_count] in
+    the two pad columns, so a walk reads a node as two 16-byte loads."""
+    packed = nodes.clone()
+    packed.view(torch.int32)[:, 6:8] = nodes_meta
+    return packed
+
+
+def unpack_nodes(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed node table -> (``nodes`` with zero pads, ``nodes_meta``)."""
+    nodes = packed.clone()
+    nodes[:, 6:8] = 0.0
+    return nodes, packed.view(torch.int32)[:, 6:8].clone()
+
+
 def layout_to(arrays: dict, device) -> BVHLayout:
-    """numpy layout arrays -> a :class:`BVHLayout` on ``device``."""
+    """numpy layout arrays -> a :class:`BVHLayout` on ``device``; the packed
+    node table is derived there."""
     dtypes = {"f": torch.float32, "i": torch.int32}
     tables = {
         name: torch.tensor(np.ascontiguousarray(arrays[name]),
@@ -277,6 +295,7 @@ def layout_to(arrays: dict, device) -> BVHLayout:
     }
     return BVHLayout(
         **tables,
+        nodes_packed=pack_nodes(tables["nodes"], tables["nodes_meta"]),
         anchor=tuple(float(a) for a in arrays["anchor"]),
         num_nodes=int(arrays["num_nodes"]),
         num_tris=int(arrays["num_tris"]),

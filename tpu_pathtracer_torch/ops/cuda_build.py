@@ -35,17 +35,27 @@ _F = ctypes.c_float
 # C signatures of the kernels' launchers (csrc/*.cu); each returns
 # cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # o, d, active, t_max, nodes, meta, tris, pre, n_prepass, ax, ay, az,
+    # o, d, active, t_max, nodes_packed, rows, pre, n_prepass, ax, ay, az,
     # num_nodes, num_tris, t_min, n, mt, out_t, out_row, stream (the window
     # walk's two variants append their extra outputs before the stream)
-    "tpupt_window_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
+    "tpupt_window_walk": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
     # ... out_t, out_row, out_orig, stream
-    "tpupt_window_walk_orig": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 4,
+    "tpupt_window_walk_orig": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 4,
     # ... out_t, out_row, out_spent, out_useful, stream
-    "tpupt_window_walk_counts": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 5,
+    "tpupt_window_walk_counts": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 5,
+    # ... mt, stage, coop, persist, threads, out_t, out_row, stream
+    "tpupt_window_walk_steps": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I]
+                               + [_I] * 5 + [_P] * 3,
+    # o, d, active, t_max, nodes_packed, tris, pre, n_prepass, num_nodes,
+    # num_tris, t_min, n, out, stream
+    "tpupt_minwalk": [_P] * 7 + [_I, _I, _I, _F, _I, _P, _P],
+    # the per-thread yardsticks (csrc/walk_v1.cu): o, d, active, t_max, nodes,
+    # meta, tris, pre, n_prepass, ax, ay, az, num_nodes, num_tris, t_min, n,
+    # mt, out_t, out_row, stream
+    "tpupt_window_walk_v1": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
     # o, d, active, t_max, nodes, meta, tris, pre, n_prepass, num_nodes,
     # num_tris, t_min, n, out, stream
-    "tpupt_minwalk": [_P] * 8 + [_I, _I, _I, _F, _I, _P, _P],
+    "tpupt_minwalk_v1": [_P] * 8 + [_I, _I, _I, _F, _I, _P, _P],
     # o, d, active, t_max, tris, ax, ay, az, num_tris, t_min, n, mt,
     # with_orig, out_t, out_row, out_orig, stream
     "tpupt_sweep": [_P] * 5 + [_F, _F, _F, _I, _F, _I, _I, _I, _P, _P, _P, _P],

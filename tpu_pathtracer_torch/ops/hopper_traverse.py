@@ -33,10 +33,21 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   environment light, over the leaf-8 layout; a lane stops at its first
   occluder and returns a clear mask.
 
-All are one thread per ray.  The contract is the outputs: the same nearest
-hit, strict ``<`` in visit order (prepass rows, then leaf rows in DFS order,
-ascending within a leaf), which is the winner the TPU kernels' lowest-row
-tie-break picks.
+The window walk and minwalk share one warp-cooperative walk
+(``csrc/walk_common.cuh``): each lane steps its own ray through the packed
+node table (``lay.nodes_packed``: a node is two 16-byte loads) to the next
+leaf it enters, and the warp serves the leaves entered together, 32 rows a
+step, or lane by lane where that takes fewer steps.  The capped
+walk, the any-hit walk and the sweep are one thread per ray.  The contract
+is the outputs: the same nearest hit, strict ``<`` in visit order (prepass
+rows, then leaf rows in DFS order, ascending within a leaf), which is the
+winner the TPU kernels' lowest-row tie-break picks.
+
+``window_walk_v1`` and ``minwalk_v1`` (``csrc/walk_v1.cu``, the first port's
+one-thread-per-ray walks) and ``window_walk_steps`` (the new walk with its
+launch shape and leaf service given by the caller) are yardsticks for timing
+the walk's design inside one run: ``chip_smoke.py`` and the card tests call
+them, no frame path, CLI or bench does, and they are no fallback.
 
 Each kernel's wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel (counting the launch in its
@@ -175,9 +186,12 @@ def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
 
 
 def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
-                   t_min: float, prepass: int, tritest: str, extra: int):
+                   t_min: float, prepass: int, tritest: str, extra: int,
+                   steps: tuple = ()):
     """Check the inputs and launch ``tpupt_<variant>`` -> (t, row, *extra
-    int32 rows)."""
+    int32 rows).  The ``_v1`` yardstick reads ``nodes`` and ``nodes_meta``,
+    every other variant the packed node table; ``steps``: the ints
+    ``tpupt_window_walk_steps`` takes after ``mt``."""
     n = o.shape[1]
     rs = _rows(lay, tritest)
     _check(o, torch.float32, (3, n), "o")
@@ -185,7 +199,8 @@ def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
     _check(active, torch.bool, (n,), "active")
     _check(t_max, torch.float32, (n,), "t_max")
     tables = ("tris8", "prepass") if tritest == "mt" else ("tris8bw", "prepassbw")
-    _check_layout(lay, ("nodes", "nodes_meta") + tables, o.device)
+    nodes = ("nodes", "nodes_meta") if variant.endswith("_v1") else ("nodes_packed",)
+    _check_layout(lay, nodes + tables, o.device)
     if not 0 <= prepass <= rs.prepass.shape[0]:
         raise ValueError(f"prepass={prepass} outside [0, {rs.prepass.shape[0]}]")
     out_t = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -193,9 +208,9 @@ def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
     ax, ay, az = lay.anchor
     rc = getattr(load_library(), f"tpupt_{variant}")(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), rs.table.data_ptr(),
+        *(getattr(lay, name).data_ptr() for name in nodes), rs.table.data_ptr(),
         rs.prepass.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
-        lay.num_tris, t_min, n, int(tritest == "mt"), out_t.data_ptr(),
+        lay.num_tris, t_min, n, int(tritest == "mt"), *steps, out_t.data_ptr(),
         *(x.data_ptr() for x in outs), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
@@ -221,6 +236,58 @@ def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
 
 
 window_walk.launches = window_walk.launches_mt = 0
+
+
+def window_walk_v1_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                         prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                         tally: Tally | None = None):
+    """Plain version of the per-thread yardstick: the window walk's."""
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+
+
+def window_walk_v1(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                   prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
+    """The first port's one-thread-per-ray window walk (``csrc/walk_v1.cu``),
+    kept as the yardstick :func:`window_walk` is timed against inside one run;
+    same inputs and outputs.  Not on any frame path."""
+    if o.device.type == "cpu":
+        return window_walk_v1_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window("window_walk_v1", o, d, active, t_max, lay, t_min, prepass,
+                         tritest, 0)
+    window_walk_v1.launches += 1
+    return out
+
+
+window_walk_v1.launches = 0
+
+
+def window_walk_steps_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                            prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                            tally: Tally | None = None, **steps):
+    """Plain version of the step yardstick: the window walk's, whatever the
+    ``steps``."""
+    del steps
+    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+
+
+def window_walk_steps(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                      prepass: int = DEFAULT_PREPASS, tritest: str = "bw", *,
+                      stage: bool, coop: bool, persist: bool, threads: int):
+    """:func:`window_walk` with the steps of its design switched by the caller,
+    for timing each against the one before inside one run: ``stage`` the
+    packed node table in shared memory, ``coop`` warp-cooperative leaves,
+    ``persist`` resident blocks with a grid stride, ``threads`` a block.  The
+    same outputs whatever the switches.  A yardstick like
+    :func:`window_walk_v1`; CPU tensors take the plain version."""
+    if o.device.type == "cpu":
+        return window_walk_steps_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window("window_walk_steps", o, d, active, t_max, lay, t_min, prepass,
+                         tritest, 0, (int(stage), int(coop), int(persist), int(threads)))
+    window_walk_steps.launches += 1
+    return out
+
+
+window_walk_steps.launches = 0
 
 
 def window_walk_hbm_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
@@ -277,13 +344,16 @@ window_walk_orig.launches = window_walk_orig.launches_mt = 0
 
 def warp_spent_bounds(useful, n_prepass: int):
     """The bounds of the counting walk's ``spent`` per warp of 32 consecutive
-    lanes -> (lo, hi) int32: ``n_prepass + max(useful)`` (the warp issued at
-    least the busiest lane's row tests) and ``n_prepass + sum(useful)`` (it
-    never issued a row test that no lane needed)."""
+    lanes -> (lo, hi) int32.  A slot is one row test on every lane of the
+    warp, so with U the sum of ``useful`` over the warp: ``n_prepass +
+    ceil(U / 32)`` (no slot tests more than 32 rows: every cooperative step
+    full) and ``n_prepass + U`` (no slot without a row some lane needed).  A
+    lane's ``spent`` can be below its own ``useful`` (its warp tests its leaf
+    32 rows a slot); summed over a whole warp, spent is never below useful."""
     n = useful.shape[0]
-    u = torch.nn.functional.pad(useful, (0, (-n) % 32)).view(-1, 32)
-    lo = u.max(dim=1).values.repeat_interleave(32)[:n] + n_prepass
-    hi = u.sum(dim=1).repeat_interleave(32)[:n] + n_prepass
+    total = torch.nn.functional.pad(useful, (0, (-n) % 32)).view(-1, 32).sum(dim=1)
+    lo = ((total + 31) // 32).repeat_interleave(32)[:n] + n_prepass
+    hi = total.repeat_interleave(32)[:n] + n_prepass
     return lo.to(torch.int32), hi.to(torch.int32)
 
 
@@ -306,8 +376,8 @@ def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     ``useful`` = leaf rows this lane tested, ``spent`` = ``prepass`` + the
     leaf-row test slots its warp issued (csrc/window_walk.cu).  A CPU has no
     warps: for CPU tensors ``spent`` is the plain version's lower bound, the
-    slots of a warp that reconverges perfectly (``prepass`` + its busiest
-    lane's rows)."""
+    slots of a warp whose every step tests 32 needed rows (``prepass`` +
+    ceil(the warp's useful rows / 32))."""
     if o.device.type == "cpu":
         t, row, useful, lo, _ = window_walk_counts_plain(o, d, active, t_max, lay,
                                                          t_min, prepass, tritest)
@@ -470,27 +540,58 @@ def minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     ``lay.prepass`` (MT rows, col 21 = the global row id)."""
     if o.device.type == "cpu":
         return minwalk_plain(o, d, active, t_max, lay, t_min, prepass)
-    n = o.shape[1]
-    _check(o, torch.float32, (3, n), "o")
-    _check(d, torch.float32, (3, n), "d")
-    _check(active, torch.bool, (n,), "active")
-    _check(t_max, torch.float32, (n,), "t_max")
-    _check_layout(lay, ("nodes", "nodes_meta", "tris", "prepass"), o.device)
-    if not 0 <= prepass <= lay.prepass.shape[0]:
-        raise ValueError(f"prepass={prepass} outside [0, {lay.prepass.shape[0]}]")
-    out = torch.empty((12, n), dtype=torch.float32, device=o.device)
-    rc = load_library().tpupt_minwalk(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris.data_ptr(),
-        lay.prepass.data_ptr(), prepass, lay.num_nodes, lay.num_tris, t_min, n,
-        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"minwalk kernel launch failed: cudaError {rc}")
+    out = _launch_minwalk("minwalk", o, d, active, t_max, lay, t_min, prepass)
     minwalk.launches += 1
     return out
 
 
 minwalk.launches = 0
+
+
+def _launch_minwalk(variant: str, o, d, active, t_max, lay: BVHLayout, t_min: float,
+                    prepass: int):
+    """Check the inputs and launch ``tpupt_<variant>`` -> (12, N) float32; the
+    ``_v1`` yardstick reads ``nodes`` and ``nodes_meta``, minwalk the packed
+    node table."""
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    nodes = ("nodes", "nodes_meta") if variant.endswith("_v1") else ("nodes_packed",)
+    _check_layout(lay, nodes + ("tris", "prepass"), o.device)
+    if not 0 <= prepass <= lay.prepass.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {lay.prepass.shape[0]}]")
+    out = torch.empty((12, n), dtype=torch.float32, device=o.device)
+    rc = getattr(load_library(), f"tpupt_{variant}")(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        *(getattr(lay, name).data_ptr() for name in nodes), lay.tris.data_ptr(),
+        lay.prepass.data_ptr(), prepass, lay.num_nodes, lay.num_tris, t_min, n,
+        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+    return out
+
+
+def minwalk_v1_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                     prepass: int = DEFAULT_PREPASS, tally: Tally | None = None):
+    """Plain version of the per-thread yardstick: minwalk's."""
+    return minwalk_plain(o, d, active, t_max, lay, t_min, prepass, tally=tally)
+
+
+def minwalk_v1(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+               prepass: int = DEFAULT_PREPASS):
+    """The first port's one-thread-per-ray minwalk (``csrc/walk_v1.cu``), kept
+    as the yardstick :func:`minwalk` is timed against inside one run; same
+    inputs and outputs.  Not on any frame path."""
+    if o.device.type == "cpu":
+        return minwalk_v1_plain(o, d, active, t_max, lay, t_min, prepass)
+    out = _launch_minwalk("minwalk_v1", o, d, active, t_max, lay, t_min, prepass)
+    minwalk_v1.launches += 1
+    return out
+
+
+minwalk_v1.launches = 0
 
 
 def intersect_bvh_minwalk(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,

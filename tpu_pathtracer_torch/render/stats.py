@@ -92,8 +92,10 @@ def walk_lane_ops(lay, cfg: RenderConfig, o, d, active, t_max=None):
 
     ``spent``  = leaf-row test slots paid, summed over every lane: each lane
                  carries its 32-lane warp's slots plus the prepass rows
-                 (csrc/window_walk.cu, kCounts) -- the SIMT counterpart of
-                 the TPU's per-tile row count;
+                 (csrc/window_walk.cu, kCounts; a slot is one row test on
+                 every lane of the warp, whether the warp serves one leaf 32
+                 rows wide or each pending lane's own next row) -- the SIMT
+                 counterpart of the TPU's per-tile row count;
     ``useful`` = leaf rows each lane's own walk tested (the demand served).
     Box/navigation lane-ops are excluded, as in the reference.  The walk
     tests cfg.tritest's rows (reference stats.py:214)."""
@@ -147,8 +149,8 @@ def utilization_report(scene: Scene, cfg: RenderConfig, lay, height: int, width:
         "wavefront": "bounce-1 sorted secondary (path + NEE shadow)",
         "lane_unit": "warp32",
         "spent_source": ("measured in-kernel per warp" if st.origin.is_cuda else
-                         "plain-version lower bound: prepass + busiest lane per "
-                         "warp (no warps on the CPU)"),
+                         "plain-version lower bound: prepass + ceil(useful rows "
+                         "per warp / 32) (no warps on the CPU)"),
         "live_rays": int(rays),
         "spent_lane_ops_per_ray": round(spent / rays, 1),
         "useful_lane_ops_per_ray": round(useful / rays, 1),
