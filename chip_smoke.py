@@ -19,10 +19,14 @@ Phases (any failure raises, so the exit code is not 0):
    whole camera, bounce-1 and shadow wavefronts (t and row equal, minwalk's
    12 rows equal); the window walk, the capped walk, minwalk and the sweep
    also get their bound on the whole wavefront (the plain walk run over it in
-   chunks under one tally) beside their time there; then the edge shapes: 1,
-   31, 33 and 65,537 lanes, every lane dead, one live lane a warp, prepass 0
-   and 32, and the leaf-16 and leaf-8 layouts, each form bit-equal to its
-   plain version;
+   chunks under one tally) beside their time there, and the any-hit walk on
+   the whole env-lit pack; the capped walk's four rows equal its plain
+   version's on every lane; then the edge shapes: 1, 31, 33 and 65,537
+   lanes, every lane dead, one live lane a warp, prepass 0 and 32, and the
+   leaf-16 and leaf-8 layouts, each form bit-equal to its plain version; the
+   two shadow walks and their per-thread yardsticks the same on the shadow
+   pack's lanes with environment lanes and infinite caps, on leaf 56, 16 and
+   8;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
    event breakdown, and each kernel's launch count in that run;
@@ -86,10 +90,12 @@ Phases (any failure raises, so the exit code is not 0):
     lanes with 0, 1 and more candidates, the mean and p95 count, and the ms
     of the count kernel, the targeted kernel, the window walk on all lanes
     and the window walk on the lanes with more than one candidate;
-16. launch probe: the no-op against its plain version at each tile, then
-    ``scripts/perf_launch.main()`` at 1080p, its lines echoed; the no-op and
-    the all-dead capped and window walks must have launched, and no plain
-    version may have run on a CUDA tensor;
+16. launch probe: the no-op against its plain version at each tile, and
+    against ``zeros`` + ``copy_`` in ten rounds of turns at 65,536 and
+    2,073,600 lanes (median, quartiles and range of each);
+    then ``scripts/perf_launch.main()`` at 1080p, its lines echoed; the
+    no-op and the all-dead capped and window walks must have launched, and
+    no plain version may have run on a CUDA tensor;
 17. row-test probe: each of the six variants against its plain version on
     65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
     on every 32nd lane; then ``scripts/perf_ophit_probe.main()`` with the
@@ -103,12 +109,21 @@ Phases (any failure raises, so the exit code is not 0):
     record alone, the node table staged in shared memory, persistent
     blocks, other block sizes), every version equal to the yardstick on every lane, ms and share
     of the whole wavefront's bound for both; the new walk on the leaf-56,
-    leaf-16 and leaf-8 layouts of Water-plastic (a measurement only); then
+    leaf-16 and leaf-8 layouts of Water-plastic (a measurement only); the
+    redesigned shadow walks against ``capped_walk_v1`` / ``anyhit_walk_v1``
+    in turns on the whole shadow packs (the main path's pack through the
+    capped walk, the env-lit pack through the any-hit walk and the capped
+    walk, both terrains' packs on their leaf-8 layouts), with the per-lane
+    leaf service (through ``capped_walk_steps`` / ``anyhit_walk_steps``)
+    beside the kept one, every version equal to the yardstick on every
+    lane, ms and share of each pack's bound (the env-lit capped run: ms
+    only); then
     the main path and the minwalk path on the new kernels and on the
     yardsticks in turns, 1 warm-up + 3 frames a turn: ms/frame, the
-    walk_nearest span and the frame's device time from torch.profiler; then
-    the self-golden gate of phase 5 once more.  Only this phase may launch a
-    yardstick: any other counted run that does fails.
+    walk_nearest span and the frame's device time from torch.profiler; the
+    main path and the env-lit path the same with only the two shadow walks
+    swapped (the walk_shadow span); then the self-golden gate of phase 5
+    once more.  No counted run of another phase may launch a yardstick.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -127,8 +142,8 @@ from the plain version's walk (ops/traverse.py:Tally): each ray read once,
 each output written once, each distinct node and leaf row the walk read
 moved once (the sweep: every row), the prepass block once; a box test per
 node visit and a row test per row tested (a node is 40 bytes of ``nodes``
-and ``nodes_meta`` for the per-thread walks, the 32 bytes of its
-``nodes_packed`` row for the redesigned ones).  The targeted sweep ends at its
+and ``nodes_meta`` for the per-thread yardsticks, the 32 bytes of its
+``nodes_packed`` row for every other walk).  The targeted sweep ends at its
 lowest candidate leaf, so its box tests are the ones up to that leaf (every
 leaf on a lane with no candidate); the count kernel needs every leaf.
 
@@ -140,7 +155,7 @@ counting form, the tritest="mt" gates for the MT fused walk and sweep,
 which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
-``perf_ophit_probe.main()`` run, and the two per-thread yardsticks the
+``perf_ophit_probe.main()`` run, and the four per-thread yardsticks the
 Water-plastic part of the walk A/B, none of them the launches that compare a
 kernel with its plain version or time it); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
@@ -153,6 +168,7 @@ import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -172,9 +188,12 @@ PARITY_FRAMES = 16
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
-           "window_walk_v1", "minwalk_v1", "window_walk_steps")
-# the yardsticks of the walk A/B (phase 18): no other phase may launch them
-YARDSTICKS = KERNELS[-3:]
+           "window_walk_v1", "minwalk_v1", "capped_walk_v1", "anyhit_walk_v1",
+           "window_walk_steps", "capped_walk_steps", "anyhit_walk_steps")
+# the yardsticks of the walk A/B (phase 18): no counted run of another phase
+# may launch them; the per-thread ones get rows of the kernel table
+YARDSTICKS = KERNELS[-7:]
+YARDSTICK_ROWS = YARDSTICKS[:4]
 # the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
 # tpu_pathtracer_torch.scripts, wrapper (its plain version is <wrapper>_plain)
 TOOL_KERNELS = {"sweep_count": ("experimental_sweep", "sweep_count"),
@@ -215,14 +234,20 @@ WALK_STEPS = {
 }
 SHARED_LIMIT = 232448  # bytes of shared memory a block may ask for on an H100
 EDGE_LANES = (1, 31, 33, 65537)
+LAUNCH_ROUNDS = 10  # rounds of turns of the no-op against zeros + copy_
 OPS_LEAF_BOX = OPS_BOX + 1  # a candidate sweep's box test and its first-leaf min
 SRC = "tpu_pathtracer_torch/csrc/"
 REF = "tpu_pathtracer/ops/pallas_traverse.py:"
 REF_SCRIPTS = "scripts/"
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since the
+    script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -430,6 +455,18 @@ def minwalk_bound(lay, act, work: Work, prepass: int) -> dict:
                       node_bytes=PACKED_NODE_BYTES)
 
 
+def shadow_bound(lanes: int, walk: str, lay, work: Work, per_thread: bool = False) -> dict:
+    """A shadow walk's bound on these lanes: o, d, active and the cap in
+    (and the int32 target for the any-hit walk); 4 float32 rows (capped) or
+    one byte (any-hit) out; the MT rows of ``lay.tris``; each node a
+    ``nodes_packed`` row, or ``nodes`` + ``nodes_meta`` for the per-thread
+    yardsticks."""
+    anyhit = walk == "anyhit"
+    return walk_bound(lanes, RAY_BYTES + 4 * anyhit, 1 if anyhit else 16, lay, lay.tris,
+                      work, OPS_ROW["mt"],
+                      node_bytes=None if per_thread else PACKED_NODE_BYTES)
+
+
 def full_work(fn, lanes, *rest, **kw) -> Work:
     """The work of the plain walk ``fn`` on a whole wavefront: ``lanes``
     (per-lane tensors, lanes last) go through it FULL_CHUNK at a time under
@@ -501,14 +538,25 @@ def kernel_entry(name: str, source: str, line, err: float, ms: float,
             **{"library_ms": None, **extra}}
 
 
-def phase_kernels(renderer) -> list[dict]:
+class Priced(NamedTuple):
+    """Water-plastic's whole wavefronts as phase 3 made them (``waves``:
+    those of :func:`wavefronts` plus "env_shadow", the env-lit frame's shadow
+    pack) and the work of the plain walks phase 3 priced them with, which
+    the later phases reuse rather than walk again (``work``: the window walk
+    on "camera" and "bounce1", BW rows and the window prepass; the capped
+    walk on "shadow"; the any-hit walk on "env_shadow")."""
+    waves: dict
+    work: dict
+
+
+def phase_kernels(renderer) -> tuple[list[dict], Priced]:
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.scene import attach_env
 
     lay, occl, cfg = renderer.layout, renderer.layout_occl, renderer.cfg
     waves = wavefronts(renderer.scene, lay, occl, cfg)
     gen = torch.Generator().manual_seed(1234)
-    prepass = cfg.traversal_prepass
+    prepass = ht.window_prepass(lay, cfg.traversal_prepass)
     errs_a = []
     for which in ("camera", "bounce1"):
         o, d, act = draw(waves[which], SAMPLE_LANES, gen)
@@ -535,26 +583,25 @@ def phase_kernels(renderer) -> list[dict]:
         for which in ("camera", "bounce1"):
             forms_equal_v1(f"{SCENE} {which}", lay, *waves[which], full_t, prepass, tritest)
         forms_equal_v1(f"{SCENE} shadow pack", lay, so, sd, sok, scap, prepass, tritest)
-    full_extra = at_full_width(
-        "window_walk", "camera wavefront", full_a,
-        window_bound(lay, act, full_work(ht.window_walk_plain, (o, d, act, full_t), lay,
-                                         prepass=prepass), prepass, "bw", 1))
+    priced = {w: full_work(ht.window_walk_plain, (*waves[w], full_t), lay, prepass=prepass)
+              for w in ("camera", "bounce1")}
+    full_extra = at_full_width("window_walk", "camera wavefront", full_a,
+                               window_bound(lay, act, priced["camera"], prepass, "bw", 1))
     b1 = waves["bounce1"]
     full_b1 = cuda_ms(lambda: ht.window_walk(*b1, full_t, lay, prepass=prepass))
-    b1_extra = at_full_width(
-        "window_walk", "bounce-1 wavefront", full_b1,
-        window_bound(lay, b1[2], full_work(ht.window_walk_plain, (*b1, full_t), lay,
-                                           prepass=prepass), prepass, "bw", 1))
+    b1_extra = at_full_width("window_walk", "bounce-1 wavefront", full_b1,
+                             window_bound(lay, b1[2], priced["bounce1"], prepass, "bw", 1))
     full_extra.update(full_bounce1_ms=full_b1,
                       **{f"{k}_bounce1": v for k, v in b1_extra.items()})
 
     o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen)
     outk = ht.capped_walk(o, d, ok, cap, occl)
     outp, work = plain_work(ht.capped_walk_plain, o, d, ok, cap, occl)
-    bound_b = walk_bound(o.shape[1], RAY_BYTES, 16, occl, occl.tris, work, OPS_ROW["mt"])
+    bound_b = shadow_bound(o.shape[1], "capped", occl, work)
     torch.cuda.synchronize()
     miss = lambda out: torch.where(out[0] < cap, out[0], torch.inf)  # noqa: E731
     err_b = agree("capped_walk/shadow", miss(outk), outk[3], miss(outp), outp[3])
+    equal_on_every_lane("capped_walk vs its plain version (t, u, v, orig)", outk, outp)
     b_in = (o, d, ok, cap, occl)
     ms_b = cuda_ms(lambda: ht.capped_walk(*b_in))
     plain_b = cuda_ms(lambda: ht.capped_walk_plain(*b_in), iters=2)
@@ -563,14 +610,14 @@ def phase_kernels(renderer) -> list[dict]:
     log(f"  capped_walk at {SAMPLE_LANES} shadow lanes: kernel {ms_b:.3f} ms, "
         f"plain {plain_b:.3f} ms; full shadow wavefront ({o.shape[1]} lanes, "
         f"{int(ok.sum())} live): {full_b:.3f} ms")
-    capped_extra = at_full_width(
-        "capped_walk", "shadow wavefront", full_b,
-        walk_bound(o.shape[1], RAY_BYTES, 16, occl, occl.tris,
-                   full_work(ht.capped_walk_plain, (o, d, ok, cap), occl), OPS_ROW["mt"]))
+    priced["shadow"] = full_work(ht.capped_walk_plain, (o, d, ok, cap), occl)
+    capped_extra = at_full_width("capped_walk", "shadow wavefront", full_b,
+                                 shadow_bound(o.shape[1], "capped", occl, priced["shadow"]))
 
     # kernel C on the env-lit frame's shadow pack (area-light and env lanes)
     env_scene = attach_env(renderer.scene, sky_map())
-    o, d, ok, cap, tgt = wavefronts(env_scene, lay, occl, cfg)["shadow"]
+    waves["env_shadow"] = wavefronts(env_scene, lay, occl, cfg)["shadow"]
+    o, d, ok, cap, tgt = waves["env_shadow"]
     eps = cfg.distance_epsilon
     live = int(ok.sum())
     env_share = float((ok & (tgt < 0)).sum()) / max(live, 1)
@@ -579,8 +626,7 @@ def phase_kernels(renderer) -> list[dict]:
     c_in = draw((o, d, ok, cap, tgt), SAMPLE_LANES, gen)
     ck = ht.anyhit_walk(*c_in, occl, eps)
     cp, work = plain_work(ht.anyhit_walk_plain, *c_in, occl, eps)
-    bound_c = walk_bound(SAMPLE_LANES, RAY_BYTES + 4, 1, occl, occl.tris, work,
-                         OPS_ROW["mt"])
+    bound_c = shadow_bound(SAMPLE_LANES, "anyhit", occl, work)
     torch.cuda.synchronize()
     bad = int((ck != cp).sum())
     if bad:
@@ -595,14 +641,18 @@ def phase_kernels(renderer) -> list[dict]:
         f"plain {plain_c:.3f} ms; full env-lit pack ({o.shape[1]} lanes, {live} "
         f"live): any-hit {full_c:.3f} ms vs capped walk (nearest-hit rule) "
         f"{full_bc:.3f} ms")
+    priced["env_shadow"] = full_work(ht.anyhit_walk_plain, (o, d, ok, cap, tgt), occl, eps)
+    anyhit_extra = at_full_width("anyhit_walk", "env-lit shadow pack", full_c,
+                                 shadow_bound(o.shape[1], "anyhit", occl, priced["env_shadow"]))
     return [
         kernel_entry("window_walk", "window_walk.cu", 698, max(errs_a), ms_a, plain_a,
                      full_a, bound_a, **full_extra),
         kernel_entry("capped_walk", "capped_walk.cu", 106, err_b, ms_b, plain_b,
                      full_b, bound_b, **capped_extra),
         kernel_entry("anyhit_walk", "anyhit_walk.cu", 274, float(bad), ms_c, plain_c,
-                     full_c, bound_c, capped_full_ms=full_bc, env_share=env_share),
-    ]
+                     full_c, bound_c, capped_full_ms=full_bc, env_share=env_share,
+                     **anyhit_extra),
+    ], Priced(waves, priced)
 
 
 def check_counts(name, t_k, row_k, useful_k, spent_k, plain) -> float:
@@ -626,13 +676,15 @@ def check_counts(name, t_k, row_k, useful_k, spent_k, plain) -> float:
     return err
 
 
-def phase_bench_kernels(renderer) -> list[dict]:
+def phase_bench_kernels(renderer, priced: Priced) -> list[dict]:
     """The bench's four kernels against their plain versions on 65,536
-    lanes of the 1080p wavefronts, and their times."""
+    lanes of the 1080p wavefronts, and their times (the counting walk's
+    whole bounce-1 wavefront walks what the window walk walked there, so its
+    bound takes ``priced``'s work)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
     lay, cfg = renderer.layout, renderer.cfg
-    waves = wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)
+    waves = priced.waves
     gen = torch.Generator().manual_seed(4321)
     pp_win = ht.window_prepass(lay, cfg.traversal_prepass)
     pp_min = min(cfg.traversal_prepass, lay.prepass.shape[0], lay.num_tris)
@@ -738,6 +790,10 @@ def phase_bench_kernels(renderer) -> list[dict]:
     log(f"  window_walk_orig at 2x{n} lanes: kernel {ms_c:.3f} ms, plain "
         f"{plain_c:.3f} ms; full bounce-1 + shadow ({full_in[0].shape[1]} lanes): "
         f"{full_c:.3f} ms")
+    orig_extra = at_full_width(
+        "window_walk_orig", "bounce-1 + shadow wavefronts", full_c,
+        window_bound(lay, full_in[2], full_work(ht.window_walk_orig_plain, full_in, lay,
+                                                prepass=pp_win), pp_win, "bw", 2))
 
     # kernel d: the counting walk on bounce-1 lanes and on the shadow pack
     o, d, alive, sdir, sok, scap, _ = draw(pair, SAMPLE_LANES, gen)
@@ -762,6 +818,9 @@ def phase_bench_kernels(renderer) -> list[dict]:
                                                    prepass=pp_win))
     log(f"  window_walk_counts at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_d:.3f} ms, "
         f"plain {plain_d:.3f} ms; full bounce-1: {full_d:.3f} ms")
+    counts_extra = at_full_width(
+        "window_walk_counts", "bounce-1 wavefront", full_d,
+        window_bound(lay, waves["bounce1"][2], priced.work["bounce1"], pp_win, "bw", 3))
     return [
         kernel_entry("minwalk", "minwalk.cu", 106, max(errs), ms_a, plain_a,
                      full_a["bounce1"], bound_a, payload_max_abs_err=pay,
@@ -770,9 +829,9 @@ def phase_bench_kernels(renderer) -> list[dict]:
         kernel_entry("sweep", "sweep.cu", 1152, err_b, ms_b, plain_b, full_b, bound_b,
                      **sweep_extra),
         kernel_entry("window_walk_orig", "window_walk.cu", 698, err_c, ms_c, plain_c,
-                     full_c, bound_c),
+                     full_c, bound_c, **orig_extra),
         kernel_entry("window_walk_counts", "window_walk.cu", 698, max(errs_d), ms_d,
-                     plain_d, full_d, bound_d),
+                     plain_d, full_d, bound_d, **counts_extra),
     ]
 
 
@@ -1475,7 +1534,9 @@ def phase_edge_shapes(renderer) -> None:
     """The redesigned walks on the shapes a warp-cooperative kernel can get
     wrong, each against its plain version, bit for bit: lane counts around a
     warp (EDGE_LANES), every lane dead, one live lane a warp, prepass 0 and
-    32, and the leaf-8 and leaf-16 layouts of the same scene."""
+    32, and the leaf-8 and leaf-16 layouts of the same scene; the shadow
+    walks (and their per-thread yardsticks, which no counted run sees here)
+    also with environment lanes and infinite caps."""
     from tpu_pathtracer_torch.accel import build_layout
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
@@ -1529,24 +1590,67 @@ def phase_edge_shapes(renderer) -> None:
         f"warp; prepass 0 and 32; leaf 56, 16 and 8; bw and mt): every form of the window "
         f"walk and minwalk bit-equal to its plain version")
 
+    # the shadow walks on the shadow pack's lanes, every fifth one turned into
+    # an environment lane (target -1, cap 1e30), with finite and infinite caps
+    pool = draw(waves["shadow"], max(EDGE_LANES), gen, waves["shadow"][2])
+    env = torch.arange(max(EDGE_LANES), device=pool[0].device) % 5 == 0
+    pool = (*pool[:3], torch.where(env, 1e30, pool[3]).contiguous(),
+            torch.where(env, -1, pool[4]).contiguous())
+    eps = renderer.cfg.distance_epsilon
+    cases = 0
+    for n in EDGE_LANES:
+        o, d, act, cap, tgt = (a[..., :n].contiguous() for a in pool)
+        lanes = torch.arange(n, device=o.device)
+        masks = {"live": act, "dead": torch.zeros_like(act),
+                 "one-a-warp": (lanes % 32 == 7) | (n < 8)}
+        caps = {"caps": cap, "infinite caps": torch.full_like(cap, torch.inf)}
+        # the plain walks take ~0.3 s a call at 65,537 lanes: there the live
+        # mask runs on each layout, the other masks on leaf 8
+        for leaf, lay in layouts.items():
+            for mask_name, live in masks.items():
+                if n > 64 and mask_name != "live" and leaf != 8:
+                    continue
+                for cap_name, c in caps.items():
+                    what = f"edge n={n} leaf {leaf} {mask_name} {cap_name}"
+                    want = ht.capped_walk_plain(o, d, live, c, lay)
+                    equal_on_every_lane(f"{what}: capped_walk vs plain",
+                                        (ht.capped_walk(o, d, live, c, lay),), (want,))
+                    equal_on_every_lane(f"{what}: capped_walk_v1 vs plain",
+                                        (ht.capped_walk_v1(o, d, live, c, lay),), (want,))
+                    want = ht.anyhit_walk_plain(o, d, live, c, tgt, lay, eps)
+                    equal_on_every_lane(f"{what}: anyhit_walk vs plain",
+                                        (ht.anyhit_walk(o, d, live, c, tgt, lay, eps),),
+                                        (want,))
+                    equal_on_every_lane(f"{what}: anyhit_walk_v1 vs plain",
+                                        (ht.anyhit_walk_v1(o, d, live, c, tgt, lay, eps),),
+                                        (want,))
+                    cases += 1
+    torch.cuda.synchronize()
+    log(f"edge shapes, shadow walks: {cases} cases (lanes {EDGE_LANES}; live, all dead and "
+        f"one live lane a warp; NEE caps with every fifth lane an environment lane, and "
+        f"infinite caps; leaf 56, 16 and 8): the capped and any-hit walks and their "
+        f"per-thread yardsticks bit-equal to their plain versions")
 
-def turns(fns: dict, iters: int = 5) -> dict:
-    """Each of ``fns`` timed in turns, first to last and back (so two
-    versions read new, old, old, new) -> {name: [ms, ms]}."""
+
+def turns(fns: dict, iters: int = 5, rounds: int = 1) -> dict:
+    """Each of ``fns`` timed in turns, first to last and back, ``rounds``
+    times over (so two versions read new, old, old, new, ...) -> {name:
+    [ms, ...]}, two readings a round."""
     names = list(fns)
     out = {k: [] for k in names}
-    for k in names + names[::-1]:
+    for k in (names + names[::-1]) * rounds:
         out[k].append(cuda_ms(fns[k], iters))
     return out
 
 
 def walk_ab(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
-            steps: bool = True) -> dict:
+            steps: bool = True, work: Work | None = None) -> dict:
     """The redesigned window walk against the per-thread yardstick on one
     whole wavefront, in turns, with each step of the design between them
     (those the layout allows: a node table past SHARED_LIMIT cannot be
-    staged); every version's t and row must equal the yardstick's.  Returns
-    {version: [ms, ms]}."""
+    staged); every version's t and row must equal the yardstick's.  With
+    ``steps``, the shares of the wavefront's bound, from ``work`` (the plain
+    walk's; walked here when None).  Returns {version: [ms, ms]}."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
     args = (o, d, act, t_max, lay)
@@ -1567,12 +1671,59 @@ def walk_ab(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
             "turns: " + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in ms.items())
             + f"; v1/new {old / new:.2f}x")
     if steps:  # the whole wavefront's bound (the leaf-size runs go without)
-        work = full_work(ht.window_walk_plain, (o, d, act, t_max), lay, prepass=prepass,
-                         tritest=tritest)
+        if work is None:
+            work = full_work(ht.window_walk_plain, (o, d, act, t_max), lay,
+                             prepass=prepass, tritest=tritest)
         bnd = window_bound(lay, act, work, prepass, tritest, 1)
         line += (f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): new "
                  f"{100 * bnd['bound_ms'] / new:.2f}%, v1 {100 * bnd['bound_ms'] / old:.2f}% "
                  "of bound")
+    log(line)
+    return ms
+
+
+def shadow_ab(label: str, walk: str, lay, pack, eps: float, work: Work | None = None,
+              price: bool = True) -> dict:
+    """A redesigned shadow walk (``walk`` "capped" or "anyhit") against its
+    per-thread yardstick on one whole shadow pack (o, d, ok, cap, target), in
+    turns: the yardstick, the per-lane leaf service only and the kept walk
+    (leaves served over the warp where that takes fewer slots); every
+    version must equal the yardstick on every lane.  Prints the ms and, with
+    ``price``, each one's share of the pack's bound from ``work`` (the plain
+    walk's on this pack; walked here when None; the new kernels read
+    ``nodes_packed``, the yardstick's share is of its own bound, 40-byte
+    nodes) -> {version: [ms, ms]}."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    o, d, ok, cap, tgt = pack
+    if walk == "capped":
+        args, extra, plain = (o, d, ok, cap, lay), (), ht.capped_walk_plain
+        v1, steps, new = ht.capped_walk_v1, ht.capped_walk_steps, ht.capped_walk
+    else:
+        args, extra, plain = (o, d, ok, cap, tgt, lay, eps), (eps,), ht.anyhit_walk_plain
+        v1, steps, new = ht.anyhit_walk_v1, ht.anyhit_walk_steps, ht.anyhit_walk
+    fns = {"v1": lambda: v1(*args), "per-lane": lambda: steps(*args, coop=False),
+           "new": lambda: new(*args)}
+    want = fns["v1"]()
+    for name, fn in fns.items():
+        equal_on_every_lane(f"shadow A/B {label}: {name} vs v1", (fn(),), (want,))
+    ms = turns(fns)
+    best = {k: min(v) for k, v in ms.items()}
+    line = (f"  A/B shadow {label} ({walk}, leaf {lay.max_leaf}, {o.shape[1]} lanes, "
+            f"{int(ok.sum())} live), ms in turns: "
+            + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in ms.items())
+            + f"; v1/new {best['v1'] / best['new']:.2f}x")
+    if price:
+        if work is None:
+            lanes = (o, d, ok, cap) if walk == "capped" else (o, d, ok, cap, tgt)
+            work = full_work(plain, lanes, lay, *extra)
+        bnd = shadow_bound(o.shape[1], walk, lay, work)
+        bnd_v1 = shadow_bound(o.shape[1], walk, lay, work, per_thread=True)
+        line += (f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): "
+                 + ", ".join(f"{k} {100 * bnd['bound_ms'] / v:.2f}%" for k, v in best.items()
+                             if k != "v1")
+                 + f"; v1 {100 * bnd_v1['bound_ms'] / best['v1']:.2f}% of its bound "
+                 f"{bnd_v1['bound_ms']:.4f} ms")
     log(line)
     return ms
 
@@ -1593,6 +1744,21 @@ def per_thread_walks():
         ht.window_walk, ht.minwalk = saved
 
 
+@contextlib.contextmanager
+def per_thread_shadow_walks():
+    """The frame paths with only the two shadow walks on their per-thread
+    yardsticks for the run inside: ``capped_walk`` and ``anyhit_walk`` stand
+    aside for ``capped_walk_v1`` and ``anyhit_walk_v1``."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    saved = ht.capped_walk, ht.anyhit_walk
+    ht.capped_walk, ht.anyhit_walk = ht.capped_walk_v1, ht.anyhit_walk_v1
+    try:
+        yield
+    finally:
+        ht.capped_walk, ht.anyhit_walk = saved
+
+
 def device_ms(renderer, tmp: str) -> tuple[float, int]:
     """One frame under torch.profiler -> (device kernel ms, kernels), (nan,
     0) when the trace holds no device kernels."""
@@ -1602,49 +1768,74 @@ def device_ms(renderer, tmp: str) -> tuple[float, int]:
     return (sum(e["dur"] for e in events) / 1e3 if events else float("nan")), len(events)
 
 
-def frame_ab(label: str, tmp: str, **kw) -> None:
-    """A frame path on the redesigned walks and on the per-thread yardsticks
-    in turns (new, v1, v1, new): 1 warm-up + 3 frames a turn by the host
-    clock, then the walk_nearest span of one staged frame and the device
-    time of one profiled frame."""
+def frame_ab(label: str, tmp: str, scene=SCENE, swap=per_thread_walks,
+             span: str = "walk_nearest", walks=("window_walk", "minwalk"), **kw) -> None:
+    """A frame path on the redesigned walks and, with ``swap``, on the
+    per-thread yardsticks in turns (new, v1, v1, new): 1 warm-up + 3 frames
+    a turn by the host clock, then the ``span`` of one staged frame and the
+    device time of one profiled frame.  A new turn must launch some of
+    ``walks`` and none of their yardsticks, a v1 turn the reverse."""
     from tpu_pathtracer_torch import Renderer, RenderConfig
 
-    r = Renderer(SCENE, WIDTH, HEIGHT, RenderConfig(**kw))
+    r = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw))
     rows = []
     for which in ("new", "v1", "v1", "new"):
-        with per_thread_walks() if which == "v1" else contextlib.nullcontext():
+        with counted_run(yardsticks=True) as run, (
+                swap() if which == "v1" else contextlib.nullcontext()):
             r.run(1)
             t0 = time.perf_counter()
             r.run(3)
             ms = (time.perf_counter() - t0) / 3 * 1e3
-            span = staged_frame(r).get("walk_nearest", float("nan"))
+            span_ms = staged_frame(r).get(span, float("nan"))
             dev, count = device_ms(r, os.path.join(tmp, f"turn{len(rows)}"))
-        rows.append(f"{which}: {ms:.2f} ms/frame, walk_nearest {span:.2f} ms, device "
+        ran = {k: run["launches"][k] for k in walks}
+        ran_v1 = {k: run["launches"][f"{k}_v1"] for k in walks}
+        if not any((ran_v1 if which == "v1" else ran).values()) or any(
+                (ran if which == "v1" else ran_v1).values()):
+            raise AssertionError(f"frame A/B {label}, {which} turn: launches {ran}, {ran_v1}")
+        rows.append(f"{which}: {ms:.2f} ms/frame, {span} {span_ms:.2f} ms, device "
                     f"{dev:.2f} ms in {count} kernels")
     log(f"frame A/B, {label} ({WIDTH}x{HEIGHT}, depth 8, 1 warm-up + 3 frames a turn): "
         + "; ".join(rows))
 
 
-def phase_walk_ab(renderer, terrains: dict, smi: str) -> tuple[list[dict], dict]:
-    """Phase 18: the redesigned nearest-hit walks against the per-thread
-    yardsticks inside one run -> (the yardsticks' rows of the kernel table,
-    their launches here)."""
+def phase_walk_ab(renderer, terrains: dict, smi: str,
+                  priced: Priced) -> tuple[list[dict], dict]:
+    """Phase 18: the redesigned nearest-hit and shadow walks against the
+    per-thread yardsticks inside one run, on phase 3's wavefronts and their
+    work (``priced``) -> (the yardsticks' rows of the kernel table, their
+    launches here)."""
     from tpu_pathtracer_torch.accel import build_layout
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.scene import attach_env
 
     log(f"walk A/B on {smi}")
-    lay, cfg = renderer.layout, renderer.cfg
-    waves = wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)
+    lay, occl, cfg = renderer.layout, renderer.layout_occl, renderer.cfg
+    eps = cfg.distance_epsilon
+    waves, work = priced
+    env_scene = attach_env(renderer.scene, sky_map())
+    env_pack = waves["env_shadow"]
     pp = ht.window_prepass(lay, cfg.traversal_prepass)
     pm = min(cfg.traversal_prepass, lay.prepass.shape[0], lay.num_tris)
     inf = torch.full_like(waves["camera"][0][0], torch.inf)
     so, sd, sok, scap, _ = waves["shadow"]
     with counted_run(yardsticks=True) as run:
+        # the shadow walks on the two frame paths' whole shadow packs (leaf-8
+        # layout); the env-lit pack also through the capped walk, its bound
+        # not priced
+        env = f"{SCENE} env-lit shadow pack"
+        shadow_ms = {
+            "capped": shadow_ab(f"{SCENE} shadow pack", "capped", occl, waves["shadow"], eps,
+                                work["shadow"]),
+            "anyhit": shadow_ab(env, "anyhit", occl, env_pack, eps, work["env_shadow"]),
+        }
+        shadow_ab(env, "capped", occl, env_pack, eps, price=False)
         ab = {}
         for tritest in ("bw", "mt"):
             for which in ("camera", "bounce1"):
                 ab[which, tritest] = walk_ab(f"{SCENE} {which}", lay, *waves[which], inf,
-                                             pp, tritest)
+                                             pp, tritest,
+                                             work=work[which] if tritest == "bw" else None)
         walk_ab(f"{SCENE} shadow pack, capped", lay, so, sd, sok, scap, pp, "bw")
         min_ms = {}
         for which in ("camera", "bounce1"):
@@ -1658,7 +1849,6 @@ def phase_walk_ab(renderer, terrains: dict, smi: str) -> tuple[list[dict], dict]
             walk_ab(f"{SCENE} bounce1, leaf-{leaf} layout",
                     lay if leaf == 56 else build_layout(renderer.scene, leaf),
                     *waves["bounce1"], inf, pp, "bw", steps=False)
-    del waves
     for grid, scene in terrains.items():
         r = terrain_renderer(scene)
         tw = wavefronts(r.scene, r.layout, r.layout_occl, r.cfg)
@@ -1670,18 +1860,24 @@ def phase_walk_ab(renderer, terrains: dict, smi: str) -> tuple[list[dict], dict]
                         tritest)
         walk_ab(f"terrain grid {grid} shadow pack, capped", r.layout, so, sd, sok, scap,
                 tpp, "bw")
+        shadow_ab(f"terrain grid {grid} shadow pack", "capped", r.layout_occl, tw["shadow"],
+                  r.cfg.distance_epsilon)
         del r, tw
     with tempfile.TemporaryDirectory() as tmp:
         frame_ab("main path", tmp)
         frame_ab("minwalk path", tmp, traversal_kernel="minwalk")
+        shadow = dict(swap=per_thread_shadow_walks, span="walk_shadow",
+                      walks=("capped_walk", "anyhit_walk"))
+        frame_ab("main path, shadow walks", tmp, **shadow)
+        frame_ab("env-lit path, shadow walks", tmp, scene=env_scene, **shadow)
     phase_parity()
 
     # the yardsticks' rows: the numbers of the kernels they are held against
     # (same inputs, same plain version), their own times
     v1 = ab["bounce1", "bw"]
     m1 = min_ms["bounce1"]
-    o, d, act = draw(wavefronts(renderer.scene, lay, renderer.layout_occl, cfg)["bounce1"],
-                     SAMPLE_LANES, torch.Generator().manual_seed(1234))
+    gen = torch.Generator().manual_seed(1234)
+    o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen)
     t_max = torch.full_like(o[0], torch.inf)
     rows = []
     for name, fn, plain, prepass, full, line, bound_fn in (
@@ -1698,6 +1894,20 @@ def phase_walk_ab(renderer, terrains: dict, smi: str) -> tuple[list[dict], dict]
             cuda_ms(lambda: fn(o, d, act, t_max, lay, prepass=prepass)),
             cuda_ms(lambda: plain(o, d, act, t_max, lay, prepass=prepass), iters=1),
             min(full), bound_fn(work), yardstick_of=name[:-3]))
+    for name, fn, plain, pack, walk, line, extra in (
+            ("capped_walk_v1", ht.capped_walk_v1, ht.capped_walk_v1_plain,
+             draw(waves["shadow"], SAMPLE_LANES, gen)[:4], "capped", 106, ()),
+            ("anyhit_walk_v1", ht.anyhit_walk_v1, ht.anyhit_walk_v1_plain,
+             draw(env_pack, SAMPLE_LANES, gen), "anyhit", 274, (eps,))):
+        got = fn(*pack, occl, *extra)
+        want, work = plain_work(plain, *pack, occl, *extra)
+        equal_on_every_lane(f"{name} vs its plain version", (got,), (want,))
+        rows.append(kernel_entry(
+            name, "walk_v1.cu", line, 0.0, cuda_ms(lambda: fn(*pack, occl, *extra)),
+            cuda_ms(lambda: plain(*pack, occl, *extra), iters=1),
+            min(shadow_ms[walk]["v1"]),
+            shadow_bound(SAMPLE_LANES, walk, occl, work, per_thread=True),
+            yardstick_of=name[:-3]))
     return rows, run["launches"]
 
 
@@ -1778,11 +1988,22 @@ def phase_sweep_kernels(renderer) -> list[dict]:
                 f"{int(torch.isfinite(rk.t[sel]).sum())} of them hit")
             timed[label] = (o, d, act, sel, lay, pp, fk, tally.tests, tally.visits)
     fo, fd, fact = waves["bounce1"]
+    full_extra = {}
     for label, (o, d, act, sel, lay, pp, first, tests, boxes) in timed.items():
         bnd_c, _ = sweep_bounds(lay, act, first, pp, 0, 0)            # every live lane
         _, bnd_1 = sweep_bounds(lay, sel, first, pp, tests, boxes)    # the <= 1 lanes
-        fc, _ = es.sweep_count(fo, fd, lay, active=fact, prepass=pp)
+        fc, ff = es.sweep_count(fo, fd, lay, active=fact, prepass=pp)
         fsel = fact & (fc <= 1)
+        if label == "leaf 56":  # the whole wavefront's bounds of the rows' main numbers
+            tally = Tally()
+            for s0 in range(0, fo.shape[1], FULL_CHUNK):
+                part = slice(s0, s0 + FULL_CHUNK)
+                es.intersect_sweep1_plain(fo[:, part].contiguous(), fd[:, part].contiguous(),
+                                          lay, active=fsel[part].contiguous(), prepass=pp,
+                                          tally=tally)
+            full_extra = dict(zip(("sweep_count", "sweep1"), (
+                sweep_bounds(lay, fact, ff, pp, 0, 0)[0],
+                sweep_bounds(lay, fsel, ff, pp, tally.tests, tally.visits)[1])))
         rows[label] = (
             dict(ms=cuda_ms(lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)),
                  plain_ms=cuda_ms(lambda: es.sweep_count_plain(o, d, lay, active=act,
@@ -1804,6 +2025,8 @@ def phase_sweep_kernels(renderer) -> list[dict]:
                                            ("sweep1", 156, err_one))):
         main, other = rows["leaf 56"][k], rows["leaf 8"][k]
         ms, plain_ms, full_ms = (main.pop(x) for x in ("ms", "plain_ms", "full_ms"))
+        main.update(at_full_width(f"{name} (leaf 56)", "bounce-1 wavefront", full_ms,
+                                  full_extra[name]))
         out.append(kernel_entry(
             name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
             plain_ms, full_ms, main, **{f"{x}_leaf8": v for x, v in other.items()
@@ -1963,6 +2186,19 @@ def phase_launch_probe(smi: str) -> tuple[dict, int]:
         f"{entry['bound_ms']:.5f} ms (bytes); {pl.N} lanes: {entry['full_ms']:.4f}, "
         f"{entry['plain_full_ms']:.4f}, {entry['library_full_ms']:.4f}, "
         f"{entry['bound_full_ms']:.5f} ms")
+    # the kernel against the PyTorch call pair in turns (noop, zeros + copy_,
+    # zeros + copy_, noop, ...), 50 back-to-back launches a reading, at both
+    # widths; the quartiles of the readings say whether one is slower beyond
+    # the spread
+    for tag, x in (("", small), ("_full", full)):
+        ab = turns({"noop": lambda x=x: pl.noop(x, [], tile),
+                    "zeros + copy_": lambda x=x: library(x)}, iters=50, rounds=LAUNCH_ROUNDS)
+        q = {k: statistics.quantiles(v, n=4) for k, v in ab.items()}
+        entry[f"turns{tag}_ms"] = ab
+        log(f"  noop against zeros + copy_ in turns at {x.shape[1]} lanes ({2 * LAUNCH_ROUNDS} "
+            f"readings of 50 launches each), ms: "
+            + ", ".join(f"{k} median {q[k][1]:.4f}, quartiles {q[k][0]:.4f}-{q[k][2]:.4f}, "
+                        f"range {min(v):.4f}-{max(v):.4f}" for k, v in ab.items()))
     run, lines = echo_main(pl.main, "launch probe")
     launches = run["launches"]
     if min(launches[k] for k in ("noop", "capped_walk", "window_walk")) <= 0:
@@ -2046,7 +2282,8 @@ def main() -> int:
     # same over that run's frames (the counting walk runs once per bench
     # line or utilization block, not per frame)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    kernels = phase_kernels(renderer) + phase_bench_kernels(renderer)
+    kernels, priced = phase_kernels(renderer)
+    kernels += phase_bench_kernels(renderer, priced)
     phase_edge_shapes(renderer)
     launches, frames = phase_main_path(renderer)
     per_frame = {k: launches[k] / frames for k in ("window_walk", "capped_walk")}
@@ -2105,9 +2342,9 @@ def main() -> int:
     for entry, count in (phase_launch_probe(smi), phase_rowtest_probe()):
         kernels.append(entry)
         launches[entry["name"]] = count
-    rows, ab_launches = phase_walk_ab(renderer, terrains, smi)
+    rows, ab_launches = phase_walk_ab(renderer, terrains, smi, priced)
     kernels += rows
-    launches.update({k: ab_launches[k] for k in YARDSTICKS[:2]})
+    launches.update({k: ab_launches[k] for k in YARDSTICK_ROWS})
     del renderer
     for k in kernels:
         k["launches"] = launches.get(k["name"])

@@ -27,7 +27,8 @@ pytestmark = pytest.mark.cuda
 def test_kernels_match_plain_on_card(name, cuda_device):
     """Kernel == plain version on the same card: t bit-equal (both keep the
     same operation order and the kernels build with --fmad=false), ids
-    equal except equal-t ties on >= 99.99% of the hits."""
+    equal except equal-t ties on >= 99.99% of the hits; the capped walk's
+    four rows equal on every lane (its group latch is the sequential one)."""
     scene = load_scene(scene_path(name), device=cuda_device)
     lay, occl = build_layout(scene, 56), build_layout(scene, 8)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(8192, seed=3))
@@ -46,7 +47,8 @@ def test_kernels_match_plain_on_card(name, cuda_device):
     outp = ht.capped_walk_plain(o, d, act, cap, occl)
     hit = lambda out: torch.where(out[0] < cap, out[0], torch.inf).cpu()  # noqa: E731
     assert_hits_agree(hit(outk), outk[3].cpu(), hit(outp), outp[3].cpu(),
-                      rtol=0, atol=0, min_agree=0.9999)
+                      rtol=0, atol=0, min_agree=1.0)
+    assert torch.equal(outk, outp)
 
 
 @pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
@@ -331,3 +333,57 @@ def test_walk_steps_match_yardstick_on_card(tritest, cuda_device):
     with pytest.raises(RuntimeError):
         ht.window_walk_steps(o, d, act, t_max, lay, stage=False, coop=True, persist=False,
                              threads=100)
+
+
+@pytest.mark.parametrize("leaf", [56, 16, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 65537])
+def test_shadow_walks_edge_shapes_on_card(n, leaf, cuda_device):
+    """The redesigned capped and any-hit walks on lane counts around a warp,
+    with every lane live, every lane dead and one live lane a warp, on the
+    leaf-56, leaf-16 and leaf-8 layouts, with the
+    NEE caps (environment lanes: target -1, cap 1e30) and with infinite caps:
+    bit-equal to their plain versions and to the per-thread yardsticks on
+    every lane."""
+    name = "CornellBox-Water-plastic"
+    lay = build_layout(load_scene(scene_path(name), device=cuda_device), leaf)
+    rays = nee_shadow_rays(load_scene(scene_path(name), device="cpu"), n, seed=31)
+    o, d, act, cap, tgt = (torch.from_numpy(a).to(cuda_device) for a in rays)
+    lanes = torch.arange(n, device=cuda_device)
+    masks = (torch.ones_like(act), torch.zeros_like(act), lanes % 32 == 7)
+    for live in masks:
+        for c in (cap, torch.full_like(cap, torch.inf)):
+            want = ht.capped_walk_plain(o, d, live, c, lay)
+            for got in (ht.capped_walk(o, d, live, c, lay),
+                        ht.capped_walk_v1(o, d, live, c, lay)):
+                assert torch.equal(got, want)
+            want = ht.anyhit_walk_plain(o, d, live, c, tgt, lay, 1e-4)
+            for got in (ht.anyhit_walk(o, d, live, c, tgt, lay, 1e-4),
+                        ht.anyhit_walk_v1(o, d, live, c, tgt, lay, 1e-4)):
+                assert torch.equal(got, want)
+            assert not bool(want[~live].any())
+    assert bool((ht.capped_walk(o, d, masks[1], cap, lay)[0] == cap).all())
+
+
+@pytest.mark.parametrize("leaf", [56, 8])
+def test_shadow_steps_match_yardstick_on_card(leaf, cuda_device):
+    """Both leaf services of the shadow walks (per-lane only, and the kept
+    one that serves a leaf over the warp where that takes fewer slots) give
+    the per-thread yardstick's outputs on every lane of NEE-shaped shadow
+    queries; each launch counted on its own wrapper."""
+    name = "CornellBox-Water-plastic"
+    lay = build_layout(load_scene(scene_path(name), device=cuda_device), leaf)
+    rays = nee_shadow_rays(load_scene(scene_path(name), device="cpu"), 40000, seed=37)
+    o, d, act, cap, tgt = (torch.from_numpy(a).to(cuda_device) for a in rays)
+    names = ("capped_walk", "capped_walk_v1", "capped_walk_steps", "anyhit_walk",
+             "anyhit_walk_v1", "anyhit_walk_steps")
+    n0 = [getattr(ht, k).launches for k in names]
+    want_c = ht.capped_walk_v1(o, d, act, cap, lay)
+    want_a = ht.anyhit_walk_v1(o, d, act, cap, tgt, lay, 1e-4)
+    assert 0 < int(want_a.sum()) < int(act.sum())
+    steps = [dict(coop=False), dict(coop=True)]
+    for kw in steps:
+        assert torch.equal(ht.capped_walk_steps(o, d, act, cap, lay, **kw), want_c)
+        assert torch.equal(ht.anyhit_walk_steps(o, d, act, cap, tgt, lay, 1e-4, **kw),
+                           want_a)
+    grew = [getattr(ht, k).launches - v for k, v in zip(names, n0)]
+    assert grew == [0, 1, len(steps), 0, 1, len(steps)]

@@ -148,9 +148,13 @@ def test_warp_spent_bounds_hand_made(useful, prepass, lo, hi):
 
 def test_yardsticks_are_reached_only_from_hopper_traverse():
     """No module of the package other than ops/hopper_traverse.py (and no
-    frame path inside it) names the wrappers of the per-thread or step
-    yardsticks (ops/cuda_build.py lists their C entry points, tpupt_*)."""
-    pattern = re.compile(r"(?<!tpupt_)\b(window_walk_v1|minwalk_v1|window_walk_steps)")
+    frame path inside it: the intersector, the nearest-hit and shadow
+    queries and the shadow walks' own wrappers) names the wrappers of the
+    per-thread or step yardsticks (ops/cuda_build.py lists their C entry
+    points, tpupt_*)."""
+    pattern = re.compile(r"(?<!tpupt_)\b(window_walk_v1|minwalk_v1|window_walk_steps"
+                         r"|capped_walk_v1|anyhit_walk_v1|capped_walk_steps"
+                         r"|anyhit_walk_steps)")
     named = []
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -162,8 +166,9 @@ def test_yardsticks_are_reached_only_from_hopper_traverse():
     with open(os.path.join(PKG, "ops", "hopper_traverse.py")) as fh:
         src = fh.read()
     frame_paths = src[src.index("def make_cuda_intersector"):]
-    for fn in ("intersect_bvh_window", "intersect_bvh_minwalk"):
-        start = src.index(f"def {fn}")
+    for fn in ("intersect_bvh_window", "intersect_bvh_minwalk", "intersect_bvh_capped",
+               "occlusion_clear_anyhit", "capped_walk", "anyhit_walk"):
+        start = src.index(f"def {fn}(")
         frame_paths += src[start:src.index("\ndef ", start + 1)]
     assert not pattern.search(frame_paths)
 

@@ -59,11 +59,18 @@ _SIGNATURES = {
     # o, d, active, t_max, tris, ax, ay, az, num_tris, t_min, n, mt,
     # with_orig, out_t, out_row, out_orig, stream
     "tpupt_sweep": [_P] * 5 + [_F, _F, _F, _I, _F, _I, _I, _I, _P, _P, _P, _P],
-    # o, d, active, cap, nodes, meta, tris, num_nodes, t_min, n, out, stream
-    "tpupt_capped_walk": [_P] * 7 + [_I, _F, _I, _P, _P],
+    # o, d, active, cap, nodes_packed, tris, num_nodes, num_tris, t_min, n,
+    # coop (0 = per-lane leaves only), out, stream
+    "tpupt_capped_walk": [_P] * 6 + [_I, _I, _F, _I, _I, _P, _P],
+    # o, d, active, cap, target, nodes_packed, tris, num_nodes, t_min, eps,
+    # four_eps, n, coop, out, stream
+    "tpupt_anyhit_walk": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _P, _P],
+    # the per-thread yardsticks (csrc/walk_v1.cu): o, d, active, cap, nodes,
+    # meta, tris, num_nodes, t_min, n, out, stream
+    "tpupt_capped_walk_v1": [_P] * 7 + [_I, _F, _I, _P, _P],
     # o, d, active, cap, target, nodes, meta, tris, num_nodes, t_min, eps,
     # four_eps, n, out, stream
-    "tpupt_anyhit_walk": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
+    "tpupt_anyhit_walk_v1": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
     # o, d, active, leafbox, pre, n_prepass, num_leaves, t_min, n, out_count,
     # out_first, stream
     "tpupt_sweep_count": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],

@@ -30,24 +30,26 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   triangle id.
 * **any-hit walk** (``csrc/anyhit_walk.cu``, replaces
   ``_occlusion_anyhit_kernel``): the shadow query of scenes with an
-  environment light, over the leaf-8 layout; a lane stops at its first
-  occluder and returns a clear mask.
+  environment light, over the leaf-8 layout; a lane leaves the walk at its
+  first occluder and returns a clear mask.
 
-The window walk and minwalk share one warp-cooperative walk
-(``csrc/walk_common.cuh``): each lane steps its own ray through the packed
-node table (``lay.nodes_packed``: a node is two 16-byte loads) to the next
-leaf it enters, and the warp serves the leaves entered together, 32 rows a
-step, or lane by lane where that takes fewer steps.  The capped
-walk, the any-hit walk and the sweep are one thread per ray.  The contract
-is the outputs: the same nearest hit, strict ``<`` in visit order (prepass
-rows, then leaf rows in DFS order, ascending within a leaf), which is the
-winner the TPU kernels' lowest-row tie-break picks.
+The window walk, minwalk and the two shadow walks share one warp-cooperative
+walk (``csrc/walk_common.cuh``): each lane steps its own ray through the
+packed node table (``lay.nodes_packed``: a node is two 16-byte loads) to the
+next leaf it enters, and the warp serves the leaves entered together, one
+leaf a step over all 32 lanes, or lane by lane where that takes fewer
+row-test slots.  The sweep is one thread per ray.  The
+contract is the outputs: the same nearest hit, strict ``<`` in visit order
+(prepass rows, then leaf rows in DFS order, ascending within a leaf), which
+is the winner the TPU kernels' lowest-row tie-break picks.
 
-``window_walk_v1`` and ``minwalk_v1`` (``csrc/walk_v1.cu``, the first port's
-one-thread-per-ray walks) and ``window_walk_steps`` (the new walk with its
-launch shape and leaf service given by the caller) are yardsticks for timing
-the walk's design inside one run: ``chip_smoke.py`` and the card tests call
-them, no frame path, CLI or bench does, and they are no fallback.
+``window_walk_v1``, ``minwalk_v1``, ``capped_walk_v1`` and ``anyhit_walk_v1``
+(``csrc/walk_v1.cu``, the first port's one-thread-per-ray walks) and
+``window_walk_steps``, ``capped_walk_steps`` and ``anyhit_walk_steps`` (the
+new walks with their launch shape or leaf service given by the caller) are
+yardsticks for timing the walks' design inside one run: ``chip_smoke.py``
+and the card tests call them, no frame path, CLI or bench does, and they are
+no fallback.
 
 Each kernel's wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel (counting the launch in its
@@ -706,30 +708,88 @@ def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
     return torch.stack(best)
 
 
-def capped_walk(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
-    """Range-capped walk -> (4, N) float32 rows [t, u, v, orig]: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if o.device.type == "cpu":
-        return capped_walk_plain(o, d, active, cap, lay, t_min)
+def _launch_capped(variant: str, o, d, active, cap, lay: BVHLayout, t_min: float,
+                   coop: bool | None = None):
+    """Check the inputs and launch ``tpupt_<variant>`` -> (4, N) float32; the
+    ``_v1`` yardstick (``coop`` None) reads ``nodes`` and ``nodes_meta``, the
+    capped walk the packed node table, its leaves served by the warp where
+    ``coop`` lets it."""
     n = o.shape[1]
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(cap, torch.float32, (n,), "cap")
-    _check_layout(lay, ("nodes", "nodes_meta", "tris"), o.device)
+    v1 = coop is None
+    nodes = ("nodes", "nodes_meta") if v1 else ("nodes_packed",)
+    _check_layout(lay, nodes + ("tris",), o.device)
     out = torch.empty((4, n), dtype=torch.float32, device=o.device)
-    rc = load_library().tpupt_capped_walk(
+    sizes = (lay.num_nodes,) if v1 else (lay.num_nodes, lay.num_tris)
+    rc = getattr(load_library(), f"tpupt_{variant}")(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
-        lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(), lay.tris.data_ptr(),
-        lay.num_nodes, t_min, n, out.data_ptr(),
+        *(getattr(lay, name).data_ptr() for name in nodes), lay.tris.data_ptr(),
+        *sizes, t_min, n, *(() if v1 else (int(coop),)), out.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"capped_walk kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+    return out
+
+
+def capped_walk(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
+    """Range-capped walk -> (4, N) float32 rows [t, u, v, orig]: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if o.device.type == "cpu":
+        return capped_walk_plain(o, d, active, cap, lay, t_min)
+    out = _launch_capped("capped_walk", o, d, active, cap, lay, t_min, coop=True)
     capped_walk.launches += 1
     return out
 
 
 capped_walk.launches = 0
+
+
+def capped_walk_v1_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
+                         tally: Tally | None = None):
+    """Plain version of the per-thread yardstick: the capped walk's."""
+    return capped_walk_plain(o, d, active, cap, lay, t_min, tally=tally)
+
+
+def capped_walk_v1(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
+    """The first port's one-thread-per-ray capped walk (``csrc/walk_v1.cu``),
+    kept as the yardstick :func:`capped_walk` is timed against inside one
+    run; same inputs and outputs.  Not on any frame path."""
+    if o.device.type == "cpu":
+        return capped_walk_v1_plain(o, d, active, cap, lay, t_min)
+    out = _launch_capped("capped_walk_v1", o, d, active, cap, lay, t_min)
+    capped_walk_v1.launches += 1
+    return out
+
+
+capped_walk_v1.launches = 0
+
+
+def capped_walk_steps_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
+                            tally: Tally | None = None, **steps):
+    """Plain version of the step yardstick: the capped walk's, whatever the
+    ``steps``."""
+    del steps
+    return capped_walk_plain(o, d, active, cap, lay, t_min, tally=tally)
+
+
+def capped_walk_steps(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0, *,
+                      coop: bool):
+    """:func:`capped_walk` with the leaf service given by the caller, for
+    timing each step of its design inside one run: ``coop`` False tests
+    every leaf lane by lane (the per-lane loop only), True is the kernel
+    :func:`capped_walk` launches.  The same outputs either way.  A yardstick
+    like :func:`capped_walk_v1`; CPU tensors take the plain version."""
+    if o.device.type == "cpu":
+        return capped_walk_steps_plain(o, d, active, cap, lay, t_min)
+    out = _launch_capped("capped_walk", o, d, active, cap, lay, t_min, coop)
+    capped_walk_steps.launches += 1
+    return out
+
+
+capped_walk_steps.launches = 0
 
 
 def intersect_bvh_capped(o, d, lay: BVHLayout, active, t_max,
@@ -779,6 +839,33 @@ def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
     return clear.to(torch.uint8)
 
 
+def _launch_anyhit(variant: str, o, d, active, cap, target, lay: BVHLayout, eps: float,
+                   t_min: float, coop: bool | None = None):
+    """Check the inputs and launch ``tpupt_<variant>`` -> (N,) uint8; the
+    ``_v1`` yardstick (``coop`` None) reads ``nodes`` and ``nodes_meta``, the
+    any-hit walk the packed node table, its leaves served by the warp where
+    ``coop`` lets it."""
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(cap, torch.float32, (n,), "cap")
+    _check(target, torch.int32, (n,), "target")
+    v1 = coop is None
+    nodes = ("nodes", "nodes_meta") if v1 else ("nodes_packed",)
+    _check_layout(lay, nodes + ("tris",), o.device)
+    out = torch.empty(n, dtype=torch.uint8, device=o.device)
+    rc = getattr(load_library(), f"tpupt_{variant}")(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
+        target.data_ptr(), *(getattr(lay, name).data_ptr() for name in nodes),
+        lay.tris.data_ptr(), lay.num_nodes, t_min, eps, 4.0 * eps, n,
+        *(() if v1 else (int(coop),)), out.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+    return out
+
+
 def anyhit_walk(o, d, active, cap, target, lay: BVHLayout, eps: float,
                 t_min: float = 0.0):
     """Any-hit clear mask -> (N,) uint8: the CUDA kernel for CUDA tensors,
@@ -789,26 +876,58 @@ def anyhit_walk(o, d, active, cap, target, lay: BVHLayout, eps: float,
     sampled light, -1 for environment samples."""
     if o.device.type == "cpu":
         return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min)
-    n = o.shape[1]
-    _check(o, torch.float32, (3, n), "o")
-    _check(d, torch.float32, (3, n), "d")
-    _check(active, torch.bool, (n,), "active")
-    _check(cap, torch.float32, (n,), "cap")
-    _check(target, torch.int32, (n,), "target")
-    _check_layout(lay, ("nodes", "nodes_meta", "tris"), o.device)
-    out = torch.empty(n, dtype=torch.uint8, device=o.device)
-    rc = load_library().tpupt_anyhit_walk(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
-        target.data_ptr(), lay.nodes.data_ptr(), lay.nodes_meta.data_ptr(),
-        lay.tris.data_ptr(), lay.num_nodes, t_min, eps, 4.0 * eps, n,
-        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"anyhit_walk kernel launch failed: cudaError {rc}")
+    out = _launch_anyhit("anyhit_walk", o, d, active, cap, target, lay, eps, t_min,
+                         coop=True)
     anyhit_walk.launches += 1
     return out
 
 
 anyhit_walk.launches = 0
+
+
+def anyhit_walk_v1_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                         t_min: float = 0.0, tally: Tally | None = None):
+    """Plain version of the per-thread yardstick: the any-hit walk's."""
+    return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min, tally=tally)
+
+
+def anyhit_walk_v1(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                   t_min: float = 0.0):
+    """The first port's one-thread-per-ray any-hit walk (``csrc/walk_v1.cu``),
+    kept as the yardstick :func:`anyhit_walk` is timed against inside one
+    run; same inputs and outputs.  Not on any frame path."""
+    if o.device.type == "cpu":
+        return anyhit_walk_v1_plain(o, d, active, cap, target, lay, eps, t_min)
+    out = _launch_anyhit("anyhit_walk_v1", o, d, active, cap, target, lay, eps, t_min)
+    anyhit_walk_v1.launches += 1
+    return out
+
+
+anyhit_walk_v1.launches = 0
+
+
+def anyhit_walk_steps_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                            t_min: float = 0.0, tally: Tally | None = None, **steps):
+    """Plain version of the step yardstick: the any-hit walk's, whatever the
+    ``steps``."""
+    del steps
+    return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min, tally=tally)
+
+
+def anyhit_walk_steps(o, d, active, cap, target, lay: BVHLayout, eps: float,
+                      t_min: float = 0.0, *, coop: bool):
+    """:func:`anyhit_walk` with the leaf service given by the caller, as
+    :func:`capped_walk_steps`.  A yardstick; CPU tensors take the plain
+    version."""
+    if o.device.type == "cpu":
+        return anyhit_walk_steps_plain(o, d, active, cap, target, lay, eps, t_min)
+    out = _launch_anyhit("anyhit_walk", o, d, active, cap, target, lay, eps, t_min,
+                         coop)
+    anyhit_walk_steps.launches += 1
+    return out
+
+
+anyhit_walk_steps.launches = 0
 
 
 def occlusion_clear_anyhit(o, d, lay: BVHLayout, active, t_max, target,
