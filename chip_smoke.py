@@ -123,7 +123,26 @@ Phases (any failure raises, so the exit code is not 0):
     walk_nearest span and the frame's device time from torch.profiler; the
     main path and the env-lit path the same with only the two shadow walks
     swapped (the walk_shadow span); then the self-golden gate of phase 5
-    once more.  No counted run of another phase may launch a yardstick.
+    once more.  No counted run of another phase may launch a yardstick;
+19. frame modes: the reference's Mitsuba gates (assets/reference/,
+    cornellbox at depth 2 and 8 and white-box at depth 2; 75x100, 48 spp
+    in one frame, fused two samples a wavefront; rel_mse < 0.05, 0.95 <
+    mean_ratio < 1.05); at 1080p, depth 8, frame 0 of each mode against
+    its partner: fuse 2 against fuse 1 at 2 spp (atol 1e-6, rtol 1e-5), 2
+    row tiles against none (atol 2e-6), prefix_sort and
+    sort_bounce_skip="1,4,5" against the default sorts (atol 2e-6, rtol
+    1e-5), cull_zero_nee bit-equal, and the fused path+shadow walk at 2 spp
+    (8,294,400 lanes) against separate walks (the gate of phase 5); the
+    unsorted pipeline (sort_rays=False) against the self-golden (the gate
+    of phase 5); TILED and r2 card frames against the port's own CPU
+    frames (48x64, depth 4; atol 1e-5 on all but 3 pixels);
+    ``bench --spp 2 --fuse 2`` and the CLI with ``--spp-per-frame 2
+    --row-tiles 2 --noise tiled --env``, each run launching the kernels its
+    path reaches; then fuse 2 against fuse 1 (2 spp) and sorted against
+    unsorted frames in turns (1 warm-up + 2 timed frames, one staged, one
+    profiled a turn): ms per frame and per sample, the walk and sort spans,
+    device time and kernels a frame, and the launches a frame and a sample
+    of the window and capped walks.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -157,7 +176,9 @@ no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
 ``perf_ophit_probe.main()`` run, and the four per-thread yardsticks the
 Water-plastic part of the walk A/B, none of them the launches that compare a
-kernel with its plain version or time it); the last line is
+kernel with its plain version or time it; the window walk, the capped walk
+and the fused walk also carry ``launches_per_sample_fuse2``, their launches
+a sample in a 2-spp frame at fuse 2, from phase 19); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -315,17 +336,18 @@ def wavefronts(scene, layout, layout_occl, cfg):
     from tpu_pathtracer_torch.render.order import make_order
 
     dev = scene.p0.device
-    key = state.fused_wavefront_key(state.frame_rng_key(prng_key(0), 0))
+    key = state.fused_wavefront_key(state.frame_rng_key(cfg, prng_key(0), 0))
     order = make_order(HEIGHT, WIDTH, 0, cfg.traversal_tile, device=dev)
     pids = noise.pids_from_order(order, WIDTH)
-    jitter = noise.camera_jitter(fold_in(key, 0xC0FFEE), 0, pids)
+    jitter = noise.camera_jitter(cfg, fold_in(key, 0xC0FFEE), 0, pids, HEIGHT, WIDTH)
     o, d = generate_rays_flat(Camera(), order.rows, order.cols, jitter[0:2],
                               HEIGHT, WIDTH)
     st0 = wavefront.initial_path_state(o, d, cfg.spectrum_samples, pids)
     isect = make_cuda_intersector(layout, layout_occl, prepass=cfg.traversal_prepass)
-    uniforms = noise.bounce_uniforms(key, 0, 0, pids, with_env=scene.env is not None)
-    st1, pack, _ = wavefront.trace_bounce(scene, cfg, isect, 0, st0, uniforms,
-                                          coherent=True)
+    uniforms = noise.bounce_uniforms(cfg, key, 0, 0, pids, HEIGHT, WIDTH,
+                                     with_env=scene.env is not None)
+    st1, pack = wavefront.trace_bounce(scene, cfg, isect, 0, st0, uniforms,
+                                       coherent=True, defer_shadow=True)
     wmin, winv = wavefront.scene_sort_bounds(scene)
     st1, pack = wavefront.sort_wavefront(st1, wmin, winv, pack)
     return {
@@ -1116,7 +1138,7 @@ def phase_main_path(renderer) -> tuple[dict, int]:
 
     with counted_run() as run:
         ms, stages = timed_frames(renderer)
-        key = fused_wavefront_key(frame_rng_key(renderer.state.key,
+        key = fused_wavefront_key(frame_rng_key(renderer.cfg, renderer.state.key,
                                                 renderer.state.frame_index))
         _, nrays = render_sample(
             renderer.scene, renderer.cfg, renderer.camera, HEIGHT, WIDTH, key,
@@ -1371,6 +1393,212 @@ def phase_bench() -> dict:
     return launches
 
 
+MITSUBA_GATES = (("cornellbox", 2), ("cornellbox", 8), ("white-box", 2))
+MITSUBA = (0.05, 0.95, 1.05)  # rel_mse <, mean_ratio in (lo, hi): test_render_golden.py
+MODE_BASE = {"max_path_length": 8}
+# each frame mode against its partner at 1080p, one frame each: (mode, partner,
+# (atol, rtol) of the reference's own test of the mode, or None: bit-equal)
+MODE_PAIRS = {
+    "fuse 2 vs fuse 1 (spp 2)": ({"samples_per_frame": 2, "fuse_samples": 2},
+                                 {"samples_per_frame": 2, "fuse_samples": 1}, (1e-6, 1e-5)),
+    "row tiles 2 vs untiled (spp 2)": ({"samples_per_frame": 2, "row_tiles": 2},
+                                       {"samples_per_frame": 2, "fuse_samples": 2},
+                                       (2e-6, 0.0)),
+    "prefix_sort vs default": ({"prefix_sort": True}, {}, (2e-6, 1e-5)),
+    "sort_bounce_skip=1,4,5 vs default": ({"sort_bounce_skip": "1,4,5"}, {}, (2e-6, 1e-5)),
+    "cull_zero_nee vs default": ({"cull_zero_nee": True}, {}, None),
+}
+CARD_VS_CPU = (1e-5, 3)  # atol, pixels of the 48x64 frame allowed past it
+
+
+def mode_frame(renderer, cfg, what: str, kernels=("window_walk", "capped_walk")):
+    """Frame 0 of ``cfg`` through render_frame with ``renderer``'s scene and
+    intersector, in a counted run that must launch ``kernels`` and no plain
+    version on a CUDA tensor -> (image, the run's launches)."""
+    from tpu_pathtracer_torch.render.state import init_state, render_frame
+
+    with counted_run() as run:
+        st = render_frame(init_state(HEIGHT, WIDTH), renderer.scene, cfg, renderer.camera,
+                          renderer._intersect)
+        img = st.accum.cpu().numpy()
+    if min(run["launches"][k] for k in kernels) <= 0 or any(run["plain_cuda"].values()):
+        raise AssertionError(f"frame mode {what}: expected launches of {kernels}: {run}")
+    if not np.isfinite(img).all() or img.mean() <= 0:
+        raise AssertionError(f"frame mode {what}: image not finite or black")
+    return img, run["launches"]
+
+
+def mode_turns(label: str, tmp: str, configs: dict, per: int = 1) -> dict:
+    """Renderer frames of each config of ``configs`` in turns (first to last
+    and back): 1 warm-up + 2 timed frames a turn by the host clock, one
+    staged frame (walk spans) and one profiled frame (device time, kernels);
+    launches counted over the turn's 5 frames.  ``per``: samples a frame.
+    -> {config: [turn readings]}."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    rs = {k: Renderer(SCENE, WIDTH, HEIGHT, RenderConfig(**MODE_BASE, **kw))
+          for k, kw in configs.items()}
+    order = list(configs) + list(configs)[::-1]
+    out = {k: [] for k in configs}
+    for i, k in enumerate(order):
+        r = rs[k]
+        with counted_run() as run:
+            r.run(1)
+            t0 = time.perf_counter()
+            r.run(2)
+            ms = (time.perf_counter() - t0) / 2 * 1e3
+            stages = staged_frame(r)
+            dev, count = device_ms(r, os.path.join(tmp, f"{label}{i}"))
+        launches = {n: run["launches"][n] / 5 for n in ("window_walk", "capped_walk")}
+        if min(launches.values()) <= 0 or any(run["plain_cuda"].values()):
+            raise AssertionError(f"{label} turn {k}: {run}")
+        out[k].append({"ms": ms, "walk_nearest": stages.get("walk_nearest", 0.0),
+                       "walk_shadow": stages.get("walk_shadow", 0.0),
+                       "sort": stages.get("sort", 0.0), "device_ms": dev,
+                       "kernels": count, "launches": launches})
+        log(f"  {label}, {k}: {ms:.2f} ms/frame = {ms / per:.2f} ms/sample; walk_nearest "
+            f"{stages.get('walk_nearest', 0.0):.2f} ms = "
+            f"{stages.get('walk_nearest', 0.0) / per:.2f} ms/sample, walk_shadow "
+            f"{stages.get('walk_shadow', 0.0):.2f}, sort {stages.get('sort', 0.0):.2f} ms; "
+            f"device {dev:.2f} ms in {count} kernels a frame; launches a frame "
+            + ", ".join(f"{n} {v:g} ({v / per:g} a sample)" for n, v in launches.items()))
+    return out
+
+
+def phase_frame_modes(tmp: str, smi: str) -> dict:
+    """The frame modes on the card: the Mitsuba gates (75x100, 48 spp);
+    each mode against its partner at 1080p; the unsorted pipeline's
+    self-golden gate (150x200, depth 8, 16 frames); TILED and r2 frames
+    against the port's own CPU frames (48x64); bench --spp 2 --fuse 2 and
+    the CLI with --spp-per-frame 2 --row-tiles 2 --noise tiled and an env
+    map; then fused against unfused and unsorted against sorted 1080p
+    frames in turns -> the launches a sample at fuse 2 of kernels 1, 2 and
+    7."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig, bench
+    from tpu_pathtracer_torch.config import NoiseMode
+    from tpu_pathtracer_torch.io.exr import read_exr, write_exr
+    from tpu_pathtracer_torch.scene.assets import golden_path
+    from tpu_pathtracer_torch.utils.compare import downsample, metrics
+
+    t_phase = time.perf_counter()
+    log(f"frame modes on {smi}")
+    rel, lo, hi = MITSUBA
+    for name, depth in MITSUBA_GATES:
+        with counted_run() as run:
+            r = Renderer(name, 100, 75, RenderConfig(samples_per_frame=48,
+                                                     max_path_length=depth))
+            r.run(1)
+        gold, _ = read_exr(golden_path(name, depth))
+        m = metrics(r.image(), downsample(gold, 75, 100))
+        log(f"  Mitsuba gate {name} depth {depth} (75x100, 48 spp, fused 2 a wavefront): "
+            f"{m}; launches {run['launches']['window_walk']} window, "
+            f"{run['launches']['capped_walk']} capped")
+        if not (m["rel_mse"] < rel and lo < m["mean_ratio"] < hi) or not run["launches"][
+                "window_walk"] or any(run["plain_cuda"].values()):
+            raise AssertionError(f"Mitsuba gate {name} depth {depth}: {m}, {run}")
+
+    renderer = Renderer(SCENE, WIDTH, HEIGHT)
+    imgs, per_sample = {}, {}
+    for what, (kw_a, kw_b, tol) in MODE_PAIRS.items():
+        pair = []
+        for kw in (kw_a, kw_b):
+            key = json.dumps(kw, sort_keys=True)
+            if key not in imgs:
+                imgs[key] = mode_frame(renderer, RenderConfig(**MODE_BASE, **kw), key)
+            pair.append(imgs[key])
+        (a, la), (b, _) = pair
+        d = float(np.abs(a - b).max())
+        ok = np.array_equal(a, b) if tol is None else np.allclose(a, b, atol=tol[0],
+                                                                  rtol=tol[1])
+        log(f"  {what} (1080p, depth 8, frame 0): max |diff| {d:.3g}, "
+            f"{'bit-equal' if tol is None else f'atol {tol[0]:g}, rtol {tol[1]:g}'}; "
+            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+        if not ok:
+            raise AssertionError(f"frame mode {what}: max |diff| {d}")
+        if what.startswith("fuse 2"):
+            per_sample = {k: la[k] / 2 for k in ("window_walk", "capped_walk")}
+    fused_cfg = RenderConfig(**MODE_BASE, samples_per_frame=2, fuse_samples=2,
+                             fuse_shadow_walk=True)
+    img, la = mode_frame(renderer, fused_cfg, "fused walk, spp 2",
+                         kernels=("window_walk", "window_walk_orig"))
+    per_sample["window_walk_orig"] = la["window_walk_orig"] / 2
+    check_parity("  fused path+shadow walk at spp 2 (2N = "
+                 f"{4 * HEIGHT * WIDTH} lanes) vs separate walks",
+                 img, imgs[json.dumps(MODE_PAIRS["fuse 2 vs fuse 1 (spp 2)"][0],
+                                      sort_keys=True)][0])
+    del renderer, imgs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
+    with counted_run() as run:
+        r = Renderer(SCENE, 200, 150, RenderConfig(max_path_length=8, sort_rays=False))
+        r.run(PARITY_FRAMES)
+    if (min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+            or any(run["plain_cuda"].values())):
+        raise AssertionError(f"unsorted gate: {run}")
+    check_parity("  unsorted pipeline (sort_rays=False) vs self-golden (150x200, depth 8, "
+                 "16 frames)", r.image(), gold)
+
+    atol, allowed = CARD_VS_CPU
+    for kw, frames in (({"noise_mode": NoiseMode.TILED}, 4), ({"sampler": "r2"}, 2)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            with counted_run() as run:
+                r = Renderer("cornellbox", 64, 48, RenderConfig(max_path_length=4, **kw),
+                             device=dev)
+                r.run(frames)
+            got[dev] = r.image()
+            if dev == "cuda" and (
+                    min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+                    or any(run["plain_cuda"].values())):
+                raise AssertionError(f"{kw} card frame: {run}")
+        d = np.abs(got["cuda"] - got["cpu"]).max(axis=2)
+        off = int((d > atol).sum())
+        log(f"  {kw} card frame vs the port's CPU frame (48x64, depth 4, {frames} frames): "
+            f"max |diff| {float(d.max()):.3g}, {off} pixels past atol {atol:g}")
+        if off > allowed or not np.isfinite(got["cuda"]).all():
+            raise AssertionError(f"{kw}: card frame differs from the CPU frame")
+
+    buf = io.StringIO()
+    with counted_run() as run, contextlib.redirect_stdout(buf):
+        rc = bench.main(["--width", str(WIDTH), "--height", str(HEIGHT), "--depth", "8",
+                         "--spp", "2", "--fuse", "2", "--frames", "2", "--warmup", "1"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"  bench --spp 2 --fuse 2: {line}")
+    out = json.loads(line)
+    want = ("window_walk", "capped_walk", "window_walk_counts")
+    if (rc or not out["finite"] or not out["metric"].endswith("_2spp")
+            or "density_caveat" not in out["utilization"]
+            or min(run["launches"][k] for k in want) <= 0
+            or any(run["plain_cuda"].values())):
+        raise AssertionError(f"bench --spp 2: rc {rc}, {out}, {run}")
+
+    env = os.path.join(tmp, "modes-sky.exr")
+    write_exr(env, sky_map(), half=False)
+    exr = os.path.join(tmp, "modes.exr")
+    with counted_run() as run:
+        rc, _, sec = run_cli(["--scene", SCENE, "--width", str(WIDTH), "--height",
+                              str(HEIGHT), "--depth", "8", "--frames", "2", "--env", env,
+                              "--spp-per-frame", "2", "--row-tiles", "2", "--noise",
+                              "tiled", "--exr", exr])
+    img, _ = read_exr(exr)
+    log(f"  CLI --spp-per-frame 2 --row-tiles 2 --noise tiled --env: rc {rc}, {sec:.2f} s, "
+        f"launches {run['launches']}")
+    if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
+            or min(run["launches"][k] for k in ("window_walk", "anyhit_walk")) <= 0
+            or any(run["plain_cuda"].values())):
+        raise AssertionError(f"CLI frame modes: rc {rc}, {run}")
+
+    log(f"frame-mode turns on {smi} ({WIDTH}x{HEIGHT}, depth 8)")
+    fuse = mode_turns("fuse", tmp, {"fuse 2": {"samples_per_frame": 2, "fuse_samples": 2},
+                                    "fuse 1": {"samples_per_frame": 2, "fuse_samples": 1}},
+                      per=2)
+    sort = mode_turns("sort", tmp, {"sorted": {}, "unsorted": {"sort_rays": False}})
+    log(f"frame modes phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_per_sample_fuse2": per_sample, "fuse_turns": fuse,
+            "sort_turns": sort}
+
+
 def terrain_renderer(scene, **kw):
     """Renderer(scene, WIDTH, HEIGHT) with the default camera and SAH
     builder; ``kw`` are RenderConfig fields.  Prints the table bytes the
@@ -1405,7 +1633,7 @@ def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, i
                              "HBM route")
     with counted_run() as run:
         ms, stages = timed_frames(r, timed)
-        key = fused_wavefront_key(frame_rng_key(r.state.key, r.state.frame_index))
+        key = fused_wavefront_key(frame_rng_key(r.cfg, r.state.key, r.state.frame_index))
         _, nrays = render_sample(r.scene, r.cfg, r.camera, HEIGHT, WIDTH, key,
                                  r.state.frame_index, r._intersect, with_ray_count=True)
         nrays = int(nrays)
@@ -2346,9 +2574,13 @@ def main() -> int:
     kernels += rows
     launches.update({k: ab_launches[k] for k in YARDSTICK_ROWS})
     del renderer
+    with tempfile.TemporaryDirectory() as tmp:
+        modes = phase_frame_modes(tmp, smi)
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])
+        if k["name"] in modes["launches_per_sample_fuse2"]:
+            k["launches_per_sample_fuse2"] = modes["launches_per_sample_fuse2"][k["name"]]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

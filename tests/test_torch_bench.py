@@ -11,6 +11,9 @@ import pytest
 from tpu_pathtracer_torch import RenderConfig, bench
 from tpu_pathtracer_torch.render.stats import count_traced_rays_exact
 from tpu_pathtracer_torch.scene import load_scene, scene_path
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the fields of the root bench.py's line (bench.py:233-253), less
 # vs_baseline (the TPU north star)
@@ -64,14 +67,34 @@ def test_bench_prints_one_line(flags, cfg):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1 item 12"), (["--spp", "2"], "queue 1 item 10"),
-    (["--row-tiles", "2"], "queue 1 item 10"), (["--fuse", "2"], "queue 1 item 10"),
-    (["--prefix-sort"], "queue 1 item 10"), (["--sort-skip", "1"], "queue 1 item 10"),
-    (["--cull-zero-nee"], "queue 1 item 10"), (["--bake-materials"], "queue 1 item 10"),
+    (["--mesh", "2x1"], "queue 1 item 12"), (["--bake-materials"], "queue 1 item 10"),
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_bench_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         bench.main(TINY + flags)
+
+
+@pytest.mark.parametrize("flags,cfg", [
+    (["--spp", "2", "--fuse", "2"], {"samples_per_frame": 2, "fuse_samples": 2}),
+    (["--spp", "3", "--fuse", "1"], {"samples_per_frame": 3, "fuse_samples": 1}),
+    (["--row-tiles", "2"], {"row_tiles": 2}),
+    (["--prefix-sort"], {"prefix_sort": True}),
+    (["--sort-skip", "1"], {"sort_bounce_skip": "1"}),
+    (["--cull-zero-nee"], {"cull_zero_nee": True}),
+], ids=lambda x: " ".join(x) if isinstance(x, list) else None)
+def test_bench_frame_mode_flags(flags, cfg):
+    """The frame-mode flags map to their RenderConfig fields as the root
+    bench.py's do: the line's ray count is the exact count of that config,
+    its metric names the spp, and --spp > 1 adds the utilization block's
+    density caveat."""
+    out = run_bench(TINY + flags)
+    spp = cfg.get("samples_per_frame", 1)
+    assert out["finite"] and out["metric"].endswith(f"_{spp}spp")
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device="cpu")
+    want = count_traced_rays_exact(scene, RenderConfig(max_path_length=3, **cfg),
+                                   24, 32, frame_indices=(0,))
+    assert out["rays_traced_per_frame"] == int(want) > 24 * 32 * spp
+    assert ("density_caveat" in out["utilization"]) == (spp > 1)
 
 
 def test_bench_needs_a_device_without_platform_cpu(monkeypatch):

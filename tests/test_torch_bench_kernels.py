@@ -35,7 +35,10 @@ from tpu_pathtracer_torch import RenderConfig, interop
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render.state import init_state, render_frame
-from torch_parity import arrays, assert_hits_agree, nee_shadow_rays, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, nee_shadow_rays, random_rays, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KERNELS = ("window_walk", "window_walk_orig", "window_walk_counts", "minwalk", "sweep")
 
@@ -260,7 +263,7 @@ def test_timed_frame_keeps_fused_walk(frames):
     scene = interop.scene_from_arrays(arrays(load_scene(scene_path("cornellbox"))))
     cfg = RenderConfig(max_path_length=3, fuse_shadow_walk=True)
     isect = ht.make_cuda_intersector(frames["tlay"], prepass=8)
-    key = fused_wavefront_key(frame_rng_key(prng_key(0), 0))
+    key = fused_wavefront_key(frame_rng_key(cfg, prng_key(0), 0))
     timer = Names()
     timed = render_sample(scene, cfg, Camera(), 24, 32, key, 0, isect, timer=timer)
     plain = render_sample(scene, cfg, Camera(), 24, 32, key, 0, isect)

@@ -10,6 +10,9 @@ import torch
 from tpu_pathtracer.config import RenderConfig
 from tpu_pathtracer.models import bsdf as jb
 from tpu_pathtracer_torch.models import bsdf as tb
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 4096
 

@@ -37,6 +37,9 @@ from tpu_pathtracer_torch.models import camera as tcam
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render.state import RenderState
 from tpu_pathtracer_torch.viewer import ViewerServer
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_thin_lens_rays_match_reference():
@@ -130,14 +133,9 @@ def test_cli_env_render_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--noise", "tiled"], "queue 1 item 11"), (["--noise", "r2"], "queue 1 item 11"),
     (["--spectrum", "8"], "queue 1 item 10"), (["--hero", "3"], "queue 1 item 10"),
     (["--dispersion", "0.004"], "queue 1 item 10"), (["--refract"], "queue 1 item 10"),
-    (["--rough-materials"], "queue 1 item 10"),
-    (["--spp-per-frame", "2"], "queue 1 item 10"),
-    (["--fuse-samples", "2"], "queue 1 item 10"), (["--row-tiles", "2"], "queue 1 item 10"),
-    (["--prefix-sort"], "queue 1 item 10"), (["--cull-zero-nee"], "queue 1 item 10"),
-    (["--sort-skip", "1"], "queue 1 item 10"), (["--mesh", "2x1"], "queue 1 item 12"),
+    (["--rough-materials"], "queue 1 item 10"), (["--mesh", "2x1"], "queue 1 item 12"),
     (["--checkpoint", "state_dir"], "queue 1 item 9"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_cli_unported_flag_raises(flags, item, tmp_path):
@@ -148,6 +146,32 @@ def test_cli_unported_flag_raises(flags, item, tmp_path):
                   "--frames", "1", "--depth", "1",
                   "--png", str(tmp_path / "x.png")] + flags)
     assert not os.path.exists(tmp_path / "x.png")
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--noise", "tiled"], {"noise_mode": 1, "sampler": "prng"}),
+    (["--noise", "r2"], {"noise_mode": 0, "sampler": "r2"}),
+    (["--spp-per-frame", "3"], {"samples_per_frame": 3, "fuse_samples": 2}),
+    (["--spp-per-frame", "2", "--fuse-samples", "1"],
+     {"samples_per_frame": 2, "fuse_samples": 1}),
+    (["--row-tiles", "2"], {"row_tiles": 2}), (["--prefix-sort"], {"prefix_sort": True}),
+    (["--cull-zero-nee"], {"cull_zero_nee": True}),
+    (["--sort-skip", "1"], {"sort_bounce_skip": "1"}),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_cli_frame_mode_flags(flags, want, tmp_path, monkeypatch):
+    """The frame-mode flags map to the RenderConfig fields the reference's
+    cli.py:174-191 sets, and the run writes its PNG."""
+    from tpu_pathtracer_torch import renderer
+
+    seen = []
+    step = renderer.Renderer.step
+    monkeypatch.setattr(renderer.Renderer, "step",
+                        lambda self: seen.append(self.cfg) or step(self))
+    png = str(tmp_path / "x.png")
+    assert cli.main(["--platform", "cpu", "--width", "8", "--height", "8", "--frames",
+                     "1", "--depth", "2", "--png", png] + flags) == 0
+    assert seen and {k: getattr(seen[0], k) for k in want} == want
+    assert tpng.read_png(png).shape == (8, 8, 3)
 
 
 @pytest.mark.parametrize("flags", [["--builder", "lbvh"], ["--no-pallas"],

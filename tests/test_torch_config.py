@@ -11,6 +11,9 @@ import pytest
 
 from tpu_pathtracer import config as jcfg
 from tpu_pathtracer_torch import config as tcfg
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,15 +57,31 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("kw", [
     {"spectrum_samples": 8}, {"hero_wavelengths": 2},
-    {"refract_dielectric": True}, {"noise_mode": tcfg.NoiseMode.TILED},
-    {"sampler": "r2"}, {"samples_per_frame": 2}, {"row_tiles": 2},
-    {"prefix_sort": True}, {"sort_bounce_skip": "1"}, {"cull_zero_nee": True},
-    {"bake_materials": True}, {"sort_rays": False},
+    {"refract_dielectric": True}, {"bake_materials": True},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_config_raises(kw):
     cfg = tcfg.RenderConfig(**kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue \d item \d+"):
         tcfg.check_supported(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    {"noise_mode": tcfg.NoiseMode.TILED}, {"sampler": "r2"}, {"samples_per_frame": 2},
+    {"row_tiles": 2}, {"prefix_sort": True}, {"sort_bounce_skip": "1"},
+    {"cull_zero_nee": True}, {"sort_rays": False},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_frame_mode_configs_are_supported(kw):
+    """The frame modes are ported: check_supported passes and a Renderer
+    frame in the mode is finite (tests/test_torch_frame_modes.py holds each
+    against the reference)."""
+    from tpu_pathtracer_torch import Renderer
+
+    cfg = tcfg.RenderConfig(max_path_length=2, **kw)
+    tcfg.check_supported(cfg)
+    r = Renderer("cornellbox", 8, 8, cfg, device="cpu")
+    r.run(1)
+    img = r.image()
+    assert img.shape == (8, 8, 3) and (img == img).all()
 
 
 @pytest.mark.parametrize("kw", [
@@ -112,7 +131,7 @@ def test_unsupported_entry_points_raise():
     with pytest.raises(NotImplementedError, match=match):
         Renderer("cornellbox", 8, 8, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        Renderer("cornellbox", 8, 8, tcfg.RenderConfig(sort_rays=False), device="cpu")
+        Renderer("cornellbox", 8, 8, tcfg.RenderConfig(bake_materials=True), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         load_scene(scene_path("cornellbox"), rough_materials=True, device="cpu")
     with pytest.raises(NotImplementedError, match=match):

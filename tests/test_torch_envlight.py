@@ -40,7 +40,9 @@ from tpu_pathtracer_torch.render import noise as tnoise
 from tpu_pathtracer_torch.render.state import frame_rng_key, fused_wavefront_key
 from tpu_pathtracer_torch.render.wavefront import render_sample
 from tpu_pathtracer_torch.scene import attach_env, load_scene
-from torch_parity import arrays, nee_shadow_rays
+from torch_parity import arrays, nee_shadow_rays, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EPS = 1e-4
 
@@ -121,8 +123,9 @@ def test_bounce_uniforms_with_env(frame, bounce):
     tp = torch.as_tensor(pid.astype(np.int64))
     ref = jnoise.bounce_uniforms(JConfig(), jnp.asarray(key), frame, bounce,
                                  jnp.asarray(pid), 1, 1, with_env=True)
-    got = tnoise.bounce_uniforms(key, frame, bounce, tp, with_env=True)
-    plain = tnoise.bounce_uniforms(key, frame, bounce, tp)
+    cfg = RenderConfig()
+    got = tnoise.bounce_uniforms(cfg, key, frame, bounce, tp, 1, 1, with_env=True)
+    plain = tnoise.bounce_uniforms(cfg, key, frame, bounce, tp, 1, 1)
     assert got.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
@@ -187,7 +190,7 @@ def test_timed_frame_keeps_anyhit():
         return occl(*a)
 
     isect.occlusion = occlusion
-    key = fused_wavefront_key(frame_rng_key(r.state.key, 0))
+    key = fused_wavefront_key(frame_rng_key(r.cfg, r.state.key, 0))
     plain = render_sample(r.scene, r.cfg, r.camera, 16, 24, key, 0, isect)
     untimed = dict(calls)
     timer = _SpanLog()

@@ -4,6 +4,7 @@ import os
 
 import jax
 import numpy as np
+import pytest
 from jax.experimental.pallas import tpu as pltpu
 
 from tpu_pathtracer import renderer as jrenderer
@@ -19,7 +20,9 @@ from tpu_pathtracer_torch.io.exr import read_exr
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render.state import init_state, render_frame
-from torch_parity import arrays
+from torch_parity import arrays, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SCENE = "CornellBox-Water-plastic"
 
@@ -90,7 +93,7 @@ def test_live_ladder_is_exact(tmp_path):
         cfg = RenderConfig(max_path_length=5, secondary_tile=48, live_ladder=ladder)
         r = Renderer(SCENE, 48, 32, cfg, device="cpu")
         assert len(ladder_sizes(48 * 32, cfg)) == ladder + 1
-        key = fused_wavefront_key(frame_rng_key(r.state.key, 0))
+        key = fused_wavefront_key(frame_rng_key(cfg, r.state.key, 0))
         out[ladder] = render_sample(r.scene, cfg, r.camera, 32, 48, key, 0,
                                     r._intersect, with_ray_count=True)
     np.testing.assert_array_equal(out[3][0].numpy(), out[0][0].numpy())

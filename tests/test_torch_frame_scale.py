@@ -33,7 +33,9 @@ from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render import wavefront as twf
 from tpu_pathtracer_torch.render.state import init_state, render_frame
-from torch_parity import arrays
+from torch_parity import arrays, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KERNELS = ("window_walk", "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep", "capped_walk", "anyhit_walk", "minwalk")

@@ -19,6 +19,9 @@ from tpu_pathtracer.scene import SCENE_NAMES, load_scene as jload_scene, scene_p
 from tpu_pathtracer.scene.scene import build_scene as jbuild_scene
 from tpu_pathtracer_torch.accel import build_layout, lbvh, native
 from tpu_pathtracer_torch.scene import build_scene, load_scene
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TERRAIN = "terrain-grid64"
 

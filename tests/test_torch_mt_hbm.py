@@ -26,7 +26,10 @@ from tpu_pathtracer.ops import pallas_traverse as pt
 from tpu_pathtracer.scene import load_scene, scene_path
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
-from torch_parity import arrays, assert_hits_agree, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, random_rays, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KERNELS = ("window_walk", "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep", "capped_walk", "anyhit_walk", "minwalk")

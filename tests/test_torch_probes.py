@@ -28,7 +28,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
-from torch_parity import load_reference_script
+from torch_parity import load_reference_script, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LANES, TILE, ROWS, MTBLOCK = 128, 128, 256, 16
 

@@ -29,8 +29,10 @@ from tpu_pathtracer_torch.ops.intersect import intersect_brute
 from tpu_pathtracer_torch.ops.traverse import intersect_bvh
 from tpu_pathtracer_torch.render import wavefront as twf
 from tpu_pathtracer_torch.scene import build_scene, load_scene
-from torch_parity import assert_hits_agree
+from torch_parity import assert_hits_agree, one_torch_thread  # noqa: F401 (a fixture)
 from torch_terrain import terrain_mesh
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -9,7 +9,9 @@ from tpu_pathtracer.scene import SCENE_NAMES, load_scene as jload_scene, scene_p
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.scene import load_scene
-from torch_parity import arrays
+from torch_parity import arrays, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the tables the kernels read (accel/layout.py); tris8 = the MT window rows,
 # leafbox / leafmeta = the candidate-sweep kernels' per-leaf tables

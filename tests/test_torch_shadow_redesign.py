@@ -28,7 +28,10 @@ from tpu_pathtracer.ops.intersect import intersect_brute as jbrute
 from tpu_pathtracer.scene import load_scene as jload_scene, scene_path
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
-from torch_parity import arrays, assert_hits_agree, nee_shadow_rays, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, nee_shadow_rays, random_rays, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EPS = 1e-4
 

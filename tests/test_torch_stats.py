@@ -21,7 +21,9 @@ from tpu_pathtracer.scene import load_scene, scene_path
 from tpu_pathtracer_torch import RenderConfig, interop
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render import stats
-from torch_parity import arrays, random_rays
+from torch_parity import arrays, random_rays, one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 H, W, DEPTH = 24, 32, 3
 

@@ -33,7 +33,10 @@ from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.scene import load_scene
 from tpu_pathtracer_torch.scripts import experimental_sweep as es
-from torch_parity import arrays, assert_hits_agree, load_reference_script, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, load_reference_script, random_rays, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, TILE, PREPASS, LEAF = 256, 128, 8, 4
 

@@ -23,7 +23,10 @@ from tpu_pathtracer.scene import load_scene, scene_path
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.ops.intersect import intersect_brute, shade_from_scene
-from torch_parity import arrays, assert_hits_agree, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, random_rays, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module", params=["cornellbox", "CornellBox-Water-plastic"])

@@ -32,8 +32,11 @@ from tpu_pathtracer_torch.accel.layout import pack_nodes, unpack_nodes
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.ops.traverse import latch
 from tpu_pathtracer_torch.scene import load_scene
-from torch_parity import arrays, assert_hits_agree, random_rays
+from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    arrays, assert_hits_agree, random_rays, one_torch_thread)
 from torch_terrain import terrain_scene
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tpu_pathtracer_torch")

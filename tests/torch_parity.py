@@ -74,6 +74,17 @@ def assert_hits_agree(t_a, id_a, t_b, id_b, rtol: float = 1e-6, atol: float = 1e
     return same & fin
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for a module's tests, restored after:
+    the suite runs several pytest workers on a few cores, and each worker's
+    own thread pool the width of the machine oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip: CUDA kernels have no CPU mode."""

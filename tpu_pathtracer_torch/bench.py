@@ -52,25 +52,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--intersector", default="bvh")
     ap.add_argument("--spp", type=int, default=1,
-                    help="samples per frame (> 1 is not ported yet)")
+                    help="samples per frame (fused into wavefronts of up to "
+                         "--fuse samples)")
     ap.add_argument("--bake-materials", action=argparse.BooleanOptionalAction,
                     default=None, help="baked-row material resolve (not ported yet)")
     ap.add_argument("--row-tiles", type=int, default=1,
-                    help="sequential row tiles per frame (> 1 not ported yet)")
+                    help="sequential row tiles per frame (cfg.row_tiles)")
     ap.add_argument("--fuse", type=int, default=None,
-                    help="cfg.fuse_samples (not ported yet)")
+                    help="override cfg.fuse_samples (max samples fused into "
+                         "one wavefront)")
     ap.add_argument("--resolve-gather", choices=("rows", "cols", "percol"),
                     default=None, help="accepted and inert: the TPU package's "
                                        "resolve-gather lowering")
     ap.add_argument("--prefix-sort", action=argparse.BooleanOptionalAction,
-                    default=None, help="prefix-width bounce sorts (not ported yet)")
+                    default=None, help="cfg.prefix_sort (bounce sorts at the "
+                                       "live ladder's rung width)")
     ap.add_argument("--sort-lowering", choices=("variadic", "gather"), default=None,
                     help="accepted and inert: the TPU package's sort lowering")
     ap.add_argument("--sort-skip", default=None, metavar="B1,B2",
-                    help="bounce indices whose sort is skipped (not ported yet)")
+                    help="cfg.sort_bounce_skip (bounce indices whose wavefront "
+                         "sort is skipped)")
     ap.add_argument("--cull-zero-nee", action=argparse.BooleanOptionalAction,
-                    default=None, help="skip zero-contribution shadow rays "
-                                       "(not ported yet)")
+                    default=None, help="cfg.cull_zero_nee (skip shadow rays "
+                                       "with exactly zero contribution)")
     ap.add_argument("--fuse-shadow", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="cfg.fuse_shadow_walk: one 2N-lane walk per bounce "
@@ -97,12 +101,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
         (args.mesh is not None, "--mesh", "queue 1 item 12"),
-        (args.spp != 1, "--spp > 1", "queue 1 item 10"),
-        (args.row_tiles != 1, "--row-tiles > 1", "queue 1 item 10"),
-        (args.fuse is not None, "--fuse", "queue 1 item 10"),
-        (bool(args.prefix_sort), "--prefix-sort", "queue 1 item 10"),
-        (args.sort_skip is not None, "--sort-skip", "queue 1 item 10"),
-        (bool(args.cull_zero_nee), "--cull-zero-nee", "queue 1 item 10"),
         (bool(args.bake_materials), "--bake-materials", "queue 1 item 10"),
     ]
 
@@ -132,6 +130,14 @@ def main(argv=None) -> int:
     label = device_label(device)
 
     over = {}
+    if args.prefix_sort is not None:
+        over["prefix_sort"] = args.prefix_sort
+    if args.sort_skip is not None:
+        over["sort_bounce_skip"] = args.sort_skip
+    if args.cull_zero_nee is not None:
+        over["cull_zero_nee"] = args.cull_zero_nee
+    if args.fuse is not None:
+        over["fuse_samples"] = args.fuse
     if args.resolve_gather is not None:
         over["resolve_gather"] = args.resolve_gather
     if args.sort_lowering is not None:

@@ -22,7 +22,7 @@ import os
 import sys
 import tempfile
 
-from .config import ComparisonMode, RenderConfig
+from .config import ComparisonMode, NoiseMode, RenderConfig
 from .device import device_for
 from .scene.assets import DEFAULT_SCENE, SCENE_NAMES, golden_path
 
@@ -38,14 +38,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="render at width*s x height*s like the reference's "
                         "CONTENT_SCALE drawable scaling (Raytracing.h:25)")
     p.add_argument("--frames", type=int, default=32)
-    p.add_argument("--spp-per-frame", type=int, default=1,
-                   help="> 1 is not ported yet")
+    p.add_argument("--spp-per-frame", type=int, default=1)
     p.add_argument("--spectrum", type=int, default=3,
                    help="spectrum bins S (only 3, the RGB stand-in, is ported)")
     p.add_argument("--hero", type=int, default=0,
                    help="hero-wavelength bins per path (not ported yet)")
     p.add_argument("--fuse-samples", type=int, default=None,
-                   help="max samples fused into one wavefront (not ported yet)")
+                   help="max samples fused into one wavefront (default: "
+                        "cfg.fuse_samples)")
     p.add_argument("--depth", type=int, default=8, help="MAX_PATH_LENGTH")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--intersector", choices=("bvh", "brute"), default="bvh")
@@ -58,8 +58,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-accumulate", action="store_true")
     p.add_argument("--tone-map", action="store_true")
     p.add_argument("--noise", choices=("prng", "tiled", "r2"), default="prng",
-                   help="prng = i.i.d. counter hash ('tiled' and 'r2' are not "
-                        "ported yet)")
+                   help="prng = i.i.d. counter hash, tiled = the reference's "
+                        "64x64 noise tiles, r2 = the rank-1 lattice sampler")
     p.add_argument("--no-quirks", action="store_true",
                    help="use conventional MIS instead of reference-exact estimator")
     p.add_argument("--env", help="HDR lat-long environment map (EXR) to light "
@@ -108,14 +108,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="viewer bind address (endpoints are unauthenticated; "
                         "use 0.0.0.0 to expose beyond loopback deliberately)")
     p.add_argument("--row-tiles", type=int, default=1,
-                   help="sequential row tiles per frame (> 1 not ported yet)")
+                   help="render each frame in N sequential row tiles")
     p.add_argument("--prefix-sort", action="store_true",
-                   help="prefix-width bounce sorts (not ported yet)")
+                   help="run each bounce's wavefront sort at the live-prefix "
+                        "ladder's rung width instead of full width")
     p.add_argument("--cull-zero-nee", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="skip zero-contribution shadow rays (not ported yet)")
+                   help="skip occlusion walks for NEE shadow rays whose "
+                        "contribution is exactly zero; the same image")
     p.add_argument("--sort-skip", default="", metavar="B1,B2",
-                   help="bounce indices whose sort is skipped (not ported yet)")
+                   help="bounce indices whose wavefront sort is skipped "
+                        "(e.g. '1,6,7'); the same image")
     p.add_argument("--sort-lowering", choices=("variadic", "gather"),
                    default="variadic",
                    help="accepted for compatibility and inert: the TPU "
@@ -132,18 +135,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
 # Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
-        (args.noise != "prng", f"--noise {args.noise}", "queue 1 item 11"),
         (args.spectrum != 3, "--spectrum other than 3", "queue 1 item 10"),
         (args.hero != 0, "--hero", "queue 1 item 10"),
         (args.dispersion is not None, "--dispersion", "queue 1 item 10"),
         (args.refract, "--refract", "queue 1 item 10"),
         (args.rough_materials, "--rough-materials", "queue 1 item 10"),
-        (args.spp_per_frame != 1, "--spp-per-frame > 1", "queue 1 item 10"),
-        (args.fuse_samples is not None, "--fuse-samples", "queue 1 item 10"),
-        (args.row_tiles != 1, "--row-tiles", "queue 1 item 10"),
-        (args.prefix_sort, "--prefix-sort", "queue 1 item 10"),
-        (args.cull_zero_nee, "--cull-zero-nee", "queue 1 item 10"),
-        (bool(args.sort_skip), "--sort-skip", "queue 1 item 10"),
         (args.mesh is not None, "--mesh", "queue 1 item 12"),
         *((bool(path) and not path.endswith(".npz"),
            f"{flag} {path} (the Orbax directory form)", "queue 1 item 9")
@@ -172,14 +168,23 @@ def main(argv=None) -> int:
     cfg = RenderConfig(
         content_scale=args.content_scale,
         max_path_length=args.depth,
+        samples_per_frame=args.spp_per_frame,
+        **({"fuse_samples": args.fuse_samples}
+           if args.fuse_samples is not None else {}),
         accumulate_image=not args.no_accumulate,
         enable_tone_mapping=args.tone_map,
+        noise_mode=NoiseMode.TILED if args.noise == "tiled" else NoiseMode.PRNG,
+        sampler="r2" if args.noise == "r2" else "prng",
         reference_quirks=not args.no_quirks,
         intersector=args.intersector,
         use_pallas=not args.no_pallas,
         comparison_mode=ComparisonMode(args.compare_mode),
         comparison_scale=args.compare_scale,
+        row_tiles=args.row_tiles,
+        prefix_sort=args.prefix_sort,
+        cull_zero_nee=args.cull_zero_nee,
         sort_lowering=args.sort_lowering,
+        sort_bounce_skip=args.sort_skip,
     )
     scene = load_scene(scene_path(args.scene), samples=cfg.spectrum_samples,
                        device=device)

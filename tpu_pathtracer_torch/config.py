@@ -35,7 +35,7 @@ class NoiseMode(enum.IntEnum):
     seed) -- independent samples, bit-reproducible across devices.
     TILED: parity mode reproducing the reference's 64x64 float4 noise buffer
     (reference: renderer/Renderer.mm:102-129, renderer/Shaders.metal:91,
-    135-138).  Not ported yet.
+    135-138).
     """
 
     PRNG = 0
@@ -66,19 +66,17 @@ class RenderConfig:
 
     # --- framework extensions (no reference equivalent) ---
     noise_mode: NoiseMode = NoiseMode.PRNG
-    # "prng" = i.i.d. counter hash; "r2" = rank-1 lattice sampler (not
-    # ported yet).
+    # "prng" = i.i.d. counter hash; "r2" = rank-1 lattice sampler.
     sampler: str = "prng"
     # Replicate the reference's estimator quirks (models/bsdf.py).
     reference_quirks: bool = True
     # Snell-bent smooth-dielectric transmission (extension; not ported yet).
     refract_dielectric: bool = False
-    # Samples per pixel per frame (the reference always renders 1 spp/frame;
-    # > 1 is not ported yet).
+    # Samples per pixel per frame (the reference always renders 1 spp/frame).
     samples_per_frame: int = 1
     # Max samples fused into one wavefront when samples_per_frame > 1.
     fuse_samples: int = 2
-    # Sequential row tiles per frame (> 1 not ported yet).
+    # Sequential row tiles per frame.
     row_tiles: int = 1
     # Intersection backend: "bvh" (BVH traversal) or "brute" (every ray
     # against every triangle, no BVH).
@@ -135,19 +133,18 @@ class RenderConfig:
     bake_materials: bool = False
     # TPU-only (inert): XLA lowering of the payload-resolve row gather.
     resolve_gather: str = "rows"
-    # Skip NEE shadow rays whose contribution is exactly zero (not ported
-    # yet).
+    # Skip NEE shadow rays whose contribution is exactly zero.
     cull_zero_nee: bool = False
     # Sort the wavefront before each secondary bounce by (alive, origin
-    # cell, direction bin); False is not ported yet.
+    # cell, direction bin); kernel path only, as in the reference.
     sort_rays: bool = True
     # Live-prefix ladder: after each bounce sort (dead lanes last), run the
     # bounce on the shortest power-of-two prefix that still holds every live
     # lane.  Value = number of halvings; 0 disables.  Bit-identical output.
     live_ladder: int = 3
-    # Prefix-width bounce sorts (not ported yet).
+    # Prefix-width bounce sorts: each sort at the ladder rung's width.
     prefix_sort: bool = False
-    # Bounce indices whose wavefront sort is skipped (not ported yet).
+    # Bounce indices whose wavefront sort is skipped.
     sort_bounce_skip: str = ""
     # TPU-only (inert): XLA sort lowering ("variadic" / "gather"); the port
     # always sorts one int64 key and gathers the planes.
@@ -224,17 +221,7 @@ _UNSUPPORTED = (
      "queue 1 item 10"),
     (lambda c: c.hero_wavelengths > 0, "hero wavelengths", "queue 1 item 10"),
     (lambda c: c.refract_dielectric, "refract_dielectric", "queue 1 item 10"),
-    (lambda c: c.noise_mode != NoiseMode.PRNG, "TILED noise", "queue 1 item 11"),
-    (lambda c: c.sampler != "prng", "sampler='r2'", "queue 1 item 11"),
-    (lambda c: c.samples_per_frame != 1, "samples_per_frame > 1",
-     "queue 1 item 10"),
-    (lambda c: c.row_tiles != 1, "row_tiles > 1", "queue 1 item 10"),
-    (lambda c: c.prefix_sort, "prefix_sort", "queue 1 item 10"),
-    (lambda c: bool(c.sort_bounce_skip), "sort_bounce_skip", "queue 1 item 10"),
-    (lambda c: c.cull_zero_nee, "cull_zero_nee", "queue 1 item 10"),
     (lambda c: c.bake_materials, "bake_materials", "queue 1 item 10"),
-    (lambda c: not c.sort_rays, "sort_rays=False (unsorted pipeline)",
-     "queue 1 item 6"),
 )
 
 

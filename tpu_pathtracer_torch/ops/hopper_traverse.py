@@ -1043,8 +1043,13 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
     return fn
 
 
+# the most lane planes a walk kernel indexes with one int32 offset: minwalk's
+# 12 output rows (csrc/walk_common.cuh:write_payload)
+MAX_PLANES = 12
+
+
 def _check(t: torch.Tensor, dtype, shape, name: str) -> None:
-    if 3 * t.shape[-1] >= 2 ** 31:
+    if MAX_PLANES * t.shape[-1] >= 2 ** 31:
         raise ValueError(f"{name}: {t.shape[-1]} lanes overflow the kernels' "
                          "int32 plane offsets")
     if t.device.type != "cuda":

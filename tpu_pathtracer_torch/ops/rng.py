@@ -7,10 +7,16 @@ arithmetic, so every value here is an int64 tensor holding a uint32, and
 each step masks with ``& 0xFFFFFFFF``.  Products are formed in 16-bit
 halves (:func:`_mul32`) so no int64 product ever overflows.
 
-``prng_key``/``fold_in``/``key_data``: a host-side threefry2x32, bit-equal
-to ``jax.random.PRNGKey``/``fold_in``/``key_data`` under JAX's default
-threefry implementation.  The frame's key schedule (render/state.py,
-render/noise.py) runs a few scalar calls of it per frame.
+``uniforms_r2``: the padded rank-1 Rd lattice sampler (cfg.sampler="r2"),
+bit-equal to the reference's, in the same int64 form.
+
+``prng_key``/``fold_in``/``key_data``/``uniform``: a host-side threefry2x32,
+bit-equal to ``jax.random.PRNGKey``/``fold_in``/``key_data``/``uniform``
+under JAX's default threefry implementation (the partitionable counter
+layout: element i of the flattened shape hashes the counter pair (0, i)).
+The frame's key schedule (render/state.py, render/noise.py) runs a few
+scalar calls of it per frame; TILED noise draws its 64x64 float4 tiles with
+``uniform``.
 """
 
 from __future__ import annotations
@@ -76,6 +82,48 @@ def uniforms(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
     return torch.stack(outs[:count])
 
 
+def _rd_alphas_u32(count: int) -> list[int]:
+    """Rd rank-1 lattice generators as uint32 fixed point: alpha_i =
+    phi_d^-(i+1), phi_d the positive root of x^(d+1) = x + 1 (Roberts 2018),
+    scaled to 2^32 and made odd (full period mod 2^32)."""
+    d = count
+    x = 2.0
+    for _ in range(64):
+        x = x - (x ** (d + 1) - x - 1.0) / ((d + 1) * x ** d - 1.0)
+    return [int((1.0 / x) ** i % 1.0 * 4294967296.0) | 1 for i in range(1, d + 1)]
+
+
+def uniforms_r2(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
+                count: int) -> torch.Tensor:
+    """(N,) int64 pixel ids -> (count, N) low-discrepancy uniforms over
+    frames: Cranley-Patterson-rotated R2 lattices in blocks of two
+    dimensions, each block with its own per-(pixel, bounce, block) rotation
+    and XOR index scramble, ``u_i = (rot_i + (frame ^ c_b) * alpha_i) mod
+    2^32 / 2^32`` (the reference's ``ops/rng.py:uniforms_r2``)."""
+    pid = pixel_id.to(torch.int64) & _M32
+    full = lambda v: torch.full_like(pid, v & _M32)  # noqa: E731
+    n_blocks = (count + 1) // 2
+    alphas2 = _rd_alphas_u32(2)
+    mixed = full(bounce ^ ((salt << 1) & _M32))
+    outs = []
+    for pair in range((n_blocks + 1) // 2):
+        rot = pcg4d(pid, full(0x52D00000 + 0x9E3779B9 * pair), mixed,
+                    full(salt + pair * 0x85EBCA6B))
+        scr = pcg4d(pid, full(0x5C4AB1E5 + 0x9E3779B9 * pair), mixed,
+                    full(salt + pair * 0xC2B2AE35))
+        for half in range(2):
+            b = pair * 2 + half
+            if b >= n_blocks:
+                break
+            idx = (frame & _M32) ^ scr[half]
+            for lane in range(2):
+                if b * 2 + lane >= count:
+                    break
+                bits = (rot[half * 2 + lane] + _mul32(idx, alphas2[lane])) & _M32
+                outs.append(_to_unit_float(bits))
+    return torch.stack(outs[:count])
+
+
 # ---------------------------------------------------------------------------
 # threefry2x32 key schedule (host side)
 # ---------------------------------------------------------------------------
@@ -114,3 +162,39 @@ def fold_in(key, data: int) -> np.ndarray:
 def key_data(key) -> np.ndarray:
     """The raw uint32[2] of a key (keys here are already raw data)."""
     return np.asarray(key, np.uint32)
+
+
+def _threefry2x32_np(key, x0: np.ndarray, x1: np.ndarray):
+    """:func:`_threefry2x32` over uint32 numpy arrays of counters."""
+    k = np.asarray(key, np.uint32)
+    ks = (k[0], k[1], k[0] ^ k[1] ^ np.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+            x1 = x1 ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def random_bits(key, shape) -> np.ndarray:
+    """``jax.random.bits(key, shape, uint32)`` on raw key data: the
+    partitionable threefry layout, element i of the flattened shape =
+    the XOR of threefry2x32(key, (0, i))."""
+    n = int(np.prod(shape))
+    if n >= 2 ** 32:
+        raise ValueError(f"random_bits of {n} elements: the counter's high word is "
+                         "not modelled")
+    x0, x1 = _threefry2x32_np(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    return (x0 ^ x1).reshape(shape)
+
+
+def uniform(key, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32)`` on raw key data, bit for
+    bit: the top 23 bits of :func:`random_bits` as the mantissa of a float
+    in [1, 2), minus 1."""
+    bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)

@@ -1,9 +1,9 @@
 """Progressive render state and frame stepping.
 
-The port of ``tpu_pathtracer/render/state.py`` for 1 spp per frame: the
-reference's progressive RGBA32F texture plus host ``_frameIndex`` counter
-(reference: renderer/Renderer.mm:640-657, renderer/Shaders.metal:233-249)
-as an explicit (accum, frame_index, key) record.  The key schedule is the
+The port of ``tpu_pathtracer/render/state.py``: the reference's
+progressive RGBA32F texture plus host ``_frameIndex`` counter (reference:
+renderer/Renderer.mm:640-657, renderer/Shaders.metal:233-249) as an
+explicit (accum, frame_index, key) record.  The key schedule is the
 reference's threefry one, computed host-side (ops/rng.py), so a frame of
 the port draws the same samples as the same frame of ``tpu_pathtracer``.
 """
@@ -15,9 +15,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import RenderConfig, check_supported
+from ..config import NoiseMode, RenderConfig, check_supported
 from ..models.camera import Camera
-from ..ops.rng import fold_in, prng_key
+from ..ops.rng import fold_in, key_data, prng_key
 from ..scene.scene import Scene
 from .wavefront import IntersectFn, render_sample
 
@@ -57,36 +57,106 @@ def accumulate(accum, frame_index: int, color, accumulate_image: bool):
     return color + (accum - color) * factor
 
 
-def frame_rng_key(key, frame_index: int) -> np.ndarray:
-    """The per-frame key (PRNG noise always re-rolls per frame)."""
+def frame_rng_key(cfg: RenderConfig, key, frame_index: int) -> np.ndarray:
+    """The per-frame key: fold_in(key, frame), except with static TILED
+    noise (the reference's ANIMATE_NOISE=0, renderer/Renderer.mm:485-497),
+    where the tiles never re-roll and only their frame-offset lookup moves.
+    One schedule for sample_sum and render/stats.count_traced_rays_exact."""
+    if cfg.noise_mode == NoiseMode.TILED and not cfg.animate_noise:
+        return key_data(key)
     return fold_in(key, frame_index)
 
 
+def fuse_schedule(cfg: RenderConfig, sample_count: int):
+    """(fuse, n_chunks, rem): chunk i traces ``fuse`` samples from sample0
+    = i * fuse, then one ``rem``-sample tail.  Shared by sample_sum and
+    render/stats.count_traced_rays_exact so that the exact counts follow
+    the frames' RNG streams."""
+    fuse = max(1, min(cfg.fuse_samples or 1, sample_count))
+    n_chunks, rem = divmod(sample_count, fuse)
+    return fuse, n_chunks, rem
+
+
+def fused_chunks(cfg: RenderConfig, sample_count: int, sample0: int = 0):
+    """fuse_schedule as the wavefronts it makes: [(samples, sample0), ...],
+    the ``rem`` tail last.  The one chunk list of sample_sum and
+    render/stats.count_traced_rays_exact."""
+    fuse, n_chunks, rem = fuse_schedule(cfg, sample_count)
+    chunks = [(fuse, sample0 + i * fuse) for i in range(n_chunks)]
+    if rem:
+        chunks.append((rem, sample0 + n_chunks * fuse))
+    return chunks
+
+
 def fused_wavefront_key(frame_key) -> np.ndarray:
-    """The key of the frame's (single) wavefront: fold_in(.., 0), which the
+    """The key of every fused wavefront: fold_in(.., 0), which the
     reference keeps so 1-spp frames draw the same streams at any fusion."""
     return fold_in(frame_key, 0)
 
 
 def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                width: int, key, frame_index: int, intersect: IntersectFn,
-               **kw) -> torch.Tensor:
-    """Radiance sum over the frame's samples -> (H, W, S); one sample per
-    frame (samples_per_frame > 1 is not ported yet)."""
-    wkey = fused_wavefront_key(frame_rng_key(key, frame_index))
-    return render_sample(scene, cfg, camera, height, width, wkey, frame_index,
-                         intersect, **kw)
+               row0: int = 0, full_height: int | None = None,
+               full_width: int | None = None, sample0: int = 0,
+               sample_count: int | None = None, timer=None) -> torch.Tensor:
+    """Unnormalised radiance sum over the frame's samples for rows
+    ``row0 .. row0 + height`` of a ``full_height`` x ``full_width`` image ->
+    (height, width, S).
+
+    PRNG noise fuses up to cfg.fuse_samples samples into one wavefront per
+    render_sample call; each sample's lanes key on a virtual pixel id
+    ``pixel + sample * npix`` (render/wavefront.py), so every grouping draws
+    the same paths.  TILED noise decodes the pixel from the id, so it
+    traces one sample a wavefront under a per-sample key fold, as the
+    reference does."""
+    frame_key = frame_rng_key(cfg, key, frame_index)
+    sample_count = cfg.samples_per_frame if sample_count is None else sample_count
+    kw = dict(row0=row0, full_height=full_height, full_width=full_width, timer=timer)
+    total = torch.zeros((height, width, cfg.spectrum_samples), device=scene.p0.device)
+    if cfg.noise_mode == NoiseMode.PRNG:
+        npix = (full_height or height) * (full_width or width)
+        if cfg.samples_per_frame * npix > 2 ** 32:
+            raise ValueError("samples_per_frame * pixels must fit in uint32 for the "
+                             "virtual-pixel-id RNG schedule")
+        wkey = fused_wavefront_key(frame_key)
+        for n, s0 in fused_chunks(cfg, sample_count, sample0):
+            total = total + render_sample(scene, cfg, camera, height, width, wkey,
+                                          frame_index, intersect, samples=n,
+                                          sample0=s0, **kw)
+        return total
+    for i in range(sample_count):
+        k = fold_in(frame_key, sample0 + i)
+        total = total + render_sample(scene, cfg, camera, height, width, k,
+                                      frame_index, intersect, **kw)
+    return total
 
 
 def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
                  camera: Camera | None, intersect: IntersectFn,
                  timer=None) -> RenderState:
-    """One progressive frame: trace and fold the mean into the accumulator.
-    The accumulator is a new tensor; ``state`` is left unchanged."""
+    """One progressive frame: trace cfg.samples_per_frame spp, in
+    cfg.row_tiles sequential row tiles, and fold the mean into the
+    accumulator.  The accumulator is a new tensor; ``state`` is left
+    unchanged."""
     check_supported(cfg)
     camera = camera if camera is not None else Camera.reference_default()
-    total = sample_sum(scene, cfg, camera, state.height, state.width, state.key,
-                       state.frame_index, intersect, timer=timer)
+    height, width = state.height, state.width
+    tiles = max(1, cfg.row_tiles)
+    if tiles > 1 and height % tiles:
+        raise ValueError(f"row_tiles {tiles} must divide height {height}")
+    if tiles == 1:
+        total = sample_sum(scene, cfg, camera, height, width, state.key,
+                           state.frame_index, intersect, timer=timer)
+    else:
+        # sequential row tiles bound a wavefront's lanes; the RNG keys on
+        # absolute pixel ids, so the image is the untiled one up to the
+        # order of float sums
+        tile_h = height // tiles
+        total = torch.cat([
+            sample_sum(scene, cfg, camera, tile_h, width, state.key,
+                       state.frame_index, intersect, row0=r * tile_h,
+                       full_height=height, full_width=width, timer=timer)
+            for r in range(tiles)])
     color = total / cfg.samples_per_frame
     new_accum = accumulate(state.accum, state.frame_index, color,
                            cfg.accumulate_image)

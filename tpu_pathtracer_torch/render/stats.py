@@ -5,28 +5,26 @@ dispatch size by frame time (reference: renderer/Renderer.mm:631-637), which
 under-reports work by the bounce count and over-reports it by the dead-ray
 fraction; :func:`count_traced_rays_exact` counts the rays the traversal
 actually processes (live path rays per bounce + live shadow rays) on the
-frames' own key schedule.  :func:`utilization_report` prices the frame's
-first secondary wavefront in lane-ops with the counting window walk
-(``window_walk_counts``).
-
-The reference's scaled brute-force probe (``count_traced_rays``) is not
-ported: the exact count replaces it.
+frames' own key schedule, and :func:`count_traced_rays` estimates them from
+a brute-force probe at reduced resolution.  :func:`utilization_report`
+prices the frame's first secondary wavefront in lane-ops with the counting
+window walk (``window_walk_counts``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import RenderConfig, check_supported
+from ..config import NoiseMode, RenderConfig, check_supported
 from ..models.camera import Camera, generate_rays_flat
 from ..ops.hopper_traverse import window_prepass, window_walk_counts
 from ..ops.rng import fold_in, prng_key
 from ..scene.scene import Scene
 from .noise import bounce_uniforms, camera_jitter, pids_from_order
 from .order import make_order
-from .state import frame_rng_key, fused_wavefront_key
-from .wavefront import (initial_path_state, render_sample, scene_sort_bounds,
-                        sort_wavefront, trace_bounce)
+from .state import frame_rng_key, fused_chunks, fused_wavefront_key
+from .wavefront import (initial_path_state, make_brute_intersector, render_sample,
+                        scene_sort_bounds, sort_wavefront, trace_bounce)
 
 
 def _intersector(scene: Scene, cfg: RenderConfig, intersect):
@@ -37,24 +35,79 @@ def _intersector(scene: Scene, cfg: RenderConfig, intersect):
     return build_intersector(scene, cfg)[2]
 
 
+def _probe(scene: Scene, cfg: RenderConfig, height: int, width: int, key) -> int:
+    """Rays one 1-spp frame 0 traces at (height, width): row-major camera
+    rays, the brute intersector, each bounce's shadow query in the bounce."""
+    dev = scene.p0.device
+    order = make_order(height, width, device=dev)
+    pids = pids_from_order(order, width)
+    jitter = camera_jitter(cfg, key, 0, pids, height, width)
+    origins, directions = generate_rays_flat(Camera.reference_default(), order.rows,
+                                             order.cols, jitter, height, width)
+    state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
+    intersect = make_brute_intersector(scene)
+    total = 0
+    for b in range(cfg.max_path_length):
+        uniforms = bounce_uniforms(cfg, key, 0, b, pids, height, width,
+                                   with_env=scene.env is not None)
+        state, stats = trace_bounce(scene, cfg, intersect, b, state, uniforms,
+                                    with_stats=True)
+        total += int(stats["path"]) + int(stats["shadow"])
+    return total
+
+
+def count_traced_rays(scene: Scene, cfg: RenderConfig, height: int, width: int,
+                      probe_scale: int = 4) -> float:
+    """Estimated rays traced per frame at (height, width): a 1-spp probe at
+    1/probe_scale resolution with the brute intersector, scaled by area and
+    samples_per_frame.  Prefer :func:`count_traced_rays_exact` for benchmark
+    numerators."""
+    ph = max(height // probe_scale, 8)
+    pw = max(width // probe_scale, 8)
+    probe = float(_probe(scene, cfg, ph, pw, prng_key(0)))
+    scale = (height * width) / (ph * pw)
+    return probe * scale * cfg.samples_per_frame
+
+
 def count_traced_rays_exact(scene: Scene, cfg: RenderConfig, height: int, width: int,
                             frame_indices=(0,), intersect=None,
                             camera: Camera | None = None, seed: int = 0) -> float:
     """EXACT rays traced for the given frame indices, averaged per frame:
-    each frame re-rendered with ``with_ray_count=True`` on the key schedule
-    of render/state.py (``frame_rng_key``, ``fused_wavefront_key``) -- no
-    resolution scaling, no estimator.  ``intersect`` None builds the
-    Renderer's intersector for ``cfg``."""
+    each frame's wavefronts re-rendered with ``with_ray_count=True`` on the
+    key schedule of render/state.py (``frame_rng_key``, ``fused_chunks``,
+    ``fused_wavefront_key``; TILED's per-sample key folds) and its row
+    tiles -- no resolution scaling, no estimator.  ``intersect`` None builds
+    the Renderer's intersector for ``cfg``."""
     check_supported(cfg)
     camera = camera or Camera.reference_default()
     intersect = _intersector(scene, cfg, intersect)
+    # the frame's own row tiles (a lane's count does not depend on its
+    # wavefront, but the peak memory does)
+    tiles = max(1, cfg.row_tiles)
+    if tiles > 1 and height % tiles:
+        tiles = 1
+    tile_h = height // tiles
+    tile_kw = [dict(row0=r * tile_h, full_height=height, full_width=width)
+               for r in range(tiles)]
     key = prng_key(seed)
     counts = []
     for fi in frame_indices:
-        wkey = fused_wavefront_key(frame_rng_key(key, fi))
-        _, n = render_sample(scene, cfg, camera, height, width, wkey, fi, intersect,
-                             with_ray_count=True)
-        counts.append(int(n))
+        frame_key = frame_rng_key(cfg, key, fi)
+        if cfg.noise_mode == NoiseMode.PRNG:
+            keys = [fused_wavefront_key(frame_key)]
+            chunks = fused_chunks(cfg, cfg.samples_per_frame)
+        else:
+            keys = [fold_in(frame_key, s) for s in range(cfg.samples_per_frame)]
+            chunks = [(1, 0)]
+        total = 0
+        for kw in tile_kw:
+            for k in keys:
+                for m, s0 in chunks:
+                    _, n = render_sample(scene, cfg, camera, tile_h, width, k, fi,
+                                         intersect, with_ray_count=True, samples=m,
+                                         sample0=s0, **kw)
+                    total += int(n)
+        counts.append(total)
     return sum(counts) / len(counts)
 
 
@@ -70,18 +123,20 @@ def first_secondary_wavefront(scene: Scene, cfg: RenderConfig, height: int,
     camera = camera or Camera.reference_default()
     intersect = _intersector(scene, cfg, intersect)
     dev = scene.p0.device
-    wkey = fused_wavefront_key(frame_rng_key(prng_key(seed), frame_index))
-    order = make_order(height, width, 0, cfg.traversal_tile, device=dev)
+    wkey = fused_wavefront_key(frame_rng_key(cfg, prng_key(seed), frame_index))
+    tile = cfg.traversal_tile if cfg.intersector == "bvh" and cfg.use_pallas else None
+    order = make_order(height, width, 0, tile, device=dev)
     pids = pids_from_order(order, width)
-    jitter = camera_jitter(fold_in(wkey, 0xC0FFEE), frame_index, pids)
+    jitter = camera_jitter(cfg, fold_in(wkey, 0xC0FFEE), frame_index, pids, height,
+                           width)
     origins, directions = generate_rays_flat(camera, order.rows, order.cols,
                                              jitter[0:2], height, width,
                                              lens_u=jitter[2:4])
     state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
-    uniforms = bounce_uniforms(wkey, frame_index, 0, pids,
+    uniforms = bounce_uniforms(cfg, wkey, frame_index, 0, pids, height, width,
                                with_env=scene.env is not None)
-    state, pack, _ = trace_bounce(scene, cfg, intersect, 0, state, uniforms,
-                                  coherent=True)
+    state, pack = trace_bounce(scene, cfg, intersect, 0, state, uniforms,
+                               coherent=True, defer_shadow=True)
     wmin, winv = scene_sort_bounds(scene)
     return sort_wavefront(state, wmin, winv, pack)
 
@@ -145,7 +200,7 @@ def utilization_report(scene: Scene, cfg: RenderConfig, lay, height: int, width:
     planes = 13 + 3 * s + 2  # sort_wavefront's shadow-carrying operand count
     sort_bytes = planes * n_lanes * 4 * 2 * max(cfg.max_path_length - 1, 0)
     gather_bytes = (lay.tris.shape[1] * 4 + 8) * n_lanes * cfg.max_path_length
-    return {
+    out = {
         "wavefront": "bounce-1 sorted secondary (path + NEE shadow)",
         "lane_unit": "warp32",
         "spent_source": ("measured in-kernel per warp" if st.origin.is_cuda else
@@ -160,3 +215,8 @@ def utilization_report(scene: Scene, cfg: RenderConfig, lay, height: int, width:
                           "shadow queries take the cheaper capped walk on the "
                           "leaf-8 layout -- combined spent/ray is an upper bound)",
     }
+    if cfg.samples_per_frame > 1:
+        out["density_caveat"] = (
+            "per-ray economics measured at 1-spp lane density; fused "
+            "production wavefronts are denser and cheaper per ray")
+    return out

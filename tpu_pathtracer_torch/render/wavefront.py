@@ -1,16 +1,18 @@
-"""The wavefront path-tracing pipeline (sorted, deferred-shadow form).
+"""The wavefront path-tracing pipeline.
 
-The port of ``tpu_pathtracer/render/wavefront.py`` for the main path:
-per-frame kernel sequence of the reference (renderer/Renderer.mm:500-585),
+The port of ``tpu_pathtracer/render/wavefront.py``: the per-frame kernel
+sequence of the reference (renderer/Renderer.mm:500-585),
 
     rayGenerator -> [ intersect -> intersectionHandler -> shadow-intersect
                       -> lightSamplingHandler ] x MAX_PATH_LENGTH -> accumulate
 
-as eager torch ops on component-major SoA tensors.  Before each secondary
-bounce the wavefront is sorted (dead lanes last, then origin cell and
-direction bin) with the previous bounce's NEE shadow pack riding along; the
-pack resolves right after the sort (its origin is the same hit point), and
-the bounce then runs on the shortest live prefix of the live-prefix ladder.
+as eager torch ops on component-major SoA tensors.  On the kernel path
+each secondary bounce's wavefront is sorted (dead lanes last, then origin
+cell and direction bin) with the previous bounce's NEE shadow pack riding
+along; the pack resolves right after the sort (its origin is the same hit
+point), and the bounce then runs on the shortest live prefix of the
+live-prefix ladder.  The portable backends, and ``sort_rays=False``, run
+the unsorted pipeline with the shadow query traced inside its bounce.
 
 Estimator notes (reference-exact when ``cfg.reference_quirks``):
   * NEE: contribution = emissive * mat.diffuse * throughput * W * bsdf /
@@ -29,7 +31,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import IOR_AIR, RenderConfig, check_supported
+from ..config import IOR_AIR, NoiseMode, RenderConfig, check_supported
 from ..core.geometry import interpolate
 from ..core.math3d import dot, length, where3
 from ..core.sampling import balance_heuristic, barycentric, select_light_index
@@ -150,12 +152,17 @@ def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
 
 def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
                  bounce: int, state: PathState, uniforms: dict,
-                 coherent: bool = False, hit: HitShade | None = None):
-    """One wavefront stage group: intersect + shade + NEE sample
-    (reference: renderer/Shaders.metal:105-211).  The NEE occlusion query
-    is returned as a :class:`ShadowPack` for :func:`resolve_shadow` after
-    the next sort -> (new state, pack, {"path": n, "shadow": n}).  ``hit``
-    supplies a precomputed nearest hit (the fused path+shadow walk,
+                 with_stats: bool = False, coherent: bool = False,
+                 defer_shadow: bool = False, hit: HitShade | None = None):
+    """One wavefront stage group: intersect + shade + NEE sample + shadow
+    (reference: renderer/Shaders.metal:105-231) -> the new state.
+
+    With ``defer_shadow`` the NEE occlusion query is returned as a
+    :class:`ShadowPack` for :func:`resolve_shadow` after the next sort ->
+    (state, pack); without it the query is traced here from the shadow
+    origin ``hp + hn * eps`` and resolved into the state.  ``with_stats``
+    appends {"path": n, "shadow": n}, the rays the traversal processes.
+    ``hit`` supplies a precomputed nearest hit (the fused path+shadow walk,
     cfg.fuse_shadow_walk) instead of tracing here."""
     eps = cfg.distance_epsilon
     aeps = cfg.angle_epsilon
@@ -235,6 +242,11 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         light_ok, nee_weight * nee_bsdf / torch.where(light_ok, light_pdf, 1.0), 0.0
     )
     nee_contrib = nee_emit * m_diffuse * state.throughput * nee_scale[None]
+    if cfg.cull_zero_nee:
+        # a shadow ray whose contribution is exactly zero in every bin adds
+        # zero clear or occluded: skip its walk (delta lobes always qualify;
+        # the reference traces them, renderer/Shaders.metal:149-176)
+        light_ok = light_ok & torch.any(nee_contrib != 0.0, dim=0)
 
     # ---- BSDF-arm MIS when the path hits an emitter ----
     # (reference: renderer/Shaders.metal:180-197)
@@ -292,13 +304,21 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         alive=valid,
         pixel=state.pixel,
     )
-    # range cap just past the sampled light point: a pure traversal cull
-    pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
-                      contrib=nee_contrib, ok=light_ok)
     # rays the traversal processes (the reference's MPS skips lanes with
     # maxDistance < 0)
-    stats = {"path": state.alive.sum(), "shadow": light_ok.sum()}
-    return new_state, pack, stats
+    stats = ({"path": state.alive.sum(), "shadow": light_ok.sum()},) if with_stats else ()
+    if defer_shadow:
+        # the query's origin is new_state.origin (hp + eps * n): it rides
+        # the next bounce's sort and resolves there.  The range cap just
+        # past the light sample is a pure traversal cull.
+        pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
+                          contrib=nee_contrib, ok=light_ok)
+        return (new_state, pack, *stats)
+    clear = occlusion_clear(intersect, hp + hn * eps, nee_dir, light_ok, shadow_cap,
+                            target, eps)
+    new_state = new_state._replace(
+        radiance=new_state.radiance + torch.where(clear[None], nee_contrib, 0.0))
+    return (new_state, *stats) if with_stats else new_state
 
 
 def occlusion_clear(intersect: IntersectFn, o, d, ok, cap, target,
@@ -452,21 +472,41 @@ def _timed_intersect(intersect: IntersectFn, timer) -> IntersectFn:
     return fn
 
 
+def _rung(live: int, sizes: list[int]) -> int:
+    """Index of the shortest ladder width that still holds ``live`` lanes."""
+    return sum(live <= w for w in sizes[1:])
+
+
 def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                   width: int, key, frame_index: int, intersect: IntersectFn,
-                  with_ray_count: bool = False, timer=None):
-    """Trace one path-traced sample per pixel -> (H, W, S) radiance.
+                  row0: int = 0, full_height: int | None = None,
+                  full_width: int | None = None, with_ray_count: bool = False,
+                  samples: int = 1, sample0: int = 0, timer=None):
+    """Trace ``samples`` samples per pixel of rows ``row0 .. row0 + height``
+    of a ``full_height`` x ``full_width`` image in one wavefront -> their
+    SUMMED (height, width, S) radiance.
 
     ``key``: the wavefront's raw uint32[2] key (render/state.py derives it).
+    With PRNG noise sample s's lanes key on the virtual pixel id ``pixel +
+    (sample0 + s) * full_height * full_width``, so every uniform is the same
+    however samples are grouped into wavefronts or rows into tiles; TILED
+    noise decodes the pixel from the id and takes one sample a wavefront.
+
+    The pipeline is the reference's: on the kernel path (``intersector ==
+    "bvh"`` and ``use_pallas``) pixels run in block order and, with
+    cfg.sort_rays, each secondary bounce is sorted, carries the previous
+    bounce's deferred NEE pack and runs on the live-prefix ladder
+    (cfg.prefix_sort: the sort itself at the rung's width;
+    cfg.sort_bounce_skip: no sort before the listed bounces).  Otherwise
+    pixels run row-major, unsorted, with each bounce's shadow query traced
+    in the bounce and no ladder.
+
     ``with_ray_count`` also returns the EXACT number of rays the traversal
     processed (live path rays per bounce + live NEE shadow rays) as an int64
-    tensor — the Mrays/s numerator.  ``timer`` (render/timing.py) records the
-    sort, walks and whole sample as CUDA-event spans.
-
-    With cfg.fuse_shadow_walk each secondary bounce makes one
-    ``intersect.fused`` call for its nearest hit and the previous bounce's
-    shadow query (the any-hit hook is then unused, as in the reference);
-    the traced-ray count is the same in both forms."""
+    tensor -- the Mrays/s numerator.  ``timer`` (render/timing.py) records
+    the sort, walks and whole sample as CUDA-event spans.  With
+    cfg.fuse_shadow_walk each secondary bounce makes one ``intersect.fused``
+    call for its nearest hit and the previous bounce's shadow query."""
     check_supported(cfg)
     span = timer.span if timer is not None else lambda name: contextlib.nullcontext()
     if timer is not None:
@@ -477,69 +517,127 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         # other configuration than the one asked for
         raise ValueError("cfg.fuse_shadow_walk needs an intersector with a "
                          "fused walk (ops/hopper_traverse.py:make_cuda_intersector)")
+    full_height = full_height or height
+    full_width = full_width or width
+    npix_full = full_height * full_width
+    # block order, sorts, deferred NEE and the ladder only on the kernel
+    # path (the reference's rule; the RNG keys on absolute pixel ids, so
+    # the order never changes the image)
+    pallas_path = cfg.intersector == "bvh" and cfg.use_pallas
+    do_sort = cfg.sort_rays and pallas_path
     eps = cfg.distance_epsilon
     dev = scene.p0.device
+    spectrum = cfg.spectrum_samples
     with span("sample"):
-        order = make_order(height, width, 0, cfg.traversal_tile, device=dev)
-        pids = pids_from_order(order, width)
-        jitter = camera_jitter(fold_in(key, 0xC0FFEE), frame_index, pids)
-        origins, directions = generate_rays_flat(
-            camera, order.rows, order.cols, jitter[0:2], height, width,
-            lens_u=jitter[2:4])
-        state = initial_path_state(origins, directions, cfg.spectrum_samples, pids)
-        wmin, winv = scene_sort_bounds(scene)
+        order = make_order(height, width, row0, cfg.traversal_tile if pallas_path else None,
+                           device=dev)
+        pids = pids_from_order(order, full_width)
+        rows, cols = order.rows, order.cols
+        if cfg.noise_mode == NoiseMode.PRNG:
+            pids = torch.cat([(pids + (sample0 + s) * npix_full) & 0xFFFFFFFF
+                              for s in range(samples)])
+            rows, cols = rows.repeat(samples), cols.repeat(samples)
+        elif samples != 1:
+            raise ValueError("sample fusion requires PRNG noise")
+        else:
+            sample0 = 0
+        jitter = camera_jitter(cfg, fold_in(key, 0xC0FFEE), frame_index, pids,
+                               full_height, full_width)
+        origins, directions = generate_rays_flat(camera, rows, cols, jitter[0:2],
+                                                 full_height, full_width,
+                                                 lens_u=jitter[2:4])
+        state = initial_path_state(origins, directions, spectrum, pids)
 
         def shade(b, st, coherent=False, hit=None):
-            uniforms = bounce_uniforms(key, frame_index, b, st.pixel,
-                                       with_env=scene.env is not None)
-            return trace_bounce(scene, cfg, intersect, b, st, uniforms,
-                                coherent=coherent, hit=hit)
+            uniforms = bounce_uniforms(cfg, key, frame_index, b, st.pixel, full_height,
+                                       full_width, with_env=scene.env is not None)
+            return trace_bounce(scene, cfg, intersect, b, st, uniforms, with_stats=True,
+                                coherent=coherent, defer_shadow=do_sort, hit=hit)
 
-        def stage(b, st, pk):
-            """Resolve the previous bounce's shadow pack and shade bounce b;
-            with the fused walk both queries share one launch (the
-            reference's two per-bounce intersection encodes,
-            renderer/Renderer.mm:519-523,545-553, collapsed)."""
-            if fused is None:
-                return shade(b, resolve_shadow(intersect, st, pk, eps))
-            hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
-                               pk.ok, pk.cap, pk.target)
-            st = st._replace(
-                radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
-            return shade(b, st, hit=hit)
+        if not do_sort:
+            # bounce 0 is camera-coherent already
+            state, stats = shade(0, state, coherent=True)
+            nrays = stats["path"] + stats["shadow"]
+            for b in range(1, cfg.max_path_length):
+                state, stats = shade(b, state)
+                nrays = nrays + stats["path"] + stats["shadow"]
+        else:
+            wmin, winv = scene_sort_bounds(scene)
 
-        # bounce 0 is camera-coherent already (block order)
-        state, pack, stats = shade(0, state, coherent=True)
-        nrays = stats["path"] + stats["shadow"]
-        sizes = ladder_sizes(state.alive.shape[0], cfg)
-        for b in range(1, cfg.max_path_length):
+            def stage(b, st, pk):
+                """Resolve the previous bounce's shadow pack and shade bounce
+                b; with the fused walk both queries share one launch (the
+                reference's two per-bounce intersection encodes,
+                renderer/Renderer.mm:519-523,545-553, collapsed)."""
+                if fused is None:
+                    return shade(b, resolve_shadow(intersect, st, pk, eps))
+                hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
+                                   pk.ok, pk.cap, pk.target)
+                st = st._replace(
+                    radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
+                return shade(b, st, hit=hit)
+
+            def cut(st, pk, s):
+                return (st, pk) if s == sizes[0] else (_prefix(st, s), _prefix(pk, s))
+
             # one sort carries the next path wavefront and the previous
             # bounce's NEE pack (same hit point); the pack resolves after it
-            with span("sort"):
-                state, pack = sort_wavefront(state, wmin, winv, pack)
-            s = sizes[0]
-            if len(sizes) > 1:
-                # every live lane sits in the sorted prefix: take the
-                # shortest ladder width that holds them all
-                live = int(state.alive.sum())
-                s = sizes[sum(live <= w for w in sizes[1:])]
-            st, pk = (state, pack) if s == sizes[0] else (
-                _prefix(state, s), _prefix(pack, s))
-            st, pk, stats = stage(b, st, pk)
-            nrays = nrays + stats["path"] + stats["shadow"]
-            if s == sizes[0]:
-                state, pack = st, pk
-            else:
-                # dead suffix lanes are untouched by a bounce (every update
-                # is alive-masked), so splicing the prefix back is exact
-                state, pack = _splice(state, st), _splice(pack, pk)
-        # the final bounce's pack is empty by construction: NEE is gated by
-        # bounce + 1 < max_path_length (reference: renderer/Shaders.metal:158)
+            state, pack, stats = shade(0, state, coherent=True)
+            nrays = stats["path"] + stats["shadow"]
+            sizes = ladder_sizes(state.alive.shape[0], cfg)
+            prefix_sort = cfg.prefix_sort and len(sizes) > 1
+            skip = ({int(x) for x in cfg.sort_bounce_skip.split(",")}
+                    if cfg.sort_bounce_skip else set())
+            rung = 0
+            for b in range(1, cfg.max_path_length):
+                if prefix_sort:
+                    # the sort runs at the rung's width: bounce b's live
+                    # lanes sit in the prefix the previous sort compacted
+                    # them into, and dead lanes never revive, so the next
+                    # rung is known before this sort (it trails the eager
+                    # ladder by at most one bounce)
+                    live = int(state.alive.sum())
+                    s = sizes[rung]
+                    st, pk = cut(state, pack, s)
+                    with span("sort"):
+                        st, pk = sort_wavefront(st, wmin, winv, pk)
+                    rung = _rung(live, sizes)
+                else:
+                    if b not in skip:
+                        with span("sort"):
+                            state, pack = sort_wavefront(state, wmin, winv, pack)
+                        if len(sizes) > 1:
+                            # every live lane sits in the sorted prefix
+                            rung = _rung(int(state.alive.sum()), sizes)
+                    # a skipped sort keeps the last sorted rung: a bounce
+                    # only kills lanes, so every live lane is still inside it
+                    s = sizes[rung]
+                    st, pk = cut(state, pack, s)
+                st, pk, stats = stage(b, st, pk)
+                nrays = nrays + stats["path"] + stats["shadow"]
+                if s == sizes[0]:
+                    state, pack = st, pk
+                else:
+                    # dead suffix lanes are untouched by a bounce (every
+                    # update is alive-masked), so splicing the prefix back
+                    # is exact
+                    state, pack = _splice(state, st), _splice(pack, pk)
+            # the final bounce's pack is empty by construction: NEE is gated
+            # by bounce + 1 < max_path_length (renderer/Shaders.metal:158)
 
-        # raster restore: pixel ids are unique, so one scatter is exact
-        flat = torch.zeros((cfg.spectrum_samples, height * width), device=dev)
-        flat[:, state.pixel] = state.radiance
-        img = flat.reshape(cfg.spectrum_samples, height, width).permute(1, 2, 0)
+        # raster restore: lane -> (sample, pixel of this tile) is unique in
+        # every pipeline and lane order, so one scatter is exact; the samples
+        # then sum in order
+        npix = height * width
+        slot = ((state.pixel // npix_full - sample0) * npix
+                + state.pixel % npix_full - row0 * full_width)
+        flat = torch.zeros((spectrum, samples * npix), device=dev)
+        flat[:, slot] = state.radiance
+        planes = flat.reshape(spectrum, samples, npix).unbind(1)
+        total = planes[0]
+        for p in planes[1:]:
+            total = total + p
+        img = total.reshape(spectrum, height, width).permute(1, 2, 0)
     if with_ray_count:
         return img, nrays
     return img
