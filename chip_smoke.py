@@ -143,6 +143,24 @@ Phases (any failure raises, so the exit code is not 0):
     profiled a turn): ms per frame and per sample, the walk and sort spans,
     device time and kernels a frame, and the launches a frame and a sample
     of the window and capped walks.
+20. spectral and material path: the user's spectral command,
+    ``cli.main`` at 1920x1080, depth 8, 5 frames with ``--spectrum 16
+    --hero 4 --dispersion 0.0042`` (EXR + PNG; the EXR must read back
+    finite, (1080, 1920, 3)), launching the window and capped walks, and
+    the same with ``--env`` launching the any-hit walk; card frames against
+    the port's own CPU frames (48x64, depth 4, 2 frames; atol 1e-5 on all
+    but 3 pixels) for S = 8, S = 16 with hero 4 and dispersion,
+    bake_materials on Water-plastic, the GGX floor with conductor and
+    plastic Ks, the textured floor and the glass pane with
+    refract_dielectric (the scenes of the reference's own tests, written
+    to a temporary directory); at 1080p, depth 8, frame 0: hero (S = 16, C
+    = 4) fuse 2 against fuse 1 at 2 spp (atol 1e-6, rtol 1e-5), hero with
+    prefix_sort against the default sorts (atol 2e-6), bake_materials
+    (inert on the card) against unbaked (bit-equal), and the GGX and
+    textured scenes finite, each launching the window and capped walks;
+    ``bench --bake-materials`` with its counting walk; then S = 3, S = 16
+    with hero 4 and S = 16 in turns (1 warm-up + 2 timed frames, one
+    staged, one profiled a turn).
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -178,7 +196,9 @@ no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 Water-plastic part of the walk A/B, none of them the launches that compare a
 kernel with its plain version or time it; the window walk, the capped walk
 and the fused walk also carry ``launches_per_sample_fuse2``, their launches
-a sample in a 2-spp frame at fuse 2, from phase 19); the last line is
+a sample in a 2-spp frame at fuse 2, from phase 19, and the window, capped
+and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
+phase 20's spectral CLI path); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -1418,8 +1438,8 @@ def mode_frame(renderer, cfg, what: str, kernels=("window_walk", "capped_walk"))
     from tpu_pathtracer_torch.render.state import init_state, render_frame
 
     with counted_run() as run:
-        st = render_frame(init_state(HEIGHT, WIDTH), renderer.scene, cfg, renderer.camera,
-                          renderer._intersect)
+        st = render_frame(init_state(HEIGHT, WIDTH, samples=cfg.spectrum_samples),
+                          renderer.scene, cfg, renderer.camera, renderer._intersect)
         img = st.accum.cpu().numpy()
     if min(run["launches"][k] for k in kernels) <= 0 or any(run["plain_cuda"].values()):
         raise AssertionError(f"frame mode {what}: expected launches of {kernels}: {run}")
@@ -1597,6 +1617,265 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
     log(f"frame modes phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches_per_sample_fuse2": per_sample, "fuse_turns": fuse,
             "sort_turns": sort}
+
+
+# the small scenes of the reference's own tests of the extensions (written
+# out here: this script imports no test code): the GGX floor under a big
+# light (tests/test_rough_materials.py:_rough_scene), the textured floor
+# (tests/test_texture.py) and the tilted glass pane over a lit floor
+# (tests/test_bsdf.py:test_refract_scene_renders_finite_and_differs)
+QUAD_OBJ = """mtllib scene.mtl
+v -2 0 -2
+v  2 0 -2
+v  2 0  2
+v -2 0  2
+v -2 1.5 -2
+v  2 1.5 -2
+v  2 1.5  2
+v -2 1.5  2
+vn 0 1 0
+vn 0 -1 0
+usemtl floor
+f 1//1 2//1 3//1
+f 1//1 3//1 4//1
+usemtl lamp
+f 5//2 7//2 6//2
+f 5//2 8//2 7//2
+"""
+ROUGH_MTL = """newmtl floor
+Kd 0.9 0.6 0.3
+Ka 0 0 0
+Ks {ks}
+newmtl lamp
+Kd 0 0 0
+Ka 1 1 1
+Ks 1 0 0
+"""
+TEX_OBJ = """mtllib scene.mtl
+v -2 0 -2
+v  2 0 -2
+v  2 0  2
+v -2 0  2
+v -1 3 -1
+v  1 3 -1
+v  1 3  1
+v -1 3  1
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+vn 0 1 0
+vn 0 -1 0
+usemtl floor
+f 1/1/1 2/2/1 3/3/1
+f 1/1/1 3/3/1 4/4/1
+usemtl lamp
+f 5/1/2 7/3/2 6/2/2
+f 5/1/2 8/4/2 7/3/2
+"""
+TEX_MTL = """newmtl floor
+Kd 1 1 1
+Ka 0 0 0
+Ks 1 0 0
+map_Kd tex.png
+newmtl lamp
+Kd 0 0 0
+Ka 8 8 8
+Ks 1 0 0
+"""
+GLASS_OBJ = """mtllib scene.mtl
+v -3 0 -3
+v  3 0 -3
+v  3 0  3
+v -3 0  3
+v -2 0.2 1.4
+v  2 0.2 1.4
+v  2 2.2 0.4
+v -2 2.2 0.4
+v -2 3.2 -2
+v  2 3.2 -2
+v  2 3.2  0
+v -2 3.2  0
+vn 0 1 0
+vn 0 0.4472 0.8944
+vn 0 -1 0
+usemtl floor
+f 1//1 2//1 3//1
+f 1//1 3//1 4//1
+usemtl glass
+f 5//2 6//2 7//2
+f 5//2 7//2 8//2
+usemtl lamp
+f 9//3 11//3 10//3
+f 9//3 12//3 11//3
+"""
+GLASS_MTL = """newmtl floor
+Kd 0.8 0.2 0.1
+Ka 0 0 0
+Ks 1 0 0
+newmtl glass
+Kd 1 1 1
+Ka 0 0 0
+Ks 0 0 1.5
+newmtl lamp
+Kd 0 0 0
+Ka 3 3 3
+Ks 1 0 0
+"""
+DISPERSION = 0.0042  # Cauchy B (um^2) of BK7
+HERO = {"spectrum_samples": 16, "hero_wavelengths": 4}
+# the spectral and material path's pairs at 1080p, one frame each: (config,
+# partner, (atol, rtol) or None: bit-equal)
+SPECTRAL_PAIRS = {
+    "hero fuse 2 vs fuse 1 (spp 2)": ({**HERO, "samples_per_frame": 2, "fuse_samples": 2},
+                                      {**HERO, "samples_per_frame": 2, "fuse_samples": 1},
+                                      (1e-6, 1e-5)),
+    "hero prefix_sort vs default": ({**HERO, "prefix_sort": True}, HERO, (2e-6, 0.0)),
+    "bake_materials vs unbaked": ({"bake_materials": True}, {}, None),
+}
+
+
+def small_scenes(tmp: str) -> dict:
+    """Write the extension test scenes into ``tmp`` -> {name: (obj path,
+    load_scene keywords)}."""
+    from tpu_pathtracer_torch.io.png import write_png
+
+    def put(name, obj, mtl):
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        for ext, text in (("obj", obj), ("mtl", mtl)):
+            with open(os.path.join(d, f"scene.{ext}"), "w") as fh:
+                fh.write(text)
+        return os.path.join(d, "scene.obj")
+
+    tex = put("textured", TEX_OBJ, TEX_MTL)
+    write_png(os.path.join(os.path.dirname(tex), "tex.png"),
+              np.random.default_rng(3).uniform(0.0, 1.0, (8, 6, 3)).astype(np.float32))
+    return {
+        "GGX conductor": (put("conductor", QUAD_OBJ, ROUGH_MTL.format(ks="0.5 1 0")),
+                          {"rough_materials": True}),
+        "GGX plastic": (put("plastic", QUAD_OBJ, ROUGH_MTL.format(ks="0.3 0 -1.49")),
+                        {"rough_materials": True}),
+        "textured": (tex, {}),
+        "glass pane": (put("glass", GLASS_OBJ, GLASS_MTL), {}),
+    }
+
+
+def phase_spectral(tmp: str, smi: str) -> dict:
+    """The spectral and material path on the card: the user's spectral CLI
+    command at 1080p (S = 16, hero 4, dispersion), and with --env; card
+    frames against the port's CPU frames (48x64, depth 4) for each
+    extension; the 1080p pairs (hero fuse 2 vs fuse 1, hero prefix sorts,
+    baked vs unbaked), the GGX and textured scenes at 1080p; the bench with
+    --bake-materials (an inert field on the card); then three configurations
+    in turns -> the launches a frame of kernels 1, 2 and 4 on the spectral
+    CLI path."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig, bench
+    from tpu_pathtracer_torch.io.exr import read_exr, write_exr
+    from tpu_pathtracer_torch.scene import attach_dispersion, load_scene, scene_path
+
+    t_phase = time.perf_counter()
+    log(f"spectral and material path on {smi}")
+    env = os.path.join(tmp, "spectral-sky.exr")
+    write_exr(env, sky_map(), half=False)
+    per_frame = {}
+    for label, extra, kernels in (
+            ("", [], ("window_walk", "capped_walk")),
+            (" --env", ["--env", env], ("window_walk", "anyhit_walk"))):
+        exr, png = os.path.join(tmp, "spectral.exr"), os.path.join(tmp, "spectral.png")
+        with counted_run() as run:
+            rc, _, sec = run_cli(["--scene", SCENE, "--width", str(WIDTH), "--height",
+                                  str(HEIGHT), "--depth", "8", "--frames", "5",
+                                  "--spectrum", "16", "--hero", "4", "--dispersion",
+                                  str(DISPERSION), "-o", exr, "--png", png] + extra)
+        img, _ = read_exr(exr)
+        la = run["launches"]
+        log(f"  CLI --spectrum 16 --hero 4 --dispersion {DISPERSION}{label} (1080p, depth "
+            f"8, 5 frames): rc {rc}, {sec:.2f} s, EXR {img.shape}, mean "
+            f"{float(img.mean()):.5f}; launches a frame "
+            + ", ".join(f"{k} {la[k] / 5:g}" for k in
+                        ("window_walk", "capped_walk", "anyhit_walk")))
+        if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
+                or img.mean() <= 0 or not os.path.exists(png)
+                or min(la[k] for k in kernels) <= 0 or any(run["plain_cuda"].values())):
+            raise AssertionError(f"spectral CLI{label}: rc {rc}, {run}")
+        for k in kernels:
+            per_frame[k] = la[k] / 5
+
+    atol, allowed = CARD_VS_CPU
+    scenes = small_scenes(tmp)
+    cases = {
+        "S 8": (lambda dev: load_scene(scene_path("cornellbox"), samples=8, device=dev),
+                {"spectrum_samples": 8}),
+        "S 16, hero 4, dispersion": (
+            lambda dev: attach_dispersion(load_scene(scene_path(SCENE), samples=16,
+                                                     device=dev), DISPERSION), HERO),
+        "bake_materials": (lambda dev: load_scene(scene_path(SCENE), device=dev),
+                           {"bake_materials": True}),
+        **{name: ((lambda dev, p=path, kw=kw: load_scene(p, device=dev, **kw)),
+                  {"refract_dielectric": True} if name == "glass pane" else {})
+           for name, (path, kw) in scenes.items()},
+    }
+    for what, (make, kw) in cases.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            with counted_run() as run:
+                r = Renderer(make(dev), 64, 48, RenderConfig(max_path_length=4, **kw),
+                             device=dev)
+                r.run(2)
+            got[dev] = r.image()
+            if dev == "cuda" and (
+                    min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+                    or any(run["plain_cuda"].values())):
+                raise AssertionError(f"{what} card frame: {run}")
+        d = np.abs(got["cuda"] - got["cpu"]).max(axis=2)
+        off = int((d > atol).sum())
+        log(f"  {what}: card frame vs the port's CPU frame (48x64, depth 4, 2 frames, "
+            f"S {got['cuda'].shape[2]}): max |diff| {float(d.max()):.3g}, {off} pixels past "
+            f"atol {atol:g}")
+        if off > allowed or not np.isfinite(got["cuda"]).all() or got["cuda"].mean() <= 0:
+            raise AssertionError(f"{what}: card frame differs from the CPU frame")
+
+    scene16 = load_scene(scene_path(SCENE), samples=16)
+    scene3 = load_scene(scene_path(SCENE))
+    for what, (kw_a, kw_b, tol) in SPECTRAL_PAIRS.items():
+        scene = scene16 if "hero" in what else scene3
+        (a, la), (b, _) = (mode_frame(Renderer(scene, WIDTH, HEIGHT, cfg), cfg, what)
+                           for cfg in (RenderConfig(**MODE_BASE, **kw) for kw in (kw_a, kw_b)))
+        d = float(np.abs(a - b).max())
+        ok = np.array_equal(a, b) if tol is None else np.allclose(a, b, atol=tol[0],
+                                                                  rtol=tol[1])
+        log(f"  {what} (1080p, depth 8, frame 0): max |diff| {d:.3g}, "
+            f"{'bit-equal' if tol is None else f'atol {tol[0]:g}, rtol {tol[1]:g}'}; "
+            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+        if not ok:
+            raise AssertionError(f"{what}: max |diff| {d}")
+    for name in ("GGX conductor", "GGX plastic", "textured"):
+        path, kw = scenes[name]
+        img, la = mode_frame(Renderer(load_scene(path, **kw), WIDTH, HEIGHT),
+                             RenderConfig(**MODE_BASE), name)
+        log(f"  {name} at 1080p, depth 8, frame 0: finite, mean {float(img.mean()):.5f}; "
+            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+    del scene16, scene3
+
+    buf = io.StringIO()
+    with counted_run() as run, contextlib.redirect_stdout(buf):
+        rc = bench.main(["--width", str(WIDTH), "--height", str(HEIGHT), "--depth", "8",
+                         "--bake-materials", "--frames", "2", "--warmup", "1"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"  bench --bake-materials: {line}")
+    out = json.loads(line)
+    want = ("window_walk", "capped_walk", "window_walk_counts")
+    if (rc or not out["finite"] or "utilization" not in out
+            or min(run["launches"][k] for k in want) <= 0
+            or any(run["plain_cuda"].values())):
+        raise AssertionError(f"bench --bake-materials: rc {rc}, {out}, {run}")
+
+    log(f"spectral turns on {smi} ({WIDTH}x{HEIGHT}, depth 8)")
+    configs = {"S 3": {}, "S 16, hero 4": HERO, "S 16": {"spectrum_samples": 16}}
+    turns = mode_turns("spectral", tmp, configs)
+    log(f"spectral phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_per_frame_spectral": per_frame, "turns": turns}
 
 
 def terrain_renderer(scene, **kw):
@@ -2576,11 +2855,15 @@ def main() -> int:
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
         modes = phase_frame_modes(tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        spectral = phase_spectral(tmp, smi)["launches_per_frame_spectral"]
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])
         if k["name"] in modes["launches_per_sample_fuse2"]:
             k["launches_per_sample_fuse2"] = modes["launches_per_sample_fuse2"][k["name"]]
+        if k["name"] in spectral:
+            k["launches_per_frame_spectral"] = spectral[k["name"]]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

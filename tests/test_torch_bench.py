@@ -67,7 +67,7 @@ def test_bench_prints_one_line(flags, cfg):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1 item 12"), (["--bake-materials"], "queue 1 item 10"),
+    (["--mesh", "2x1"], "queue 1 item 12"),
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_bench_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
@@ -81,12 +81,13 @@ def test_bench_unported_flags_raise(flags, item):
     (["--prefix-sort"], {"prefix_sort": True}),
     (["--sort-skip", "1"], {"sort_bounce_skip": "1"}),
     (["--cull-zero-nee"], {"cull_zero_nee": True}),
+    (["--bake-materials"], {"bake_materials": True}),
 ], ids=lambda x: " ".join(x) if isinstance(x, list) else None)
 def test_bench_frame_mode_flags(flags, cfg):
-    """The frame-mode flags map to their RenderConfig fields as the root
-    bench.py's do: the line's ray count is the exact count of that config,
-    its metric names the spp, and --spp > 1 adds the utilization block's
-    density caveat."""
+    """The frame-mode flags and --bake-materials map to their RenderConfig
+    fields as the root bench.py's do: the line's ray count is the exact
+    count of that config, its metric names the spp, and --spp > 1 adds the
+    utilization block's density caveat."""
     out = run_bench(TINY + flags)
     spp = cfg.get("samples_per_frame", 1)
     assert out["finite"] and out["metric"].endswith(f"_{spp}spp")

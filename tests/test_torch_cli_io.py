@@ -133,9 +133,7 @@ def test_cli_env_render_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spectrum", "8"], "queue 1 item 10"), (["--hero", "3"], "queue 1 item 10"),
-    (["--dispersion", "0.004"], "queue 1 item 10"), (["--refract"], "queue 1 item 10"),
-    (["--rough-materials"], "queue 1 item 10"), (["--mesh", "2x1"], "queue 1 item 12"),
+    (["--mesh", "2x1"], "queue 1 item 12"),
     (["--checkpoint", "state_dir"], "queue 1 item 9"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_cli_unported_flag_raises(flags, item, tmp_path):
@@ -157,20 +155,38 @@ def test_cli_unported_flag_raises(flags, item, tmp_path):
     (["--row-tiles", "2"], {"row_tiles": 2}), (["--prefix-sort"], {"prefix_sort": True}),
     (["--cull-zero-nee"], {"cull_zero_nee": True}),
     (["--sort-skip", "1"], {"sort_bounce_skip": "1"}),
+    (["--spectrum", "8"], {"spectrum_samples": 8, "hero_wavelengths": 0}),
+    (["--spectrum", "8", "--hero", "3"], {"spectrum_samples": 8, "hero_wavelengths": 3}),
+    (["--refract"], {"refract_dielectric": True}),
+    (["--spectrum", "8", "--dispersion", "0.004"], {"mat_ior_bins": (8, 9)}),
+    (["--rough-materials"], {"rough_materials": True}),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
 def test_cli_frame_mode_flags(flags, want, tmp_path, monkeypatch):
-    """The frame-mode flags map to the RenderConfig fields the reference's
-    cli.py:174-191 sets, and the run writes its PNG."""
-    from tpu_pathtracer_torch import renderer
+    """The frame-mode, spectral and material flags map to the RenderConfig
+    fields the reference's cli.py:174-221 sets (--dispersion: the scene's
+    per-bin IoR table, by its shape; --rough-materials: load_scene's
+    argument), and the run writes its PNG."""
+    from tpu_pathtracer_torch import renderer, scene
 
-    seen = []
+    seen, loads = [], []
     step = renderer.Renderer.step
     monkeypatch.setattr(renderer.Renderer, "step",
-                        lambda self: seen.append(self.cfg) or step(self))
+                        lambda self: seen.append(self) or step(self))
+    load = scene.load_scene
+    monkeypatch.setattr(scene, "load_scene", lambda *a, **kw: loads.append(kw) or load(*a, **kw))
     png = str(tmp_path / "x.png")
     assert cli.main(["--platform", "cpu", "--width", "8", "--height", "8", "--frames",
                      "1", "--depth", "2", "--png", png] + flags) == 0
-    assert seen and {k: getattr(seen[0], k) for k in want} == want
+    assert seen and loads
+    got = {}
+    for k in want:
+        if k == "mat_ior_bins":
+            got[k] = tuple(seen[0].scene.mat_ior_bins.shape)
+        elif k == "rough_materials":
+            got[k] = loads[0]["rough_materials"]
+        else:
+            got[k] = getattr(seen[0].cfg, k)
+    assert got == want
     assert tpng.read_png(png).shape == (8, 8, 3)
 
 

@@ -1,12 +1,13 @@
 """tpu_pathtracer_torch's config against the reference's, its JAX-free
-import, and the NotImplementedError of every configuration it does not
-cover yet."""
+import, every configuration the port covers, and the NotImplementedError of
+the entry points it does not cover yet."""
 
 import dataclasses
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from tpu_pathtracer import config as jcfg
@@ -56,13 +57,24 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    {"spectrum_samples": 8}, {"hero_wavelengths": 2},
+    {"spectrum_samples": 8}, {"spectrum_samples": 16, "hero_wavelengths": 4},
     {"refract_dielectric": True}, {"bake_materials": True},
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_unsupported_config_raises(kw):
-    cfg = tcfg.RenderConfig(**kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue \d item \d+"):
-        tcfg.check_supported(cfg)
+def test_spectral_material_configs_are_supported(kw):
+    """The spectral and material configurations are ported: check_supported
+    passes (nothing is left in _UNSUPPORTED) and a Renderer frame is finite
+    with the accumulator's S bins (tests/test_torch_spectral.py and
+    tests/test_torch_materials.py hold each against the reference)."""
+    from tpu_pathtracer_torch import Renderer
+
+    assert tcfg._UNSUPPORTED == ()
+    cfg = tcfg.RenderConfig(max_path_length=2, **kw)
+    tcfg.check_supported(cfg)
+    r = Renderer("cornellbox", 8, 8, cfg, device="cpu")
+    r.run(1)
+    img = r.image()
+    assert img.shape == (8, 8, cfg.spectrum_samples) and np.isfinite(img).all()
+    assert r.image(rgb=True).shape == (8, 8, 3)
 
 
 @pytest.mark.parametrize("kw", [
@@ -130,16 +142,15 @@ def test_unsupported_entry_points_raise():
     match = r"ROADMAP\.md queue 1 item \d+"
     with pytest.raises(NotImplementedError, match=match):
         Renderer("cornellbox", 8, 8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        Renderer("cornellbox", 8, 8, tcfg.RenderConfig(bake_materials=True), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        load_scene(scene_path("cornellbox"), rough_materials=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        load_scene(scene_path("cornellbox"), samples=8, device="cpu")
+    # the spectral and material entry points are ported: each call succeeds
+    Renderer("cornellbox", 8, 8, tcfg.RenderConfig(bake_materials=True), device="cpu")
+    assert load_scene(scene_path("cornellbox"), rough_materials=True,
+                      device="cpu").mat_roughness is None  # no rough MTL record
+    assert load_scene(scene_path("cornellbox"), samples=8,
+                      device="cpu").mat_diffuse.shape[0] == 8
     scene = load_scene(scene_path("cornellbox"), device="cpu")
     from tpu_pathtracer_torch.accel import build_layout
-    with pytest.raises(NotImplementedError, match=match):
-        build_layout(scene, bake_materials=True)
+    assert build_layout(scene).num_tris == scene.p0.shape[1]
     with pytest.raises(ValueError, match="lies on"):
         Renderer(scene, 8, 8, device="meta")
     # the thin lens is ported: an aperture renders, and the Orbax checkpoint

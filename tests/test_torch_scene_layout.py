@@ -27,14 +27,19 @@ def scenes(request):
 
 def _tensor_fields(scene):
     """Every field but the optional environment light (None until
-    attach_env; tests/test_torch_envlight.py holds it)."""
+    attach_env; tests/test_torch_envlight.py holds it) and the extensions a
+    bundled scene leaves None (textures, dispersion bins, roughness;
+    tests/test_torch_materials.py holds them)."""
     assert scene.env is None
-    return [name for name in scene._fields if name != "env"]
+    return [name for name in scene._fields
+            if name != "env" and getattr(scene, name) is not None]
 
 
 def test_scene_fields_exact(scenes):
     js, ts = scenes
     assert js.env is None
+    assert all(getattr(js, name) is None for name in ts._fields
+               if getattr(ts, name) is None)
     for name in _tensor_fields(ts):
         ref = np.asarray(getattr(js, name))
         got = getattr(ts, name).numpy()

@@ -126,3 +126,17 @@ def nee_shadow_rays(scene, n: int, seed: int, eps: float = 1e-4,
     return (origin.astype(np.float32), d.astype(np.float32), active,
             np.where(env, 1e30, cap).astype(np.float32),
             np.where(env, -1, tgt).astype(np.int32))
+
+
+def assert_frames_agree(got, want, atol: float = 1e-5, allowed: int = 3) -> None:
+    """Two accumulated frames (H, W, S): the same shape, finite, and within
+    ``atol`` on every pixel but at most ``allowed``.  The handful of pixels
+    is the one-lane band of ROADMAP.md queue 3: a NEE lane whose shadow
+    query flips at a triangle boundary (the port tests Baldwin-Weber
+    planes where the reference's CPU frame tests Moller-Trumbore, and XLA
+    contracts multiply-adds), moving one pixel by up to its whole NEE term."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    off = np.abs(got - want).max(axis=-1) > atol
+    assert off.sum() <= allowed, (int(off.sum()), float(np.abs(got - want).max()))

@@ -12,21 +12,15 @@ from . import lbvh, native
 from .layout import BVHLayout, layout_arrays, layout_to  # noqa: F401
 
 
-def build_layout(scene: Scene, leaf_size: int = 16, builder: str = "auto",
-                 bake_materials: bool = False) -> BVHLayout:
+def build_layout(scene: Scene, leaf_size: int = 16, builder: str = "auto") -> BVHLayout:
     """Build the traversal-ready BVH for a scene, on the scene's device.
 
     ``builder``: "sah" (the native C++ binned-SAH build, best trees),
     "lbvh" (the Morton/Karras build of accel/lbvh.py, run on the scene's
     device), or "auto" (SAH when the native library is available, the LBVH
-    otherwise), as the reference's.  Material-baked rows are not ported yet
-    (ROADMAP.md queue 1 item 10)."""
+    otherwise), as the reference's."""
     if builder not in ("auto", "sah", "lbvh"):
         raise ValueError(f"builder={builder!r}: expected 'auto', 'sah' or 'lbvh'")
-    if bake_materials:
-        raise NotImplementedError(
-            "bake_materials is not ported to tpu_pathtracer_torch yet "
-            "(ROADMAP.md queue 1 item 10)")
     cpu = lambda t: t.cpu().numpy()  # noqa: E731
     if builder == "sah" or (builder == "auto" and native.available()):
         bvh = native.build_sah(cpu(scene.p0), cpu(scene.p1), cpu(scene.p2), leaf_size)

@@ -55,7 +55,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="samples per frame (fused into wavefronts of up to "
                          "--fuse samples)")
     ap.add_argument("--bake-materials", action=argparse.BooleanOptionalAction,
-                    default=None, help="baked-row material resolve (not ported yet)")
+                    default=None,
+                    help="override cfg.bake_materials either way "
+                         "(TPU-only, inert in the port)")
     ap.add_argument("--row-tiles", type=int, default=1,
                     help="sequential row tiles per frame (cfg.row_tiles)")
     ap.add_argument("--fuse", type=int, default=None,
@@ -101,7 +103,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
         (args.mesh is not None, "--mesh", "queue 1 item 12"),
-        (bool(args.bake_materials), "--bake-materials", "queue 1 item 10"),
     ]
 
 
@@ -130,6 +131,8 @@ def main(argv=None) -> int:
     label = device_label(device)
 
     over = {}
+    if args.bake_materials is not None:
+        over["bake_materials"] = args.bake_materials
     if args.prefix_sort is not None:
         over["prefix_sort"] = args.prefix_sort
     if args.sort_skip is not None:

@@ -4,6 +4,9 @@ The port of ``tpu_pathtracer/cli.py``: the same flags with the same names
 and defaults.  Flags whose feature is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; the TPU-only
 ``--compile-cache`` and ``--sort-lowering`` are accepted and change nothing.
+``--spectrum N`` without ``--hero`` runs on every platform: the reference's
+exit for it guards the TPU sort's compile time, which the card does not
+have.
 
 Examples:
     python -m tpu_pathtracer_torch.cli --scene cornellbox --frames 64 -o out.exr
@@ -40,9 +43,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--frames", type=int, default=32)
     p.add_argument("--spp-per-frame", type=int, default=1)
     p.add_argument("--spectrum", type=int, default=3,
-                   help="spectrum bins S (only 3, the RGB stand-in, is ported)")
+                   help="spectrum bins S (3 = the reference's RGB stand-in)")
     p.add_argument("--hero", type=int, default=0,
-                   help="hero-wavelength bins per path (not ported yet)")
+                   help="hero-wavelength bins per path (0 = trace all S)")
     p.add_argument("--fuse-samples", type=int, default=None,
                    help="max samples fused into one wavefront (default: "
                         "cfg.fuse_samples)")
@@ -72,12 +75,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="focal-plane distance along the view axis "
                         "(cornellbox back wall ~ 3.35)")
     p.add_argument("--refract", action="store_true",
-                   help="Snell-bent smooth-dielectric transmission (not "
-                        "ported yet)")
+                   help="Snell-bent smooth-dielectric transmission instead "
+                        "of the reference's straight-through quirk")
     p.add_argument("--rough-materials", action="store_true",
-                   help="the GGX extension materials (not ported yet)")
+                   help="classify MTL roughness in (0,1) to the GGX "
+                        "extension materials (the reference's TODO stubs "
+                        "fall back to diffuse)")
     p.add_argument("--dispersion", type=float, default=None, metavar="B_UM2",
-                   help="Cauchy B (um^2) for dispersive fresnel (not ported yet)")
+                   help="Cauchy B (um^2) for dispersive fresnel on plastic/"
+                        "dielectric materials (use with --spectrum > 3; "
+                        "~0.0042 for BK7 glass)")
     p.add_argument("--env-rotation", type=float, default=0.0,
                    help="azimuth rotation of the env map in radians")
     p.add_argument("-o", "--exr", help="write accumulated radiance EXR")
@@ -135,11 +142,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 # Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
-        (args.spectrum != 3, "--spectrum other than 3", "queue 1 item 10"),
-        (args.hero != 0, "--hero", "queue 1 item 10"),
-        (args.dispersion is not None, "--dispersion", "queue 1 item 10"),
-        (args.refract, "--refract", "queue 1 item 10"),
-        (args.rough_materials, "--rough-materials", "queue 1 item 10"),
         (args.mesh is not None, "--mesh", "queue 1 item 12"),
         *((bool(path) and not path.endswith(".npz"),
            f"{flag} {path} (the Orbax directory form)", "queue 1 item 9")
@@ -159,7 +161,7 @@ def main(argv=None) -> int:
     device = device_for(args.platform)
 
     from .renderer import Renderer
-    from .scene import attach_env, load_scene, scene_path
+    from .scene import attach_dispersion, attach_env, load_scene, scene_path
 
     # reference: dispatch size = drawable size * CONTENT_SCALE
     # (renderer/Renderer.mm:642-643)
@@ -176,6 +178,7 @@ def main(argv=None) -> int:
         noise_mode=NoiseMode.TILED if args.noise == "tiled" else NoiseMode.PRNG,
         sampler="r2" if args.noise == "r2" else "prng",
         reference_quirks=not args.no_quirks,
+        refract_dielectric=args.refract,
         intersector=args.intersector,
         use_pallas=not args.no_pallas,
         comparison_mode=ComparisonMode(args.compare_mode),
@@ -185,12 +188,16 @@ def main(argv=None) -> int:
         cull_zero_nee=args.cull_zero_nee,
         sort_lowering=args.sort_lowering,
         sort_bounce_skip=args.sort_skip,
+        spectrum_samples=args.spectrum,
+        hero_wavelengths=args.hero,
     )
     scene = load_scene(scene_path(args.scene), samples=cfg.spectrum_samples,
-                       device=device)
+                       rough_materials=args.rough_materials, device=device)
     if args.env:
         scene = attach_env(scene, args.env, strength=args.env_strength,
                            rotation=args.env_rotation)
+    if args.dispersion is not None:
+        scene = attach_dispersion(scene, args.dispersion)
     camera = None
     if args.aperture > 0.0:
         from .models.camera import Camera

@@ -60,8 +60,8 @@ class RenderConfig:
     comparison_mode: ComparisonMode = ComparisonMode.DISABLED
     comparison_scale: float = 10.0         # COMPARISON_SCALE
     spectrum_samples: int = 3              # SPECTRUM_SAMPLES (Spectrum.h:3)
-    # Hero-wavelength spectral sampling (spectrum_samples > 3 only); 0
-    # disables.  Not ported yet.
+    # Hero-wavelength spectral sampling (spectrum_samples > 3 only): each
+    # path traces this many of the S bins; 0 traces them all.
     hero_wavelengths: int = 0
 
     # --- framework extensions (no reference equivalent) ---
@@ -70,7 +70,8 @@ class RenderConfig:
     sampler: str = "prng"
     # Replicate the reference's estimator quirks (models/bsdf.py).
     reference_quirks: bool = True
-    # Snell-bent smooth-dielectric transmission (extension; not ported yet).
+    # Snell-bent smooth-dielectric transmission (extension; the reference
+    # transmits straight through).
     refract_dielectric: bool = False
     # Samples per pixel per frame (the reference always renders 1 spp/frame).
     samples_per_frame: int = 1
@@ -129,7 +130,8 @@ class RenderConfig:
     # Big-triangle pre-pass size: test the K largest triangles before the
     # walk to prime best_t (K=0 disables; must be a multiple of 8).
     traversal_prepass: int = 32
-    # Material-baked resolve rows (not ported yet).
+    # TPU-only (inert): material-baked resolve rows.  On the card the unbaked
+    # table gathers give the same frame bit for bit, and faster.
     bake_materials: bool = False
     # TPU-only (inert): XLA lowering of the payload-resolve row gather.
     resolve_gather: str = "rows"
@@ -215,14 +217,8 @@ class RenderConfig:
 
 
 # Each configuration the port does not cover yet, as (predicate, what,
-# ROADMAP.md item that ports it).
-_UNSUPPORTED = (
-    (lambda c: c.spectrum_samples != 3, "spectrum_samples != 3 (dispersion)",
-     "queue 1 item 10"),
-    (lambda c: c.hero_wavelengths > 0, "hero wavelengths", "queue 1 item 10"),
-    (lambda c: c.refract_dielectric, "refract_dielectric", "queue 1 item 10"),
-    (lambda c: c.bake_materials, "bake_materials", "queue 1 item 10"),
-)
+# ROADMAP.md item that ports it); every RenderConfig field is ported.
+_UNSUPPORTED = ()
 
 
 def check_supported(cfg: RenderConfig) -> None:

@@ -16,21 +16,13 @@ from .models.envlight import env_to
 from .render.state import RenderState
 from .scene.scene import Scene, scene_to
 
-# Scene fields of the reference that the port does not carry yet
-# (ROADMAP.md queue 1 item 10).
-_SCENE_EXTENSIONS = ("tri_uv", "mat_tex", "textures", "mat_ior_bins",
-                     "mat_roughness")
-
-
 def scene_from_arrays(d: dict, device="cpu") -> Scene:
-    """The reference's ``Scene._asdict()`` -> the port's :class:`Scene`.
-    ``env`` (the reference's ``EnvLight``, or a dict of its arrays) carries
-    across with its alias tables as they are."""
-    used = [k for k in _SCENE_EXTENSIONS if d.get(k) is not None]
-    if used:
-        raise NotImplementedError(
-            f"scene extensions {used} are not ported to tpu_pathtracer_torch "
-            "yet (ROADMAP.md queue 1 item 10)")
+    """The reference's ``Scene._asdict()`` -> the port's :class:`Scene`,
+    its extensions included: ``tri_uv``, ``mat_tex`` and ``textures``
+    (map_Kd), ``mat_ior_bins`` (dispersion) and ``mat_roughness`` (GGX)
+    carry across as they are, None where the reference has None, and
+    ``env`` (the reference's ``EnvLight``, or a dict of its arrays) with its
+    alias tables."""
     scene = scene_to(d, device)
     env = d.get("env")
     if env is not None:

@@ -117,17 +117,18 @@ def _texel_dir(env: EnvLight, i, j, ju, jv):
     return torch.stack([sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi)])
 
 
-def _read(env: EnvLight, idx):
-    """Texel gathers: flat idx (N,) -> radiance (S, N), pdf_sa (N,)."""
+def _read(env: EnvLight, idx, bins=None):
+    """Texel gathers: flat idx (N,) -> radiance (S, N), or (C, N) under
+    hero sampling (``bins``), and pdf_sa (N,)."""
     s = env.radiance.shape[0]
-    rad = env.radiance.reshape(s, -1)[:, idx]
+    rad = spec.apply_bins(env.radiance.reshape(s, -1)[:, idx], bins)
     pdf = env.pdf_sa.reshape(-1)[idx]
     return rad, pdf
 
 
-def sample_env(env: EnvLight, u_alias, u_jit):
+def sample_env(env: EnvLight, u_alias, u_jit, bins=None):
     """Importance-sample the map: u_alias (N,), u_jit (2, N) uniforms ->
-    (dir (3, N), pdf_sa (N,), radiance (S, N))."""
+    (dir (3, N), pdf_sa (N,), radiance (S|C, N))."""
     eh, ew = env.pdf_sa.shape
     k = eh * ew
     x = u_alias * k
@@ -136,14 +137,14 @@ def sample_env(env: EnvLight, u_alias, u_jit):
     take_alias = frac >= env.alias_p[slot]
     idx = torch.where(take_alias, env.alias_i[slot], slot)
     d = _texel_dir(env, idx // ew, idx % ew, u_jit[0], u_jit[1])
-    rad, pdf = _read(env, idx)
+    rad, pdf = _read(env, idx, bins)
     return d, pdf, rad
 
 
-def eval_env(env: EnvLight, d):
-    """Radiance (S, N) and sampling pdf (N,) toward directions d (3, N),
+def eval_env(env: EnvLight, d, bins=None):
+    """Radiance (S|C, N) and sampling pdf (N,) toward directions d (3, N),
     from the nearest texel."""
-    return _read(env, texel_index(env, d))
+    return _read(env, texel_index(env, d), bins)
 
 
 def texel_index(env: EnvLight, d) -> torch.Tensor:

@@ -22,7 +22,20 @@ from ..ops import rng as rng_ops
 from .order import PixelOrder
 
 _CAMERA_SALT = 0x5CA1AB1E
+_HERO_SALT = 0x4E20
 _ENV_SALT = 0xE57
+
+
+def hero_bins(cfg: RenderConfig, key, frame: int, pids: torch.Tensor) -> torch.Tensor:
+    """(C, N) int64 stratified-rotated wavelength bins of hero sampling: one
+    uniform a path rotates a C-point equidistant set over the S bins, in
+    the reference's float32 arithmetic (``%`` is a floored remainder)."""
+    s = cfg.spectrum_samples
+    c = cfg.hero_wavelengths
+    hu = rng_ops.uniforms(pids, frame, 0, key_salt(key) ^ _HERO_SALT, 1)[0]    # (N,)
+    offs = (torch.arange(c, dtype=torch.float32, device=pids.device) / c)[:, None]
+    return torch.remainder(
+        (torch.remainder(hu[None, :] + offs, 1.0) * s).to(torch.int64), s)
 
 
 def key_salt(key) -> int:

@@ -35,15 +35,18 @@ from ..config import IOR_AIR, NoiseMode, RenderConfig, check_supported
 from ..core.geometry import interpolate
 from ..core.math3d import dot, length, where3
 from ..core.sampling import balance_heuristic, barycentric, select_light_index
+from ..core.spectrum import apply_bins
 from ..models import bsdf as bsdf_lib
+from ..models import ggx
 from ..models.camera import Camera, generate_rays_flat
 from ..models.envlight import eval_env, sample_env
+from ..models.texture import diffuse_modulation
 from ..ops.hopper_traverse import make_cuda_intersector
 from ..ops.intersect import HitShade, intersect_brute, shade_from_scene
 from ..ops.rng import fold_in
 from ..ops.traverse import make_bvh_intersector
 from ..scene.scene import Scene
-from .noise import bounce_uniforms, camera_jitter, pids_from_order
+from .noise import bounce_uniforms, camera_jitter, hero_bins, pids_from_order
 from .order import make_order
 
 IntersectFn = Callable[..., HitShade]
@@ -64,6 +67,9 @@ class PathState(NamedTuple):
     ior: torch.Tensor           # (N,) current medium IoR
     alive: torch.Tensor         # (N,) bool
     pixel: torch.Tensor         # (N,) int64 absolute pixel id of this lane
+    # (C, N) int64 wavelength bins under hero sampling (cfg.hero_wavelengths
+    # > 0); None when every spectrum bin is traced
+    bins: torch.Tensor | None = None
 
 
 class ShadowPack(NamedTuple):
@@ -77,7 +83,9 @@ class ShadowPack(NamedTuple):
     ok: torch.Tensor            # (N,) bool: query live
 
 
-def initial_path_state(origins, directions, samples: int, pixel) -> PathState:
+def initial_path_state(origins, directions, samples: int, pixel, bins=None) -> PathState:
+    """Fresh lanes: unit throughput, no radiance, air; ``samples`` is S, or
+    C under hero sampling (``bins`` (C, N))."""
     num = origins.shape[1]
     dev = origins.device
     return PathState(
@@ -90,7 +98,14 @@ def initial_path_state(origins, directions, samples: int, pixel) -> PathState:
         ior=torch.full((num,), IOR_AIR, device=dev),
         alive=torch.ones(num, dtype=torch.bool, device=dev),
         pixel=pixel,
+        bins=bins,
     )
+
+
+def select_spectrum(table: torch.Tensor, idx: torch.Tensor, bins) -> torch.Tensor:
+    """Spectral table lookup: (S, M) x (N,) -> (S, N), or (C, N) under hero
+    sampling."""
+    return apply_bins(table[:, idx], bins)
 
 
 def _morton5(q: torch.Tensor) -> torch.Tensor:
@@ -139,15 +154,28 @@ def scene_sort_bounds(scene: Scene):
 def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
     """Re-order the wavefront and its shadow pack by :func:`ray_sort_key`,
     pixel id breaking ties: one int64 key ``(key << 32) | pixel`` sorted
-    stably, then one gather per plane -> (state, pack)."""
+    stably, then one gather per plane -> (state, pack).  Hero bins (C, N)
+    ride as one more plane; the TPU's sort-operand limit, which made the
+    reference pack them into uint32 planes, does not apply here."""
     key = (ray_sort_key(state, wmin, winv) << 32) | state.pixel
     perm = torch.sort(key, stable=True).indices
 
     def take(x):
-        return x.index_select(-1, perm)
+        return None if x is None else x.index_select(-1, perm)
 
     return (PathState(*(take(x) for x in state)),
             ShadowPack(*(take(x) for x in pack)))
+
+
+def _conductor_albedo(m_diffuse, m_type, w_i, out_dir):
+    """Spectral throughput factor with rough-conductor Fresnel: Schlick at
+    the half vector (F0 = Kd) replaces the albedo on rough-conductor lanes
+    (the GGX lobe evaluates with F = 1); other materials keep the albedo."""
+    is_rc = (m_type == bsdf_lib.MATERIAL_ROUGH_CONDUCTOR)[None]
+    hv = out_dir - w_i  # v + l with v = -w_i
+    hlen = torch.sqrt(torch.clamp(dot(hv, hv), min=1e-12))
+    cos_vm = torch.clamp(-dot(w_i, hv) / hlen, 0.0, 1.0)
+    return torch.where(is_rc, ggx.schlick(m_diffuse, cos_vm), m_diffuse)
 
 
 def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
@@ -176,10 +204,18 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
 
     tri = torch.where(valid, hit.tri, 0)
     mat = hit.mat
-    m_diffuse = scene.mat_diffuse[:, mat]
-    m_emissive = scene.mat_emissive[:, mat]
+    bins = state.bins
+    m_diffuse = select_spectrum(scene.mat_diffuse, mat, bins)
+    m_emissive = select_spectrum(scene.mat_emissive, mat, bins)
     m_ior = scene.mat_ior[mat]
     m_type = scene.mat_type[mat]
+    # the GGX types; None keeps the parity math untouched
+    m_rough = scene.mat_roughness[mat] if scene.mat_roughness is not None else None
+    if scene.textures is not None:
+        # map_Kd modulation at the interpolated texcoords (an extension; the
+        # reference drops texcoords, renderer/Renderer.mm:365-369)
+        m_diffuse = m_diffuse * diffuse_modulation(scene, tri, hit.u, hit.v, mat, bins,
+                                                   scene.mat_diffuse.shape[0])
     hp, hn = hit.pos, hit.normal
 
     w_i = state.direction
@@ -213,10 +249,12 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         # weight covers both.
         sel_p = env.select_p
         use_env = uniforms["env_select"] < sel_p
-        e_dir, e_pdf, e_rad = sample_env(env, uniforms["env_alias"], uniforms["env_jit"])
+        e_dir, e_pdf, e_rad = sample_env(env, uniforms["env_alias"], uniforms["env_jit"],
+                                         bins)
         nee_dir = where3(use_env, e_dir, to_light)
         light_pdf = torch.where(use_env, e_pdf * sel_p, light_pdf * (1.0 - sel_p))
-        nee_emit = torch.where(use_env[None], e_rad, scene.light_emissive[:, li])
+        nee_emit = torch.where(use_env[None], e_rad,
+                               select_spectrum(scene.light_emissive, li, bins))
         # Below-horizon env samples could only add negative radiance through
         # the signed diffuse eval: gated out.  Area-light lanes keep the
         # reference's ungated behaviour.
@@ -227,11 +265,11 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         target = torch.where(use_env, -1, target)
     else:
         nee_dir = to_light
-        nee_emit = scene.light_emissive[:, li]
+        nee_emit = select_spectrum(scene.light_emissive, li, bins)
         not_self = target != tri
         shadow_cap = dist + 4.0 * eps
     nee_bsdf, nee_mpdf = bsdf_lib.eval_material(
-        m_type, m_ior, w_i, nee_dir, hn, lobe_u, aeps)
+        m_type, m_ior, w_i, nee_dir, hn, lobe_u, aeps, roughness=m_rough)
     nee_weight = balance_heuristic(light_pdf, nee_mpdf)
     light_ok = valid & (light_pdf > 0.0) & not_self
     if bounce + 1 >= cfg.max_path_length:
@@ -241,7 +279,16 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
     nee_scale = torch.where(
         light_ok, nee_weight * nee_bsdf / torch.where(light_ok, light_pdf, 1.0), 0.0
     )
-    nee_contrib = nee_emit * m_diffuse * state.throughput * nee_scale[None]
+    nee_albedo = (m_diffuse if m_rough is None
+                  else _conductor_albedo(m_diffuse, m_type, w_i, nee_dir))
+    nee_contrib = nee_emit * nee_albedo * state.throughput * nee_scale[None]
+    if scene.mat_ior_bins is not None:
+        # dispersive Fresnel (an extension, scene.attach_dispersion): per-bin
+        # reweighting around the scalar-Fresnel lobe choice; the NEE arm
+        # keeps the reference's eta_out = 1.0
+        m_ior_bins = select_spectrum(scene.mat_ior_bins, mat, bins)
+        nee_contrib = nee_contrib * bsdf_lib.dispersion_weights(
+            m_type, m_ior, m_ior_bins, w_i, hn, lobe_u, 1.0)
     if cfg.cull_zero_nee:
         # a shadow ray whose contribution is exactly zero in every bin adds
         # zero clear or occluded: skip its walk (delta lobes always qualify;
@@ -270,7 +317,11 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         emit_lpdf = emit_lpdf * (1.0 - env.select_p)
     emit_lpdf = state.prev_diffuse * emit_lpdf
     emit_weight = balance_heuristic(state.pdf, emit_lpdf)
-    emit_factor = emit_weight * state.pdf if cfg.reference_quirks else emit_weight
+    # The reference's x-pdf emitter quirk is bounded only because its one
+    # finite-pdf lobe is diffuse; a GGX lane's pdf is the unbounded VNDF
+    # density, so scenes with rough materials weight conventionally.
+    quirk = cfg.reference_quirks and m_rough is None
+    emit_factor = emit_weight * state.pdf if quirk else emit_weight
     emit_contrib = (
         m_emissive * state.throughput * torch.where(is_light, emit_factor, 0.0)[None]
     )
@@ -279,22 +330,39 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         # MIS-weighted against the NEE env arm (the conventional weight; the
         # reference's x-pdf quirk applies only to its area lights)
         miss_env = state.alive & ~hit.valid
-        env_rad, env_pdf = eval_env(env, state.direction)
+        env_rad, env_pdf = eval_env(env, state.direction, bins)
         env_lpdf = state.prev_diffuse * env.select_p * env_pdf
         env_w = balance_heuristic(state.pdf, env_lpdf)
         emit_contrib = emit_contrib + (
             env_rad * state.throughput * torch.where(miss_env, env_w, 0.0)[None])
 
     # ---- sample the next bounce (reference: renderer/Shaders.metal:199-211) ----
+    if cfg.refract_dielectric and scene.mat_ior_bins is not None:
+        raise NotImplementedError(
+            "refract_dielectric + attach_dispersion: the per-bin lobe "
+            "reweighting is exact only for straight-through transmission")
     w_o, nb_bsdf, nb_pdf, nb_ior, nb_finite = bsdf_lib.sample_bounce(
         m_type, m_ior, w_i, hn, lobe_u, uniforms["bounce_dir"], state.ior,
-        quirks=cfg.reference_quirks,
+        quirks=cfg.reference_quirks, roughness=m_rough, refract=cfg.refract_dielectric,
     )
     safe_pdf = torch.where(torch.abs(nb_pdf) > cfg.pdf_floor, nb_pdf, cfg.pdf_floor)
-    throughput_scale = m_diffuse * (nb_bsdf / safe_pdf)[None]
+    bounce_albedo = (m_diffuse if m_rough is None
+                     else _conductor_albedo(m_diffuse, m_type, w_i, w_o))
+    throughput_scale = bounce_albedo * (nb_bsdf / safe_pdf)[None]
+    if scene.mat_ior_bins is not None:
+        # the bounce arm: eta_out is the ray's tracked IoR
+        throughput_scale = throughput_scale * bsdf_lib.dispersion_weights(
+            m_type, m_ior, m_ior_bins, w_i, hn, lobe_u, state.ior)
 
+    origin_off = hn * eps
+    if cfg.refract_dielectric:
+        # Snell-transmitted lanes leave on the far side of the surface, or
+        # they re-hit their own interface (t = eps/|cos| >= eps survives the
+        # kill rule); parity mode keeps the reference's +n offset
+        # (renderer/Shaders.metal:205)
+        origin_off = torch.where(dot(w_o, hn) < 0.0, -eps, eps)[None] * hn
     new_state = PathState(
-        origin=where3(valid, hp + hn * eps, state.origin),
+        origin=where3(valid, hp + origin_off, state.origin),
         direction=where3(valid, w_o, state.direction),
         throughput=where3(valid, state.throughput * throughput_scale, state.throughput),
         radiance=state.radiance + emit_contrib,
@@ -303,6 +371,7 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         ior=torch.where(valid, nb_ior, state.ior),
         alive=valid,
         pixel=state.pixel,
+        bins=bins,
     )
     # rays the traversal processes (the reference's MPS skips lanes with
     # maxDistance < 0)
@@ -439,14 +508,16 @@ def ladder_sizes(n_lanes: int, cfg: RenderConfig) -> list[int]:
 
 
 def _prefix(tensors: NamedTuple, s: int):
-    return type(tensors)(*(x[..., :s].contiguous() for x in tensors))
+    return type(tensors)(*(None if x is None else x[..., :s].contiguous()
+                           for x in tensors))
 
 
 def _splice(full: NamedTuple, prefix: NamedTuple):
     """Write the prefix lanes back in place (the full tensors are the sort's
-    fresh outputs, owned here)."""
+    fresh outputs, owned here); a None field (no hero bins) stays None."""
     for f, p in zip(full, prefix):
-        f[..., :p.shape[-1]] = p
+        if p is not None:
+            f[..., :p.shape[-1]] = p
     return full
 
 
@@ -546,7 +617,13 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         origins, directions = generate_rays_flat(camera, rows, cols, jitter[0:2],
                                                  full_height, full_width,
                                                  lens_u=jitter[2:4])
-        state = initial_path_state(origins, directions, spectrum, pids)
+        hero = (cfg.hero_wavelengths
+                if spectrum > 3 and cfg.hero_wavelengths > 0 else 0)
+        if hero:
+            bins = hero_bins(cfg, key, frame_index, pids)  # (C, N)
+            state = initial_path_state(origins, directions, hero, pids, bins)
+        else:
+            state = initial_path_state(origins, directions, spectrum, pids)
 
         def shade(b, st, coherent=False, hit=None):
             uniforms = bounce_uniforms(cfg, key, frame_index, b, st.pixel, full_height,
@@ -632,7 +709,18 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         slot = ((state.pixel // npix_full - sample0) * npix
                 + state.pixel % npix_full - row0 * full_width)
         flat = torch.zeros((spectrum, samples * npix), device=dev)
-        flat[:, slot] = state.radiance
+        if hero:
+            # each path covered C of the S bins: add its radiance into the
+            # (bin, sample, pixel) slots with the S/C inverse-coverage
+            # weight.  A lane may draw one bin twice (C > S), so each hero
+            # plane adds on its own, in plane order: every plane's slots are
+            # distinct, and the sum is the same on any device.
+            rad = state.radiance * (spectrum / hero)
+            for c in range(hero):
+                at = state.bins[c] * (samples * npix) + slot
+                flat.view(-1)[at] += rad[c]
+        else:
+            flat[:, slot] = state.radiance
         planes = flat.reshape(spectrum, samples, npix).unbind(1)
         total = planes[0]
         for p in planes[1:]:

@@ -147,12 +147,16 @@ class Renderer:
         )
 
     def image(self, tonemapped: bool = False, rgb: bool = False) -> np.ndarray:
-        """(H, W, 3) accumulated radiance as numpy, optionally display-
+        """(H, W, S) accumulated radiance as numpy, optionally display-
         transformed (exposure tonemap when cfg.enable_tone_mapping, then
-        sRGB).  ``rgb`` is the identity at S = 3, the only S ported."""
-        del rgb
+        sRGB).  ``rgb`` collapses a spectral accumulator (S > 3) to RGB by
+        band averages (core/spectrum.py:to_rgb)."""
         self.sync()
         img = self.state.accum.cpu().numpy()
+        if rgb and img.shape[-1] != 3:
+            from .core.spectrum import to_rgb
+
+            img = to_rgb(img)
         if tonemapped:
             from .core.color import to_srgb, tonemap_exposure
 

@@ -11,21 +11,27 @@ sentinel entry {cdf=sum, pdf=1, area=0} used by the CDF walk
 (reference: renderer/Renderer.mm:393-448).
 
 Index-valued fields are int64 (torch has no general uint32 arithmetic);
-their values equal the reference's int32/uint32 fields.  The environment
-light (``env``, :func:`attach_env`) is ported; the reference's other
-extension fields (textures, dispersion, GGX roughness) are not yet
-(ROADMAP.md queue 1 item 10).
+their values equal the reference's int32/uint32 fields.  The reference's
+extension fields are all here: the environment light (:func:`attach_env`),
+map_Kd textures, the per-bin IoR of dispersion (:func:`attach_dispersion`)
+and the roughness of the GGX types; each is None when the scene does not
+use it.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import spectrum as spec
+from ..io.png import read_png
+from ..models.bsdf import (MATERIAL_ROUGH_CONDUCTOR, MATERIAL_SMOOTH_DIELECTRIC,
+                           MATERIAL_SMOOTH_PLASTIC)
 from ..models.envlight import EnvLight
+from ..models.texture import resample_nearest
 from .materials import classify
 from .objmtl import ObjMesh, load_obj
 
@@ -54,8 +60,22 @@ class Scene(NamedTuple):
     light_pdf: torch.Tensor       # (L+1,)
     light_cdf: torch.Tensor       # (L+1,) exclusive prefix; sentinel = total
     light_tri: torch.Tensor       # (L+1,) int64 triangle index of each light
-    # --- extension: HDR environment light (attach_env); None = no env ---
+    # --- extensions (no reference equivalent); None when unused ---
+    # HDR environment light (attach_env)
     env: EnvLight | None = None
+    # per-triangle texcoords (6, T): uv0.xy, uv1.xy, uv2.xy (the reference
+    # parses texcoords and drops them, renderer/Renderer.mm:365-369)
+    tri_uv: torch.Tensor | None = None
+    # (M,) int64 per-material index into ``textures`` (-1 = untextured)
+    mat_tex: torch.Tensor | None = None
+    # (K, TH, TW, 3) RGB texture stack, every texture at one size
+    textures: torch.Tensor | None = None
+    # (S, M) per-bin material IoR of dispersive Fresnel (attach_dispersion;
+    # the reference's materials carry one IoR, renderer/Raytracing.h:101)
+    mat_ior_bins: torch.Tensor | None = None
+    # (M,) roughness, present only when a GGX type was classified
+    # (load_scene(..., rough_materials=True))
+    mat_roughness: torch.Tensor | None = None
 
     @property
     def num_triangles(self) -> int:
@@ -66,13 +86,10 @@ class Scene(NamedTuple):
         return self.light_area.shape[0] - 1
 
 
-def scene_arrays(mesh: ObjMesh, samples: int = 3) -> dict:
-    """OBJ mesh -> numpy arrays of every :class:`Scene` field."""
-    mats = classify(mesh.materials)
-    if mesh.texcoords is not None and any(m.map_kd for m in mesh.materials):
-        raise NotImplementedError(
-            "map_Kd textures are not ported to tpu_pathtracer_torch yet "
-            "(ROADMAP.md queue 1 item 10)")
+def scene_arrays(mesh: ObjMesh, samples: int = 3, rough_materials: bool = False) -> dict:
+    """OBJ mesh -> numpy arrays of every :class:`Scene` field (None for an
+    extension the scene does not use)."""
+    mats = classify(mesh.materials, rough_materials=rough_materials)
 
     tris = mesh.triangles.astype(np.int64)
     pos, nrm = mesh.positions, mesh.normals
@@ -110,6 +127,11 @@ def scene_arrays(mesh: ObjMesh, samples: int = 3) -> dict:
         return spec.from_rgb(rgb, samples).T
 
     return dict(
+        **_texture_arrays(mesh, tris),
+        # present only when a GGX type was classified, so parity scenes run
+        # the parity math
+        mat_roughness=(mats.roughness if rough_materials
+                       and (mats.mtype >= MATERIAL_ROUGH_CONDUCTOR).any() else None),
         p0=p[0].T, p1=p[1].T, p2=p[2].T, n0=n[0].T, n1=n[1].T, n2=n[2].T,
         material_id=mat_ids.astype(np.int64),
         light_index=light_index,
@@ -130,9 +152,49 @@ def scene_arrays(mesh: ObjMesh, samples: int = 3) -> dict:
     )
 
 
+def _texture_arrays(mesh: ObjMesh, tris: np.ndarray) -> dict:
+    """``tri_uv``, ``mat_tex`` and ``textures`` of a mesh: every map_Kd
+    read once (io/png.py:read_png) and stacked at the largest height and
+    width, nearest-resampled.  A missing or undecodable map_Kd warns and
+    leaves its material untextured, as the reference does; no usable
+    texture leaves all three None."""
+    none = dict(tri_uv=None, mat_tex=None, textures=None)
+    tex_paths = [m.map_kd for m in mesh.materials]
+    if mesh.texcoords is None or not any(tex_paths):
+        return none
+    images, tex_of_mat = [], {}
+    for path in tex_paths:
+        if path and path not in tex_of_mat:
+            try:
+                img = read_png(path)
+            except (OSError, ValueError) as e:
+                logging.warning("map_Kd %s unusable (%s); material renders "
+                                "untextured", path, e)
+                tex_of_mat[path] = -1
+                continue
+            tex_of_mat[path] = len(images)
+            images.append(img)
+    if not images:
+        return none
+    th = max(im.shape[0] for im in images)
+    tw = max(im.shape[1] for im in images)
+    stack = np.stack([im if im.shape[:2] == (th, tw) else resample_nearest(im, th, tw)
+                      for im in images])
+    uv = mesh.texcoords  # (V, 2)
+    return dict(
+        tri_uv=np.concatenate([uv[tris[:, k]] for k in range(3)], axis=1).T,
+        mat_tex=np.asarray([tex_of_mat.get(p, -1) if p else -1 for p in tex_paths],
+                           np.int64),
+        textures=stack.astype(np.float32),
+    )
+
+
 def scene_to(arrays: dict, device) -> Scene:
-    """numpy field arrays -> a :class:`Scene` on ``device``."""
+    """numpy field arrays -> a :class:`Scene` on ``device`` (an absent or
+    None extension stays None)."""
     def put(name):
+        if arrays.get(name) is None:
+            return None
         a = np.ascontiguousarray(arrays[name])
         dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
@@ -144,12 +206,9 @@ def build_scene(mesh: ObjMesh, samples: int = 3, rough_materials: bool = False,
                 device="cuda") -> Scene:
     """An :class:`ObjMesh` (loaded, or made procedurally) -> :class:`Scene`
     on ``device``: the reference's ``build_scene``.  ``rough_materials``
-    (the GGX extension types) is not ported yet."""
-    if rough_materials:
-        raise NotImplementedError(
-            "rough_materials (GGX) is not ported to tpu_pathtracer_torch yet "
-            "(ROADMAP.md queue 1 item 10)")
-    return scene_to(scene_arrays(mesh, samples), device)
+    classifies MTL roughness in (0, 1) to the GGX types (the reference
+    leaves them diffuse)."""
+    return scene_to(scene_arrays(mesh, samples, rough_materials), device)
 
 
 def load_scene(path: str, samples: int = 3, rough_materials: bool = False,
@@ -162,7 +221,7 @@ def area_light_power(scene: Scene) -> float:
     """Total emitted power of the area lights (for the env's select_p):
     sum over lights of luminance(emissive) * area * pi, in the reference's
     float32 numpy order."""
-    rgb = scene.light_emissive.cpu().numpy()  # (3, L+1); RGB at S = 3
+    rgb = spec.to_rgb(scene.light_emissive.cpu().numpy().T).T  # (3, L+1)
     lum = 0.2126 * rgb[0] + 0.7152 * rgb[1] + 0.0722 * rgb[2]
     return float((lum[:-1] * scene.light_area.cpu().numpy()[:-1]).sum() * np.pi)
 
@@ -183,3 +242,28 @@ def attach_env(scene: Scene, image, strength: float = 1.0, rotation: float = 0.0
                     area_light_power=area_light_power(scene),
                     samples=scene.mat_diffuse.shape[0], device=scene.p0.device)
     return scene._replace(env=env)
+
+
+def attach_dispersion(scene: Scene, b_um2: float, materials=None) -> Scene:
+    """``scene`` with a per-bin IoR table: dispersive Fresnel (an extension;
+    the reference's materials carry one scalar IoR,
+    renderer/Raytracing.h:101).  ``b_um2``: the Cauchy B coefficient (um^2)
+    of every smooth plastic and smooth dielectric material, or of
+    ``materials`` (indices) when given.  The scalar ``mat_ior`` stays the
+    d-line value, so lobe choices and the tracked ray IoR do not change;
+    only the per-bin throughput weights do (models/bsdf.py:
+    dispersion_weights)."""
+    samples = scene.mat_diffuse.shape[0]
+    mtype = scene.mat_type.cpu().numpy()
+    ior = scene.mat_ior.cpu().numpy()
+    m = ior.shape[0]
+    if materials is None:
+        sel = (mtype == MATERIAL_SMOOTH_PLASTIC) | (mtype == MATERIAL_SMOOTH_DIELECTRIC)
+    else:
+        sel = np.zeros(m, bool)
+        sel[np.asarray(materials)] = True
+    bins = np.repeat(ior[None, :], samples, axis=0).astype(np.float32)  # (S, M)
+    for j in range(m):
+        if sel[j]:
+            bins[:, j] = spec.cauchy_ior_bins(float(ior[j]), b_um2, samples)
+    return scene._replace(mat_ior_bins=torch.tensor(bins, device=scene.p0.device))
