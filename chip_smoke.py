@@ -55,7 +55,8 @@ Phases (any failure raises, so the exit code is not 0):
     every window-walk form (and the HBM route's wrapper) against the
     per-thread yardstick on every lane of the whole camera, bounce-1 and
     capped shadow wavefronts, bw and mt; the MT walk's and the HBM route's
-    bounds on the whole wavefronts;
+    bounds on the whole wavefronts, and at GRID 256 those of the MT fused
+    walk, counting walk and sweep;
 11. terrain path: Renderer(build_scene(terrain), 1920, 1080), default
     config, SAH: the route must be the HBM route, as the reference's
     selection gives; 2 warm-up + 3 timed frames, exact rays and spans, the
@@ -75,9 +76,16 @@ Phases (any failure raises, so the exit code is not 0):
     against its kernel route;
 14. candidate-sweep kernels: on 65,536 lanes of the Water-plastic 1080p
     camera and bounce-1 wavefronts, on the leaf-56 layout (prepass 32) and
-    the leaf-8 layout, ``sweep_count`` and ``intersect_sweep1``
-    (scripts/experimental_sweep.py) against their plain versions: counts
-    and first leaves equal on every lane, t, u, v, row and orig equal;
+    the leaf-8 layout, ``sweep_count`` (at k = 2 and 4 lanes a thread) and
+    ``intersect_sweep1`` (scripts/experimental_sweep.py) against their
+    plain versions: counts and first leaves equal on every lane, t, u, v,
+    row and orig equal; the count on the whole bounce-1 wavefront against
+    its plain version on every lane, both layouts, and both kernels' bounds
+    there; then the count's A/B: the first port's count
+    (``sweep_count_v1``, csrc/march_v1.cu) and the redesigned one at k = 2
+    and 4 in turns on the whole bounce-1 wavefronts of Water-plastic (both
+    layouts) and of the GRID 256 terrain (leaf 8: many tiles of boxes), each
+    equal to the yardstick on every lane, ms and share of the bound;
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -98,8 +106,12 @@ Phases (any failure raises, so the exit code is not 0):
     no plain version may have run on a CUDA tensor;
 17. row-test probe: each of the six variants against its plain version on
     65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
-    on every 32nd lane; then ``scripts/perf_ophit_probe.main()`` with the
-    default flags (1080p lanes, 7112 rows), its ``ROW`` lines echoed;
+    on every 32nd lane; the A/B: the first port's probe
+    (``rowtest_probe_v1``, csrc/march_v1.cu) and the redesigned one at k =
+    2 and 4 in turns on the tool's inputs, every variant, each equal to the
+    yardstick on every lane, ms and share of the bound; then
+    ``scripts/perf_ophit_probe.main()`` with the default flags (1080p
+    lanes, 7112 rows), its ``ROW`` lines echoed;
 18. walk A/B: the redesigned nearest-hit walks against the per-thread
     yardsticks ``window_walk_v1`` / ``minwalk_v1`` in turns (every version
     first to last and back, so new and old read new, old, old, new), by CUDA
@@ -192,9 +204,12 @@ counting form, the tritest="mt" gates for the MT fused walk and sweep,
 which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
-``perf_ophit_probe.main()`` run, and the four per-thread yardsticks the
-Water-plastic part of the walk A/B, none of them the launches that compare a
-kernel with its plain version or time it; the window walk, the capped walk
+``perf_ophit_probe.main()`` run, the four per-thread walk yardsticks the
+Water-plastic part of the walk A/B and the two dense-march yardsticks their
+A/Bs of phases 14 and 17, none of them the launches that compare a kernel
+with its plain version or time it; the rows of the probe and the count
+carry their ptxas registers and spills per instance (``registers``) and
+their A/B readings (``ab_full_ms``); the window walk, the capped walk
 and the fused walk also carry ``launches_per_sample_fuse2``, their launches
 a sample in a 2-spp frame at fuse 2, from phase 19, and the window, capped
 and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
@@ -226,21 +241,25 @@ ID_AGREE = 0.9999      # ids equal, or an equal-t tie, on at least this share
 T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
 PARITY_FRAMES = 16
+WALK_YARDSTICKS = ("window_walk_v1", "minwalk_v1", "capped_walk_v1", "anyhit_walk_v1")
+MARCH_YARDSTICKS = ("rowtest_probe_v1", "sweep_count_v1")
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
-           "window_walk_v1", "minwalk_v1", "capped_walk_v1", "anyhit_walk_v1",
+           *WALK_YARDSTICKS, *MARCH_YARDSTICKS,
            "window_walk_steps", "capped_walk_steps", "anyhit_walk_steps")
-# the yardsticks of the walk A/B (phase 18): no counted run of another phase
-# may launch them; the per-thread ones get rows of the kernel table
-YARDSTICKS = KERNELS[-7:]
-YARDSTICK_ROWS = YARDSTICKS[:4]
+# the yardsticks of the A/Bs (phases 14, 17 and 18): no counted run of another
+# phase may launch them; the first port's kernels get rows of the kernel table
+YARDSTICKS = KERNELS[12:]
 # the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
 # tpu_pathtracer_torch.scripts, wrapper (its plain version is <wrapper>_plain)
 TOOL_KERNELS = {"sweep_count": ("experimental_sweep", "sweep_count"),
                 "sweep1": ("experimental_sweep", "intersect_sweep1"),
                 "noop": ("perf_launch", "noop"),
-                "rowtest_probe": ("perf_ophit_probe", "rowtest_probe")}
+                "rowtest_probe": ("perf_ophit_probe", "rowtest_probe"),
+                "rowtest_probe_v1": ("perf_ophit_probe", "rowtest_probe_v1"),
+                "sweep_count_v1": ("experimental_sweep", "sweep_count_v1")}
+MARCH_K = (2, 4)  # the dense marches' lanes a thread (scripts/dense_march.py)
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -318,7 +337,13 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+class Build(NamedTuple):
+    """What the build phase read about the kernels."""
+    log: str   # the compiler's output (ptxas -v)
+    sass: str  # cuobjdump -sass of the library ("" without cuobjdump)
+
+
+def phase_build() -> Build:
     from tpu_pathtracer_torch.ops import cuda_build
 
     path, seconds, compiler_log = cuda_build.build()
@@ -327,6 +352,93 @@ def phase_build() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     cuda_build.load_library()
+    return Build(compiler_log, library_sass())
+
+
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built library ("" where the toolkit has no
+    cuobjdump)."""
+    from tpu_pathtracer_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return ""
+    return subprocess.run([tool, "-sass", cuda_build.library_path()], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_loops(sass: str, symbol: str) -> list[dict]:
+    """The innermost loops of one kernel instance in a ``cuobjdump -sass``
+    listing (``symbol``: a substring of its mangled name), the most float32
+    instructions first -> [{"float": n, "issued": m, "ops": {opcode: k}}]:
+    ``issued`` counts the instructions one trip issues on its fast path,
+    every forward branch over a CALL taken (the rare exact reciprocal), and
+    ``float`` the FADD, FMUL, FFMA, FMNMX and FSETP among them."""
+    func = next((f for f in re.split(r"\n\s+Function : ", sass)
+                 if symbol in f.split("\n", 1)[0]), None)
+    if func is None:
+        return []
+    ins = [(int(m[1], 16), m[2].strip())
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+    where = {a: i for i, (a, _) in enumerate(ins)}
+    target = lambda op: re.search(r"BRA (?:`\()?(0x[0-9a-f]+)", op)  # noqa: E731
+    back = [(where[int(t[1], 16)], i) for i, (a, op) in enumerate(ins)
+            if (t := target(op)) and int(t[1], 16) < a and int(t[1], 16) in where]
+    loops = []
+    for lo, hi in back:
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in back):
+            continue  # not innermost
+        ops, i = {}, lo
+        while i <= hi:
+            op = ins[i][1]
+            name = re.sub(r"^@!?U?P[T0-9] ", "", op).split()[0].split(".")[0]
+            ops[name] = ops.get(name, 0) + 1
+            t = target(op)
+            if t and i < hi and int(t[1], 16) > ins[i][0] and int(t[1], 16) in where:
+                j = where[int(t[1], 16)]
+                if not op.startswith("@") or any("CALL" in x for _, x in ins[i:j]):
+                    i = j
+                    continue
+            i += 1
+        loops.append({"float": sum(ops.get(k, 0) for k in
+                                   ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP")),
+                      "issued": sum(ops.values()), "ops": ops})
+    return sorted(loops, key=lambda x: -x["float"])
+
+
+def issue_ceiling(sass: str, symbol: str, marker: str, per_test: int,
+                  ops_per_test: int) -> dict | None:
+    """A kernel's issue ceiling from its SASS: in the innermost loop with the
+    most ``marker`` instructions (``per_test`` of them a lane test: MUFU 1
+    for a row test's reciprocal, FMNMX 10 for a box test), the instructions
+    issued per lane test on the fast path, and the operations the bound
+    counts over them.  None when the listing lacks the instance."""
+    loops = [x for x in sass_loops(sass, symbol) if x["ops"].get(marker)]
+    if not loops:
+        return None
+    hot = max(loops, key=lambda x: x["ops"][marker])
+    issued = hot["issued"] * per_test / hot["ops"][marker]
+    return {"issued_per_test": issued, "ops_per_test": ops_per_test,
+            "issue_ceiling_pct": 100.0 * ops_per_test / issued}
+
+
+def kernel_registers(compiler_log: str, symbol: str) -> dict:
+    """ptxas's registers and spill bytes of each instance of the kernel
+    ``symbol`` in the build output -> {its integer template arguments
+    joined by commas ("-" for none): {"registers": r, "spill_bytes": b}}."""
+    out, cur = {}, None
+    for line in compiler_log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            m = re.search(rf"\d{symbol}(I(?:Li-?\d+E)+E)?", entry.group(1))
+            cur = (",".join(re.findall(r"Li(-?\d+)E", m.group(1) or "")) or "-") if m else None
+            if cur:
+                out[cur] = {"registers": None, "spill_bytes": 0}
+        elif cur and "spill stores" in line:
+            out[cur]["spill_bytes"] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def sky_map(height: int = 1024, width: int = 2048, seed: int = 2026) -> np.ndarray:
@@ -1012,11 +1124,10 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
                            hbm=True)
         forms_equal_v1(f"shadow pack ({tag})", lay, so, sd, sok, scap, pp, tritest, hbm=True)
     mt = out["window_walk_mt"]
-    mt.update(at_full_width(
-        f"window_walk mt ({tag})", "bounce-1 wavefront", mt["full_ms"],
-        window_bound(lay, waves["bounce1"][2],
-                     full_work(ht.window_walk_plain, (*waves["bounce1"], inf["bounce1"]), lay,
-                               prepass=pp, tritest="mt"), pp, "mt", 1)))
+    b1_work = full_work(ht.window_walk_plain, (*waves["bounce1"], inf["bounce1"]), lay,
+                        prepass=pp, tritest="mt")
+    mt.update(at_full_width(f"window_walk mt ({tag})", "bounce-1 wavefront", mt["full_ms"],
+                            window_bound(lay, waves["bounce1"][2], b1_work, pp, "mt", 1)))
     mt.update({f"{k}_camera": v for k, v in at_full_width(
         f"window_walk mt ({tag})", "camera wavefront", mt["full_camera_ms"],
         window_bound(lay, waves["camera"][2],
@@ -1034,6 +1145,20 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
                                lay, prepass=pp), pp, "bw", 1)).items()})
 
     if grid == TERRAIN_GRIDS[0]:
+        # the full-width bounds of kernels 7 and 8's MT forms: the fused walk
+        # on the whole 2N wavefront, the counting walk on the whole bounce-1
+        # wavefront (the MT window walk's work there)
+        orig = out["window_walk_orig_mt"]
+        orig.update(at_full_width(
+            f"window_walk_orig mt ({tag})", "2N bounce-1 + shadow wavefront", orig["full_ms"],
+            window_bound(lay, full_in[2], full_work(ht.window_walk_orig_plain, full_in, lay,
+                                                    prepass=pp, tritest="mt"),
+                         pp, "mt", 2)))
+        counts = out["window_walk_counts_mt"]
+        counts.update(at_full_width(f"window_walk_counts mt ({tag})", "bounce-1 wavefront",
+                                    counts["full_ms"],
+                                    window_bound(lay, waves["bounce1"][2], b1_work, pp,
+                                                 "mt", 3)))
         # kernel 9's MT form: the sweep on bounce-1 lanes (O(rows): GRID 256 only)
         o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen, live["bounce1"])
         t_max = torch.full_like(o[0], torch.inf)
@@ -1051,6 +1176,9 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
             cuda_ms(lambda: ht.sweep(*waves["bounce1"], inf["bounce1"], lay,
                                      tritest="mt"), iters=1),
             sweep_bound(lay, act, "mt"))
+        out["sweep_mt"].update(at_full_width(
+            f"sweep mt ({tag})", "bounce-1 wavefront", out["sweep_mt"]["full_ms"],
+            sweep_bound(lay, waves["bounce1"][2], "mt")))
     for k, e in out.items():
         log(f"  {k} ({tag}) at {SAMPLE_LANES} lanes: kernel {e['ms']:.3f} ms, plain "
             f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
@@ -2452,11 +2580,48 @@ def sweep_bounds(lay, act, first, n_prepass: int, tests: int,
                   prime + boxes * OPS_LEAF_BOX + tests * OPS_ROW["mt"]))
 
 
-def phase_sweep_kernels(renderer) -> list[dict]:
+def count_equals_plain(label: str, o, d, act, lay, pp: int, got) -> None:
+    """The count kernel's outputs on a whole wavefront against its plain
+    version, run FULL_CHUNK lanes at a time: equal on every lane."""
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    for s0 in range(0, o.shape[1], FULL_CHUNK):
+        part = slice(s0, s0 + FULL_CHUNK)
+        want = es.sweep_count_plain(o[:, part].contiguous(), d[:, part].contiguous(), lay,
+                                    active=act[part].contiguous(), prepass=pp)
+        equal_on_every_lane(f"sweep_count vs its plain version, {label}",
+                            (got[0][part], got[1][part]), want)
+    log(f"  sweep_count == its plain version on all {o.shape[1]} lanes of {label}")
+
+
+def count_ab(label: str, o, d, act, lay, pp: int, bnd_ms: float) -> dict:
+    """The count at each k against the yardstick on one wavefront: equal on
+    every lane, then timed in turns -> {version: [ms, ms]}."""
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    want = es.sweep_count_v1(o, d, lay, active=act, prepass=pp)
+    for k in MARCH_K:
+        equal_on_every_lane(f"sweep_count k={k} vs sweep_count_v1, {label}",
+                            es.sweep_count(o, d, lay, active=act, prepass=pp, k=k), want)
+    fns = {"v1": lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp)}
+    fns.update({f"k={k}": lambda k=k: es.sweep_count(o, d, lay, active=act, prepass=pp, k=k)
+                for k in MARCH_K})
+    return march_ab(f"sweep_count {label} ({o.shape[1]} lanes, {int(act.sum())} live, "
+                    f"{lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
+
+
+def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], int]:
     """The candidate-sweep pair against its plain versions on 65,536 lanes
     of the Water-plastic camera and bounce-1 wavefronts, on the leaf-56 and
-    the leaf-8 layout; timed on the bounce-1 lanes (and the full bounce-1
-    wavefront) of the leaf-56 layout, with the leaf-8 times beside."""
+    the leaf-8 layout, and the count on the whole bounce-1 wavefront; timed
+    on the bounce-1 lanes (and the full bounce-1 wavefront) of the leaf-56
+    layout, with the leaf-8 times beside; the bounds on the full wavefront
+    at both leaf sizes; the count at each k against the first port's (the
+    yardstick) in turns on the whole bounce-1 wavefronts of Water-plastic
+    (both layouts) and of the terrain ``terrain`` (leaf 8: many tiles of
+    boxes), equal on every lane -> (the rows of the kernel table: the pair's
+    and the yardstick's, the count's with the SASS issue ceilings of its box
+    loop and its prime; the yardstick's launches in the A/B)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.ops.traverse import Tally
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
@@ -2482,6 +2647,10 @@ def phase_sweep_kernels(renderer) -> list[dict]:
             if bad:
                 raise AssertionError(f"sweep_count/{which} ({label}): counts or first "
                                      f"leaves differ on {bad} lanes")
+            for k in MARCH_K:
+                equal_on_every_lane(f"sweep_count k={k}/{which} ({label})",
+                                    es.sweep_count(o, d, lay, active=act, prepass=pp, k=k),
+                                    (cp, fp))
             if not (torch.equal(rk.row, rp.row) and torch.equal(rk.orig, rp.orig)):
                 raise AssertionError(f"sweep1/{which} ({label}): rows or original ids "
                                      f"differ on {int((rk.row != rp.row).sum())} lanes")
@@ -2489,28 +2658,31 @@ def phase_sweep_kernels(renderer) -> list[dict]:
             if err > 0.0:
                 raise AssertionError(f"sweep1/{which} ({label}): t, u or v differ by {err}")
             err_count, err_one = max(err_count, float(bad)), max(err_one, err)
-            log(f"  sweep_count, sweep1/{which} ({label}, {lay.num_leaves} leaves, prepass "
-                f"{pp}): counts, first leaves, t, u, v, row, orig equal on all "
-                f"{SAMPLE_LANES} lanes; {int(sel.sum())} lanes with <= 1 candidate, "
-                f"{int(torch.isfinite(rk.t[sel]).sum())} of them hit")
+            log(f"  sweep_count (k = {', '.join(map(str, MARCH_K))}), sweep1/{which} "
+                f"({label}, {lay.num_leaves} leaves, prepass {pp}): counts, first leaves, "
+                f"t, u, v, row, orig equal on all {SAMPLE_LANES} lanes; {int(sel.sum())} "
+                f"lanes with <= 1 candidate, {int(torch.isfinite(rk.t[sel]).sum())} of "
+                "them hit")
             timed[label] = (o, d, act, sel, lay, pp, fk, tally.tests, tally.visits)
     fo, fd, fact = waves["bounce1"]
-    full_extra = {}
+    full_bounds = {}
     for label, (o, d, act, sel, lay, pp, first, tests, boxes) in timed.items():
         bnd_c, _ = sweep_bounds(lay, act, first, pp, 0, 0)            # every live lane
         _, bnd_1 = sweep_bounds(lay, sel, first, pp, tests, boxes)    # the <= 1 lanes
         fc, ff = es.sweep_count(fo, fd, lay, active=fact, prepass=pp)
+        count_equals_plain(f"the bounce-1 wavefront ({label})", fo, fd, fact, lay, pp,
+                           (fc, ff))
         fsel = fact & (fc <= 1)
-        if label == "leaf 56":  # the whole wavefront's bounds of the rows' main numbers
-            tally = Tally()
-            for s0 in range(0, fo.shape[1], FULL_CHUNK):
-                part = slice(s0, s0 + FULL_CHUNK)
-                es.intersect_sweep1_plain(fo[:, part].contiguous(), fd[:, part].contiguous(),
-                                          lay, active=fsel[part].contiguous(), prepass=pp,
-                                          tally=tally)
-            full_extra = dict(zip(("sweep_count", "sweep1"), (
-                sweep_bounds(lay, fact, ff, pp, 0, 0)[0],
-                sweep_bounds(lay, fsel, ff, pp, tally.tests, tally.visits)[1])))
+        # the whole wavefront's bounds: the targeted kernel's from the plain
+        # version's tally over it
+        tally = Tally()
+        for s0 in range(0, fo.shape[1], FULL_CHUNK):
+            part = slice(s0, s0 + FULL_CHUNK)
+            es.intersect_sweep1_plain(fo[:, part].contiguous(), fd[:, part].contiguous(),
+                                      lay, active=fsel[part].contiguous(), prepass=pp,
+                                      tally=tally)
+        full_bounds[label] = (sweep_bounds(lay, fact, ff, pp, 0, 0)[0],
+                              sweep_bounds(lay, fsel, ff, pp, tally.tests, tally.visits)[1])
         rows[label] = (
             dict(ms=cuda_ms(lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)),
                  plain_ms=cuda_ms(lambda: es.sweep_count_plain(o, d, lay, active=act,
@@ -2527,18 +2699,64 @@ def phase_sweep_kernels(renderer) -> list[dict]:
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); full bounce-1 "
                 f"({fo.shape[1]} lanes) {r['full_ms']:.3f} ms")
+    # the A/B of the count: Water-plastic's whole bounce-1 wavefront on both
+    # layouts, then the terrain's on its leaf-8 layout (many tiles of boxes)
+    ab = {}
+    tr = terrain_renderer(terrain)
+    tw = wavefronts(tr.scene, tr.layout, tr.layout_occl, tr.cfg)["bounce1"]
+    tpp = ht.window_prepass(tr.layout_occl, tr.cfg.traversal_prepass)
+    with counted_run(yardsticks=True) as ab_run:
+        for label, (_, _, _, _, lay, pp, _, _, _) in timed.items():
+            ab[label] = count_ab(f"{SCENE} bounce-1, {label}", fo, fd, fact, lay, pp,
+                                 full_bounds[label][0]["bound_ms"])
+        tag = f"terrain ({terrain.num_triangles} triangles) bounce-1, leaf 8"
+        tc = es.sweep_count(tw[0], tw[1], tr.layout_occl, active=tw[2], prepass=tpp)
+        count_equals_plain(tag, *tw, tr.layout_occl, tpp, tc)
+        ab["terrain leaf 8"] = count_ab(
+            tag, *tw, tr.layout_occl, tpp,
+            sweep_bounds(tr.layout_occl, tw[2], tc[1], tpp, 0, 0)[0]["bound_ms"])
+        torch.cuda.synchronize()
+    del tr, tw
     out = []
     for k, (name, line, err) in enumerate((("sweep_count", 82, err_count),
                                            ("sweep1", 156, err_one))):
         main, other = rows["leaf 56"][k], rows["leaf 8"][k]
         ms, plain_ms, full_ms = (main.pop(x) for x in ("ms", "plain_ms", "full_ms"))
         main.update(at_full_width(f"{name} (leaf 56)", "bounce-1 wavefront", full_ms,
-                                  full_extra[name]))
+                                  full_bounds["leaf 56"][k]))
+        other.update(at_full_width(f"{name} (leaf 8)", "bounce-1 wavefront",
+                                   other["full_ms"], full_bounds["leaf 8"][k]))
+        extra = {f"{x}_leaf8": v for x, v in other.items()
+                 if x.endswith("ms") or x.endswith("_by") or x.endswith("pct_of_bound")}
+        if name == "sweep_count":
+            symbol = f"sweep_count_kernelILi{es.K_LANES}EE"
+            issue = {"box": issue_ceiling(build.sass, symbol, "FMNMX", 10, OPS_LEAF_BOX + 1),
+                     "prime": issue_ceiling(build.sass, symbol, "MUFU", 1, OPS_ROW["mt"])}
+            for part, x in issue.items():
+                if x:
+                    log(f"  sweep_count {part} loop (k={es.K_LANES}) SASS: "
+                        f"{x['issued_per_test']:.2f} instructions issued a test for "
+                        f"{x['ops_per_test']} operations, issue ceiling "
+                        f"{x['issue_ceiling_pct']:.1f}%")
+            extra.update(ab_full_ms=ab, k_lanes=es.K_LANES, issue=issue,
+                         registers=kernel_registers(build.log, "sweep_count_kernel"))
         out.append(kernel_entry(
             name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
-            plain_ms, full_ms, main, **{f"{x}_leaf8": v for x, v in other.items()
-                                        if x.endswith("ms") or x == "bound_by"}))
-    return out
+            plain_ms, full_ms, main, **extra))
+    # the yardstick's row: its own times on the leaf-56 lanes, the count's bound
+    o, d, act, _, lay, pp, _, _, _ = timed["leaf 56"]
+    count_row = out[0]
+    yard = kernel_entry(
+        "sweep_count_v1", "march_v1.cu", "experimental_pallas_sweep.py:82", 0.0,
+        cuda_ms(lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp)),
+        count_row["plain_ms"], min(ab["leaf 56"]["v1"]),
+        {x: count_row[x] for x in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+        yardstick_of="sweep_count",
+        registers=kernel_registers(build.log, "sweep_count_v1_kernel"))
+    yard.update(at_full_width("sweep_count_v1 (leaf 56)", "bounce-1 wavefront",
+                              yard["full_ms"], full_bounds["leaf 56"][0]))
+    out.append(yard)
+    return out, ab_run["launches"]["sweep_count_v1"]
 
 
 def split_run(label: str, o, d, act, lay, prepass: int) -> dict:
@@ -2715,12 +2933,33 @@ def phase_launch_probe(smi: str) -> tuple[dict, int]:
     return entry, launches["noop"]
 
 
-def phase_rowtest_probe() -> tuple[dict, int]:
+def probe_bound(lanes: int, rows: int, table_rows: int, ops_per_row: int) -> dict:
+    """The row-test probe's bound: 32 bytes of rays read and 8 written a
+    lane, the (table_rows, 16) float32 table once; every lane ``rows`` row
+    tests of ``ops_per_row`` operations."""
+    return bound(lanes * (32 + 8) + table_rows * 64, lanes * rows * ops_per_row)
+
+
+def march_ab(label: str, fns: dict, bnd_ms: float) -> dict:
+    """A dense march's versions in turns (``fns``: "v1", then one per k) ->
+    {version: [ms, ms]}; logs each beside its share of the bound."""
+    ab = turns(fns, iters=3)
+    log(f"  A/B {label}, ms in turns (share of the {bnd_ms:.4f} ms bound): "
+        + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f} ({100 * bnd_ms / min(v):.1f}%)"
+                    for k, v in ab.items()))
+    return ab
+
+
+def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
     """Each of the six probe variants against its plain version on 65,536
-    lanes and, at the tool's own width and inputs, on every 32nd lane; then
-    the probe's ``main()`` with the default flags -> (the probe's
-    row of the kernel table: the anchor variant's numbers, every variant's
-    beside; its launches in that run)."""
+    lanes and, at the tool's own width and inputs, on every 32nd lane; the
+    redesigned kernel at each k against the first port's (the yardstick) in
+    turns at that width, equal on every lane; then the probe's ``main()``
+    with the default flags -> (the rows of the kernel table: the probe's,
+    with the anchor variant's numbers and every variant's beside, and the
+    yardstick's; the probe's launches in ``main()`` and the yardstick's in
+    the A/B); the probe's row also carries its SASS issue ceiling for each
+    variant with a reciprocal (``issue``)."""
     from tpu_pathtracer_torch.scripts import perf_ophit_probe as pp
 
     rays, tris = pp.probe_inputs(SAMPLE_LANES, pp.T8, "cuda", seed=1)
@@ -2738,8 +2977,7 @@ def phase_rowtest_probe() -> tuple[dict, int]:
                   "ms": cuda_ms(lambda: pp.rowtest_probe(v, rays, tris, tile, mtblock)),
                   "plain_ms": cuda_ms(lambda: pp.rowtest_probe_plain(v, rays, tris,
                                                                      mtblock), iters=1),
-                  **bound(SAMPLE_LANES * (32 + 8) + tris.numel() * 4,
-                          SAMPLE_LANES * rows * pp.ROWTEST_OPS[v])}
+                  **probe_bound(SAMPLE_LANES, rows, pp.T8, pp.ROWTEST_OPS[v])}
         log(f"  rowtest_probe/{v} at {SAMPLE_LANES} lanes x {rows} rows: kernel "
             f"{per[v]['ms']:.3f} ms, plain {per[v]['plain_ms']:.1f} ms, bound "
             f"{per[v]['bound_ms']:.3f} ms ({per[v]['bound_by']})")
@@ -2757,7 +2995,26 @@ def phase_rowtest_probe() -> tuple[dict, int]:
     log(f"  rowtest_probe at {pp.N} lanes (the tool's inputs): all {len(pp.VARIANTS)} "
         f"variants bit-equal to their plain versions on one lane in {FULL_STRIDE} "
         f"({srays.shape[1]} lanes)")
-    del frays, srays, ftris
+    del srays
+    # the A/B: the yardstick and the redesign at each k in turns, on the
+    # tool's inputs at full width, equal on every lane
+    ab = {}
+    with counted_run(yardsticks=True) as ab_run:
+        for v in pp.VARIANTS:
+            want = pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock)
+            for k in MARCH_K:
+                equal_on_every_lane(f"rowtest_probe/{v} k={k} vs rowtest_probe_v1",
+                                    pp.rowtest_probe(v, frays, ftris, tile, mtblock, k), want)
+            fns = {"v1": lambda: pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock)}
+            fns.update({f"k={k}": lambda k=k: pp.rowtest_probe(v, frays, ftris, tile,
+                                                               mtblock, k)
+                        for k in MARCH_K})
+            ab[v] = march_ab(f"rowtest_probe/{v} at {pp.N} lanes x {rows} rows", fns,
+                             probe_bound(pp.N, rows, pp.T8, pp.ROWTEST_OPS[v])["bound_ms"])
+        torch.cuda.synchronize()
+    log(f"  rowtest_probe at k = {', '.join(map(str, MARCH_K))} == rowtest_probe_v1 on all "
+        f"{pp.N} lanes, every variant")
+    del frays, ftris
     run, lines = echo_main(pp.main, "row-test probe")
     full = {m[1]: float(m[2]) for m in (re.match(r"ROW (\S+)\s+([0-9.]+) ms", ln)
                                         for ln in lines) if m}
@@ -2765,22 +3022,55 @@ def phase_rowtest_probe() -> tuple[dict, int]:
         raise AssertionError(f"row-test probe: ROW lines {tuple(full)}, launches "
                              f"{run['launches']}")
     anchor = per["full-bw"]
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
+    issue = {}
+    for v in pp.VARIANTS:
+        if v != "nodiv":  # one reciprocal a test marks the tests in the SASS
+            issue[v] = issue_ceiling(
+                build.sass, f"rowtest_probe_kernelILi{pp.VARIANTS.index(v)}ELi{pp.K_LANES}"
+                f"ELi16EE", "MUFU", 1, pp.ROWTEST_OPS[v])
+            if issue[v]:
+                log(f"  rowtest_probe/{v} (k={pp.K_LANES}, mtblock 16) SASS: "
+                    f"{issue[v]['issued_per_test']:.2f} instructions issued a row test for "
+                    f"{pp.ROWTEST_OPS[v]} operations, issue ceiling "
+                    f"{issue[v]['issue_ceiling_pct']:.1f}%")
+    variants = {}
+    for v in pp.VARIANTS:
+        bnd_full = probe_bound(pp.N, rows, pp.T8, pp.ROWTEST_OPS[v])["bound_ms"]
+        variants[v] = {"ms": per[v]["ms"], "plain_ms": per[v]["plain_ms"],
+                       "full_ms": full[v], "bound_ms": per[v]["bound_ms"],
+                       "bound_full_ms": bnd_full,
+                       "full_pct_of_bound": 100.0 * bnd_full / full[v],
+                       "ab_full_ms": ab[v], "ops_per_rowtest": pp.ROWTEST_OPS[v]}
+        log(f"  rowtest_probe/{v} at {pp.N} lanes (perf_ophit_probe.main): {full[v]:.1f} ms, "
+            f"bound {bnd_full:.3f} ms, {variants[v]['full_pct_of_bound']:.1f}% of bound")
     entry = kernel_entry(
         "rowtest_probe", "probes.cu", "perf_ophit_probe.py:101",
         max(x["max_abs_err"] for x in per.values()), anchor["ms"], anchor["plain_ms"],
-        full["full-bw"], {k: anchor[k] for k in ("bound_ms", "bound_by", "bound_bytes",
-                                                 "bound_ops")},
-        variants={v: {"ms": per[v]["ms"], "plain_ms": per[v]["plain_ms"],
-                      "full_ms": full[v], "bound_ms": per[v]["bound_ms"],
-                      "bound_full_ms": per[v]["bound_ms"] * pp.N / SAMPLE_LANES,
-                      "ops_per_rowtest": pp.ROWTEST_OPS[v]} for v in pp.VARIANTS})
-    return entry, run["launches"]["rowtest_probe"]
+        full["full-bw"], {k: anchor[k] for k in keys}, variants=variants,
+        k_lanes=pp.K_LANES, issue=issue,
+        registers=kernel_registers(build.log, "rowtest_probe_kernel"))
+    entry.update(at_full_width("rowtest_probe/full-bw", f"{pp.N}-lane march",
+                               full["full-bw"],
+                               probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
+    # the yardstick's row: its own times on the same inputs, the probe's bound
+    v1_ms = cuda_ms(lambda: pp.rowtest_probe_v1("full-bw", rays, tris, tile, mtblock))
+    yard = kernel_entry(
+        "rowtest_probe_v1", "march_v1.cu", "perf_ophit_probe.py:101", 0.0, v1_ms,
+        anchor["plain_ms"], min(ab["full-bw"]["v1"]), {k: anchor[k] for k in keys},
+        yardstick_of="rowtest_probe",
+        registers=kernel_registers(build.log, "rowtest_probe_v1_kernel"))
+    yard.update(at_full_width("rowtest_probe_v1/full-bw", f"{pp.N}-lane march",
+                              yard["full_ms"],
+                              probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
+    return [entry, yard], {"rowtest_probe": run["launches"]["rowtest_probe"],
+                           "rowtest_probe_v1": ab_run["launches"]["rowtest_probe_v1"]}
 
 
 def main() -> int:
     smi = phase_device()
     t_start = time.perf_counter()
-    phase_build()
+    build = phase_build()
     log(f"build phase: {time.perf_counter() - t_start:.1f} s")
 
     from tpu_pathtracer_torch import Renderer
@@ -2844,14 +3134,17 @@ def main() -> int:
     phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
     phase_backend_parity(small)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    kernels += phase_sweep_kernels(renderer)
+    rows, launches["sweep_count_v1"] = phase_sweep_kernels(renderer, small, build)
+    kernels += rows
     launches.update(phase_split(renderer, small))
-    for entry, count in (phase_launch_probe(smi), phase_rowtest_probe()):
-        kernels.append(entry)
-        launches[entry["name"]] = count
+    entry, launches["noop"] = phase_launch_probe(smi)
+    kernels.append(entry)
+    rows, counts = phase_rowtest_probe(build)
+    kernels += rows
+    launches.update(counts)
     rows, ab_launches = phase_walk_ab(renderer, terrains, smi, priced)
     kernels += rows
-    launches.update({k: ab_launches[k] for k in YARDSTICK_ROWS})
+    launches.update({k: ab_launches[k] for k in WALK_YARDSTICKS})
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
         modes = phase_frame_modes(tmp, smi)

@@ -67,7 +67,7 @@ def test_bench_prints_one_line(flags, cfg):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1 item 12"),
+    (["--mesh", "2x1"], "queue 1: multi-device"),
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_bench_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):

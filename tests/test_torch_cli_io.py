@@ -101,7 +101,8 @@ def test_npz_checkpoint_round_trips_between_packages(tmp_path):
     assert got.frame_index == 11
     np.testing.assert_array_equal(got.key, np.asarray(jax.random.key_data(
         jax.random.PRNGKey(42))))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1: the directory checkpoint form"):
         tckpt.save_checkpoint(str(tmp_path / "dir"), got)
 
 
@@ -133,8 +134,8 @@ def test_cli_env_render_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1 item 12"),
-    (["--checkpoint", "state_dir"], "queue 1 item 9"),
+    (["--mesh", "2x1"], "queue 1: multi-device"),
+    (["--checkpoint", "state_dir"], "queue 1: the directory checkpoint form"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_cli_unported_flag_raises(flags, item, tmp_path):
     """Each flag whose feature is not ported raises NotImplementedError

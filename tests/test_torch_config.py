@@ -139,7 +139,7 @@ def test_unsupported_entry_points_raise():
     from tpu_pathtracer_torch.models.camera import Camera, generate_rays_flat
     from tpu_pathtracer_torch.scene import load_scene, scene_path
 
-    match = r"ROADMAP\.md queue 1 item \d+"
+    match = r"ROADMAP\.md queue 1: (multi-device|the directory checkpoint form)\)"
     with pytest.raises(NotImplementedError, match=match):
         Renderer("cornellbox", 8, 8, mesh=object(), device="cpu")
     # the spectral and material entry points are ported: each call succeeds

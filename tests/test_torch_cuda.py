@@ -387,3 +387,79 @@ def test_shadow_steps_match_yardstick_on_card(leaf, cuda_device):
                            want_a)
     grew = [getattr(ht, k).launches - v for k, v in zip(names, n0)]
     assert grew == [0, 1, len(steps), 0, 1, len(steps)]
+
+
+EDGE_LANES = (1, 31, 33, 65537)
+
+
+@pytest.mark.parametrize("n", EDGE_LANES)
+def test_rowtest_probe_edge_shapes_on_card(n, cuda_device):
+    """The redesigned row-test probe (row tiles in shared memory, k lanes a
+    thread) on lane counts around a warp and a block: every variant, at k =
+    2 and 4, on tiles of 96 and 768 lanes, with mtblock 7 (the generic
+    instance) and 16 (the unrolled one), on a table that is staged whole
+    (200 rows) and one that is tiled (7,112 rows), bit-equal to its plain
+    version and to the first port's kernel on every lane; and a table whose
+    rows put the reciprocal off its fast path (a plane or an edge scaled to
+    denormal, past 2^126 or to zero), where the kernel takes 1 / x exactly."""
+    for rows in (200, 7112, "extreme"):
+        rays, tris = perf_ophit_probe.probe_inputs(n, 200 if rows == "extreme" else rows,
+                                                   cuda_device, seed=n)
+        if rows == "extreme":
+            tris[1::4, 0:6] *= 1e-39
+            tris[2::4, 0:6] *= 1e38
+            tris[3::8, 0:6] = 0.0
+        for variant in perf_ophit_probe.VARIANTS:
+            for mtblock in (7, 16):
+                tp, ip = perf_ophit_probe.rowtest_probe_plain(variant, rays, tris, mtblock)
+                tv, iv = perf_ophit_probe.rowtest_probe_v1(variant, rays, tris, 96, mtblock)
+                assert torch.equal(tv, tp) and torch.equal(iv, ip), (variant, mtblock, rows)
+                for k in (2, 4):
+                    for tile in (96, 768):
+                        tk, ik = perf_ophit_probe.rowtest_probe(variant, rays, tris, tile,
+                                                                mtblock, k)
+                        assert torch.equal(tk, tp) and torch.equal(ik, ip), (
+                            variant, mtblock, rows, k, tile)
+
+
+@pytest.fixture(scope="module")
+def count_layouts():
+    """The count's tables on the card: Water-plastic at leaf 56 (184 boxes)
+    and leaf 8 (1,209: one tile each), the GRID 256 terrain at leaf 8 (many
+    tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device="cuda")
+    return {"leaf 56": build_layout(scene, 56), "leaf 8": build_layout(scene, 8),
+            "grid 256 leaf 8": build_layout(terrain_scene(256), 8)}
+
+
+@pytest.mark.parametrize("which", ["leaf 56", "leaf 8", "grid 256 leaf 8"])
+@pytest.mark.parametrize("n", EDGE_LANES)
+def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
+    """The redesigned count (prepass and leaf boxes in shared memory, k lanes
+    a thread) on lane counts around a warp and a block, with every lane
+    live, every lane dead and one live lane a warp, prepass 32 and 0, at k =
+    2 and 4: bit-equal to its plain version and to the first port's kernel
+    on every lane; and with prepass rows whose edges put the reciprocal off
+    its fast path (scaled to denormal, past 2^126 or to zero)."""
+    base = count_layouts[which]
+    pre = base.prepass.clone()
+    pre[1::4, 3:6] *= 1e-39
+    pre[2::4, 3:6] *= 1e38
+    pre[3::8, 3:6] = 0.0
+    o, d = (torch.from_numpy(a).cuda() for a in random_rays(n, seed=41 + n))
+    lanes = torch.arange(n, device="cuda")
+    masks = (torch.ones(n, dtype=torch.bool, device="cuda"),
+             torch.zeros(n, dtype=torch.bool, device="cuda"), lanes % 32 == 7)
+    for act in masks:
+        for prepass, lay in ((32, base), (0, base), (32, base._replace(prepass=pre))):
+            want = es.sweep_count_plain(o, d, lay, active=act, prepass=prepass)
+            got = es.sweep_count_v1(o, d, lay, active=act, prepass=prepass)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            for k in (2, 4):
+                got = es.sweep_count(o, d, lay, active=act, prepass=prepass, k=k)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
+                    prepass, k)
+            assert bool((want[0][~act] == 0).all() and (want[1][~act] == lay.num_leaves).all())
+    assert n < 65537 or int(want[0].max()) > 0

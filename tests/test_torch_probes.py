@@ -27,7 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
+from tpu_pathtracer_torch.scripts import dense_march, perf_launch, perf_ophit_probe
 from torch_parity import load_reference_script, one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -155,3 +155,55 @@ def test_tools_need_a_card_unless_asked_for_the_cpu(tool, platform, monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(["--platform", platform])
+
+
+@pytest.mark.parametrize("tile", [96, 768, 6144])
+@pytest.mark.parametrize("n", [1, 31, 33, 4096, 65537])
+def test_probe_launch_shape_covers_every_lane_once(n, tile):
+    """The probe's launch shape (scripts/dense_march.py, which the kernel's
+    lane mapping mirrors) covers every lane exactly once at each k: no lane
+    twice, none left out, no slot past n; whole warps, at most MAX_THREADS
+    threads; the tool's table (7,104 marched rows) tiled in whole 16-row
+    blocks and the card tests' (196 or 200 rows) staged whole, within the
+    card's shared memory."""
+    for k in dense_march.LANES_PER_THREAD:
+        for rows in (7104, 7112 // 7 * 7, 196, 200):
+            shape = dense_march.march_shape(n, tile, k, rows,
+                                            perf_ophit_probe.STAGED_ROW_BYTES)
+            lanes = dense_march.march_lanes(shape, n, tile, k)
+            assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
+            assert shape.threads % 32 == 0 and shape.threads <= dense_march.MAX_THREADS
+            assert shape.threads * k * shape.passes >= tile > shape.threads * k * (
+                shape.passes - 1)
+            assert shape.smem <= dense_march.SHARED_LIMIT
+            if rows * perf_ophit_probe.STAGED_ROW_BYTES > dense_march.ONE_TILE_BYTES:
+                assert shape.tile_rows % 16 == 0 and shape.tile_rows < rows
+            else:
+                assert shape.tile_rows == rows
+
+
+def test_launch_shape_rejects_what_the_kernels_cannot_take():
+    """A tile that is not a multiple of 32 (100), a k without a kernel
+    instance, and a table whose staging would pass the card's shared memory
+    raise before any launch."""
+    with pytest.raises(ValueError, match="tile=100"):
+        dense_march.march_shape(4096, 100, 4, 200, 48)
+    with pytest.raises(ValueError, match="k=3"):
+        dense_march.march_shape(4096, 768, 3, 200, 48)
+    with pytest.raises(ValueError, match="shared memory"):
+        dense_march.march_shape(4096, 768, 4, 200, 48, head_bytes=dense_march.SHARED_LIMIT)
+
+
+def test_probe_bound_full_bw():
+    """chip_smoke's bound of the tool's full-bw march, 2,073,600 lanes x
+    7,104 rows at 38 operations a row test, 2 flops each, over 67 TFLOP/s:
+    16.71 ms, bound by operations (the bytes: 40 a lane and the 455 KB
+    table, 0.025 ms)."""
+    import chip_smoke
+
+    b = chip_smoke.probe_bound(perf_ophit_probe.N, 7104, perf_ophit_probe.T8,
+                               perf_ophit_probe.ROWTEST_OPS["full-bw"])
+    assert b["bound_ops"] == 2073600 * 7104 * 38
+    assert b["bound_bytes"] == 2073600 * 40 + 7112 * 64
+    assert b["bound_by"] == "operations"
+    assert round(b["bound_ms"], 2) == 16.71

@@ -32,6 +32,7 @@ from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.scene import load_scene
+from tpu_pathtracer_torch.scripts import dense_march
 from tpu_pathtracer_torch.scripts import experimental_sweep as es
 from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
     arrays, assert_hits_agree, load_reference_script, random_rays, one_torch_thread)
@@ -211,3 +212,63 @@ def test_prepass_clamp_matches_reference(setup, prepass):
         cnt8, _ = es.sweep_count(o, d, lay, prepass=PREPASS)
         # a longer prime can only shorten the segment
         assert bool((cnt <= cnt8).all()) if prepass else bool((cnt >= cnt8).all())
+
+
+@pytest.fixture(scope="module")
+def count_tables():
+    """(leaf boxes, prepass rows) of the count's tables: Water-plastic at
+    leaf 56 and leaf 8 (the port's own build), and a GRID 256 terrain at
+    leaf 8 (130,052 triangles: at least 16,257 leaves)."""
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device="cpu")
+    tables = []
+    for leaf in (56, 8):
+        lay = build_layout(scene, leaf)
+        tables.append((lay.num_leaves, ht.window_prepass(lay, ht.DEFAULT_PREPASS)))
+    return tables + [(130052 // 8 + 1, ht.DEFAULT_PREPASS)]
+
+
+@pytest.mark.parametrize("tile", [96, 768, 6144, es.COUNT_TILE])
+@pytest.mark.parametrize("n", [1, 31, 33, 4096, 65537])
+def test_count_launch_shape_covers_every_lane_once(count_tables, n, tile):
+    """The count's launch shape (scripts/dense_march.py, which the kernel's
+    lane mapping mirrors) covers every lane exactly once at each k: no lane
+    twice, none left out; Water-plastic's 184 leaf-56 and 1,209 leaf-8 boxes
+    staged as one tile each, the terrain's in double-buffered tiles; the
+    prepass block and the boxes within the card's shared memory."""
+    assert [t[0] for t in count_tables[:2]] == [184, 1209]
+    for k in dense_march.LANES_PER_THREAD:
+        for leaves, pp in count_tables:
+            shape = dense_march.march_shape(n, tile, k, leaves, es.BOX_BYTES,
+                                            pp * es.PRE_BYTES)
+            lanes = dense_march.march_lanes(shape, n, tile, k)
+            assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
+            assert shape.smem <= dense_march.SHARED_LIMIT
+            one_tile = leaves * es.BOX_BYTES <= dense_march.ONE_TILE_BYTES
+            assert (shape.tile_rows == leaves) == one_tile == (leaves < 2000)
+            assert shape.smem == pp * es.PRE_BYTES + (1 if one_tile else 2) * (
+                shape.tile_rows * es.BOX_BYTES)
+
+
+@pytest.mark.parametrize("leaves,bound_ms", [(184, 0.2699), (1209, 1.3964)])
+def test_count_full_width_bound(leaves, bound_ms):
+    """chip_smoke's bound of the count on a whole bounce-1 wavefront, by hand:
+    1,363,526 live lanes of 2,073,600, each against 32 prepass rows (52
+    operations a Moller-Trumbore test) and every leaf box (25 operations a
+    box test, 1 for the first-leaf min, 1 for the count), 2 flops an
+    operation over 67 TFLOP/s; the bytes (33 a lane, the boxes and the
+    prepass block once) are below it."""
+    import chip_smoke
+    from types import SimpleNamespace
+
+    lanes, live = 2073600, 1363526
+    lay = SimpleNamespace(num_leaves=leaves, leafbox=torch.zeros(leaves, 8),
+                          prepass=torch.zeros(32, 24), tris8=torch.zeros(8, 24),
+                          leafmeta=torch.zeros(leaves, 4, dtype=torch.int32))
+    act = torch.arange(lanes) < live
+    first = torch.full((lanes,), leaves, dtype=torch.int32)
+    bnd, _ = chip_smoke.sweep_bounds(lay, act, first, 32, 0, 0)
+    ops = live * (32 * 52 + leaves * 27)
+    assert bnd["bound_ops"] == ops and bnd["bound_by"] == "operations"
+    assert bnd["bound_bytes"] == lanes * 33 + leaves * 32 + 32 * 96
+    assert bnd["bound_ms"] == pytest.approx(ops * 2 / 67e12 * 1e3, rel=1e-12)
+    assert round(bnd["bound_ms"], 4) == bound_ms

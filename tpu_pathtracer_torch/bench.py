@@ -102,7 +102,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 # Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
-        (args.mesh is not None, "--mesh", "queue 1 item 12"),
+        (args.mesh is not None, "--mesh", "queue 1: multi-device"),
     ]
 
 

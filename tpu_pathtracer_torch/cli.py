@@ -142,9 +142,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
 # Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
 def _unported(args) -> list[tuple[bool, str, str]]:
     return [
-        (args.mesh is not None, "--mesh", "queue 1 item 12"),
+        (args.mesh is not None, "--mesh", "queue 1: multi-device"),
         *((bool(path) and not path.endswith(".npz"),
-           f"{flag} {path} (the Orbax directory form)", "queue 1 item 9")
+           f"{flag} {path} (the Orbax directory form)",
+           "queue 1: the directory checkpoint form")
           for flag, path in (("--checkpoint", args.checkpoint),
                              ("--resume", args.resume))),
     ]

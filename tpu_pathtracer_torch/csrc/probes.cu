@@ -27,12 +27,15 @@
 // updates the best once.  All accept t > 0.  best_t starts at inf and
 // best_i at -1.  Every variant, the wrong ones included, is a function of
 // its inputs and is held against its plain version
-// (scripts/perf_ophit_probe.py:rowtest_probe_plain).
-// One thread per lane, `tile` threads a block.  Every thread of a warp
-// reads the same row at the same time, so a row is one broadcast load
-// through L1/L2 (__ldg, no shared-memory staging); the 455 KB table stays
-// cache-resident.  Bound: lanes x rows x the variant's operations over the
-// float32 rate.
+// (scripts/perf_ophit_probe.py:rowtest_probe_plain) and against the first
+// port's kernel (march_v1.cu:tpupt_rowtest_probe_v1).
+// The march is dense_march.cuh's: `tile` lanes a block, K lanes a thread,
+// the table's cols 0-11 staged in shared memory a tile of rows at a time
+// (the 455 KB table of the tool does not fit one block's shared memory).
+// mtblock = 16 (the tool's default) has an unrolled instance; any other
+// mtblock takes the generic one, which counts rows to the block's end.
+// Bound: lanes x rows x the variant's operations over the float32 rate.
+#include "dense_march.cuh"
 #include "walk_common.cuh"
 
 namespace {
@@ -55,27 +58,36 @@ __global__ void noop_kernel(const float* __restrict__ rays, Tables tables,
 
 enum Variant { kFullBW = 0, kNoDiv = 1, kNoUV = 2, kNoPick = 3, kRowsLatch = 4, kMT = 5 };
 
-// One row of the (T, 16) table against a ray -> accepted, *t_out.
-template <int V>
-__device__ __forceinline__ bool probe_row(const float* __restrict__ row,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float* t_out) {
+constexpr int kProbeCols = 3;  // float4 of a staged row: cols 0-11
+// Rows a step of the unrolled instance: the whole 16-row block at K = 2, 4
+// rows at K = 4 (the fastest of 2, 4, 8 and 16 rows at each K on the tool's
+// march; 16 rows at K = 4 is 64 row tests of straight code a step, and runs
+// slower).
+template <int K>
+constexpr int kRowUnroll = K == 2 ? 16 : 4;
+
+// One row (cols 0-11 as a, b, c) against a ray -> accepted, *t_out; the
+// arithmetic of march_v1.cu:probe_row, the reciprocal through
+// tpupt::recip_or_zero<kFast> (*slow: redo this test with kFast false).
+template <int V, bool kFast>
+__device__ __forceinline__ bool probe_test(const float4& a, const float4& b,
+                                           const float4& c, float ox, float oy,
+                                           float oz, float dx, float dy, float dz,
+                                           float* t_out, bool* slow) {
   if constexpr (V == kMT) {
     float u, v;
-    return tpupt::mt_row(row, ox, oy, oz, dx, dy, dz, 0.0f, t_out, &u, &v);
+    return tpupt::mt_test<kFast>(a, b, c.x, ox, oy, oz, dx, dy, dz, 0.0f, t_out, &u, &v,
+                                 slow);
   } else {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
     const float den = a.x * dx + a.y * dy + a.z * dz;
     const float num = a.x * ox + a.y * oy + a.z * oz + a.w;
-    const float inv = V == kNoDiv ? den : (den != 0.0f ? 1.0f / den : 0.0f);
+    *slow = false;
+    const float inv = V == kNoDiv ? den : tpupt::recip_or_zero<kFast>(den, slow);
     const float tt = -num * inv;
     *t_out = tt;
     if constexpr (V == kNoUV) {
       return (den != 0.0f) && (tt > 0.0f);
     } else {
-      const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
-      const float4 c = __ldg(reinterpret_cast<const float4*>(row) + 2);
       const float px = ox + tt * dx;
       const float py = oy + tt * dy;
       const float pz = oz + tt * dz;
@@ -87,57 +99,202 @@ __device__ __forceinline__ bool probe_row(const float* __restrict__ row,
   }
 }
 
-template <int V>
-__global__ void rowtest_probe_kernel(const float* __restrict__ rays,
-                                     const float* __restrict__ tris,
-                                     int nblocks, int mtblock, int n,
-                                     float* __restrict__ out_t,
-                                     int* __restrict__ out_i) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float ox = rays[i], oy = rays[n + i], oz = rays[2 * n + i];
-  const float dx = rays[3 * n + i], dy = rays[4 * n + i], dz = rays[5 * n + i];
-  const float inf = __int_as_float(0x7f800000);
-  float best_t = inf;
-  int best_i = -1;
-  float tt;
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const int r0 = blk * mtblock;
-    const float* rows = tris + 16 * r0;
-    if constexpr (V == kRowsLatch) {
-      for (int j = 0; j < mtblock; ++j) {
-        if (probe_row<V>(rows + 16 * j, ox, oy, oz, dx, dy, dz, &tt) &&
-            tt < best_t) {
-          best_t = tt;
-          best_i = r0 + j;
-        }
-      }
-    } else {
-      float tmin = inf;
-      int pmin = 0;
-      for (int j = 0; j < mtblock; ++j) {
-        if (probe_row<V>(rows + 16 * j, ox, oy, oz, dx, dy, dz, &tt) &&
-            tt < best_t && tt < tmin) {
-          tmin = tt;
-          pmin = j;
-        }
-      }
-      if (tmin < best_t) {
-        best_t = tmin;
-        if constexpr (V != kNoPick) best_i = r0 + pmin;
+// The K lanes of one thread: rays in, latches out.  tmin is the block
+// minimum and starts each block at best_t, so a row's one compare against it
+// is the block latch's two (tt < best_t and tt < the block's minimum).
+template <int K>
+struct ProbeLanes {
+  float ox[K], oy[K], oz[K], dx[K], dy[K], dz[K];
+  float best_t[K], tmin[K];
+  int best_i[K], pmin[K];
+};
+
+// One lane's latch step on a tested row: the row latch of rows-latch, else
+// the block latch's (pick = the id the block minimum keeps: the row's offset
+// in its block, or its global id).
+template <int V, int K>
+__device__ __forceinline__ void probe_latch(bool upd_ok, float tt, int r, int pick, int k,
+                                            ProbeLanes<K>& L) {
+  if constexpr (V == kRowsLatch) {
+    const bool upd = upd_ok && tt < L.best_t[k];
+    L.best_t[k] = upd ? tt : L.best_t[k];
+    L.best_i[k] = upd ? r : L.best_i[k];
+  } else {
+    const bool upd = upd_ok && tt < L.tmin[k];
+    L.tmin[k] = upd ? tt : L.tmin[k];
+    L.pmin[k] = upd ? pick : L.pmin[k];
+  }
+}
+
+// Row `rs` (staged), global row id `r`, against every lane.  The K tests and
+// latches run branch-free; a lane whose reciprocal left the fast path latches
+// nothing there and is tested again exactly, one branch a row for all K lanes
+// (never taken on the tool's normal draws).
+template <int V, int K>
+__device__ __forceinline__ void probe_step(const float4* rs, int r, int pick,
+                                           ProbeLanes<K>& L) {
+  const float4 a = rs[0], b = rs[1], c = rs[2];
+  bool slow[K];
+  bool any_slow = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float tt;
+    const bool ok = probe_test<V, true>(a, b, c, L.ox[k], L.oy[k], L.oz[k], L.dx[k],
+                                        L.dy[k], L.dz[k], &tt, &slow[k]);
+    probe_latch<V, K>(ok && !slow[k], tt, r, pick, k, L);
+    any_slow = any_slow || slow[k];
+  }
+  if (any_slow) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (slow[k]) {
+        float tt;
+        bool unused;
+        const bool ok = probe_test<V, false>(a, b, c, L.ox[k], L.oy[k], L.oz[k], L.dx[k],
+                                             L.dy[k], L.dz[k], &tt, &unused);
+        probe_latch<V, K>(ok, tt, r, pick, k, L);
       }
     }
   }
-  out_t[i] = best_t;
-  out_i[i] = best_i;
+}
+
+// The end of a block of mtblock rows: its minimum updates the best once.
+template <int V, int K>
+__device__ __forceinline__ void probe_fold(int id0, ProbeLanes<K>& L) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (L.tmin[k] < L.best_t[k]) {
+      L.best_t[k] = L.tmin[k];
+      if constexpr (V != kNoPick) L.best_i[k] = id0 + L.pmin[k];
+    }
+    L.tmin[k] = L.best_t[k];
+  }
+}
+
+// MTB: mtblock as a compile-time constant (the rows of a tile are whole
+// blocks), or 0 for the generic instance.
+template <int V, int K, int MTB>
+__global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kernel(
+    const float* __restrict__ rays, const float4* __restrict__ tris, int nrows,
+    int mtblock, int tile_rows, int tile, int passes, int n, float* __restrict__ out_t,
+    int* __restrict__ out_i) {
+  extern __shared__ float4 staged[];  // one or two buffers of tile_rows rows
+  const float inf = __int_as_float(0x7f800000);
+  const int ntiles = (nrows + tile_rows - 1) / tile_rows;
+  const int buf_stride = tile_rows * kProbeCols;
+  for (int pass = 0; pass < passes; ++pass) {
+    if (ntiles > 0) {
+      tpupt::stage_rows<kProbeCols>(staged, tris, 0, min(tile_rows, nrows), 4);
+    }
+    tpupt::cp_async_commit();
+    ProbeLanes<K> L;
+    int lane[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lane[k] = tpupt::march_lane(pass, k, K, tile, n);
+      const int i = max(lane[k], 0);
+      const bool live = lane[k] >= 0;  // a masked slot marches zeros: den = 0 accepts nothing
+      L.ox[k] = live ? rays[i] : 0.0f;
+      L.oy[k] = live ? rays[n + i] : 0.0f;
+      L.oz[k] = live ? rays[2 * n + i] : 0.0f;
+      L.dx[k] = live ? rays[3 * n + i] : 0.0f;
+      L.dy[k] = live ? rays[4 * n + i] : 0.0f;
+      L.dz[k] = live ? rays[5 * n + i] : 0.0f;
+      L.best_t[k] = inf;
+      L.best_i[k] = -1;
+      L.tmin[k] = inf;
+      L.pmin[k] = 0;
+    }
+    int in_block = 0;  // generic instance: rows of the current block seen so far
+    for (int tl = 0; tl < ntiles; ++tl) {
+      const int r0 = tl * tile_rows;
+      if (tl + 1 < ntiles) {
+        tpupt::stage_rows<kProbeCols>(staged + ((tl + 1) & 1) * buf_stride, tris,
+                                      r0 + tile_rows, min(tile_rows, nrows - r0 - tile_rows),
+                                      4);
+        tpupt::cp_async_commit();
+        tpupt::cp_async_wait<1>();
+      } else {
+        tpupt::cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float4* rs = staged + (tl & 1) * buf_stride;
+      const int nr = min(tile_rows, nrows - r0);
+      if constexpr (MTB > 0) {
+        for (int b0 = 0; b0 < nr; b0 += MTB) {
+#pragma unroll 1
+          for (int j0 = 0; j0 < MTB; j0 += kRowUnroll<K>) {
+#pragma unroll
+            for (int u = 0; u < kRowUnroll<K>; ++u) {
+              const int j = j0 + u;
+              probe_step<V, K>(rs + (b0 + j) * kProbeCols, r0 + b0 + j, j, L);
+            }
+          }
+          if constexpr (V != kRowsLatch) probe_fold<V, K>(r0 + b0, L);
+        }
+      } else {
+        for (int j = 0; j < nr; ++j) {
+          probe_step<V, K>(rs + j * kProbeCols, r0 + j, r0 + j, L);
+          if constexpr (V != kRowsLatch) {
+            if (++in_block == mtblock) {
+              probe_fold<V, K>(0, L);
+              in_block = 0;
+            }
+          }
+        }
+      }
+      __syncthreads();  // the buffer is refilled two tiles on
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane[k] >= 0) {
+        out_t[lane[k]] = L.best_t[k];
+        out_i[lane[k]] = L.best_i[k];
+      }
+    }
+  }
+}
+
+template <int V, int K, int MTB>
+int launch_probe(const float* rays, const float* tris, int nrows, int mtblock,
+                 int tile_rows, int tile, int blocks, int threads, int passes,
+                 int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
+  auto kernel = rowtest_probe_kernel<V, K, MTB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks, threads, smem, s>>>(rays, reinterpret_cast<const float4*>(tris),
+                                       nrows, mtblock, tile_rows, tile, passes, n,
+                                       out_t, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V, int K>
+int launch_probe_k(const float* rays, const float* tris, int nrows, int mtblock,
+                   int tile_rows, int tile, int blocks, int threads, int passes,
+                   int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
+  // the unrolled instance needs tiles of whole 16-row blocks
+  if (mtblock == 16 && tile_rows % 16 == 0) {
+    return launch_probe<V, K, 16>(rays, tris, nrows, mtblock, tile_rows, tile, blocks,
+                                  threads, passes, smem, n, out_t, out_i, s);
+  }
+  return launch_probe<V, K, 0>(rays, tris, nrows, mtblock, tile_rows, tile, blocks,
+                               threads, passes, smem, n, out_t, out_i, s);
 }
 
 template <int V>
-void launch_probe(const float* rays, const float* tris, int nblocks,
-                  int mtblock, int threads, int n, float* out_t, int* out_i,
-                  cudaStream_t s) {
-  rowtest_probe_kernel<V><<<(n + threads - 1) / threads, threads, 0, s>>>(
-      rays, tris, nblocks, mtblock, n, out_t, out_i);
+int launch_probe_v(int k, const float* rays, const float* tris, int nrows, int mtblock,
+                   int tile_rows, int tile, int blocks, int threads, int passes,
+                   int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
+  switch (k) {
+    case 2: return launch_probe_k<V, 2>(rays, tris, nrows, mtblock, tile_rows, tile,
+                                        blocks, threads, passes, smem, n, out_t, out_i, s);
+    case 4: return launch_probe_k<V, 4>(rays, tris, nrows, mtblock, tile_rows, tile,
+                                        blocks, threads, passes, smem, n, out_t, out_i, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -153,21 +310,27 @@ extern "C" int tpupt_noop(const float* rays, const void* t0, const void* t1,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpupt_rowtest_probe(const float* rays, const float* tris,
-                                   int variant, int nblocks, int mtblock,
-                                   int threads, int n, float* out_t, int* out_i,
+// k: lanes a thread (2 or 4); tile, blocks, threads, passes, tile_rows and
+// smem: scripts/dense_march.py:march_shape's launch shape.
+extern "C" int tpupt_rowtest_probe(const float* rays, const float* tris, int variant,
+                                   int nblocks, int mtblock, int k, int tile,
+                                   int blocks, int threads, int passes, int tile_rows,
+                                   int smem, int n, float* out_t, int* out_i,
                                    void* stream) {
-  if (n > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (variant) {
-      case kFullBW: launch_probe<kFullBW>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      case kNoDiv: launch_probe<kNoDiv>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      case kNoUV: launch_probe<kNoUV>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      case kNoPick: launch_probe<kNoPick>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      case kRowsLatch: launch_probe<kRowsLatch>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      case kMT: launch_probe<kMT>(rays, tris, nblocks, mtblock, threads, n, out_t, out_i, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nrows = nblocks * mtblock;
+#define TPUPT_PROBE(V)                                                              \
+  launch_probe_v<V>(k, rays, tris, nrows, mtblock, tile_rows, tile, blocks, threads, \
+                    passes, smem, n, out_t, out_i, s)
+  switch (variant) {
+    case kFullBW: return TPUPT_PROBE(kFullBW);
+    case kNoDiv: return TPUPT_PROBE(kNoDiv);
+    case kNoUV: return TPUPT_PROBE(kNoUV);
+    case kNoPick: return TPUPT_PROBE(kNoPick);
+    case kRowsLatch: return TPUPT_PROBE(kRowsLatch);
+    case kMT: return TPUPT_PROBE(kMT);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef TPUPT_PROBE
 }

@@ -24,7 +24,7 @@ def _check_npz(path: str) -> None:
         raise NotImplementedError(
             f"checkpoint {path!r}: only the .npz form is ported to "
             "tpu_pathtracer_torch; the Orbax directory form is not yet "
-            "(ROADMAP.md queue 1 item 9)")
+            "(ROADMAP.md queue 1: the directory checkpoint form)")
 
 
 def save_checkpoint(path: str, state: RenderState) -> None:

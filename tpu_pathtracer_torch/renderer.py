@@ -69,7 +69,7 @@ class Renderer:
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh is not ported to tpu_pathtracer_torch "
-                "yet (ROADMAP.md queue 1 item 12)")
+                "yet (ROADMAP.md queue 1: multi-device)")
         self.device = torch.device(device)
         self.scene = (
             scene if isinstance(scene, Scene)

@@ -50,8 +50,13 @@ from ..ops.cuda_build import load_library
 from ..ops.hopper_traverse import (DEFAULT_PREPASS, _check, _check_layout,
                                    _nearest_inputs, window_prepass)
 from ..ops.traverse import Tally, _slab, latch, mt_rows, safe_inverse
+from .dense_march import march_shape
 
 LEAF_CHUNK = 256  # leaf boxes per step of the plain versions
+COUNT_TILE = 512  # lanes a block of the count kernel covers
+K_LANES = 4       # the count's lanes a thread (PERF.md section 6, PR 10)
+BOX_BYTES = 32    # a leaf box as the count stages it: one leafbox row
+PRE_BYTES = 48    # a prepass row as the count stages it: cols 0-11
 
 
 class SweepRaw(NamedTuple):
@@ -127,8 +132,18 @@ def sweep_count_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
     return count, first
 
 
+def _count_inputs(o, d, lay: BVHLayout, active):
+    o, d, active, _ = _nearest_inputs(o, d, active, None)
+    n = o.shape[1]
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check_layout(lay, ("leafbox", "prepass"), o.device)
+    return o, d, active, n
+
+
 def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                prepass: int = DEFAULT_PREPASS):
+                prepass: int = DEFAULT_PREPASS, k: int = K_LANES):
     """(count, first_leaf) int32 per ray: the leaf AABBs crossed by
     ``[t_min, prime_t)``, and the lowest of them as a row of ``lay.leafbox``
     (``lay.num_leaves`` when none).  The CUDA kernel for CUDA tensors, the
@@ -136,22 +151,20 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 
     ``o``/``d``: (3, N) float32; ``active``: (N,) bool or None for every
     lane; ``prepass``: leading rows of ``lay.prepass`` that prime best_t
-    (clamped to whole 8-row blocks, as the window walk's)."""
+    (clamped to whole 8-row blocks, as the window walk's); ``k``: lanes a
+    thread of the kernel."""
     if o.device.type == "cpu":
         return sweep_count_plain(o, d, lay, active, t_min, prepass)
-    o, d, active, _ = _nearest_inputs(o, d, active, None)
-    n = o.shape[1]
-    _check(o, torch.float32, (3, n), "o")
-    _check(d, torch.float32, (3, n), "d")
-    _check(active, torch.bool, (n,), "active")
-    _check_layout(lay, ("leafbox", "prepass"), o.device)
+    o, d, active, n = _count_inputs(o, d, lay, active)
+    pp = window_prepass(lay, prepass)
+    shape = march_shape(n, COUNT_TILE, k, lay.num_leaves, BOX_BYTES, pp * PRE_BYTES)
     count = torch.empty(n, dtype=torch.int32, device=o.device)
     first = torch.empty(n, dtype=torch.int32, device=o.device)
     rc = load_library().tpupt_sweep_count(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), lay.leafbox.data_ptr(),
-        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves, t_min, n,
-        count.data_ptr(), first.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
+        lay.prepass.data_ptr(), pp, lay.num_leaves, t_min, k, COUNT_TILE, shape.blocks,
+        shape.threads, shape.passes, shape.tile_rows, shape.smem, n, count.data_ptr(),
+        first.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep_count kernel launch failed: cudaError {rc}")
     sweep_count.launches += 1
@@ -159,6 +172,36 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 
 
 sweep_count.launches = 0
+
+
+def sweep_count_v1_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
+                         prepass: int = DEFAULT_PREPASS):
+    """Plain version of the yardstick: the count's."""
+    return sweep_count_plain(o, d, lay, active, t_min, prepass)
+
+
+def sweep_count_v1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
+                   prepass: int = DEFAULT_PREPASS):
+    """The first port's count (``csrc/march_v1.cu``: one lane a thread, each
+    box read with ``__ldg``), kept as the yardstick :func:`sweep_count` is
+    timed against in turns; on no tool's path."""
+    if o.device.type == "cpu":
+        return sweep_count_v1_plain(o, d, lay, active, t_min, prepass)
+    o, d, active, n = _count_inputs(o, d, lay, active)
+    count = torch.empty(n, dtype=torch.int32, device=o.device)
+    first = torch.empty(n, dtype=torch.int32, device=o.device)
+    rc = load_library().tpupt_sweep_count_v1(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), lay.leafbox.data_ptr(),
+        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves, t_min, n,
+        count.data_ptr(), first.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"sweep_count_v1 kernel launch failed: cudaError {rc}")
+    sweep_count_v1.launches += 1
+    return count, first
+
+
+sweep_count_v1.launches = 0
 
 
 def intersect_sweep1_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,

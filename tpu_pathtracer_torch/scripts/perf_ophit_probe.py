@@ -23,9 +23,9 @@ feedback changes the work):
 ``nouv``, ``nopick`` and ``mt`` take one minimum and a lowest-row pick
 before they update the best record (the reference's ``_argmin_pick``),
 against ``rows-latch``'s update per row; ``rows // mtblock`` whole blocks
-are marched.  ``--tile`` is the number of lanes one thread block covers:
-one thread a lane, so it is the block's thread count (a multiple of 32, at
-most 1024).
+are marched.  ``--tile`` is the number of lanes one thread block covers (a
+multiple of 32), as the reference's tile is the lanes of one grid step; the
+block runs K lanes a thread (:mod:`.dense_march`).
 
 Every variant but ``full-bw`` and ``rows-latch`` returns values that mean
 nothing as intersections; each is still a deterministic function of its
@@ -51,10 +51,13 @@ from ..device import device_for, device_label
 from ..ops.cuda_build import load_library
 from ..ops.hopper_traverse import _bw
 from ..ops.traverse import latch, mt_rows
+from .dense_march import march_shape
 
 N = 1920 * 1080          # the main path's wavefront lanes
 T8 = 7112                # the bench scene's padded BW row count (a multiple of 8)
 VARIANTS = ("full-bw", "nodiv", "nouv", "nopick", "rows-latch", "mt")
+STAGED_ROW_BYTES = 48  # cols 0-11 of a row: what the kernel stages in shared memory
+K_LANES = 2  # lanes a thread: faster than 4 on every variant (PERF.md section 6, PR 10)
 # float32 operations of one row test and its latch compare, each add, mul,
 # div and compare counted once (the count behind chip_smoke.OPS_ROW: a BW
 # test 38, an MT test 52).  nodiv drops the divide; nouv keeps den (5), num
@@ -110,34 +113,39 @@ def rowtest_probe_plain(variant: str, rays, tris, mtblock: int = 16):
     return best_t, best_i
 
 
-def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
-    """The dense march -> (best_t (N,) f32, best_i (N,) int32): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  ``rays``:
-    (8, N) float32 (rows 0-2 origins, 3-5 directions); ``tris``: (T, 16)
-    float32; ``tile``: threads per block."""
-    if rays.device.type == "cpu":
-        return rowtest_probe_plain(variant, rays, tris, mtblock)
+def _check_probe_inputs(variant: str, rays, tris, mtblock: int) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r}: expected one of {VARIANTS}")
-    n = rays.shape[-1]
     for name, t, cols in (("rays", rays, None), ("tris", tris, 16)):
         if (t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous()
                 or t.device != rays.device or t.data_ptr() % 16
                 or (cols and t.shape[1] != cols)):
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned float32 "
                              f"matrix on {rays.device}, got {t.dtype} {tuple(t.shape)}")
-    if rays.shape[0] != 8 or 8 * n >= 2 ** 31:
+    if rays.shape[0] != 8 or 8 * rays.shape[-1] >= 2 ** 31:
         raise ValueError(f"rays: expected (8, N) with 8 N < 2^31, got {tuple(rays.shape)}")
-    if not (32 <= tile <= 1024 and tile % 32 == 0):
-        raise ValueError(f"tile={tile}: one thread a lane, so a block's thread count: "
-                         "a multiple of 32 in [32, 1024]")
     if mtblock < 1:
         raise ValueError(f"mtblock={mtblock}: expected >= 1")
+
+
+def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16,
+                  k: int = K_LANES):
+    """The dense march -> (best_t (N,) f32, best_i (N,) int32): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  ``rays``:
+    (8, N) float32 (rows 0-2 origins, 3-5 directions); ``tris``: (T, 16)
+    float32; ``tile``: lanes a block covers; ``k``: lanes a thread."""
+    if rays.device.type == "cpu":
+        return rowtest_probe_plain(variant, rays, tris, mtblock)
+    _check_probe_inputs(variant, rays, tris, mtblock)
+    n = rays.shape[-1]
+    nblocks = tris.shape[0] // mtblock
+    shape = march_shape(n, tile, k, nblocks * mtblock, STAGED_ROW_BYTES)
     out_t = torch.empty(n, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load_library().tpupt_rowtest_probe(
-        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant),
-        tris.shape[0] // mtblock, mtblock, tile, n, out_t.data_ptr(), out_i.data_ptr(),
+        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant), nblocks, mtblock, k,
+        tile, shape.blocks, shape.threads, shape.passes, shape.tile_rows, shape.smem, n,
+        out_t.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc:
         raise RuntimeError(f"rowtest_probe kernel launch failed: cudaError {rc}")
@@ -146,6 +154,38 @@ def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
 
 
 rowtest_probe.launches = 0
+
+
+def rowtest_probe_v1_plain(variant: str, rays, tris, mtblock: int = 16):
+    """Plain version of the yardstick: the probe's."""
+    return rowtest_probe_plain(variant, rays, tris, mtblock)
+
+
+def rowtest_probe_v1(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
+    """The first port's probe (``csrc/march_v1.cu``: one lane a thread, each
+    row read with ``__ldg``), kept as the yardstick :func:`rowtest_probe` is
+    timed against in turns; on no tool's path.  ``tile``: threads a block (a
+    multiple of 32 in [32, 1024])."""
+    if rays.device.type == "cpu":
+        return rowtest_probe_v1_plain(variant, rays, tris, mtblock)
+    _check_probe_inputs(variant, rays, tris, mtblock)
+    if not (32 <= tile <= 1024 and tile % 32 == 0):
+        raise ValueError(f"tile={tile}: one thread a lane, so a block's thread count: "
+                         "a multiple of 32 in [32, 1024]")
+    n = rays.shape[-1]
+    out_t = torch.empty(n, dtype=torch.float32, device=rays.device)
+    out_i = torch.empty(n, dtype=torch.int32, device=rays.device)
+    rc = load_library().tpupt_rowtest_probe_v1(
+        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant),
+        tris.shape[0] // mtblock, mtblock, tile, n, out_t.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(rays.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"rowtest_probe_v1 kernel launch failed: cudaError {rc}")
+    rowtest_probe_v1.launches += 1
+    return out_t, out_i
+
+
+rowtest_probe_v1.launches = 0
 
 
 def run_variant(variant, rays, tris, tile, mtblock, reps):
