@@ -76,16 +76,16 @@ Phases (any failure raises, so the exit code is not 0):
     against its kernel route;
 14. candidate-sweep kernels: on 65,536 lanes of the Water-plastic 1080p
     camera and bounce-1 wavefronts, on the leaf-56 layout (prepass 32) and
-    the leaf-8 layout, ``sweep_count`` (at k = 2 and 4 lanes a thread) and
-    ``intersect_sweep1`` (scripts/experimental_sweep.py) against their
-    plain versions: counts and first leaves equal on every lane, t, u, v,
-    row and orig equal; the count on the whole bounce-1 wavefront against
-    its plain version on every lane, both layouts, and both kernels' bounds
-    there; then the count's A/B: the first port's count
-    (``sweep_count_v1``, csrc/march_v1.cu) and the redesigned one at k = 2
-    and 4 in turns on the whole bounce-1 wavefronts of Water-plastic (both
-    layouts) and of the GRID 256 terrain (leaf 8: many tiles of boxes), each
-    equal to the yardstick on every lane, ms and share of the bound;
+    the leaf-8 layout, ``sweep_count`` and ``intersect_sweep1``
+    (scripts/experimental_sweep.py) against their plain versions: counts
+    and first leaves equal on every lane, t, u, v, row and orig equal; the
+    count on the whole bounce-1 wavefront against its plain version on
+    every lane, both layouts, and both kernels' bounds there; then the
+    count's A/B: the first port's count (``sweep_count_v1``,
+    csrc/march_v1.cu) and the redesigned one in turns on the whole bounce-1
+    wavefronts of Water-plastic (both layouts) and of the GRID 256 terrain
+    (leaf 8: many tiles of boxes), each equal to the yardstick on every
+    lane, ms and share of the bound;
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -107,8 +107,8 @@ Phases (any failure raises, so the exit code is not 0):
 17. row-test probe: each of the six variants against its plain version on
     65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
     on every 32nd lane; the A/B: the first port's probe
-    (``rowtest_probe_v1``, csrc/march_v1.cu) and the redesigned one at k =
-    2 and 4 in turns on the tool's inputs, every variant, each equal to the
+    (``rowtest_probe_v1``, csrc/march_v1.cu) and the redesigned one in
+    turns on the tool's inputs, every variant, each equal to the
     yardstick on every lane, ms and share of the bound; then
     ``scripts/perf_ophit_probe.main()`` with the default flags (1080p
     lanes, 7112 rows), its ``ROW`` lines echoed;
@@ -252,14 +252,14 @@ KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
 # phase may launch them; the first port's kernels get rows of the kernel table
 YARDSTICKS = KERNELS[12:]
 # the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
-# tpu_pathtracer_torch.scripts, wrapper (its plain version is <wrapper>_plain)
-TOOL_KERNELS = {"sweep_count": ("experimental_sweep", "sweep_count"),
-                "sweep1": ("experimental_sweep", "intersect_sweep1"),
-                "noop": ("perf_launch", "noop"),
-                "rowtest_probe": ("perf_ophit_probe", "rowtest_probe"),
-                "rowtest_probe_v1": ("perf_ophit_probe", "rowtest_probe_v1"),
-                "sweep_count_v1": ("experimental_sweep", "sweep_count_v1")}
-MARCH_K = (2, 4)  # the dense marches' lanes a thread (scripts/dense_march.py)
+# tpu_pathtracer_torch.scripts, wrapper, its plain version
+TOOL_KERNELS = {
+    "sweep_count": ("experimental_sweep", "sweep_count", "sweep_count_plain"),
+    "sweep1": ("experimental_sweep", "intersect_sweep1", "intersect_sweep1_plain"),
+    "noop": ("perf_launch", "noop", "noop_plain"),
+    "rowtest_probe": ("perf_ophit_probe", "rowtest_probe", "rowtest_probe_plain"),
+    "rowtest_probe_v1": ("perf_ophit_probe", "rowtest_probe_v1", "rowtest_probe_plain"),
+    "sweep_count_v1": ("experimental_sweep", "sweep_count_v1", "sweep_count_plain")}
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -337,13 +337,8 @@ def phase_device() -> str:
     return smi
 
 
-class Build(NamedTuple):
-    """What the build phase read about the kernels."""
-    log: str   # the compiler's output (ptxas -v)
-    sass: str  # cuobjdump -sass of the library ("" without cuobjdump)
-
-
-def phase_build() -> Build:
+def phase_build() -> str:
+    """Build the kernels -> the compiler's output (ptxas -v)."""
     from tpu_pathtracer_torch.ops import cuda_build
 
     path, seconds, compiler_log = cuda_build.build()
@@ -352,74 +347,7 @@ def phase_build() -> Build:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     cuda_build.load_library()
-    return Build(compiler_log, library_sass())
-
-
-def library_sass() -> str:
-    """``cuobjdump -sass`` of the built library ("" where the toolkit has no
-    cuobjdump)."""
-    from tpu_pathtracer_torch.ops import cuda_build
-
-    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return ""
-    return subprocess.run([tool, "-sass", cuda_build.library_path()], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-
-
-def sass_loops(sass: str, symbol: str) -> list[dict]:
-    """The innermost loops of one kernel instance in a ``cuobjdump -sass``
-    listing (``symbol``: a substring of its mangled name), the most float32
-    instructions first -> [{"float": n, "issued": m, "ops": {opcode: k}}]:
-    ``issued`` counts the instructions one trip issues on its fast path,
-    every forward branch over a CALL taken (the rare exact reciprocal), and
-    ``float`` the FADD, FMUL, FFMA, FMNMX and FSETP among them."""
-    func = next((f for f in re.split(r"\n\s+Function : ", sass)
-                 if symbol in f.split("\n", 1)[0]), None)
-    if func is None:
-        return []
-    ins = [(int(m[1], 16), m[2].strip())
-           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-    where = {a: i for i, (a, _) in enumerate(ins)}
-    target = lambda op: re.search(r"BRA (?:`\()?(0x[0-9a-f]+)", op)  # noqa: E731
-    back = [(where[int(t[1], 16)], i) for i, (a, op) in enumerate(ins)
-            if (t := target(op)) and int(t[1], 16) < a and int(t[1], 16) in where]
-    loops = []
-    for lo, hi in back:
-        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in back):
-            continue  # not innermost
-        ops, i = {}, lo
-        while i <= hi:
-            op = ins[i][1]
-            name = re.sub(r"^@!?U?P[T0-9] ", "", op).split()[0].split(".")[0]
-            ops[name] = ops.get(name, 0) + 1
-            t = target(op)
-            if t and i < hi and int(t[1], 16) > ins[i][0] and int(t[1], 16) in where:
-                j = where[int(t[1], 16)]
-                if not op.startswith("@") or any("CALL" in x for _, x in ins[i:j]):
-                    i = j
-                    continue
-            i += 1
-        loops.append({"float": sum(ops.get(k, 0) for k in
-                                   ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP")),
-                      "issued": sum(ops.values()), "ops": ops})
-    return sorted(loops, key=lambda x: -x["float"])
-
-
-def issue_ceiling(sass: str, symbol: str, marker: str, per_test: int,
-                  ops_per_test: int) -> dict | None:
-    """A kernel's issue ceiling from its SASS: in the innermost loop with the
-    most ``marker`` instructions (``per_test`` of them a lane test: MUFU 1
-    for a row test's reciprocal, FMNMX 10 for a box test), the instructions
-    issued per lane test on the fast path, and the operations the bound
-    counts over them.  None when the listing lacks the instance."""
-    loops = [x for x in sass_loops(sass, symbol) if x["ops"].get(marker)]
-    if not loops:
-        return None
-    hot = max(loops, key=lambda x: x["ops"][marker])
-    issued = hot["issued"] * per_test / hot["ops"][marker]
-    return {"issued_per_test": issued, "ops_per_test": ops_per_test,
-            "issue_ceiling_pct": 100.0 * ops_per_test / issued}
+    return compiler_log
 
 
 def kernel_registers(compiler_log: str, symbol: str) -> dict:
@@ -1191,13 +1119,14 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
 
 def kernel_home(name: str):
     """One of KERNELS -> (the module that holds its wrapper, the wrapper's
-    name there); its plain version is ``<wrapper>_plain`` beside it."""
+    name there, its plain version's name there)."""
     import importlib
 
     if name in TOOL_KERNELS:
-        mod, attr = TOOL_KERNELS[name]
-        return importlib.import_module(f"tpu_pathtracer_torch.scripts.{mod}"), attr
-    return importlib.import_module("tpu_pathtracer_torch.ops.hopper_traverse"), name
+        mod, attr, plain = TOOL_KERNELS[name]
+        return importlib.import_module(f"tpu_pathtracer_torch.scripts.{mod}"), attr, plain
+    return (importlib.import_module("tpu_pathtracer_torch.ops.hopper_traverse"), name,
+            f"{name}_plain")
 
 
 @contextlib.contextmanager
@@ -1208,8 +1137,9 @@ def counted_run(yardsticks: bool = False):
     Moller-Trumbore form's launches of the wrappers that take tritest).
     Unless ``yardsticks``, a run that launched one of YARDSTICKS fails: only
     the walk A/B may."""
-    where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper name)
-    plain_cuda = {f"{k}_plain": 0 for k in KERNELS}
+    where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper, plain)
+    plains = {(mod, plain) for mod, _, plain in where.values()}  # a yardstick shares one
+    plain_cuda = {plain: 0 for _, plain in plains}
 
     def counted(name, fn):
         def wrapper(*args, **kw):
@@ -1219,10 +1149,10 @@ def counted_run(yardsticks: bool = False):
             return fn(*args, **kw)
         return wrapper
 
-    saved = {k: getattr(mod, f"{attr}_plain") for k, (mod, attr) in where.items()}
-    for k, fn in saved.items():
-        setattr(where[k][0], f"{where[k][1]}_plain", counted(f"{k}_plain", fn))
-    fns = {k: getattr(mod, attr) for k, (mod, attr) in where.items()}
+    saved = {(mod, plain): getattr(mod, plain) for mod, plain in plains}
+    for (mod, plain), fn in saved.items():
+        setattr(mod, plain, counted(plain, fn))
+    fns = {k: getattr(mod, attr) for k, (mod, attr, _) in where.items()}
     mt = [k for k in KERNELS if hasattr(fns[k], "launches_mt")]
     for k in KERNELS:
         fns[k].launches = 0
@@ -1234,8 +1164,8 @@ def counted_run(yardsticks: bool = False):
     finally:
         out["launches"] = {k: fns[k].launches for k in KERNELS}
         out["launches_mt"] = {k: fns[k].launches_mt for k in mt}
-        for k, fn in saved.items():
-            setattr(where[k][0], f"{where[k][1]}_plain", fn)
+        for (mod, plain), fn in saved.items():
+            setattr(mod, plain, fn)
     used = {k: out["launches"][k] for k in YARDSTICKS if out["launches"][k]}
     if used and not yardsticks:
         raise AssertionError(f"a yardstick kernel ran outside the walk A/B: {used}")
@@ -2595,33 +2525,30 @@ def count_equals_plain(label: str, o, d, act, lay, pp: int, got) -> None:
 
 
 def count_ab(label: str, o, d, act, lay, pp: int, bnd_ms: float) -> dict:
-    """The count at each k against the yardstick on one wavefront: equal on
-    every lane, then timed in turns -> {version: [ms, ms]}."""
+    """The count against the yardstick on one wavefront: equal on every
+    lane, then timed in turns -> {version: [ms, ms]}."""
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
 
-    want = es.sweep_count_v1(o, d, lay, active=act, prepass=pp)
-    for k in MARCH_K:
-        equal_on_every_lane(f"sweep_count k={k} vs sweep_count_v1, {label}",
-                            es.sweep_count(o, d, lay, active=act, prepass=pp, k=k), want)
-    fns = {"v1": lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp)}
-    fns.update({f"k={k}": lambda k=k: es.sweep_count(o, d, lay, active=act, prepass=pp, k=k)
-                for k in MARCH_K})
+    equal_on_every_lane(f"sweep_count vs sweep_count_v1, {label}",
+                        es.sweep_count(o, d, lay, active=act, prepass=pp),
+                        es.sweep_count_v1(o, d, lay, active=act, prepass=pp))
+    fns = {"v1": lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp),
+           "new": lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)}
     return march_ab(f"sweep_count {label} ({o.shape[1]} lanes, {int(act.sum())} live, "
                     f"{lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
 
 
-def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], int]:
+def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict], int]:
     """The candidate-sweep pair against its plain versions on 65,536 lanes
     of the Water-plastic camera and bounce-1 wavefronts, on the leaf-56 and
     the leaf-8 layout, and the count on the whole bounce-1 wavefront; timed
     on the bounce-1 lanes (and the full bounce-1 wavefront) of the leaf-56
     layout, with the leaf-8 times beside; the bounds on the full wavefront
-    at both leaf sizes; the count at each k against the first port's (the
-    yardstick) in turns on the whole bounce-1 wavefronts of Water-plastic
-    (both layouts) and of the terrain ``terrain`` (leaf 8: many tiles of
-    boxes), equal on every lane -> (the rows of the kernel table: the pair's
-    and the yardstick's, the count's with the SASS issue ceilings of its box
-    loop and its prime; the yardstick's launches in the A/B)."""
+    at both leaf sizes; the count against the first port's (the yardstick)
+    in turns on the whole bounce-1 wavefronts of Water-plastic (both
+    layouts) and of the terrain ``terrain`` (leaf 8: many tiles of boxes),
+    equal on every lane -> (the rows of the kernel table: the pair's and the
+    yardstick's; the yardstick's launches in the A/B)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.ops.traverse import Tally
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
@@ -2647,10 +2574,6 @@ def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], in
             if bad:
                 raise AssertionError(f"sweep_count/{which} ({label}): counts or first "
                                      f"leaves differ on {bad} lanes")
-            for k in MARCH_K:
-                equal_on_every_lane(f"sweep_count k={k}/{which} ({label})",
-                                    es.sweep_count(o, d, lay, active=act, prepass=pp, k=k),
-                                    (cp, fp))
             if not (torch.equal(rk.row, rp.row) and torch.equal(rk.orig, rp.orig)):
                 raise AssertionError(f"sweep1/{which} ({label}): rows or original ids "
                                      f"differ on {int((rk.row != rp.row).sum())} lanes")
@@ -2658,7 +2581,7 @@ def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], in
             if err > 0.0:
                 raise AssertionError(f"sweep1/{which} ({label}): t, u or v differ by {err}")
             err_count, err_one = max(err_count, float(bad)), max(err_one, err)
-            log(f"  sweep_count (k = {', '.join(map(str, MARCH_K))}), sweep1/{which} "
+            log(f"  sweep_count, sweep1/{which} "
                 f"({label}, {lay.num_leaves} leaves, prepass {pp}): counts, first leaves, "
                 f"t, u, v, row, orig equal on all {SAMPLE_LANES} lanes; {int(sel.sum())} "
                 f"lanes with <= 1 candidate, {int(torch.isfinite(rk.t[sel]).sum())} of "
@@ -2729,17 +2652,8 @@ def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], in
         extra = {f"{x}_leaf8": v for x, v in other.items()
                  if x.endswith("ms") or x.endswith("_by") or x.endswith("pct_of_bound")}
         if name == "sweep_count":
-            symbol = f"sweep_count_kernelILi{es.K_LANES}EE"
-            issue = {"box": issue_ceiling(build.sass, symbol, "FMNMX", 10, OPS_LEAF_BOX + 1),
-                     "prime": issue_ceiling(build.sass, symbol, "MUFU", 1, OPS_ROW["mt"])}
-            for part, x in issue.items():
-                if x:
-                    log(f"  sweep_count {part} loop (k={es.K_LANES}) SASS: "
-                        f"{x['issued_per_test']:.2f} instructions issued a test for "
-                        f"{x['ops_per_test']} operations, issue ceiling "
-                        f"{x['issue_ceiling_pct']:.1f}%")
-            extra.update(ab_full_ms=ab, k_lanes=es.K_LANES, issue=issue,
-                         registers=kernel_registers(build.log, "sweep_count_kernel"))
+            extra.update(ab_full_ms=ab, k_lanes=es.K_LANES,
+                         registers=kernel_registers(compiler_log, "sweep_count_kernel"))
         out.append(kernel_entry(
             name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
             plain_ms, full_ms, main, **extra))
@@ -2752,7 +2666,7 @@ def phase_sweep_kernels(renderer, terrain, build: Build) -> tuple[list[dict], in
         count_row["plain_ms"], min(ab["leaf 56"]["v1"]),
         {x: count_row[x] for x in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
         yardstick_of="sweep_count",
-        registers=kernel_registers(build.log, "sweep_count_v1_kernel"))
+        registers=kernel_registers(compiler_log, "sweep_count_v1_kernel"))
     yard.update(at_full_width("sweep_count_v1 (leaf 56)", "bounce-1 wavefront",
                               yard["full_ms"], full_bounds["leaf 56"][0]))
     out.append(yard)
@@ -2941,7 +2855,7 @@ def probe_bound(lanes: int, rows: int, table_rows: int, ops_per_row: int) -> dic
 
 
 def march_ab(label: str, fns: dict, bnd_ms: float) -> dict:
-    """A dense march's versions in turns (``fns``: "v1", then one per k) ->
+    """A dense march's versions in turns (``fns``: "v1", then "new") ->
     {version: [ms, ms]}; logs each beside its share of the bound."""
     ab = turns(fns, iters=3)
     log(f"  A/B {label}, ms in turns (share of the {bnd_ms:.4f} ms bound): "
@@ -2950,16 +2864,15 @@ def march_ab(label: str, fns: dict, bnd_ms: float) -> dict:
     return ab
 
 
-def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
+def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
     """Each of the six probe variants against its plain version on 65,536
     lanes and, at the tool's own width and inputs, on every 32nd lane; the
-    redesigned kernel at each k against the first port's (the yardstick) in
-    turns at that width, equal on every lane; then the probe's ``main()``
-    with the default flags -> (the rows of the kernel table: the probe's,
-    with the anchor variant's numbers and every variant's beside, and the
+    redesigned kernel against the first port's (the yardstick) in turns at
+    that width, equal on every lane; then the probe's ``main()`` with the
+    default flags -> (the rows of the kernel table: the probe's, with the
+    anchor variant's numbers and every variant's beside, and the
     yardstick's; the probe's launches in ``main()`` and the yardstick's in
-    the A/B); the probe's row also carries its SASS issue ceiling for each
-    variant with a reciprocal (``issue``)."""
+    the A/B)."""
     from tpu_pathtracer_torch.scripts import perf_ophit_probe as pp
 
     rays, tris = pp.probe_inputs(SAMPLE_LANES, pp.T8, "cuda", seed=1)
@@ -2996,24 +2909,20 @@ def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
         f"variants bit-equal to their plain versions on one lane in {FULL_STRIDE} "
         f"({srays.shape[1]} lanes)")
     del srays
-    # the A/B: the yardstick and the redesign at each k in turns, on the
-    # tool's inputs at full width, equal on every lane
+    # the A/B: the yardstick and the redesign in turns, on the tool's inputs
+    # at full width, equal on every lane
     ab = {}
     with counted_run(yardsticks=True) as ab_run:
         for v in pp.VARIANTS:
-            want = pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock)
-            for k in MARCH_K:
-                equal_on_every_lane(f"rowtest_probe/{v} k={k} vs rowtest_probe_v1",
-                                    pp.rowtest_probe(v, frays, ftris, tile, mtblock, k), want)
-            fns = {"v1": lambda: pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock)}
-            fns.update({f"k={k}": lambda k=k: pp.rowtest_probe(v, frays, ftris, tile,
-                                                               mtblock, k)
-                        for k in MARCH_K})
+            equal_on_every_lane(f"rowtest_probe/{v} vs rowtest_probe_v1",
+                                pp.rowtest_probe(v, frays, ftris, tile, mtblock),
+                                pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock))
+            fns = {"v1": lambda: pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock),
+                   "new": lambda: pp.rowtest_probe(v, frays, ftris, tile, mtblock)}
             ab[v] = march_ab(f"rowtest_probe/{v} at {pp.N} lanes x {rows} rows", fns,
                              probe_bound(pp.N, rows, pp.T8, pp.ROWTEST_OPS[v])["bound_ms"])
         torch.cuda.synchronize()
-    log(f"  rowtest_probe at k = {', '.join(map(str, MARCH_K))} == rowtest_probe_v1 on all "
-        f"{pp.N} lanes, every variant")
+    log(f"  rowtest_probe == rowtest_probe_v1 on all {pp.N} lanes, every variant")
     del frays, ftris
     run, lines = echo_main(pp.main, "row-test probe")
     full = {m[1]: float(m[2]) for m in (re.match(r"ROW (\S+)\s+([0-9.]+) ms", ln)
@@ -3023,17 +2932,6 @@ def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
                              f"{run['launches']}")
     anchor = per["full-bw"]
     keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
-    issue = {}
-    for v in pp.VARIANTS:
-        if v != "nodiv":  # one reciprocal a test marks the tests in the SASS
-            issue[v] = issue_ceiling(
-                build.sass, f"rowtest_probe_kernelILi{pp.VARIANTS.index(v)}ELi{pp.K_LANES}"
-                f"ELi16EE", "MUFU", 1, pp.ROWTEST_OPS[v])
-            if issue[v]:
-                log(f"  rowtest_probe/{v} (k={pp.K_LANES}, mtblock 16) SASS: "
-                    f"{issue[v]['issued_per_test']:.2f} instructions issued a row test for "
-                    f"{pp.ROWTEST_OPS[v]} operations, issue ceiling "
-                    f"{issue[v]['issue_ceiling_pct']:.1f}%")
     variants = {}
     for v in pp.VARIANTS:
         bnd_full = probe_bound(pp.N, rows, pp.T8, pp.ROWTEST_OPS[v])["bound_ms"]
@@ -3048,8 +2946,7 @@ def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
         "rowtest_probe", "probes.cu", "perf_ophit_probe.py:101",
         max(x["max_abs_err"] for x in per.values()), anchor["ms"], anchor["plain_ms"],
         full["full-bw"], {k: anchor[k] for k in keys}, variants=variants,
-        k_lanes=pp.K_LANES, issue=issue,
-        registers=kernel_registers(build.log, "rowtest_probe_kernel"))
+        k_lanes=pp.K_LANES, registers=kernel_registers(compiler_log, "rowtest_probe_kernel"))
     entry.update(at_full_width("rowtest_probe/full-bw", f"{pp.N}-lane march",
                                full["full-bw"],
                                probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
@@ -3059,7 +2956,7 @@ def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
         "rowtest_probe_v1", "march_v1.cu", "perf_ophit_probe.py:101", 0.0, v1_ms,
         anchor["plain_ms"], min(ab["full-bw"]["v1"]), {k: anchor[k] for k in keys},
         yardstick_of="rowtest_probe",
-        registers=kernel_registers(build.log, "rowtest_probe_v1_kernel"))
+        registers=kernel_registers(compiler_log, "rowtest_probe_v1_kernel"))
     yard.update(at_full_width("rowtest_probe_v1/full-bw", f"{pp.N}-lane march",
                               yard["full_ms"],
                               probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
@@ -3070,7 +2967,7 @@ def phase_rowtest_probe(build: Build) -> tuple[list[dict], dict]:
 def main() -> int:
     smi = phase_device()
     t_start = time.perf_counter()
-    build = phase_build()
+    compiler_log = phase_build()
     log(f"build phase: {time.perf_counter() - t_start:.1f} s")
 
     from tpu_pathtracer_torch import Renderer
@@ -3134,12 +3031,12 @@ def main() -> int:
     phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
     phase_backend_parity(small)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    rows, launches["sweep_count_v1"] = phase_sweep_kernels(renderer, small, build)
+    rows, launches["sweep_count_v1"] = phase_sweep_kernels(renderer, small, compiler_log)
     kernels += rows
     launches.update(phase_split(renderer, small))
     entry, launches["noop"] = phase_launch_probe(smi)
     kernels.append(entry)
-    rows, counts = phase_rowtest_probe(build)
+    rows, counts = phase_rowtest_probe(compiler_log)
     kernels += rows
     launches.update(counts)
     rows, ab_launches = phase_walk_ab(renderer, terrains, smi, priced)

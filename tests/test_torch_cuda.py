@@ -394,9 +394,9 @@ EDGE_LANES = (1, 31, 33, 65537)
 
 @pytest.mark.parametrize("n", EDGE_LANES)
 def test_rowtest_probe_edge_shapes_on_card(n, cuda_device):
-    """The redesigned row-test probe (row tiles in shared memory, k lanes a
-    thread) on lane counts around a warp and a block: every variant, at k =
-    2 and 4, on tiles of 96 and 768 lanes, with mtblock 7 (the generic
+    """The redesigned row-test probe (row tiles in shared memory, two lanes
+    a thread) on lane counts around a warp and a block: every variant, on
+    tiles of 96 and 768 lanes, with mtblock 7 (the generic
     instance) and 16 (the unrolled one), on a table that is staged whole
     (200 rows) and one that is tiled (7,112 rows), bit-equal to its plain
     version and to the first port's kernel on every lane; and a table whose
@@ -414,12 +414,11 @@ def test_rowtest_probe_edge_shapes_on_card(n, cuda_device):
                 tp, ip = perf_ophit_probe.rowtest_probe_plain(variant, rays, tris, mtblock)
                 tv, iv = perf_ophit_probe.rowtest_probe_v1(variant, rays, tris, 96, mtblock)
                 assert torch.equal(tv, tp) and torch.equal(iv, ip), (variant, mtblock, rows)
-                for k in (2, 4):
-                    for tile in (96, 768):
-                        tk, ik = perf_ophit_probe.rowtest_probe(variant, rays, tris, tile,
-                                                                mtblock, k)
-                        assert torch.equal(tk, tp) and torch.equal(ik, ip), (
-                            variant, mtblock, rows, k, tile)
+                for tile in (96, 768):
+                    tk, ik = perf_ophit_probe.rowtest_probe(variant, rays, tris, tile,
+                                                            mtblock)
+                    assert torch.equal(tk, tp) and torch.equal(ik, ip), (
+                        variant, mtblock, rows, tile)
 
 
 @pytest.fixture(scope="module")
@@ -437,10 +436,10 @@ def count_layouts():
 @pytest.mark.parametrize("which", ["leaf 56", "leaf 8", "grid 256 leaf 8"])
 @pytest.mark.parametrize("n", EDGE_LANES)
 def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
-    """The redesigned count (prepass and leaf boxes in shared memory, k lanes
-    a thread) on lane counts around a warp and a block, with every lane
-    live, every lane dead and one live lane a warp, prepass 32 and 0, at k =
-    2 and 4: bit-equal to its plain version and to the first port's kernel
+    """The redesigned count (prepass and leaf boxes in shared memory, four
+    lanes a thread) on lane counts around a warp and a block, with every
+    lane live, every lane dead and one live lane a warp, prepass 32 and 0:
+    bit-equal to its plain version and to the first port's kernel
     on every lane; and with prepass rows whose edges put the reciprocal off
     its fast path (scaled to denormal, past 2^126 or to zero)."""
     base = count_layouts[which]
@@ -457,9 +456,7 @@ def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
             want = es.sweep_count_plain(o, d, lay, active=act, prepass=prepass)
             got = es.sweep_count_v1(o, d, lay, active=act, prepass=prepass)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-            for k in (2, 4):
-                got = es.sweep_count(o, d, lay, active=act, prepass=prepass, k=k)
-                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
-                    prepass, k)
+            got = es.sweep_count(o, d, lay, active=act, prepass=prepass)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), prepass
             assert bool((want[0][~act] == 0).all() and (want[1][~act] == lay.num_leaves).all())
     assert n < 65537 or int(want[0].max()) > 0

@@ -161,35 +161,31 @@ def test_tools_need_a_card_unless_asked_for_the_cpu(tool, platform, monkeypatch)
 @pytest.mark.parametrize("n", [1, 31, 33, 4096, 65537])
 def test_probe_launch_shape_covers_every_lane_once(n, tile):
     """The probe's launch shape (scripts/dense_march.py, which the kernel's
-    lane mapping mirrors) covers every lane exactly once at each k: no lane
-    twice, none left out, no slot past n; whole warps, at most MAX_THREADS
-    threads; the tool's table (7,104 marched rows) tiled in whole 16-row
-    blocks and the card tests' (196 or 200 rows) staged whole, within the
-    card's shared memory."""
-    for k in dense_march.LANES_PER_THREAD:
-        for rows in (7104, 7112 // 7 * 7, 196, 200):
-            shape = dense_march.march_shape(n, tile, k, rows,
-                                            perf_ophit_probe.STAGED_ROW_BYTES)
-            lanes = dense_march.march_lanes(shape, n, tile, k)
-            assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
-            assert shape.threads % 32 == 0 and shape.threads <= dense_march.MAX_THREADS
-            assert shape.threads * k * shape.passes >= tile > shape.threads * k * (
-                shape.passes - 1)
-            assert shape.smem <= dense_march.SHARED_LIMIT
-            if rows * perf_ophit_probe.STAGED_ROW_BYTES > dense_march.ONE_TILE_BYTES:
-                assert shape.tile_rows % 16 == 0 and shape.tile_rows < rows
-            else:
-                assert shape.tile_rows == rows
+    lane mapping mirrors) covers every lane exactly once at the kernel's k:
+    no lane twice, none left out, no slot past n; whole warps, at most
+    MAX_THREADS threads; the tool's table (7,104 marched rows) tiled in
+    whole 16-row blocks and the card tests' (196 or 200 rows) staged whole,
+    within the card's shared memory."""
+    k = perf_ophit_probe.K_LANES
+    for rows in (7104, 7112 // 7 * 7, 196, 200):
+        shape = dense_march.march_shape(n, tile, k, rows, perf_ophit_probe.STAGED_ROW_BYTES)
+        lanes = dense_march.march_lanes(shape, n, tile, k)
+        assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
+        assert shape.threads % 32 == 0 and shape.threads <= dense_march.MAX_THREADS
+        assert shape.threads * k * shape.passes >= tile > shape.threads * k * (
+            shape.passes - 1)
+        assert shape.smem <= dense_march.SHARED_LIMIT
+        if rows * perf_ophit_probe.STAGED_ROW_BYTES > dense_march.ONE_TILE_BYTES:
+            assert shape.tile_rows % 16 == 0 and shape.tile_rows < rows
+        else:
+            assert shape.tile_rows == rows
 
 
 def test_launch_shape_rejects_what_the_kernels_cannot_take():
-    """A tile that is not a multiple of 32 (100), a k without a kernel
-    instance, and a table whose staging would pass the card's shared memory
-    raise before any launch."""
+    """A tile that is not a multiple of 32 (100) and a table whose staging
+    would pass the card's shared memory raise before any launch."""
     with pytest.raises(ValueError, match="tile=100"):
         dense_march.march_shape(4096, 100, 4, 200, 48)
-    with pytest.raises(ValueError, match="k=3"):
-        dense_march.march_shape(4096, 768, 3, 200, 48)
     with pytest.raises(ValueError, match="shared memory"):
         dense_march.march_shape(4096, 768, 4, 200, 48, head_bytes=dense_march.SHARED_LIMIT)
 

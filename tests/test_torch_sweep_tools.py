@@ -231,22 +231,22 @@ def count_tables():
 @pytest.mark.parametrize("n", [1, 31, 33, 4096, 65537])
 def test_count_launch_shape_covers_every_lane_once(count_tables, n, tile):
     """The count's launch shape (scripts/dense_march.py, which the kernel's
-    lane mapping mirrors) covers every lane exactly once at each k: no lane
-    twice, none left out; Water-plastic's 184 leaf-56 and 1,209 leaf-8 boxes
-    staged as one tile each, the terrain's in double-buffered tiles; the
-    prepass block and the boxes within the card's shared memory."""
+    lane mapping mirrors) covers every lane exactly once at the kernel's k:
+    no lane twice, none left out; Water-plastic's 184 leaf-56 and 1,209
+    leaf-8 boxes staged as one tile each, the terrain's in double-buffered
+    tiles; the prepass block and the boxes within the card's shared
+    memory."""
     assert [t[0] for t in count_tables[:2]] == [184, 1209]
-    for k in dense_march.LANES_PER_THREAD:
-        for leaves, pp in count_tables:
-            shape = dense_march.march_shape(n, tile, k, leaves, es.BOX_BYTES,
-                                            pp * es.PRE_BYTES)
-            lanes = dense_march.march_lanes(shape, n, tile, k)
-            assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
-            assert shape.smem <= dense_march.SHARED_LIMIT
-            one_tile = leaves * es.BOX_BYTES <= dense_march.ONE_TILE_BYTES
-            assert (shape.tile_rows == leaves) == one_tile == (leaves < 2000)
-            assert shape.smem == pp * es.PRE_BYTES + (1 if one_tile else 2) * (
-                shape.tile_rows * es.BOX_BYTES)
+    for leaves, pp in count_tables:
+        shape = dense_march.march_shape(n, tile, es.K_LANES, leaves, es.BOX_BYTES,
+                                        pp * es.PRE_BYTES)
+        lanes = dense_march.march_lanes(shape, n, tile, es.K_LANES)
+        assert torch.equal(lanes[lanes >= 0].sort().values, torch.arange(n))
+        assert shape.smem <= dense_march.SHARED_LIMIT
+        one_tile = leaves * es.BOX_BYTES <= dense_march.ONE_TILE_BYTES
+        assert (shape.tile_rows == leaves) == one_tile == (leaves < 2000)
+        assert shape.smem == pp * es.PRE_BYTES + (1 if one_tile else 2) * (
+            shape.tile_rows * es.BOX_BYTES)
 
 
 @pytest.mark.parametrize("leaves,bound_ms", [(184, 0.2699), (1209, 1.3964)])

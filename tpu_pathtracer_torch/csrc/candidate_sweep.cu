@@ -34,7 +34,7 @@
 // staged in shared memory once a block, the leaf boxes a tile at a time (one
 // tile up to 48 KB: Water-plastic's 184 leaf-56 and 1,209 leaf-8 boxes; a
 // GRID 256 terrain's leaf-8 table takes many), each box read as two 16-byte
-// broadcast loads and tested against K lanes a thread; the count and the
+// broadcast loads and tested against kCountK lanes a thread; the count and the
 // first leaf are selects, not branches.  The box arithmetic is
 // tpupt::slab_test's, as sweep1's (which reaches it through slab_hit), so
 // the two classify every lane alike.  The first port's count, one lane a
@@ -70,19 +70,23 @@ __device__ __forceinline__ void prime(const float* __restrict__ pre, int n_prepa
   }
 }
 
-// The K lanes of one thread of the count.
-template <int K>
+// Lanes a thread of the count (scripts/experimental_sweep.py:K_LANES): K = 4
+// ran 3-4% faster than K = 2 on the whole bounce-1 wavefronts, in turns
+// (PERF.md section 6, the dense marches).
+constexpr int kCountK = 4;
+
+// The kCountK lanes of one thread of the count.
 struct CountLanes {
-  float ox[K], oy[K], oz[K], dx[K], dy[K], dz[K], ix[K], iy[K], iz[K], best_t[K];
-  int count[K], first[K];
+  float ox[kCountK], oy[kCountK], oz[kCountK], dx[kCountK], dy[kCountK], dz[kCountK];
+  float ix[kCountK], iy[kCountK], iz[kCountK], best_t[kCountK];
+  int count[kCountK], first[kCountK];
 };
 
 // The count on the march of dense_march.cuh: the block stages the prepass
 // block (cols 0-11 of its n_prepass rows) once a pass and the leaf boxes
-// `tile_rows` at a time; a thread primes and sweeps K lanes.  A lane that is
-// not active (or a masked slot) sweeps with best_t = -inf, which no box
-// passes; a thread with no live lane skips the tests but not the barriers.
-template <int K>
+// `tile_rows` at a time; a thread primes and sweeps kCountK lanes.  A lane
+// that is not active (or a masked slot) sweeps with best_t = -inf, which no
+// box passes; a thread with no live lane skips the tests but not the barriers.
 __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const unsigned char* __restrict__ active, const float4* __restrict__ lbox,
@@ -103,13 +107,13 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
     tpupt::stage_rows<3>(pre_s, pre, 0, n_prepass, 6);
     if (ntiles > 0) tpupt::stage_rows<2>(box_s, lbox, last, num_leaves - last, 2);
     tpupt::cp_async_commit();
-    CountLanes<K> L;
-    int lane[K];
-    bool live[K];
+    CountLanes L;
+    int lane[kCountK];
+    bool live[kCountK];
     bool any = false;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      lane[k] = tpupt::march_lane(pass, k, K, tile, n);
+    for (int k = 0; k < kCountK; ++k) {
+      lane[k] = tpupt::march_lane(pass, k, kCountK, tile, n);
       const int i = max(lane[k], 0);
       live[k] = lane[k] >= 0 && active[i];
       any = any || live[k];
@@ -143,15 +147,15 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
           // straight code over the rows; a lane whose reciprocal left the fast
           // path on any row latched nothing on that row, and primes again,
           // exactly, from t_max (never on the bundled scenes' prepass rows)
-          bool lane_slow[K];
+          bool lane_slow[kCountK];
 #pragma unroll
-          for (int k = 0; k < K; ++k) lane_slow[k] = false;
+          for (int k = 0; k < kCountK; ++k) lane_slow[k] = false;
 #pragma unroll 1
           for (int q = 0; q < n_prepass; ++q) {
             const float4 a = pre_s[3 * q], b = pre_s[3 * q + 1];
             const float e2z = pre_s[3 * q + 2].x;
 #pragma unroll
-            for (int k = 0; k < K; ++k) {
+            for (int k = 0; k < kCountK; ++k) {
               float tt, u, v;
               bool slow;
               const bool ok = tpupt::mt_test<true>(a, b, e2z, L.ox[k], L.oy[k], L.oz[k],
@@ -162,7 +166,7 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
             }
           }
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
+          for (int k = 0; k < kCountK; ++k) {
             if (lane_slow[k]) {
               L.best_t[k] = inf;
               for (int q = 0; q < n_prepass; ++q) {
@@ -178,7 +182,7 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
             }
           }
 #pragma unroll
-          for (int k = 0; k < K; ++k) L.best_t[k] = live[k] ? L.best_t[k] : -inf;
+          for (int k = 0; k < kCountK; ++k) L.best_t[k] = live[k] ? L.best_t[k] : -inf;
         }
         const float4* bs = box_s + (step & 1) * buf_stride;
         const int nr = ntiles > 0 ? min(tile_rows, num_leaves - r0) : 0;
@@ -187,7 +191,7 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
           const float4 p = bs[2 * jj], q = bs[2 * jj + 1];  // bmin.xyz bmax.x | bmax.yz pad2
           const int j = r0 + jj;
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
+          for (int k = 0; k < kCountK; ++k) {
             const bool hit = tpupt::slab_test(p.x, p.y, p.z, p.w, q.x, q.y, L.ox[k], L.oy[k],
                                               L.oz[k], L.ix[k], L.iy[k], L.iz[k], t_min,
                                               L.best_t[k]);
@@ -199,32 +203,13 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) sweep_count_kernel
       __syncthreads();  // the buffer is refilled two tiles on
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kCountK; ++k) {
       if (lane[k] >= 0) {
         out_count[lane[k]] = L.count[k];
         out_first[lane[k]] = L.first[k];
       }
     }
   }
-}
-
-template <int K>
-int launch_count(const float* o, const float* d, const unsigned char* active,
-                 const float* lbox, const float* pre, int n_prepass, int num_leaves,
-                 int tile_rows, float t_min, int tile, int blocks, int threads,
-                 int passes, int smem, int n, int* out_count, int* out_first,
-                 cudaStream_t s) {
-  auto kernel = sweep_count_kernel<K>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<blocks, threads, smem, s>>>(
-      o, d, active, reinterpret_cast<const float4*>(lbox),
-      reinterpret_cast<const float4*>(pre), n_prepass, num_leaves, tile_rows, t_min,
-      tile, passes, n, out_count, out_first);
-  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void sweep1_kernel(
@@ -282,24 +267,24 @@ constexpr int kThreads = 128;
 
 }  // namespace
 
-// k: lanes a thread (2 or 4); tile, blocks, threads, passes, tile_rows and
-// smem: scripts/dense_march.py:march_shape's launch shape.
+// tile, blocks, threads, passes, tile_rows and smem: the launch shape of
+// scripts/dense_march.py:march_shape at kCountK lanes a thread.
 extern "C" int tpupt_sweep_count(
     const float* o, const float* d, const unsigned char* active,
     const float* lbox, const float* pre, int n_prepass, int num_leaves,
-    float t_min, int k, int tile, int blocks, int threads, int passes, int tile_rows,
+    float t_min, int tile, int blocks, int threads, int passes, int tile_rows,
     int smem, int n, int* out_count, int* out_first, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 2: return launch_count<2>(o, d, active, lbox, pre, n_prepass, num_leaves,
-                                   tile_rows, t_min, tile, blocks, threads, passes, smem,
-                                   n, out_count, out_first, s);
-    case 4: return launch_count<4>(o, d, active, lbox, pre, n_prepass, num_leaves,
-                                   tile_rows, t_min, tile, blocks, threads, passes, smem,
-                                   n, out_count, out_first, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  sweep_count_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      o, d, active, reinterpret_cast<const float4*>(lbox),
+      reinterpret_cast<const float4*>(pre), n_prepass, num_leaves, tile_rows, t_min,
+      tile, passes, n, out_count, out_first);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tpupt_sweep1(

@@ -23,12 +23,12 @@
 //   every row test.
 // * Every thread of a block reaches every barrier: lanes past the tile or
 //   past n are masked, never returned from.
-// The probe keeps K = 2 and the count K = 4, the faster at full width (PERF.md
-// section 6, PR 10, the A/B of chip_smoke.py phases 14 and 17, which times
-// both).  What bounds them now: the instructions a test issues beyond the
-// operations the bound counts (the latch's selects, the reciprocal's Newton
-// step and range test, the count's selects), which chip_smoke.py reads from
-// the built library's SASS (sass_census).
+// K is a constant of each kernel: 2 in the probe (probes.cu:kProbeK), 4 in
+// the count (candidate_sweep.cu:kCountK), the faster of 2 and 4 for each at
+// full width (PERF.md section 6, the dense marches).  What bounds them now: the
+// instructions a test issues beyond the operations the bound counts (the
+// latch's selects, the reciprocal's Newton step and range test, the count's
+// selects), which scripts/sass_census.py reads from the built library's SASS.
 //
 // The launch shape (scripts/dense_march.py:march_shape computes it, and the
 // wrappers pass it in): a block covers `tile` lanes with `threads` threads

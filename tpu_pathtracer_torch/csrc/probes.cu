@@ -29,9 +29,9 @@
 // its inputs and is held against its plain version
 // (scripts/perf_ophit_probe.py:rowtest_probe_plain) and against the first
 // port's kernel (march_v1.cu:tpupt_rowtest_probe_v1).
-// The march is dense_march.cuh's: `tile` lanes a block, K lanes a thread,
-// the table's cols 0-11 staged in shared memory a tile of rows at a time
-// (the 455 KB table of the tool does not fit one block's shared memory).
+// The march is dense_march.cuh's: `tile` lanes a block, kProbeK lanes a
+// thread, the table's cols 0-11 staged in shared memory a tile of rows at a
+// time (the 455 KB table of the tool does not fit one block's shared memory).
 // mtblock = 16 (the tool's default) has an unrolled instance; any other
 // mtblock takes the generic one, which counts rows to the block's end.
 // Bound: lanes x rows x the variant's operations over the float32 rate.
@@ -59,12 +59,13 @@ __global__ void noop_kernel(const float* __restrict__ rays, Tables tables,
 enum Variant { kFullBW = 0, kNoDiv = 1, kNoUV = 2, kNoPick = 3, kRowsLatch = 4, kMT = 5 };
 
 constexpr int kProbeCols = 3;  // float4 of a staged row: cols 0-11
-// Rows a step of the unrolled instance: the whole 16-row block at K = 2, 4
-// rows at K = 4 (the fastest of 2, 4, 8 and 16 rows at each K on the tool's
-// march; 16 rows at K = 4 is 64 row tests of straight code a step, and runs
-// slower).
-template <int K>
-constexpr int kRowUnroll = K == 2 ? 16 : 4;
+// Lanes a thread (scripts/perf_ophit_probe.py:K_LANES).  K = 2 ran faster than
+// K = 4 on every variant at full width, K = 4's instances taking 72-110
+// registers against 40-63 (PERF.md section 6, the dense marches).
+constexpr int kProbeK = 2;
+// Rows a step of the unrolled instance: the whole 16-row block (the fastest
+// of 2, 4, 8 and 16 rows a step on the tool's march).
+constexpr int kRowUnroll = 16;
 
 // One row (cols 0-11 as a, b, c) against a ray -> accepted, *t_out; the
 // arithmetic of march_v1.cu:probe_row, the reciprocal through
@@ -99,22 +100,21 @@ __device__ __forceinline__ bool probe_test(const float4& a, const float4& b,
   }
 }
 
-// The K lanes of one thread: rays in, latches out.  tmin is the block
+// The kProbeK lanes of one thread: rays in, latches out.  tmin is the block
 // minimum and starts each block at best_t, so a row's one compare against it
 // is the block latch's two (tt < best_t and tt < the block's minimum).
-template <int K>
 struct ProbeLanes {
-  float ox[K], oy[K], oz[K], dx[K], dy[K], dz[K];
-  float best_t[K], tmin[K];
-  int best_i[K], pmin[K];
+  float ox[kProbeK], oy[kProbeK], oz[kProbeK], dx[kProbeK], dy[kProbeK], dz[kProbeK];
+  float best_t[kProbeK], tmin[kProbeK];
+  int best_i[kProbeK], pmin[kProbeK];
 };
 
 // One lane's latch step on a tested row: the row latch of rows-latch, else
 // the block latch's (pick = the id the block minimum keeps: the row's offset
 // in its block, or its global id).
-template <int V, int K>
+template <int V>
 __device__ __forceinline__ void probe_latch(bool upd_ok, float tt, int r, int pick, int k,
-                                            ProbeLanes<K>& L) {
+                                            ProbeLanes& L) {
   if constexpr (V == kRowsLatch) {
     const bool upd = upd_ok && tt < L.best_t[k];
     L.best_t[k] = upd ? tt : L.best_t[k];
@@ -126,43 +126,43 @@ __device__ __forceinline__ void probe_latch(bool upd_ok, float tt, int r, int pi
   }
 }
 
-// Row `rs` (staged), global row id `r`, against every lane.  The K tests and
-// latches run branch-free; a lane whose reciprocal left the fast path latches
-// nothing there and is tested again exactly, one branch a row for all K lanes
-// (never taken on the tool's normal draws).
-template <int V, int K>
+// Row `rs` (staged), global row id `r`, against every lane of the thread.
+// The tests and latches run branch-free; a lane whose reciprocal left the
+// fast path latches nothing there and is tested again exactly, one branch a
+// row for all the thread's lanes (never taken on the tool's normal draws).
+template <int V>
 __device__ __forceinline__ void probe_step(const float4* rs, int r, int pick,
-                                           ProbeLanes<K>& L) {
+                                           ProbeLanes& L) {
   const float4 a = rs[0], b = rs[1], c = rs[2];
-  bool slow[K];
+  bool slow[kProbeK];
   bool any_slow = false;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < kProbeK; ++k) {
     float tt;
     const bool ok = probe_test<V, true>(a, b, c, L.ox[k], L.oy[k], L.oz[k], L.dx[k],
                                         L.dy[k], L.dz[k], &tt, &slow[k]);
-    probe_latch<V, K>(ok && !slow[k], tt, r, pick, k, L);
+    probe_latch<V>(ok && !slow[k], tt, r, pick, k, L);
     any_slow = any_slow || slow[k];
   }
   if (any_slow) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kProbeK; ++k) {
       if (slow[k]) {
         float tt;
         bool unused;
         const bool ok = probe_test<V, false>(a, b, c, L.ox[k], L.oy[k], L.oz[k], L.dx[k],
                                              L.dy[k], L.dz[k], &tt, &unused);
-        probe_latch<V, K>(ok, tt, r, pick, k, L);
+        probe_latch<V>(ok, tt, r, pick, k, L);
       }
     }
   }
 }
 
 // The end of a block of mtblock rows: its minimum updates the best once.
-template <int V, int K>
-__device__ __forceinline__ void probe_fold(int id0, ProbeLanes<K>& L) {
+template <int V>
+__device__ __forceinline__ void probe_fold(int id0, ProbeLanes& L) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < kProbeK; ++k) {
     if (L.tmin[k] < L.best_t[k]) {
       L.best_t[k] = L.tmin[k];
       if constexpr (V != kNoPick) L.best_i[k] = id0 + L.pmin[k];
@@ -173,7 +173,7 @@ __device__ __forceinline__ void probe_fold(int id0, ProbeLanes<K>& L) {
 
 // MTB: mtblock as a compile-time constant (the rows of a tile are whole
 // blocks), or 0 for the generic instance.
-template <int V, int K, int MTB>
+template <int V, int MTB>
 __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kernel(
     const float* __restrict__ rays, const float4* __restrict__ tris, int nrows,
     int mtblock, int tile_rows, int tile, int passes, int n, float* __restrict__ out_t,
@@ -187,11 +187,11 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kern
       tpupt::stage_rows<kProbeCols>(staged, tris, 0, min(tile_rows, nrows), 4);
     }
     tpupt::cp_async_commit();
-    ProbeLanes<K> L;
-    int lane[K];
+    ProbeLanes L;
+    int lane[kProbeK];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      lane[k] = tpupt::march_lane(pass, k, K, tile, n);
+    for (int k = 0; k < kProbeK; ++k) {
+      lane[k] = tpupt::march_lane(pass, k, kProbeK, tile, n);
       const int i = max(lane[k], 0);
       const bool live = lane[k] >= 0;  // a masked slot marches zeros: den = 0 accepts nothing
       L.ox[k] = live ? rays[i] : 0.0f;
@@ -223,21 +223,21 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kern
       if constexpr (MTB > 0) {
         for (int b0 = 0; b0 < nr; b0 += MTB) {
 #pragma unroll 1
-          for (int j0 = 0; j0 < MTB; j0 += kRowUnroll<K>) {
+          for (int j0 = 0; j0 < MTB; j0 += kRowUnroll) {
 #pragma unroll
-            for (int u = 0; u < kRowUnroll<K>; ++u) {
+            for (int u = 0; u < kRowUnroll; ++u) {
               const int j = j0 + u;
-              probe_step<V, K>(rs + (b0 + j) * kProbeCols, r0 + b0 + j, j, L);
+              probe_step<V>(rs + (b0 + j) * kProbeCols, r0 + b0 + j, j, L);
             }
           }
-          if constexpr (V != kRowsLatch) probe_fold<V, K>(r0 + b0, L);
+          if constexpr (V != kRowsLatch) probe_fold<V>(r0 + b0, L);
         }
       } else {
         for (int j = 0; j < nr; ++j) {
-          probe_step<V, K>(rs + j * kProbeCols, r0 + j, r0 + j, L);
+          probe_step<V>(rs + j * kProbeCols, r0 + j, r0 + j, L);
           if constexpr (V != kRowsLatch) {
             if (++in_block == mtblock) {
-              probe_fold<V, K>(0, L);
+              probe_fold<V>(0, L);
               in_block = 0;
             }
           }
@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kern
       __syncthreads();  // the buffer is refilled two tiles on
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kProbeK; ++k) {
       if (lane[k] >= 0) {
         out_t[lane[k]] = L.best_t[k];
         out_i[lane[k]] = L.best_i[k];
@@ -255,11 +255,11 @@ __global__ void __launch_bounds__(tpupt::kMarchMaxThreads, 1) rowtest_probe_kern
   }
 }
 
-template <int V, int K, int MTB>
+template <int V, int MTB>
 int launch_probe(const float* rays, const float* tris, int nrows, int mtblock,
                  int tile_rows, int tile, int blocks, int threads, int passes,
                  int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
-  auto kernel = rowtest_probe_kernel<V, K, MTB>;
+  auto kernel = rowtest_probe_kernel<V, MTB>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -271,30 +271,17 @@ int launch_probe(const float* rays, const float* tris, int nrows, int mtblock,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V, int K>
-int launch_probe_k(const float* rays, const float* tris, int nrows, int mtblock,
+template <int V>
+int launch_probe_v(const float* rays, const float* tris, int nrows, int mtblock,
                    int tile_rows, int tile, int blocks, int threads, int passes,
                    int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
   // the unrolled instance needs tiles of whole 16-row blocks
   if (mtblock == 16 && tile_rows % 16 == 0) {
-    return launch_probe<V, K, 16>(rays, tris, nrows, mtblock, tile_rows, tile, blocks,
-                                  threads, passes, smem, n, out_t, out_i, s);
-  }
-  return launch_probe<V, K, 0>(rays, tris, nrows, mtblock, tile_rows, tile, blocks,
+    return launch_probe<V, 16>(rays, tris, nrows, mtblock, tile_rows, tile, blocks,
                                threads, passes, smem, n, out_t, out_i, s);
-}
-
-template <int V>
-int launch_probe_v(int k, const float* rays, const float* tris, int nrows, int mtblock,
-                   int tile_rows, int tile, int blocks, int threads, int passes,
-                   int smem, int n, float* out_t, int* out_i, cudaStream_t s) {
-  switch (k) {
-    case 2: return launch_probe_k<V, 2>(rays, tris, nrows, mtblock, tile_rows, tile,
-                                        blocks, threads, passes, smem, n, out_t, out_i, s);
-    case 4: return launch_probe_k<V, 4>(rays, tris, nrows, mtblock, tile_rows, tile,
-                                        blocks, threads, passes, smem, n, out_t, out_i, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return launch_probe<V, 0>(rays, tris, nrows, mtblock, tile_rows, tile, blocks, threads,
+                            passes, smem, n, out_t, out_i, s);
 }
 
 }  // namespace
@@ -310,18 +297,17 @@ extern "C" int tpupt_noop(const float* rays, const void* t0, const void* t1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// k: lanes a thread (2 or 4); tile, blocks, threads, passes, tile_rows and
-// smem: scripts/dense_march.py:march_shape's launch shape.
+// tile, blocks, threads, passes, tile_rows and smem: the launch shape of
+// scripts/dense_march.py:march_shape at kProbeK lanes a thread.
 extern "C" int tpupt_rowtest_probe(const float* rays, const float* tris, int variant,
-                                   int nblocks, int mtblock, int k, int tile,
-                                   int blocks, int threads, int passes, int tile_rows,
-                                   int smem, int n, float* out_t, int* out_i,
-                                   void* stream) {
+                                   int nblocks, int mtblock, int tile, int blocks,
+                                   int threads, int passes, int tile_rows, int smem,
+                                   int n, float* out_t, int* out_i, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nrows = nblocks * mtblock;
 #define TPUPT_PROBE(V)                                                              \
-  launch_probe_v<V>(k, rays, tris, nrows, mtblock, tile_rows, tile, blocks, threads, \
+  launch_probe_v<V>(rays, tris, nrows, mtblock, tile_rows, tile, blocks, threads, \
                     passes, smem, n, out_t, out_i, s)
   switch (variant) {
     case kFullBW: return TPUPT_PROBE(kFullBW);

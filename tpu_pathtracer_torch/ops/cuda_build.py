@@ -71,10 +71,10 @@ _SIGNATURES = {
     # o, d, active, cap, target, nodes, meta, tris, num_nodes, t_min, eps,
     # four_eps, n, out, stream
     "tpupt_anyhit_walk_v1": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
-    # o, d, active, leafbox, pre, n_prepass, num_leaves, t_min, k, tile, blocks,
+    # o, d, active, leafbox, pre, n_prepass, num_leaves, t_min, tile, blocks,
     # threads, passes, tile_rows, smem (scripts/dense_march.py:march_shape), n,
     # out_count, out_first, stream
-    "tpupt_sweep_count": [_P] * 5 + [_I, _I, _F] + [_I] * 8 + [_P] * 3,
+    "tpupt_sweep_count": [_P] * 5 + [_I, _I, _F] + [_I] * 7 + [_P] * 3,
     # the first port's count (csrc/march_v1.cu, a yardstick): o, d, active,
     # leafbox, pre, n_prepass, num_leaves, t_min, n, out_count, out_first, stream
     "tpupt_sweep_count_v1": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
@@ -84,9 +84,9 @@ _SIGNATURES = {
     "tpupt_sweep1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
     # rays, table0..3 (never read; null when absent), tile, n, out, stream
     "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
-    # rays, tris, variant, nblocks, mtblock, k, tile, blocks, threads, passes,
+    # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,
     # tile_rows, smem (scripts/dense_march.py:march_shape), n, out_t, out_i, stream
-    "tpupt_rowtest_probe": [_P, _P] + [_I] * 11 + [_P] * 3,
+    "tpupt_rowtest_probe": [_P, _P] + [_I] * 10 + [_P] * 3,
     # the first port's probe (csrc/march_v1.cu, a yardstick): rays, tris,
     # variant, nblocks, mtblock, threads, n, out_t, out_i, stream
     "tpupt_rowtest_probe_v1": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

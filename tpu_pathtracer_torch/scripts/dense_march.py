@@ -1,11 +1,12 @@
 """The launch shape of the dense march (``csrc/dense_march.cuh``), shared by
 the row-test probe's and the candidate count's wrappers.
 
-A block covers ``tile`` lanes with ``threads`` threads of ``k`` lanes each,
-in ``passes`` passes of ``threads * k`` lanes: slot ``j`` of thread ``t`` in
-pass ``p`` of block ``b`` is lane ``b * tile + (p * k + j) * threads + t``,
-live when that offset is below ``tile`` and the lane below ``n``
-(:func:`march_lanes` enumerates them).  ``threads`` is ``ceil(tile / k)``
+A block covers ``tile`` lanes with ``threads`` threads of ``k`` lanes each
+(the kernel's constant, ``K_LANES`` beside its wrapper), in ``passes``
+passes of ``threads * k`` lanes: slot ``j`` of thread ``t`` in pass ``p`` of
+block ``b`` is lane ``b * tile + (p * k + j) * threads + t``, live when that
+offset is below ``tile`` and the lane below ``n`` (:func:`march_lanes`
+enumerates them).  ``threads`` is ``ceil(tile / k)``
 rounded up to a warp, at most :data:`MAX_THREADS`; ``passes`` is 1 unless
 that cap bites.
 
@@ -26,7 +27,6 @@ MAX_THREADS = 512             # csrc/dense_march.cuh:kMarchMaxThreads
 ONE_TILE_BYTES = 48 * 1024    # a table up to this size is staged once
 TILE_BYTES = 16 * 1024        # else: one buffer of a double-buffered tile
 SHARED_LIMIT = 232448         # bytes of shared memory a block may ask for on an H100
-LANES_PER_THREAD = (2, 4)     # the kernels' instances of k
 
 
 class MarchShape(NamedTuple):
@@ -39,14 +39,12 @@ class MarchShape(NamedTuple):
 
 def march_shape(n: int, tile: int, k: int, rows: int, row_bytes: int,
                 head_bytes: int = 0) -> MarchShape:
-    """The launch of a dense march over ``n`` lanes; raises ``ValueError``
-    for a ``tile`` that is not a positive multiple of 32, a ``k`` the
-    kernels have no instance for, or a table that cannot be staged."""
+    """The launch of a dense march over ``n`` lanes at ``k`` lanes a thread;
+    raises ``ValueError`` for a ``tile`` that is not a positive multiple of
+    32 or a table that cannot be staged."""
     if tile < 32 or tile % 32:
         raise ValueError(f"tile={tile}: the lanes a block covers, a positive "
                          "multiple of 32")
-    if k not in LANES_PER_THREAD:
-        raise ValueError(f"k={k}: lanes a thread, one of {LANES_PER_THREAD}")
     per_thread = -(-tile // k)
     threads = min(MAX_THREADS, -(-per_thread // 32) * 32)
     passes = -(-tile // (threads * k))

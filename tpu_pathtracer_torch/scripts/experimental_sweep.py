@@ -54,7 +54,7 @@ from .dense_march import march_shape
 
 LEAF_CHUNK = 256  # leaf boxes per step of the plain versions
 COUNT_TILE = 512  # lanes a block of the count kernel covers
-K_LANES = 4       # the count's lanes a thread (PERF.md section 6, PR 10)
+K_LANES = 4       # the count kernel's lanes a thread (csrc/candidate_sweep.cu:kCountK)
 BOX_BYTES = 32    # a leaf box as the count stages it: one leafbox row
 PRE_BYTES = 48    # a prepass row as the count stages it: cols 0-11
 
@@ -143,7 +143,7 @@ def _count_inputs(o, d, lay: BVHLayout, active):
 
 
 def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                prepass: int = DEFAULT_PREPASS, k: int = K_LANES):
+                prepass: int = DEFAULT_PREPASS):
     """(count, first_leaf) int32 per ray: the leaf AABBs crossed by
     ``[t_min, prime_t)``, and the lowest of them as a row of ``lay.leafbox``
     (``lay.num_leaves`` when none).  The CUDA kernel for CUDA tensors, the
@@ -151,18 +151,17 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 
     ``o``/``d``: (3, N) float32; ``active``: (N,) bool or None for every
     lane; ``prepass``: leading rows of ``lay.prepass`` that prime best_t
-    (clamped to whole 8-row blocks, as the window walk's); ``k``: lanes a
-    thread of the kernel."""
+    (clamped to whole 8-row blocks, as the window walk's)."""
     if o.device.type == "cpu":
         return sweep_count_plain(o, d, lay, active, t_min, prepass)
     o, d, active, n = _count_inputs(o, d, lay, active)
     pp = window_prepass(lay, prepass)
-    shape = march_shape(n, COUNT_TILE, k, lay.num_leaves, BOX_BYTES, pp * PRE_BYTES)
+    shape = march_shape(n, COUNT_TILE, K_LANES, lay.num_leaves, BOX_BYTES, pp * PRE_BYTES)
     count = torch.empty(n, dtype=torch.int32, device=o.device)
     first = torch.empty(n, dtype=torch.int32, device=o.device)
     rc = load_library().tpupt_sweep_count(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), lay.leafbox.data_ptr(),
-        lay.prepass.data_ptr(), pp, lay.num_leaves, t_min, k, COUNT_TILE, shape.blocks,
+        lay.prepass.data_ptr(), pp, lay.num_leaves, t_min, COUNT_TILE, shape.blocks,
         shape.threads, shape.passes, shape.tile_rows, shape.smem, n, count.data_ptr(),
         first.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
@@ -174,19 +173,14 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 sweep_count.launches = 0
 
 
-def sweep_count_v1_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                         prepass: int = DEFAULT_PREPASS):
-    """Plain version of the yardstick: the count's."""
-    return sweep_count_plain(o, d, lay, active, t_min, prepass)
-
-
 def sweep_count_v1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
                    prepass: int = DEFAULT_PREPASS):
     """The first port's count (``csrc/march_v1.cu``: one lane a thread, each
     box read with ``__ldg``), kept as the yardstick :func:`sweep_count` is
-    timed against in turns; on no tool's path."""
+    timed against in turns; on no tool's path.  Its plain version is
+    :func:`sweep_count_plain`."""
     if o.device.type == "cpu":
-        return sweep_count_v1_plain(o, d, lay, active, t_min, prepass)
+        return sweep_count_plain(o, d, lay, active, t_min, prepass)
     o, d, active, n = _count_inputs(o, d, lay, active)
     count = torch.empty(n, dtype=torch.int32, device=o.device)
     first = torch.empty(n, dtype=torch.int32, device=o.device)

@@ -57,7 +57,7 @@ N = 1920 * 1080          # the main path's wavefront lanes
 T8 = 7112                # the bench scene's padded BW row count (a multiple of 8)
 VARIANTS = ("full-bw", "nodiv", "nouv", "nopick", "rows-latch", "mt")
 STAGED_ROW_BYTES = 48  # cols 0-11 of a row: what the kernel stages in shared memory
-K_LANES = 2  # lanes a thread: faster than 4 on every variant (PERF.md section 6, PR 10)
+K_LANES = 2  # the kernel's lanes a thread (csrc/probes.cu:kProbeK)
 # float32 operations of one row test and its latch compare, each add, mul,
 # div and compare counted once (the count behind chip_smoke.OPS_ROW: a BW
 # test 38, an MT test 52).  nodiv drops the divide; nouv keeps den (5), num
@@ -128,22 +128,21 @@ def _check_probe_inputs(variant: str, rays, tris, mtblock: int) -> None:
         raise ValueError(f"mtblock={mtblock}: expected >= 1")
 
 
-def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16,
-                  k: int = K_LANES):
+def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
     """The dense march -> (best_t (N,) f32, best_i (N,) int32): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  ``rays``:
     (8, N) float32 (rows 0-2 origins, 3-5 directions); ``tris``: (T, 16)
-    float32; ``tile``: lanes a block covers; ``k``: lanes a thread."""
+    float32; ``tile``: lanes a block covers."""
     if rays.device.type == "cpu":
         return rowtest_probe_plain(variant, rays, tris, mtblock)
     _check_probe_inputs(variant, rays, tris, mtblock)
     n = rays.shape[-1]
     nblocks = tris.shape[0] // mtblock
-    shape = march_shape(n, tile, k, nblocks * mtblock, STAGED_ROW_BYTES)
+    shape = march_shape(n, tile, K_LANES, nblocks * mtblock, STAGED_ROW_BYTES)
     out_t = torch.empty(n, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = load_library().tpupt_rowtest_probe(
-        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant), nblocks, mtblock, k,
+        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant), nblocks, mtblock,
         tile, shape.blocks, shape.threads, shape.passes, shape.tile_rows, shape.smem, n,
         out_t.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(rays.device).cuda_stream)
@@ -156,18 +155,14 @@ def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16,
 rowtest_probe.launches = 0
 
 
-def rowtest_probe_v1_plain(variant: str, rays, tris, mtblock: int = 16):
-    """Plain version of the yardstick: the probe's."""
-    return rowtest_probe_plain(variant, rays, tris, mtblock)
-
-
 def rowtest_probe_v1(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
     """The first port's probe (``csrc/march_v1.cu``: one lane a thread, each
     row read with ``__ldg``), kept as the yardstick :func:`rowtest_probe` is
     timed against in turns; on no tool's path.  ``tile``: threads a block (a
-    multiple of 32 in [32, 1024])."""
+    multiple of 32 in [32, 1024]).  Its plain version is
+    :func:`rowtest_probe_plain`."""
     if rays.device.type == "cpu":
-        return rowtest_probe_v1_plain(variant, rays, tris, mtblock)
+        return rowtest_probe_plain(variant, rays, tris, mtblock)
     _check_probe_inputs(variant, rays, tris, mtblock)
     if not (32 <= tile <= 1024 and tile % 32 == 0):
         raise ValueError(f"tile={tile}: one thread a lane, so a block's thread count: "
