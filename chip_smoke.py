@@ -81,11 +81,14 @@ Phases (any failure raises, so the exit code is not 0):
     and first leaves equal on every lane, t, u, v, row and orig equal; the
     count on the whole bounce-1 wavefront against its plain version on
     every lane, both layouts, and both kernels' bounds there; then the
-    count's A/B: the first port's count (``sweep_count_v1``,
-    csrc/march_v1.cu) and the redesigned one in turns on the whole bounce-1
-    wavefronts of Water-plastic (both layouts) and of the GRID 256 terrain
-    (leaf 8: many tiles of boxes), each equal to the yardstick on every
-    lane, ms and share of the bound;
+    A/Bs: the first port's count (``sweep_count_v1``, csrc/march_v1.cu) and
+    the redesigned one in turns on the whole bounce-1 wavefronts of
+    Water-plastic (both layouts) and of the GRID 256 terrain (leaf 8: many
+    tiles of boxes), and the first port's targeted kernel
+    (``intersect_sweep1_v1``) and the redesigned one the same on those
+    wavefronts' lanes with at most one candidate, each equal to its
+    yardstick on every lane, ms and share of the bound, and the device time
+    of each of the targeted kernel's three launches (torch.profiler);
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -205,12 +208,12 @@ which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
 ``perf_ophit_probe.main()`` run, the four per-thread walk yardsticks the
-Water-plastic part of the walk A/B and the two dense-march yardsticks their
+Water-plastic part of the walk A/B and the three dense-march yardsticks their
 A/Bs of phases 14 and 17, none of them the launches that compare a kernel
-with its plain version or time it; the rows of the probe and the count
-carry their ptxas registers and spills per instance (``registers``) and
-their A/B readings (``ab_full_ms``); the window walk, the capped walk
-and the fused walk also carry ``launches_per_sample_fuse2``, their launches
+with its plain version or time it; the rows of the probe, the count and
+the targeted kernel carry their ptxas registers and spills per instance
+(``registers``) and their A/B readings (``ab_full_ms``); the window walk,
+the capped walk and the fused walk also carry ``launches_per_sample_fuse2``, their launches
 a sample in a 2-spp frame at fuse 2, from phase 19, and the window, capped
 and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
 phase 20's spectral CLI path); the last line is
@@ -242,7 +245,7 @@ T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
 PARITY_FRAMES = 16
 WALK_YARDSTICKS = ("window_walk_v1", "minwalk_v1", "capped_walk_v1", "anyhit_walk_v1")
-MARCH_YARDSTICKS = ("rowtest_probe_v1", "sweep_count_v1")
+MARCH_YARDSTICKS = ("rowtest_probe_v1", "sweep_count_v1", "sweep1_v1")
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
@@ -259,7 +262,8 @@ TOOL_KERNELS = {
     "noop": ("perf_launch", "noop", "noop_plain"),
     "rowtest_probe": ("perf_ophit_probe", "rowtest_probe", "rowtest_probe_plain"),
     "rowtest_probe_v1": ("perf_ophit_probe", "rowtest_probe_v1", "rowtest_probe_plain"),
-    "sweep_count_v1": ("experimental_sweep", "sweep_count_v1", "sweep_count_plain")}
+    "sweep_count_v1": ("experimental_sweep", "sweep_count_v1", "sweep_count_plain"),
+    "sweep1_v1": ("experimental_sweep", "intersect_sweep1_v1", "intersect_sweep1_plain")}
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -2538,7 +2542,62 @@ def count_ab(label: str, o, d, act, lay, pp: int, bnd_ms: float) -> dict:
                     f"{lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
 
 
-def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict], int]:
+def sweep1_work(lay, sel, first) -> tuple[int, int]:
+    """The targeted kernel's work on the lanes ``sel``, unbounded, whose
+    lowest candidate leaf is ``first`` (the count's) -> (leaf row tests,
+    box tests): each such lane's leaf's rows, and first + 1 boxes on a lane
+    with a candidate, every leaf on one without, as the tally of
+    ``intersect_sweep1_plain`` counts them."""
+    f = first[sel].to(torch.int64)
+    tests = int(lay.leafmeta[f[f < lay.num_leaves], 1].sum())
+    return tests, int(torch.clamp(f + 1, max=lay.num_leaves).sum())
+
+
+def sweep1_ab(label: str, o, d, sel, lay, pp: int, bnd_ms: float) -> dict:
+    """The targeted kernel against the yardstick on one wavefront's lanes
+    with at most one candidate: t, u, v, row and orig equal on every lane,
+    then timed in turns -> {version: [ms, ms]}."""
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    equal_on_every_lane(f"sweep1 vs sweep1_v1, {label}",
+                        es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)[0],
+                        es.intersect_sweep1_v1(o, d, lay, active=sel, prepass=pp)[0])
+    fns = {"v1": lambda: es.intersect_sweep1_v1(o, d, lay, active=sel, prepass=pp),
+           "new": lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)}
+    return march_ab(f"sweep1 {label} ({o.shape[1]} lanes, {int(sel.sum())} with <= 1 "
+                    f"candidate, {lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
+
+
+SWEEP1_LAUNCHES = ("sweep1_tally_kernel", "sweep1_list_kernel", "sweep1_kernel")
+
+
+def sweep1_device_us(label: str, o, d, sel, lay, pp: int, reps: int = 10) -> dict:
+    """Device microseconds a call of each of the targeted kernel's three
+    launches (torch.profiler over ``reps`` calls after one) on one
+    wavefront's lanes with at most one candidate -> {kernel: us}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.scripts import experimental_sweep as es
+
+    es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = next((k for k in SWEEP1_LAUNCHES if f"::{k}(" in e.key), None)
+        if name:
+            dt = getattr(e, "device_time_total", None)
+            out[name] = (e.cuda_time_total if dt is None else dt) / reps
+    if set(out) != set(SWEEP1_LAUNCHES):
+        raise AssertionError(f"sweep1 {label}: the profile holds {sorted(out)}")
+    log(f"  sweep1 {label}: device us a call " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict], dict]:
     """The candidate-sweep pair against its plain versions on 65,536 lanes
     of the Water-plastic camera and bounce-1 wavefronts, on the leaf-56 and
     the leaf-8 layout, and the count on the whole bounce-1 wavefront; timed
@@ -2547,8 +2606,10 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
     at both leaf sizes; the count against the first port's (the yardstick)
     in turns on the whole bounce-1 wavefronts of Water-plastic (both
     layouts) and of the terrain ``terrain`` (leaf 8: many tiles of boxes),
-    equal on every lane -> (the rows of the kernel table: the pair's and the
-    yardstick's; the yardstick's launches in the A/B)."""
+    equal on every lane, and the targeted kernel against its first port the
+    same on those wavefronts' lanes with at most one candidate -> (the rows
+    of the kernel table: the pair's and the yardsticks'; the yardsticks'
+    launches in the A/Bs)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.ops.traverse import Tally
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
@@ -2588,7 +2649,7 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
                 "them hit")
             timed[label] = (o, d, act, sel, lay, pp, fk, tally.tests, tally.visits)
     fo, fd, fact = waves["bounce1"]
-    full_bounds = {}
+    full_bounds, fsels = {}, {}
     for label, (o, d, act, sel, lay, pp, first, tests, boxes) in timed.items():
         bnd_c, _ = sweep_bounds(lay, act, first, pp, 0, 0)            # every live lane
         _, bnd_1 = sweep_bounds(lay, sel, first, pp, tests, boxes)    # the <= 1 lanes
@@ -2596,16 +2657,11 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
         count_equals_plain(f"the bounce-1 wavefront ({label})", fo, fd, fact, lay, pp,
                            (fc, ff))
         fsel = fact & (fc <= 1)
-        # the whole wavefront's bounds: the targeted kernel's from the plain
-        # version's tally over it
-        tally = Tally()
-        for s0 in range(0, fo.shape[1], FULL_CHUNK):
-            part = slice(s0, s0 + FULL_CHUNK)
-            es.intersect_sweep1_plain(fo[:, part].contiguous(), fd[:, part].contiguous(),
-                                      lay, active=fsel[part].contiguous(), prepass=pp,
-                                      tally=tally)
+        # the whole wavefront's bounds: the targeted kernel's from its work
+        # there (the count's first leaves equal the plain version's)
         full_bounds[label] = (sweep_bounds(lay, fact, ff, pp, 0, 0)[0],
-                              sweep_bounds(lay, fsel, ff, pp, tally.tests, tally.visits)[1])
+                              sweep_bounds(lay, fsel, ff, pp, *sweep1_work(lay, fsel, ff))[1])
+        fsels[label] = fsel
         rows[label] = (
             dict(ms=cuda_ms(lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)),
                  plain_ms=cuda_ms(lambda: es.sweep_count_plain(o, d, lay, active=act,
@@ -2622,9 +2678,10 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); full bounce-1 "
                 f"({fo.shape[1]} lanes) {r['full_ms']:.3f} ms")
-    # the A/B of the count: Water-plastic's whole bounce-1 wavefront on both
-    # layouts, then the terrain's on its leaf-8 layout (many tiles of boxes)
-    ab = {}
+    # the A/Bs of the count and the targeted kernel: Water-plastic's whole
+    # bounce-1 wavefront on both layouts, then the terrain's on its leaf-8
+    # layout (many tiles of boxes)
+    ab, ab1, prof1 = {}, {}, {}
     tr = terrain_renderer(terrain)
     tw = wavefronts(tr.scene, tr.layout, tr.layout_occl, tr.cfg)["bounce1"]
     tpp = ht.window_prepass(tr.layout_occl, tr.cfg.traversal_prepass)
@@ -2632,14 +2689,22 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
         for label, (_, _, _, _, lay, pp, _, _, _) in timed.items():
             ab[label] = count_ab(f"{SCENE} bounce-1, {label}", fo, fd, fact, lay, pp,
                                  full_bounds[label][0]["bound_ms"])
+            ab1[label] = sweep1_ab(f"{SCENE} bounce-1, {label}", fo, fd, fsels[label], lay,
+                                   pp, full_bounds[label][1]["bound_ms"])
+            prof1[label] = sweep1_device_us(f"{SCENE} bounce-1, {label}", fo, fd, fsels[label],
+                                            lay, pp)
         tag = f"terrain ({terrain.num_triangles} triangles) bounce-1, leaf 8"
-        tc = es.sweep_count(tw[0], tw[1], tr.layout_occl, active=tw[2], prepass=tpp)
-        count_equals_plain(tag, *tw, tr.layout_occl, tpp, tc)
+        tlay = tr.layout_occl
+        tc = es.sweep_count(tw[0], tw[1], tlay, active=tw[2], prepass=tpp)
+        count_equals_plain(tag, *tw, tlay, tpp, tc)
         ab["terrain leaf 8"] = count_ab(
-            tag, *tw, tr.layout_occl, tpp,
-            sweep_bounds(tr.layout_occl, tw[2], tc[1], tpp, 0, 0)[0]["bound_ms"])
+            tag, *tw, tlay, tpp, sweep_bounds(tlay, tw[2], tc[1], tpp, 0, 0)[0]["bound_ms"])
+        tsel = tw[2] & (tc[0] <= 1)
+        ab1["terrain leaf 8"] = sweep1_ab(
+            tag, tw[0], tw[1], tsel, tlay, tpp,
+            sweep_bounds(tlay, tsel, tc[1], tpp, *sweep1_work(tlay, tsel, tc[1]))[1]["bound_ms"])
         torch.cuda.synchronize()
-    del tr, tw
+    del tr, tw, tlay, tc, tsel
     out = []
     for k, (name, line, err) in enumerate((("sweep_count", 82, err_count),
                                            ("sweep1", 156, err_one))):
@@ -2654,23 +2719,30 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
         if name == "sweep_count":
             extra.update(ab_full_ms=ab, k_lanes=es.K_LANES,
                          registers=kernel_registers(compiler_log, "sweep_count_kernel"))
+        else:
+            extra.update(ab_full_ms=ab1, device_us=prof1, k_lanes=es.SWEEP1_K,
+                         threads=es.SWEEP1_THREADS,
+                         registers=kernel_registers(compiler_log, "sweep1_kernel"))
         out.append(kernel_entry(
             name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
             plain_ms, full_ms, main, **extra))
-    # the yardstick's row: its own times on the leaf-56 lanes, the count's bound
-    o, d, act, _, lay, pp, _, _, _ = timed["leaf 56"]
-    count_row = out[0]
-    yard = kernel_entry(
-        "sweep_count_v1", "march_v1.cu", "experimental_pallas_sweep.py:82", 0.0,
-        cuda_ms(lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp)),
-        count_row["plain_ms"], min(ab["leaf 56"]["v1"]),
-        {x: count_row[x] for x in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-        yardstick_of="sweep_count",
-        registers=kernel_registers(compiler_log, "sweep_count_v1_kernel"))
-    yard.update(at_full_width("sweep_count_v1 (leaf 56)", "bounce-1 wavefront",
-                              yard["full_ms"], full_bounds["leaf 56"][0]))
-    out.append(yard)
-    return out, ab_run["launches"]["sweep_count_v1"]
+    # the yardsticks' rows: their own times on the leaf-56 lanes, the bounds
+    # of the kernels they measure
+    o, d, act, sel, lay, pp, _, _, _ = timed["leaf 56"]
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
+    for k, (name, line, fn, abk, lanes) in enumerate((
+            ("sweep_count_v1", 82, es.sweep_count_v1, ab, act),
+            ("sweep1_v1", 156, es.intersect_sweep1_v1, ab1, sel))):
+        row = out[k]
+        yard = kernel_entry(
+            name, "march_v1.cu", f"experimental_pallas_sweep.py:{line}", 0.0,
+            cuda_ms(lambda: fn(o, d, lay, active=lanes, prepass=pp)), row["plain_ms"],
+            min(abk["leaf 56"]["v1"]), {x: row[x] for x in keys}, yardstick_of=row["name"],
+            registers=kernel_registers(compiler_log, f"{name}_kernel"))
+        yard.update(at_full_width(f"{name} (leaf 56)", "bounce-1 wavefront", yard["full_ms"],
+                                  full_bounds["leaf 56"][k]))
+        out.append(yard)
+    return out, {k: ab_run["launches"][k] for k in ("sweep_count_v1", "sweep1_v1")}
 
 
 def split_run(label: str, o, d, act, lay, prepass: int) -> dict:
@@ -3031,8 +3103,9 @@ def main() -> int:
     phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
     phase_backend_parity(small)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    rows, launches["sweep_count_v1"] = phase_sweep_kernels(renderer, small, compiler_log)
+    rows, counts = phase_sweep_kernels(renderer, small, compiler_log)
     kernels += rows
+    launches.update(counts)
     launches.update(phase_split(renderer, small))
     entry, launches["noop"] = phase_launch_probe(smi)
     kernels.append(entry)

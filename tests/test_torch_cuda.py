@@ -225,7 +225,8 @@ def test_candidate_sweep_matches_plain_on_card(name, leaf, cuda_device):
     for a, b in zip(rk, rp):
         assert torch.equal(a, b)
     raw, tmax = es.intersect_sweep1(o, d, lay, active=sel)
-    assert (es.sweep_count.launches, es.intersect_sweep1.launches) == (n0[0] + 1, n0[1] + 2)
+    assert (es.sweep_count.launches, es.intersect_sweep1.launches) == (
+        n0[0] + 1, n0[1] + 2 * es.SWEEP1_LAUNCHES)
     tw, rw = ht.window_walk(o, d, act, tmax, lay, prepass=ht.window_prepass(lay, 32),
                             tritest="mt")
     assert torch.equal(raw.t[sel], tw[sel]) and torch.equal(raw.row[sel], rw[sel])
@@ -460,3 +461,51 @@ def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), prepass
             assert bool((want[0][~act] == 0).all() and (want[1][~act] == lay.num_leaves).all())
     assert n < 65537 or int(want[0].max()) > 0
+
+
+@pytest.fixture(scope="module")
+def sweep1_layouts(count_layouts):
+    """The count's tables and cornellbox at leaf 56 (a single leaf)."""
+    one = build_layout(load_scene(scene_path("cornellbox"), device="cuda"), 56)
+    assert one.num_leaves == 1
+    return {**count_layouts, "cornellbox leaf 56": one}
+
+
+@pytest.mark.parametrize("which", ["leaf 56", "leaf 8", "grid 256 leaf 8",
+                                   "cornellbox leaf 56"])
+@pytest.mark.parametrize("n", EDGE_LANES)
+def test_sweep1_edge_shapes_on_card(which, n, sweep1_layouts):
+    """The redesigned targeted kernel (the active lanes listed on the card,
+    only those marched on the count's dense march, the warp serving each
+    lane's leaf) on lane counts around a warp and a block,
+    with every lane active, none, one a warp and 19% (a seeded draw), t_max
+    unbounded and capped (1.5 on every third lane), prepass 32 and 0, and
+    prepass rows whose edges put the reciprocal off its fast path (scaled to
+    denormal, past 2^126 or to zero): t, u, v, row and orig bit-equal to its
+    plain version and to the first port's kernel on every lane."""
+    base = sweep1_layouts[which]
+    pre = base.prepass.clone()
+    pre[1::4, 3:6] *= 1e-39
+    pre[2::4, 3:6] *= 1e38
+    pre[3::8, 3:6] = 0.0
+    o, d = (torch.from_numpy(a).cuda() for a in random_rays(n, seed=43 + n))
+    lanes = torch.arange(n, device="cuda")
+    some = torch.from_numpy(np.random.default_rng(n).random(n) < 0.19).cuda()
+    masks = (torch.ones(n, dtype=torch.bool, device="cuda"),
+             torch.zeros(n, dtype=torch.bool, device="cuda"), lanes % 32 == 7, some)
+    caps = (None, torch.where(lanes % 3 == 0, 1.5, torch.inf))
+    n0 = (es.intersect_sweep1.launches, es.intersect_sweep1_v1.launches)
+    for act in masks:
+        for t_max in caps:
+            for prepass, lay in ((32, base), (0, base), (32, base._replace(prepass=pre))):
+                kw = dict(active=act, prepass=prepass, t_max=t_max)
+                want, _ = es.intersect_sweep1_plain(o, d, lay, **kw)
+                v1, _ = es.intersect_sweep1_v1(o, d, lay, **kw)
+                got, _ = es.intersect_sweep1(o, d, lay, **kw)
+                for g, y, w in zip(got, v1, want):
+                    assert torch.equal(y, w), (prepass, t_max is None)
+                    assert torch.equal(g, w), (prepass, t_max is None)
+                assert bool((want.row[~act] == lay.num_tris).all())
+    assert (es.intersect_sweep1.launches - n0[0], es.intersect_sweep1_v1.launches - n0[1]) \
+        == (24 * es.SWEEP1_LAUNCHES, 24)
+    assert n < 65537 or bool(torch.isfinite(want.t[act]).any())

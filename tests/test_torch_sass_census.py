@@ -45,6 +45,47 @@ def test_missing_reading_raises(symbol, marker, match):
         sass_census.issue_ceiling(LISTING, symbol, marker, 1, 1)
 
 
+SWEEP1 = """
+\t\tFunction : _ZN5anon13sweep1_kernelEPKf
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   MUFU.RCP R1, R4 ;
+        /*0020*/                   MUFU.RCP R3, R5 ;
+        /*0030*/              @!P0 BRA 0x0 ;
+        /*0040*/                   LDG.E R4, [R2.64] ;
+        /*0050*/                   SHFL.IDX R5, R1, R0, 0x1f ;
+        /*0060*/               @P2 BRA 0x78 ;
+        /*0068*/                   MUFU.RCP R1, R4 ;
+        /*0070*/                   CALL.REL.NOINC 0x100 ;
+        /*0078*/              @!P0 BRA 0x40 ;
+        /*0080*/                   LDG.E R4, [R2.64] ;
+        /*0090*/                   MUFU.RCP R1, R4 ;
+        /*00a0*/                   FADD R1, R1, R2 ;
+        /*00b0*/              @!P1 BRA 0x80 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("having,lacking,issued", [
+    (("LDS",), ("LDG",), 2.0),       # the prime: two lanes a trip, 4 instructions
+    (("LDG", "SHFL"), (), 6.0),      # the warp's leaf service, its guarded row test
+    (("LDG",), ("SHFL",), 4.0),      # the per-lane leaf loop
+])
+def test_loops_told_apart_by_their_opcodes(having, lacking, issued):
+    """Three loops issue MUFU; the opcodes a loop must and must not issue
+    pick one: the prime reads shared memory, the leaf rows device memory,
+    and only the warp's service shuffles.  The service's branch over its
+    row test is not taken though that holds a CALL: it skips a MUFU too."""
+    x = sass_census.issue_ceiling(SWEEP1, sass_census.SWEEP1_SYMBOL, "MUFU", 1, 52,
+                                  having=having, lacking=lacking)
+    assert x["issued_per_test"] == issued
+
+
+def test_no_loop_with_the_opcodes_raises():
+    with pytest.raises(RuntimeError, match="no innermost loop"):
+        sass_census.issue_ceiling(SWEEP1, sass_census.SWEEP1_SYMBOL, "MUFU", 1, 52,
+                                  having=("LDS", "SHFL"))
+
+
 def test_probe_symbol_names_the_unrolled_instance():
     """rowtest_probe_kernel<V, 16>: the variant's index, then mtblock 16."""
     assert sass_census.probe_symbol("full-bw") == "20rowtest_probe_kernelILi0ELi16EE"

@@ -58,7 +58,8 @@ def setup(request):
 
 
 def _launches():
-    return es.sweep_count.launches, es.intersect_sweep1.launches
+    return (es.sweep_count.launches, es.intersect_sweep1.launches,
+            es.intersect_sweep1_v1.launches)
 
 
 def _rays(seed):
@@ -140,6 +141,25 @@ def test_sweep1_matches_reference(ps, setup):
         assert (got.orig.numpy()[off] == 0).all() and (got.u.numpy()[off] == 0).all()
 
 
+@pytest.mark.parametrize("capped", [False, True])
+def test_sweep1_v1_on_cpu_is_the_plain_version(setup, capped):
+    """The first port's targeted kernel, kept as a yardstick, takes the
+    plain version on CPU tensors with no launch: every output equal."""
+    lay = setup["built"]
+    o, d, active = _t(*_rays(25))
+    t_max = torch.where(torch.arange(N) % 3 == 0, 1.5, torch.inf) if capped else None
+    before = _launches()
+    got, gmax = es.intersect_sweep1_v1(o, d, lay, active=active, prepass=PREPASS,
+                                       t_max=t_max)
+    assert _launches() == before
+    want, wmax = es.intersect_sweep1_plain(o, d, lay, active=active, prepass=PREPASS,
+                                           t_max=t_max)
+    assert torch.equal(gmax, wmax)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(got.t[active]).any())
+
+
 @pytest.mark.parametrize("which", ["carried", "built"])
 def test_split_equals_window_walk(setup, which):
     """The reference's own property on the port's plain versions: on every
@@ -199,6 +219,23 @@ def test_tally_counts_the_boxes_up_to_the_lowest_candidate(setup):
     assert tally.visits == want < int(sel.sum()) * lay.num_leaves
 
 
+def test_sweep1_work_is_the_plain_tally(setup):
+    """chip_smoke.sweep1_work prices the targeted kernel from the count's
+    first leaves (whole wavefronts, no plain run over them): the same leaf
+    row tests and box tests as intersect_sweep1_plain's tally."""
+    import chip_smoke
+    from tpu_pathtracer_torch.ops.traverse import Tally
+
+    lay = setup["built"]
+    o, d = _t(*random_rays(N, 27))
+    cnt, first = es.sweep_count_plain(o, d, lay, prepass=PREPASS)
+    sel = (cnt <= 1) & (torch.arange(N) % 5 != 2)
+    tally = Tally()
+    es.intersect_sweep1_plain(o, d, lay, active=sel, prepass=PREPASS, tally=tally)
+    assert chip_smoke.sweep1_work(lay, sel, first) == (tally.tests, tally.visits)
+    assert tally.tests > 0
+
+
 @pytest.mark.parametrize("prepass", [0, 5, 8, 13, 32, 100])
 def test_prepass_clamp_matches_reference(setup, prepass):
     """min(prepass, rows, num_tris) rounded down to whole 8-row blocks, and
@@ -247,6 +284,47 @@ def test_count_launch_shape_covers_every_lane_once(count_tables, n, tile):
         assert (shape.tile_rows == leaves) == one_tile == (leaves < 2000)
         assert shape.smem == pp * es.PRE_BYTES + (1 if one_tile else 2) * (
             shape.tile_rows * es.BOX_BYTES)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.19, 0.35, 1.0])
+@pytest.mark.parametrize("n", [1, 31, 33, 4096, 65537])
+def test_sweep1_list_marches_every_active_lane_once(count_tables, n, share):
+    """The targeted kernel's list and march (scripts/dense_march.py:
+    compact_shape and compact_lanes, which the kernels' list and lane mapping
+    mirror) at active shares of none, 19% and 35% (the shares of
+    Water-plastic's bounce-1 wavefront with <= 1 candidate at leaf 56 and
+    leaf 8) and all, for a warp's passes (32 k entries: a table of one tile)
+    and the block's: every active lane marched exactly once, no inactive
+    lane marched, the list in ascending order and every pass but the last
+    full; the list launches cover every lane; the prepass block and the
+    boxes within the card's shared memory for 184, 1,209 and 20,872-odd
+    boxes."""
+    active = torch.from_numpy(np.random.default_rng(n).random(n) < share)
+    for leaves, pp in count_tables:
+        shape = dense_march.compact_shape(n, es.SWEEP1_THREADS, es.SWEEP1_K, leaves,
+                                          es.BOX_BYTES, pp * es.PRE_BYTES)
+        assert shape.blocks * dense_march.LIST_TILE >= n > (shape.blocks - 1) * (
+            dense_march.LIST_TILE)
+        assert shape.smem <= dense_march.SHARED_LIMIT
+        one_tile = leaves * es.BOX_BYTES <= dense_march.ONE_TILE_BYTES
+        assert shape.smem == pp * es.PRE_BYTES + (1 if one_tile else 2) * (
+            shape.tile_rows * es.BOX_BYTES)
+        for per_pass in (32 * es.SWEEP1_K, shape.threads * es.SWEEP1_K):
+            lanes = dense_march.compact_lanes(active, per_pass, es.SWEEP1_K)
+            assert lanes.shape[0] <= shape.passes * shape.threads * es.SWEEP1_K // per_pass
+            flat = lanes.reshape(-1)
+            live = flat >= 0
+            assert torch.equal(flat[live], active.nonzero()[:, 0])  # once, ascending
+            assert not bool(live[int(live.sum()):].any())  # only the last pass has a gap
+            assert int((~live).sum()) < per_pass
+
+
+def test_compact_shape_refuses_a_bad_block():
+    """A march block that is not whole warps up to the kernels' cap is
+    refused before a launch."""
+    for threads in (100, 1024, 0):
+        with pytest.raises(ValueError):
+            dense_march.compact_shape(4096, threads, 2, 184, es.BOX_BYTES)
 
 
 @pytest.mark.parametrize("leaves,bound_ms", [(184, 0.2699), (1209, 1.3964)])

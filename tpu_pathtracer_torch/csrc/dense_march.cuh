@@ -1,6 +1,6 @@
-// The dense march shared by tpupt_rowtest_probe (probes.cu) and
-// tpupt_sweep_count (candidate_sweep.cu): every lane of a block tests every
-// row of one small table, in the same order.
+// The dense march shared by tpupt_rowtest_probe (probes.cu), tpupt_sweep_count
+// and tpupt_sweep1 (candidate_sweep.cu): every lane of a block tests every
+// row of one small table, in the same order (sweep1: up to its first hit).
 //
 // What bounds it on an H100: the float32 instruction rate.  The first port
 // (march_v1.cu, kept as the yardstick) ran one lane a thread and read each row
@@ -22,10 +22,11 @@
 //   puts a branch to its slow path, and its reconvergence, in every lane's
 //   every row test.
 // * Every thread of a block reaches every barrier: lanes past the tile or
-//   past n are masked, never returned from.
+//   past n are masked, never returned from.  A table of one tile is staged
+//   once a block and synced once; the passes then hold no barrier.
 // K is a constant of each kernel: 2 in the probe (probes.cu:kProbeK), 4 in
-// the count (candidate_sweep.cu:kCountK), the faster of 2 and 4 for each at
-// full width (PERF.md section 6, the dense marches).  What bounds them now: the
+// the count (candidate_sweep.cu:kCountK), 2 in sweep1 (kSweep1K), the faster
+// of 2 and 4 for each at full width (PERF.md section 6, the dense marches).  What bounds them now: the
 // instructions a test issues beyond the operations the bound counts (the
 // latch's selects, the reciprocal's Newton step and range test, the count's
 // selects), which scripts/sass_census.py reads from the built library's SASS.
@@ -35,7 +36,9 @@
 // in `passes` passes of threads * K lanes; slot j of thread t in pass p is
 // lane blockIdx.x * tile + (p * K + j) * threads + t, live when that offset is
 // below tile and the lane below n.  The table is staged `tile_rows` rows at a
-// time, into one buffer when one tile holds it, else into two.
+// time, into one buffer when one tile holds it, else into two.  sweep1
+// marches a list of its active lanes instead (scripts/dense_march.py:
+// compact_shape, candidate_sweep.cu).
 #pragma once
 
 #include <cuda_runtime.h>

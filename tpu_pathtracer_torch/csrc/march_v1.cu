@@ -1,10 +1,11 @@
-// The yardsticks of the two dense marches: the first port's row-test probe
-// (tpupt_rowtest_probe_v1) and candidate count (tpupt_sweep_count_v1), one
-// lane a thread, each row read with __ldg by every lane, as they stood before
-// the redesign of dense_march.cuh.  They compute what tpupt_rowtest_probe and
-// tpupt_sweep_count compute, bit for bit, and are on no tool's path:
+// The yardsticks of the dense marches: the first port's row-test probe
+// (tpupt_rowtest_probe_v1), candidate count (tpupt_sweep_count_v1) and
+// targeted one-leaf MT (tpupt_sweep1_v1), one lane a thread, each row read
+// with __ldg by every lane, as they stood before the redesign on
+// dense_march.cuh.  They compute what tpupt_rowtest_probe, tpupt_sweep_count
+// and tpupt_sweep1 compute, bit for bit, and are on no tool's path:
 // chip_smoke.py times them against the redesigned kernels in turns (phases
-// 14 and 17) and the card tests hold the two equal.  See probes.cu and
+// 14 and 17) and the card tests hold them equal.  See probes.cu and
 // candidate_sweep.cu for the contract and the variants.
 #include "walk_common.cuh"
 
@@ -149,6 +150,58 @@ __global__ void sweep_count_v1_kernel(
   out_first[i] = first;
 }
 
+// The targeted one-leaf MT, one thread a lane of the whole wavefront: the
+// prime, the boxes in row order up to the first hit (slab_hit: eight
+// dependent __ldg scalars a box), then the leaf's rows alone.
+__global__ void sweep1_v1_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const unsigned char* __restrict__ active, const float* __restrict__ t_max,
+    const float* __restrict__ lbox, const int* __restrict__ lmeta,
+    const float* __restrict__ tris, const float* __restrict__ pre,
+    int n_prepass, int num_leaves, int num_tris, float t_min, int n,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_row,
+    int* __restrict__ out_orig) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Best b = {t_max[i], 0.0f, 0.0f, num_tris, 0.0f};
+  if (active[i]) {
+    const float ox = o[i], oy = o[n + i], oz = o[2 * n + i];
+    const float dx = d[i], dy = d[n + i], dz = d[2 * n + i];
+    const float ix = tpupt::safe_inv(dx);
+    const float iy = tpupt::safe_inv(dy);
+    const float iz = tpupt::safe_inv(dz);
+    prime(pre, n_prepass, ox, oy, oz, dx, dy, dz, t_min, &b);
+    int first = num_leaves;
+    for (int j = 0; j < num_leaves; ++j) {
+      if (tpupt::slab_hit(lbox + 8 * j, ox, oy, oz, ix, iy, iz, t_min, b.t)) {
+        first = j;
+        break;
+      }
+    }
+    if (first < num_leaves) {
+      const int4 m = __ldg(reinterpret_cast<const int4*>(lmeta) + first);
+      float tt, u, v;
+      for (int r = m.x; r < m.x + m.y; ++r) {
+        const float* row = tris + 24 * r;
+        if (tpupt::mt_row(row, ox, oy, oz, dx, dy, dz, t_min, &tt, &u, &v) &&
+            tt < b.t) {
+          b.t = tt;
+          b.u = u;
+          b.v = v;
+          b.row = r;
+          b.orig = __ldg(row + 9);
+        }
+      }
+    }
+  }
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_row[i] = b.row;
+  out_orig[i] = static_cast<int>(b.orig);
+}
+
 constexpr int kThreads = 128;
 
 }  // namespace
@@ -181,6 +234,21 @@ extern "C" int tpupt_sweep_count_v1(
                             static_cast<cudaStream_t>(stream)>>>(
         o, d, active, lbox, pre, n_prepass, num_leaves, t_min, n, out_count,
         out_first);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpupt_sweep1_v1(
+    const float* o, const float* d, const unsigned char* active,
+    const float* t_max, const float* lbox, const int* lmeta, const float* tris,
+    const float* pre, int n_prepass, int num_leaves, int num_tris, float t_min,
+    int n, float* out_t, float* out_u, float* out_v, int* out_row,
+    int* out_orig, void* stream) {
+  if (n > 0) {
+    sweep1_v1_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        o, d, active, t_max, lbox, lmeta, tris, pre, n_prepass, num_leaves,
+        num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig);
   }
   return static_cast<int>(cudaGetLastError());
 }

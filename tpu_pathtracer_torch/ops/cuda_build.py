@@ -79,9 +79,14 @@ _SIGNATURES = {
     # leafbox, pre, n_prepass, num_leaves, t_min, n, out_count, out_first, stream
     "tpupt_sweep_count_v1": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
     # o, d, active, t_max, leafbox, leafmeta, tris8, pre, n_prepass,
-    # num_leaves, num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig,
-    # stream
-    "tpupt_sweep1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
+    # num_leaves, num_tris, t_min, threads, tile_rows, smem
+    # (scripts/dense_march.py:compact_shape), n, scratch, out_t, out_u, out_v,
+    # out_row, out_orig, stream
+    "tpupt_sweep1": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 4 + [_P] * 7,
+    # the first port's targeted kernel (csrc/march_v1.cu, a yardstick): o, d,
+    # active, t_max, leafbox, leafmeta, tris8, pre, n_prepass, num_leaves,
+    # num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig, stream
+    "tpupt_sweep1_v1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
     # rays, table0..3 (never read; null when absent), tile, n, out, stream
     "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
     # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,

@@ -32,8 +32,9 @@ lanes, then the MT window walk on the rest) is not a function of the
 package, as it is none of the reference's: it lives in
 ``tests/test_torch_sweep_tools.py`` and in a phase of ``chip_smoke.py``.
 
-Both wrappers launch their CUDA kernel for CUDA tensors (counting the launch
-in ``.launches``) or raise; CPU tensors take the plain versions
+Both wrappers launch their CUDA kernels for CUDA tensors (counting the
+launches in ``.launches``: one for the count, :data:`SWEEP1_LAUNCHES` for the
+targeted kernel) or raise; CPU tensors take the plain versions
 (:func:`sweep_count_plain`, :func:`intersect_sweep1_plain`), which keep the
 kernels' operation order: the prime and the leaf's rows fold in with a
 first-minimum pick, which equals the kernels' sequential strict-``<`` latch.
@@ -50,13 +51,17 @@ from ..ops.cuda_build import load_library
 from ..ops.hopper_traverse import (DEFAULT_PREPASS, _check, _check_layout,
                                    _nearest_inputs, window_prepass)
 from ..ops.traverse import Tally, _slab, latch, mt_rows, safe_inverse
-from .dense_march import march_shape
+from .dense_march import compact_shape, march_shape
 
 LEAF_CHUNK = 256  # leaf boxes per step of the plain versions
 COUNT_TILE = 512  # lanes a block of the count kernel covers
 K_LANES = 4       # the count kernel's lanes a thread (csrc/candidate_sweep.cu:kCountK)
-BOX_BYTES = 32    # a leaf box as the count stages it: one leafbox row
-PRE_BYTES = 48    # a prepass row as the count stages it: cols 0-11
+BOX_BYTES = 32    # a leaf box as both kernels stage it: one leafbox row
+PRE_BYTES = 48    # a prepass row as both kernels stage it: cols 0-11
+SWEEP1_THREADS = 512  # threads a block of the targeted kernel's march: the
+                      # fastest of 128-512 on whole wavefronts (PERF.md section 6)
+SWEEP1_K = 2      # its list entries a thread (csrc/candidate_sweep.cu:kSweep1K)
+SWEEP1_LAUNCHES = 3  # the targeted kernel's launches a call: tally, list, march
 
 
 class SweepRaw(NamedTuple):
@@ -241,15 +246,7 @@ def intersect_sweep1_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0
     return SweepRaw(*raw), t_max
 
 
-def intersect_sweep1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                     prepass: int = DEFAULT_PREPASS, t_max=None):
-    """Nearest hit for rays with at most one candidate leaf (``active``
-    selects them): the prepass prime plus the Moller-Trumbore test of the
-    lowest candidate leaf -> (:class:`SweepRaw`, t_max_arr).  The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  ``t_max``:
-    None (unbounded) or a best_t seed broadcastable to (N,)."""
-    if o.device.type == "cpu":
-        return intersect_sweep1_plain(o, d, lay, active, t_min, prepass, t_max)
+def _sweep1_inputs(o, d, lay: BVHLayout, active, t_max):
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
     n = o.shape[1]
     _check(o, torch.float32, (3, n), "o")
@@ -257,18 +254,63 @@ def intersect_sweep1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
     _check(active, torch.bool, (n,), "active")
     _check(t_max, torch.float32, (n,), "t_max")
     _check_layout(lay, ("leafbox", "leafmeta", "tris8", "prepass"), o.device)
-    out_f = [torch.empty(n, dtype=torch.float32, device=o.device) for _ in range(3)]
-    out_i = [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(2)]
+    outs = ([torch.empty(n, dtype=torch.float32, device=o.device) for _ in range(3)]
+            + [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(2)])
+    return o, d, active, t_max, n, outs
+
+
+def intersect_sweep1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
+                     prepass: int = DEFAULT_PREPASS, t_max=None):
+    """Nearest hit for rays with at most one candidate leaf (``active``
+    selects them): the prepass prime plus the Moller-Trumbore test of the
+    lowest candidate leaf -> (:class:`SweepRaw`, t_max_arr).  The CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.  ``t_max``:
+    None (unbounded) or a best_t seed broadcastable to (N,).  The kernel
+    lists the active lanes on the card and marches only those
+    (``scripts/dense_march.py:compact_shape``), in three launches, each
+    counted."""
+    if o.device.type == "cpu":
+        return intersect_sweep1_plain(o, d, lay, active, t_min, prepass, t_max)
+    o, d, active, t_max, n, outs = _sweep1_inputs(o, d, lay, active, t_max)
+    pp = window_prepass(lay, prepass)
+    shape = compact_shape(n, SWEEP1_THREADS, SWEEP1_K, lay.num_leaves, BOX_BYTES,
+                          pp * PRE_BYTES)
+    scratch = torch.empty(shape.blocks + 2 + n, dtype=torch.int32, device=o.device)
     rc = load_library().tpupt_sweep1(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
         lay.leafbox.data_ptr(), lay.leafmeta.data_ptr(), lay.tris8.data_ptr(),
-        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves,
-        lay.num_tris, t_min, n, *(x.data_ptr() for x in out_f + out_i),
+        lay.prepass.data_ptr(), pp, lay.num_leaves, lay.num_tris, t_min, shape.threads,
+        shape.tile_rows, shape.smem, n, scratch.data_ptr(), *(x.data_ptr() for x in outs),
         torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep1 kernel launch failed: cudaError {rc}")
-    intersect_sweep1.launches += 1
-    return SweepRaw(*out_f, *out_i), t_max
+    intersect_sweep1.launches += SWEEP1_LAUNCHES
+    return SweepRaw(*outs), t_max
 
 
 intersect_sweep1.launches = 0
+
+
+def intersect_sweep1_v1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
+                        prepass: int = DEFAULT_PREPASS, t_max=None):
+    """The first port's targeted kernel (``csrc/march_v1.cu``: one thread a
+    lane of the whole wavefront, each box read with ``__ldg``, a break at
+    the first hit, the leaf's rows tested alone), kept as the yardstick
+    :func:`intersect_sweep1` is timed against in turns; on no tool's path.
+    Its plain version is :func:`intersect_sweep1_plain`."""
+    if o.device.type == "cpu":
+        return intersect_sweep1_plain(o, d, lay, active, t_min, prepass, t_max)
+    o, d, active, t_max, n, outs = _sweep1_inputs(o, d, lay, active, t_max)
+    rc = load_library().tpupt_sweep1_v1(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.leafbox.data_ptr(), lay.leafmeta.data_ptr(), lay.tris8.data_ptr(),
+        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves,
+        lay.num_tris, t_min, n, *(x.data_ptr() for x in outs),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"sweep1_v1 kernel launch failed: cudaError {rc}")
+    intersect_sweep1_v1.launches += 1
+    return SweepRaw(*outs), t_max
+
+
+intersect_sweep1_v1.launches = 0

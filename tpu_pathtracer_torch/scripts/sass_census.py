@@ -1,16 +1,17 @@
-"""Count the instructions the two dense marches issue a test, from the SASS
-of the built kernel library.
+"""Count the instructions the dense marches issue a test, from the SASS of
+the built kernel library.
 
     python -m tpu_pathtracer_torch.scripts.sass_census   # needs nvcc and cuobjdump
 
 Builds the library (``ops/cuda_build.py``), lists it with ``cuobjdump
--sass`` and reads the innermost loops of the candidate count
-(``csrc/candidate_sweep.cu``: its box loop and its prime) and of the
-row-test probe's unrolled instances (``csrc/probes.cu``, mtblock 16, every
-variant with a reciprocal).  A kernel's issue ceiling is the operations its
-bound counts a test over the instructions it issues a test on its fast
-path: the share of the float32 bound that an issue-bound kernel can reach.
-No card is needed.
+-sass`` and reads the innermost loops of the candidate count and the
+targeted kernel (``csrc/candidate_sweep.cu``: their box loops and primes,
+and the targeted kernel's leaf rows, served by the warp or lane by lane)
+and of the row-test probe's unrolled instances (``csrc/probes.cu``, mtblock
+16, every variant with a reciprocal).  A kernel's issue ceiling is the
+operations its bound counts a test over the instructions it issues a test
+on its fast path: the share of the float32 bound that an issue-bound kernel
+can reach.  No card is needed.
 
 Lines: ``SASS <kernel> <loop>: <issued> instructions a test for <ops>
 operations, issue ceiling <pct>%``.  Raises when the toolkit has no
@@ -30,12 +31,14 @@ from .perf_ophit_probe import ROWTEST_OPS, VARIANTS
 
 # float32 operations of one test, as the bounds count them (chip_smoke.py):
 BOX_TEST_OPS = 27    # the slab test's 25, the first leaf's select, the count's add
+LEAF_BOX_OPS = 26    # the targeted kernel's: no count
 PRIME_TEST_OPS = 52  # a Moller-Trumbore row test and its latch compare
 # instructions of one lane test that mark its loop: the slab test's
 # min / max, a row test's reciprocal
 FMNMX_A_BOX = 10
 MUFU_A_ROW = 1
 COUNT_SYMBOL = "18sweep_count_kernelE"  # not a template: kCountK is a constant
+SWEEP1_SYMBOL = "13sweep1_kernelE"      # nor kSweep1K
 
 
 def probe_symbol(variant: str) -> str:
@@ -56,8 +59,9 @@ def sass_loops(sass: str, symbol: str) -> list[dict]:
     """The innermost loops of the one kernel whose mangled name holds
     ``symbol`` -> [{"issued": m, "ops": {opcode: k}}]: ``issued`` counts the
     instructions one trip issues on its fast path, every forward branch
-    over a CALL taken (the rare exact reciprocal).  Raises when no kernel,
-    or more than one, matches."""
+    over a CALL and no MUFU taken (the rare slow path of an IEEE 1 / x, not
+    a guarded row test that holds one).  Raises when no kernel, or more than
+    one, matches."""
     funcs = [f for f in re.split(r"\n\s+Function : ", sass)[1:]
              if symbol in f.split("\n", 1)[0]]
     if len(funcs) != 1:
@@ -84,7 +88,9 @@ def sass_loops(sass: str, symbol: str) -> list[dict]:
             t = target(op)
             if t is not None and i < hi and t > ins[i][0]:
                 j = where[t]
-                if not op.startswith("@") or any("CALL" in x for _, x in ins[i:j]):
+                skipped = [x for _, x in ins[i:j]]
+                if not op.startswith("@") or (any("CALL" in x for x in skipped)
+                                              and not any("MUFU" in x for x in skipped)):
                     i = j
                     continue
             i += 1
@@ -93,12 +99,15 @@ def sass_loops(sass: str, symbol: str) -> list[dict]:
 
 
 def issue_ceiling(sass: str, symbol: str, marker: str, per_test: int,
-                  ops_per_test: int) -> dict:
+                  ops_per_test: int, having: tuple = (), lacking: tuple = ()) -> dict:
     """The issue ceiling of the innermost loop of kernel ``symbol`` with the
-    most ``marker`` instructions (``per_test`` of them a lane test) ->
-    {"issued_per_test", "ops_per_test", "issue_ceiling_pct"}; raises when
+    most ``marker`` instructions (``per_test`` of them a lane test), among
+    the loops that issue every opcode of ``having`` and none of ``lacking``
+    -> {"issued_per_test", "ops_per_test", "issue_ceiling_pct"}; raises when
     the kernel has no such loop."""
-    loops = [x for x in sass_loops(sass, symbol) if x["ops"].get(marker)]
+    loops = [x for x in sass_loops(sass, symbol)
+             if x["ops"].get(marker) and all(x["ops"].get(h) for h in having)
+             and not any(x["ops"].get(h) for h in lacking)]
     if not loops:
         raise RuntimeError(f"{symbol}: no innermost loop issues {marker}")
     hot = max(loops, key=lambda x: x["ops"][marker])
@@ -112,7 +121,20 @@ def census(sass: str) -> dict:
     out = {("sweep_count", "box"): issue_ceiling(sass, COUNT_SYMBOL, "FMNMX", FMNMX_A_BOX,
                                                  BOX_TEST_OPS),
            ("sweep_count", "prime"): issue_ceiling(sass, COUNT_SYMBOL, "MUFU", MUFU_A_ROW,
-                                                   PRIME_TEST_OPS)}
+                                                   PRIME_TEST_OPS),
+           ("sweep1", "box"): issue_ceiling(sass, SWEEP1_SYMBOL, "FMNMX", FMNMX_A_BOX,
+                                            LEAF_BOX_OPS),
+           # the prime reads its rows from shared memory, the leaf rows from
+           # device memory; the warp's service shuffles, the per-lane loop not
+           ("sweep1", "prime"): issue_ceiling(sass, SWEEP1_SYMBOL, "MUFU", MUFU_A_ROW,
+                                              PRIME_TEST_OPS, having=("LDS",),
+                                              lacking=("LDG",)),
+           ("sweep1", "leaf rows, warp"): issue_ceiling(sass, SWEEP1_SYMBOL, "MUFU",
+                                                        MUFU_A_ROW, PRIME_TEST_OPS,
+                                                        having=("LDG", "SHFL")),
+           ("sweep1", "leaf rows, lane"): issue_ceiling(sass, SWEEP1_SYMBOL, "MUFU",
+                                                        MUFU_A_ROW, PRIME_TEST_OPS,
+                                                        having=("LDG",), lacking=("SHFL",))}
     for v in VARIANTS:
         if v != "nodiv":  # the one variant without a reciprocal to mark its tests
             out[("rowtest_probe/" + v, "row")] = issue_ceiling(
