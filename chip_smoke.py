@@ -175,7 +175,22 @@ Phases (any failure raises, so the exit code is not 0):
     textured scenes finite, each launching the window and capped walks;
     ``bench --bake-materials`` with its counting walk; then S = 3, S = 16
     with hero 4 and S = 16 in turns (1 warm-up + 2 timed frames, one
-    staged, one profiled a turn).
+    staged, one profiled a turn);
+21. multi-device: virtual meshes that name ``cuda:0`` more than once
+    (Water-plastic, 1080p, depth 8): 1x1 (3 frames) bit-equal to
+    Renderer() with the same launches a frame, 2x1 bit-equal, 1x2 and 2x2
+    at 2 spp within 2e-6 of Renderer() at 2 spp, the env-lit 2x1 mesh
+    bit-equal (the any-hit walk); the self-golden gate of phase 5 on 2x1,
+    and its limits on 2x2 at 2 spp against Renderer() at 2 spp (the golden
+    holds 1-spp frames, which a mesh of 2 sample shards cannot split); two
+    processes on the card joined by gloo on 127.0.0.1, a 2x1 multihost mesh
+    with a tile each (``multihost_worker``, under a 240 s timeout): each
+    gathered image bit-equal to the single-process frame, and the directory
+    checkpoint both wrote holding it; the 2x1 mesh's directory checkpoint
+    resumed on 1x1 and on no mesh, the next frame bit-equal; ``bench --mesh
+    1x1``; then no mesh, 1x1 and 2x1 in turns (1 warm-up + 2 timed frames
+    and one profiled frame a turn): ms/frame, device ms and kernels a frame,
+    walk launches a frame.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -216,7 +231,9 @@ the targeted kernel carry their ptxas registers and spills per instance
 the capped walk and the fused walk also carry ``launches_per_sample_fuse2``, their launches
 a sample in a 2-spp frame at fuse 2, from phase 19, and the window, capped
 and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
-phase 20's spectral CLI path); the last line is
+phase 20's spectral CLI path, and ``launches_per_frame_mesh2x1``, their
+launches a frame on phase 21's 2x1 mesh, the any-hit walk's env-lit); the
+last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -1940,6 +1957,232 @@ def phase_spectral(tmp: str, smi: str) -> dict:
     return {"launches_per_frame_spectral": per_frame, "turns": turns}
 
 
+MESH_SPP_ATOL = 2e-6  # a sample split: the rounding of the sum over spp (tests/test_parallel.py)
+MESH_WORKER_TIMEOUT = 240  # seconds a process of the two-process run may take
+
+
+def cuda_mesh(tiles: int, spp: int = 1):
+    """A virtual mesh on the one card: ``cuda:0`` named tiles x spp times."""
+    from tpu_pathtracer_torch.parallel.tiles import make_mesh
+
+    return make_mesh(tiles, spp, devices=[torch.device("cuda:0")] * (tiles * spp))
+
+
+def mesh_run(what: str, scene, frames: int, mesh=None, width: int | None = None,
+             height: int | None = None, kernels=("window_walk", "capped_walk"), **kw):
+    """``frames`` Renderer frames of ``scene`` (depth 8, ``kw`` RenderConfig
+    fields; WIDTH x HEIGHT unless given) on ``mesh`` or on no mesh, in a
+    counted run that must launch ``kernels`` and no plain version on a CUDA
+    tensor -> (renderer, image, launches a frame)."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    width, height = width or WIDTH, height or HEIGHT
+    with counted_run() as run:
+        r = Renderer(scene, width, height, RenderConfig(max_path_length=8, **kw), mesh=mesh)
+        r.run(frames)
+        img = r.image()
+    if min(run["launches"][k] for k in kernels) <= 0 or any(run["plain_cuda"].values()):
+        raise AssertionError(f"mesh run {what}: expected launches of {kernels}: {run}")
+    if img.shape[:2] != (height, width) or not np.isfinite(img).all():
+        raise AssertionError(f"mesh run {what}: image not finite or of shape {img.shape}")
+    return r, img, {k: v / frames for k, v in run["launches"].items() if v}
+
+
+def mesh_equal(what: str, got, want, atol: float | None = None) -> None:
+    """Bit-equal (``atol`` None) or within ``atol``, else fail."""
+    d = float(np.abs(got - want).max())
+    ok = np.array_equal(got, want) if atol is None else d <= atol
+    log(f"  {what}: max |diff| {d:.3g} ({'bit-equal' if atol is None else f'atol {atol:g}'})")
+    if not ok:
+        raise AssertionError(f"{what}: max |diff| {d}")
+
+
+def multihost_worker() -> None:
+    """One process of the two-process run (``python -c "import chip_smoke;
+    chip_smoke.multihost_worker()" <rank> <port> <dir>``): gloo on
+    127.0.0.1, a multihost mesh of this process's local card, 3 frames at
+    1080p; the gathered image must equal the single-process one in
+    ``<dir>/ref.npy``; then the directory checkpoint ``<dir>/ck``, written
+    with the other rank."""
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.parallel.multihost import make_multihost_mesh
+
+    rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=2, rank=rank)
+    try:
+        mesh = make_multihost_mesh()
+        if mesh.shape != {"tiles": 2, "spp": 1} or mesh.ranks != ((0,), (1,)):
+            raise AssertionError(f"multihost mesh {mesh}")
+        with counted_run() as run:
+            r = Renderer(SCENE, WIDTH, HEIGHT, mesh=mesh)
+            t0 = time.perf_counter()
+            r.run(3)
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+        img = r.image()
+        if not np.array_equal(img, np.load(os.path.join(out, "ref.npy"))):
+            raise AssertionError(f"rank {rank}: the gathered image differs from the "
+                                 "single-process frame")
+        if min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0 or any(
+                run["plain_cuda"].values()):
+            raise AssertionError(f"rank {rank}: {run}")
+        r.save_checkpoint(os.path.join(out, "ck"))
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = {k: v for k, v in run["launches"].items() if v}
+    print(f"MULTIHOST_OK rank {rank}: {ms:.2f} ms/frame, launches {launches}", flush=True)
+
+
+def two_process_run(tmp: str, ref) -> None:
+    """Two processes on the one card joined by gloo, each rendering its tile
+    of a 2x1 multihost mesh; each must exit 0 within MESH_WORKER_TIMEOUT,
+    and the checkpoint directory both wrote must hold ``ref``."""
+    import socket
+
+    from tpu_pathtracer_torch.io.checkpoint import load_checkpoint
+
+    np.save(os.path.join(tmp, "ref.npy"), ref)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.multihost_worker()",
+         str(rank), port, tmp], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, MESH_WORKER_TIMEOUT - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-12:]:
+            log(f"  | rank {rank}: {line}")
+        if p.returncode:
+            raise AssertionError(f"two-process run: rank {rank} exited {p.returncode}")
+    st = load_checkpoint(os.path.join(tmp, "ck"))
+    if st.frame_index != 3 or not np.array_equal(st.accum.numpy(), ref):
+        raise AssertionError("two-process run: the checkpoint both ranks wrote differs")
+    log(f"  two processes on one card (gloo, a 2x1 multihost mesh, 3 frames at "
+        f"{WIDTH}x{HEIGHT}): gathered images and the shared checkpoint equal the "
+        f"single-process frame; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_multi_device(tmp: str, smi: str) -> dict:
+    """The multi-device split on the card (Water-plastic, 1080p, depth 8):
+    1x1 and 2x1 virtual meshes bit-equal to the single-device frames with
+    the 1x1 launching what Renderer() launches; 1x2 and 2x2 at 2 spp within
+    MESH_SPP_ATOL; the env-lit 2x1 mesh; the self-golden gate on 2x1, and
+    its limits on 2x2 at 2 spp against Renderer() at 2 spp; two processes
+    on the card; the directory checkpoint of the 2x1 mesh resumed
+    on 1x1 and on no mesh; bench --mesh 1x1; then no mesh, 1x1 and 2x1 in
+    turns -> the launches a frame of kernels 1, 2 and 4 on the 2x1 mesh."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig, bench
+    from tpu_pathtracer_torch.io.exr import read_exr
+    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+
+    t_phase = time.perf_counter()
+    log(f"multi-device split on {smi} ({WIDTH}x{HEIGHT}, depth 8, virtual meshes on cuda:0)")
+    scene = load_scene(scene_path(SCENE))
+
+    plain, img, per = mesh_run("no mesh", scene, 3)
+    r11, img11, per11 = mesh_run("1x1", scene, 3, mesh=cuda_mesh(1))
+    mesh_equal("1x1 mesh vs Renderer(), 3 frames", img11, img)
+    if per11 != per:
+        raise AssertionError(f"1x1 launches a frame {per11} against Renderer()'s {per}")
+    log(f"  launches a frame, no mesh and 1x1: {per}")
+    r21, img21, per21 = mesh_run("2x1", scene, 3, mesh=cuda_mesh(2))
+    mesh_equal("2x1 mesh vs Renderer(), 3 frames", img21, img)
+    log(f"  launches a frame, 2x1: {per21}")
+    _, img2, _ = mesh_run("no mesh, 2 spp", scene, 2, samples_per_frame=2)
+    for tiles, spp in ((1, 2), (2, 2)):
+        _, got, _ = mesh_run(f"{tiles}x{spp}", scene, 2, mesh=cuda_mesh(tiles, spp),
+                             samples_per_frame=2)
+        mesh_equal(f"{tiles}x{spp} mesh vs Renderer() at 2 spp, 2 frames", got, img2,
+                   MESH_SPP_ATOL)
+    lit = attach_env(scene, sky_map())
+    env_kernels = ("window_walk", "anyhit_walk")
+    _, want, _ = mesh_run("env-lit, no mesh", lit, 2, kernels=env_kernels)
+    _, got, per_env = mesh_run("env-lit 2x1", lit, 2, mesh=cuda_mesh(2), kernels=env_kernels)
+    mesh_equal("env-lit 2x1 mesh vs Renderer(), 2 frames", got, want)
+    log(f"  launches a frame, env-lit 2x1: {per_env}")
+
+    # the committed self-golden holds 1-spp frames, which a 2-sample-shard
+    # mesh cannot split: 2x1 takes that gate, 2x2 at 2 spp the same limits
+    # against the single-device 2-spp frames
+    here = os.path.dirname(os.path.abspath(__file__))
+    gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
+    gate = {"scene": scene, "frames": PARITY_FRAMES, "width": 200, "height": 150}
+    _, got, _ = mesh_run("2x1 gate", mesh=cuda_mesh(2), **gate)
+    check_parity(f"  2x1 mesh vs self-golden (150x200, depth 8, {PARITY_FRAMES} frames)",
+                 got, gold)
+    _, want, _ = mesh_run("2-spp gate", samples_per_frame=2, **gate)
+    _, got, _ = mesh_run("2x2 gate", mesh=cuda_mesh(2, 2), samples_per_frame=2, **gate)
+    check_parity(f"  2x2 mesh vs Renderer() at 2 spp (150x200, depth 8, {PARITY_FRAMES} "
+                 "frames)", got, want)
+
+    two_process_run(tmp, img)
+
+    ck = os.path.join(tmp, "mesh-ck")
+    r21.save_checkpoint(ck)
+    with counted_run() as run:
+        r21.run(1)
+        nxt = {"2x1": r21.image()}
+        for label, mesh in (("1x1", cuda_mesh(1)), ("no mesh", None)):
+            r = Renderer(scene, WIDTH, HEIGHT, mesh=mesh)
+            r.load_checkpoint(ck)
+            r.run(1)
+            nxt[label] = r.image()
+    if any(run["plain_cuda"].values()):
+        raise AssertionError(f"checkpoint resume: {run}")
+    for label in ("1x1", "no mesh"):
+        mesh_equal(f"frame 4 resumed on {label} from the 2x1 mesh's directory checkpoint "
+                   "vs the 2x1 mesh's own", nxt[label], nxt["2x1"])
+    del plain, r11, r21
+
+    buf = io.StringIO()
+    with counted_run() as run, contextlib.redirect_stdout(buf):
+        rc = bench.main(["--width", str(WIDTH), "--height", str(HEIGHT), "--mesh", "1x1",
+                         "--frames", "2", "--warmup", "1"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"  bench --mesh 1x1: {line}")
+    out = json.loads(line)
+    if (rc or out["metric"] != "traced_mrays_per_sec_aggregate_1x1mesh_1spp"
+            or out["mesh"] != "1x1" or "utilization" in out or not out["finite"]
+            or min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+            or any(run["plain_cuda"].values())):
+        raise AssertionError(f"bench --mesh 1x1: rc {rc}, {out}, {run}")
+
+    log(f"mesh turns on {smi} ({WIDTH}x{HEIGHT}, depth 8; 1 warm-up + 2 timed frames "
+        "and one profiled frame a turn)")
+    rs = {"no mesh": Renderer(scene, WIDTH, HEIGHT),
+          "1x1": Renderer(scene, WIDTH, HEIGHT, mesh=cuda_mesh(1)),
+          "2x1": Renderer(scene, WIDTH, HEIGHT, mesh=cuda_mesh(2))}
+    turns = {k: [] for k in rs}
+    for i, k in enumerate(list(rs) + list(rs)[::-1]):
+        with counted_run() as run:
+            rs[k].run(1)
+            t0 = time.perf_counter()
+            rs[k].run(2)
+            ms = (time.perf_counter() - t0) / 2 * 1e3
+            dev, count = device_ms(rs[k], os.path.join(tmp, f"mesh{i}"))
+        launches = {n: run["launches"][n] / 4 for n in ("window_walk", "capped_walk")}
+        turns[k].append({"ms": ms, "device_ms": dev, "kernels": count, "launches": launches})
+        log(f"  mesh turn, {k}: {ms:.2f} ms/frame; device {dev:.2f} ms in {count} kernels "
+            "a frame; launches a frame " + ", ".join(f"{n} {v:g}" for n, v in launches.items()))
+    log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_per_frame_mesh2x1": {**{k: per21[k] for k in ("window_walk",
+                                                                     "capped_walk")},
+                                           "anyhit_walk": per_env["anyhit_walk"]},
+            "turns": turns}
+
+
 def terrain_renderer(scene, **kw):
     """Renderer(scene, WIDTH, HEIGHT) with the default camera and SAH
     builder; ``kw`` are RenderConfig fields.  Prints the table bytes the
@@ -3120,6 +3363,8 @@ def main() -> int:
         modes = phase_frame_modes(tmp, smi)
     with tempfile.TemporaryDirectory() as tmp:
         spectral = phase_spectral(tmp, smi)["launches_per_frame_spectral"]
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = phase_multi_device(tmp, smi)["launches_per_frame_mesh2x1"]
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])
@@ -3127,6 +3372,8 @@ def main() -> int:
             k["launches_per_sample_fuse2"] = modes["launches_per_sample_fuse2"][k["name"]]
         if k["name"] in spectral:
             k["launches_per_frame_spectral"] = spectral[k["name"]]
+        if k["name"] in mesh:
+            k["launches_per_frame_mesh2x1"] = mesh[k["name"]]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")

@@ -1,6 +1,6 @@
 """tpu_pathtracer_torch.bench on the CPU: one JSON line with the root
-bench.py's fields, its exact ray count, and the flags that are not ported
-yet.  Counts exact (integers)."""
+bench.py's fields, its exact ray count, and its flags (--mesh on a virtual
+CPU mesh).  Counts exact (integers)."""
 
 import contextlib
 import io
@@ -66,12 +66,19 @@ def test_bench_prints_one_line(flags, cfg):
         assert u["spent_lane_ops_per_ray"] >= u["useful_lane_ops_per_ray"] > 0
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1: multi-device"),
-], ids=lambda x: x if isinstance(x, str) else " ".join(x))
-def test_bench_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        bench.main(TINY + flags)
+@pytest.mark.parametrize("flags", [["--mesh", "2x1"]], ids=" ".join)
+def test_bench_unported_flags_raise(flags):
+    """--mesh, which raised until the multi-device split was ported, now
+    runs the bench over a virtual CPU mesh: the root bench.py's aggregate
+    metric, the mesh in the line, no utilization block, and the exact ray
+    count of the whole image."""
+    out = run_bench(TINY + flags)
+    assert out["metric"] == "traced_mrays_per_sec_aggregate_2x1mesh_1spp"
+    assert out["mesh"] == "2x1" and "utilization" not in out and out["finite"]
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device="cpu")
+    want = count_traced_rays_exact(scene, RenderConfig(max_path_length=3), 24, 32,
+                                   frame_indices=(0,))
+    assert out["rays_traced_per_frame"] == int(want)
 
 
 @pytest.mark.parametrize("flags,cfg", [

@@ -82,7 +82,8 @@ def test_color_and_png_match_reference(tmp_path):
 
 def test_npz_checkpoint_round_trips_between_packages(tmp_path):
     """(g) A checkpoint the port writes resumes in the reference with equal
-    arrays, and the other way round; the Orbax form raises."""
+    arrays, and the other way round; a path without .npz takes the port's
+    directory form, which round-trips the same arrays."""
     rng = np.random.default_rng(8)
     accum = rng.random((6, 5, 3)).astype(np.float32)
     key = np.asarray([123, 4567], np.uint32)
@@ -101,9 +102,11 @@ def test_npz_checkpoint_round_trips_between_packages(tmp_path):
     assert got.frame_index == 11
     np.testing.assert_array_equal(got.key, np.asarray(jax.random.key_data(
         jax.random.PRNGKey(42))))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1: the directory checkpoint form"):
-        tckpt.save_checkpoint(str(tmp_path / "dir"), got)
+    tckpt.save_checkpoint(str(tmp_path / "dir"), got)
+    assert os.path.isfile(tmp_path / "dir" / "manifest.json")
+    back = tckpt.load_checkpoint(str(tmp_path / "dir"))
+    np.testing.assert_array_equal(back.accum.numpy(), accum * 2)
+    assert back.frame_index == 11 and np.array_equal(back.key, got.key)
 
 
 def test_cli_env_render_and_resume(tmp_path):
@@ -133,18 +136,26 @@ def test_cli_env_render_and_resume(tmp_path):
             ht.anyhit_walk.launches) == n0
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "queue 1: multi-device"),
-    (["--checkpoint", "state_dir"], "queue 1: the directory checkpoint form"),
-], ids=lambda v: v if isinstance(v, str) else " ".join(v))
-def test_cli_unported_flag_raises(flags, item, tmp_path):
-    """Each flag whose feature is not ported raises NotImplementedError
-    naming its ROADMAP.md item, before anything is written."""
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md {item}\)"):
-        cli.main(["--platform", "cpu", "--width", "8", "--height", "8",
-                  "--frames", "1", "--depth", "1",
-                  "--png", str(tmp_path / "x.png")] + flags)
-    assert not os.path.exists(tmp_path / "x.png")
+@pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--checkpoint", "state_dir"]],
+                         ids=" ".join)
+def test_cli_unported_flag_raises(flags, tmp_path):
+    """The two flags that raised until the multi-device split and the
+    directory checkpoint were ported now run: --mesh 2x1 (a virtual CPU
+    mesh under --platform cpu) renders the single-device image bit for bit,
+    and --checkpoint with a directory writes the sharded form, which
+    --resume continues."""
+    base = ["--platform", "cpu", "--width", "8", "--height", "8", "--frames", "1",
+            "--depth", "1"]
+    flags = [str(tmp_path / f) if f == "state_dir" else f for f in flags]
+    assert cli.main(base + ["-o", str(tmp_path / "a.exr")] + flags) == 0
+    assert cli.main(base + ["-o", str(tmp_path / "b.exr")]) == 0
+    np.testing.assert_array_equal(read_exr(str(tmp_path / "a.exr"))[0],
+                                  read_exr(str(tmp_path / "b.exr"))[0])
+    if "--checkpoint" in flags:
+        state_dir = flags[-1]
+        assert os.path.isfile(os.path.join(state_dir, "manifest.json"))
+        assert cli.main(base + ["--resume", state_dir, "--checkpoint", state_dir]) == 0
+        assert tckpt.load_checkpoint(state_dir).frame_index == 2
 
 
 @pytest.mark.parametrize("flags,want", [

@@ -1,11 +1,12 @@
 """tpu_pathtracer_torch's config against the reference's, its JAX-free
-import, every configuration the port covers, and the NotImplementedError of
-the entry points it does not cover yet."""
+import, every configuration the port covers, and the entry points that
+raised NotImplementedError until their slice was ported."""
 
 import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -135,13 +136,19 @@ def test_backend_configs_are_supported(kw):
 
 
 def test_unsupported_entry_points_raise():
+    """Each entry point that raised before its slice was ported now runs
+    (the last two: the mesh and the directory checkpoint); a scene on
+    another device type still raises."""
     from tpu_pathtracer_torch import Renderer
     from tpu_pathtracer_torch.models.camera import Camera, generate_rays_flat
     from tpu_pathtracer_torch.scene import load_scene, scene_path
 
-    match = r"ROADMAP\.md queue 1: (multi-device|the directory checkpoint form)\)"
-    with pytest.raises(NotImplementedError, match=match):
-        Renderer("cornellbox", 8, 8, mesh=object(), device="cpu")
+    # the multi-device split is ported: a mesh renders
+    from tpu_pathtracer_torch.parallel.tiles import make_mesh
+    r = Renderer("cornellbox", 8, 8, tcfg.RenderConfig(max_path_length=2),
+                 mesh=make_mesh(2, 1, devices=["cpu", "cpu"]))
+    r.run(1)
+    assert r.image().shape == (8, 8, 3)
     # the spectral and material entry points are ported: each call succeeds
     Renderer("cornellbox", 8, 8, tcfg.RenderConfig(bake_materials=True), device="cpu")
     assert load_scene(scene_path("cornellbox"), rough_materials=True,
@@ -153,14 +160,17 @@ def test_unsupported_entry_points_raise():
     assert build_layout(scene).num_tris == scene.p0.shape[1]
     with pytest.raises(ValueError, match="lies on"):
         Renderer(scene, 8, 8, device="meta")
-    # the thin lens is ported: an aperture renders, and the Orbax checkpoint
-    # directory form still raises
+    # the thin lens is ported: an aperture renders; and the directory
+    # checkpoint form is ported: a path without .npz saves and loads
     import torch
     z = torch.zeros(4)
     o, _ = generate_rays_flat(Camera(aperture=0.1), z, z, torch.zeros(2, 4), 2, 2,
                               lens_u=torch.full((2, 4), 0.5))
     assert not torch.equal(o, generate_rays_flat(Camera(), z, z, torch.zeros(2, 4),
                                                  2, 2)[0])
-    from tpu_pathtracer_torch.io.checkpoint import load_checkpoint
-    with pytest.raises(NotImplementedError, match=match):
-        load_checkpoint("state_dir")
+    from tpu_pathtracer_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(os.path.join(d, "state_dir"), r.state)
+        got = load_checkpoint(os.path.join(d, "state_dir"))
+    np.testing.assert_array_equal(got.accum.numpy(), r.image())
+    assert got.frame_index == 1

@@ -21,9 +21,12 @@ and shadow rays the traversal processed, counted exactly over the measured
 frame indices); ``hud_mrays_per_s`` is the reference HUD's W*H/frame_time
 (reference: renderer/Renderer.mm:631-637).
 
-Flags whose feature is not ported yet raise ``NotImplementedError`` naming
-their ROADMAP.md item; ``--resolve-gather`` and ``--sort-lowering`` (TPU
-lowering switches) are accepted and change nothing.
+``--mesh TILESxSPP`` splits each frame over a ('tiles', 'spp') mesh (the
+local cards, or under ``--platform cpu`` a virtual CPU mesh) and reports the
+aggregate metric ``traced_mrays_per_sec_aggregate_{mesh}mesh_{spp}spp``,
+with no utilization block, as the root ``bench.py`` does; the exact ray
+count stays the whole image's.  ``--resolve-gather`` and ``--sort-lowering``
+(TPU lowering switches) are accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
-from .device import device_for, device_label
+from .device import device_for, device_label, mesh_for
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -89,7 +92,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="emit the kernel-measured walk-utilization block "
                          "(spent/useful lane-ops per ray, per 32-lane warp)")
     ap.add_argument("--mesh", default=None, metavar="TILESxSPP",
-                    help="multi-device aggregate bench (not ported yet)")
+                    help="multi-device aggregate bench: shard the frame over a "
+                         "('tiles','spp') mesh (e.g. 2x1) and report aggregate "
+                         "Mrays/s; under --platform cpu a virtual CPU mesh")
     ap.add_argument("--progressive", action="store_true",
                     help="also measure progressive spp/s on the cornellbox scene "
                          "at the same resolution")
@@ -97,13 +102,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="'auto' and 'gpu' need a CUDA device and raise without "
                          "one; 'cpu' runs the kernels' plain torch versions")
     return ap
-
-
-# Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
-def _unported(args) -> list[tuple[bool, str, str]]:
-    return [
-        (args.mesh is not None, "--mesh", "queue 1: multi-device"),
-    ]
 
 
 def _frame_times(renderer, warmup: int, frames: int) -> list[float]:
@@ -123,12 +121,9 @@ def _frame_times(renderer, warmup: int, frames: int) -> list[float]:
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    for on, flag, item in _unported(args):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to tpu_pathtracer_torch "
-                                      f"yet (ROADMAP.md {item})")
     device = device_for(args.platform)
     label = device_label(device)
+    mesh = mesh_for(args.mesh, device)
 
     over = {}
     if args.bake_materials is not None:
@@ -156,7 +151,7 @@ def main(argv=None) -> int:
     from .renderer import Renderer
 
     r = Renderer(args.scene, width=args.width, height=args.height, cfg=cfg,
-                 device=device)
+                 mesh=mesh, device=device)
     # individually synchronised frames: the median is the headline
     # denominator, the best the stall-free floor; all samples print
     times = _frame_times(r, args.warmup, args.frames)
@@ -175,7 +170,9 @@ def main(argv=None) -> int:
 
     img = r.image()
     result = {
-        "metric": f"traced_mrays_per_sec_per_chip_1080p_{args.spp}spp",
+        "metric": (f"traced_mrays_per_sec_aggregate_{args.mesh}mesh_{args.spp}spp"
+                   if mesh is not None
+                   else f"traced_mrays_per_sec_per_chip_1080p_{args.spp}spp"),
         "value": round(mrays, 3),
         "unit": "Mrays/s",
         "hud_mrays_per_s": round(hud_mrays, 3),
@@ -197,7 +194,7 @@ def main(argv=None) -> int:
     }
     # the utilization block prices the kernel walk: no layout (brute) or no
     # kernels (the portable walker) has none, as in the reference
-    if args.utilization and r.layout is not None and cfg.use_pallas:
+    if args.utilization and mesh is None and r.layout is not None and cfg.use_pallas:
         if cfg.traversal_kernel != "window":
             # the reference prints the same error field: only the window
             # walk is instrumented

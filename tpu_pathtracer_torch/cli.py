@@ -1,9 +1,8 @@
 """Command-line progressive renderer on PyTorch + CUDA.
 
 The port of ``tpu_pathtracer/cli.py``: the same flags with the same names
-and defaults.  Flags whose feature is not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item; the TPU-only
-``--compile-cache`` and ``--sort-lowering`` are accepted and change nothing.
+and defaults; the TPU-only ``--compile-cache`` and ``--sort-lowering`` are
+accepted and change nothing.
 ``--spectrum N`` without ``--hero`` runs on every platform: the reference's
 exit for it guards the TPU sort's compile time, which the card does not
 have.
@@ -15,7 +14,8 @@ Examples:
 
 ``--platform`` picks the device: ``auto`` and ``gpu`` need a CUDA card and
 raise without one; only ``--platform cpu`` runs the kernels' plain torch
-versions on the CPU.
+versions on the CPU.  ``--mesh TILESxSPP`` splits each frame over the local
+cards, or under ``--platform cpu`` over a virtual CPU mesh of that shape.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import sys
 import tempfile
 
 from .config import ComparisonMode, NoiseMode, RenderConfig
-from .device import device_for
+from .device import device_for, mesh_for
 from .scene.assets import DEFAULT_SCENE, SCENE_NAMES, golden_path
 
 
@@ -90,10 +90,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--exr", help="write accumulated radiance EXR")
     p.add_argument("--png", help="write tonemapped/sRGB PNG")
     p.add_argument("--checkpoint",
-                   help="write render-state checkpoint (a .npz path; the "
-                        "Orbax directory form is not ported yet)")
-    p.add_argument("--resume", help="resume from a .npz checkpoint (written "
-                                    "by either package)")
+                   help="write render-state checkpoint: a .npz file (either "
+                        "package resumes it) or a directory, written tile by "
+                        "tile")
+    p.add_argument("--resume", help="resume from a checkpoint (a .npz file of "
+                                    "either package, or a directory)")
     p.add_argument("--compare-mode", type=int, default=0, choices=range(5),
                    help="0=off 1=abs 2=ref-color 3=color-ref 4=luminance")
     p.add_argument("--compare-scale", type=float, default=10.0)
@@ -131,7 +132,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="accepted for compatibility and inert: the TPU "
                         "package's XLA sort lowering")
     p.add_argument("--mesh", metavar="TILESxSPP",
-                   help="multi-device render (not ported yet)")
+                   help="multi-device render over a ('tiles','spp') device "
+                        "mesh, e.g. --mesh 2x1 (equal to the single-device "
+                        "frame); 'auto' = every local card as a tile.  Under "
+                        "--platform cpu a virtual CPU mesh of that shape")
     p.add_argument("--platform", choices=("auto", "gpu", "cpu"), default="auto",
                    help="'auto' and 'gpu' need a CUDA device and raise "
                         "without one; 'cpu' runs the kernels' plain torch "
@@ -139,27 +143,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-# Each flag whose feature is not ported yet: (set?, flag, ROADMAP.md item).
-def _unported(args) -> list[tuple[bool, str, str]]:
-    return [
-        (args.mesh is not None, "--mesh", "queue 1: multi-device"),
-        *((bool(path) and not path.endswith(".npz"),
-           f"{flag} {path} (the Orbax directory form)",
-           "queue 1: the directory checkpoint form")
-          for flag, path in (("--checkpoint", args.checkpoint),
-                             ("--resume", args.resume))),
-    ]
-
-
 def main(argv=None) -> int:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    for on, flag, item in _unported(args):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to tpu_pathtracer_torch yet "
-                f"(ROADMAP.md {item})")
     device = device_for(args.platform)
+    mesh = mesh_for(args.mesh, device)
 
     from .renderer import Renderer
     from .scene import attach_dispersion, attach_env, load_scene, scene_path
@@ -206,7 +194,7 @@ def main(argv=None) -> int:
         camera = Camera(t=0.0, aperture=args.aperture, focus=args.focus)
     r = Renderer(scene=scene, width=args.width, height=args.height, cfg=cfg,
                  seed=args.seed, leaf_size=args.leaf_size, builder=args.builder,
-                 camera=camera, device=device)
+                 camera=camera, mesh=mesh, device=device)
     if args.resume:
         r.load_checkpoint(args.resume)
         got = tuple(r.state.accum.shape)

@@ -20,6 +20,24 @@ def device_for(platform: str):
     return torch.device("cuda")
 
 
+def mesh_for(spec: str | None, device):
+    """``--mesh TILESxSPP|auto`` on ``device`` -> a ('tiles', 'spp') mesh, or
+    None without a spec.  On the card the mesh takes the local cards
+    (``auto``: every card as a tile, 1x1 on one card); under ``--platform
+    cpu`` it is a virtual CPU mesh of the asked shape (``auto``: 1x1)."""
+    if not spec:
+        return None
+    from .parallel.tiles import make_mesh
+
+    if spec == "auto":
+        tiles, spp = (None, 1) if device.type == "cuda" else (1, 1)
+    else:
+        t, _, s = spec.lower().partition("x")
+        tiles, spp = int(t), int(s or 1)
+    return make_mesh(tiles, spp, devices=None if device.type == "cuda"
+                     else [device] * (tiles * spp))
+
+
 def device_label(device) -> str:
     """The card's name and power limit as nvidia-smi prints them ("cpu" for
     the CPU), after one op on the device: a missing or broken card fails

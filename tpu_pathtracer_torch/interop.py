@@ -40,7 +40,10 @@ def layout_from_arrays(d: dict, device="cpu") -> BVHLayout:
 
 def state_from_arrays(accum, frame_index, key_data, device="cpu") -> RenderState:
     """The reference's ``RenderState`` parts -> the port's: ``accum``
-    (H, W, S), ``frame_index`` and ``jax.random.key_data(key)``."""
+    (H, W, S), ``frame_index`` and ``jax.random.key_data(key)``.  A sharded
+    reference state comes across the same way (``np.asarray`` of its
+    accumulator is the whole image); ``parallel.tiles.shard_state`` then
+    splits it over a port mesh."""
     return RenderState(
         accum=torch.tensor(np.asarray(accum, np.float32), device=device),
         frame_index=int(frame_index),

@@ -2,9 +2,11 @@
 
 The port of ``tpu_pathtracer/renderer.py``: owns the scene tensors and both
 BVH layouts (fat leaves for nearest-hit queries, small leaves for shadow
-queries), drives the frame step, tracks the EMA performance HUD (reference:
-renderer/Renderer.mm:631-637), saves EXR and PNG images and ``.npz``
-checkpoints, and captures ``torch.profiler`` traces.
+queries), drives the frame step on one device or over a ('tiles', 'spp')
+mesh (parallel/tiles.py), tracks the EMA performance HUD (reference:
+renderer/Renderer.mm:631-637), saves EXR and PNG images and checkpoints
+(a ``.npz`` file or a sharded directory), and captures ``torch.profiler``
+traces.
 
 Frames in flight: the frame step only enqueues work on the current CUDA
 stream; the host waits for the device when ``cfg.frames_in_flight`` steps
@@ -24,6 +26,8 @@ import torch
 from .accel import build_layout
 from .config import RenderConfig, check_supported
 from .models.camera import Camera
+from .parallel.multihost import gather_image
+from .parallel.tiles import render_frame_distributed_jit, shard_state, to_device
 from .render.state import init_state, render_frame
 from .render.wavefront import make_intersector
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
@@ -62,15 +66,15 @@ class Renderer:
         """``device``: where every tensor lives; the kernels run for
         "cuda", their plain torch versions for "cpu".  ``scene``: a bundled
         scene's name, or a :class:`Scene` on ``device`` (``load_scene``,
-        ``build_scene``).  ``mesh`` (the multi-device split) is not ported
-        yet."""
+        ``build_scene``).  ``mesh``: a ('tiles', 'spp') mesh
+        (parallel/tiles.py:make_mesh, parallel/multihost.py) -- the frame
+        shards pixel rows over 'tiles' and samples over 'spp', equal to the
+        single-device frame; ``device`` is then the mesh's first device.
+        None = one device."""
         self.cfg = cfg or RenderConfig()
         check_supported(self.cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh is not ported to tpu_pathtracer_torch "
-                "yet (ROADMAP.md queue 1: multi-device)")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.devices[0][0] if mesh is not None else device)
         self.scene = (
             scene if isinstance(scene, Scene)
             else load_scene(scene_path(scene), samples=self.cfg.spectrum_samples,
@@ -83,6 +87,21 @@ class Renderer:
         self.layout, self.layout_occl, self._intersect = build_intersector(
             self.scene, self.cfg, leaf_size, builder)
         self._seed = seed
+        if mesh is not None:
+            # each distinct device of the mesh gets the same intersection
+            # pipeline, on the layouts built once above and moved there
+            cfg_, lay, lay_occl = self.cfg, self.layout, self.layout_occl
+
+            def factory(scene_rep):
+                dev = scene_rep.p0.device
+                return make_intersector(scene_rep, cfg_, to_device(lay, dev),
+                                        to_device(lay_occl, dev))
+
+            self._step = render_frame_distributed_jit(mesh, self.cfg, self.camera,
+                                                      factory)
+        else:
+            self._step = lambda state, scene: render_frame(
+                state, scene, self.cfg, self.camera, self._intersect)
         self.reset(width, height)
 
     # -- reference: mtkView:drawableSizeWillChange: (Renderer.mm:640-657) --
@@ -91,6 +110,8 @@ class Renderer:
         height = height or self.state.height
         self.state = init_state(height, width, self._seed,
                                 self.cfg.spectrum_samples, self.device)
+        if self.mesh is not None:
+            self.state = shard_state(self.state, self.mesh)
         self._avg_rays_per_sec = 0.0
         self._avg_frame_time = 0.0
         self._frame_count = 0
@@ -108,8 +129,8 @@ class Renderer:
         elapsed window into the HUD EMA."""
         if self._in_flight == 0:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self._cards():
+            torch.cuda.synchronize(dev)
         frame_time = (time.perf_counter() - self._window_t0) / self._in_flight
         pixels = self.state.height * self.state.width
         # EMA-smoothed HUD, same blend as the reference (Renderer.mm:631-637)
@@ -119,6 +140,12 @@ class Renderer:
         self._in_flight = 0
         self._window_t0 = None
 
+    def _cards(self) -> list:
+        """The distinct CUDA devices the frames run on."""
+        devices = ({d for row in self.mesh.devices for d in row} if self.mesh is not None
+                   else {self.device})
+        return [d for d in devices if d.type == "cuda"]
+
     def step(self) -> None:
         """Queue one progressive frame (respects cfg.max_frames like the
         reference's MAX_FRAMES gate, renderer/Renderer.mm:589-591)."""
@@ -126,8 +153,7 @@ class Renderer:
             return
         if self._window_t0 is None:
             self._window_t0 = time.perf_counter()
-        self.state = render_frame(self.state, self.scene, self.cfg, self.camera,
-                                  self._intersect)
+        self.state = self._step(self.state, self.scene)
         self._frame_count += 1
         self._in_flight += 1
         if self._in_flight >= max(1, self.cfg.frames_in_flight):
@@ -152,7 +178,7 @@ class Renderer:
         sRGB).  ``rgb`` collapses a spectral accumulator (S > 3) to RGB by
         band averages (core/spectrum.py:to_rgb)."""
         self.sync()
-        img = self.state.accum.cpu().numpy()
+        img = gather_image(self.state)
         if rgb and img.shape[-1] != 3:
             from .core.spectrum import to_rgb
 
@@ -185,7 +211,10 @@ class Renderer:
         from .io.checkpoint import load_checkpoint
 
         self.sync()
-        self.state = load_checkpoint(path, device=self.device)
+        if self.mesh is None:
+            self.state = load_checkpoint(path, device=self.device)
+        else:
+            self.state = shard_state(load_checkpoint(path), self.mesh)
         self._frame_count = self.state.frame_index
         self._in_flight = 0
         self._window_t0 = None
