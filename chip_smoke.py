@@ -29,7 +29,8 @@ Phases (any failure raises, so the exit code is not 0):
    8;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
-   event breakdown, and each kernel's launch count in that run;
+   event breakdown, and each kernel's launch count in that run (9 uniforms
+   and 8 epilogue walks a frame);
 5. parity: 150x200, depth 8, 16 frames against the committed self-golden
    (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001);
 6. CLI env path: ``tpu_pathtracer_torch.cli.main`` at 1920x1080, depth 8,
@@ -190,7 +191,25 @@ Phases (any failure raises, so the exit code is not 0):
     resumed on 1x1 and on no mesh, the next frame bit-equal; ``bench --mesh
     1x1``; then no mesh, 1x1 and 2x1 in turns (1 warm-up + 2 timed frames
     and one profiled frame a turn): ms/frame, device ms and kernels a frame,
-    walk launches a frame.
+    walk launches a frame;
+22. the XLA-fused stages as hand kernels: ``uniforms`` (counts 1-10) and
+    ``uniforms_r2`` (counts 4, 6, 10) of csrc/rng.cu against their plain
+    versions bit for bit on EDGE_LANES, 0 lanes and the frame's 2,073,600
+    ids of a fused sample past 2^31, with frames, salts and bounces that
+    wrap; the window walk's payload epilogue (``window_walk_resolve``)
+    against its plain version on all 12 rows of 65,536 camera and bounce-1
+    lanes, BW and MT (every lane of the whole wavefronts against the
+    yardstick's walk plus the torch rows: phases 3 and 10, GRID 256 and 724
+    on the HBM route there too); each kernel's time at 65,536 and 2,073,600
+    lanes beside its bound and its plain version's, the epilogue in turns
+    with the window walk alone; then the main path and the env-lit path
+    (1080p, depth 8) with the kernels and with the plain versions put back
+    (``plain_stages``), in turns: ms/frame, walk_nearest, device ms and
+    kernels a frame, every frame bit-equal; and the self-golden gate at the
+    default path's rel_mse 1.5807e-8 or better.
+
+The main path's frame (phase 4) launches 9 ``uniforms`` and 8
+``window_walk_resolve`` a frame, the capped walk, and nothing else.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -213,11 +232,18 @@ and ``nodes_meta`` for the per-thread yardsticks, the 32 bytes of its
 ``nodes_packed`` row for every other walk).  The targeted sweep ends at its
 lowest candidate leaf, so its box tests are the ones up to that leaf (every
 leaf on a lane with no candidate); the count kernel needs every leaf.
+The uniforms move the int64 id in and ``count`` float32 rows out a lane,
+their integer operations (32 a PCG4D call) each in an FMA's slot; the
+epilogue form is the window walk's bound with 48 bytes of payload out, one
+96-byte MT row read and the resolve's operations a lane.
 
 The line before the last is the kernel table as JSON (launches: the run of
-the path that drives each kernel -- the main path for the window, capped
-and any-hit walks, the bench runs for the bench's four, the terrain path
-for the HBM route and, with tritest="mt", for the MT window walk and its
+the path that drives each kernel -- the main path for the epilogue form
+(``window_walk_resolve``), the uniforms and the capped walk, the CLI env
+path for the any-hit walk, the r2 card frames of phase 19 for
+``uniforms_r2``, the launch probe's run for ``window_walk`` (the form without
+the epilogue, which no frame path launches: its all-dead lanes), the bench
+runs for the bench's four, the terrain path for the HBM route and, with tritest="mt", for the MT window walk and its
 counting form, the tritest="mt" gates for the MT fused walk and sweep,
 which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
@@ -227,10 +253,10 @@ Water-plastic part of the walk A/B and the three dense-march yardsticks their
 A/Bs of phases 14 and 17, none of them the launches that compare a kernel
 with its plain version or time it; the rows of the probe, the count and
 the targeted kernel carry their ptxas registers and spills per instance
-(``registers``) and their A/B readings (``ab_full_ms``); the window walk,
+(``registers``) and their A/B readings (``ab_full_ms``); the epilogue form,
 the capped walk and the fused walk also carry ``launches_per_sample_fuse2``, their launches
-a sample in a 2-spp frame at fuse 2, from phase 19, and the window, capped
-and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
+a sample in a 2-spp frame at fuse 2, from phase 19, and the epilogue form,
+the capped and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
 phase 20's spectral CLI path, and ``launches_per_frame_mesh2x1``, their
 launches a frame on phase 21's 2x1 mesh, the any-hit walk's env-lit); the
 last line is
@@ -266,21 +292,32 @@ MARCH_YARDSTICKS = ("rowtest_probe_v1", "sweep_count_v1", "sweep1_v1")
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
+           "window_walk_resolve", "uniforms", "uniforms_r2",
            *WALK_YARDSTICKS, *MARCH_YARDSTICKS,
            "window_walk_steps", "capped_walk_steps", "anyhit_walk_steps")
 # the yardsticks of the A/Bs (phases 14, 17 and 18): no counted run of another
 # phase may launch them; the first port's kernels get rows of the kernel table
-YARDSTICKS = KERNELS[12:]
-# the kernels whose wrapper is not ops/hopper_traverse.<name>: module under
-# tpu_pathtracer_torch.scripts, wrapper, its plain version
-TOOL_KERNELS = {
-    "sweep_count": ("experimental_sweep", "sweep_count", "sweep_count_plain"),
-    "sweep1": ("experimental_sweep", "intersect_sweep1", "intersect_sweep1_plain"),
-    "noop": ("perf_launch", "noop", "noop_plain"),
-    "rowtest_probe": ("perf_ophit_probe", "rowtest_probe", "rowtest_probe_plain"),
-    "rowtest_probe_v1": ("perf_ophit_probe", "rowtest_probe_v1", "rowtest_probe_plain"),
-    "sweep_count_v1": ("experimental_sweep", "sweep_count_v1", "sweep_count_plain"),
-    "sweep1_v1": ("experimental_sweep", "intersect_sweep1_v1", "intersect_sweep1_plain")}
+YARDSTICKS = (*WALK_YARDSTICKS, *MARCH_YARDSTICKS, "window_walk_steps",
+              "capped_walk_steps", "anyhit_walk_steps")
+# the frame paths' nearest-hit wrapper (the window walk with its payload
+# epilogue), and the kernels of the main path's frame: nearest hits, shadow
+# rays, uniforms
+NEAREST = "window_walk_resolve"
+MAIN_PATH = (NEAREST, "capped_walk", "uniforms")
+# the kernels whose wrapper is not ops/hopper_traverse.<name>: module, wrapper,
+# its plain version
+KERNEL_HOMES = {
+    "sweep_count": ("scripts.experimental_sweep", "sweep_count", "sweep_count_plain"),
+    "sweep1": ("scripts.experimental_sweep", "intersect_sweep1", "intersect_sweep1_plain"),
+    "noop": ("scripts.perf_launch", "noop", "noop_plain"),
+    "rowtest_probe": ("scripts.perf_ophit_probe", "rowtest_probe", "rowtest_probe_plain"),
+    "rowtest_probe_v1": ("scripts.perf_ophit_probe", "rowtest_probe_v1",
+                         "rowtest_probe_plain"),
+    "sweep_count_v1": ("scripts.experimental_sweep", "sweep_count_v1", "sweep_count_plain"),
+    "sweep1_v1": ("scripts.experimental_sweep", "intersect_sweep1_v1",
+                  "intersect_sweep1_plain"),
+    "uniforms": ("ops.rng", "uniforms", "uniforms_plain"),
+    "uniforms_r2": ("ops.rng", "uniforms_r2", "uniforms_r2_plain")}
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -288,7 +325,7 @@ VARIANTS = {           # the bench's kernel switches: config and the kernel each
     "fused": ({"fuse_shadow_walk": True}, "window_walk_orig"),
 }
 MT_VARIANTS = {        # the self-golden gates of tritest="mt": config, kernel form
-    "mt": ({"tritest": "mt"}, "window_walk"),
+    "mt": ({"tritest": "mt"}, NEAREST),
     "mt+sweep": ({"tritest": "mt", "traversal_kernel": "sweep"}, "sweep"),
     "mt+fused": ({"tritest": "mt", "fuse_shadow_walk": True}, "window_walk_orig"),
 }
@@ -526,18 +563,20 @@ RAY_BYTES = 12 + 12 + 1 + 4  # o, d, active, t_max (or cap) of one lane
 
 def walk_bound(lanes: int, in_bytes_per_lane: int, out_bytes_per_lane: int, lay,
                rows, work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0,
-               node_bytes: int | None = None) -> dict:
+               node_bytes: int | None = None, lane_ops: int = 0) -> dict:
     """A walk's bound on these lanes: rays and outputs moved once, each
     distinct node (``nodes`` + ``nodes_meta``, or ``node_bytes`` for a walk
     that reads the packed table) and leaf row of ``rows`` the walk read moved
     once, and the ``pre_rows`` prepass block (tested ``pre_tests`` times); a
-    box test per node visit and a row test per row tested."""
+    box test per node visit, a row test per row tested and ``lane_ops``
+    operations a lane."""
     if node_bytes is None:
         node_bytes = row_bytes(lay.nodes) + row_bytes(lay.nodes_meta)
     pre = 0 if pre_rows is None else pre_rows.numel() * pre_rows.element_size()
     return bound(lanes * (in_bytes_per_lane + out_bytes_per_lane) + work.nodes * node_bytes
                  + work.rows * row_bytes(rows) + pre,
-                 work.visits * OPS_BOX + (work.tests + pre_tests) * row_ops)
+                 work.visits * OPS_BOX + (work.tests + pre_tests) * row_ops
+                 + lanes * lane_ops)
 
 
 def window_bound(lay, act, work: Work, prepass: int, tritest: str, out_ints: int) -> dict:
@@ -616,9 +655,23 @@ def forms_equal_v1(label: str, lay, o, d, act, t_max, prepass: int, tritest: str
     for form in forms:
         got = getattr(ht, form)(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
         equal_on_every_lane(f"{form} vs window_walk_v1, {label}", got[:2], want)
+    # the payload epilogue: its 12 rows against the yardstick's (t, row)
+    # resolved by the torch payload rows, which window_walk_resolve_plain adds
+    # to the plain walk
+    rows = ht.window_payload_rows(lay, *want, t_max, o, d)
+    resolved = {NEAREST: ht.window_walk_resolve(o, d, act, t_max, lay, prepass=prepass,
+                                                tritest=tritest)}
+    if hbm:
+        resolved["window_walk_hbm(resolve=True)"] = ht.window_walk_hbm(
+            o, d, act, t_max, lay, prepass=prepass, tritest=tritest, resolve=True)
+    for form, got in resolved.items():
+        equal_on_every_lane(f"{form} vs window_walk_v1 + window_payload_rows, {label}",
+                            got, rows)
     torch.cuda.synchronize()
+    query = "capped" if bool(torch.isfinite(t_max).any()) else "nearest"
     log(f"  {', '.join(forms)} == window_walk_v1 on all {o.shape[1]} lanes of {label} "
-        f"({tritest}, {int(act.sum())} live, {'capped' if bool(torch.isfinite(t_max).any()) else 'nearest'})")
+        f"({tritest}, {int(act.sum())} live, {query}); {', '.join(resolved)}: all 12 "
+        "rows == window_walk_v1 + window_payload_rows")
 
 
 def sweep_bound(lay, act, tritest: str) -> dict:
@@ -632,9 +685,10 @@ def sweep_bound(lay, act, tritest: str) -> dict:
 def kernel_entry(name: str, source: str, line, err: float, ms: float,
                  plain_ms: float, full_ms: float, bnd: dict, **extra) -> dict:
     """One kernel's row of the JSON table (launches are filled in later).
-    ``line``: a line of ops/pallas_traverse.py, or "file.py:line" under the
-    reference's scripts/."""
-    replaces = f"{REF}{line}" if isinstance(line, int) else REF_SCRIPTS + line
+    ``line``: a line of ops/pallas_traverse.py, "file.py:line" under the
+    reference's scripts/, or a path from the repo's root (``tpu_pathtracer/``)."""
+    replaces = (f"{REF}{line}" if isinstance(line, int) else
+                line if line.startswith("tpu_pathtracer/") else REF_SCRIPTS + line)
     return {"name": name, "route": "cuda", "source": SRC + source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "full_ms": full_ms, **bnd,
@@ -1044,6 +1098,18 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
     tp, rp = ht.window_walk_hbm_plain(o, d, act, t_max, lay, prepass=pp)
     torch.cuda.synchronize()
     errs = [agree(f"window_walk_hbm/bounce1 ({tag})", tk, rk, tp, rp)]
+    # the route's nearest-hit queries take the payload epilogue: all 12 rows
+    # against the plain version (the plain walk plus window_payload_rows)
+    for tritest in ("bw", "mt"):
+        want = (ht.window_payload_rows(lay, tp, rp, t_max, o, d) if tritest == "bw" else
+                ht.window_walk_hbm_plain(o, d, act, t_max, lay, prepass=pp, tritest="mt",
+                                         resolve=True))
+        equal_on_every_lane(
+            f"window_walk_hbm(resolve=True)/bounce1 ({tag}, {tritest}) vs plain",
+            ht.window_walk_hbm(o, d, act, t_max, lay, prepass=pp, tritest=tritest,
+                               resolve=True), want)
+    log(f"  window_walk_hbm(resolve=True) == its plain version on all 12 rows of "
+        f"{SAMPLE_LANES} bounce-1 lanes ({tag}, bw and mt)")
     o, d, ok, cap, _ = draw(waves["shadow"], SAMPLE_LANES, gen, live["shadow"])
     tk, rk = ht.window_walk_hbm(o, d, ok, cap, lay, prepass=pp)
     (tp, rp), work = plain_work(ht.window_walk_hbm_plain, o, d, ok, cap, lay, prepass=pp)
@@ -1143,21 +1209,20 @@ def kernel_home(name: str):
     name there, its plain version's name there)."""
     import importlib
 
-    if name in TOOL_KERNELS:
-        mod, attr, plain = TOOL_KERNELS[name]
-        return importlib.import_module(f"tpu_pathtracer_torch.scripts.{mod}"), attr, plain
-    return (importlib.import_module("tpu_pathtracer_torch.ops.hopper_traverse"), name,
-            f"{name}_plain")
+    mod, attr, plain = KERNEL_HOMES.get(name, ("ops.hopper_traverse", name,
+                                              f"{name}_plain"))
+    return importlib.import_module(f"tpu_pathtracer_torch.{mod}"), attr, plain
 
 
 @contextlib.contextmanager
 def counted_run(yardsticks: bool = False):
-    """Zero every kernel's launch count and count plain-version calls on
+    """Zero every kernel's launch counts and count plain-version calls on
     CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
-    ..., "plain_cuda": ...}, filled in when the run ends ("launches_mt": the
-    Moller-Trumbore form's launches of the wrappers that take tritest).
-    Unless ``yardsticks``, a run that launched one of YARDSTICKS fails: only
-    the walk A/B may."""
+    ..., "launches_resolve": ..., "plain_cuda": ...}, filled in when the run
+    ends ("launches_mt": the Moller-Trumbore form's launches of the wrappers
+    that take tritest; "launches_resolve": the epilogue form's launches of
+    window_walk_hbm).  Unless ``yardsticks``, a run that launched one of
+    YARDSTICKS fails: only the walk A/B may."""
     where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper, plain)
     plains = {(mod, plain) for mod, _, plain in where.values()}  # a yardstick shares one
     plain_cuda = {plain: 0 for _, plain in plains}
@@ -1174,17 +1239,19 @@ def counted_run(yardsticks: bool = False):
     for (mod, plain), fn in saved.items():
         setattr(mod, plain, counted(plain, fn))
     fns = {k: getattr(mod, attr) for k, (mod, attr, _) in where.items()}
-    mt = [k for k in KERNELS if hasattr(fns[k], "launches_mt")]
+    extra = {c: [k for k in KERNELS if hasattr(fns[k], c)]
+             for c in ("launches_mt", "launches_resolve")}
     for k in KERNELS:
-        fns[k].launches = 0
-    for k in mt:
-        fns[k].launches_mt = 0
+        for c in ("launches", "launches_mt", "launches_resolve"):
+            if hasattr(fns[k], c):
+                setattr(fns[k], c, 0)
     out = {"plain_cuda": plain_cuda}
     try:
         yield out
     finally:
         out["launches"] = {k: fns[k].launches for k in KERNELS}
-        out["launches_mt"] = {k: fns[k].launches_mt for k in mt}
+        for c, ks in extra.items():
+            out[c] = {k: getattr(fns[k], c) for k in ks}
         for (mod, plain), fn in saved.items():
             setattr(mod, plain, fn)
     used = {k: out["launches"][k] for k in YARDSTICKS if out["launches"][k]}
@@ -1253,14 +1320,17 @@ def phase_main_path(renderer) -> tuple[dict, int]:
         f"on CUDA tensors: {plain_cuda}")
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
         raise AssertionError(f"main path image not finite / wrong shape {img.shape}")
-    if min(launches["window_walk"], launches["capped_walk"]) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    extra = {k: launches[k] for k in KERNELS[2:] if launches[k]}
+    frames = 3 + 3 + 1  # timed_frames(timed=3), then the counted frame
+    if launches["capped_walk"] <= 0 or (launches["uniforms"], launches[NEAREST]) != (
+            9 * frames, 8 * frames):
+        raise AssertionError(f"the main path's kernels did not launch 9 uniforms and "
+                             f"8 {NEAREST} a frame over {frames} frames: {launches}")
+    extra = {k: launches[k] for k in KERNELS if k not in MAIN_PATH and launches[k]}
     if extra:
         raise AssertionError(f"the default main path launched other kernels: {extra}")
     if any(plain_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
-    return launches, 3 + 3 + 1  # timed_frames(timed=3), then the counted frame
+    return launches, frames
 
 
 def check_parity(what: str, img, gold) -> dict:
@@ -1282,7 +1352,7 @@ def phase_parity(variant: str | None = None) -> dict:
 
     here = os.path.dirname(os.path.abspath(__file__))
     gold, _ = read_exr(os.path.join(here, "assets", "self_golden", f"{SCENE}-8.exr"))
-    kw, kernel = {**VARIANTS, **MT_VARIANTS}[variant] if variant else ({}, "window_walk")
+    kw, kernel = {**VARIANTS, **MT_VARIANTS}[variant] if variant else ({}, NEAREST)
     with counted_run() as run:
         r = Renderer(SCENE, 200, 150, RenderConfig(samples_per_frame=1, max_path_length=8,
                                                    **kw))
@@ -1291,8 +1361,9 @@ def phase_parity(variant: str | None = None) -> dict:
         raise AssertionError(f"parity run {variant}: {run}")
     if "tritest" in kw and run["launches_mt"][kernel] != run["launches"][kernel]:
         raise AssertionError(f"parity run {variant}: not every launch the MT form: {run}")
-    check_parity(f"parity{f' ({variant})' if variant else ''} vs self-golden "
-                 "(150x200, depth 8, 16 frames)", r.image(), gold)
+    run["metrics"] = check_parity(f"parity{f' ({variant})' if variant else ''} vs "
+                                  "self-golden (150x200, depth 8, 16 frames)", r.image(),
+                                  gold)
     return run
 
 
@@ -1396,7 +1467,7 @@ def phase_cli_env(tmp: str) -> dict:
         f"(1 frame), set-up, env build and outputs included")
     log(f"  kernel launches in the 5-frame env run: {launches}; plain versions "
         f"on CUDA tensors: {plain_cuda}; resumed run: {run_b['launches']}")
-    if launches["anyhit_walk"] <= 0 or launches["window_walk"] <= 0:
+    if launches["anyhit_walk"] <= 0 or launches[NEAREST] <= 0:
         raise AssertionError(f"a kernel of the env path never launched: {launches}")
     if any(plain_cuda.values()) or any(run_b["plain_cuda"].values()):
         raise AssertionError("plain versions ran on CUDA tensors")
@@ -1458,7 +1529,7 @@ def phase_bench() -> dict:
     that drives it."""
     from tpu_pathtracer_torch import bench
 
-    runs = [("default", ["--frames", "5"], ("window_walk", "capped_walk",
+    runs = [("default", ["--frames", "5"], (NEAREST, "capped_walk",
                                             "window_walk_counts"))]
     flags = {"minwalk": ["--kernel", "minwalk"], "sweep": ["--kernel", "sweep"],
              "fused": ["--fuse-shadow"]}
@@ -1510,7 +1581,7 @@ MODE_PAIRS = {
 CARD_VS_CPU = (1e-5, 3)  # atol, pixels of the 48x64 frame allowed past it
 
 
-def mode_frame(renderer, cfg, what: str, kernels=("window_walk", "capped_walk")):
+def mode_frame(renderer, cfg, what: str, kernels=(NEAREST, "capped_walk")):
     """Frame 0 of ``cfg`` through render_frame with ``renderer``'s scene and
     intersector, in a counted run that must launch ``kernels`` and no plain
     version on a CUDA tensor -> (image, the run's launches)."""
@@ -1548,7 +1619,7 @@ def mode_turns(label: str, tmp: str, configs: dict, per: int = 1) -> dict:
             ms = (time.perf_counter() - t0) / 2 * 1e3
             stages = staged_frame(r)
             dev, count = device_ms(r, os.path.join(tmp, f"{label}{i}"))
-        launches = {n: run["launches"][n] / 5 for n in ("window_walk", "capped_walk")}
+        launches = {n: run["launches"][n] / 5 for n in (NEAREST, "capped_walk")}
         if min(launches.values()) <= 0 or any(run["plain_cuda"].values()):
             raise AssertionError(f"{label} turn {k}: {run}")
         out[k].append({"ms": ms, "walk_nearest": stages.get("walk_nearest", 0.0),
@@ -1590,10 +1661,10 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
         gold, _ = read_exr(golden_path(name, depth))
         m = metrics(r.image(), downsample(gold, 75, 100))
         log(f"  Mitsuba gate {name} depth {depth} (75x100, 48 spp, fused 2 a wavefront): "
-            f"{m}; launches {run['launches']['window_walk']} window, "
+            f"{m}; launches {run['launches'][NEAREST]} window, "
             f"{run['launches']['capped_walk']} capped")
         if not (m["rel_mse"] < rel and lo < m["mean_ratio"] < hi) or not run["launches"][
-                "window_walk"] or any(run["plain_cuda"].values()):
+                NEAREST] or any(run["plain_cuda"].values()):
             raise AssertionError(f"Mitsuba gate {name} depth {depth}: {m}, {run}")
 
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
@@ -1611,15 +1682,15 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
                                                                   rtol=tol[1])
         log(f"  {what} (1080p, depth 8, frame 0): max |diff| {d:.3g}, "
             f"{'bit-equal' if tol is None else f'atol {tol[0]:g}, rtol {tol[1]:g}'}; "
-            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+            f"launches {la[NEAREST]} window, {la['capped_walk']} capped")
         if not ok:
             raise AssertionError(f"frame mode {what}: max |diff| {d}")
         if what.startswith("fuse 2"):
-            per_sample = {k: la[k] / 2 for k in ("window_walk", "capped_walk")}
+            per_sample = {k: la[k] / 2 for k in (NEAREST, "capped_walk")}
     fused_cfg = RenderConfig(**MODE_BASE, samples_per_frame=2, fuse_samples=2,
                              fuse_shadow_walk=True)
     img, la = mode_frame(renderer, fused_cfg, "fused walk, spp 2",
-                         kernels=("window_walk", "window_walk_orig"))
+                         kernels=(NEAREST, "window_walk_orig"))
     per_sample["window_walk_orig"] = la["window_walk_orig"] / 2
     check_parity("  fused path+shadow walk at spp 2 (2N = "
                  f"{4 * HEIGHT * WIDTH} lanes) vs separate walks",
@@ -1632,7 +1703,7 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
     with counted_run() as run:
         r = Renderer(SCENE, 200, 150, RenderConfig(max_path_length=8, sort_rays=False))
         r.run(PARITY_FRAMES)
-    if (min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+    if (min(run["launches"][k] for k in (NEAREST, "capped_walk")) <= 0
             or any(run["plain_cuda"].values())):
         raise AssertionError(f"unsorted gate: {run}")
     check_parity("  unsorted pipeline (sort_rays=False) vs self-golden (150x200, depth 8, "
@@ -1648,9 +1719,13 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
                 r.run(frames)
             got[dev] = r.image()
             if dev == "cuda" and (
-                    min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+                    min(run["launches"][k] for k in (NEAREST, "capped_walk")) <= 0
                     or any(run["plain_cuda"].values())):
                 raise AssertionError(f"{kw} card frame: {run}")
+            if dev == "cuda" and "sampler" in kw:  # the r2 sampler's own kernel
+                r2_run = {"launches": run["launches"]["uniforms_r2"], "frames": frames}
+                if not r2_run["launches"] or run["launches"]["uniforms"]:
+                    raise AssertionError(f"r2 card frame: not on uniforms_r2: {run}")
         d = np.abs(got["cuda"] - got["cpu"]).max(axis=2)
         off = int((d > atol).sum())
         log(f"  {kw} card frame vs the port's CPU frame (48x64, depth 4, {frames} frames): "
@@ -1665,7 +1740,7 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
     line = buf.getvalue().strip().splitlines()[-1]
     log(f"  bench --spp 2 --fuse 2: {line}")
     out = json.loads(line)
-    want = ("window_walk", "capped_walk", "window_walk_counts")
+    want = (NEAREST, "capped_walk", "window_walk_counts")
     if (rc or not out["finite"] or not out["metric"].endswith("_2spp")
             or "density_caveat" not in out["utilization"]
             or min(run["launches"][k] for k in want) <= 0
@@ -1684,7 +1759,7 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
     log(f"  CLI --spp-per-frame 2 --row-tiles 2 --noise tiled --env: rc {rc}, {sec:.2f} s, "
         f"launches {run['launches']}")
     if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
-            or min(run["launches"][k] for k in ("window_walk", "anyhit_walk")) <= 0
+            or min(run["launches"][k] for k in (NEAREST, "anyhit_walk")) <= 0
             or any(run["plain_cuda"].values())):
         raise AssertionError(f"CLI frame modes: rc {rc}, {run}")
 
@@ -1695,7 +1770,7 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
     sort = mode_turns("sort", tmp, {"sorted": {}, "unsorted": {"sort_rays": False}})
     log(f"frame modes phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches_per_sample_fuse2": per_sample, "fuse_turns": fuse,
-            "sort_turns": sort}
+            "sort_turns": sort, "uniforms_r2": r2_run}
 
 
 # the small scenes of the reference's own tests of the extensions (written
@@ -1859,8 +1934,8 @@ def phase_spectral(tmp: str, smi: str) -> dict:
     write_exr(env, sky_map(), half=False)
     per_frame = {}
     for label, extra, kernels in (
-            ("", [], ("window_walk", "capped_walk")),
-            (" --env", ["--env", env], ("window_walk", "anyhit_walk"))):
+            ("", [], (NEAREST, "capped_walk")),
+            (" --env", ["--env", env], (NEAREST, "anyhit_walk"))):
         exr, png = os.path.join(tmp, "spectral.exr"), os.path.join(tmp, "spectral.png")
         with counted_run() as run:
             rc, _, sec = run_cli(["--scene", SCENE, "--width", str(WIDTH), "--height",
@@ -1873,7 +1948,7 @@ def phase_spectral(tmp: str, smi: str) -> dict:
             f"8, 5 frames): rc {rc}, {sec:.2f} s, EXR {img.shape}, mean "
             f"{float(img.mean()):.5f}; launches a frame "
             + ", ".join(f"{k} {la[k] / 5:g}" for k in
-                        ("window_walk", "capped_walk", "anyhit_walk")))
+                        (NEAREST, "capped_walk", "anyhit_walk")))
         if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
                 or img.mean() <= 0 or not os.path.exists(png)
                 or min(la[k] for k in kernels) <= 0 or any(run["plain_cuda"].values())):
@@ -1904,7 +1979,7 @@ def phase_spectral(tmp: str, smi: str) -> dict:
                 r.run(2)
             got[dev] = r.image()
             if dev == "cuda" and (
-                    min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+                    min(run["launches"][k] for k in (NEAREST, "capped_walk")) <= 0
                     or any(run["plain_cuda"].values())):
                 raise AssertionError(f"{what} card frame: {run}")
         d = np.abs(got["cuda"] - got["cpu"]).max(axis=2)
@@ -1926,7 +2001,7 @@ def phase_spectral(tmp: str, smi: str) -> dict:
                                                                   rtol=tol[1])
         log(f"  {what} (1080p, depth 8, frame 0): max |diff| {d:.3g}, "
             f"{'bit-equal' if tol is None else f'atol {tol[0]:g}, rtol {tol[1]:g}'}; "
-            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+            f"launches {la[NEAREST]} window, {la['capped_walk']} capped")
         if not ok:
             raise AssertionError(f"{what}: max |diff| {d}")
     for name in ("GGX conductor", "GGX plastic", "textured"):
@@ -1934,7 +2009,7 @@ def phase_spectral(tmp: str, smi: str) -> dict:
         img, la = mode_frame(Renderer(load_scene(path, **kw), WIDTH, HEIGHT),
                              RenderConfig(**MODE_BASE), name)
         log(f"  {name} at 1080p, depth 8, frame 0: finite, mean {float(img.mean()):.5f}; "
-            f"launches {la['window_walk']} window, {la['capped_walk']} capped")
+            f"launches {la[NEAREST]} window, {la['capped_walk']} capped")
     del scene16, scene3
 
     buf = io.StringIO()
@@ -1944,7 +2019,7 @@ def phase_spectral(tmp: str, smi: str) -> dict:
     line = buf.getvalue().strip().splitlines()[-1]
     log(f"  bench --bake-materials: {line}")
     out = json.loads(line)
-    want = ("window_walk", "capped_walk", "window_walk_counts")
+    want = (NEAREST, "capped_walk", "window_walk_counts")
     if (rc or not out["finite"] or "utilization" not in out
             or min(run["launches"][k] for k in want) <= 0
             or any(run["plain_cuda"].values())):
@@ -1969,7 +2044,7 @@ def cuda_mesh(tiles: int, spp: int = 1):
 
 
 def mesh_run(what: str, scene, frames: int, mesh=None, width: int | None = None,
-             height: int | None = None, kernels=("window_walk", "capped_walk"), **kw):
+             height: int | None = None, kernels=(NEAREST, "capped_walk"), **kw):
     """``frames`` Renderer frames of ``scene`` (depth 8, ``kw`` RenderConfig
     fields; WIDTH x HEIGHT unless given) on ``mesh`` or on no mesh, in a
     counted run that must launch ``kernels`` and no plain version on a CUDA
@@ -2023,7 +2098,7 @@ def multihost_worker() -> None:
         if not np.array_equal(img, np.load(os.path.join(out, "ref.npy"))):
             raise AssertionError(f"rank {rank}: the gathered image differs from the "
                                  "single-process frame")
-        if min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0 or any(
+        if min(run["launches"][k] for k in (NEAREST, "capped_walk")) <= 0 or any(
                 run["plain_cuda"].values()):
             raise AssertionError(f"rank {rank}: {run}")
         r.save_checkpoint(os.path.join(out, "ck"))
@@ -2107,7 +2182,7 @@ def phase_multi_device(tmp: str, smi: str) -> dict:
         mesh_equal(f"{tiles}x{spp} mesh vs Renderer() at 2 spp, 2 frames", got, img2,
                    MESH_SPP_ATOL)
     lit = attach_env(scene, sky_map())
-    env_kernels = ("window_walk", "anyhit_walk")
+    env_kernels = (NEAREST, "anyhit_walk")
     _, want, _ = mesh_run("env-lit, no mesh", lit, 2, kernels=env_kernels)
     _, got, per_env = mesh_run("env-lit 2x1", lit, 2, mesh=cuda_mesh(2), kernels=env_kernels)
     mesh_equal("env-lit 2x1 mesh vs Renderer(), 2 frames", got, want)
@@ -2155,7 +2230,7 @@ def phase_multi_device(tmp: str, smi: str) -> dict:
     out = json.loads(line)
     if (rc or out["metric"] != "traced_mrays_per_sec_aggregate_1x1mesh_1spp"
             or out["mesh"] != "1x1" or "utilization" in out or not out["finite"]
-            or min(run["launches"][k] for k in ("window_walk", "capped_walk")) <= 0
+            or min(run["launches"][k] for k in (NEAREST, "capped_walk")) <= 0
             or any(run["plain_cuda"].values())):
         raise AssertionError(f"bench --mesh 1x1: rc {rc}, {out}, {run}")
 
@@ -2172,12 +2247,12 @@ def phase_multi_device(tmp: str, smi: str) -> dict:
             rs[k].run(2)
             ms = (time.perf_counter() - t0) / 2 * 1e3
             dev, count = device_ms(rs[k], os.path.join(tmp, f"mesh{i}"))
-        launches = {n: run["launches"][n] / 4 for n in ("window_walk", "capped_walk")}
+        launches = {n: run["launches"][n] / 4 for n in (NEAREST, "capped_walk")}
         turns[k].append({"ms": ms, "device_ms": dev, "kernels": count, "launches": launches})
         log(f"  mesh turn, {k}: {ms:.2f} ms/frame; device {dev:.2f} ms in {count} kernels "
             "a frame; launches a frame " + ", ".join(f"{n} {v:g}" for n, v in launches.items()))
     log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches_per_frame_mesh2x1": {**{k: per21[k] for k in ("window_walk",
+    return {"launches_per_frame_mesh2x1": {**{k: per21[k] for k in (NEAREST,
                                                                      "capped_walk")},
                                            "anyhit_walk": per_env["anyhit_walk"]},
             "turns": turns}
@@ -2206,8 +2281,10 @@ def terrain_renderer(scene, **kw):
 def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, int]:
     """The terrain frame at 1920x1080, depth 8, through Renderer: the route
     must be the HBM route; 2 warm-up + ``timed`` frames, exact rays, spans;
-    the HBM window walk launched, every launch in the config's tritest form,
-    and no other kernel -> (the run's counts, frames rendered)."""
+    the HBM window walk launched (its nearest-hit queries through the
+    payload epilogue, its capped ones without), every launch in the config's
+    tritest form, and no other kernel but the uniforms -> (the run's counts,
+    frames rendered)."""
     from tpu_pathtracer_torch.render.state import frame_rng_key, fused_wavefront_key
     from tpu_pathtracer_torch.render.wavefront import hbm_route, render_sample
 
@@ -2231,9 +2308,14 @@ def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, i
         f"{run['plain_cuda']}")
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or img.mean() <= 0:
         raise AssertionError(f"terrain {label}: image not finite, lit, or of its shape")
-    others = {k: v for k, v in launches.items() if v and k != "window_walk_hbm"}
-    if launches["window_walk_hbm"] <= 0 or others or any(run["plain_cuda"].values()):
-        raise AssertionError(f"terrain {label}: expected only window_walk_hbm: {run}")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("window_walk_hbm", "uniforms")}
+    if (launches["window_walk_hbm"] <= 0 or others or any(run["plain_cuda"].values())
+            or not 0 < run["launches_resolve"]["window_walk_hbm"] < launches[
+                "window_walk_hbm"]):
+        raise AssertionError(f"terrain {label}: expected only window_walk_hbm (nearest "
+                             f"queries through its epilogue form, capped ones "
+                             f"without) and uniforms: {run}")
     mt = launches["window_walk_hbm"] if r.cfg.tritest == "mt" else 0
     if run["launches_mt"]["window_walk_hbm"] != mt:
         raise AssertionError(f"terrain {label}: MT launches {run['launches_mt']}, "
@@ -2337,8 +2419,11 @@ def phase_backend_parity(terrain) -> None:
     for kw in ({"use_pallas": False}, {"intersector": "brute"}):
         with counted_run() as run:
             img, _ = image(box, **kw)
-        if any(run["launches"].values()) or any(run["plain_cuda"].values()):
-            raise AssertionError(f"{kw}: the portable backend ran a kernel: {run}")
+        # the uniforms are a kernel on every backend; no walk kernel may run
+        walks = {k: v for k, v in run["launches"].items()
+                 if v and k not in ("uniforms", "uniforms_r2")}
+        if walks or not run["launches"]["uniforms"] or any(run["plain_cuda"].values()):
+            raise AssertionError(f"{kw}: the portable backend ran a walk kernel: {run}")
         check_parity(f"cornellbox {kw} vs the kernel route", img, kernels)
 
 
@@ -2370,6 +2455,12 @@ def phase_edge_shapes(renderer) -> None:
                     raise AssertionError(f"edge {what}: spent outside its warp bounds")
                 got, want = got[:3], want[:3]
             equal_on_every_lane(f"edge {what}: {form} ({tritest}) vs plain", got, want)
+            if form == "window_walk":  # window_walk_resolve_plain's rows, walked once
+                equal_on_every_lane(
+                    f"edge {what}: {NEAREST} ({tritest}) vs plain",
+                    ht.window_walk_resolve(o, d, act, t_max, lay, prepass=pp,
+                                           tritest=tritest),
+                    ht.window_payload_rows(lay, *want, t_max, o, d))
         if tritest == "mt":
             pm = min(prepass, lay.prepass.shape[0], lay.num_tris)
             got = ht.minwalk(o, d, act, t_max, lay, prepass=pm)
@@ -2400,7 +2491,8 @@ def phase_edge_shapes(renderer) -> None:
     torch.cuda.synchronize()
     log(f"edge shapes: {cases} cases (lanes {EDGE_LANES}; live, all dead and one live lane a "
         f"warp; prepass 0 and 32; leaf 56, 16 and 8; bw and mt): every form of the window "
-        f"walk and minwalk bit-equal to its plain version")
+        f"walk (its payload epilogue on all 12 rows) and minwalk bit-equal to its plain "
+        f"version")
 
     # the shadow walks on the shadow pack's lanes, every fifth one turned into
     # an environment lane (target -1, cap 1e30), with finite and infinite caps
@@ -2540,20 +2632,36 @@ def shadow_ab(label: str, walk: str, lay, pack, eps: float, work: Work | None = 
     return ms
 
 
+def torch_resolved(walk):
+    """``window_walk_resolve``'s signature on a window walk that returns (t,
+    row) followed by the torch payload rows (``window_payload_rows``): the
+    epilogue form with its epilogue put back in torch."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    def fn(o, d, active, t_max, lay, t_min=0.0, prepass=ht.DEFAULT_PREPASS,
+           tritest="bw"):
+        t, row = walk(o, d, active, t_max, lay, t_min, prepass, tritest)
+        return ht.window_payload_rows(lay, t, row, t_max, o, d)
+
+    return fn
+
+
 @contextlib.contextmanager
 def per_thread_walks():
     """The frame paths on the per-thread yardsticks for the run inside: the
-    wrappers ``window_walk`` and ``minwalk`` of ops/hopper_traverse.py stand
-    aside for ``window_walk_v1`` and ``minwalk_v1`` (the default form only:
-    the A/B frames use no other)."""
+    wrappers ``window_walk_resolve`` and ``minwalk`` of ops/hopper_traverse.py
+    stand aside for ``window_walk_v1`` with the torch payload rows
+    (``window_payload_rows``: the yardstick has no epilogue) and
+    ``minwalk_v1`` (the default forms only: the A/B frames use no other)."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
-    saved = ht.window_walk, ht.minwalk
-    ht.window_walk, ht.minwalk = ht.window_walk_v1, ht.minwalk_v1
+    saved = ht.window_walk_resolve, ht.minwalk
+    ht.window_walk_resolve = torch_resolved(ht.window_walk_v1)
+    ht.minwalk = ht.minwalk_v1
     try:
         yield
     finally:
-        ht.window_walk, ht.minwalk = saved
+        ht.window_walk_resolve, ht.minwalk = saved
 
 
 @contextlib.contextmanager
@@ -2581,14 +2689,16 @@ def device_ms(renderer, tmp: str) -> tuple[float, int]:
 
 
 def frame_ab(label: str, tmp: str, scene=SCENE, swap=per_thread_walks,
-             span: str = "walk_nearest", walks=("window_walk", "minwalk"), **kw) -> None:
+             span: str = "walk_nearest", walks=None, **kw) -> None:
     """A frame path on the redesigned walks and, with ``swap``, on the
     per-thread yardsticks in turns (new, v1, v1, new): 1 warm-up + 3 frames
     a turn by the host clock, then the ``span`` of one staged frame and the
-    device time of one profiled frame.  A new turn must launch some of
-    ``walks`` and none of their yardsticks, a v1 turn the reverse."""
+    device time of one profiled frame.  ``walks``: {walk: its yardstick}
+    (the nearest-hit walks by default); a new turn must launch some of the
+    walks and none of their yardsticks, a v1 turn the reverse."""
     from tpu_pathtracer_torch import Renderer, RenderConfig
 
+    walks = walks or {NEAREST: "window_walk_v1", "minwalk": "minwalk_v1"}
     r = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw))
     rows = []
     for which in ("new", "v1", "v1", "new"):
@@ -2601,7 +2711,7 @@ def frame_ab(label: str, tmp: str, scene=SCENE, swap=per_thread_walks,
             span_ms = staged_frame(r).get(span, float("nan"))
             dev, count = device_ms(r, os.path.join(tmp, f"turn{len(rows)}"))
         ran = {k: run["launches"][k] for k in walks}
-        ran_v1 = {k: run["launches"][f"{k}_v1"] for k in walks}
+        ran_v1 = {k: run["launches"][k] for k in walks.values()}
         if not any((ran_v1 if which == "v1" else ran).values()) or any(
                 (ran if which == "v1" else ran_v1).values()):
             raise AssertionError(f"frame A/B {label}, {which} turn: launches {ran}, {ran_v1}")
@@ -2679,7 +2789,8 @@ def phase_walk_ab(renderer, terrains: dict, smi: str,
         frame_ab("main path", tmp)
         frame_ab("minwalk path", tmp, traversal_kernel="minwalk")
         shadow = dict(swap=per_thread_shadow_walks, span="walk_shadow",
-                      walks=("capped_walk", "anyhit_walk"))
+                      walks={"capped_walk": "capped_walk_v1",
+                             "anyhit_walk": "anyhit_walk_v1"})
         frame_ab("main path, shadow walks", tmp, **shadow)
         frame_ab("env-lit path, shadow walks", tmp, scene=env_scene, **shadow)
     phase_parity()
@@ -2814,26 +2925,44 @@ def sweep1_ab(label: str, o, d, sel, lay, pp: int, bnd_ms: float) -> dict:
 SWEEP1_LAUNCHES = ("sweep1_tally_kernel", "sweep1_list_kernel", "sweep1_kernel")
 
 
-def sweep1_device_us(label: str, o, d, sel, lay, pp: int, reps: int = 10) -> dict:
-    """Device microseconds a call of each of the targeted kernel's three
-    launches (torch.profiler over ``reps`` calls after one) on one
-    wavefront's lanes with at most one candidate -> {kernel: us}."""
+def kernel_times_us(fn, reps: int) -> dict[str, list[float]]:
+    """Device microseconds of each kernel ``reps`` calls of ``fn`` (after
+    one) launched, by kernel name, from a torch.profiler trace with CPU and
+    CUDA activity exported as every profiled frame here is (a profile of
+    CUDA activity alone came back empty or short on some machines)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    out: dict[str, list[float]] = {}
+    for e in events:
+        out.setdefault(e["name"], []).append(e["dur"])
+    return out
+
+
+def sweep1_device_us(label: str, o, d, sel, lay, pp: int, reps: int = 10) -> dict:
+    """Device microseconds a call of each of the targeted kernel's three
+    launches (torch.profiler over ``reps`` calls after one, the mean over
+    the launches the trace holds) on one wavefront's lanes with at most one
+    candidate -> {kernel: us}."""
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
 
-    es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)
-        torch.cuda.synchronize()
+    times = kernel_times_us(lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp),
+                            reps)
     out = {}
-    for e in prof.key_averages():
-        name = next((k for k in SWEEP1_LAUNCHES if f"::{k}(" in e.key), None)
-        if name:
-            dt = getattr(e, "device_time_total", None)
-            out[name] = (e.cuda_time_total if dt is None else dt) / reps
+    for name, durs in times.items():
+        kernel = next((k for k in SWEEP1_LAUNCHES if f"::{k}(" in name), None)
+        if kernel:
+            out[kernel] = sum(durs) / len(durs)
     if set(out) != set(SWEEP1_LAUNCHES):
         raise AssertionError(f"sweep1 {label}: the profile holds {sorted(out)}")
     log(f"  sweep1 {label}: device us a call " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
@@ -3099,8 +3228,8 @@ def echo_main(main, what: str) -> tuple[dict, list[str]]:
 def phase_launch_probe(smi: str) -> tuple[dict, int]:
     """The no-op against its plain version at each tile, its times beside
     the PyTorch call pair that computes the same function, then the launch
-    probe's ``main()`` -> (the no-op's row of the kernel table, its launches
-    in that run)."""
+    probe's ``main()`` -> (the no-op's row of the kernel table, the launches
+    of that run)."""
     from tpu_pathtracer_torch.scripts import perf_launch as pl
 
     gen = torch.Generator(device="cuda").manual_seed(97)
@@ -3159,7 +3288,7 @@ def phase_launch_probe(smi: str) -> tuple[dict, int]:
         raise AssertionError(f"launch probe: a kernel never launched: {launches}")
     if not lines[0].endswith(smi) or sum(ln.startswith("tile=") for ln in lines) != len(pl.TILES):
         raise AssertionError("launch probe: its lines are not the ones expected")
-    return entry, launches["noop"]
+    return entry, launches
 
 
 def probe_bound(lanes: int, rows: int, table_rows: int, ops_per_row: int) -> dict:
@@ -3279,6 +3408,269 @@ def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
                            "rowtest_probe_v1": ab_run["launches"]["rowtest_probe_v1"]}
 
 
+RNG_CASES = ((0, 0, 0), (7, -1, 0x80000001), (0xFFFFFFFF, 5, 0xFFFFFFFF))  # frame, bounce, salt
+R2_COUNTS = (4, 6, 10)
+VIRTUAL_SAMPLE = 2000  # a fused sample whose virtual ids pixel + s*H*W lie past 2^31
+SELF_GOLDEN_REL_MSE = 1.5807e-8  # the default path's reading against the self-golden, 5 digits
+OPS_PCG4D = 32  # 4 + 4 multiply-adds, two rounds of 4 + 4, 4 shifts and 4 xors
+OPS_UNIT = 3    # a row's shift, convert and scale
+OPS_R2_ROW = 3  # the r2 row's xor, multiply and add
+# the epilogue a lane: the MT row test again, the t rule and two clamps (8),
+# the payload of write_payload (39)
+OPS_RESOLVE = OPS_ROW["mt"] + 8 + 39
+ROW_BYTES_MT = 96  # one lay.tris row, read once a lane by the epilogue
+
+
+def uniforms_bound(lanes: int, count: int, r2: bool) -> dict:
+    """A draw's bound: the int64 id read once and ``count`` float32 rows
+    written once a lane; its integer operations (a pcg4d call per group, two
+    for r2) each in an FMA's slot."""
+    groups = (count + 3) // 4
+    ops = groups * OPS_PCG4D * (2 if r2 else 1) + count * (OPS_UNIT + OPS_R2_ROW * r2)
+    return bound(lanes * (8 + 4 * count), lanes * ops)
+
+
+def resolve_bound(lay, act, work: Work, prepass: int) -> dict:
+    """The epilogue form's bound on these lanes (BW rows): the window walk's
+    work, 48 bytes of payload out instead of (t, row), one MT row of
+    ``lay.tris`` read a lane and the resolve's operations a lane."""
+    return walk_bound(act.shape[0], RAY_BYTES + ROW_BYTES_MT, 48, lay, lay.tris8bw, work,
+                      OPS_ROW["bw"], lay.prepassbw[:prepass], int(act.sum()) * prepass,
+                      node_bytes=PACKED_NODE_BYTES, lane_ops=OPS_RESOLVE)
+
+
+QUEUE_SPIN_CYCLES = 100_000_000  # ~50 ms of a spin kernel: the host queues the calls meanwhile
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds a call of ``fn``, the mean over ``iters`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) after one warm-up:
+    the host's work a call (for a short kernel more than the kernel itself)
+    overlaps the spin, so the events time the launches back to back on the
+    card alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if end.query():
+        raise AssertionError("queued_ms: the spin ended before the host queued the calls")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def plain_stages():
+    """The two XLA-fused stages back on their plain torch versions for the
+    run inside, as the frame ran them before their kernels: ``uniforms`` and
+    ``uniforms_r2`` of ops/rng.py stand aside for ``uniforms_plain`` and
+    ``uniforms_r2_plain``, ``window_walk_resolve`` for the window walk
+    kernel followed by the torch payload rows (``window_payload_rows``)."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.ops import rng
+
+    saved = rng.uniforms, rng.uniforms_r2, ht.window_walk_resolve
+    rng.uniforms, rng.uniforms_r2 = rng.uniforms_plain, rng.uniforms_r2_plain
+    ht.window_walk_resolve = torch_resolved(ht.window_walk)
+    try:
+        yield
+    finally:
+        rng.uniforms, rng.uniforms_r2, ht.window_walk_resolve = saved
+
+
+def stage_turns(label: str, tmp: str, scene) -> dict:
+    """One 1080p frame path with the two stages' kernels and with their plain
+    versions put back (:func:`plain_stages`), in turns (kernels, plain,
+    plain, kernels): each turn from a reset, 1 warm-up + 3 frames by the
+    host clock, one staged frame (walk_nearest) and one profiled frame
+    (device ms, kernels a frame).  Every turn's image after its 4 frames
+    must equal the first turn's bit for bit; a kernels turn launches 9
+    uniforms and 8 epilogue walks a frame, a plain turn none of them and 8
+    window walks -> {"kernels": [readings], "plain": [readings]}."""
+    from tpu_pathtracer_torch import Renderer
+
+    r = Renderer(scene, WIDTH, HEIGHT)
+    out = {"kernels": [], "plain": []}
+    first = None
+    frames = 4 + 1 + 1
+    for i, which in enumerate(("kernels", "plain", "plain", "kernels")):
+        r.reset()
+        with counted_run() as run, (plain_stages() if which == "plain"
+                                    else contextlib.nullcontext()):
+            r.run(1)
+            t0 = time.perf_counter()
+            r.run(3)
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            img = r.image()
+            span = staged_frame(r).get("walk_nearest", float("nan"))
+            dev, count = device_ms(r, os.path.join(tmp, f"stages{label}{i}"))
+        la, plain_cuda = run["launches"], run["plain_cuda"]
+        want = ((9 * frames, 8 * frames, 0) if which == "kernels"
+                else (0, 0, 8 * frames))
+        got = (la["uniforms"], la[NEAREST], la["window_walk"])
+        if got != want or (which == "kernels") == bool(plain_cuda["uniforms_plain"]):
+            raise AssertionError(f"stage turns {label}, {which}: launches (uniforms, "
+                                 f"{NEAREST}, window_walk) {got}, expected {want}: {run}")
+        first = img if first is None else first
+        diff = float(np.abs(img - first).max())
+        if not np.array_equal(img, first):
+            raise AssertionError(f"stage turns {label}, {which}: the frame differs from "
+                                 f"the first turn's by {diff}")
+        out[which].append({"ms": ms, "walk_nearest": span, "device_ms": dev,
+                           "kernels": count})
+        log(f"  stage turn {label}, {which}: {ms:.2f} ms/frame, walk_nearest {span:.2f} "
+            f"ms, device {dev:.2f} ms in {count} kernels a frame; launches a frame: "
+            f"uniforms {got[0] / frames:g}, {NEAREST} {got[1] / frames:g}, window_walk "
+            f"{got[2] / frames:g}; image max |diff| to turn 1: {diff:g}")
+    return out
+
+
+def phase_fused_stages(smi: str, priced: Priced) -> list[dict]:
+    """Phase 22: the hand kernels of the two XLA-fused stages.  The PCG4D
+    uniforms (csrc/rng.cu) against their plain versions bit for bit; the
+    window walk's payload epilogue against its plain version (65,536 lanes
+    of the camera and bounce-1 wavefronts, BW and MT; every lane of the
+    whole wavefronts is held in phases 3 and 10); their times and bounds;
+    then the main path and the env-lit path in turns with the plain versions
+    put back, and the self-golden gate -> the three kernels' rows of the
+    kernel table."""
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+    from tpu_pathtracer_torch.ops import rng
+    from tpu_pathtracer_torch.render import noise
+    from tpu_pathtracer_torch.render.order import make_order
+    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+
+    t_phase = time.perf_counter()
+    log(f"XLA-fused stages as hand kernels on {smi}")
+    renderer = Renderer(SCENE, WIDTH, HEIGHT)
+    lay, cfg = renderer.layout, renderer.cfg
+    dev = lay.tris.device
+    order = make_order(HEIGHT, WIDTH, 0, cfg.traversal_tile, device=dev)
+    pids = noise.pids_from_order(order, WIDTH).contiguous()         # the frame's own ids
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    lanes = {"0 lanes": pids[:0], **{f"{n} lanes": torch.randint(
+        0, 2**32, (n,), generator=gen, device=dev) for n in EDGE_LANES},
+        f"1080p ids of sample {VIRTUAL_SAMPLE}": pids + VIRTUAL_SAMPLE * HEIGHT * WIDTH}
+    salt = noise.key_salt(rng.prng_key(0))
+    cases = 0
+    for what, pid in lanes.items():
+        for frame, bounce, sl in (*RNG_CASES, (3, 2, salt)):
+            for count in range(1, 11):
+                got = rng.uniforms(pid, frame, bounce, sl, count)
+                equal_on_every_lane(f"uniforms count {count}, {what}", got,
+                                    rng.uniforms_plain(pid, frame, bounce, sl, count))
+                cases += 1
+            for count in R2_COUNTS:
+                got = rng.uniforms_r2(pid, frame, bounce, sl, count)
+                equal_on_every_lane(f"uniforms_r2 count {count}, {what}", got,
+                                    rng.uniforms_r2_plain(pid, frame, bounce, sl, count))
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"  uniforms (counts 1-10) and uniforms_r2 (counts {R2_COUNTS}) == their plain "
+        f"versions bit for bit in {cases} cases: {', '.join(lanes)}; frames, bounces and "
+        f"salts {RNG_CASES} and the frame's own salt (virtual ids up to "
+        f"{int(lanes[f'1080p ids of sample {VIRTUAL_SAMPLE}'].max())})")
+
+    # the epilogue against its plain version on drawn lanes (the whole
+    # wavefronts: phases 3 and 10, against the yardstick plus the torch rows)
+    pp = ht.window_prepass(lay, cfg.traversal_prepass)
+    draws = {}
+    for which in ("camera", "bounce1"):
+        o, d, act = draw(priced.waves[which], SAMPLE_LANES, torch.Generator().manual_seed(11))
+        t_max = torch.where(torch.arange(o.shape[1], device=dev) % 5 == 1, 0.5,
+                            torch.inf).contiguous()
+        draws[which] = (o, d, act, t_max)
+        for tritest in ("bw", "mt"):
+            got = ht.window_walk_resolve(o, d, act, t_max, lay, prepass=pp, tritest=tritest)
+            want = ht.window_walk_resolve_plain(o, d, act, t_max, lay, prepass=pp,
+                                                tritest=tritest)
+            equal_on_every_lane(f"{NEAREST} vs plain, {which} ({tritest})", got, want)
+    torch.cuda.synchronize()
+    log(f"  {NEAREST} == its plain version on all 12 rows of {SAMPLE_LANES} camera and "
+        f"bounce-1 lanes (bw and mt, every fifth lane capped at 0.5)")
+
+    # times and bounds: the uniforms at count 6 (a bounce's), 65,536 and all
+    # 2,073,600 of the frame's ids; the epilogue form beside the window walk
+    # the kernel's own time, its calls queued behind a spin ("ms"); CUDA
+    # events over calls issued as the host goes ("events_ms") also hold each
+    # call's host work
+    entries = []
+    for name, r2 in (("uniforms", False), ("uniforms_r2", True)):
+        fn, plain = getattr(rng, name), getattr(rng, f"{name}_plain")
+        small = pids[:SAMPLE_LANES].contiguous()
+        ms, full_ms, full10 = (queued_ms(lambda p=p, c=c: fn(p, 3, 2, salt, c))
+                               for p, c in ((small, 6), (pids, 6), (pids, 10)))
+        events = [cuda_ms(lambda p=p: fn(p, 3, 2, salt, 6), iters=20) for p in (small, pids)]
+        plain_ms = cuda_ms(lambda: plain(small, 3, 2, salt, 6))
+        plain_full = cuda_ms(lambda: plain(pids, 3, 2, salt, 6))
+        bnd, bfull = uniforms_bound(SAMPLE_LANES, 6, r2), uniforms_bound(pids.shape[0], 6, r2)
+        line = "rng.py:99" if r2 else "rng.py:56"
+        entries.append(kernel_entry(
+            name, "rng.cu", f"tpu_pathtracer/ops/{line}", 0.0, ms, plain_ms, full_ms, bnd,
+            plain_full_ms=plain_full, full_count10_ms=full10, events_ms=events[0],
+            events_full_ms=events[1], bound_full_ms=bfull["bound_ms"],
+            bound_full_by=bfull["bound_by"],
+            full_pct_of_bound=100.0 * bfull["bound_ms"] / full_ms))
+        log(f"  {name} count 6, device time a launch (queued): {SAMPLE_LANES} lanes "
+            f"{ms * 1e3:.2f} us, bound {bnd['bound_ms'] * 1e3:.3f} us ({bnd['bound_by']}); "
+            f"{pids.shape[0]} lanes {full_ms * 1e3:.2f} us, bound {bfull['bound_ms'] * 1e3:.3f} "
+            f"us ({bfull['bound_by']}) = {100.0 * bfull['bound_ms'] / full_ms:.1f}% of bound; "
+            f"count 10 {full10 * 1e3:.2f} us.  CUDA events over 20 back-to-back calls: "
+            f"{events[0] * 1e3:.2f} and {events[1] * 1e3:.2f} us a call.  Plain: "
+            f"{plain_ms:.3f} and {plain_full:.3f} ms")
+
+    o, d, act, t_max = draws["bounce1"]
+    inf = torch.full_like(o[0], torch.inf)
+    args = (o, d, act, inf, lay)
+    (_, work) = plain_work(ht.window_walk_resolve_plain, *args, prepass=pp)
+    bnd = resolve_bound(lay, act, work, pp)
+    ms = cuda_ms(lambda: ht.window_walk_resolve(*args, prepass=pp))
+    walk_only = cuda_ms(lambda: ht.window_walk(*args, prepass=pp))
+    plain_ms = cuda_ms(lambda: ht.window_walk_resolve_plain(*args, prepass=pp), iters=2)
+    full = {}
+    for which in ("camera", "bounce1"):
+        w = (*priced.waves[which], torch.full_like(priced.waves[which][0][0], torch.inf), lay)
+        full[which] = turns({NEAREST: lambda w=w: ht.window_walk_resolve(*w, prepass=pp),
+                             "window_walk": lambda w=w: ht.window_walk(*w, prepass=pp)})
+        b = resolve_bound(lay, w[2], priced.work[which], pp)
+        full[which]["bound_ms"] = b["bound_ms"]
+        full[which]["bound_by"] = b["bound_by"]
+        log(f"  {NEAREST} on the full {which} wavefront, ms in turns (epilogue, walk, walk, "
+            f"epilogue): {NEAREST} {full[which][NEAREST]}, window_walk "
+            f"{full[which]['window_walk']}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) = "
+            f"{100.0 * b['bound_ms'] / min(full[which][NEAREST]):.1f}% of the faster reading")
+    entries.append(kernel_entry(
+        NEAREST, "window_walk.cu", "tpu_pathtracer/ops/pallas_traverse.py:1043", 0.0, ms,
+        plain_ms, min(full["camera"][NEAREST]), bnd, walk_ms=walk_only,
+        full_turns=full, full_bounce1_ms=min(full["bounce1"][NEAREST]),
+        bound_full_ms=full["camera"]["bound_ms"], bound_full_by=full["camera"]["bound_by"],
+        full_pct_of_bound=100.0 * full["camera"]["bound_ms"] / min(full["camera"][NEAREST]),
+        bound_full_bounce1_ms=full["bounce1"]["bound_ms"],
+        full_pct_of_bound_bounce1=100.0 * full["bounce1"]["bound_ms"]
+        / min(full["bounce1"][NEAREST])))
+    log(f"  {NEAREST} at {SAMPLE_LANES} bounce-1 lanes: kernel {ms:.3f} ms (window_walk "
+        f"{walk_only:.3f}), plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']})")
+    del renderer
+
+    # the frames: kernels against the plain versions put back, in turns
+    scene = load_scene(scene_path(SCENE))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, sc in (("main path", scene), ("env-lit path", attach_env(scene, sky_map()))):
+            stage_turns(label, tmp, sc)
+    m = phase_parity()["metrics"]
+    if float(f"{m['rel_mse']:.4e}") > SELF_GOLDEN_REL_MSE:
+        raise AssertionError(f"self-golden gate: rel_mse {m['rel_mse']} above "
+                             f"{SELF_GOLDEN_REL_MSE}")
+    log(f"fused-stages phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> int:
     smi = phase_device()
     t_start = time.perf_counter()
@@ -3295,7 +3687,7 @@ def main() -> int:
     kernels += phase_bench_kernels(renderer, priced)
     phase_edge_shapes(renderer)
     launches, frames = phase_main_path(renderer)
-    per_frame = {k: launches[k] / frames for k in ("window_walk", "capped_walk")}
+    per_frame = {k: launches[k] / frames for k in MAIN_PATH}
     phase_parity()
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
@@ -3350,8 +3742,11 @@ def main() -> int:
     kernels += rows
     launches.update(counts)
     launches.update(phase_split(renderer, small))
-    entry, launches["noop"] = phase_launch_probe(smi)
+    entry, probe = phase_launch_probe(smi)
     kernels.append(entry)
+    # the window walk without its epilogue: no frame path launches it, the
+    # launch probe does (its all-dead lanes)
+    launches.update(noop=probe["noop"], window_walk=probe["window_walk"])
     rows, counts = phase_rowtest_probe(compiler_log)
     kernels += rows
     launches.update(counts)
@@ -3361,10 +3756,13 @@ def main() -> int:
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
         modes = phase_frame_modes(tmp, smi)
+    launches["uniforms_r2"] = modes["uniforms_r2"]["launches"]
+    per_frame["uniforms_r2"] = launches["uniforms_r2"] / modes["uniforms_r2"]["frames"]
     with tempfile.TemporaryDirectory() as tmp:
         spectral = phase_spectral(tmp, smi)["launches_per_frame_spectral"]
     with tempfile.TemporaryDirectory() as tmp:
         mesh = phase_multi_device(tmp, smi)["launches_per_frame_mesh2x1"]
+    kernels += phase_fused_stages(smi, priced)
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])

@@ -13,6 +13,7 @@ import torch
 from tpu_pathtracer_torch import Renderer, RenderConfig
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
+from tpu_pathtracer_torch.ops import rng as trng
 from tpu_pathtracer_torch.scene import load_scene, scene_path
 from tpu_pathtracer_torch.scripts import experimental_sweep as es
 from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
@@ -143,10 +144,11 @@ def test_renderer_on_card_matches_cpu(cuda_device):
     cfg = RenderConfig(max_path_length=4)
     gpu = Renderer("CornellBox-Water-plastic", 64, 48, cfg, device=cuda_device)
     cpu = Renderer("CornellBox-Water-plastic", 64, 48, cfg, device="cpu")
-    n0 = (ht.window_walk.launches, ht.capped_walk.launches)
+    frame = (ht.window_walk_resolve, ht.capped_walk, trng.uniforms)
+    n0 = [k.launches for k in frame]
     gpu.run(2)
     cpu.run(2)
-    assert ht.window_walk.launches > n0[0] and ht.capped_walk.launches > n0[1]
+    assert all(k.launches > n for k, n in zip(frame, n0))
     img = gpu.image()
     assert np.isfinite(img).all()
     np.testing.assert_allclose(img, cpu.image(), rtol=0, atol=1e-4)
@@ -307,6 +309,59 @@ def test_redesigned_walks_edge_shapes_on_card(n, leaf, cuda_device):
             np.testing.assert_allclose(mk[6:].cpu().numpy(), mp[6:].cpu().numpy(),
                                        rtol=0, atol=1e-6)
     assert bool((want[1][~act] == lay.num_tris).all())
+
+
+@pytest.mark.parametrize("form", ["uniforms", "uniforms_r2"])
+def test_uniforms_match_plain_on_card(form, cuda_device):
+    """csrc/rng.cu == the plain int64 versions bit for bit: every count the
+    frame draws (the r2 form at 4, 6 and 10), lane counts around a warp and
+    none, 1080p virtual ids of a second fused sample (past 2^31), frames,
+    salts and bounces that wrap (the top bit set, negative bounce)."""
+    fn, plain = getattr(trng, form), getattr(trng, f"{form}_plain")
+    counts = range(1, 11) if form == "uniforms" else (4, 6, 10)
+    gen = np.random.default_rng(3)
+    pids = [torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.uint64).astype(np.int64))
+            for n in (0, 1, 31, 33, 65537)]
+    pids.append(torch.arange(1920 * 1080, dtype=torch.int64) + 1920 * 1080 * 1100)
+    n0 = fn.launches
+    for pid in pids:
+        pid = pid.to(cuda_device)
+        for count in counts:
+            for frame, bounce, salt in ((0, 0, 0), (7, -1, 0x80000001),
+                                        (2**32 - 1, 5, 2**32 - 1)):
+                got = fn(pid, frame, bounce, salt, count)
+                assert torch.equal(got, plain(pid, frame, bounce, salt, count))
+    assert fn.launches == n0 + len(pids) * len(counts) * 3
+    with pytest.raises(ValueError):
+        fn(pids[-1].to(cuda_device), 0, 0, 0, trng.MAX_COUNT + 1)
+
+
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+@pytest.mark.parametrize("name", ["cornellbox", "CornellBox-Water-plastic"])
+def test_window_walk_resolve_matches_plain_on_card(name, tritest, cuda_device):
+    """The window walk's payload epilogue == its plain version on every
+    output row, bit for bit, and == the window walk kernel plus the torch
+    payload rows; the HBM route's wrapper with resolve=True the same; lane
+    counts around a warp with every lane live, none and one a warp, caps
+    shorter than the hits included."""
+    lay = build_layout(load_scene(scene_path(name), device=cuda_device), 56)
+    pp = ht.window_prepass(lay, ht.DEFAULT_PREPASS)
+    for n in (1, 33, 8192):
+        o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(n, seed=31 + n))
+        lanes = torch.arange(n, device=cuda_device)
+        t_max = torch.where(lanes % 3 == 0, 1.5,
+                            torch.where(lanes % 5 == 1, 0.05, torch.inf)).contiguous()
+        for act in (lanes % 9 != 4, lanes < 0, lanes % 32 == 7):
+            args = (o, d, act.contiguous(), t_max, lay)
+            kw = dict(prepass=pp, tritest=tritest)
+            n0 = (ht.window_walk_resolve.launches, ht.window_walk_hbm.launches_resolve)
+            got = ht.window_walk_resolve(*args, **kw)
+            assert torch.equal(got, ht.window_walk_resolve_plain(*args, **kw))
+            assert torch.equal(got, ht.window_walk_hbm(*args, **kw, resolve=True))
+            assert torch.equal(got, ht.window_payload_rows(
+                lay, *ht.window_walk(*args, **kw), t_max, o, d))
+            assert (ht.window_walk_resolve.launches,
+                    ht.window_walk_hbm.launches_resolve) == (n0[0] + 1, n0[1] + 1)
 
 
 @pytest.mark.parametrize("tritest", ["bw", "mt"])

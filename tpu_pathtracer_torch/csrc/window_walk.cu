@@ -41,10 +41,38 @@
 //   32 lanes, n_prepass + ceil(U / 32) <= spent <= n_prepass + U
 //   (ops/hopper_traverse.py:warp_spent_bounds).
 //
+// * out_payload (tpupt_window_walk_resolve: the frame's nearest-hit queries on
+//   both routes): an epilogue after the walk replaces the XLA-fused
+//   resolve_window_payload (pallas_traverse.py:1043).  It reads the winner's
+//   row of lay.tris (the 24-float MT rows, the zero sentinel row at num_tris:
+//   a pointer of its own, since the BW form walks tris8bw), recomputes u/v
+//   with mt_row, which is resolve_window_payload's Moller-Trumbore
+//   arithmetic, and writes minwalk's 12 rows through write_payload: t (raw:
+//   t_max where nothing nearer was hit), u, v, orig, material, light+1,
+//   position, unit normal.  The TPU resolved outside the kernel because
+//   carrying u/v through every latch costs it a third more vector ops a row
+//   (pallas_traverse.py:620-628); here the epilogue runs once a lane.  It
+//   stays bit-equal to ops/hopper_traverse.py:window_payload_rows where
+//   each of these holds:
+//     - 1 / det is IEEE division (mt_row's `1.0f / det` under nvcc's default
+//       -prec-div=true), never the dense marches' rcp_fast;
+//     - det != 0 ? 1 / det : 0, as torch.where(det != 0, 1 / det, 0);
+//     - the t rule comes before the clamp: t = t_raw < t_max ? t_raw : inf,
+//       hit_ok = isfinite(t), then u, v = hit_ok ? clamp(., 0, 1) : 0, the
+//       clamp NaN-propagating as torch.clamp is (fminf(fmaxf(u, 0), 1) in
+//       torch's argument order);
+//     - rsqrtf(fmaxf(|n|^2, 1e-20f)) equals torch.rsqrt(torch.clamp(...))
+//       on the card (minwalk holds it so);
+//     - every sum keeps resolve_window_payload's operation order, and the
+//       build's --fmad=false keeps each multiply and add apart.
+//   Dead lanes walk a zero ray; their t stays t_max, so hit_ok is false and
+//   u = v = 0 whatever the ray, as in the torch resolve.
+//
 // The HBM route (hbm=True: the TPU streamed demanded row blocks from HBM
 // through double-buffered VMEM) needs no variant here: every table already
 // lives in device memory.  ops/hopper_traverse.py:window_walk_hbm launches
-// this same kernel on that route's queries, nearest and t_max-capped.
+// this same kernel on that route's queries: nearest ones with the payload
+// epilogue, t_max-capped ones without.
 //
 // What bounds it on an H100, what the design does about it and the measured
 // share of its bound: walk_common.cuh and PERF.md section 6 (rows 1, 5-8).
@@ -52,11 +80,26 @@
 
 namespace {
 
+// Where a launch writes: (t, row) and the variants' extra rows, or with
+// `payload` only the epilogue's 12 rows.  Null pointers are not written.
+struct Outs {
+  float* t;
+  int* row;
+  int* orig;
+  int* spent;
+  int* useful;
+  const float* tris;  // lay.tris, read by the epilogue
+  float* payload;     // (12, n)
+};
+
+// torch.clamp(x, 0, 1): NaN stays NaN.
+__device__ __forceinline__ float clamp01(float x) {
+  return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
 template <bool kMT, bool kCounts, bool kStage, bool kCoop>
 __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
-    tpupt::WalkArgs a, float* __restrict__ out_t, int* __restrict__ out_row,
-    int* __restrict__ out_orig, int* __restrict__ out_spent,
-    int* __restrict__ out_useful) {
+    tpupt::WalkArgs a, Outs out) {
   using R = tpupt::Rows<kMT>;
   const float4* nodes = tpupt::stage_nodes<kStage>(a.nodes, a.num_nodes);
   const int warps = blockDim.x >> 5;
@@ -72,35 +115,45 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
     tpupt::walk_nearest<kMT, kCounts, kStage, kCoop>(a, nodes, live, r, &best_t,
                                                      &best_row, &useful, &slots);
     if (i < a.n) {
-      out_t[i] = best_t;
-      out_row[i] = best_row;
-      if (out_orig != nullptr) {
-        out_orig[i] = best_row < a.num_tris
+      if (out.t != nullptr) {
+        out.t[i] = best_t;
+        out.row[i] = best_row;
+      }
+      if (out.orig != nullptr) {
+        out.orig[i] = best_row < a.num_tris
             ? static_cast<int>(__ldg(a.rows + R::kStride * best_row + R::kOrig))
             : -1;
       }
       if (kCounts) {
-        out_spent[i] = a.n_prepass + slots;
-        out_useful[i] = useful;
+        out.spent[i] = a.n_prepass + slots;
+        out.useful[i] = useful;
+      }
+      if (out.payload != nullptr) {
+        // the epilogue: resolve_window_payload on the winner's MT row
+        const float* row = out.tris + 24 * best_row;
+        float tt, u, v;
+        tpupt::mt_row(row, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, a.t_min, &tt, &u, &v);
+        // isfinite(t_raw < t_max ? t_raw : inf); t_max read again rather than
+        // held in a register through the walk
+        const bool hit_ok = best_t < a.t_max[i] && isfinite(best_t);
+        tpupt::write_payload(row, best_t, hit_ok ? clamp01(u) : 0.0f,
+                             hit_ok ? clamp01(v) : 0.0f, a.n, i, out.payload);
       }
     }
   }
 }
 
 template <bool kMT, bool kCounts, bool kCoop>
-int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, float* out_t,
-                 int* out_row, int* out_orig, int* out_spent, int* out_useful,
+int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, const Outs& out,
                  cudaStream_t stream) {
   if (a.n > 0) {
     if (s.stage) {
       auto kernel = window_walk_kernel<kMT, kCounts, true, kCoop>;
       const size_t smem = static_cast<size_t>(a.num_nodes) * tpupt::kNodeBytes;
-      kernel<<<tpupt::walk_blocks(kernel, s, smem, a.n), s.threads, smem, stream>>>(
-          a, out_t, out_row, out_orig, out_spent, out_useful);
+      kernel<<<tpupt::walk_blocks(kernel, s, smem, a.n), s.threads, smem, stream>>>(a, out);
     } else {
       auto kernel = window_walk_kernel<kMT, kCounts, false, kCoop>;
-      kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(
-          a, out_t, out_row, out_orig, out_spent, out_useful);
+      kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(a, out);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -108,14 +161,11 @@ int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, float* out
 
 // The frame paths' launch: the kept shape, cooperative leaves.
 template <bool kCounts>
-int launch(const tpupt::WalkArgs& a, int mt, float* out_t, int* out_row, int* out_orig,
-           int* out_spent, int* out_useful, void* stream) {
+int launch(const tpupt::WalkArgs& a, int mt, const Outs& out, void* stream) {
   const tpupt::WalkShape s = tpupt::kWalkShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mt ? launch_shape<true, kCounts, true>(a, s, out_t, out_row, out_orig,
-                                                out_spent, out_useful, st)
-            : launch_shape<false, kCounts, true>(a, s, out_t, out_row, out_orig,
-                                                 out_spent, out_useful, st);
+  return mt ? launch_shape<true, kCounts, true>(a, s, out, st)
+            : launch_shape<false, kCounts, true>(a, s, out, st);
 }
 
 tpupt::WalkArgs walk_args(const float* o, const float* d, const unsigned char* active,
@@ -135,7 +185,19 @@ extern "C" int tpupt_window_walk(
     float t_min, int n, int mt, float* out_t, int* out_row, void* stream) {
   return launch<false>(walk_args(o, d, active, t_max, packed, rows, pre, n_prepass, ax,
                                  ay, az, num_nodes, num_tris, t_min, n),
-                       mt, out_t, out_row, nullptr, nullptr, nullptr, stream);
+                       mt, {out_t, out_row, nullptr, nullptr, nullptr, nullptr, nullptr},
+                       stream);
+}
+
+extern "C" int tpupt_window_walk_resolve(
+    const float* o, const float* d, const unsigned char* active,
+    const float* t_max, const float* packed, const float* rows, const float* pre,
+    int n_prepass, float ax, float ay, float az, int num_nodes, int num_tris,
+    float t_min, int n, int mt, const float* tris, float* out, void* stream) {
+  return launch<false>(walk_args(o, d, active, t_max, packed, rows, pre, n_prepass, ax,
+                                 ay, az, num_nodes, num_tris, t_min, n),
+                       mt, {nullptr, nullptr, nullptr, nullptr, nullptr, tris, out},
+                       stream);
 }
 
 extern "C" int tpupt_window_walk_orig(
@@ -146,7 +208,8 @@ extern "C" int tpupt_window_walk_orig(
     void* stream) {
   return launch<false>(walk_args(o, d, active, t_max, packed, rows, pre, n_prepass, ax,
                                  ay, az, num_nodes, num_tris, t_min, n),
-                       mt, out_t, out_row, out_orig, nullptr, nullptr, stream);
+                       mt, {out_t, out_row, out_orig, nullptr, nullptr, nullptr, nullptr},
+                       stream);
 }
 
 extern "C" int tpupt_window_walk_counts(
@@ -157,7 +220,8 @@ extern "C" int tpupt_window_walk_counts(
     int* out_useful, void* stream) {
   return launch<true>(walk_args(o, d, active, t_max, packed, rows, pre, n_prepass, ax,
                                 ay, az, num_nodes, num_tris, t_min, n),
-                      mt, out_t, out_row, nullptr, out_spent, out_useful, stream);
+                      mt, {out_t, out_row, nullptr, out_spent, out_useful, nullptr, nullptr},
+                      stream);
 }
 
 // The design's steps one by one, for the in-run A/B against walk_v1.cu
@@ -177,15 +241,12 @@ extern "C" int tpupt_window_walk_steps(
   const tpupt::WalkArgs a = walk_args(o, d, active, t_max, packed, rows, pre, n_prepass,
                                       ax, ay, az, num_nodes, num_tris, t_min, n);
   const tpupt::WalkShape s = {stage, persist, threads};
+  const Outs out = {out_t, out_row, nullptr, nullptr, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (coop) {
-    return mt ? launch_shape<true, false, true>(a, s, out_t, out_row, nullptr, nullptr,
-                                                nullptr, st)
-              : launch_shape<false, false, true>(a, s, out_t, out_row, nullptr, nullptr,
-                                                 nullptr, st);
+    return mt ? launch_shape<true, false, true>(a, s, out, st)
+              : launch_shape<false, false, true>(a, s, out, st);
   }
-  return mt ? launch_shape<true, false, false>(a, s, out_t, out_row, nullptr, nullptr,
-                                               nullptr, st)
-            : launch_shape<false, false, false>(a, s, out_t, out_row, nullptr, nullptr,
-                                                nullptr, st);
+  return mt ? launch_shape<true, false, false>(a, s, out, st)
+            : launch_shape<false, false, false>(a, s, out, st);
 }

@@ -39,6 +39,9 @@ _SIGNATURES = {
     # num_nodes, num_tris, t_min, n, mt, out_t, out_row, stream (the window
     # walk's two variants append their extra outputs before the stream)
     "tpupt_window_walk": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
+    # ... mt, tris (lay.tris: the 24-float MT rows the epilogue resolves),
+    # out (12, n), stream
+    "tpupt_window_walk_resolve": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
     # ... out_t, out_row, out_orig, stream
     "tpupt_window_walk_orig": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 4,
     # ... out_t, out_row, out_spent, out_useful, stream
@@ -87,6 +90,9 @@ _SIGNATURES = {
     # active, t_max, leafbox, leafmeta, tris8, pre, n_prepass, num_leaves,
     # num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig, stream
     "tpupt_sweep1_v1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
+    # pid (int64), keys (a host array: csrc/rng.cu), count, n, out, stream
+    "tpupt_uniforms": [_P, _P, _I, _I, _P, _P],
+    "tpupt_uniforms_r2": [_P, _P, _I, _I, _P, _P],
     # rays, table0..3 (never read; null when absent), tile, n, out, stream
     "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
     # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,

@@ -10,7 +10,12 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   ``o - anchor`` or Moller-Trumbore tests on the world-space rows of
   ``tris8``.  Returns ``(t, row)``; :func:`resolve_window_payload` then
   recomputes u/v and the shading payload from one row gather of ``tris``
-  (plain torch, as the TPU path left it to XLA).  Two compile-time variants
+  (plain torch, as the TPU path left it to XLA).  ``window_walk_resolve``
+  (the frame's nearest-hit queries, and ``window_walk_hbm(...,
+  resolve=True)`` on the HBM route) runs that resolve as an epilogue of the
+  same launch and returns minwalk's 12 payload rows, bit-equal to
+  :func:`window_payload_rows`; the fused walk's path half and the HBM
+  route's capped queries keep the torch resolve.  Two compile-time variants
   of the same source replace the TPU kernel's flags: ``window_walk_orig``
   (``with_orig``, the fused path+shadow walk) also latches the winner's
   original triangle id; ``window_walk_counts`` (``with_counts``, the
@@ -187,6 +192,23 @@ def window_walk_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
 
 
+def _check_window(o, d, active, t_max, lay: BVHLayout, prepass: int, tritest: str,
+                  tables: tuple) -> _Rows:
+    """Check a window walk's inputs, its ``tritest`` rows and the layout
+    ``tables`` it reads besides them -> the rows."""
+    n = o.shape[1]
+    rs = _rows(lay, tritest)
+    _check(o, torch.float32, (3, n), "o")
+    _check(d, torch.float32, (3, n), "d")
+    _check(active, torch.bool, (n,), "active")
+    _check(t_max, torch.float32, (n,), "t_max")
+    rows = ("tris8", "prepass") if tritest == "mt" else ("tris8bw", "prepassbw")
+    _check_layout(lay, tables + rows, o.device)
+    if not 0 <= prepass <= rs.prepass.shape[0]:
+        raise ValueError(f"prepass={prepass} outside [0, {rs.prepass.shape[0]}]")
+    return rs
+
+
 def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
                    t_min: float, prepass: int, tritest: str, extra: int,
                    steps: tuple = ()):
@@ -195,16 +217,8 @@ def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
     every other variant the packed node table; ``steps``: the ints
     ``tpupt_window_walk_steps`` takes after ``mt``."""
     n = o.shape[1]
-    rs = _rows(lay, tritest)
-    _check(o, torch.float32, (3, n), "o")
-    _check(d, torch.float32, (3, n), "d")
-    _check(active, torch.bool, (n,), "active")
-    _check(t_max, torch.float32, (n,), "t_max")
-    tables = ("tris8", "prepass") if tritest == "mt" else ("tris8bw", "prepassbw")
     nodes = ("nodes", "nodes_meta") if variant.endswith("_v1") else ("nodes_packed",)
-    _check_layout(lay, nodes + tables, o.device)
-    if not 0 <= prepass <= rs.prepass.shape[0]:
-        raise ValueError(f"prepass={prepass} outside [0, {rs.prepass.shape[0]}]")
+    rs = _check_window(o, d, active, t_max, lay, prepass, tritest, nodes)
     out_t = torch.empty(n, dtype=torch.float32, device=o.device)
     outs = [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(1 + extra)]
     ax, ay, az = lay.anchor
@@ -294,28 +308,88 @@ window_walk_steps.launches = 0
 
 def window_walk_hbm_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
                           prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
-                          tally: Tally | None = None):
-    """Plain version of the HBM route's window walk: the window walk's."""
+                          tally: Tally | None = None, resolve: bool = False):
+    """Plain version of the HBM route's window walk: the window walk's, or
+    with ``resolve`` :func:`window_walk_resolve_plain`."""
+    if resolve:
+        return window_walk_resolve_plain(o, d, active, t_max, lay, t_min, prepass, tritest,
+                                         tally=tally)
     return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
 
 
 def window_walk_hbm(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                    prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
+                    prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                    resolve: bool = False):
     """The window walk on the HBM route (replaces ``_window_kernel`` with
-    ``hbm=True``): the same kernel as :func:`window_walk`, counted apart so a
-    run shows which route it took.  The TPU streamed demanded row blocks
-    from HBM through VMEM scratch; on the card every table is in device
-    memory already, and the walk reads its rows through L1/L2."""
+    ``hbm=True``): the same kernel as :func:`window_walk` -> (t, row), or
+    with ``resolve`` (the route's nearest-hit queries) the epilogue form of
+    :func:`window_walk_resolve` -> (12, N) payload rows; counted apart so a
+    run shows which route it took (``launches_resolve``: the epilogue
+    form's).  The TPU streamed demanded row blocks from HBM through VMEM
+    scratch; on the card every table is in device memory already, and the
+    walk reads its rows through L1/L2."""
     if o.device.type == "cpu":
-        return window_walk_hbm_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
-    out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
-                         tritest, 0)
+        return window_walk_hbm_plain(o, d, active, t_max, lay, t_min, prepass, tritest,
+                                     resolve=resolve)
+    if resolve:
+        out = _launch_window_resolve(o, d, active, t_max, lay, t_min, prepass, tritest)
+    else:
+        out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
+                             tritest, 0)
     window_walk_hbm.launches += 1
     window_walk_hbm.launches_mt += tritest == "mt"
+    window_walk_hbm.launches_resolve += resolve
     return out
 
 
 window_walk_hbm.launches = window_walk_hbm.launches_mt = 0
+window_walk_hbm.launches_resolve = 0
+
+
+def window_walk_resolve_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                              prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
+                              tally: Tally | None = None):
+    """Plain version of the window walk's payload epilogue: the window
+    walk's plain version, then :func:`window_payload_rows` -> (12, N)."""
+    t, row = _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+    return window_payload_rows(lay, t, row, t_max, o, d)
+
+
+def _launch_window_resolve(o, d, active, t_max, lay: BVHLayout, t_min: float,
+                           prepass: int, tritest: str):
+    """Check the inputs and launch ``tpupt_window_walk_resolve`` -> (12, N)
+    float32."""
+    n = o.shape[1]
+    rs = _check_window(o, d, active, t_max, lay, prepass, tritest, ("nodes_packed", "tris"))
+    out = torch.empty((12, n), dtype=torch.float32, device=o.device)
+    ax, ay, az = lay.anchor
+    rc = load_library().tpupt_window_walk_resolve(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
+        lay.nodes_packed.data_ptr(), rs.table.data_ptr(), rs.prepass.data_ptr(), prepass,
+        ax, ay, az, lay.num_nodes, lay.num_tris, t_min, n, int(tritest == "mt"),
+        lay.tris.data_ptr(), out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"window_walk_resolve kernel launch failed: cudaError {rc}")
+    return out
+
+
+def window_walk_resolve(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
+                        prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
+    """The window walk with its payload epilogue (replaces ``_window_kernel``
+    plus the XLA-fused ``resolve_window_payload``) -> (12, N) float32 rows
+    [t, u, v, orig, mat, light+1, pos.xyz, normal.xyz], minwalk's layout (t
+    stays at t_max where nothing nearer was hit; such lanes resolve the
+    sentinel row, u = v = 0): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Inputs as :func:`window_walk`."""
+    if o.device.type == "cpu":
+        return window_walk_resolve_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window_resolve(o, d, active, t_max, lay, t_min, prepass, tritest)
+    window_walk_resolve.launches += 1
+    window_walk_resolve.launches_mt += tritest == "mt"
+    return out
+
+
+window_walk_resolve.launches = window_walk_resolve.launches_mt = 0
 
 
 def window_walk_orig_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
@@ -394,14 +468,11 @@ def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
 window_walk_counts.launches = window_walk_counts.launches_mt = 0
 
 
-def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
-                           resolve: bool = True) -> HitShade:
-    """Kernel rows (t, row) -> HitShade: one row gather of ``lay.tris``, u/v
+def _resolved_uv(lay: BVHLayout, t_raw, row, t_max, o, d):
+    """The resolve's first half -> (t, the winning rows of ``lay.tris``
+    (N, 24), u, v): t = ``t_raw`` where it beats ``t_max``, else inf; u/v
     recomputed with Moller-Trumbore (the sentinel row is all zeros, so
-    misses get u = v = 0), position and normal interpolated from the row.
-    ``resolve=False`` (the HBM route's capped shadow queries) stops after t,
-    u, v and the original triangle id: mat 0, light -1, position and normal
-    0, the reference's fill values."""
+    misses get u = v = 0) and clamped to [0, 1] on hits."""
     t = torch.where(t_raw < t_max, t_raw, torch.inf)
     rows = lay.tris[row.to(torch.int64)]                 # (N, 24)
 
@@ -426,16 +497,21 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
     hit_ok = torch.isfinite(t)
     u = torch.where(hit_ok, torch.clamp(u, 0.0, 1.0), 0.0)
     v = torch.where(hit_ok, torch.clamp(v, 0.0, 1.0), 0.0)
-    tri = col(9).to(torch.int64)
-    if not resolve:
-        n = t.shape[0]
-        return HitShade(
-            t=t, u=u, v=v, tri=tri,
-            mat=torch.zeros(n, dtype=torch.int64, device=t.device),
-            light=torch.full((n,), -1, dtype=torch.int64, device=t.device),
-            pos=torch.zeros((3, n), device=t.device),
-            normal=torch.zeros((3, n), device=t.device),
-        )
+    return t, rows, u, v
+
+
+def window_payload_rows(lay: BVHLayout, t_raw, row, t_max, o, d) -> torch.Tensor:
+    """Kernel rows (t, row) -> the (12, N) float32 payload rows of minwalk's
+    layout (:func:`minwalk_plain`): t_raw, u, v, orig, material, light+1,
+    position (3) and unit normal (3), interpolated from one row gather of
+    ``lay.tris`` (the arithmetic of the reference's
+    ``resolve_window_payload``; ``csrc/window_walk.cu``'s epilogue mirrors
+    it)."""
+    _, rows, u, v = _resolved_uv(lay, t_raw, row, t_max, o, d)
+
+    def col(k):
+        return rows[:, k]
+
     w0 = 1.0 - u - v
     px = col(0) + u * col(3) + v * col(6)
     py = col(1) + u * col(4) + v * col(7)
@@ -444,12 +520,36 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
     ny = col(11) * w0 + col(14) * u + col(17) * v
     nz = col(12) * w0 + col(15) * u + col(18) * v
     rlen = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    return torch.stack([t_raw, u, v, col(9), col(19), col(20), px, py, pz,
+                        nx * rlen, ny * rlen, nz * rlen])
+
+
+def payload_hit(out: torch.Tensor, t_max) -> HitShade:
+    """(12, N) payload rows (minwalk's, or the window walk's epilogue) ->
+    HitShade: t beyond ``t_max`` a miss (inf), the ids as int64, light+1
+    back to the light-table index."""
+    return HitShade(t=torch.where(out[0] < t_max, out[0], torch.inf), u=out[1],
+                    v=out[2], tri=out[3].to(torch.int64), mat=out[4].to(torch.int64),
+                    light=out[5].to(torch.int64) - 1, pos=out[6:9], normal=out[9:12])
+
+
+def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
+                           resolve: bool = True) -> HitShade:
+    """Kernel rows (t, row) -> HitShade through the torch resolve
+    (:func:`window_payload_rows`, then :func:`payload_hit`).
+    ``resolve=False`` (the HBM route's capped shadow queries) stops after t,
+    u, v and the original triangle id: mat 0, light -1, position and normal
+    0, the reference's fill values."""
+    if resolve:
+        return payload_hit(window_payload_rows(lay, t_raw, row, t_max, o, d), t_max)
+    t, rows, u, v = _resolved_uv(lay, t_raw, row, t_max, o, d)
+    n = t.shape[0]
     return HitShade(
-        t=t, u=u, v=v, tri=tri,
-        mat=col(19).to(torch.int64),
-        light=col(20).to(torch.int64) - 1,
-        pos=torch.stack([px, py, pz]),
-        normal=torch.stack([nx * rlen, ny * rlen, nz * rlen]),
+        t=t, u=u, v=v, tri=rows[:, 9].to(torch.int64),
+        mat=torch.zeros(n, dtype=torch.int64, device=t.device),
+        light=torch.full((n,), -1, dtype=torch.int64, device=t.device),
+        pos=torch.zeros((3, n), device=t.device),
+        normal=torch.zeros((3, n), device=t.device),
     )
 
 
@@ -457,13 +557,20 @@ def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
                          t_max=None, prepass: int = DEFAULT_PREPASS,
                          tritest: str = "bw", hbm: bool = False,
                          resolve: bool = True) -> HitShade:
-    """(3, N) rays -> nearest-hit HitShade (resolved as
-    :func:`resolve_window_payload` says).  ``hbm`` launches through
+    """(3, N) rays -> nearest-hit HitShade.  Nearest-hit queries
+    (``resolve``) take the window walk with its payload epilogue
+    (:func:`window_walk_resolve`, or on the HBM route ``window_walk_hbm(...,
+    resolve=True)``); ``resolve=False`` takes the walk alone and the torch
+    resolve (:func:`resolve_window_payload`).  ``hbm`` launches through
     :func:`window_walk_hbm`, the HBM route's wrapper."""
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
+    pp = window_prepass(lay, prepass)
+    if resolve:
+        out = (window_walk_hbm(o, d, active, t_max, lay, t_min, pp, tritest, resolve=True)
+               if hbm else window_walk_resolve(o, d, active, t_max, lay, t_min, pp, tritest))
+        return payload_hit(out, t_max)
     walk_fn = window_walk_hbm if hbm else window_walk
-    t, row = walk_fn(o, d, active, t_max, lay, t_min, window_prepass(lay, prepass),
-                     tritest)
+    t, row = walk_fn(o, d, active, t_max, lay, t_min, pp, tritest)
     return resolve_window_payload(lay, t, row, t_max, o, d, resolve)
 
 
@@ -603,11 +710,7 @@ def intersect_bvh_minwalk(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
     ``resolve=True``)."""
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
     prepass = min(prepass, lay.prepass.shape[0], lay.num_tris)
-    out = minwalk(o, d, active, t_max, lay, t_min, prepass)
-    return HitShade(t=torch.where(out[0] < t_max, out[0], torch.inf), u=out[1],
-                    v=out[2], tri=out[3].to(torch.int64),
-                    mat=out[4].to(torch.int64), light=out[5].to(torch.int64) - 1,
-                    pos=out[6:9], normal=out[9:12])
+    return payload_hit(minwalk(o, d, active, t_max, lay, t_min, prepass), t_max)
 
 
 # ---------------------------------------------------------------------------
@@ -1043,8 +1146,9 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
     return fn
 
 
-# the most lane planes a walk kernel indexes with one int32 offset: minwalk's
-# 12 output rows (csrc/walk_common.cuh:write_payload)
+# the most lane planes a walk kernel indexes with one int32 offset: the 12
+# payload rows of minwalk and the window walk's epilogue
+# (csrc/walk_common.cuh:write_payload)
 MAX_PLANES = 12
 
 

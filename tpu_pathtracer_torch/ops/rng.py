@@ -10,6 +10,13 @@ halves (:func:`_mul32`) so no int64 product ever overflows.
 ``uniforms_r2``: the padded rank-1 Rd lattice sampler (cfg.sampler="r2"),
 bit-equal to the reference's, in the same int64 form.
 
+Those int64 forms are ``uniforms_plain`` and ``uniforms_r2_plain``.  The
+wrappers ``uniforms`` and ``uniforms_r2`` take them only for CPU tensors;
+for CUDA tensors they launch the kernels of ``csrc/rng.cu`` (native uint32,
+one thread a lane, bit-equal; the host forms each group's keys with
+:func:`uniform_keys` / :func:`uniform_r2_keys`) or raise, and count the
+launches in ``.launches``.
+
 ``prng_key``/``fold_in``/``key_data``/``uniform``: a host-side threefry2x32,
 bit-equal to ``jax.random.PRNGKey``/``fold_in``/``key_data``/``uniform``
 under JAX's default threefry implementation (the partitionable counter
@@ -21,8 +28,12 @@ scalar calls of it per frame; TILED noise draws its 64x64 float4 tiles with
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from .cuda_build import load_library
 
 _M32 = 0xFFFFFFFF
 
@@ -61,9 +72,10 @@ def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def uniforms(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-             count: int) -> torch.Tensor:
-    """(N,) int64 pixel ids -> (count, N) independent uniforms in [0, 1).
+def uniforms_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
+                   count: int) -> torch.Tensor:
+    """Plain torch version of ``csrc/rng.cu:tpupt_uniforms``: (N,) int64
+    pixel ids -> (count, N) independent uniforms in [0, 1).
 
     ``salt`` folds the user seed in; ``frame``/``bounce`` are scalar
     counters.  Each group of 4 rows is one PCG4D evaluation re-keyed by the
@@ -93,9 +105,10 @@ def _rd_alphas_u32(count: int) -> list[int]:
     return [int((1.0 / x) ** i % 1.0 * 4294967296.0) | 1 for i in range(1, d + 1)]
 
 
-def uniforms_r2(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-                count: int) -> torch.Tensor:
-    """(N,) int64 pixel ids -> (count, N) low-discrepancy uniforms over
+def uniforms_r2_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
+                      count: int) -> torch.Tensor:
+    """Plain torch version of ``csrc/rng.cu:tpupt_uniforms_r2``: (N,) int64
+    pixel ids -> (count, N) low-discrepancy uniforms over
     frames: Cranley-Patterson-rotated R2 lattices in blocks of two
     dimensions, each block with its own per-(pixel, bounce, block) rotation
     and XOR index scramble, ``u_i = (rot_i + (frame ^ c_b) * alpha_i) mod
@@ -122,6 +135,97 @@ def uniforms_r2(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
                 bits = (rot[half * 2 + lane] + _mul32(idx, alphas2[lane])) & _M32
                 outs.append(_to_unit_float(bits))
     return torch.stack(outs[:count])
+
+
+# ---------------------------------------------------------------------------
+# the kernels (csrc/rng.cu) and their wrappers
+# ---------------------------------------------------------------------------
+
+MAX_COUNT = 16  # the most rows one call draws (csrc/rng.cu:kMaxCount)
+_GROUPS = MAX_COUNT // 4
+
+
+def uniform_keys(frame: int, bounce: int, salt: int, count: int) -> list[int]:
+    """The scalar keys of :func:`uniforms_plain`'s PCG4D groups, as it forms
+    them with Python ints masked to 32 bits -> [b, c, d] of each group, zero
+    padded to MAX_COUNT rows (``csrc/rng.cu:tpupt_uniforms``'s key block)."""
+    mixed = (bounce ^ ((salt << 1) & _M32)) & _M32
+    keys = []
+    for group in range((count + 3) // 4):
+        keys += [(frame + 0x9E3779B9 * group) & _M32, mixed,
+                 (salt + group * 0x85EBCA6B) & _M32]
+    return keys + [0] * (3 * _GROUPS - len(keys))
+
+
+def uniform_r2_keys(frame: int, bounce: int, salt: int, count: int) -> list[int]:
+    """The scalar keys of :func:`uniforms_r2_plain`'s PCG4D pairs -> [rot_b,
+    rot_d, scr_b, scr_d] of each pair (zero padded to MAX_COUNT rows), then
+    the shared c key, the frame and the two lattice generators
+    (``csrc/rng.cu:tpupt_uniforms_r2``'s key block)."""
+    keys = []
+    for pair in range((count + 3) // 4):
+        keys += [(0x52D00000 + 0x9E3779B9 * pair) & _M32, (salt + pair * 0x85EBCA6B) & _M32,
+                 (0x5C4AB1E5 + 0x9E3779B9 * pair) & _M32, (salt + pair * 0xC2B2AE35) & _M32]
+    keys += [0] * (4 * _GROUPS - len(keys))
+    return keys + [(bounce ^ ((salt << 1) & _M32)) & _M32, frame & _M32,
+                   *_rd_alphas_u32(2)]
+
+
+def _launch_uniforms(symbol: str, pixel_id: torch.Tensor, keys: list[int],
+                     count: int) -> torch.Tensor:
+    """Launch ``tpupt_<symbol>`` -> (count, N) float32."""
+    n = pixel_id.shape[0]
+    out = torch.empty((count, n), dtype=torch.float32, device=pixel_id.device)
+    block = (ctypes.c_uint32 * len(keys))(*keys)
+    rc = getattr(load_library(), f"tpupt_{symbol}")(
+        pixel_id.data_ptr(), ctypes.addressof(block), count, n, out.data_ptr(),
+        torch.cuda.current_stream(pixel_id.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
+    return out
+
+
+def _check_draw(pixel_id: torch.Tensor, count: int) -> None:
+    if not 1 <= count <= MAX_COUNT:
+        raise ValueError(f"count={count}: expected 1 .. {MAX_COUNT}")
+    if pixel_id.dtype != torch.int64 or pixel_id.dim() != 1 or not pixel_id.is_contiguous():
+        raise ValueError(f"pixel_id: expected a contiguous (N,) int64 tensor, got "
+                         f"{pixel_id.dtype} {tuple(pixel_id.shape)} "
+                         f"contiguous={pixel_id.is_contiguous()}")
+
+
+def uniforms(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
+             count: int) -> torch.Tensor:
+    """(N,) int64 pixel ids -> (count, N) independent uniforms in [0, 1)
+    (:func:`uniforms_plain`): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``count``: 1 .. MAX_COUNT."""
+    _check_draw(pixel_id, count)
+    if pixel_id.device.type == "cpu":
+        return uniforms_plain(pixel_id, frame, bounce, salt, count)
+    out = _launch_uniforms("uniforms", pixel_id, uniform_keys(frame, bounce, salt, count),
+                           count)
+    uniforms.launches += 1
+    return out
+
+
+uniforms.launches = 0
+
+
+def uniforms_r2(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
+                count: int) -> torch.Tensor:
+    """(N,) int64 pixel ids -> (count, N) low-discrepancy uniforms
+    (:func:`uniforms_r2_plain`): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``count``: 1 .. MAX_COUNT."""
+    _check_draw(pixel_id, count)
+    if pixel_id.device.type == "cpu":
+        return uniforms_r2_plain(pixel_id, frame, bounce, salt, count)
+    out = _launch_uniforms("uniforms_r2", pixel_id,
+                           uniform_r2_keys(frame, bounce, salt, count), count)
+    uniforms_r2.launches += 1
+    return out
+
+
+uniforms_r2.launches = 0
 
 
 # ---------------------------------------------------------------------------
