@@ -29,8 +29,8 @@ Phases (any failure raises, so the exit code is not 0):
    8;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
-   event breakdown, and each kernel's launch count in that run (9 uniforms
-   and 8 epilogue walks a frame);
+   event breakdown, and each kernel's launch count in that run (9 uniforms,
+   8 epilogue walks, 8 shadings and 7 sorts of a key and a gather a frame);
 5. parity: 150x200, depth 8, 16 frames against the committed self-golden
    (rel_mse < 1e-3, 0.999 < mean_ratio < 1.001);
 6. CLI env path: ``tpu_pathtracer_torch.cli.main`` at 1920x1080, depth 8,
@@ -206,10 +206,25 @@ Phases (any failure raises, so the exit code is not 0):
     (1080p, depth 8) with the kernels and with the plain versions put back
     (``plain_stages``), in turns: ms/frame, walk_nearest, device ms and
     kernels a frame, every frame bit-equal; and the self-golden gate at the
-    default path's rel_mse 1.5807e-8 or better.
+    default path's rel_mse 1.5807e-8 or better;
+23. the shading and the wavefront sort as hand kernels: ``shade_bounce``
+    (csrc/shade.cu, both forms of the bounce), ``sort_key`` and
+    ``gather_planes`` (csrc/wavefront_sort.cu) against their plain versions
+    bit for bit on every lane of the main path's whole camera and bounce-1
+    wavefronts (the sorts after bounces 1 and 2) and on 65,536 lanes drawn
+    from them; their times (queued) beside their bounds, the plain
+    versions' and torch.sort's; then the main path, the unsorted frame, the
+    fused walk, prefix sorts and the env-lit path (1080p, depth 8) with the
+    kernels and with the plain shading and sort put back
+    (``plain_stages(SHADE_SORT_STAGES)``), in turns: ms/frame, device ms,
+    kernels a frame, the sort and walk spans, every frame bit-equal, the
+    launches a frame asserted (8 shadings where
+    ops/shade.py:shade_kernel_covers holds, 0 on the env-lit path; 7 keys
+    and gathers on the sorted pipelines); and the self-golden gate again.
 
-The main path's frame (phase 4) launches 9 ``uniforms`` and 8
-``window_walk_resolve`` a frame, the capped walk, and nothing else.
+The main path's frame (phase 4) launches 9 ``uniforms``, 8
+``window_walk_resolve``, 8 ``shade_bounce``, 7 ``sort_key`` and 7
+``gather_planes`` a frame, the capped walk, and nothing else.
 
 Phase 3 also holds the bench's four kernels against their plain versions
 on 65,536 lanes of the same wavefronts: minwalk on camera and bounce-1
@@ -235,12 +250,16 @@ leaf on a lane with no candidate); the count kernel needs every leaf.
 The uniforms move the int64 id in and ``count`` float32 rows out a lane,
 their integer operations (32 a PCG4D call) each in an FMA's slot; the
 epilogue form is the window walk's bound with 48 bytes of payload out, one
-96-byte MT row read and the resolve's operations a lane.
+96-byte MT row read and the resolve's operations a lane.  The shading moves
+(175 + 20 S) bytes a lane (12 more in the inline form) and the scene tables
+once, its ~360 + 10 S operations a lane below that; the sort's key 41 bytes
+a lane, the gather the permutation and each plane in and out once.
 
 The line before the last is the kernel table as JSON (launches: the run of
 the path that drives each kernel -- the main path for the epilogue form
-(``window_walk_resolve``), the uniforms and the capped walk, the CLI env
-path for the any-hit walk, the r2 card frames of phase 19 for
+(``window_walk_resolve``), the uniforms, the capped walk, the shading and
+the sort's two kernels, the CLI env path for the any-hit walk, the r2 card
+frames of phase 19 for
 ``uniforms_r2``, the launch probe's run for ``window_walk`` (the form without
 the epilogue, which no frame path launches: its all-dead lanes), the bench
 runs for the bench's four, the terrain path for the HBM route and, with tritest="mt", for the MT window walk and its
@@ -254,12 +273,14 @@ A/Bs of phases 14 and 17, none of them the launches that compare a kernel
 with its plain version or time it; the rows of the probe, the count and
 the targeted kernel carry their ptxas registers and spills per instance
 (``registers``) and their A/B readings (``ab_full_ms``); the epilogue form,
-the capped walk and the fused walk also carry ``launches_per_sample_fuse2``, their launches
-a sample in a 2-spp frame at fuse 2, from phase 19, and the epilogue form,
-the capped and any-hit walks ``launches_per_frame_spectral``, their launches a frame on
-phase 20's spectral CLI path, and ``launches_per_frame_mesh2x1``, their
-launches a frame on phase 21's 2x1 mesh, the any-hit walk's env-lit); the
-last line is
+the capped walk, the fused walk, the shading and the sort's two kernels also
+carry ``launches_per_sample_fuse2``, their launches a sample in a 2-spp frame
+at fuse 2, from phase 19, and the epilogue form, the capped and any-hit walks,
+the shading and the sort's kernels ``launches_per_frame_spectral``, their
+launches a frame on phase 20's spectral CLI path (hero sampling: no shading
+kernel), and ``launches_per_frame_mesh2x1``, their launches a frame on phase
+21's 2x1 mesh, the any-hit walk's env-lit; the shading's row carries phase
+23's turns); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -293,6 +314,7 @@ KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
            "window_walk_resolve", "uniforms", "uniforms_r2",
+           "shade_bounce", "sort_key", "gather_planes",
            *WALK_YARDSTICKS, *MARCH_YARDSTICKS,
            "window_walk_steps", "capped_walk_steps", "anyhit_walk_steps")
 # the yardsticks of the A/Bs (phases 14, 17 and 18): no counted run of another
@@ -301,9 +323,10 @@ YARDSTICKS = (*WALK_YARDSTICKS, *MARCH_YARDSTICKS, "window_walk_steps",
               "capped_walk_steps", "anyhit_walk_steps")
 # the frame paths' nearest-hit wrapper (the window walk with its payload
 # epilogue), and the kernels of the main path's frame: nearest hits, shadow
-# rays, uniforms
+# rays, uniforms, the shading, the sort's key and gather
 NEAREST = "window_walk_resolve"
-MAIN_PATH = (NEAREST, "capped_walk", "uniforms")
+SHADE_SORT = ("shade_bounce", "sort_key", "gather_planes")
+MAIN_PATH = (NEAREST, "capped_walk", "uniforms", *SHADE_SORT)
 # the kernels whose wrapper is not ops/hopper_traverse.<name>: module, wrapper,
 # its plain version
 KERNEL_HOMES = {
@@ -317,7 +340,10 @@ KERNEL_HOMES = {
     "sweep1_v1": ("scripts.experimental_sweep", "intersect_sweep1_v1",
                   "intersect_sweep1_plain"),
     "uniforms": ("ops.rng", "uniforms", "uniforms_plain"),
-    "uniforms_r2": ("ops.rng", "uniforms_r2", "uniforms_r2_plain")}
+    "uniforms_r2": ("ops.rng", "uniforms_r2", "uniforms_r2_plain"),
+    "shade_bounce": ("ops.shade", "shade_bounce", "shade_bounce_plain"),
+    "sort_key": ("ops.wavefront_sort", "sort_key", "sort_key_plain"),
+    "gather_planes": ("ops.wavefront_sort", "gather_planes", "gather_planes_plain")}
 PAYLOAD_ATOL = 1e-6    # minwalk's position and normal, kernel vs plain (rsqrt)
 VARIANTS = {           # the bench's kernel switches: config and the kernel each adds
     "minwalk": ({"traversal_kernel": "minwalk"}, "minwalk"),
@@ -1227,10 +1253,18 @@ def counted_run(yardsticks: bool = False):
     plains = {(mod, plain) for mod, _, plain in where.values()}  # a yardstick shares one
     plain_cuda = {plain: 0 for _, plain in plains}
 
+    def on_cuda(a) -> bool:
+        """A CUDA tensor, or one inside a tuple, list or dict argument (the
+        shading's plain version takes NamedTuples of planes)."""
+        if isinstance(a, torch.Tensor):
+            return a.is_cuda
+        if isinstance(a, (tuple, list)):
+            return any(on_cuda(x) for x in a)
+        return isinstance(a, dict) and any(on_cuda(x) for x in a.values())
+
     def counted(name, fn):
         def wrapper(*args, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda
-                   for a in (*args, *kw.values())):
+            if any(on_cuda(a) for a in (*args, *kw.values())):
                 plain_cuda[name] += 1
             return fn(*args, **kw)
         return wrapper
@@ -1321,10 +1355,11 @@ def phase_main_path(renderer) -> tuple[dict, int]:
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
         raise AssertionError(f"main path image not finite / wrong shape {img.shape}")
     frames = 3 + 3 + 1  # timed_frames(timed=3), then the counted frame
-    if launches["capped_walk"] <= 0 or (launches["uniforms"], launches[NEAREST]) != (
-            9 * frames, 8 * frames):
-        raise AssertionError(f"the main path's kernels did not launch 9 uniforms and "
-                             f"8 {NEAREST} a frame over {frames} frames: {launches}")
+    want = {"uniforms": 9, NEAREST: 8, "shade_bounce": 8, "sort_key": 7, "gather_planes": 7}
+    if launches["capped_walk"] <= 0 or any(launches[k] != n * frames
+                                           for k, n in want.items()):
+        raise AssertionError(f"the main path's kernels did not launch {want} a frame "
+                             f"over {frames} frames: {launches}")
     extra = {k: launches[k] for k in KERNELS if k not in MAIN_PATH and launches[k]}
     if extra:
         raise AssertionError(f"the default main path launched other kernels: {extra}")
@@ -1585,6 +1620,7 @@ def mode_frame(renderer, cfg, what: str, kernels=(NEAREST, "capped_walk")):
     """Frame 0 of ``cfg`` through render_frame with ``renderer``'s scene and
     intersector, in a counted run that must launch ``kernels`` and no plain
     version on a CUDA tensor -> (image, the run's launches)."""
+    from tpu_pathtracer_torch.ops.shade import shade_kernel_covers
     from tpu_pathtracer_torch.render.state import init_state, render_frame
 
     with counted_run() as run:
@@ -1593,6 +1629,10 @@ def mode_frame(renderer, cfg, what: str, kernels=(NEAREST, "capped_walk")):
         img = st.accum.cpu().numpy()
     if min(run["launches"][k] for k in kernels) <= 0 or any(run["plain_cuda"].values()):
         raise AssertionError(f"frame mode {what}: expected launches of {kernels}: {run}")
+    # the shading kernel runs where its rule covers the frame, and only there
+    if bool(run["launches"]["shade_bounce"]) != shade_kernel_covers(cfg, renderer.scene):
+        raise AssertionError(f"frame mode {what}: shade_bounce launched "
+                             f"{run['launches']['shade_bounce']} times: {run}")
     if not np.isfinite(img).all() or img.mean() <= 0:
         raise AssertionError(f"frame mode {what}: image not finite or black")
     return img, run["launches"]
@@ -1605,6 +1645,7 @@ def mode_turns(label: str, tmp: str, configs: dict, per: int = 1) -> dict:
     launches counted over the turn's 5 frames.  ``per``: samples a frame.
     -> {config: [turn readings]}."""
     from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.ops.shade import shade_kernel_covers
 
     rs = {k: Renderer(SCENE, WIDTH, HEIGHT, RenderConfig(**MODE_BASE, **kw))
           for k, kw in configs.items()}
@@ -1619,9 +1660,14 @@ def mode_turns(label: str, tmp: str, configs: dict, per: int = 1) -> dict:
             ms = (time.perf_counter() - t0) / 2 * 1e3
             stages = staged_frame(r)
             dev, count = device_ms(r, os.path.join(tmp, f"{label}{i}"))
-        launches = {n: run["launches"][n] / 5 for n in (NEAREST, "capped_walk")}
-        if min(launches.values()) <= 0 or any(run["plain_cuda"].values()):
-            raise AssertionError(f"{label} turn {k}: {run}")
+        launches = {n: run["launches"][n] / 5 for n in (NEAREST, "capped_walk", *SHADE_SORT)}
+        covered = shade_kernel_covers(r.cfg, r.scene)
+        if (min(launches[n] for n in (NEAREST, "capped_walk")) <= 0
+                or bool(launches["shade_bounce"]) != covered
+                or bool(launches["sort_key"]) != r.cfg.sort_rays
+                or any(run["plain_cuda"].values())):
+            raise AssertionError(f"{label} turn {k} (shading kernel covers it: {covered}): "
+                                 f"{run}")
         out[k].append({"ms": ms, "walk_nearest": stages.get("walk_nearest", 0.0),
                        "walk_shadow": stages.get("walk_shadow", 0.0),
                        "sort": stages.get("sort", 0.0), "device_ms": dev,
@@ -1686,7 +1732,7 @@ def phase_frame_modes(tmp: str, smi: str) -> dict:
         if not ok:
             raise AssertionError(f"frame mode {what}: max |diff| {d}")
         if what.startswith("fuse 2"):
-            per_sample = {k: la[k] / 2 for k in (NEAREST, "capped_walk")}
+            per_sample = {k: la[k] / 2 for k in (NEAREST, "capped_walk", *SHADE_SORT)}
     fused_cfg = RenderConfig(**MODE_BASE, samples_per_frame=2, fuse_samples=2,
                              fuse_shadow_walk=True)
     img, la = mode_frame(renderer, fused_cfg, "fused walk, spp 2",
@@ -1949,11 +1995,14 @@ def phase_spectral(tmp: str, smi: str) -> dict:
             f"{float(img.mean()):.5f}; launches a frame "
             + ", ".join(f"{k} {la[k] / 5:g}" for k in
                         (NEAREST, "capped_walk", "anyhit_walk")))
+        # hero sampling keeps the plain shading (ops/shade.py:shade_kernel_covers);
+        # its sorts take the kernels
         if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
                 or img.mean() <= 0 or not os.path.exists(png)
-                or min(la[k] for k in kernels) <= 0 or any(run["plain_cuda"].values())):
+                or min(la[k] for k in kernels) <= 0 or la["shade_bounce"]
+                or not la["sort_key"] or any(run["plain_cuda"].values())):
             raise AssertionError(f"spectral CLI{label}: rc {rc}, {run}")
-        for k in kernels:
+        for k in (*kernels, *SHADE_SORT):
             per_frame[k] = la[k] / 5
 
     atol, allowed = CARD_VS_CPU
@@ -2253,7 +2302,8 @@ def phase_multi_device(tmp: str, smi: str) -> dict:
             "a frame; launches a frame " + ", ".join(f"{n} {v:g}" for n, v in launches.items()))
     log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches_per_frame_mesh2x1": {**{k: per21[k] for k in (NEAREST,
-                                                                     "capped_walk")},
+                                                                     "capped_walk",
+                                                                     *SHADE_SORT)},
                                            "anyhit_walk": per_env["anyhit_walk"]},
             "turns": turns}
 
@@ -2309,13 +2359,14 @@ def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, i
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or img.mean() <= 0:
         raise AssertionError(f"terrain {label}: image not finite, lit, or of its shape")
     others = {k: v for k, v in launches.items()
-              if v and k not in ("window_walk_hbm", "uniforms")}
+              if v and k not in ("window_walk_hbm", "uniforms", *SHADE_SORT)}
     if (launches["window_walk_hbm"] <= 0 or others or any(run["plain_cuda"].values())
+            or min(launches[k] for k in SHADE_SORT) <= 0
             or not 0 < run["launches_resolve"]["window_walk_hbm"] < launches[
                 "window_walk_hbm"]):
         raise AssertionError(f"terrain {label}: expected only window_walk_hbm (nearest "
                              f"queries through its epilogue form, capped ones "
-                             f"without) and uniforms: {run}")
+                             f"without), uniforms and {SHADE_SORT}: {run}")
     mt = launches["window_walk_hbm"] if r.cfg.tritest == "mt" else 0
     if run["launches_mt"]["window_walk_hbm"] != mt:
         raise AssertionError(f"terrain {label}: MT launches {run['launches_mt']}, "
@@ -2419,11 +2470,14 @@ def phase_backend_parity(terrain) -> None:
     for kw in ({"use_pallas": False}, {"intersector": "brute"}):
         with counted_run() as run:
             img, _ = image(box, **kw)
-        # the uniforms are a kernel on every backend; no walk kernel may run
+        # the uniforms and the shading are kernels on every backend; no walk
+        # kernel may run, and the unsorted pipeline no sort
         walks = {k: v for k, v in run["launches"].items()
-                 if v and k not in ("uniforms", "uniforms_r2")}
-        if walks or not run["launches"]["uniforms"] or any(run["plain_cuda"].values()):
-            raise AssertionError(f"{kw}: the portable backend ran a walk kernel: {run}")
+                 if v and k not in ("uniforms", "uniforms_r2", "shade_bounce")}
+        if (walks or not run["launches"]["uniforms"] or not run["launches"]["shade_bounce"]
+                or any(run["plain_cuda"].values())):
+            raise AssertionError(f"{kw}: the portable backend ran a walk or sort kernel, "
+                                 f"or no uniforms or shading kernel: {run}")
         check_parity(f"cornellbox {kw} vs the kernel route", img, kernels)
 
 
@@ -3463,23 +3517,42 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+RNG_RESOLVE_STAGES = ("rng", "resolve")  # the stages phase 22 puts back
+SHADE_SORT_STAGES = ("shade", "sort")   # the stages phase 23 puts back
+
+
 @contextlib.contextmanager
-def plain_stages():
-    """The two XLA-fused stages back on their plain torch versions for the
-    run inside, as the frame ran them before their kernels: ``uniforms`` and
-    ``uniforms_r2`` of ops/rng.py stand aside for ``uniforms_plain`` and
-    ``uniforms_r2_plain``, ``window_walk_resolve`` for the window walk
-    kernel followed by the torch payload rows (``window_payload_rows``)."""
+def plain_stages(stages=RNG_RESOLVE_STAGES):
+    """XLA-fused stages back on their plain torch versions for the run
+    inside, as the frame ran them before their kernels.  ``stages``, any of:
+    "rng", ``uniforms`` and ``uniforms_r2`` of ops/rng.py standing aside for
+    ``uniforms_plain`` and ``uniforms_r2_plain``; "resolve",
+    ``window_walk_resolve`` for the window walk kernel followed by the torch
+    payload rows (``window_payload_rows``); "shade", ops/shade.py's
+    ``shade_bounce`` for ``shade_bounce_plain`` (render/wavefront.py:
+    _shade_plain); "sort", ops/wavefront_sort.py's ``sort_key`` and
+    ``gather_planes`` for their plain versions.  Inside a counted run the
+    plain versions put back are its counted ones."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.ops import rng
+    from tpu_pathtracer_torch.ops import shade
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
 
-    saved = rng.uniforms, rng.uniforms_r2, ht.window_walk_resolve
-    rng.uniforms, rng.uniforms_r2 = rng.uniforms_plain, rng.uniforms_r2_plain
-    ht.window_walk_resolve = torch_resolved(ht.window_walk)
+    swaps = {"rng": [(rng, "uniforms", rng.uniforms_plain),
+                     (rng, "uniforms_r2", rng.uniforms_r2_plain)],
+             "resolve": [(ht, "window_walk_resolve", torch_resolved(ht.window_walk))],
+             "shade": [(shade, "shade_bounce", shade.shade_bounce_plain)],
+             "sort": [(sort, "sort_key", sort.sort_key_plain),
+                      (sort, "gather_planes", sort.gather_planes_plain)]}
+    chosen = [x for st in stages for x in swaps[st]]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in chosen]
+    for mod, name, fn in chosen:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        rng.uniforms, rng.uniforms_r2, ht.window_walk_resolve = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def stage_turns(label: str, tmp: str, scene) -> dict:
@@ -3671,6 +3744,309 @@ def phase_fused_stages(smi: str, priced: Priced) -> list[dict]:
     return entries
 
 
+# the shading kernel's bytes a lane (csrc/shade.cu): the state, the hit record
+# and six uniform rows in (113 + 8 S), the new state and the pack out (62 + 12 S),
+# and the inline form's shadow origin; its float32 operations a lane, counted
+# from the source (cosf and sinf as 20 each), S-independent and a plane's
+OPS_SHADE_LANE, OPS_SHADE_PLANE = 360, 10
+SORT_KEY_LANE_BYTES = 33 + 8  # origin, direction, alive, pixel in; the key out
+OPS_SORT_KEY = 90             # float and integer operations of one key
+SHADE_SORT_TURNS = {          # phase 23's frame paths: scene, config, launches a frame
+    "main path": ("main", {}, {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
+    "unsorted": ("main", {"sort_rays": False},
+                 {"shade_bounce": 8, "sort_key": 0, "gather_planes": 0}),
+    "fused walk": ("main", {"fuse_shadow_walk": True},
+                   {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
+    "prefix sorts": ("main", {"prefix_sort": True},
+                     {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
+    "env-lit path": ("env", {}, {"shade_bounce": 0, "sort_key": 7, "gather_planes": 7}),
+}
+
+
+def table_bytes(*tables) -> int:
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def shade_bound(lanes: int, s: int, inline: bool, scene) -> dict:
+    """One shading launch's bound: each plane of the lane read and written
+    once, the scene tables read once, its operations a lane."""
+    tables = table_bytes(scene.mat_diffuse, scene.mat_emissive, scene.mat_ior,
+                         scene.mat_type, scene.light_cdf, scene.light_p, scene.light_n,
+                         scene.light_pdf, scene.light_area, scene.light_tri,
+                         scene.light_emissive)
+    lane = 175 + 20 * s + (12 if inline else 0)
+    return bound(lanes * lane + tables, lanes * (OPS_SHADE_LANE + OPS_SHADE_PLANE * s))
+
+
+def gather_bound(planes, lanes: int) -> dict:
+    """The gather's bound: the permutation read once, every plane read and
+    written once."""
+    return bound(lanes * 8 + 2 * table_bytes(*(x for x in planes if x is not None)), 0)
+
+
+def shade_inputs(renderer) -> tuple[dict, dict]:
+    """The main path's frame-0 inputs of both new stages at full width, made
+    as render_sample makes them: {"camera": bounce 0's (state, hit, uniforms,
+    bounce), "bounce1": bounce 1's after the first sort and the shadow
+    resolve}, {"bounce 1": the first sort's (state, pack), "bounce 2": the
+    second's}."""
+    from tpu_pathtracer_torch.ops.rng import fold_in, prng_key
+    from tpu_pathtracer_torch.render import noise, state, wavefront
+    from tpu_pathtracer_torch.models.camera import generate_rays_flat
+    from tpu_pathtracer_torch.render.order import make_order
+
+    scene, cfg, isect = renderer.scene, renderer.cfg, renderer._intersect
+    dev = scene.p0.device
+    key = state.fused_wavefront_key(state.frame_rng_key(cfg, prng_key(0), 0))
+    order = make_order(HEIGHT, WIDTH, 0, cfg.traversal_tile, device=dev)
+    pids = noise.pids_from_order(order, WIDTH)
+    jitter = noise.camera_jitter(cfg, fold_in(key, 0xC0FFEE), 0, pids, HEIGHT, WIDTH)
+    o, d = generate_rays_flat(renderer.camera, order.rows, order.cols, jitter[0:2],
+                              HEIGHT, WIDTH, lens_u=jitter[2:4])
+    st0 = wavefront.initial_path_state(o, d, cfg.spectrum_samples, pids)
+    wmin, winv = wavefront.scene_sort_bounds(scene)
+    shading, sorts, st, pack = {}, {}, st0, None
+    for b, name in ((0, "camera"), (1, "bounce1")):
+        if pack is not None:
+            sorts[f"bounce {b}"] = (st, pack)
+            st = wavefront.resolve_shadow(isect, *wavefront.sort_wavefront(st, wmin, winv,
+                                                                          pack),
+                                          cfg.distance_epsilon)
+        hit = isect(st.origin, st.direction, st.alive, coherent=b == 0)
+        uni = noise.bounce_uniforms(cfg, key, 0, b, st.pixel, HEIGHT, WIDTH)
+        shading[name] = (st, hit, uni, b)
+        st, pack = wavefront.trace_bounce(scene, cfg, isect, b, st, uni, defer_shadow=True,
+                                          hit=hit)
+    sorts["bounce 2"] = (st, pack)
+    return shading, sorts
+
+
+def take_lanes(x, idx):
+    """A NamedTuple of planes, a dict of uniform rows or one plane, at the
+    lanes ``idx`` (contiguous)."""
+    if x is None or isinstance(x, int):
+        return x
+    if isinstance(x, dict):
+        return {k: v.index_select(-1, idx).contiguous() for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(take_lanes(v, idx) for v in x))
+    return x.index_select(-1, idx).contiguous()
+
+
+def same_bits(what: str, got, want) -> None:
+    """Two outputs of a stage (nested tuples of planes) bit for bit."""
+    if isinstance(got, (tuple, list)):
+        for k, (a, b) in enumerate(zip(got, want, strict=True)):
+            same_bits(f"{what}[{k}]", a, b)
+        return
+    if got is None or want is None:
+        if got is not want:
+            raise AssertionError(f"{what}: one side is None")
+        return
+    a, b = ((x.view(torch.int32) if x.dtype == torch.float32 else x) for x in (got, want))
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        raise AssertionError(f"{what}: differs on {int((a != b).sum())} elements")
+
+
+def shade_sort_turns(label: str, tmp: str, scene, kw: dict, want: dict) -> dict:
+    """One 1080p frame path with the shading and sort kernels and with their
+    plain versions put back (``plain_stages(SHADE_SORT_STAGES)``), in turns
+    (kernels, plain, plain, kernels): each turn from a reset, 1 warm-up + 3
+    frames by the host clock, one staged frame (sort and walk spans) and one
+    profiled frame (device ms, kernels a frame).  Every turn's image equals
+    the first's bit for bit; a kernels turn launches ``want`` a frame, a plain
+    turn none of the three -> {"kernels": [readings], "plain": [readings]}."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    r = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw))
+    out = {"kernels": [], "plain": []}
+    first = None
+    frames = 4 + 1 + 1
+    for i, which in enumerate(("kernels", "plain", "plain", "kernels")):
+        r.reset()
+        with counted_run() as run, (plain_stages(SHADE_SORT_STAGES) if which == "plain"
+                                    else contextlib.nullcontext()):
+            r.run(1)
+            t0 = time.perf_counter()
+            r.run(3)
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            img = r.image()
+            spans = staged_frame(r)
+            dev, count = device_ms(r, os.path.join(tmp, f"shade{label}{i}"))
+        la = {k: run["launches"][k] / frames for k in SHADE_SORT}
+        expect = want if which == "kernels" else {k: 0 for k in SHADE_SORT}
+        # a plain turn runs the plain versions put back where the kernels ran
+        plain = {k: bool(v) for k, v in run["plain_cuda"].items() if v}
+        expect_plain = {f"{k}_plain": True for k in SHADE_SORT
+                        if which == "plain" and want[k]}
+        if la != expect or plain != expect_plain:
+            raise AssertionError(f"shade/sort turns {label}, {which}: launches a frame {la}, "
+                                 f"expected {expect}; plain versions on CUDA tensors "
+                                 f"{plain}, expected {expect_plain}: {run}")
+        first = img if first is None else first
+        diff = float(np.abs(img - first).max())
+        if not np.array_equal(img, first):
+            raise AssertionError(f"shade/sort turns {label}, {which}: the frame differs from "
+                                 f"the first turn's by {diff}")
+        reading = {"ms": ms, "device_ms": dev, "kernels": count,
+                   **{k: spans.get(k, 0.0) for k in ("sort", "walk_nearest", "walk_shadow",
+                                                     "walk_fused", "sample")}}
+        out[which].append(reading)
+        log(f"  shade/sort turn {label}, {which}: {ms:.2f} ms/frame, device {dev:.2f} ms in "
+            f"{count} kernels a frame; spans sort {reading['sort']:.2f}, walk_nearest "
+            f"{reading['walk_nearest']:.2f}, walk_shadow {reading['walk_shadow']:.2f}, "
+            f"walk_fused {reading['walk_fused']:.2f}, sample {reading['sample']:.2f} ms; "
+            f"launches a frame {la}; image max |diff| to turn 1: {diff:g}")
+    return out
+
+
+def phase_shade_sort(smi: str) -> list[dict]:
+    """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
+    wavefront sort (csrc/wavefront_sort.cu).  Each against its plain version
+    bit for bit on every lane of the main path's whole camera and bounce-1
+    wavefronts (the shading in both forms; the sorts after bounces 0 and 1)
+    and on 65,536 lanes drawn from them; their times (queued) beside their
+    bounds, the plain versions' and torch.sort's; then the main path, the
+    unsorted frame, the fused walk, prefix sorts and the env-lit path in
+    turns with the plain versions put back, and the self-golden gate -> the
+    three kernels' rows of the kernel table."""
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.ops import shade
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
+    from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
+    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+
+    t_phase = time.perf_counter()
+    log(f"the shading and the wavefront sort as hand kernels on {smi}")
+    renderer = Renderer(SCENE, WIDTH, HEIGHT)
+    scene, cfg = renderer.scene, renderer.cfg
+    wmin, winv = scene_sort_bounds(scene)
+    shading, sorts = shade_inputs(renderer)
+    gen = torch.Generator().manual_seed(23)
+    n_full = shading["camera"][0].alive.shape[0]
+    idx = torch.randperm(n_full, generator=gen)[:SAMPLE_LANES].to(scene.p0.device)
+
+    def shade_args(which, lanes):
+        st, hit, uni, b = shading[which]
+        if lanes != "full":
+            st, hit, uni = (take_lanes(x, idx) for x in (st, hit, uni))
+        return scene, cfg, b, st, uni, hit
+
+    def sort_args(which, lanes):
+        st, pack = sorts[which]
+        if lanes != "full":
+            st, pack = take_lanes(st, idx), take_lanes(pack, idx)
+        return st, pack
+
+    for which in shading:
+        for lanes in ("full", SAMPLE_LANES):
+            args = shade_args(which, lanes)
+            for inline in (False, True):
+                same_bits(f"shade_bounce vs plain, {which}, {lanes} lanes, inline={inline}",
+                          shade.shade_bounce(*args, inline), shade.shade_bounce_plain(*args,
+                                                                                       inline))
+    for which in sorts:
+        for lanes in ("full", SAMPLE_LANES):
+            st, pack = sort_args(which, lanes)
+            key = sort.sort_key(st.origin, st.direction, st.alive, st.pixel, wmin, winv)
+            same_bits(f"sort_key vs plain, sort at {which}, {lanes} lanes", key,
+                      sort.sort_key_plain(st.origin, st.direction, st.alive, st.pixel,
+                                          wmin, winv))
+            perm = torch.sort(key, stable=True).indices
+            same_bits(f"gather_planes vs plain, sort at {which}, {lanes} lanes",
+                      sort.gather_planes([*st, *pack], perm),
+                      sort.gather_planes_plain([*st, *pack], perm))
+    torch.cuda.synchronize()
+    log(f"  shade_bounce (both forms), sort_key and gather_planes == their plain versions "
+        f"bit for bit on every lane of the whole camera and bounce-1 wavefronts "
+        f"({n_full} lanes; live {[int(v[0].alive.sum()) for v in shading.values()]}) and of "
+        f"{SAMPLE_LANES} lanes drawn from them")
+
+    # times: the kernels' calls queued behind a spin (the card's time, "ms"),
+    # the plain versions by CUDA events (host work included, as the frame
+    # paid it), torch.sort queued beside the sort's two kernels
+    entries = []
+    st1, hit1, uni1, b1 = shading["bounce1"]
+    s = cfg.spectrum_samples
+    small, full = shade_args("bounce1", SAMPLE_LANES), shade_args("bounce1", "full")
+    ms, full_ms = (queued_ms(lambda a=a: shade.shade_bounce(*a, False)) for a in (small, full))
+    inline_ms = queued_ms(lambda: shade.shade_bounce(*full, True))
+    plain_ms, plain_full = (cuda_ms(lambda a=a: shade.shade_bounce_plain(*a, False), iters=3)
+                            for a in (small, full))
+    bnd, bfull = shade_bound(SAMPLE_LANES, s, False, scene), shade_bound(n_full, s, False,
+                                                                          scene)
+    bin_ = shade_bound(n_full, s, True, scene)
+    entries.append(kernel_entry(
+        "shade_bounce", "shade.cu", "tpu_pathtracer/render/wavefront.py:455", 0.0, ms,
+        plain_ms, full_ms, bnd, plain_full_ms=plain_full, full_inline_ms=inline_ms,
+        bound_full_ms=bfull["bound_ms"], bound_full_by=bfull["bound_by"],
+        full_pct_of_bound=100.0 * bfull["bound_ms"] / full_ms,
+        bound_full_inline_ms=bin_["bound_ms"]))
+    log(f"  shade_bounce, bounce 1 (S = {s}), device time a launch (queued): {SAMPLE_LANES} "
+        f"lanes {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {n_full} "
+        f"lanes {full_ms:.4f} ms, bound {bfull['bound_ms']:.4f} ms ({bfull['bound_by']}) = "
+        f"{100.0 * bfull['bound_ms'] / full_ms:.1f}% of bound; inline form {inline_ms:.4f} ms "
+        f"(bound {bin_['bound_ms']:.4f}).  Plain: {plain_ms:.3f} and {plain_full:.3f} ms")
+
+    st, pack = sort_args("bounce 2", "full")
+    st_s, pack_s = sort_args("bounce 2", SAMPLE_LANES)
+    keys = {n: sort.sort_key(x.origin, x.direction, x.alive, x.pixel, wmin, winv)
+            for n, x in ((SAMPLE_LANES, st_s), ("full", st))}
+    perms = {n: torch.sort(k, stable=True).indices for n, k in keys.items()}
+    planes = {SAMPLE_LANES: [*st_s, *pack_s], "full": [*st, *pack]}
+    times = {}
+    for n, x in ((SAMPLE_LANES, st_s), ("full", st)):
+        times[n] = {
+            "sort_key": queued_ms(lambda x=x: sort.sort_key(x.origin, x.direction, x.alive,
+                                                            x.pixel, wmin, winv)),
+            "gather_planes": queued_ms(lambda n=n: sort.gather_planes(planes[n], perms[n])),
+            "torch_sort": cuda_ms(lambda n=n: torch.sort(keys[n], stable=True), iters=10),
+            "sort_key_plain": cuda_ms(lambda x=x: sort.sort_key_plain(
+                x.origin, x.direction, x.alive, x.pixel, wmin, winv), iters=3),
+            "gather_planes_plain": cuda_ms(lambda n=n: sort.gather_planes_plain(
+                planes[n], perms[n]), iters=3)}
+    for name, line, bfn in (
+            ("sort_key", "tpu_pathtracer/render/wavefront.py:122",
+             lambda n: bound(n * SORT_KEY_LANE_BYTES, n * OPS_SORT_KEY)),
+            ("gather_planes", "tpu_pathtracer/render/wavefront.py:221",
+             lambda n: gather_bound(planes[SAMPLE_LANES if n == SAMPLE_LANES else "full"],
+                                    n))):
+        bnd, bfull = bfn(SAMPLE_LANES), bfn(n_full)
+        t_s, t_f = times[SAMPLE_LANES], times["full"]
+        entries.append(kernel_entry(
+            name, "wavefront_sort.cu", line, 0.0, t_s[name], t_s[f"{name}_plain"],
+            t_f[name], bnd, plain_full_ms=t_f[f"{name}_plain"],
+            torch_sort_ms=t_s["torch_sort"], torch_sort_full_ms=t_f["torch_sort"],
+            bound_full_ms=bfull["bound_ms"], bound_full_by=bfull["bound_by"],
+            full_pct_of_bound=100.0 * bfull["bound_ms"] / t_f[name]))
+        log(f"  {name}, the sort after bounce 1 (S = {s}, {len(planes['full'])} planes, "
+            f"{sum(x is not None for x in planes['full'])} present), device time a launch "
+            f"(queued): {SAMPLE_LANES} lanes {t_s[name]:.4f} ms, bound {bnd['bound_ms']:.4f} "
+            f"ms ({bnd['bound_by']}); {n_full} lanes {t_f[name]:.4f} ms, bound "
+            f"{bfull['bound_ms']:.4f} ms ({bfull['bound_by']}) = "
+            f"{100.0 * bfull['bound_ms'] / t_f[name]:.1f}% of bound.  Plain: "
+            f"{t_s[name + '_plain']:.3f} and {t_f[name + '_plain']:.3f} ms.  torch.sort of the "
+            f"key (CUDA events over back-to-back calls): {t_s['torch_sort']:.4f} and "
+            f"{t_f['torch_sort']:.4f} ms")
+    del renderer, shading, sorts, keys, perms, planes, st, pack, st_s, pack_s, small, full
+
+    main = load_scene(scene_path(SCENE))
+    scenes = {"main": main, "env": attach_env(main, sky_map())}
+    turns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (which, kw, want) in SHADE_SORT_TURNS.items():
+            turns[label] = shade_sort_turns(label, tmp, scenes[which], kw, want)
+    m = phase_parity()["metrics"]
+    if float(f"{m['rel_mse']:.4e}") > SELF_GOLDEN_REL_MSE:
+        raise AssertionError(f"self-golden gate: rel_mse {m['rel_mse']} above "
+                             f"{SELF_GOLDEN_REL_MSE}")
+    log(f"  self-golden rel_mse {m['rel_mse']:.7e} (the default path's before: "
+        f"{SELF_GOLDEN_REL_MSE})")
+    entries[0]["turns"] = turns
+    log(f"shade/sort phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> int:
     smi = phase_device()
     t_start = time.perf_counter()
@@ -3763,6 +4139,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mesh = phase_multi_device(tmp, smi)["launches_per_frame_mesh2x1"]
     kernels += phase_fused_stages(smi, priced)
+    kernels += phase_shade_sort(smi)
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])

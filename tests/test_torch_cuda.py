@@ -6,6 +6,8 @@ runs on a host without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +16,15 @@ from tpu_pathtracer_torch import Renderer, RenderConfig
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.ops import rng as trng
+from tpu_pathtracer_torch.ops import shade as tshade
+from tpu_pathtracer_torch.ops import wavefront_sort as tsort
+from tpu_pathtracer_torch.ops.intersect import HitShade
+from tpu_pathtracer_torch.render import wavefront as twf
 from tpu_pathtracer_torch.scene import load_scene, scene_path
 from tpu_pathtracer_torch.scripts import experimental_sweep as es
 from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
 from torch_parity import (assert_hits_agree, cuda_device, nee_shadow_rays,  # noqa: F401
-                          random_rays)
+                          random_rays, shading_inputs, sort_inputs)
 from torch_terrain import terrain_scene
 
 pytestmark = pytest.mark.cuda
@@ -564,3 +570,179 @@ def test_sweep1_edge_shapes_on_card(which, n, sweep1_layouts):
     assert (es.intersect_sweep1.launches - n0[0], es.intersect_sweep1_v1.launches - n0[1]) \
         == (24 * es.SWEEP1_LAUNCHES, 24)
     assert n < 65537 or bool(torch.isfinite(want.t[act]).any())
+
+
+# ---------------------------------------------------------------------------
+# the shading and the wavefront sort (csrc/shade.cu, csrc/wavefront_sort.cu)
+# ---------------------------------------------------------------------------
+
+SHADE_LANES = (1, 31, 65537)
+# (config fields, inline form, the uniform rows' layout)
+SHADE_CASES = {
+    "default": ({}, False, "prng"),
+    "inline": ({}, True, "prng"),
+    "no-quirks-r2": ({"reference_quirks": False}, False, "r2"),
+    "refract-tiled": ({"refract_dielectric": True}, True, "tiled"),
+    "refract-no-quirks-cull": ({"refract_dielectric": True, "reference_quirks": False,
+                                "cull_zero_nee": True, "pdf_floor": 1e-3}, False, "prng"),
+    "last-bounce-cull": ({"cull_zero_nee": True, "max_path_length": 3}, True, "prng"),
+}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, so that NaNs compare by payload."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same(got, want, what: str) -> None:
+    if got is None or want is None:
+        assert got is None and want is None, what
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert torch.equal(_bits(got), _bits(want)), (
+        what, int((_bits(got) != _bits(want)).sum()))
+
+
+@functools.lru_cache(maxsize=None)
+def _cpu_shading(n: int, spectrum: int):
+    """A Water-plastic scene on the CPU with the four parity types in turn
+    over its materials, and its shading_inputs."""
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), samples=spectrum,
+                       device="cpu")
+    scene = scene._replace(mat_type=torch.arange(scene.mat_type.shape[0]) % 4)
+    return scene, shading_inputs(scene, n, seed=n + spectrum)
+
+
+def _card_shading(n: int, spectrum: int, form: str, dev):
+    """:func:`_cpu_shading` on the card -> (scene, state, hit, uniforms); the
+    uniform rows as the frame lays them out: row views of one (6, N) block
+    (PRNG, r2), or TILED's stacked rows."""
+    scene, inp = _cpu_shading(n, spectrum)
+    scene = type(scene)(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in scene))
+    st = twf.PathState(**{k: torch.from_numpy(v).to(dev) for k, v in inp["state"].items()})
+    hit = HitShade(**{k: torch.from_numpy(v).to(dev) for k, v in inp["hit"].items()})
+    u = torch.from_numpy(inp["u"]).to(dev)
+    if form == "prng":
+        uni = {"light_select": u[0], "light_bary": u[1:3], "lobe": u[3], "bounce_dir": u[4:6]}
+    elif form == "r2":
+        uni = {"light_bary": u[0:2], "bounce_dir": u[2:4], "light_select": u[4], "lobe": u[5]}
+    else:
+        sx, sy, sz, sw = u[:4].contiguous()
+        uni = {"light_select": sz, "light_bary": torch.stack([sw, sx]), "lobe": sy,
+               "bounce_dir": torch.stack([sz, sw])}
+    return scene, st, hit, uni
+
+
+@pytest.mark.parametrize("case", list(SHADE_CASES))
+@pytest.mark.parametrize("spectrum", [3, 16])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_shade_bounce_matches_plain_on_card(n, spectrum, case, cuda_device):
+    """csrc/shade.cu == render/wavefront.py:_shade_plain bit for bit on every
+    output (the new state, the shadow pack, the inline form's shadow origin,
+    the two counts), lane counts around a warp and past 65,536, S = 3 and
+    16, quirks, refraction, zero-NEE culling, the last bounce's gate and a
+    raised pdf floor, the uniform rows of PRNG, r2 and TILED noise."""
+    kw, inline, form = SHADE_CASES[case]
+    cfg = RenderConfig(spectrum_samples=spectrum, **kw)
+    scene, st, hit, uni = _card_shading(n, spectrum, form, cuda_device)
+    assert tshade.shade_kernel_covers(cfg, scene)
+    bounce = 2
+    n0 = tshade.shade_bounce.launches
+    got = tshade.shade_bounce(scene, cfg, bounce, st, uni, hit, inline)
+    assert tshade.shade_bounce.launches == n0 + 1
+    want = tshade.shade_bounce_plain(scene, cfg, bounce, st, uni, hit, inline)
+    for f, a, b in zip(twf.PathState._fields, got[0], want[0]):
+        _same(a, b, f"state.{f}")
+    assert got[0].pixel is st.pixel
+    for f, a, b in zip(twf.ShadowPack._fields, got[1], want[1]):
+        _same(a, b, f"pack.{f}")
+    _same(got[2], want[2], "shadow origin")
+    assert [int(x) for x in got[3]] == [int(x) for x in want[3]]
+    if cfg.max_path_length == bounce + 1:
+        assert not bool(got[1].ok.any())
+
+
+def test_shade_bounce_checks_inputs(cuda_device):
+    """The wrapper raises on what the kernel does not take: a frame it does
+    not cover, a non-contiguous plane, a wrong dtype; it copies nothing."""
+    scene, st, hit, uni = _card_shading(64, 3, "prng", cuda_device)
+    cfg = RenderConfig()
+    with pytest.raises(ValueError):
+        tshade.shade_bounce(scene, RenderConfig(spectrum_samples=16, hero_wavelengths=4),
+                            0, st, uni, hit, False)
+    with pytest.raises(ValueError):
+        tshade.shade_bounce(scene, cfg, 0, st._replace(origin=st.origin.t().contiguous().t()),
+                            uni, hit, False)
+    with pytest.raises(ValueError):
+        tshade.shade_bounce(scene, cfg, 0, st, uni, hit._replace(tri=hit.tri.int()), False)
+
+
+def _sort_state(n: int, dev, hero: bool):
+    """torch_parity.sort_inputs on the card with drawn planes beside them, a
+    shadow pack, and (4, N) hero bins when ``hero``."""
+    o, d, alive, pixel = sort_inputs(n, seed=n)
+    gen = np.random.default_rng(n + 1)
+    f = lambda *shape: torch.from_numpy(gen.random(shape, dtype=np.float32)).to(dev)  # noqa: E731
+    st = twf.PathState(
+        origin=torch.from_numpy(o).to(dev), direction=torch.from_numpy(d).to(dev),
+        throughput=f(3, n), radiance=f(3, n), pdf=f(n), prev_diffuse=f(n), ior=f(n),
+        alive=torch.from_numpy(alive).to(dev), pixel=torch.from_numpy(pixel).to(dev),
+        bins=(torch.from_numpy(gen.integers(0, 16, (4, n))).to(dev) if hero else None))
+    pack = twf.ShadowPack(to_light=f(3, n), cap=f(n),
+                          target=torch.from_numpy(gen.integers(-1, 36, n)).to(dev),
+                          contrib=f(3, n), ok=torch.from_numpy(gen.random(n) < 0.5).to(dev))
+    return st, pack
+
+
+@pytest.mark.parametrize("hero", [False, True])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_wavefront_sort_matches_plain_on_card(n, hero, cuda_device):
+    """csrc/wavefront_sort.cu == the plain key and index_selects bit for
+    bit: the int64 key on every lane (zero components, back-facing
+    directions, origins past the box's clamps, dead lanes), every plane of
+    the state and pack gathered by the permutation, with and without hero
+    bins; sort_wavefront on the card == its plain route."""
+    st, pack = _sort_state(n, cuda_device, hero)
+    wmin, winv = (-1.0, 0.0, -1.0), (0.5, 0.5, 0.5)
+    k0, g0 = tsort.sort_key.launches, tsort.gather_planes.launches
+    key = tsort.sort_key(st.origin, st.direction, st.alive, st.pixel, wmin, winv)
+    assert torch.equal(key, tsort.sort_key_plain(st.origin, st.direction, st.alive,
+                                                 st.pixel, wmin, winv))
+    perm = torch.sort(key, stable=True).indices
+    planes = [*st, *pack]
+    got = tsort.gather_planes(planes, perm)
+    for a, b in zip(got, tsort.gather_planes_plain(planes, perm)):
+        _same(a, b, "plane")
+    assert (tsort.sort_key.launches, tsort.gather_planes.launches) == (k0 + 1, g0 + 1)
+    sst, spk = twf.sort_wavefront(st, wmin, winv, pack)
+    assert (tsort.sort_key.launches, tsort.gather_planes.launches) == (k0 + 2, g0 + 2)
+    for a, b in zip([*sst, *spk], got):
+        _same(a, b, "sort_wavefront")
+    with pytest.raises(ValueError):
+        tsort.gather_planes([st.origin.t()], perm)
+
+
+@pytest.mark.parametrize("kw", [{}, {"sort_rays": False}, {"fuse_shadow_walk": True},
+                                {"prefix_sort": True, "secondary_tile": 64}],
+                         ids=("sorted", "unsorted", "fused", "prefix"))
+def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
+    """A Water-plastic frame (96x64, depth 8) through the shading and sort
+    kernels == the same frame with their plain versions put back, bit for
+    bit; the kernels launch 8 shadings and, on the sorted pipeline, 7 keys
+    and gathers a frame."""
+    cfg = RenderConfig(**kw)
+    frames = 2
+    counts = (tshade.shade_bounce, tsort.sort_key, tsort.gather_planes)
+    r = Renderer("CornellBox-Water-plastic", 96, 64, cfg, device=cuda_device)
+    n0 = [c.launches for c in counts]
+    r.run(frames)
+    got = [c.launches - n for c, n in zip(counts, n0)]
+    sorts = 0 if kw.get("sort_rays") is False else 7 * frames
+    assert got == [8 * frames, sorts, sorts]
+    img = r.image()
+    monkeypatch.setattr(tshade, "shade_bounce", tshade.shade_bounce_plain)
+    monkeypatch.setattr(tsort, "sort_key", tsort.sort_key_plain)
+    monkeypatch.setattr(tsort, "gather_planes", tsort.gather_planes_plain)
+    r.reset()
+    r.run(frames)
+    assert np.isfinite(img).all() and np.array_equal(img, r.image())

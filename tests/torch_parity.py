@@ -140,3 +140,80 @@ def assert_frames_agree(got, want, atol: float = 1e-5, allowed: int = 3) -> None
     assert np.isfinite(got).all() and np.isfinite(want).all()
     off = np.abs(got - want).max(axis=-1) > atol
     assert off.sum() <= allowed, (int(off.sum()), float(np.abs(got - want).max()))
+
+
+def shading_inputs(scene, n: int, seed: int):
+    """Seeded inputs of one bounce's shading on a port ``Scene`` on the CPU
+    -> numpy {"state": PathState fields, "hit": HitShade fields, "u": (6, n)
+    uniform rows in the PRNG order (light_select, light_bary x2, lobe,
+    bounce_dir x2)}.  Lanes: brute hits of random rays inside the Cornell
+    box (emitter hits among them) and misses; every 13th hit moved nearer
+    than the default eps (t = 5e-5), every 11th lane dead; drawn
+    throughputs, radiance, pdfs (every third exactly 1), previous-lobe
+    flags and IoRs (every seventh 1.33); every 17th hemisphere uniform 1e-8
+    (a pdf under a raised pdf_floor) and every 19th light uniform the
+    largest float32 below 1 (the sentinel row past the CDF)."""
+    from tpu_pathtracer_torch.ops.intersect import intersect_brute, shade_from_scene
+
+    o, d = random_rays(n, seed)
+    p = [x.cpu() for x in (scene.p0, scene.p1, scene.p2)]
+    hit = shade_from_scene(scene, intersect_brute(torch.from_numpy(o), torch.from_numpy(d),
+                                                  *p))
+    hit = {k: v.numpy().copy() for k, v in hit._asdict().items()}
+    lane = np.arange(n)
+    hit["t"][(lane % 13 == 5) & np.isfinite(hit["t"])] = np.float32(5e-5)
+    rng = np.random.default_rng(seed + 2)
+    s = scene.mat_diffuse.shape[0]
+    state = {
+        "origin": o, "direction": d,
+        "throughput": rng.uniform(0.05, 1.0, (s, n)).astype(np.float32),
+        "radiance": rng.uniform(0.0, 2.0, (s, n)).astype(np.float32),
+        "pdf": np.where(lane % 3 == 0, 1.0, rng.uniform(0.01, 1.0, n)).astype(np.float32),
+        "prev_diffuse": (rng.random(n) < 0.5).astype(np.float32),
+        "ior": np.where(lane % 7 == 2, 1.33, 1.00029).astype(np.float32),
+        "alive": lane % 11 != 3,
+        "pixel": lane.astype(np.int64),
+    }
+    u = rng.random((6, n), dtype=np.float32)
+    u[5, lane % 17 == 0] = np.float32(1e-8)
+    u[0, lane % 19 == 0] = np.nextafter(np.float32(1.0), np.float32(0.0))
+    return {"state": state, "hit": hit, "u": u}
+
+
+def frames_against_reference(ref_scene, kw: dict, renderer_kw: dict, depth: int = 4,
+                             h: int = 24, w: int = 32, frames: int = 2, scene=None):
+    """(the port's image, the reference's) after ``frames`` frames of one
+    configuration: both Renderers on the CPU, ``kw`` RenderConfig fields and
+    ``renderer_kw`` Renderer arguments on both; ``ref_scene`` a bundled
+    scene's name or the reference's Scene, ``scene`` the port's when the
+    name is not shared."""
+    from tpu_pathtracer.config import RenderConfig as JConfig
+    from tpu_pathtracer.renderer import Renderer as JRenderer
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    kw = {"max_path_length": depth, **kw}
+    ref = JRenderer(ref_scene, w, h, JConfig(**kw), **renderer_kw)
+    ref.run(frames)
+    got = Renderer(ref_scene if scene is None else scene, w, h, RenderConfig(**kw),
+                   device="cpu", **renderer_kw)
+    got.run(frames)
+    img = got.image()
+    assert np.isfinite(img).all() and img.max() > 0
+    return img, np.asarray(ref.image())
+
+
+def sort_inputs(n: int, seed: int):
+    """Seeded inputs of the wavefront sort -> numpy (origins, directions,
+    alive, pixel ids): unit directions with exact zeros and negative z,
+    origins in and beyond the box, dead lanes, pixel ids up to 2^32 - 1."""
+    gen = np.random.default_rng(seed)
+    o = gen.uniform(-1.5, 2.5, (3, n)).astype(np.float32)
+    d = gen.normal(size=(3, n)).astype(np.float32)
+    d[:, ::7] = 0.0
+    d[2, ::7] = -1.0
+    d[0, 3::11] = 0.0
+    d[1, 5::13] = -0.0
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    alive = gen.random(n) < 0.7
+    pixel = gen.integers(0, 2 ** 32, n).astype(np.int64)
+    return o, d, alive, pixel

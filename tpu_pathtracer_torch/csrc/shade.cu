@@ -1,0 +1,405 @@
+// The shading of one bounce in one launch: NEE (the light pick, the solid-
+// angle pdf, the material eval and the power heuristic), the BSDF-arm MIS on
+// emitter hits, the next bounce's BSDF sample and the throughput update, for
+// the four parity materials, one thread a lane.
+//
+// Replaces a stage that XLA fused on the TPU: tpu_pathtracer/render/
+// wavefront.py's trace_bounce after its intersect (:455-760), with
+// models/bsdf.py's eval_material and sample_bounce (:126-188) and the warps
+// of core/sampling.py.  The port's plain version (render/wavefront.py:
+// _shade_plain) issues some 300 elementwise torch launches a bounce.
+//
+// Coverage: what ops/shade.py:shade_kernel_covers admits, the frames with no
+// environment light, no textures, no roughness table, no dispersion and no
+// hero bins, at 1 to kMaxSpectrum spectral planes; reference_quirks,
+// refract_dielectric and cull_zero_nee on or off, the last bounce's NEE gate.
+//
+// Contract: bit-equal to the plain version on the card.  Every value keeps
+// the plain version's operation order (dot = (x*x + y*y) + z*z; left-to-right
+// products and quotients), --fmad=false keeps each multiply and add apart as
+// torch's one-operation kernels do, division and sqrtf are IEEE, normalize is
+// v * rsqrtf(dot(v, v)) as torch.rsqrt, cosf and sinf are the CUDA math
+// library's as torch.cos and torch.sin, the clamps propagate NaN as
+// torch.clamp does, the light pick is torch.searchsorted's upper-bound loop,
+// and every constant that torch folds from a Python double arrives as the
+// float32 it rounds to (ops/shade.py:folded_constants).  The selects are the
+// plain version's torch.where chains, so a NaN in an arm that is not taken
+// stays out.
+//
+// What bounds it on an H100: bytes.  A lane reads 113 + 8 S bytes (the state,
+// the hit record, six uniform rows) and writes 62 + 12 S (the new state and
+// the shadow pack; the inline form 12 more for the shadow origin): 235 bytes
+// at S = 3, 487 MB on 2,073,600 lanes, 0.145 ms at 3.35 TB/s.  Its ~300
+// float32 operations a lane are below that.  The design: one thread a lane,
+// every plane read and written once by consecutive lanes (coalesced), the
+// scene tables (a few hundred bytes) read through the cache, no shared
+// memory; the bounce's two counts are block sums (__syncthreads_count) added
+// into one int64 pair with one atomic a block.  The measured share of the
+// bound: PERF.md section 6, the table of the XLA-fused stages.
+#include <cuda_runtime.h>
+
+// Everything one launch reads and writes (ops/shade.py:_ShadeParams mirrors
+// it field for field).  Planes are contiguous: a (k, n) plane's row r starts
+// at r * n.  Outside the anonymous namespace: the extern "C" launcher takes
+// it, and a type of internal linkage would hide the launcher's symbol.
+struct ShadeParams {
+  // the path state
+  const float* origin;         // (3, n)
+  const float* direction;      // (3, n)
+  const float* throughput;     // (s, n)
+  const float* radiance;       // (s, n)
+  const float* pdf;            // (n,)
+  const float* prev_diffuse;   // (n,)
+  const float* ior;            // (n,)
+  const unsigned char* alive;  // (n,) bool
+  // the hit record
+  const float* t;
+  const long long* tri;
+  const long long* mat;
+  const long long* light;
+  const float* pos;     // (3, n)
+  const float* normal;  // (3, n)
+  // the bounce's uniform rows
+  const float* light_select;
+  const float* light_bary0;
+  const float* light_bary1;
+  const float* lobe;
+  const float* bounce_dir0;
+  const float* bounce_dir1;
+  // the scene tables
+  const float* mat_diffuse;      // (s, m)
+  const float* mat_emissive;     // (s, m)
+  const float* mat_ior;          // (m,)
+  const long long* mat_type;     // (m,)
+  const float* light_cdf;        // (num_lights + 1,)
+  const float* light_p;          // (3 vertices, 3, num_lights + 1)
+  const float* light_n;          // (3 vertices, 3, num_lights + 1)
+  const float* light_pdf;        // (num_lights + 1,)
+  const float* light_area;       // (num_lights + 1,)
+  const long long* light_tri;    // (num_lights + 1,)
+  const float* light_emissive;   // (s, num_lights + 1)
+  // the new state
+  float* out_origin;
+  float* out_direction;
+  float* out_throughput;
+  float* out_radiance;
+  float* out_pdf;
+  float* out_prev_diffuse;
+  float* out_ior;
+  unsigned char* out_alive;
+  // the shadow pack
+  float* to_light;        // (3, n)
+  float* cap;
+  long long* target;
+  float* contrib;         // (s, n)
+  unsigned char* ok;
+  float* shadow_origin;   // (3, n) in the inline form, else null
+  unsigned long long* stats;  // [live path lanes, live shadow lanes]
+  int n, s, m, num_lights;
+  float eps, aeps, four_eps, inv_pi, two_pi, pdf_floor;
+  int last_bounce, quirks, refract, cull_zero_nee;
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSpectrum = 16;  // ops/shade.py:MAX_SPECTRUM
+
+// Material type enum (models/bsdf.py).
+constexpr long long kDiffuse = 0;
+constexpr long long kMirror = 1;
+constexpr long long kPlastic = 2;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 load3(const float* p, size_t n, size_t i) {
+  return {p[i], p[n + i], p[2 * n + i]};
+}
+
+__device__ __forceinline__ void store3(float* p, size_t n, size_t i, V3 v) {
+  p[i] = v.x;
+  p[n + i] = v.y;
+  p[2 * n + i] = v.z;
+}
+
+// core/math3d.py:dot, (a0*b0 + a1*b1) + a2*b2.
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+
+__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+
+// core/math3d.py:reflect, i - (2 * dot(n, i)) * n.
+__device__ __forceinline__ V3 reflect(V3 i, V3 n) {
+  const float k = 2.0f * dot(n, i);
+  return {i.x - k * n.x, i.y - k * n.y, i.z - k * n.z};
+}
+
+// torch.clamp(x, min=lo) and torch.clamp(x, lo, hi): NaN stays NaN.
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// models/bsdf.py:_select4 on the type.
+template <typename T>
+__device__ __forceinline__ T select4(long long mtype, T diffuse, T mirror, T plastic,
+                                     T dielectric) {
+  return mtype == kDiffuse ? diffuse
+         : mtype == kMirror ? mirror
+         : mtype == kPlastic ? plastic
+                             : dielectric;
+}
+
+// core/sampling.py:balance_heuristic (the power heuristic; 0/0 gives 0).
+__device__ __forceinline__ float power_heuristic(float f, float g) {
+  const float f2 = f * f;
+  const float g2 = g * g;
+  const float d = f2 + g2;
+  return d > 0.0f ? f2 / d : 0.0f;
+}
+
+// models/bsdf.py:fresnel; ``i`` points away from the surface.
+__device__ __forceinline__ float fresnel(V3 n, V3 i, float eta_out, float eta_in) {
+  const float eta_scale = eta_out / eta_in;
+  const float cos_i = clamp_nan(dot(n, i), -1.0f, 1.0f);
+  const float sin_t_sq = (eta_scale * eta_scale) * (1.0f - cos_i * cos_i);
+  const float cos_t = sqrtf(clamp_min(1.0f - sin_t_sq, 0.0f));
+  const float r_s = (eta_in * cos_i - eta_out * cos_t) / (eta_in * cos_i + eta_out * cos_t);
+  const float r_p = (eta_in * cos_t - eta_out * cos_i) / (eta_in * cos_t + eta_out * cos_i);
+  return sin_t_sq < 1.0f ? 0.5f * (r_s * r_s + r_p * r_p) : 1.0f;
+}
+
+// core/sampling.py:generate_diffuse_bounce (the cosine-hemisphere warp with
+// the branchless ONB of build_orthonormal_basis).
+__device__ __forceinline__ V3 diffuse_bounce(float u0, float u1, V3 n, float two_pi) {
+  const float cos_theta = sqrtf(u1);
+  const float phi = u0 * two_pi;
+  const float sin_theta = sqrtf(clamp_min(1.0f - cos_theta * cos_theta, 0.0f));
+  const bool negz = n.z < 0.0f;
+  const float a = 1.0f / (negz ? 1.0f - n.z : 1.0f + n.z);
+  const float b = n.x * n.y * a;
+  const V3 u = {1.0f - n.x * n.x * a, -b, negz ? n.x : -n.x};
+  const V3 v = {negz ? b : -b, negz ? n.y * n.y * a - 1.0f : 1.0f - n.y * n.y * a, -n.y};
+  const float c = cosf(phi);
+  const float s = sinf(phi);
+  return {(u.x * c + v.x * s) * sin_theta + n.x * cos_theta,
+          (u.y * c + v.y * s) * sin_theta + n.y * cos_theta,
+          (u.z * c + v.z * s) * sin_theta + n.z * cos_theta};
+}
+
+// torch.searchsorted(cdf, xi, right=True) over cdf[0 .. len): ATen's
+// upper-bound loop, NaN included.
+__device__ __forceinline__ long long upper_bound(const float* cdf, long long len, float xi) {
+  long long lo = 0, hi = len;
+  while (lo < hi) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (!(cdf[mid] > xi)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  bool counted_path = false, counted_shadow = false;
+  if (lane < p.n) {
+    const size_t n = p.n, i = lane;
+    const float eps = p.eps, aeps = p.aeps;
+    const bool alive = p.alive[i] != 0;
+    const float t = p.t[i];
+    // a hit nearer than eps, or a miss, kills the path
+    const bool valid = alive && isfinite(t) && t >= eps;
+    const long long tri = valid ? p.tri[i] : 0;
+    const long long mat = p.mat[i];
+    const float m_ior = p.mat_ior[mat];
+    const long long m_type = p.mat_type[mat];
+    const V3 hp = load3(p.pos, n, i);
+    const V3 hn = load3(p.normal, n, i);
+    const V3 o = load3(p.origin, n, i);
+    const V3 w_i = load3(p.direction, n, i);
+    const float lobe_u = p.lobe[i];
+    const float pdf_in = p.pdf[i];
+    const float ior_in = p.ior[i];
+    const size_t lrow = static_cast<size_t>(p.num_lights) + 1;
+
+    // ---- next-event estimation ----
+    const long long li = upper_bound(p.light_cdf + 1, p.num_lights, p.light_select[i]);
+    const float r1 = sqrtf(p.light_bary0[i]);
+    const float r2 = p.light_bary1[i];
+    const float w0 = 1.0f - r1, w1 = r1 * (1.0f - r2), w2 = r1 * r2;
+    V3 lp, lnv;
+    {
+      const float* P = p.light_p + li;
+      const float* N = p.light_n + li;
+      lp.x = P[0 * lrow] * w0 + P[3 * lrow] * w1 + P[6 * lrow] * w2;
+      lp.y = P[1 * lrow] * w0 + P[4 * lrow] * w1 + P[7 * lrow] * w2;
+      lp.z = P[2 * lrow] * w0 + P[5 * lrow] * w1 + P[8 * lrow] * w2;
+      lnv.x = N[0 * lrow] * w0 + N[3 * lrow] * w1 + N[6 * lrow] * w2;
+      lnv.y = N[1 * lrow] * w0 + N[4 * lrow] * w1 + N[7 * lrow] * w2;
+      lnv.z = N[2 * lrow] * w0 + N[5 * lrow] * w1 + N[8 * lrow] * w2;
+    }
+    const float rn = rsqrtf(dot(lnv, lnv));
+    const V3 ln = {lnv.x * rn, lnv.y * rn, lnv.z * rn};
+    const V3 tlf = {lp.x - hp.x, lp.y - hp.y, lp.z - hp.z};
+    const float dist = sqrtf(dot(tlf, tlf));
+    const float dcl = clamp_min(dist, 1e-30f);
+    const V3 to_light = {tlf.x / dcl, tlf.y / dcl, tlf.z / dcl};
+    const float l_dot_d = -dot(to_light, ln);
+    const bool dir_ok = dist >= eps && l_dot_d >= aeps;
+    const float light_pdf =
+        dir_ok ? p.light_pdf[li] * (dist * dist) / (p.light_area[li] * l_dot_d) : 0.0f;
+    const long long target = p.light_tri[li];
+    const float shadow_cap = dist + p.four_eps;
+
+    // models/bsdf.py:eval_material toward the light sample
+    const V3 mirror_dir = reflect(w_i, hn);
+    const V3 wneg = neg(w_i);
+    float nee_bsdf, nee_mpdf;
+    const float cos_l = dot(to_light, hn);
+    {
+      const bool is_mirror_dir = fabsf(dot(mirror_dir, to_light) - 1.0f) < aeps;
+      const float mirror_bsdf = is_mirror_dir ? cos_l : 0.0f;
+      const float diffuse_val = p.inv_pi * cos_l;
+      const bool second = fresnel(hn, wneg, 1.0f, m_ior) < lobe_u;
+      nee_bsdf = select4(m_type, diffuse_val, mirror_bsdf, second ? diffuse_val : mirror_bsdf,
+                         second ? 0.0f : mirror_bsdf);
+      nee_mpdf = select4(m_type, diffuse_val, 1.0f, second ? diffuse_val : 1.0f,
+                         second ? 0.0f : 1.0f);
+    }
+    const float nee_weight = power_heuristic(light_pdf, nee_mpdf);
+    bool light_ok = valid && light_pdf > 0.0f && target != tri;
+    if (p.last_bounce) light_ok = false;
+    if (!p.quirks) light_ok = light_ok && cos_l > 0.0f;
+    const float nee_scale = light_ok ? nee_weight * nee_bsdf / light_pdf : 0.0f;
+
+    // ---- BSDF-arm MIS on emitter hits ----
+    const long long lti = p.light[i];
+    const bool is_light = valid && lti >= 0;
+    const long long lts = is_light ? lti : p.num_lights;
+    const V3 tef = {hp.x - o.x, hp.y - o.y, hp.z - o.z};
+    const float e_dist = sqrtf(dot(tef, tef));
+    const float ecl = clamp_min(e_dist, 1e-30f);
+    const V3 to_emitter = {tef.x / ecl, tef.y / ecl, tef.z / ecl};
+    const float e_cos = -dot(to_emitter, hn);
+    const bool e_ok = e_dist >= eps && e_cos >= aeps;
+    float emit_lpdf = e_ok && is_light
+                          ? p.light_pdf[lts] * (e_dist * e_dist) /
+                                clamp_min(p.light_area[lts] * e_cos, 1e-30f)
+                          : 0.0f;
+    emit_lpdf = p.prev_diffuse[i] * emit_lpdf;
+    const float emit_weight = power_heuristic(pdf_in, emit_lpdf);
+    const float emit_factor = p.quirks ? emit_weight * pdf_in : emit_weight;
+    const float emit_scale = is_light ? emit_factor : 0.0f;
+
+    // ---- models/bsdf.py:sample_bounce ----
+    const V3 diffuse_dir = diffuse_bounce(p.bounce_dir0[i], p.bounce_dir1[i], hn, p.two_pi);
+    const float mirror_cos = p.quirks ? dot(mirror_dir, hn) : 1.0f;
+    const float diffuse_val = p.inv_pi * dot(diffuse_dir, hn);
+    const bool second = fresnel(hn, wneg, ior_in, m_ior) < lobe_u;
+    V3 diel_dir;
+    float diel_bsdf, diel_ior;
+    if (!p.refract) {
+      // straight-through transmission
+      diel_dir = sel(second, w_i, mirror_dir);
+      diel_bsdf = second ? 1.0f : mirror_cos;
+      diel_ior = second ? m_ior : ior_in;
+    } else {
+      // Snell-bent transmission, two-sided normals, air outside
+      const bool entering = dot(w_i, hn) < 0.0f;
+      const V3 n_f = sel(entering, hn, neg(hn));
+      const float eta_t = entering ? m_ior : 1.0f;
+      const float f_r = fresnel(n_f, wneg, ior_in, eta_t);
+      const float eta = ior_in / clamp_min(eta_t, 1e-6f);
+      const float cos_i = -dot(w_i, n_f);
+      const float sin_t_sq = eta * eta * clamp_min(1.0f - cos_i * cos_i, 0.0f);
+      const float cos_t = sqrtf(clamp_min(1.0f - sin_t_sq, 0.0f));
+      const float k = eta * cos_i - cos_t;
+      const V3 refr = {eta * w_i.x + k * n_f.x, eta * w_i.y + k * n_f.y,
+                       eta * w_i.z + k * n_f.z};
+      const bool dsl = f_r < lobe_u;
+      const V3 refl = reflect(w_i, n_f);
+      const float refl_w = p.quirks ? dot(refl, n_f) : 1.0f;
+      diel_dir = sel(dsl, refr, refl);
+      diel_bsdf = dsl ? eta * eta : refl_w;
+      diel_ior = dsl ? eta_t : ior_in;
+    }
+    const V3 w_o = select4(m_type, diffuse_dir, mirror_dir,
+                           sel(second, diffuse_dir, mirror_dir), diel_dir);
+    const float nb_bsdf = select4(m_type, diffuse_val, mirror_cos,
+                                  second ? diffuse_val : mirror_cos, diel_bsdf);
+    const float nb_pdf = select4(m_type, diffuse_val, 1.0f, second ? diffuse_val : 1.0f, 1.0f);
+    const float nb_ior = select4(m_type, ior_in, ior_in, ior_in, diel_ior);
+    const float nb_finite = m_type == kDiffuse ? 1.0f : 0.0f;
+    const float safe_pdf = fabsf(nb_pdf) > p.pdf_floor ? nb_pdf : p.pdf_floor;
+    const float bounce_scale = nb_bsdf / safe_pdf;
+
+    // ---- the spectral planes: NEE contribution, radiance, throughput ----
+    bool any_contrib = false;
+    for (int s = 0; s < p.s; ++s) {
+      const size_t at = s * n + i;
+      const float m_diffuse = p.mat_diffuse[static_cast<size_t>(s) * p.m + mat];
+      const float m_emissive = p.mat_emissive[static_cast<size_t>(s) * p.m + mat];
+      const float thr = p.throughput[at];
+      const float c = p.light_emissive[s * lrow + li] * m_diffuse * thr * nee_scale;
+      p.contrib[at] = c;
+      any_contrib = any_contrib || c != 0.0f;
+      p.out_radiance[at] = p.radiance[at] + m_emissive * thr * emit_scale;
+      p.out_throughput[at] = valid ? thr * (m_diffuse * bounce_scale) : thr;
+    }
+    // a shadow ray whose contribution is exactly zero in every plane is
+    // culled (cfg.cull_zero_nee)
+    if (p.cull_zero_nee) light_ok = light_ok && any_contrib;
+
+    // ---- the new state and the shadow pack ----
+    float off = eps;
+    if (p.refract) off = dot(w_o, hn) < 0.0f ? -eps : eps;
+    store3(p.out_origin, n, i,
+           valid ? V3{hp.x + off * hn.x, hp.y + off * hn.y, hp.z + off * hn.z} : o);
+    store3(p.out_direction, n, i, valid ? w_o : w_i);
+    p.out_pdf[i] = valid ? nb_pdf : pdf_in;
+    p.out_prev_diffuse[i] = valid ? nb_finite : p.prev_diffuse[i];
+    p.out_ior[i] = valid ? nb_ior : ior_in;
+    p.out_alive[i] = valid;
+    store3(p.to_light, n, i, to_light);
+    p.cap[i] = shadow_cap;
+    p.target[i] = target;
+    p.ok[i] = light_ok;
+    if (p.shadow_origin != nullptr) {
+      store3(p.shadow_origin, n, i,
+             {hp.x + hn.x * eps, hp.y + hn.y * eps, hp.z + hn.z * eps});
+    }
+    counted_path = alive;
+    counted_shadow = light_ok;
+  }
+  const int paths = __syncthreads_count(counted_path);
+  const int shadows = __syncthreads_count(counted_shadow);
+  if (threadIdx.x == 0) {
+    if (paths) atomicAdd(p.stats, static_cast<unsigned long long>(paths));
+    if (shadows) atomicAdd(p.stats + 1, static_cast<unsigned long long>(shadows));
+  }
+}
+
+}  // namespace
+
+// params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the two
+// counts, then launches over params->n lanes.
+extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
+  const ShadeParams p = *params;
+  if (p.s < 1 || p.s > kMaxSpectrum || p.n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(p.stats, 0, 2 * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.n > 0) {
+    shade_bounce_kernel<<<(p.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

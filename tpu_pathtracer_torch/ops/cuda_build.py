@@ -93,6 +93,12 @@ _SIGNATURES = {
     # pid (int64), keys (a host array: csrc/rng.cu), count, n, out, stream
     "tpupt_uniforms": [_P, _P, _I, _I, _P, _P],
     "tpupt_uniforms_r2": [_P, _P, _I, _I, _P, _P],
+    # params (a host csrc/shade.cu:ShadeParams, ops/shade.py:_ShadeParams), stream
+    "tpupt_shade_bounce": [_P, _P],
+    # origin, direction, alive, pixel, wmin x3, winv x3, n, key, stream
+    "tpupt_sort_key": [_P] * 4 + [_F] * 6 + [_I, _P, _P],
+    # planes (a host array of csrc/wavefront_sort.cu:Plane), count, perm, n, stream
+    "tpupt_gather_planes": [_P, _I, _P, _I, _P],
     # rays, table0..3 (never read; null when absent), tile, n, out, stream
     "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
     # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,
@@ -191,3 +197,15 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def plane_address(what: str, t, dtype, shape: tuple, device) -> int:
+    """The address a launcher passes for ``t``, after checking that it is a
+    contiguous tensor of ``dtype`` and ``shape`` on ``device`` (a CUDA
+    device); raises ``ValueError`` otherwise -- a launcher never copies."""
+    if (t.device != device or device.type != "cuda" or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(f"{what}: expected a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device} (a CUDA device), got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}, contiguous={t.is_contiguous()}")
+    return t.data_ptr()

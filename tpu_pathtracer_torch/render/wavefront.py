@@ -41,6 +41,8 @@ from ..models import ggx
 from ..models.camera import Camera, generate_rays_flat
 from ..models.envlight import eval_env, sample_env
 from ..models.texture import diffuse_modulation
+from ..ops import shade as shade_ops
+from ..ops import wavefront_sort as sort_ops
 from ..ops.hopper_traverse import make_cuda_intersector
 from ..ops.intersect import HitShade, intersect_brute, shade_from_scene
 from ..ops.rng import fold_in
@@ -108,40 +110,6 @@ def select_spectrum(table: torch.Tensor, idx: torch.Tensor, bins) -> torch.Tenso
     return apply_bins(table[:, idx], bins)
 
 
-def _morton5(q: torch.Tensor) -> torch.Tensor:
-    """Spread 5 bits to every 3rd position (for the 15-bit sort cell)."""
-    q = (q | (q << 8)) & 0x100F
-    q = (q | (q << 4)) & 0x10C3
-    q = (q | (q << 2)) & 0x1249
-    return q
-
-
-def ray_sort_key(state: PathState, wmin, winv) -> torch.Tensor:
-    """Wavefront sort key (int64 holding 31 bits): dead bit 30, then the
-    8^3 origin cell, a 16x16 octahedral direction bin, and the finer
-    32^3 Morton bits."""
-    d = state.direction
-    o = state.origin
-    anorm = torch.abs(d[0]) + torch.abs(d[1]) + torch.abs(d[2])
-    u = d[0] / anorm
-    v = d[1] / anorm
-    back = d[2] < 0
-    uo = torch.where(back, (1.0 - torch.abs(v)) * torch.sign(u), u)
-    vo = torch.where(back, (1.0 - torch.abs(u)) * torch.sign(v), v)
-    qu = torch.clamp((uo * 0.5 + 0.5) * 16.0, 0.0, 15.0).to(torch.int64)
-    qv = torch.clamp((vo * 0.5 + 0.5) * 16.0, 0.0, 15.0).to(torch.int64)
-    octa = (qu << 4) | qv
-
-    mort = torch.zeros_like(octa)
-    for axis in range(3):
-        q = torch.clamp((o[axis] - wmin[axis]) * winv[axis] * 32.0, 0.0, 31.0)
-        mort = mort | (_morton5(q.to(torch.int64)) << (2 - axis))
-    coarse = mort >> 6     # top 9 bits: 8^3 cell
-    fine = mort & 63       # bottom 6 bits
-    dead = (~state.alive).to(torch.int64)
-    return (dead << 30) | (coarse << 20) | (octa << 12) | fine
-
-
 def scene_sort_bounds(scene: Scene):
     """Scene-AABB (wmin, winv) of the sort key's spatial cell, as float32
     values held in Python floats."""
@@ -152,19 +120,21 @@ def scene_sort_bounds(scene: Scene):
 
 
 def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
-    """Re-order the wavefront and its shadow pack by :func:`ray_sort_key`,
-    pixel id breaking ties: one int64 key ``(key << 32) | pixel`` sorted
-    stably, then one gather per plane -> (state, pack).  Hero bins (C, N)
-    ride as one more plane; the TPU's sort-operand limit, which made the
-    reference pack them into uint32 planes, does not apply here."""
-    key = (ray_sort_key(state, wmin, winv) << 32) | state.pixel
+    """Re-order the wavefront and its shadow pack by the sort key
+    (ops/wavefront_sort.py: dead bit, origin cell, direction bin), pixel id
+    breaking ties: one int64 key ``(key << 32) | pixel`` sorted stably, then
+    every plane gathered by the permutation -> (state, pack).  Hero bins
+    (C, N) ride as one more plane; the TPU's sort-operand limit, which made
+    the reference pack them into uint32 planes, does not apply here.  On
+    CUDA tensors the key and the gather are one kernel launch each
+    (csrc/wavefront_sort.cu); on the CPU their plain versions run."""
+    cuda = state.alive.is_cuda
+    key = (sort_ops.sort_key if cuda else sort_ops.sort_key_plain)(
+        state.origin, state.direction, state.alive, state.pixel, wmin, winv)
     perm = torch.sort(key, stable=True).indices
-
-    def take(x):
-        return None if x is None else x.index_select(-1, perm)
-
-    return (PathState(*(take(x) for x in state)),
-            ShadowPack(*(take(x) for x in pack)))
+    planes = (sort_ops.gather_planes if cuda else sort_ops.gather_planes_plain)(
+        [*state, *pack], perm)
+    return PathState(*planes[:len(state)]), ShadowPack(*planes[len(state):])
 
 
 def _conductor_albedo(m_diffuse, m_type, w_i, out_dir):
@@ -191,13 +161,45 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
     origin ``hp + hn * eps`` and resolved into the state.  ``with_stats``
     appends {"path": n, "shadow": n}, the rays the traversal processes.
     ``hit`` supplies a precomputed nearest hit (the fused path+shadow walk,
-    cfg.fuse_shadow_walk) instead of tracing here."""
-    eps = cfg.distance_epsilon
-    aeps = cfg.angle_epsilon
+    cfg.fuse_shadow_walk) instead of tracing here.
 
+    The shading after the intersect is one launch of ``csrc/shade.cu`` on
+    CUDA tensors when ``ops/shade.py:shade_kernel_covers`` holds for the
+    config and scene; otherwise (the CPU, and on the card the env-lit,
+    textured, GGX, dispersive and hero frames) :func:`_shade_plain`."""
     if hit is None:
         hit = intersect(state.origin, state.direction, state.alive,
                         coherent=coherent)
+    shade = (shade_ops.shade_bounce
+             if state.alive.is_cuda and shade_ops.shade_kernel_covers(cfg, scene)
+             else _shade_plain)
+    new_state, pack, shadow_origin, (n_path, n_shadow) = shade(
+        scene, cfg, bounce, state, uniforms, hit, not defer_shadow)
+    # rays the traversal processes (the reference's MPS skips lanes with
+    # maxDistance < 0)
+    stats = ({"path": n_path, "shadow": n_shadow},) if with_stats else ()
+    if defer_shadow:
+        # the query's origin is new_state.origin (hp + eps * n): it rides
+        # the next bounce's sort and resolves there.  The range cap just
+        # past the light sample is a pure traversal cull.
+        return (new_state, pack, *stats)
+    clear = occlusion_clear(intersect, shadow_origin, pack.to_light, pack.ok, pack.cap,
+                            pack.target, cfg.distance_epsilon)
+    new_state = new_state._replace(
+        radiance=new_state.radiance + torch.where(clear[None], pack.contrib, 0.0))
+    return (new_state, *stats) if with_stats else new_state
+
+
+def _shade_plain(scene: Scene, cfg: RenderConfig, bounce: int, state: PathState,
+                 uniforms: dict, hit: HitShade, inline: bool):
+    """The shading of one bounce after its intersect, as torch ops: BSDF
+    sampling, NEE with MIS, the BSDF-arm MIS on emitter hits -> (new state,
+    shadow pack, the shadow origin ``hp + hn * eps`` when ``inline`` else
+    None, (live path lanes, live shadow lanes) as int64 tensors).  The plain
+    version of ``ops/shade.py:shade_bounce`` (csrc/shade.cu), and the
+    shading of every frame that kernel does not cover."""
+    eps = cfg.distance_epsilon
+    aeps = cfg.angle_epsilon
     # A hit nearer than DISTANCE_EPSILON (or a miss) kills the path
     # (reference: renderer/Shaders.metal:122-126).
     valid = state.alive & hit.valid & (hit.t >= eps)
@@ -373,21 +375,10 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
         pixel=state.pixel,
         bins=bins,
     )
-    # rays the traversal processes (the reference's MPS skips lanes with
-    # maxDistance < 0)
-    stats = ({"path": state.alive.sum(), "shadow": light_ok.sum()},) if with_stats else ()
-    if defer_shadow:
-        # the query's origin is new_state.origin (hp + eps * n): it rides
-        # the next bounce's sort and resolves there.  The range cap just
-        # past the light sample is a pure traversal cull.
-        pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
-                          contrib=nee_contrib, ok=light_ok)
-        return (new_state, pack, *stats)
-    clear = occlusion_clear(intersect, hp + hn * eps, nee_dir, light_ok, shadow_cap,
-                            target, eps)
-    new_state = new_state._replace(
-        radiance=new_state.radiance + torch.where(clear[None], nee_contrib, 0.0))
-    return (new_state, *stats) if with_stats else new_state
+    pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
+                      contrib=nee_contrib, ok=light_ok)
+    shadow_origin = hp + hn * eps if inline else None
+    return new_state, pack, shadow_origin, (state.alive.sum(), light_ok.sum())
 
 
 def occlusion_clear(intersect: IntersectFn, o, d, ok, cap, target,
