@@ -89,7 +89,8 @@ Phases (any failure raises, so the exit code is not 0):
     (``intersect_sweep1_v1``) and the redesigned one the same on those
     wavefronts' lanes with at most one candidate, each equal to its
     yardstick on every lane, ms and share of the bound, and the device time
-    of each of the targeted kernel's three launches (torch.profiler);
+    of each of the targeted kernel's three launches (torch.profiler, up to
+    three traces; null for a launch no trace held);
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -162,12 +163,12 @@ Phases (any failure raises, so the exit code is not 0):
 20. spectral and material path: the user's spectral command,
     ``cli.main`` at 1920x1080, depth 8, 5 frames with ``--spectrum 16
     --hero 4 --dispersion 0.0042`` (EXR + PNG; the EXR must read back
-    finite, (1080, 1920, 3)), launching the window and capped walks, and
-    the same with ``--env`` launching the any-hit walk; card frames against
-    the port's own CPU frames (48x64, depth 4, 2 frames; atol 1e-5 on all
-    but 3 pixels) for S = 8, S = 16 with hero 4 and dispersion,
-    bake_materials on Water-plastic, the GGX floor with conductor and
-    plastic Ks, the textured floor and the glass pane with
+    finite, (1080, 1920, 3)), launching the window and capped walks and 8
+    shadings a frame, and the same with ``--env`` launching the any-hit
+    walk; card frames against the port's own CPU frames (48x64, depth 4, 2
+    frames; atol 1e-5 on all but 3 pixels) for S = 8, S = 16 with hero 4 and
+    dispersion, bake_materials on Water-plastic, the GGX floor with
+    conductor and plastic Ks, the textured floor and the glass pane with
     refract_dielectric (the scenes of the reference's own tests, written
     to a temporary directory); at 1080p, depth 8, frame 0: hero (S = 16, C
     = 4) fuse 2 against fuse 1 at 2 spp (atol 1e-6, rtol 1e-5), hero with
@@ -208,19 +209,21 @@ Phases (any failure raises, so the exit code is not 0):
     kernels a frame, every frame bit-equal; and the self-golden gate at the
     default path's rel_mse 1.5807e-8 or better;
 23. the shading and the wavefront sort as hand kernels: ``shade_bounce``
-    (csrc/shade.cu, both forms of the bounce), ``sort_key`` and
-    ``gather_planes`` (csrc/wavefront_sort.cu) against their plain versions
-    bit for bit on every lane of the main path's whole camera and bounce-1
-    wavefronts (the sorts after bounces 1 and 2) and on 65,536 lanes drawn
-    from them; their times (queued) beside their bounds, the plain
-    versions' and torch.sort's; then the main path, the unsorted frame, the
-    fused walk, prefix sorts and the env-lit path (1080p, depth 8) with the
-    kernels and with the plain shading and sort put back
-    (``plain_stages(SHADE_SORT_STAGES)``), in turns: ms/frame, device ms,
-    kernels a frame, the sort and walk spans, every frame bit-equal, the
-    launches a frame asserted (8 shadings where
-    ops/shade.py:shade_kernel_covers holds, 0 on the env-lit path; 7 keys
-    and gathers on the sorted pipelines); and the self-golden gate again.
+    (csrc/shade.cu, both forms of the bounce) in its parity, env-lit and
+    hero forms (the main path; the env-lit path; S = 16, hero 4 and
+    dispersion 0.0042), ``sort_key`` and ``gather_planes``
+    (csrc/wavefront_sort.cu) against their plain versions bit for bit on
+    every lane of the path's whole camera and bounce-1 wavefronts (the
+    main path's sorts after bounces 1 and 2) and on 65,536 lanes drawn from
+    them; their times (queued) beside their bounds, the plain versions' and
+    torch.sort's; then the main path, the unsorted frame, the fused walk,
+    prefix sorts, the env-lit path and the spectral CLI configuration
+    without and with the env (1080p, depth 8) with the kernels and with the
+    plain shading and sort put back (``plain_stages(SHADE_SORT_STAGES)``),
+    in turns: ms/frame, device ms, kernels a frame, the sort and walk spans,
+    every frame bit-equal, the launches a frame asserted (8 shadings on
+    every one, as ops/shade.py:shade_kernel_covers holds; 7 keys and
+    gathers on the sorted pipelines); and the self-golden gate again.
 
 The main path's frame (phase 4) launches 9 ``uniforms``, 8
 ``window_walk_resolve``, 8 ``shade_bounce``, 7 ``sort_key`` and 7
@@ -251,9 +254,13 @@ The uniforms move the int64 id in and ``count`` float32 rows out a lane,
 their integer operations (32 a PCG4D call) each in an FMA's slot; the
 epilogue form is the window walk's bound with 48 bytes of payload out, one
 96-byte MT row read and the resolve's operations a lane.  The shading moves
-(175 + 20 S) bytes a lane (12 more in the inline form) and the scene tables
-once, its ~360 + 10 S operations a lane below that; the sort's key 41 bytes
-a lane, the gather the permutation and each plane in and out once.
+(175 + 20 C) bytes a lane, C its carried planes (12 more in the inline form,
+8 C of hero bins; with an env its four uniform rows, the alias slot and
+sampled texel on the lanes whose NEE picks it and the eval's texel on the
+live lanes that missed) and the scene tables once, its ~360 + 10 C
+operations a lane (the env's and the dispersion's more) below that; the
+sort's key 41 bytes a lane, the gather the permutation and each plane in and
+out once.
 
 The line before the last is the kernel table as JSON (launches: the run of
 the path that drives each kernel -- the main path for the epilogue form
@@ -277,10 +284,10 @@ the capped walk, the fused walk, the shading and the sort's two kernels also
 carry ``launches_per_sample_fuse2``, their launches a sample in a 2-spp frame
 at fuse 2, from phase 19, and the epilogue form, the capped and any-hit walks,
 the shading and the sort's kernels ``launches_per_frame_spectral``, their
-launches a frame on phase 20's spectral CLI path (hero sampling: no shading
-kernel), and ``launches_per_frame_mesh2x1``, their launches a frame on phase
-21's 2x1 mesh, the any-hit walk's env-lit; the shading's row carries phase
-23's turns); the last line is
+launches a frame on phase 20's spectral CLI path, and
+``launches_per_frame_mesh2x1``, their launches a frame on phase 21's 2x1
+mesh, the any-hit walk's env-lit; the shading's row carries phase 23's
+turns and its env-lit and hero forms' readings (``forms``)); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -1995,11 +2002,12 @@ def phase_spectral(tmp: str, smi: str) -> dict:
             f"{float(img.mean()):.5f}; launches a frame "
             + ", ".join(f"{k} {la[k] / 5:g}" for k in
                         (NEAREST, "capped_walk", "anyhit_walk")))
-        # hero sampling keeps the plain shading (ops/shade.py:shade_kernel_covers);
-        # its sorts take the kernels
+        # hero sampling with dispersion (and the env) shades in the kernel
+        # (ops/shade.py:shade_kernel_covers), once a bounce; its sorts take the
+        # kernels
         if (rc or img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all()
                 or img.mean() <= 0 or not os.path.exists(png)
-                or min(la[k] for k in kernels) <= 0 or la["shade_bounce"]
+                or min(la[k] for k in kernels) <= 0 or la["shade_bounce"] != 8 * 5
                 or not la["sort_key"] or any(run["plain_cuda"].values())):
             raise AssertionError(f"spectral CLI{label}: rc {rc}, {run}")
         for k in (*kernels, *SHADE_SORT):
@@ -2979,27 +2987,38 @@ def sweep1_ab(label: str, o, d, sel, lay, pp: int, bnd_ms: float) -> dict:
 SWEEP1_LAUNCHES = ("sweep1_tally_kernel", "sweep1_list_kernel", "sweep1_kernel")
 
 
-def kernel_times_us(fn, reps: int) -> dict[str, list[float]]:
-    """Device microseconds of each kernel ``reps`` calls of ``fn`` (after
-    one) launched, by kernel name, from a torch.profiler trace with CPU and
-    CUDA activity exported as every profiled frame here is (a profile of
-    CUDA activity alone came back empty or short on some machines)."""
+def kernel_times_us(fn, reps: int, kernels: tuple[str, ...],
+                    tries: int = 3) -> dict[str, list[float]]:
+    """Device microseconds of each launch of the ``kernels`` (by their
+    names) that ``reps`` calls of ``fn`` (after one) made, from a
+    torch.profiler trace with CPU and CUDA activity exported as every
+    profiled frame here is.  A trace on the card now and then comes back
+    without some or all of its kernels (a profile of CUDA activity alone did
+    so on some machines, and one with CPU activity too did so once), so the
+    profile is taken again, up to ``tries`` times, until it holds every one
+    of them -> {kernel: durations} with the kernels the last trace held."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     out: dict[str, list[float]] = {}
-    for e in events:
-        out.setdefault(e["name"], []).append(e["dur"])
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        out = {}
+        for e in events:
+            kernel = next((k for k in kernels if f"::{k}(" in e["name"]), None)
+            if kernel:
+                out.setdefault(kernel, []).append(e["dur"])
+        if set(out) == set(kernels):
+            break
     return out
 
 
@@ -3007,19 +3026,18 @@ def sweep1_device_us(label: str, o, d, sel, lay, pp: int, reps: int = 10) -> dic
     """Device microseconds a call of each of the targeted kernel's three
     launches (torch.profiler over ``reps`` calls after one, the mean over
     the launches the trace holds) on one wavefront's lanes with at most one
-    candidate -> {kernel: us}."""
+    candidate -> {kernel: us}, None for a launch that no trace held (not
+    measured: the kernel's output is checked and its whole call timed apart
+    from the profile)."""
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
 
     times = kernel_times_us(lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp),
-                            reps)
-    out = {}
-    for name, durs in times.items():
-        kernel = next((k for k in SWEEP1_LAUNCHES if f"::{k}(" in name), None)
-        if kernel:
-            out[kernel] = sum(durs) / len(durs)
-    if set(out) != set(SWEEP1_LAUNCHES):
-        raise AssertionError(f"sweep1 {label}: the profile holds {sorted(out)}")
-    log(f"  sweep1 {label}: device us a call " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+                            reps, SWEEP1_LAUNCHES)
+    out = {k: sum(times[k]) / len(times[k]) if k in times else None
+           for k in SWEEP1_LAUNCHES}
+    log(f"  sweep1 {label}: device us a call " + ", ".join(
+        f"{k} {v:.1f}" if v is not None else f"{k} not measured (no trace held it)"
+        for k, v in out.items()))
     return out
 
 
@@ -3745,12 +3763,17 @@ def phase_fused_stages(smi: str, priced: Priced) -> list[dict]:
 
 
 # the shading kernel's bytes a lane (csrc/shade.cu): the state, the hit record
-# and six uniform rows in (113 + 8 S), the new state and the pack out (62 + 12 S),
+# and six uniform rows in (113 + 8 C), the new state and the pack out (62 + 12 C),
 # and the inline form's shadow origin; its float32 operations a lane, counted
-# from the source (cosf and sinf as 20 each), S-independent and a plane's
+# from the source (cosf, sinf, atan2f and acosf as 20 each), S-independent
+# and a plane's; the env eval a lane (the texel of the direction), the env
+# sample on a lane whose NEE picks the env (the alias slot, the jittered
+# direction), and the dispersion weights a plane (two Fresnels, two quotients)
 OPS_SHADE_LANE, OPS_SHADE_PLANE = 360, 10
+OPS_ENV_EVAL, OPS_ENV_SAMPLE, OPS_DISPERSION_PLANE = 60, 80, 60
 SORT_KEY_LANE_BYTES = 33 + 8  # origin, direction, alive, pixel in; the key out
 OPS_SORT_KEY = 90             # float and integer operations of one key
+SPECTRAL = {"spectrum_samples": 16, "hero_wavelengths": 4}  # the spectral CLI path
 SHADE_SORT_TURNS = {          # phase 23's frame paths: scene, config, launches a frame
     "main path": ("main", {}, {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
     "unsorted": ("main", {"sort_rays": False},
@@ -3759,7 +3782,11 @@ SHADE_SORT_TURNS = {          # phase 23's frame paths: scene, config, launches 
                    {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
     "prefix sorts": ("main", {"prefix_sort": True},
                      {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
-    "env-lit path": ("env", {}, {"shade_bounce": 0, "sort_key": 7, "gather_planes": 7}),
+    "env-lit path": ("env", {}, {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
+    "spectral path": ("spectral", SPECTRAL,
+                      {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
+    "spectral env path": ("spectral env", SPECTRAL,
+                          {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
 }
 
 
@@ -3767,15 +3794,34 @@ def table_bytes(*tables) -> int:
     return sum(t.numel() * t.element_size() for t in tables)
 
 
-def shade_bound(lanes: int, s: int, inline: bool, scene) -> dict:
-    """One shading launch's bound: each plane of the lane read and written
-    once, the scene tables read once, its operations a lane."""
+def shade_bound(st, hit, uni, scene, inline: bool) -> dict:
+    """One shading launch's bound on these lanes, from this run's data: each
+    plane of the lane read and written once (175 + 20 C bytes, C the carried
+    planes; the inline form 12 more), hero bins 8 C; with an environment
+    light its four uniform rows (16), the alias slot and the sampled texel's
+    row (12 + 4 + 4 C) on each lane whose NEE picks the env, and the texel's
+    row (4 + 4 C) the eval reads on each live lane that missed (the lanes
+    whose env radiance the result needs); the scene tables once (the per-bin
+    tables a hero lane reads among them); its operations a lane, the env's
+    and the dispersion's included."""
+    n, c = st.alive.shape[0], st.throughput.shape[0]
+    env = scene.env
     tables = table_bytes(scene.mat_diffuse, scene.mat_emissive, scene.mat_ior,
                          scene.mat_type, scene.light_cdf, scene.light_p, scene.light_n,
                          scene.light_pdf, scene.light_area, scene.light_tri,
-                         scene.light_emissive)
-    lane = 175 + 20 * s + (12 if inline else 0)
-    return bound(lanes * lane + tables, lanes * (OPS_SHADE_LANE + OPS_SHADE_PLANE * s))
+                         scene.light_emissive,
+                         *(() if scene.mat_ior_bins is None else (scene.mat_ior_bins,)))
+    lane = 175 + 20 * c + (12 if inline else 0) + (8 * c if st.bins is not None else 0)
+    nbytes = n * lane + tables
+    ops = n * (OPS_SHADE_LANE + OPS_SHADE_PLANE * c)
+    if scene.mat_ior_bins is not None:
+        ops += n * OPS_DISPERSION_PLANE * c
+    if env is not None:
+        picks = int((uni["env_select"] < env.select_p).sum())
+        misses = int((st.alive & ~torch.isfinite(hit.t)).sum())
+        nbytes += n * 16 + picks * (16 + 4 * c) + misses * (4 + 4 * c)
+        ops += n * OPS_ENV_EVAL + picks * OPS_ENV_SAMPLE
+    return bound(nbytes, ops)
 
 
 def gather_bound(planes, lanes: int) -> dict:
@@ -3785,11 +3831,11 @@ def gather_bound(planes, lanes: int) -> dict:
 
 
 def shade_inputs(renderer) -> tuple[dict, dict]:
-    """The main path's frame-0 inputs of both new stages at full width, made
-    as render_sample makes them: {"camera": bounce 0's (state, hit, uniforms,
-    bounce), "bounce1": bounce 1's after the first sort and the shadow
-    resolve}, {"bounce 1": the first sort's (state, pack), "bounce 2": the
-    second's}."""
+    """A frame path's frame-0 inputs of both new stages at full width, made
+    as render_sample makes them (hero bins, the env's uniform rows):
+    {"camera": bounce 0's (state, hit, uniforms, bounce), "bounce1": bounce
+    1's after the first sort and the shadow resolve}, {"bounce 1": the first
+    sort's (state, pack), "bounce 2": the second's}."""
     from tpu_pathtracer_torch.ops.rng import fold_in, prng_key
     from tpu_pathtracer_torch.render import noise, state, wavefront
     from tpu_pathtracer_torch.models.camera import generate_rays_flat
@@ -3803,7 +3849,9 @@ def shade_inputs(renderer) -> tuple[dict, dict]:
     jitter = noise.camera_jitter(cfg, fold_in(key, 0xC0FFEE), 0, pids, HEIGHT, WIDTH)
     o, d = generate_rays_flat(renderer.camera, order.rows, order.cols, jitter[0:2],
                               HEIGHT, WIDTH, lens_u=jitter[2:4])
-    st0 = wavefront.initial_path_state(o, d, cfg.spectrum_samples, pids)
+    hero = cfg.hero_wavelengths if cfg.spectrum_samples > 3 else 0
+    bins = noise.hero_bins(cfg, key, 0, pids) if hero else None
+    st0 = wavefront.initial_path_state(o, d, hero or cfg.spectrum_samples, pids, bins)
     wmin, winv = wavefront.scene_sort_bounds(scene)
     shading, sorts, st, pack = {}, {}, st0, None
     for b, name in ((0, "camera"), (1, "bounce1")):
@@ -3813,7 +3861,8 @@ def shade_inputs(renderer) -> tuple[dict, dict]:
                                                                           pack),
                                           cfg.distance_epsilon)
         hit = isect(st.origin, st.direction, st.alive, coherent=b == 0)
-        uni = noise.bounce_uniforms(cfg, key, 0, b, st.pixel, HEIGHT, WIDTH)
+        uni = noise.bounce_uniforms(cfg, key, 0, b, st.pixel, HEIGHT, WIDTH,
+                                    with_env=scene.env is not None)
         shading[name] = (st, hit, uni, b)
         st, pack = wavefront.trace_bounce(scene, cfg, isect, b, st, uni, defer_shadow=True,
                                           hit=hit)
@@ -3900,37 +3949,111 @@ def shade_sort_turns(label: str, tmp: str, scene, kw: dict, want: dict) -> dict:
     return out
 
 
-def phase_shade_sort(smi: str) -> list[dict]:
-    """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
-    wavefront sort (csrc/wavefront_sort.cu).  Each against its plain version
-    bit for bit on every lane of the main path's whole camera and bounce-1
-    wavefronts (the shading in both forms; the sorts after bounces 0 and 1)
-    and on 65,536 lanes drawn from them; their times (queued) beside their
-    bounds, the plain versions' and torch.sort's; then the main path, the
-    unsorted frame, the fused walk, prefix sorts and the env-lit path in
-    turns with the plain versions put back, and the self-golden gate -> the
-    three kernels' rows of the kernel table."""
-    from tpu_pathtracer_torch import Renderer
-    from tpu_pathtracer_torch.ops import shade
-    from tpu_pathtracer_torch.ops import wavefront_sort as sort
-    from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
-    from tpu_pathtracer_torch.scene import attach_env, load_scene, scene_path
+def shade_scenes() -> dict:
+    """Phase 23's scenes: "main" (Water-plastic), "env" (with sky_map's
+    environment light), "spectral" (S = 16 with the spectral CLI's
+    dispersion) and "spectral env" (both), as the CLI builds them."""
+    from tpu_pathtracer_torch.scene import attach_dispersion, attach_env, load_scene
+    from tpu_pathtracer_torch.scene import scene_path
 
-    t_phase = time.perf_counter()
-    log(f"the shading and the wavefront sort as hand kernels on {smi}")
-    renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    scene, cfg = renderer.scene, renderer.cfg
-    wmin, winv = scene_sort_bounds(scene)
+    main = load_scene(scene_path(SCENE))
+    spectral = attach_dispersion(load_scene(scene_path(SCENE), samples=16), DISPERSION)
+    sky = sky_map()
+    return {"main": main, "env": attach_env(main, sky), "spectral": spectral,
+            "spectral env": attach_env(spectral, sky)}
+
+
+# phase 23's forms of the shading kernel: the frame path whose wavefronts
+# it is held and timed on (a scene of shade_scenes and a config)
+SHADE_FORMS = {"parity": ("main", {}), "env-lit": ("env", {}), "hero": ("spectral", SPECTRAL)}
+
+
+def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
+    """The shading kernel on one frame path's 1080p frame-0 wavefronts:
+    bit for bit against its plain version on every lane of the whole camera
+    and bounce-1 wavefronts and of 65,536 lanes drawn from them (both forms
+    of the bounce), then its time on bounce 1 (queued) beside its bound
+    (:func:`shade_bound`, from these lanes) and the plain version's (CUDA
+    events) -> (readings, the path's sorts as :func:`shade_inputs` gives
+    them)."""
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.ops import shade
+
+    renderer = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw))
+    cfg = renderer.cfg
     shading, sorts = shade_inputs(renderer)
-    gen = torch.Generator().manual_seed(23)
     n_full = shading["camera"][0].alive.shape[0]
     idx = torch.randperm(n_full, generator=gen)[:SAMPLE_LANES].to(scene.p0.device)
 
-    def shade_args(which, lanes):
+    def args(which, lanes):
         st, hit, uni, b = shading[which]
         if lanes != "full":
             st, hit, uni = (take_lanes(x, idx) for x in (st, hit, uni))
         return scene, cfg, b, st, uni, hit
+
+    for which in shading:
+        for lanes in ("full", SAMPLE_LANES):
+            a = args(which, lanes)
+            for inline in (False, True):
+                same_bits(f"shade_bounce vs plain, {label}, {which}, {lanes} lanes, "
+                          f"inline={inline}", shade.shade_bounce(*a, inline),
+                          shade.shade_bounce_plain(*a, inline))
+    torch.cuda.synchronize()
+    live = [int(v[0].alive.sum()) for v in shading.values()]
+    small, full = args("bounce1", SAMPLE_LANES), args("bounce1", "full")
+    ms, full_ms = (queued_ms(lambda a=a: shade.shade_bounce(*a, False)) for a in (small, full))
+    inline_ms = queued_ms(lambda: shade.shade_bounce(*full, True))
+    plain_ms, plain_full = (cuda_ms(lambda a=a: shade.shade_bounce_plain(*a, False), iters=3)
+                            for a in (small, full))
+    bnd, bfull, bin_ = (shade_bound(a[3], a[5], a[4], scene, inline)
+                        for a, inline in ((small, False), (full, False), (full, True)))
+    c = full[3].throughput.shape[0]
+    log(f"  shade_bounce, {label} (C = {c} carried planes of S = "
+        f"{scene.mat_diffuse.shape[0]}) == its plain version bit for bit on every lane of "
+        f"the whole camera and bounce-1 wavefronts ({n_full} lanes; live {live}) and of "
+        f"{SAMPLE_LANES} lanes drawn from them, both forms; bounce 1, device time a launch "
+        f"(queued): {SAMPLE_LANES} lanes {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); {n_full} lanes {full_ms:.4f} ms, bound "
+        f"{bfull['bound_ms']:.4f} ms ({bfull['bound_by']}) = "
+        f"{100.0 * bfull['bound_ms'] / full_ms:.1f}% of bound; inline form "
+        f"{inline_ms:.4f} ms (bound {bin_['bound_ms']:.4f}).  Plain: {plain_ms:.3f} and "
+        f"{plain_full:.3f} ms")
+    readings = {"ms": ms, "plain_ms": plain_ms, "full_ms": full_ms, "bound": bnd,
+                "plain_full_ms": plain_full, "full_inline_ms": inline_ms,
+                "bound_full": bfull, "bound_full_inline_ms": bin_["bound_ms"],
+                "full_pct_of_bound": 100.0 * bfull["bound_ms"] / full_ms, "planes": c,
+                "lanes": n_full, "live": live}
+    return readings, sorts
+
+
+def phase_shade_sort(smi: str) -> list[dict]:
+    """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
+    wavefront sort (csrc/wavefront_sort.cu).  The shading in each of its
+    forms (:data:`SHADE_FORMS`: parity, env-lit, hero with dispersion) and
+    the sort against their plain versions bit for bit on every lane of the
+    frame path's whole camera and bounce-1 wavefronts (the shading in both
+    forms of the bounce; the sorts after bounces 0 and 1 of the main path)
+    and on 65,536 lanes drawn from them; their times (queued) beside their
+    bounds, the plain versions' and torch.sort's; then the main path, the
+    unsorted frame, the fused walk, prefix sorts, the env-lit path and the
+    spectral path without and with the env in turns with the plain versions
+    put back, and the self-golden gate -> the three kernels' rows of the
+    kernel table (the shading's env-lit and hero forms under "forms")."""
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
+    from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
+
+    t_phase = time.perf_counter()
+    log(f"the shading and the wavefront sort as hand kernels on {smi}")
+    scenes = shade_scenes()
+    gen = torch.Generator().manual_seed(23)
+    forms, sorts = {}, None
+    for label, (which, kw) in SHADE_FORMS.items():
+        forms[label], form_sorts = shade_form(label, scenes[which], kw, gen)
+        sorts = sorts or form_sorts
+    scene = scenes["main"]
+    wmin, winv = scene_sort_bounds(scene)
+    n_full = forms["parity"]["lanes"]
+    idx = torch.randperm(n_full, generator=gen)[:SAMPLE_LANES].to(scene.p0.device)
 
     def sort_args(which, lanes):
         st, pack = sorts[which]
@@ -3938,13 +4061,6 @@ def phase_shade_sort(smi: str) -> list[dict]:
             st, pack = take_lanes(st, idx), take_lanes(pack, idx)
         return st, pack
 
-    for which in shading:
-        for lanes in ("full", SAMPLE_LANES):
-            args = shade_args(which, lanes)
-            for inline in (False, True):
-                same_bits(f"shade_bounce vs plain, {which}, {lanes} lanes, inline={inline}",
-                          shade.shade_bounce(*args, inline), shade.shade_bounce_plain(*args,
-                                                                                       inline))
     for which in sorts:
         for lanes in ("full", SAMPLE_LANES):
             st, pack = sort_args(which, lanes)
@@ -3957,37 +4073,22 @@ def phase_shade_sort(smi: str) -> list[dict]:
                       sort.gather_planes([*st, *pack], perm),
                       sort.gather_planes_plain([*st, *pack], perm))
     torch.cuda.synchronize()
-    log(f"  shade_bounce (both forms), sort_key and gather_planes == their plain versions "
-        f"bit for bit on every lane of the whole camera and bounce-1 wavefronts "
-        f"({n_full} lanes; live {[int(v[0].alive.sum()) for v in shading.values()]}) and of "
+    log(f"  sort_key and gather_planes == their plain versions bit for bit on every lane "
+        f"of the main path's sorts after bounces 1 and 2 ({n_full} lanes) and of "
         f"{SAMPLE_LANES} lanes drawn from them")
 
     # times: the kernels' calls queued behind a spin (the card's time, "ms"),
     # the plain versions by CUDA events (host work included, as the frame
     # paid it), torch.sort queued beside the sort's two kernels
-    entries = []
-    st1, hit1, uni1, b1 = shading["bounce1"]
-    s = cfg.spectrum_samples
-    small, full = shade_args("bounce1", SAMPLE_LANES), shade_args("bounce1", "full")
-    ms, full_ms = (queued_ms(lambda a=a: shade.shade_bounce(*a, False)) for a in (small, full))
-    inline_ms = queued_ms(lambda: shade.shade_bounce(*full, True))
-    plain_ms, plain_full = (cuda_ms(lambda a=a: shade.shade_bounce_plain(*a, False), iters=3)
-                            for a in (small, full))
-    bnd, bfull = shade_bound(SAMPLE_LANES, s, False, scene), shade_bound(n_full, s, False,
-                                                                          scene)
-    bin_ = shade_bound(n_full, s, True, scene)
-    entries.append(kernel_entry(
-        "shade_bounce", "shade.cu", "tpu_pathtracer/render/wavefront.py:455", 0.0, ms,
-        plain_ms, full_ms, bnd, plain_full_ms=plain_full, full_inline_ms=inline_ms,
-        bound_full_ms=bfull["bound_ms"], bound_full_by=bfull["bound_by"],
-        full_pct_of_bound=100.0 * bfull["bound_ms"] / full_ms,
-        bound_full_inline_ms=bin_["bound_ms"]))
-    log(f"  shade_bounce, bounce 1 (S = {s}), device time a launch (queued): {SAMPLE_LANES} "
-        f"lanes {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {n_full} "
-        f"lanes {full_ms:.4f} ms, bound {bfull['bound_ms']:.4f} ms ({bfull['bound_by']}) = "
-        f"{100.0 * bfull['bound_ms'] / full_ms:.1f}% of bound; inline form {inline_ms:.4f} ms "
-        f"(bound {bin_['bound_ms']:.4f}).  Plain: {plain_ms:.3f} and {plain_full:.3f} ms")
-
+    p = forms["parity"]
+    entries = [kernel_entry(
+        "shade_bounce", "shade.cu", "tpu_pathtracer/render/wavefront.py:455", 0.0, p["ms"],
+        p["plain_ms"], p["full_ms"], p["bound"], plain_full_ms=p["plain_full_ms"],
+        full_inline_ms=p["full_inline_ms"], bound_full_ms=p["bound_full"]["bound_ms"],
+        bound_full_by=p["bound_full"]["bound_by"], full_pct_of_bound=p["full_pct_of_bound"],
+        bound_full_inline_ms=p["bound_full_inline_ms"],
+        forms={k: v for k, v in forms.items() if k != "parity"})]
+    s = scene.mat_diffuse.shape[0]
     st, pack = sort_args("bounce 2", "full")
     st_s, pack_s = sort_args("bounce 2", SAMPLE_LANES)
     keys = {n: sort.sort_key(x.origin, x.direction, x.alive, x.pixel, wmin, winv)
@@ -4028,10 +4129,8 @@ def phase_shade_sort(smi: str) -> list[dict]:
             f"{t_s[name + '_plain']:.3f} and {t_f[name + '_plain']:.3f} ms.  torch.sort of the "
             f"key (CUDA events over back-to-back calls): {t_s['torch_sort']:.4f} and "
             f"{t_f['torch_sort']:.4f} ms")
-    del renderer, shading, sorts, keys, perms, planes, st, pack, st_s, pack_s, small, full
+    del sorts, keys, perms, planes, st, pack, st_s, pack_s
 
-    main = load_scene(scene_path(SCENE))
-    scenes = {"main": main, "env": attach_env(main, sky_map())}
     turns = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, (which, kw, want) in SHADE_SORT_TURNS.items():

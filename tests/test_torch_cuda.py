@@ -577,15 +577,26 @@ def test_sweep1_edge_shapes_on_card(which, n, sweep1_layouts):
 # ---------------------------------------------------------------------------
 
 SHADE_LANES = (1, 31, 65537)
-# (config fields, inline form, the uniform rows' layout)
+ENV_MAP = (12, 20)  # the small seeded map's (Eh, Ew)
+# (config fields, inline form, the uniform rows' layout, the scene's
+# extensions: "env" a seeded map of (Eh, Ew) texels, "dispersion" Cauchy IoR
+# bins); hero_wavelengths takes effect at S = 16 (render_sample's rule)
 SHADE_CASES = {
-    "default": ({}, False, "prng"),
-    "inline": ({}, True, "prng"),
-    "no-quirks-r2": ({"reference_quirks": False}, False, "r2"),
-    "refract-tiled": ({"refract_dielectric": True}, True, "tiled"),
+    "default": ({}, False, "prng", {}),
+    "inline": ({}, True, "prng", {}),
+    "no-quirks-r2": ({"reference_quirks": False}, False, "r2", {}),
+    "refract-tiled": ({"refract_dielectric": True}, True, "tiled", {}),
     "refract-no-quirks-cull": ({"refract_dielectric": True, "reference_quirks": False,
-                                "cull_zero_nee": True, "pdf_floor": 1e-3}, False, "prng"),
-    "last-bounce-cull": ({"cull_zero_nee": True, "max_path_length": 3}, True, "prng"),
+                                "cull_zero_nee": True, "pdf_floor": 1e-3}, False, "prng", {}),
+    "last-bounce-cull": ({"cull_zero_nee": True, "max_path_length": 3}, True, "prng", {}),
+    "env": ({}, False, "prng", {"env": ENV_MAP}),
+    "env-inline-tiled": ({}, True, "tiled", {"env": ENV_MAP}),
+    "env-no-quirks-cull-r2": ({"reference_quirks": False, "cull_zero_nee": True}, False,
+                              "r2", {"env": ENV_MAP}),
+    "hero": ({"hero_wavelengths": 4}, False, "prng", {}),
+    "dispersion": ({}, True, "prng", {"dispersion": True}),
+    "env-hero-dispersion": ({"hero_wavelengths": 2}, False, "prng",
+                            {"env": (16, 32), "dispersion": True}),
 }
 
 
@@ -604,32 +615,60 @@ def _same(got, want, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _cpu_shading(n: int, spectrum: int):
+def _cpu_shading(n: int, spectrum: int, env=None, dispersion: bool = False, hero: int = 0):
     """A Water-plastic scene on the CPU with the four parity types in turn
-    over its materials, and its shading_inputs."""
+    over its materials, a seeded (Eh, Ew) = ``env`` environment map and
+    Cauchy IoR bins (``dispersion``) where asked, and its shading_inputs
+    (``hero`` carried bins)."""
+    from tpu_pathtracer_torch.scene import attach_dispersion, attach_env
+
     scene = load_scene(scene_path("CornellBox-Water-plastic"), samples=spectrum,
                        device="cpu")
     scene = scene._replace(mat_type=torch.arange(scene.mat_type.shape[0]) % 4)
-    return scene, shading_inputs(scene, n, seed=n + spectrum)
+    if env is not None:
+        img = np.random.default_rng(env[0] * env[1]).uniform(0.2, 2.0, (*env, 3))
+        img[1, 2] = (40.0, 30.0, 20.0)
+        scene = attach_env(scene, img.astype(np.float32))
+    if dispersion:
+        scene = attach_dispersion(scene, 0.0042)
+    return scene, shading_inputs(scene, n, seed=n + spectrum, hero=hero)
 
 
-def _card_shading(n: int, spectrum: int, form: str, dev):
+def _to(x, dev):
+    """Tensors, and the tensors inside NamedTuples (the env light), on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return type(x)(*(_to(v, dev) for v in x))
+    return x
+
+
+def _card_shading(n: int, spectrum: int, form: str, dev, env=None, dispersion=False,
+                  hero: int = 0):
     """:func:`_cpu_shading` on the card -> (scene, state, hit, uniforms); the
-    uniform rows as the frame lays them out: row views of one (6, N) block
-    (PRNG, r2), or TILED's stacked rows."""
-    scene, inp = _cpu_shading(n, spectrum)
-    scene = type(scene)(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in scene))
+    uniform rows as the frame lays them out: row views of one (6, N) block,
+    (10, N) with an env (PRNG, r2), or TILED's stacked rows and the env's
+    own (4, N) block."""
+    scene, inp = _cpu_shading(n, spectrum, env, dispersion, hero)
+    scene = _to(scene, dev)
     st = twf.PathState(**{k: torch.from_numpy(v).to(dev) for k, v in inp["state"].items()})
     hit = HitShade(**{k: torch.from_numpy(v).to(dev) for k, v in inp["hit"].items()})
     u = torch.from_numpy(inp["u"]).to(dev)
     if form == "prng":
         uni = {"light_select": u[0], "light_bary": u[1:3], "lobe": u[3], "bounce_dir": u[4:6]}
+        if env is not None:
+            uni.update(env_select=u[6], env_alias=u[7], env_jit=u[8:10])
     elif form == "r2":
         uni = {"light_bary": u[0:2], "bounce_dir": u[2:4], "light_select": u[4], "lobe": u[5]}
+        if env is not None:
+            uni.update(env_jit=u[6:8], env_select=u[8], env_alias=u[9])
     else:
         sx, sy, sz, sw = u[:4].contiguous()
         uni = {"light_select": sz, "light_bary": torch.stack([sw, sx]), "lobe": sy,
                "bounce_dir": torch.stack([sz, sw])}
+        if env is not None:
+            ue = u[6:10].clone()
+            uni.update(env_select=ue[0], env_alias=ue[1], env_jit=ue[2:4])
     return scene, st, hit, uni
 
 
@@ -641,10 +680,15 @@ def test_shade_bounce_matches_plain_on_card(n, spectrum, case, cuda_device):
     output (the new state, the shadow pack, the inline form's shadow origin,
     the two counts), lane counts around a warp and past 65,536, S = 3 and
     16, quirks, refraction, zero-NEE culling, the last bounce's gate and a
-    raised pdf floor, the uniform rows of PRNG, r2 and TILED noise."""
-    kw, inline, form = SHADE_CASES[case]
+    raised pdf floor, the uniform rows of PRNG, r2 and TILED noise; the
+    environment light (both NEE arms, the last alias slot, the poles, the
+    BSDF arm's misses), hero bins (C = 4, and C = 2 with env and
+    dispersion at S = 16) and dispersion."""
+    kw, inline, form, ext = SHADE_CASES[case]
     cfg = RenderConfig(spectrum_samples=spectrum, **kw)
-    scene, st, hit, uni = _card_shading(n, spectrum, form, cuda_device)
+    hero = cfg.hero_wavelengths if spectrum > 3 else 0
+    scene, st, hit, uni = _card_shading(n, spectrum, form, cuda_device, ext.get("env"),
+                                        ext.get("dispersion", False), hero)
     assert tshade.shade_kernel_covers(cfg, scene)
     bounce = 2
     n0 = tshade.shade_bounce.launches
@@ -653,28 +697,43 @@ def test_shade_bounce_matches_plain_on_card(n, spectrum, case, cuda_device):
     want = tshade.shade_bounce_plain(scene, cfg, bounce, st, uni, hit, inline)
     for f, a, b in zip(twf.PathState._fields, got[0], want[0]):
         _same(a, b, f"state.{f}")
-    assert got[0].pixel is st.pixel
+    assert got[0].pixel is st.pixel and got[0].bins is st.bins
     for f, a, b in zip(twf.ShadowPack._fields, got[1], want[1]):
         _same(a, b, f"pack.{f}")
     _same(got[2], want[2], "shadow origin")
     assert [int(x) for x in got[3]] == [int(x) for x in want[3]]
     if cfg.max_path_length == bounce + 1:
         assert not bool(got[1].ok.any())
+    if "env" in ext and n > 1000:
+        env_lanes = got[1].target == -1
+        assert 0 < int(env_lanes.sum()) < n and bool(got[1].ok[env_lanes].any())
 
 
 def test_shade_bounce_checks_inputs(cuda_device):
     """The wrapper raises on what the kernel does not take: a frame it does
-    not cover, a non-contiguous plane, a wrong dtype; it copies nothing."""
+    not cover (a roughness table, textures, more than 16 carried planes: S
+    = 17, or hero C = 17), refraction with dispersion (NotImplementedError,
+    as the plain version), a non-contiguous plane, a wrong dtype; it copies
+    nothing."""
     scene, st, hit, uni = _card_shading(64, 3, "prng", cuda_device)
     cfg = RenderConfig()
-    with pytest.raises(ValueError):
-        tshade.shade_bounce(scene, RenderConfig(spectrum_samples=16, hero_wavelengths=4),
-                            0, st, uni, hit, False)
+    n0 = tshade.shade_bounce.launches
+    for bad_scene, bad_cfg in (
+            (scene._replace(mat_roughness=torch.zeros_like(scene.mat_ior)), cfg),
+            (scene._replace(textures=object()), cfg),
+            (scene, RenderConfig(spectrum_samples=17)),
+            (scene, RenderConfig(spectrum_samples=32, hero_wavelengths=17))):
+        with pytest.raises(ValueError):
+            tshade.shade_bounce(bad_scene, bad_cfg, 0, st, uni, hit, False)
+    with pytest.raises(NotImplementedError):
+        tshade.shade_bounce(scene._replace(mat_ior_bins=scene.mat_diffuse),
+                            RenderConfig(refract_dielectric=True), 0, st, uni, hit, False)
     with pytest.raises(ValueError):
         tshade.shade_bounce(scene, cfg, 0, st._replace(origin=st.origin.t().contiguous().t()),
                             uni, hit, False)
     with pytest.raises(ValueError):
         tshade.shade_bounce(scene, cfg, 0, st, uni, hit._replace(tri=hit.tri.int()), False)
+    assert tshade.shade_bounce.launches == n0
 
 
 def _sort_state(n: int, dev, hero: bool):
@@ -723,17 +782,34 @@ def test_wavefront_sort_matches_plain_on_card(n, hero, cuda_device):
 
 
 @pytest.mark.parametrize("kw", [{}, {"sort_rays": False}, {"fuse_shadow_walk": True},
-                                {"prefix_sort": True, "secondary_tile": 64}],
-                         ids=("sorted", "unsorted", "fused", "prefix"))
+                                {"prefix_sort": True, "secondary_tile": 64},
+                                {"env": True}, {"spectral": True},
+                                {"spectral": True, "env": True}],
+                         ids=("sorted", "unsorted", "fused", "prefix", "env-lit", "spectral",
+                              "spectral-env"))
 def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     """A Water-plastic frame (96x64, depth 8) through the shading and sort
     kernels == the same frame with their plain versions put back, bit for
     bit; the kernels launch 8 shadings and, on the sorted pipeline, 7 keys
-    and gathers a frame."""
-    cfg = RenderConfig(**kw)
+    and gathers a frame.  Also env-lit (a seeded 16x32 map) and the
+    spectral CLI configuration (S = 16, hero 4, dispersion 0.0042), without
+    and with the env."""
+    from tpu_pathtracer_torch.scene import attach_dispersion, attach_env
+
+    kw = dict(kw)
+    env, spectral = kw.pop("env", False), kw.pop("spectral", False)
+    cfg = RenderConfig(**kw, **({"spectrum_samples": 16, "hero_wavelengths": 4}
+                                if spectral else {}))
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device,
+                       samples=cfg.spectrum_samples)
+    if spectral:
+        scene = attach_dispersion(scene, 0.0042)
+    if env:
+        img = np.random.default_rng(7).uniform(0.2, 2.0, (16, 32, 3)).astype(np.float32)
+        scene = attach_env(scene, img)
     frames = 2
     counts = (tshade.shade_bounce, tsort.sort_key, tsort.gather_planes)
-    r = Renderer("CornellBox-Water-plastic", 96, 64, cfg, device=cuda_device)
+    r = Renderer(scene, 96, 64, cfg, device=cuda_device)
     n0 = [c.launches for c in counts]
     r.run(frames)
     got = [c.launches - n for c, n in zip(counts, n0)]

@@ -4,7 +4,7 @@ side: the ones whose bounces render/wavefront.py:_shade_plain (on the card
 csrc/shade.cu) computes differently -- the mirror and plastic scenes, the
 white box, 16 spectral planes without hero sampling, a raised pdf floor and
 angle epsilon, the live ladder off with prefix sorts, and hero sampling
-under an environment light (the plain shading on every device).
+under an environment light.
 
 Each case: the port's Renderer on the CPU against the reference's Renderer
 on the CPU, 24x32, depth 3-4, 2 frames, through
@@ -40,8 +40,8 @@ def test_shading_config_frame_matches_reference(case):
 
 
 def test_env_hero_frame_matches_reference():
-    """S = 8 with hero 2 under a seeded environment map (the plain shading
-    on every device): the port's frame == the reference's."""
+    """S = 8 with hero 2 under a seeded environment map: the port's frame ==
+    the reference's."""
     img = np.random.default_rng(4).uniform(0.2, 2.0, (16, 32, 3)).astype(np.float32)
     jscene = attach_env(load_scene(scene_path("CornellBox-Water-plastic"), samples=8), img)
     kw = {"spectrum_samples": 8, "hero_wavelengths": 2}

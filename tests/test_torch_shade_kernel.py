@@ -1,15 +1,21 @@
 """The shading and the wavefront sort of tpu_pathtracer_torch on the CPU:
 the rule that routes frames to csrc/shade.cu, the host's constant folding,
-the wrappers' refusal of CPU tensors, the plain shading held against the
-reference's trace_bounce through the same hit, and the plain sort against
-the reference's key and sort.  The kernels themselves run only on the card
+the wrappers' refusal of CPU tensors, the kernel's parameter struct
+against its ctypes mirror, the plain shading held against the reference's
+trace_bounce through the same hit (the parity materials, the environment
+light, hero bins and dispersion), and the plain sort against the
+reference's key and sort.  The kernels themselves run only on the card
 (tests/test_torch_cuda.py).
 
 Tolerance of the shading against the reference: atol 1e-6 (XLA's CPU cos,
-sin and rsqrt and torch's differ by an ulp or so), and the shadow pack also
-rtol 1e-6 (its cap is a distance, up to ~35 on the sentinel light row,
-where an ulp is 4e-6); flags, ids and counts exactly.  The sort keys and
-the sorted planes exactly."""
+sin, atan2, acos and rsqrt and torch's differ by an ulp or so), and the
+shadow pack also rtol 1e-6 (its cap is a distance, up to ~35 on the
+sentinel light row, where an ulp is 4e-6, and 1e30 on an env sample);
+flags, ids and counts exactly.  The sort keys and the sorted planes
+exactly."""
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +25,13 @@ import torch
 from tpu_pathtracer.config import RenderConfig as JConfig
 from tpu_pathtracer.ops.intersect import HitShade as JHitShade
 from tpu_pathtracer.render import wavefront as jwf
+from tpu_pathtracer.scene import attach_dispersion as jattach_dispersion
+from tpu_pathtracer.scene import attach_env as jattach_env
 from tpu_pathtracer.scene import load_scene as jload_scene
 from tpu_pathtracer.scene import scene_path
 from tpu_pathtracer_torch import RenderConfig, interop
 from tpu_pathtracer_torch.config import PI
+from tpu_pathtracer_torch.models.envlight import PI as ENV_PI
 from tpu_pathtracer_torch.ops import shade as tshade
 from tpu_pathtracer_torch.ops import wavefront_sort as tsort
 from tpu_pathtracer_torch.ops.intersect import HitShade
@@ -36,55 +45,127 @@ LANES = 2048
 
 @pytest.fixture(scope="module")
 def scenes():
-    """S -> (the reference's scene with the four parity types in turn over
-    its materials, the port's scene of the same arrays)."""
+    """(S, env map shape or None, dispersion) -> (the reference's scene with
+    the four parity types in turn over its materials, with a seeded
+    environment map and Cauchy IoR bins on its plastic and dielectric
+    materials where asked, the port's scene of the same arrays)."""
     out = {}
-    for s in (3, 16):
-        js = jload_scene(scene_path(SCENE), samples=s)
-        js = js._replace(mat_type=jnp.arange(js.mat_type.shape[0], dtype=js.mat_type.dtype)
-                         % 4)
-        out[s] = (js, interop.scene_from_arrays(arrays(js)))
-    return out
+
+    def get(s, env=None, dispersion=False):
+        if (s, env, dispersion) not in out:
+            js = jload_scene(scene_path(SCENE), samples=s)
+            js = js._replace(mat_type=jnp.arange(js.mat_type.shape[0],
+                                                 dtype=js.mat_type.dtype) % 4)
+            if env is not None:
+                img = np.random.default_rng(env[0] * env[1]).uniform(0.2, 2.0, (*env, 3))
+                img[1, 2] = (40.0, 30.0, 20.0)  # a bright texel the alias table favours
+                js = jattach_env(js, img.astype(np.float32))
+            if dispersion:
+                js = jattach_dispersion(js, 0.0042)
+            out[s, env, dispersion] = (js, interop.scene_from_arrays(arrays(js)))
+        return out[s, env, dispersion]
+
+    return get
 
 
 @pytest.mark.parametrize("change,covered", [
     ({}, True),
-    ({"env": object()}, False),
+    ({"env": object()}, True),
     ({"textures": object()}, False),
     ({"mat_roughness": object()}, False),
-    ({"mat_ior_bins": object()}, False),
-    ({"cfg": {"spectrum_samples": 16, "hero_wavelengths": 4}}, False),
+    ({"mat_ior_bins": object()}, True),
+    ({"cfg": {"spectrum_samples": 16, "hero_wavelengths": 4}}, True),
     ({"cfg": {"spectrum_samples": 3, "hero_wavelengths": 2}}, True),
     ({"cfg": {"spectrum_samples": 16}}, True),
     ({"cfg": {"spectrum_samples": 17}}, False),
+    ({"cfg": {"spectrum_samples": 17, "hero_wavelengths": 4}}, True),
+    ({"cfg": {"spectrum_samples": 32, "hero_wavelengths": 17}}, False),
+    ({"env": object(), "mat_ior_bins": object(),
+      "cfg": {"spectrum_samples": 8, "hero_wavelengths": 2}}, True),
+    ({"env": object(), "textures": object()}, False),
     ({"cfg": {"reference_quirks": False, "refract_dielectric": True,
               "cull_zero_nee": True, "sort_rays": False}}, True),
 ], ids=("parity", "env", "textures", "roughness", "dispersion", "hero", "hero-at-S3",
-        "S16", "S17", "modes"))
+        "S16", "S17", "S17-hero4", "hero-C17", "env-hero-dispersion", "env-textures",
+        "modes"))
 def test_shade_kernel_covers(change, covered, scenes):
     """The one routing rule: every scene field and config field it reads.
-    A hero config at S = 3 traces every bin (render_sample's rule), so the
-    kernel covers it; the frame modes do not change the rule."""
+    The environment light, dispersion and hero bins are covered; textures
+    and a roughness table are not, nor more than MAX_SPECTRUM carried
+    planes: C under hero sampling (S = 17 with hero 4 carries 4; hero 17
+    carries 17), S otherwise.  A hero config at S = 3 traces every bin
+    (render_sample's rule), so it carries 3; the frame modes do not change
+    the rule."""
     change = dict(change)
     cfg = RenderConfig(**change.pop("cfg", {}))
-    scene = scenes[3][1]._replace(**change)
+    scene = scenes(3)[1]._replace(**change)
     assert tshade.shade_kernel_covers(cfg, scene) is covered
 
 
-@pytest.mark.parametrize("eps,aeps,floor", [(1e-4, 0.00003807693583, 1e-20),
-                                            (3e-3, 1e-2, 1e-3), (1e-7, 0.1, 0.3)])
-def test_folded_constants_equal_torch(eps, aeps, floor):
+def _c_fields(path: str, struct: str) -> list[tuple[str, str]]:
+    """(name, "pointer" | "int" | "float") of each field of a C struct, in
+    declaration order, parsed from the source."""
+    with open(path) as f:
+        src = f.read()
+    body = re.search(r"struct " + struct + r" \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        head, *rest = decl.split(",")
+        kind = ("pointer" if "*" in head else "float" if head.split()[0] == "float"
+                else "int")
+        assert kind != "int" or head.split()[0] == "int", decl
+        names = [re.search(r"(\w+)$", head).group(1)] + [x.strip() for x in rest]
+        fields += [(name, kind) for name in names]
+    return fields
+
+
+def test_shade_params_mirror_the_kernel_struct():
+    """ops/shade.py:_ShadeParams has csrc/shade.cu:ShadeParams's fields in
+    the same order with the same kinds: a field out of order would corrupt
+    every launch without an error."""
+    import ctypes
+
+    path = os.path.join(os.path.dirname(tshade.__file__), "..", "csrc", "shade.cu")
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    mirror = [(name, kinds[t]) for name, t in tshade._ShadeParams._fields_]
+    assert mirror == _c_fields(path, "ShadeParams")
+    assert len(mirror) > 80
+
+
+@pytest.mark.parametrize("eps,aeps,floor,env_shape", [
+    (1e-4, 0.00003807693583, 1e-20, (1024, 2048)), (3e-3, 1e-2, 1e-3, (12, 20)),
+    (1e-7, 0.1, 0.3, (7, 13))])
+def test_folded_constants_equal_torch(eps, aeps, floor, env_shape):
     """Each constant the host folds for the kernel is the float32 torch
     computes from the same Python scalar on a float32 tensor: the products
-    and sums, the selects, and the comparisons (made in float32 too)."""
+    and sums, the selects, the clamp's floor, the comparisons (made in
+    float32 too), and the reciprocals that ATen multiplies by on CUDA where
+    a float32 tensor is divided by a Python scalar (each the float32
+    quotient of 1 by the rounded scalar, as the CPU's true division of a
+    one gives it; the card tests hold the multiply itself)."""
     cfg = RenderConfig(distance_epsilon=eps, angle_epsilon=aeps, pdf_floor=floor)
-    c = tshade.folded_constants(cfg)
+    c = tshade.folded_constants(cfg, env_shape)
+    eh, ew = env_shape
     one, zero = torch.ones(1), torch.zeros(1)
     assert float(one * (1.0 / PI)) == c["inv_pi"]
-    assert float(one * (PI * 2.0)) == c["two_pi"]
+    assert float(one * (PI * 2.0)) == c["two_pi"] == float(one * (2.0 * PI))
     assert float(zero + 4.0 * eps) == c["four_eps"]
     assert float(one * eps) == c["eps"]
     assert float(torch.where(torch.tensor([False]), one, floor)) == c["pdf_floor"]
+    # the env's PI is numpy's (models/envlight.py), not config.py's 3.1415926
+    assert ENV_PI != PI and float(one * ENV_PI) == c["env_pi"] == -float(zero - ENV_PI)
+    assert float(one * (2.0 * ENV_PI)) == c["env_two_pi"]
+    assert float(one / (2.0 * ENV_PI)) == c["env_inv_two_pi"]
+    assert float(one / ENV_PI) == c["env_pi_recip"]
+    assert (float(one / eh), float(one / ew)) == (c["inv_env_h"], c["inv_env_w"])
+    assert (float(one * eh), float(one * ew), float(one * (eh * ew))) == (
+        c["env_hf"], c["env_wf"], c["env_kf"])
+    assert float(torch.where(torch.tensor([True]), 1e30, one)) == c["env_cap"]
+    assert float(torch.clamp(zero, min=1e-6)) == c["disp_floor"]
     for name, v in (("eps", eps), ("aeps", aeps), ("pdf_floor", floor)):
         near = torch.from_numpy(np.nextafter(np.float32(c[name]),
                                              np.float32([0.0, np.inf, c[name]])))
@@ -96,7 +177,7 @@ def test_folded_constants_equal_torch(eps, aeps, floor):
 def test_wrappers_raise_on_cpu(scenes):
     """The kernel wrappers take CUDA tensors only; render/wavefront.py
     routes CPU tensors to the plain versions."""
-    scene = scenes[3][1]
+    scene = scenes(3)[1]
     inp = shading_inputs(scene, 8, seed=1)
     st = twf.PathState(**{k: torch.from_numpy(v) for k, v in inp["state"].items()})
     hit = HitShade(**{k: torch.from_numpy(v) for k, v in inp["hit"].items()})
@@ -129,15 +210,25 @@ class _Occlusion:
         return self.to(np.arange(ok.shape[0]) % 2 == 0)
 
 
+# case -> (config fields, the deferred form, the bounce, the scene's extensions:
+# "env" the seeded map's (Eh, Ew), "dispersion" Cauchy IoR bins)
 SHADE_CASES = {
-    "deferred": ({}, True, 2),
-    "inline": ({}, False, 2),
-    "last-bounce": ({"max_path_length": 3}, True, 2),
-    "no-quirks": ({"reference_quirks": False}, True, 1),
-    "refract": ({"refract_dielectric": True}, False, 1),
-    "refract-no-quirks": ({"refract_dielectric": True, "reference_quirks": False}, True, 1),
-    "cull-zero-nee": ({"cull_zero_nee": True, "pdf_floor": 0.3}, True, 1),
-    "S16": ({"spectrum_samples": 16}, False, 1),
+    "deferred": ({}, True, 2, {}),
+    "inline": ({}, False, 2, {}),
+    "last-bounce": ({"max_path_length": 3}, True, 2, {}),
+    "no-quirks": ({"reference_quirks": False}, True, 1, {}),
+    "refract": ({"refract_dielectric": True}, False, 1, {}),
+    "refract-no-quirks": ({"refract_dielectric": True, "reference_quirks": False}, True, 1,
+                          {}),
+    "cull-zero-nee": ({"cull_zero_nee": True, "pdf_floor": 0.3}, True, 1, {}),
+    "S16": ({"spectrum_samples": 16}, False, 1, {}),
+    "env": ({}, True, 2, {"env": (12, 20)}),
+    "env-inline-no-quirks-cull": ({"reference_quirks": False, "cull_zero_nee": True}, False,
+                                  1, {"env": (12, 20)}),
+    "hero": ({"spectrum_samples": 16, "hero_wavelengths": 4}, True, 1, {}),
+    "dispersion": ({"spectrum_samples": 16}, True, 1, {"dispersion": True}),
+    "env-hero-dispersion": ({"spectrum_samples": 8, "hero_wavelengths": 2}, True, 1,
+                            {"env": (16, 32), "dispersion": True}),
 }
 
 
@@ -148,16 +239,23 @@ def test_shade_plain_matches_reference(case, scenes):
     seeded lanes of every parity material: real hits and misses, hits
     nearer than eps, dead lanes, emitter hits, the sentinel light row,
     pdfs under a raised pdf floor; quirks, refraction, zero-NEE culling, the
-    last bounce's gate and S = 16; the deferred form's shadow pack, and the
-    inline form's shadow origin and resolved radiance."""
-    kw, defer, bounce = SHADE_CASES[case]
+    last bounce's gate and S = 16; the environment light's two arms (env
+    and area picks, the last alias slot, the poles), hero bins (S = 16, C
+    = 4), dispersion (S = 16), and all three at once (S = 8, C = 2); the
+    deferred form's shadow pack, and the inline form's shadow origin and
+    resolved radiance."""
+    kw, defer, bounce, ext = SHADE_CASES[case]
     s = kw.get("spectrum_samples", 3)
-    jscene, tscene = scenes[s]
-    inp = shading_inputs(tscene, LANES, seed=17 + bounce)
+    hero = kw.get("hero_wavelengths", 0) if s > 3 else 0
+    jscene, tscene = scenes(s, ext.get("env"), ext.get("dispersion", False))
+    inp = shading_inputs(tscene, LANES, seed=17 + bounce, hero=hero)
     rows = {"light_select": 0, "light_bary": slice(1, 3), "lobe": 3,
             "bounce_dir": slice(4, 6)}
+    if "env" in ext:
+        rows.update(env_select=6, env_alias=7, env_jit=slice(8, 10))
 
-    jst = jwf.PathState(**{k: jnp.asarray(v.astype(np.uint32) if k == "pixel" else v)
+    jst = jwf.PathState(**{k: jnp.asarray(v.astype(np.uint32) if k == "pixel" else
+                                          v.astype(np.int32) if k == "bins" else v)
                            for k, v in inp["state"].items()})
     jhit = JHitShade(**{k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
                         for k, v in inp["hit"].items()})
@@ -192,9 +290,16 @@ def test_shade_plain_matches_reference(case, scenes):
             np.testing.assert_array_equal(getattr(got[1], name).numpy(),
                                           np.asarray(getattr(ref[1], name)), err_msg=name)
         assert (0 < int(got[1].ok.sum()) < LANES) == (case != "last-bounce")
+        if "env" in ext:
+            # both arms of the NEE pick, and env samples that pass the gate
+            env_lanes = got[1].target.numpy() == -1
+            assert 0 < env_lanes.sum() < LANES and got[1].ok.numpy()[env_lanes].any()
     else:
         np.testing.assert_allclose(tocc.origins, jocc.origins, rtol=0, atol=1e-6)
     assert [int(x) for x in got[-1].values()] == [int(x) for x in ref[-1].values()]
+    if "env" in ext:
+        # live lanes that escaped see the env
+        assert (inp["state"]["alive"] & ~np.isfinite(inp["hit"]["t"])).sum() > 10
 
 
 def test_sort_key_plain_matches_reference():

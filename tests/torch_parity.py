@@ -142,7 +142,7 @@ def assert_frames_agree(got, want, atol: float = 1e-5, allowed: int = 3) -> None
     assert off.sum() <= allowed, (int(off.sum()), float(np.abs(got - want).max()))
 
 
-def shading_inputs(scene, n: int, seed: int):
+def shading_inputs(scene, n: int, seed: int, hero: int = 0):
     """Seeded inputs of one bounce's shading on a port ``Scene`` on the CPU
     -> numpy {"state": PathState fields, "hit": HitShade fields, "u": (6, n)
     uniform rows in the PRNG order (light_select, light_bary x2, lobe,
@@ -152,7 +152,14 @@ def shading_inputs(scene, n: int, seed: int):
     throughputs, radiance, pdfs (every third exactly 1), previous-lobe
     flags and IoRs (every seventh 1.33); every 17th hemisphere uniform 1e-8
     (a pdf under a raised pdf_floor) and every 19th light uniform the
-    largest float32 below 1 (the sentinel row past the CDF)."""
+    largest float32 below 1 (the sentinel row past the CDF).
+
+    With ``hero`` = C > 0 the state carries C planes and drawn (C, n) int64
+    bins over the scene's S.  A scene with an environment light adds four
+    rows to "u" (env_select, env_alias, env_jit x2): every 23rd select
+    exactly select_p (the area arm), every 29th alias uniform the largest
+    float32 below 1 (the last slot); and every 31st lane looks straight up,
+    every 37th straight down (the lat-long poles)."""
     from tpu_pathtracer_torch.ops.intersect import intersect_brute, shade_from_scene
 
     o, d = random_rays(n, seed)
@@ -164,10 +171,11 @@ def shading_inputs(scene, n: int, seed: int):
     hit["t"][(lane % 13 == 5) & np.isfinite(hit["t"])] = np.float32(5e-5)
     rng = np.random.default_rng(seed + 2)
     s = scene.mat_diffuse.shape[0]
+    planes = hero or s
     state = {
         "origin": o, "direction": d,
-        "throughput": rng.uniform(0.05, 1.0, (s, n)).astype(np.float32),
-        "radiance": rng.uniform(0.0, 2.0, (s, n)).astype(np.float32),
+        "throughput": rng.uniform(0.05, 1.0, (planes, n)).astype(np.float32),
+        "radiance": rng.uniform(0.0, 2.0, (planes, n)).astype(np.float32),
         "pdf": np.where(lane % 3 == 0, 1.0, rng.uniform(0.01, 1.0, n)).astype(np.float32),
         "prev_diffuse": (rng.random(n) < 0.5).astype(np.float32),
         "ior": np.where(lane % 7 == 2, 1.33, 1.00029).astype(np.float32),
@@ -177,6 +185,15 @@ def shading_inputs(scene, n: int, seed: int):
     u = rng.random((6, n), dtype=np.float32)
     u[5, lane % 17 == 0] = np.float32(1e-8)
     u[0, lane % 19 == 0] = np.nextafter(np.float32(1.0), np.float32(0.0))
+    if hero:
+        state["bins"] = rng.integers(0, s, (hero, n))
+    if scene.env is not None:
+        ue = rng.random((4, n), dtype=np.float32)
+        ue[0, lane % 23 == 0] = np.float32(scene.env.select_p.cpu())
+        ue[1, lane % 29 == 0] = np.nextafter(np.float32(1.0), np.float32(0.0))
+        u = np.concatenate([u, ue])
+        d[:, lane % 31 == 0] = np.float32([[0.0], [1.0], [0.0]])
+        d[:, lane % 37 == 0] = np.float32([[0.0], [-1.0], [0.0]])
     return {"state": state, "hit": hit, "u": u}
 
 

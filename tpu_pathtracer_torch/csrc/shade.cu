@@ -1,41 +1,61 @@
 // The shading of one bounce in one launch: NEE (the light pick, the solid-
 // angle pdf, the material eval and the power heuristic), the BSDF-arm MIS on
 // emitter hits, the next bounce's BSDF sample and the throughput update, for
-// the four parity materials, one thread a lane.
+// the four parity materials, one thread a lane; with the environment light's
+// arms of both (the alias-table sample and the lat-long eval), hero
+// wavelength bins and the dispersive per-bin Fresnel weights.
 //
 // Replaces a stage that XLA fused on the TPU: tpu_pathtracer/render/
 // wavefront.py's trace_bounce after its intersect (:455-760), with
-// models/bsdf.py's eval_material and sample_bounce (:126-188) and the warps
-// of core/sampling.py.  The port's plain version (render/wavefront.py:
-// _shade_plain) issues some 300 elementwise torch launches a bounce.
+// models/bsdf.py's eval_material, sample_bounce and dispersion_weights
+// (:126-188, :274), models/envlight.py's sample_env and eval_env (:155-185)
+// and the warps of core/sampling.py.  The port's plain version
+// (render/wavefront.py:_shade_plain) issues some 300 elementwise torch
+// launches a bounce.
 //
-// Coverage: what ops/shade.py:shade_kernel_covers admits, the frames with no
-// environment light, no textures, no roughness table, no dispersion and no
-// hero bins, at 1 to kMaxSpectrum spectral planes; reference_quirks,
-// refract_dielectric and cull_zero_nee on or off, the last bounce's NEE gate.
+// Coverage: what ops/shade.py:shade_kernel_covers admits, every frame but
+// those with a roughness table (the GGX types) or textures, at 1 to
+// kMaxSpectrum carried planes (C under hero sampling, S otherwise); the
+// environment light, hero bins and dispersion each on or off;
+// reference_quirks, refract_dielectric and cull_zero_nee on or off, the last
+// bounce's NEE gate.  refract_dielectric with dispersion is refused by the
+// wrapper, as the plain version refuses it.
 //
 // Contract: bit-equal to the plain version on the card.  Every value keeps
 // the plain version's operation order (dot = (x*x + y*y) + z*z; left-to-right
 // products and quotients), --fmad=false keeps each multiply and add apart as
 // torch's one-operation kernels do, division and sqrtf are IEEE, normalize is
-// v * rsqrtf(dot(v, v)) as torch.rsqrt, cosf and sinf are the CUDA math
-// library's as torch.cos and torch.sin, the clamps propagate NaN as
-// torch.clamp does, the light pick is torch.searchsorted's upper-bound loop,
-// and every constant that torch folds from a Python double arrives as the
-// float32 it rounds to (ops/shade.py:folded_constants).  The selects are the
-// plain version's torch.where chains, so a NaN in an arm that is not taken
-// stays out.
+// v * rsqrtf(dot(v, v)) as torch.rsqrt, cosf, sinf, atan2f and acosf are the
+// CUDA math library's as torch.cos, torch.sin, torch.atan2 and torch.acos,
+// the clamps propagate NaN as torch.clamp does, the light pick is
+// torch.searchsorted's upper-bound loop, a float-to-int32 cast is
+// __float2int_rz as ATen's (truncating; NaN to 0), and every constant that
+// torch folds from a Python double arrives as the float32 it rounds to
+// (ops/shade.py:folded_constants); a float32 tensor divided by a Python
+// scalar is, on CUDA, ATen's multiply by the float32 reciprocal, so those
+// arrive as reciprocals.  The selects are the plain version's torch.where
+// chains, so a NaN in an arm that is not taken stays out; the env sample is
+// drawn only where NEE picks the env, and the env eval of the BSDF arm runs
+// on every lane, since its radiance times a zero weight still reaches the
+// radiance (the sign of a zero, a NaN).
 //
-// What bounds it on an H100: bytes.  A lane reads 113 + 8 S bytes (the state,
-// the hit record, six uniform rows) and writes 62 + 12 S (the new state and
-// the shadow pack; the inline form 12 more for the shadow origin): 235 bytes
-// at S = 3, 487 MB on 2,073,600 lanes, 0.145 ms at 3.35 TB/s.  Its ~300
-// float32 operations a lane are below that.  The design: one thread a lane,
-// every plane read and written once by consecutive lanes (coalesced), the
-// scene tables (a few hundred bytes) read through the cache, no shared
-// memory; the bounce's two counts are block sums (__syncthreads_count) added
-// into one int64 pair with one atomic a block.  The measured share of the
-// bound: PERF.md section 6, the table of the XLA-fused stages.
+// What bounds it on an H100: bytes.  A lane reads 113 + 8 C bytes (the
+// state, the hit record, six uniform rows) and writes 62 + 12 C (the new
+// state and the shadow pack; the inline form 12 more for the shadow origin):
+// 235 bytes at C = S = 3, 487 MB on 2,073,600 lanes, 0.145 ms at 3.35 TB/s.
+// Hero bins add 8 C a lane; the environment light its four uniform rows (16)
+// and the texel its eval reads (4 + 4 C), and on the lanes whose NEE picks
+// the env the alias slot (12) and the sampled texel (4 + 4 C).  Its ~300
+// float32 operations a lane (about 100 more with the env's transcendentals)
+// are below that.  The design: one thread a lane, one kernel instance a
+// feature set (env, hero, dispersion: a parity frame runs none of the
+// others' code or registers), every plane read and written once by
+// consecutive lanes (coalesced), the scene tables (a few hundred bytes) read
+// through the cache, the env's tables (megabytes) gathered where a lane's
+// texel falls, no shared memory; the bounce's two counts are block sums
+// (__syncthreads_count) added into one int64 pair with one atomic a block.
+// The measured share of the bound: PERF.md section 6, the table of the
+// XLA-fused stages.
 #include <cuda_runtime.h>
 
 // Everything one launch reads and writes (ops/shade.py:_ShadeParams mirrors
@@ -46,7 +66,7 @@ struct ShadeParams {
   // the path state
   const float* origin;         // (3, n)
   const float* direction;      // (3, n)
-  const float* throughput;     // (s, n)
+  const float* throughput;     // (s, n): s planes, C under hero sampling, else S
   const float* radiance;       // (s, n)
   const float* pdf;            // (n,)
   const float* prev_diffuse;   // (n,)
@@ -67,8 +87,8 @@ struct ShadeParams {
   const float* bounce_dir0;
   const float* bounce_dir1;
   // the scene tables
-  const float* mat_diffuse;      // (s, m)
-  const float* mat_emissive;     // (s, m)
+  const float* mat_diffuse;      // (S, m)
+  const float* mat_emissive;     // (S, m)
   const float* mat_ior;          // (m,)
   const long long* mat_type;     // (m,)
   const float* light_cdf;        // (num_lights + 1,)
@@ -77,7 +97,25 @@ struct ShadeParams {
   const float* light_pdf;        // (num_lights + 1,)
   const float* light_area;       // (num_lights + 1,)
   const long long* light_tri;    // (num_lights + 1,)
-  const float* light_emissive;   // (s, num_lights + 1)
+  const float* light_emissive;   // (S, num_lights + 1)
+  // the environment light (null without one): radiance (S, env_h * env_w),
+  // the solid-angle pdf and the alias table (env_h * env_w,), select_p and
+  // the rotation (0-d tensors, read on the card: no host sync)
+  const float* env_radiance;
+  const float* env_pdf;
+  const float* env_alias_p;
+  const long long* env_alias_i;
+  const float* env_select_p;
+  const float* env_rotation;
+  // the env's uniform rows (null without an env)
+  const float* env_select;
+  const float* env_alias;
+  const float* env_jit0;
+  const float* env_jit1;
+  // hero sampling: each lane's table rows, (s, n); null reads row c for plane c
+  const long long* bins;
+  // dispersion: the per-bin material IoR (S, m); null without
+  const float* mat_ior_bins;
   // the new state
   float* out_origin;
   float* out_direction;
@@ -95,9 +133,15 @@ struct ShadeParams {
   unsigned char* ok;
   float* shadow_origin;   // (3, n) in the inline form, else null
   unsigned long long* stats;  // [live path lanes, live shadow lanes]
-  int n, s, m, num_lights;
+  int n, s, m, num_lights, env_h, env_w;
   float eps, aeps, four_eps, inv_pi, two_pi, pdf_floor;
+  // the env's constants (models/envlight.py's PI is numpy's pi, not
+  // config.py's 3.1415926) and the dispersion weights' floor, as torch
+  // rounds them (ops/shade.py:folded_constants)
+  float env_pi, env_two_pi, env_inv_two_pi, env_pi_recip, env_cap, disp_floor, inv_env_h,
+      inv_env_w, env_hf, env_wf, env_kf;
   int last_bounce, quirks, refract, cull_zero_nee;
+  int env, hero, dispersion;
 };
 
 namespace {
@@ -109,6 +153,9 @@ constexpr int kMaxSpectrum = 16;  // ops/shade.py:MAX_SPECTRUM
 constexpr long long kDiffuse = 0;
 constexpr long long kMirror = 1;
 constexpr long long kPlastic = 2;
+constexpr long long kDielectric = 3;
+constexpr long long kRoughPlastic = 5;
+constexpr long long kRoughDielectric = 6;
 
 struct V3 {
   float x, y, z;
@@ -208,7 +255,51 @@ __device__ __forceinline__ long long upper_bound(const float* cdf, long long len
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
+// models/bsdf.py:dispersion_weights for one bin: ``f_h`` is the scalar
+// Fresnel at the same eta_out, ``second`` the lobe it chose (f_h < lobe_u).
+__device__ __forceinline__ float dispersion_weight(long long mtype, V3 n, V3 i, float eta_out,
+                                                   float ior_bin, float f_h, bool second,
+                                                   float floor) {
+  const float f_b = fresnel(n, i, eta_out, ior_bin);
+  const float w_spec = f_b / clamp_min(f_h, floor);
+  const float w_sec = (1.0f - f_b) / clamp_min(1.0f - f_h, floor);
+  const bool has_fresnel_lobe = mtype == kPlastic || mtype == kDielectric ||
+                                mtype == kRoughPlastic || mtype == kRoughDielectric;
+  return has_fresnel_lobe ? (second ? w_sec : w_spec) : 1.0f;
+}
+
+// models/envlight.py:_texel_dir: the jittered direction inside texel ``idx``.
+__device__ __forceinline__ V3 env_texel_dir(const ShadeParams& p, long long idx, float ju,
+                                            float jv, float rotation) {
+  const long long ti = idx / p.env_w, tj = idx % p.env_w;
+  const float v = (static_cast<float>(ti) + jv) * p.inv_env_h;
+  const float u = (static_cast<float>(tj) + ju) * p.inv_env_w;
+  const float theta = v * p.env_pi;
+  const float phi = u * p.env_two_pi - p.env_pi + rotation;
+  const float sin_t = sinf(theta);
+  return {sin_t * cosf(phi), cosf(theta), sin_t * sinf(phi)};
+}
+
+// models/envlight.py:texel_index: the flat nearest texel toward ``d``.
+__device__ __forceinline__ long long env_texel_index(const ShadeParams& p, V3 d,
+                                                     float rotation) {
+  const float phi = atan2f(d.z, d.x) - rotation;
+  float u = (phi + p.env_pi) * p.env_inv_two_pi;
+  u = u - floorf(u);
+  const float v = acosf(clamp_nan(d.y, -1.0f, 1.0f)) * p.env_pi_recip;
+  const int j = min(max(__float2int_rz(u * p.env_wf), 0), p.env_w - 1);
+  const int i = min(max(__float2int_rz(v * p.env_hf), 0), p.env_h - 1);
+  return static_cast<long long>(i) * p.env_w + j;
+}
+
+// One instance per feature set (the env light, hero bins, dispersion): a
+// frame's kernel carries only the arithmetic and registers its features need.
+// The instances without the env run four blocks an SM (64 registers): on
+// whole 1080p wavefronts that made the parity and hero forms 11% and 15%
+// faster than at the 74-80 registers ptxas chose, and the env's 3% slower,
+// so those keep ptxas's choice (PERF.md section 6).
+template <bool kEnv, bool kHero, bool kDispersion>
+__global__ void __launch_bounds__(kThreads, kEnv ? 1 : 4) shade_bounce_kernel(ShadeParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   bool counted_path = false, counted_shadow = false;
   if (lane < p.n) {
@@ -257,29 +348,59 @@ __global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
     const bool dir_ok = dist >= eps && l_dot_d >= aeps;
     const float light_pdf =
         dir_ok ? p.light_pdf[li] * (dist * dist) / (p.light_area[li] * l_dot_d) : 0.0f;
-    const long long target = p.light_tri[li];
-    const float shadow_cap = dist + p.four_eps;
+    long long target = p.light_tri[li];
+    float shadow_cap = dist + p.four_eps;
+    V3 nee_dir = to_light;
+    float nee_pdf = light_pdf;
+    bool not_self = target != tri;
 
-    // models/bsdf.py:eval_material toward the light sample
+    // ---- the env arm of the unified NEE over {area lights, env}: the lane
+    // samples the env with probability select_p (models/envlight.py:
+    // sample_env), each arm's pdf carries its selection probability, env
+    // samples below the horizon are gated out, and an env shadow ray is
+    // unbounded with target -1 ----
+    const float sel_p = kEnv ? *p.env_select_p : 0.0f;
+    const float rotation = kEnv ? *p.env_rotation : 0.0f;
+    const bool use_env = kEnv && p.env_select[i] < sel_p;
+    long long e_idx = 0;
+    if (use_env) {
+      const int k = p.env_h * p.env_w;
+      const float x = p.env_alias[i] * p.env_kf;
+      const long long slot = min(max(__float2int_rz(x), 0), k - 1);
+      const float frac = x - static_cast<float>(slot);
+      e_idx = frac >= p.env_alias_p[slot] ? p.env_alias_i[slot] : slot;
+      nee_dir = env_texel_dir(p, e_idx, p.env_jit0[i], p.env_jit1[i], rotation);
+      nee_pdf = p.env_pdf[e_idx] * sel_p;
+      not_self = dot(nee_dir, hn) > 0.0f;
+      shadow_cap = p.env_cap;
+      target = -1;
+    } else if (kEnv) {
+      nee_pdf = light_pdf * (1.0f - sel_p);
+    }
+
+    // models/bsdf.py:eval_material toward the NEE sample
     const V3 mirror_dir = reflect(w_i, hn);
     const V3 wneg = neg(w_i);
     float nee_bsdf, nee_mpdf;
-    const float cos_l = dot(to_light, hn);
+    const float cos_l = dot(nee_dir, hn);
+    // the scalar Fresnel at eta_out = 1 and its lobe choice (the dispersion
+    // weights of the NEE arm reuse both)
+    const float f_nee = fresnel(hn, wneg, 1.0f, m_ior);
+    const bool second_nee = f_nee < lobe_u;
     {
-      const bool is_mirror_dir = fabsf(dot(mirror_dir, to_light) - 1.0f) < aeps;
+      const bool is_mirror_dir = fabsf(dot(mirror_dir, nee_dir) - 1.0f) < aeps;
       const float mirror_bsdf = is_mirror_dir ? cos_l : 0.0f;
       const float diffuse_val = p.inv_pi * cos_l;
-      const bool second = fresnel(hn, wneg, 1.0f, m_ior) < lobe_u;
-      nee_bsdf = select4(m_type, diffuse_val, mirror_bsdf, second ? diffuse_val : mirror_bsdf,
-                         second ? 0.0f : mirror_bsdf);
-      nee_mpdf = select4(m_type, diffuse_val, 1.0f, second ? diffuse_val : 1.0f,
-                         second ? 0.0f : 1.0f);
+      nee_bsdf = select4(m_type, diffuse_val, mirror_bsdf,
+                         second_nee ? diffuse_val : mirror_bsdf, second_nee ? 0.0f : mirror_bsdf);
+      nee_mpdf = select4(m_type, diffuse_val, 1.0f, second_nee ? diffuse_val : 1.0f,
+                         second_nee ? 0.0f : 1.0f);
     }
-    const float nee_weight = power_heuristic(light_pdf, nee_mpdf);
-    bool light_ok = valid && light_pdf > 0.0f && target != tri;
+    const float nee_weight = power_heuristic(nee_pdf, nee_mpdf);
+    bool light_ok = valid && nee_pdf > 0.0f && not_self;
     if (p.last_bounce) light_ok = false;
     if (!p.quirks) light_ok = light_ok && cos_l > 0.0f;
-    const float nee_scale = light_ok ? nee_weight * nee_bsdf / light_pdf : 0.0f;
+    const float nee_scale = light_ok ? nee_weight * nee_bsdf / nee_pdf : 0.0f;
 
     // ---- BSDF-arm MIS on emitter hits ----
     const long long lti = p.light[i];
@@ -295,16 +416,32 @@ __global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
                           ? p.light_pdf[lts] * (e_dist * e_dist) /
                                 clamp_min(p.light_area[lts] * e_cos, 1e-30f)
                           : 0.0f;
-    emit_lpdf = p.prev_diffuse[i] * emit_lpdf;
+    // NEE reaches an emitter point with density light_pdf * (1 - select_p)
+    if (kEnv) emit_lpdf = emit_lpdf * (1.0f - sel_p);
+    const float prev_diffuse = p.prev_diffuse[i];
+    emit_lpdf = prev_diffuse * emit_lpdf;
     const float emit_weight = power_heuristic(pdf_in, emit_lpdf);
     const float emit_factor = p.quirks ? emit_weight * pdf_in : emit_weight;
     const float emit_scale = is_light ? emit_factor : 0.0f;
+    // the env seen by a live lane whose ray escaped (models/envlight.py:
+    // eval_env), MIS-weighted against the env arm of NEE; its texel is read
+    // on every lane, as its radiance times a zero weight still reaches the
+    // radiance
+    long long m_idx = 0;
+    float env_weight = 0.0f;
+    if (kEnv) {
+      m_idx = env_texel_index(p, w_i, rotation);
+      if (alive && !isfinite(t)) {
+        env_weight = power_heuristic(pdf_in, prev_diffuse * sel_p * p.env_pdf[m_idx]);
+      }
+    }
 
     // ---- models/bsdf.py:sample_bounce ----
     const V3 diffuse_dir = diffuse_bounce(p.bounce_dir0[i], p.bounce_dir1[i], hn, p.two_pi);
     const float mirror_cos = p.quirks ? dot(mirror_dir, hn) : 1.0f;
     const float diffuse_val = p.inv_pi * dot(diffuse_dir, hn);
-    const bool second = fresnel(hn, wneg, ior_in, m_ior) < lobe_u;
+    const float f_bounce = fresnel(hn, wneg, ior_in, m_ior);
+    const bool second = f_bounce < lobe_u;
     V3 diel_dir;
     float diel_bsdf, diel_ior;
     if (!p.refract) {
@@ -342,18 +479,35 @@ __global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
     const float safe_pdf = fabsf(nb_pdf) > p.pdf_floor ? nb_pdf : p.pdf_floor;
     const float bounce_scale = nb_bsdf / safe_pdf;
 
-    // ---- the spectral planes: NEE contribution, radiance, throughput ----
+    // ---- the spectral planes: NEE contribution, radiance, throughput; under
+    // hero sampling plane c reads the tables at the lane's bin ----
+    const size_t k = static_cast<size_t>(p.env_h) * p.env_w;
     bool any_contrib = false;
-    for (int s = 0; s < p.s; ++s) {
-      const size_t at = s * n + i;
-      const float m_diffuse = p.mat_diffuse[static_cast<size_t>(s) * p.m + mat];
-      const float m_emissive = p.mat_emissive[static_cast<size_t>(s) * p.m + mat];
+    for (int c = 0; c < p.s; ++c) {
+      const size_t at = c * n + i;
+      const size_t row = kHero ? static_cast<size_t>(p.bins[at]) : c;
+      const float m_diffuse = p.mat_diffuse[row * p.m + mat];
+      const float m_emissive = p.mat_emissive[row * p.m + mat];
       const float thr = p.throughput[at];
-      const float c = p.light_emissive[s * lrow + li] * m_diffuse * thr * nee_scale;
-      p.contrib[at] = c;
-      any_contrib = any_contrib || c != 0.0f;
-      p.out_radiance[at] = p.radiance[at] + m_emissive * thr * emit_scale;
-      p.out_throughput[at] = valid ? thr * (m_diffuse * bounce_scale) : thr;
+      const float nee_emit =
+          use_env ? p.env_radiance[row * k + e_idx] : p.light_emissive[row * lrow + li];
+      float contrib = nee_emit * m_diffuse * thr * nee_scale;
+      float scale = m_diffuse * bounce_scale;
+      if (kDispersion) {
+        // the NEE arm at the reference's eta_out = 1, the bounce arm at the
+        // ray's tracked IoR
+        const float ior_bin = p.mat_ior_bins[row * p.m + mat];
+        contrib = contrib * dispersion_weight(m_type, hn, wneg, 1.0f, ior_bin, f_nee,
+                                              second_nee, p.disp_floor);
+        scale = scale * dispersion_weight(m_type, hn, wneg, ior_in, ior_bin, f_bounce, second,
+                                          p.disp_floor);
+      }
+      p.contrib[at] = contrib;
+      any_contrib = any_contrib || contrib != 0.0f;
+      float emit = m_emissive * thr * emit_scale;
+      if (kEnv) emit = emit + p.env_radiance[row * k + m_idx] * thr * env_weight;
+      p.out_radiance[at] = p.radiance[at] + emit;
+      p.out_throughput[at] = valid ? thr * scale : thr;
     }
     // a shadow ray whose contribution is exactly zero in every plane is
     // culled (cfg.cull_zero_nee)
@@ -366,10 +520,10 @@ __global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
            valid ? V3{hp.x + off * hn.x, hp.y + off * hn.y, hp.z + off * hn.z} : o);
     store3(p.out_direction, n, i, valid ? w_o : w_i);
     p.out_pdf[i] = valid ? nb_pdf : pdf_in;
-    p.out_prev_diffuse[i] = valid ? nb_finite : p.prev_diffuse[i];
+    p.out_prev_diffuse[i] = valid ? nb_finite : prev_diffuse;
     p.out_ior[i] = valid ? nb_ior : ior_in;
     p.out_alive[i] = valid;
-    store3(p.to_light, n, i, to_light);
+    store3(p.to_light, n, i, nee_dir);
     p.cap[i] = shadow_cap;
     p.target[i] = target;
     p.ok[i] = light_ok;
@@ -388,18 +542,33 @@ __global__ void __launch_bounds__(kThreads) shade_bounce_kernel(ShadeParams p) {
   }
 }
 
+using ShadeKernel = void (*)(ShadeParams);
+
+// the instances, indexed by env * 4 + hero * 2 + dispersion
+const ShadeKernel kShadeKernels[8] = {
+    shade_bounce_kernel<false, false, false>, shade_bounce_kernel<false, false, true>,
+    shade_bounce_kernel<false, true, false>,  shade_bounce_kernel<false, true, true>,
+    shade_bounce_kernel<true, false, false>,  shade_bounce_kernel<true, false, true>,
+    shade_bounce_kernel<true, true, false>,   shade_bounce_kernel<true, true, true>};
+
 }  // namespace
 
 // params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the two
 // counts, then launches over params->n lanes.
 extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
   const ShadeParams p = *params;
-  if (p.s < 1 || p.s > kMaxSpectrum || p.n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.s < 1 || p.s > kMaxSpectrum || p.n < 0 || (p.hero && p.bins == nullptr) ||
+      (p.dispersion && p.mat_ior_bins == nullptr) ||
+      (p.env && (p.env_radiance == nullptr || p.env_h < 1 || p.env_w < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(p.stats, 0, 2 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.n > 0) {
-    shade_bounce_kernel<<<(p.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(p);
+    const ShadeKernel kernel =
+        kShadeKernels[(p.env ? 4 : 0) + (p.hero ? 2 : 0) + (p.dispersion ? 1 : 0)];
+    kernel<<<(p.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

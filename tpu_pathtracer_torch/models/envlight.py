@@ -97,9 +97,11 @@ def build_env(image: np.ndarray, strength: float = 1.0, rotation: float = 0.0,
 
 def env_to(arrays: dict, device) -> EnvLight:
     """numpy field arrays (:func:`build_env`'s, or the reference's
-    ``EnvLight._asdict()``) -> an :class:`EnvLight` on ``device``."""
+    ``EnvLight._asdict()``) -> an :class:`EnvLight` on ``device``, every
+    field contiguous (the shading kernel reads the tables in place)."""
     def put(name):
         a = np.asarray(arrays[name])
+        a = np.ascontiguousarray(a) if a.ndim else a
         dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
 

@@ -165,8 +165,9 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
 
     The shading after the intersect is one launch of ``csrc/shade.cu`` on
     CUDA tensors when ``ops/shade.py:shade_kernel_covers`` holds for the
-    config and scene; otherwise (the CPU, and on the card the env-lit,
-    textured, GGX, dispersive and hero frames) :func:`_shade_plain`."""
+    config and scene (env-lit, hero and dispersive frames included);
+    otherwise (the CPU, and on the card the textured and GGX frames)
+    :func:`_shade_plain`."""
     if hit is None:
         hit = intersect(state.origin, state.direction, state.alive,
                         coherent=coherent)
