@@ -89,8 +89,8 @@ Phases (any failure raises, so the exit code is not 0):
     (``intersect_sweep1_v1``) and the redesigned one the same on those
     wavefronts' lanes with at most one candidate, each equal to its
     yardstick on every lane, ms and share of the bound, and the device time
-    of each of the targeted kernel's three launches (torch.profiler, up to
-    three traces; null for a launch no trace held);
+    of a call of the targeted kernel (its three launches, queued behind a
+    spin kernel);
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -209,14 +209,20 @@ Phases (any failure raises, so the exit code is not 0):
     kernels a frame, every frame bit-equal; and the self-golden gate at the
     default path's rel_mse 1.5807e-8 or better;
 23. the shading and the wavefront sort as hand kernels: ``shade_bounce``
-    (csrc/shade.cu, both forms of the bounce) in its parity, env-lit and
-    hero forms (the main path; the env-lit path; S = 16, hero 4 and
-    dispersion 0.0042), ``sort_key`` and ``gather_planes``
-    (csrc/wavefront_sort.cu) against their plain versions bit for bit on
-    every lane of the path's whole camera and bounce-1 wavefronts (the
-    main path's sorts after bounces 1 and 2) and on 65,536 lanes drawn from
-    them; their times (queued) beside their bounds, the plain versions' and
-    torch.sort's; then the main path, the unsorted frame, the fused walk,
+    (csrc/shade.cu, both forms of the bounce) in its parity, env-lit, hero
+    and hero-with-env forms (the main path; the env-lit path; S = 16, hero 4
+    and dispersion 0.0042, without and with the env), ``sort_key`` and
+    ``gather_planes`` (csrc/wavefront_sort.cu; pixel and alive read from
+    the sorted key, as the frame calls it, and every plane gathered)
+    against their plain versions bit for bit on every lane of the path's
+    whole camera and bounce-1 wavefronts (the sorts after bounces 1 and 2
+    of the main path, of the hero plane set and of S = 16) and on 65,536
+    lanes drawn from them; the env forms also on a map with a NaN texel,
+    which fails the map check and takes the every-lane path; their times
+    (queued) beside their bounds, the plain versions', torch.sort's and
+    ATen's index_select a plane (queued); the 32-byte sectors the gather's
+    reads touch and its sector floor; the env-lit frame's lanes that miss,
+    bounce by bounce; then the main path, the unsorted frame, the fused walk,
     prefix sorts, the env-lit path and the spectral CLI configuration
     without and with the env (1080p, depth 8) with the kernels and with the
     plain shading and sort put back (``plain_stages(SHADE_SORT_STAGES)``),
@@ -287,7 +293,9 @@ the shading and the sort's kernels ``launches_per_frame_spectral``, their
 launches a frame on phase 20's spectral CLI path, and
 ``launches_per_frame_mesh2x1``, their launches a frame on phase 21's 2x1
 mesh, the any-hit walk's env-lit; the shading's row carries phase 23's
-turns and its env-lit and hero forms' readings (``forms``)); the last line is
+turns and its env-lit, hero and hero-with-env forms' readings (``forms``),
+the gather's row ATen's index_select time as ``library_ms``, its sector
+counts and its other plane sets' times); the last line is
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -2984,61 +2992,16 @@ def sweep1_ab(label: str, o, d, sel, lay, pp: int, bnd_ms: float) -> dict:
                     f"candidate, {lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
 
 
-SWEEP1_LAUNCHES = ("sweep1_tally_kernel", "sweep1_list_kernel", "sweep1_kernel")
-
-
-def kernel_times_us(fn, reps: int, kernels: tuple[str, ...],
-                    tries: int = 3) -> dict[str, list[float]]:
-    """Device microseconds of each launch of the ``kernels`` (by their
-    names) that ``reps`` calls of ``fn`` (after one) made, from a
-    torch.profiler trace with CPU and CUDA activity exported as every
-    profiled frame here is.  A trace on the card now and then comes back
-    without some or all of its kernels (a profile of CUDA activity alone did
-    so on some machines, and one with CPU activity too did so once), so the
-    profile is taken again, up to ``tries`` times, until it holds every one
-    of them -> {kernel: durations} with the kernels the last trace held."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out: dict[str, list[float]] = {}
-    for _ in range(tries):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-        out = {}
-        for e in events:
-            kernel = next((k for k in kernels if f"::{k}(" in e["name"]), None)
-            if kernel:
-                out.setdefault(kernel, []).append(e["dur"])
-        if set(out) == set(kernels):
-            break
-    return out
-
-
-def sweep1_device_us(label: str, o, d, sel, lay, pp: int, reps: int = 10) -> dict:
-    """Device microseconds a call of each of the targeted kernel's three
-    launches (torch.profiler over ``reps`` calls after one, the mean over
-    the launches the trace holds) on one wavefront's lanes with at most one
-    candidate -> {kernel: us}, None for a launch that no trace held (not
-    measured: the kernel's output is checked and its whole call timed apart
-    from the profile)."""
+def sweep1_device_us(label: str, o, d, sel, lay, pp: int) -> float:
+    """Device microseconds a call of the targeted kernel (its three launches:
+    the tally, the list of active lanes and the march) on one wavefront's
+    lanes with at most one candidate, the calls queued behind a spin kernel
+    (:func:`queued_ms`), as every short kernel here is timed."""
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
 
-    times = kernel_times_us(lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp),
-                            reps, SWEEP1_LAUNCHES)
-    out = {k: sum(times[k]) / len(times[k]) if k in times else None
-           for k in SWEEP1_LAUNCHES}
-    log(f"  sweep1 {label}: device us a call " + ", ".join(
-        f"{k} {v:.1f}" if v is not None else f"{k} not measured (no trace held it)"
-        for k, v in out.items()))
-    return out
+    us = 1e3 * queued_ms(lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp))
+    log(f"  sweep1 {label}: device time a call (its three launches, queued) {us:.1f} us")
+    return us
 
 
 def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict], dict]:
@@ -3561,7 +3524,7 @@ def plain_stages(stages=RNG_RESOLVE_STAGES):
              "resolve": [(ht, "window_walk_resolve", torch_resolved(ht.window_walk))],
              "shade": [(shade, "shade_bounce", shade.shade_bounce_plain)],
              "sort": [(sort, "sort_key", sort.sort_key_plain),
-                      (sort, "gather_planes", sort.gather_planes_plain)]}
+                      (sort, "gather_planes", gather_planes_plain)]}
     chosen = [x for st in stages for x in swaps[st]]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in chosen]
     for mod, name, fn in chosen:
@@ -3571,6 +3534,26 @@ def plain_stages(stages=RNG_RESOLVE_STAGES):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def sort_gather(planes, perm, key):
+    """The gather as render/wavefront.py:sort_wavefront calls it: ``planes``
+    a PathState's then a ShadowPack's, pixel and alive read from the sorted
+    ``key``."""
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
+    from tpu_pathtracer_torch.render.wavefront import PathState
+
+    return sort.gather_planes(planes, perm, key, pixel=PathState._fields.index("pixel"),
+                              alive=PathState._fields.index("alive"))
+
+
+def gather_planes_plain(planes, perm, key=None, pixel=None, alive=None):
+    """ops/wavefront_sort.py:gather_planes_plain in the place of the gather
+    kernel's wrapper, whose call passes the sorted key (the plain version
+    gathers every plane, pixel and alive too)."""
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
+
+    return sort.gather_planes_plain(planes, perm)
 
 
 def stage_turns(label: str, tmp: str, scene) -> dict:
@@ -3830,6 +3813,43 @@ def gather_bound(planes, lanes: int) -> dict:
     return bound(lanes * 8 + 2 * table_bytes(*(x for x in planes if x is not None)), 0)
 
 
+def gather_sectors(planes, perm) -> dict:
+    """The 32-byte sectors the gather's reads through ``perm`` touch, row by
+    row of every plane: the mean distinct sectors (and 128-byte lines) a
+    warp of 32 consecutive outputs reads from one row, by element size; the
+    bytes of those sectors over all warps and rows (what L2 serves the SMs
+    when no warp finds a sector another warp fetched); and the distinct
+    sectors of the whole pass, each of which device memory must serve at
+    least once.  The sector floor: those distinct sectors' bytes, the
+    writes and the permutation over 3.35 TB/s."""
+    n = perm.shape[0]
+    warps = n // 32
+    by_elem, warp_bytes, pass_bytes, out_bytes = {}, 0, 0, 0
+    for x in planes:
+        if x is None:
+            continue
+        e = x.element_size()
+        for r in range(1 if x.dim() == 1 else x.shape[0]):
+            byte = r * n * e + perm * e
+            sec = torch.sort((byte[:warps * 32] // 32).view(warps, 32), dim=1).values
+            line = torch.sort((byte[:warps * 32] // 128).view(warps, 32), dim=1).values
+            per_warp = int((1 + (sec[:, 1:] != sec[:, :-1]).sum(1)).sum())
+            lines = int((1 + (line[:, 1:] != line[:, :-1]).sum(1)).sum())
+            d = by_elem.setdefault(e, {"rows": 0, "sectors": 0, "lines": 0})
+            d["rows"] += 1
+            d["sectors"] += per_warp
+            d["lines"] += lines
+            warp_bytes += 32 * per_warp
+            pass_bytes += 32 * int(torch.unique(byte // 32).numel())
+            out_bytes += n * e
+    per = {e: {"rows": d["rows"], "sectors_per_warp": d["sectors"] / (d["rows"] * warps),
+               "lines_per_warp": d["lines"] / (d["rows"] * warps)}
+           for e, d in sorted(by_elem.items())}
+    return {"by_element_size": per, "warp_sector_mb": warp_bytes / 1e6,
+            "pass_sector_mb": pass_bytes / 1e6, "row_mb": out_bytes / 1e6,
+            "sector_floor_ms": (pass_bytes + out_bytes + 8 * n) / HBM_BYTES_PER_S * 1e3}
+
+
 def shade_inputs(renderer) -> tuple[dict, dict]:
     """A frame path's frame-0 inputs of both new stages at full width, made
     as render_sample makes them (hero bins, the env's uniform rows):
@@ -3965,7 +3985,57 @@ def shade_scenes() -> dict:
 
 # phase 23's forms of the shading kernel: the frame path whose wavefronts
 # it is held and timed on (a scene of shade_scenes and a config)
-SHADE_FORMS = {"parity": ("main", {}), "env-lit": ("env", {}), "hero": ("spectral", SPECTRAL)}
+SHADE_FORMS = {"parity": ("main", {}), "env-lit": ("env", {}), "hero": ("spectral", SPECTRAL),
+               "hero env": ("spectral env", SPECTRAL)}
+
+
+def nonfinite_map_scene(scene, st, hit):
+    """``scene`` with its env map's texel that the most lanes of ``st`` with
+    a hit look toward made NaN in every plane (every other table as it
+    was): its radiance_max is None, so the shading kernel takes the
+    every-lane path, and each such lane's radiance turns NaN."""
+    from tpu_pathtracer_torch.models.envlight import EnvLight, env_to, texel_index
+
+    env = scene.env
+    idx = texel_index(env, st.direction)[st.alive & torch.isfinite(hit.t)]
+    common = int(torch.mode(idx).values)
+    rad = env.radiance.cpu().numpy().copy()
+    rad.reshape(rad.shape[0], -1)[:, common] = np.nan
+    arrays = {k: getattr(env, k).cpu().numpy() for k in EnvLight._fields
+              if k != "radiance_max"}
+    out = env_to({**arrays, "radiance": rad}, env.radiance.device)
+    if out.radiance_max is not None:
+        raise AssertionError("a map with a NaN texel passed the map check")
+    return scene._replace(env=out)
+
+
+def env_miss_shares(scene) -> list[dict]:
+    """The lanes each bounce of one 1080p frame (after a warm-up frame) of
+    the env-lit path shades, its live lanes and the live lanes whose ray
+    missed (the only lanes whose env texel the shading must read) ->
+    [{"bounce", "lanes", "live", "misses", "share"}]."""
+    from tpu_pathtracer_torch import Renderer
+    from tpu_pathtracer_torch.ops import shade
+
+    r = Renderer(scene, WIDTH, HEIGHT)
+    r.run(1)
+    wrapper, out = shade.shade_bounce, []
+
+    def record(scene, cfg, bounce, state, uniforms, hit, inline):
+        misses = int((state.alive & ~torch.isfinite(hit.t)).sum())
+        n = state.alive.shape[0]
+        out.append({"bounce": bounce, "lanes": n, "live": int(state.alive.sum()),
+                    "misses": misses, "share": misses / n})
+        return wrapper(scene, cfg, bounce, state, uniforms, hit, inline)
+
+    record.launches = 0  # the wrapper counts its launches here meanwhile
+    shade.shade_bounce = record
+    try:
+        r.run(1)
+    finally:
+        shade.shade_bounce = wrapper
+    torch.cuda.synchronize()
+    return out
 
 
 def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
@@ -3998,6 +4068,36 @@ def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
                 same_bits(f"shade_bounce vs plain, {label}, {which}, {lanes} lanes, "
                           f"inline={inline}", shade.shade_bounce(*a, inline),
                           shade.shade_bounce_plain(*a, inline))
+    every_lane = None
+    if scene.env is not None:
+        # a map with a NaN texel fails the map check: the every-lane path
+        st, hit = shading["bounce1"][0], shading["bounce1"][1]
+        bad = nonfinite_map_scene(scene, st, hit)
+        for which in shading:
+            a = (bad, *args(which, "full")[1:])
+            got = shade.shade_bounce(*a, False)
+            same_bits(f"shade_bounce vs plain, {label}, {which}, a NaN texel in the map",
+                      got, shade.shade_bounce_plain(*a, False))
+        nan_lanes = int(torch.isnan(got[0].radiance).any(0).sum())
+        every_lane = queued_ms(lambda: shade.shade_bounce(bad, *args("bounce1", "full")[1:],
+                                                          False))
+        log(f"  shade_bounce, {label}, a map with a NaN texel (radiance_max None: the "
+            f"every-lane path) == its plain version bit for bit on every lane of the whole "
+            f"camera and bounce-1 wavefronts ({nan_lanes} bounce-1 lanes turned NaN); "
+            f"bounce 1 {every_lane:.4f} ms (queued)")
+        # the env's NEE arm alone: every lane's NEE on the area lights, then on
+        # the env (select_p 0 and 1; held to the plain version all the same)
+        arm = {}
+        for p_sel in (0.0, 1.0):
+            one = scene._replace(env=scene.env._replace(
+                select_p=torch.full_like(scene.env.select_p, p_sel)))
+            a = (one, *args("bounce1", "full")[1:])
+            same_bits(f"shade_bounce vs plain, {label}, bounce1, select_p {p_sel:g}",
+                      shade.shade_bounce(*a, False), shade.shade_bounce_plain(*a, False))
+            arm[p_sel] = queued_ms(lambda a=a: shade.shade_bounce(*a, False))
+        log(f"  shade_bounce, {label}, bounce 1 with select_p {float(scene.env.select_p):.4f} "
+            f"set to 0 (no lane samples the env) {arm[0.0]:.4f} ms and to 1 (every lane "
+            f"does) {arm[1.0]:.4f} ms (queued; each bit-equal to its plain version)")
     torch.cuda.synchronize()
     live = [int(v[0].alive.sum()) for v in shading.values()]
     small, full = args("bounce1", SAMPLE_LANES), args("bounce1", "full")
@@ -4023,22 +4123,33 @@ def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
                 "bound_full": bfull, "bound_full_inline_ms": bin_["bound_ms"],
                 "full_pct_of_bound": 100.0 * bfull["bound_ms"] / full_ms, "planes": c,
                 "lanes": n_full, "live": live}
+    if every_lane is not None:
+        readings["full_every_lane_ms"] = every_lane
+        readings["full_select_p0_ms"], readings["full_select_p1_ms"] = arm[0.0], arm[1.0]
+        readings["select_p"] = float(scene.env.select_p)
+        readings["misses"] = [int((v[0].alive & ~torch.isfinite(v[1].t)).sum())
+                              for v in shading.values()]
     return readings, sorts
 
 
 def phase_shade_sort(smi: str) -> list[dict]:
     """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
     wavefront sort (csrc/wavefront_sort.cu).  The shading in each of its
-    forms (:data:`SHADE_FORMS`: parity, env-lit, hero with dispersion) and
-    the sort against their plain versions bit for bit on every lane of the
-    frame path's whole camera and bounce-1 wavefronts (the shading in both
-    forms of the bounce; the sorts after bounces 0 and 1 of the main path)
-    and on 65,536 lanes drawn from them; their times (queued) beside their
-    bounds, the plain versions' and torch.sort's; then the main path, the
-    unsorted frame, the fused walk, prefix sorts, the env-lit path and the
-    spectral path without and with the env in turns with the plain versions
-    put back, and the self-golden gate -> the three kernels' rows of the
-    kernel table (the shading's env-lit and hero forms under "forms")."""
+    forms (:data:`SHADE_FORMS`: parity, env-lit, hero with dispersion, and
+    that with the env; the env forms also on a map with a NaN texel) and the
+    sort (the gather reading pixel and alive from the sorted key, and
+    gathering every plane) against their plain versions bit for bit on
+    every lane of the frame path's whole camera and bounce-1 wavefronts (the
+    shading in both forms of the bounce; the sorts after bounces 0 and 1 of
+    the main path, the hero plane set and S = 16) and on 65,536 lanes drawn
+    from them; their times (queued) beside their bounds, the plain
+    versions', torch.sort's and ATen's index_select a plane; the gather's
+    sectors (:func:`gather_sectors`) and the env-lit frame's misses
+    (:func:`env_miss_shares`); then the main path, the unsorted frame, the
+    fused walk, prefix sorts, the env-lit path and the spectral path without
+    and with the env in turns with the plain versions put back, and the
+    self-golden gate -> the three kernels' rows of the kernel table (the
+    shading's other forms under "forms")."""
     from tpu_pathtracer_torch.ops import wavefront_sort as sort
     from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
 
@@ -4046,10 +4157,16 @@ def phase_shade_sort(smi: str) -> list[dict]:
     log(f"the shading and the wavefront sort as hand kernels on {smi}")
     scenes = shade_scenes()
     gen = torch.Generator().manual_seed(23)
-    forms, sorts = {}, None
+    forms, form_sorts = {}, {}
     for label, (which, kw) in SHADE_FORMS.items():
-        forms[label], form_sorts = shade_form(label, scenes[which], kw, gen)
-        sorts = sorts or form_sorts
+        forms[label], form_sorts[label] = shade_form(label, scenes[which], kw, gen)
+    shares = env_miss_shares(scenes["env"])
+    forms["env-lit"]["miss_shares"] = shares
+    log("  the env-lit path's lanes whose ray missed (their env texel the only one the "
+        "shading reads), a frame's bounces: " + "; ".join(
+            f"bounce {x['bounce']} {x['misses']} of {x['lanes']} lanes "
+            f"({100.0 * x['share']:.2f}%; live {x['live']})" for x in shares))
+    sorts = form_sorts["parity"]
     scene = scenes["main"]
     wmin, winv = scene_sort_bounds(scene)
     n_full = forms["parity"]["lanes"]
@@ -4061,21 +4178,37 @@ def phase_shade_sort(smi: str) -> list[dict]:
             st, pack = take_lanes(st, idx), take_lanes(pack, idx)
         return st, pack
 
-    for which in sorts:
-        for lanes in ("full", SAMPLE_LANES):
-            st, pack = sort_args(which, lanes)
-            key = sort.sort_key(st.origin, st.direction, st.alive, st.pixel, wmin, winv)
-            same_bits(f"sort_key vs plain, sort at {which}, {lanes} lanes", key,
-                      sort.sort_key_plain(st.origin, st.direction, st.alive, st.pixel,
-                                          wmin, winv))
-            perm = torch.sort(key, stable=True).indices
-            same_bits(f"gather_planes vs plain, sort at {which}, {lanes} lanes",
-                      sort.gather_planes([*st, *pack], perm),
-                      sort.gather_planes_plain([*st, *pack], perm))
+    # the plane sets of the gather: the main path's (S = 3), hero C = 4 with
+    # its bins plane (the spectral path's), and S = 16 without hero
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+
+    wide = Renderer(scenes["spectral"], WIDTH, HEIGHT, RenderConfig(spectrum_samples=16))
+    plane_sets = {"S = 3": sorts, "hero C = 4": form_sorts["hero"],
+                  "S = 16": shade_inputs(wide)[1]}
+    del wide
+    for label, set_sorts in plane_sets.items():
+        for which in set_sorts:
+            for lanes in ("full", SAMPLE_LANES) if label == "S = 3" else ("full",):
+                st, pack = (sort_args(which, lanes) if label == "S = 3"
+                            else set_sorts[which])
+                key = sort.sort_key(st.origin, st.direction, st.alive, st.pixel, wmin,
+                                    winv)
+                same_bits(f"sort_key vs plain, {label}, sort at {which}, {lanes} lanes", key,
+                          sort.sort_key_plain(st.origin, st.direction, st.alive, st.pixel,
+                                              wmin, winv))
+                skey, perm = torch.sort(key, stable=True)
+                want = sort.gather_planes_plain([*st, *pack], perm)
+                same_bits(f"gather_planes vs plain, {label}, sort at {which}, {lanes} lanes",
+                          sort_gather([*st, *pack], perm, skey), want)
+                same_bits(f"gather_planes without the key vs plain, {label}, sort at "
+                          f"{which}, {lanes} lanes", sort.gather_planes([*st, *pack], perm),
+                          want)
     torch.cuda.synchronize()
-    log(f"  sort_key and gather_planes == their plain versions bit for bit on every lane "
-        f"of the main path's sorts after bounces 1 and 2 ({n_full} lanes) and of "
-        f"{SAMPLE_LANES} lanes drawn from them")
+    log(f"  sort_key and gather_planes (pixel and alive from the sorted key, and every "
+        f"plane gathered) == their plain versions bit for bit on every lane of the main "
+        f"path's sorts after bounces 1 and 2 ({n_full} lanes) and of {SAMPLE_LANES} lanes "
+        f"drawn from them, and of the same sorts of the hero plane set (C = 4 and the bins "
+        f"plane) and of S = 16")
 
     # times: the kernels' calls queued behind a spin (the card's time, "ms"),
     # the plain versions by CUDA events (host work included, as the frame
@@ -4093,19 +4226,51 @@ def phase_shade_sort(smi: str) -> list[dict]:
     st_s, pack_s = sort_args("bounce 2", SAMPLE_LANES)
     keys = {n: sort.sort_key(x.origin, x.direction, x.alive, x.pixel, wmin, winv)
             for n, x in ((SAMPLE_LANES, st_s), ("full", st))}
-    perms = {n: torch.sort(k, stable=True).indices for n, k in keys.items()}
+    sorted_keys = {n: torch.sort(k, stable=True) for n, k in keys.items()}
+    perms = {n: v.indices for n, v in sorted_keys.items()}
     planes = {SAMPLE_LANES: [*st_s, *pack_s], "full": [*st, *pack]}
     times = {}
     for n, x in ((SAMPLE_LANES, st_s), ("full", st)):
         times[n] = {
             "sort_key": queued_ms(lambda x=x: sort.sort_key(x.origin, x.direction, x.alive,
                                                             x.pixel, wmin, winv)),
-            "gather_planes": queued_ms(lambda n=n: sort.gather_planes(planes[n], perms[n])),
+            "gather_planes": queued_ms(lambda n=n: sort_gather(planes[n], perms[n],
+                                                               sorted_keys[n].values)),
+            # ATen's gather of the same function: one index_select a plane
+            "index_select": queued_ms(lambda n=n: sort.gather_planes_plain(planes[n],
+                                                                           perms[n])),
             "torch_sort": cuda_ms(lambda n=n: torch.sort(keys[n], stable=True), iters=10),
             "sort_key_plain": cuda_ms(lambda x=x: sort.sort_key_plain(
                 x.origin, x.direction, x.alive, x.pixel, wmin, winv), iters=3),
             "gather_planes_plain": cuda_ms(lambda n=n: sort.gather_planes_plain(
                 planes[n], perms[n]), iters=3)}
+    sectors = gather_sectors(planes["full"], perms["full"])
+    log("  gather_planes, the sort after bounce 1: the 32-byte sectors its reads touch "
+        "(a warp's 32 outputs, one row): " + "; ".join(
+            f"{e}-byte rows x{d['rows']}: {d['sectors_per_warp']:.2f} sectors, "
+            f"{d['lines_per_warp']:.2f} 128-byte lines a warp"
+            for e, d in sectors["by_element_size"].items())
+        + f"; all warps and rows {sectors['warp_sector_mb']:.1f} MB of sectors for "
+        f"{sectors['row_mb']:.1f} MB of rows; the whole pass touches "
+        f"{sectors['pass_sector_mb']:.1f} MB of distinct sectors: sector floor "
+        f"{sectors['sector_floor_ms']:.4f} ms (those sectors, the writes and the "
+        f"permutation over {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    sets_ms = {}
+    for label, set_sorts in plane_sets.items():
+        for which in ("bounce 1", "bounce 2"):
+            x, xp = set_sorts[which]
+            skey, perm = torch.sort(sort.sort_key(x.origin, x.direction, x.alive, x.pixel,
+                                                  wmin, winv), stable=True)
+            items = [*x, *xp]
+            ms_k = queued_ms(lambda: sort_gather(items, perm, skey))
+            ms_i = queued_ms(lambda: sort.gather_planes_plain(items, perm))
+            b = gather_bound(items, perm.shape[0])["bound_ms"]
+            sets_ms[f"{label}, sort at {which}"] = {"ms": ms_k, "index_select_ms": ms_i,
+                                                    "bound_ms": b}
+            log(f"  gather_planes, {label}, sort at {which} ({perm.shape[0]} lanes, "
+                f"{sum(1 if y.dim() == 1 else y.shape[0] for y in items if y is not None)} "
+                f"rows): {ms_k:.4f} ms (queued), bound {b:.4f} ms = {100.0 * b / ms_k:.1f}%; "
+                f"ATen's index_select a plane (queued) {ms_i:.4f} ms")
     for name, line, bfn in (
             ("sort_key", "tpu_pathtracer/render/wavefront.py:122",
              lambda n: bound(n * SORT_KEY_LANE_BYTES, n * OPS_SORT_KEY)),
@@ -4114,12 +4279,16 @@ def phase_shade_sort(smi: str) -> list[dict]:
                                     n))):
         bnd, bfull = bfn(SAMPLE_LANES), bfn(n_full)
         t_s, t_f = times[SAMPLE_LANES], times["full"]
+        extra = {} if name == "sort_key" else {
+            "library_ms": t_s["index_select"], "library_full_ms": t_f["index_select"],
+            "library_call": "torch.index_select, one call a plane", "sectors": sectors,
+            "plane_sets": sets_ms}
         entries.append(kernel_entry(
             name, "wavefront_sort.cu", line, 0.0, t_s[name], t_s[f"{name}_plain"],
             t_f[name], bnd, plain_full_ms=t_f[f"{name}_plain"],
             torch_sort_ms=t_s["torch_sort"], torch_sort_full_ms=t_f["torch_sort"],
             bound_full_ms=bfull["bound_ms"], bound_full_by=bfull["bound_by"],
-            full_pct_of_bound=100.0 * bfull["bound_ms"] / t_f[name]))
+            full_pct_of_bound=100.0 * bfull["bound_ms"] / t_f[name], **extra))
         log(f"  {name}, the sort after bounce 1 (S = {s}, {len(planes['full'])} planes, "
             f"{sum(x is not None for x in planes['full'])} present), device time a launch "
             f"(queued): {SAMPLE_LANES} lanes {t_s[name]:.4f} ms, bound {bnd['bound_ms']:.4f} "
@@ -4128,8 +4297,11 @@ def phase_shade_sort(smi: str) -> list[dict]:
             f"{100.0 * bfull['bound_ms'] / t_f[name]:.1f}% of bound.  Plain: "
             f"{t_s[name + '_plain']:.3f} and {t_f[name + '_plain']:.3f} ms.  torch.sort of the "
             f"key (CUDA events over back-to-back calls): {t_s['torch_sort']:.4f} and "
-            f"{t_f['torch_sort']:.4f} ms")
-    del sorts, keys, perms, planes, st, pack, st_s, pack_s
+            f"{t_f['torch_sort']:.4f} ms" + ("" if name == "sort_key" else
+                                            f".  ATen's index_select a plane (queued): "
+                                            f"{t_s['index_select']:.4f} and "
+                                            f"{t_f['index_select']:.4f} ms"))
+    del sorts, form_sorts, plane_sets, keys, sorted_keys, perms, planes, st, pack, st_s, pack_s
 
     turns = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4144,6 +4316,107 @@ def phase_shade_sort(smi: str) -> list[dict]:
     entries[0]["turns"] = turns
     log(f"shade/sort phase: {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+def checkout_package(root: str, alias: str):
+    """The tpu_pathtracer_torch package of another checkout of this repo at
+    ``root`` (an older commit unpacked with git archive), imported as
+    ``alias`` beside this one: its wrappers launch its own kernels, built
+    from its own sources into its own _build directory."""
+    import importlib.util
+
+    pkg = os.path.join(root, "tpu_pathtracer_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def forms_ab(root: str) -> int:
+    """The gather and the shading kernel of this tree against those of the
+    checkout at ``root`` (:func:`checkout_package`), in turns (old, new, new,
+    old; each call queued) on the same whole 1080p wavefronts: the gather on
+    the main path's sorts after bounces 1 and 2, the hero plane set's and
+    S = 16's (this tree reading pixel and alive from the sorted key, as the
+    frame calls it), the shading's parity, env-lit and hero forms on bounce
+    1 and the env-lit form on the camera wavefront; every output of both
+    bit-equal to the plain version's.  Prints an "A/B ..." line each.
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.forms_ab('old'))"
+    """
+    import importlib
+
+    smi = phase_device()
+    phase_build()
+    old = checkout_package(root, "tpu_pathtracer_torch_ab")
+    old_sort = importlib.import_module("tpu_pathtracer_torch_ab.ops.wavefront_sort")
+    old_shade = importlib.import_module("tpu_pathtracer_torch_ab.ops.shade")
+    from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.ops import shade
+    from tpu_pathtracer_torch.ops import wavefront_sort as sort
+    from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
+
+    log(f"A/B of this tree's gather and shading against {root} "
+        f"({old.__name__}) on {smi}")
+    scenes = shade_scenes()
+    wmin, winv = scene_sort_bounds(scenes["main"])
+
+    def turns_ms(fns: dict) -> dict:
+        out = {k: [] for k in fns}
+        for k in (*fns, *reversed(fns)):
+            out[k].append(queued_ms(fns[k]))
+        return out
+
+    def line(what: str, t: dict, bound_ms: float) -> None:
+        log(f"  A/B {what} (bound {bound_ms:.4f} ms), ms in turns: " + "; ".join(
+            f"{k} {a:.4f}/{b:.4f} ({100.0 * bound_ms / min(a, b):.1f}% of bound)"
+            for k, (a, b) in t.items()))
+
+    sets = {}
+    for label, (which, kw) in {"S = 3": ("main", {}), "hero C = 4": ("spectral", SPECTRAL),
+                               "S = 16": ("spectral", {"spectrum_samples": 16})}.items():
+        r = Renderer(scenes[which], WIDTH, HEIGHT, RenderConfig(**kw))
+        shading, sorts = shade_inputs(r)
+        sets[label] = sorts
+        if label != "S = 16":
+            sets[f"shading {label}"] = (r.cfg, shading)
+        del r
+    for label in ("S = 3", "hero C = 4", "S = 16"):
+        for which in ("bounce 1", "bounce 2"):
+            st, pack = sets[label][which]
+            skey, perm = torch.sort(sort.sort_key(st.origin, st.direction, st.alive,
+                                                  st.pixel, wmin, winv), stable=True)
+            items = [*st, *pack]
+            want = sort.gather_planes_plain(items, perm)
+            fns = {"old": lambda: old_sort.gather_planes(items, perm),
+                   "new": lambda: sort_gather(items, perm, skey)}
+            for k, f in fns.items():
+                same_bits(f"A/B gather {k}, {label}, sort at {which}", f(), want)
+            line(f"gather_planes, {label}, sort at {which} ({perm.shape[0]} lanes)",
+                 turns_ms(fns), gather_bound(items, perm.shape[0])["bound_ms"])
+    env = scenes["env"]
+    r = Renderer(env, WIDTH, HEIGHT)
+    sets["shading env-lit"] = (r.cfg, shade_inputs(r)[0])
+    del r
+    for label, scene in (("env-lit", env), ("S = 3", scenes["main"]),
+                         ("hero C = 4", scenes["spectral"])):
+        cfg, shading = sets[f"shading {label}"]
+        for which in ("bounce1", "camera") if label == "env-lit" else ("bounce1",):
+            st, hit, uni, b = shading[which]
+            a = (scene, cfg, b, st, uni, hit, False)
+            want = shade.shade_bounce_plain(*a)
+            fns = {"old": lambda a=a: old_shade.shade_bounce(*a),
+                   "new": lambda a=a: shade.shade_bounce(*a)}
+            for k, f in fns.items():
+                got = f()
+                same_bits(f"A/B shade_bounce {k}, {label}, {which}", (got[0][:8], got[1:]),
+                          (want[0][:8], want[1:]))
+            line(f"shade_bounce, {label} form, {which} wavefront ({st.alive.shape[0]} lanes)",
+                 turns_ms(fns), shade_bound(st, hit, uni, scene, False)["bound_ms"])
+    log("A/B done")
+    return 0
 
 
 def main() -> int:

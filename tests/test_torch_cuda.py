@@ -709,6 +709,46 @@ def test_shade_bounce_matches_plain_on_card(n, spectrum, case, cuda_device):
         assert 0 < int(env_lanes.sum()) < n and bool(got[1].ok[env_lanes].any())
 
 
+@pytest.mark.parametrize("texel", ["clean", "nan", "+inf", "negative", "-0"])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_shade_bounce_env_texel_rule_on_card(n, texel, cuda_device):
+    """The env-lit kernel reads the env's texel off the misses only where the
+    map is clean (EnvLight.radiance_max) and radiance_max * throughput is
+    finite: bit-equal to the plain version with throughputs of +-0, the
+    float maximum, +-inf and NaN on lanes that hit, on a clean map and on
+    maps whose most-seen texel is NaN, +inf, negative or -0 (the
+    every-lane path)."""
+    from tpu_pathtracer_torch.models.envlight import EnvLight, env_to, texel_index
+
+    scene, st, hit, uni = _card_shading(n, 3, "prng", cuda_device, ENV_MAP)
+    thr = st.throughput.clone()
+    special = torch.tensor([0.0, -0.0, 3.4028234663852886e38, -3.4028234663852886e38,
+                            float("inf"), float("-inf"), float("nan"), 1e30],
+                           device=cuda_device)
+    thr[:, ::3] = special[torch.arange(thr[:, ::3].numel(), device=cuda_device)
+                          % special.numel()].view(thr[:, ::3].shape)
+    st = st._replace(throughput=thr)
+    env = scene.env
+    if texel != "clean":
+        hits = st.alive & torch.isfinite(hit.t)
+        idx = texel_index(env, st.direction)[hits]
+        common = int(torch.mode(idx).values) if idx.numel() else 0
+        rad = env.radiance.cpu().numpy().copy()
+        rad.reshape(rad.shape[0], -1)[:, common] = {"nan": np.nan, "+inf": np.inf,
+                                                    "negative": -0.5, "-0": -0.0}[texel]
+        env = env_to({**{k: getattr(env, k).cpu().numpy() for k in EnvLight._fields
+                         if k != "radiance_max"}, "radiance": rad}, cuda_device)
+        scene = scene._replace(env=env)
+    assert (env.radiance_max is None) == (texel != "clean")
+    cfg = RenderConfig()
+    got = tshade.shade_bounce(scene, cfg, 1, st, uni, hit, False)
+    want = tshade.shade_bounce_plain(scene, cfg, 1, st, uni, hit, False)
+    for f, a, b in zip(twf.PathState._fields, got[0], want[0]):
+        _same(a, b, f"state.{f}")
+    for f, a, b in zip(twf.ShadowPack._fields, got[1], want[1]):
+        _same(a, b, f"pack.{f}")
+
+
 def test_shade_bounce_checks_inputs(cuda_device):
     """The wrapper raises on what the kernel does not take: a frame it does
     not cover (a roughness table, textures, more than 16 carried planes: S
@@ -781,6 +821,40 @@ def test_wavefront_sort_matches_plain_on_card(n, hero, cuda_device):
         tsort.gather_planes([st.origin.t()], perm)
 
 
+@pytest.mark.parametrize("pass_bytes", [1, 4 << 10, 24 << 20])
+@pytest.mark.parametrize("planes", ["s3", "hero", "s16"])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_gather_planes_from_key_matches_plain_on_card(n, planes, pass_bytes, cuda_device,
+                                                      monkeypatch):
+    """The gather in passes (one row a pass at pass_bytes 1, a few at 4 KiB,
+    the default) with pixel and alive read from the sorted key == the plain
+    index_selects bit for bit, on the S = 3 plane set, with (4, N) hero bins
+    and with S = 16 planes (65 rows); the key's pixel ids reach 2^32 - 1."""
+    st, pack = _sort_state(n, cuda_device, planes == "hero")
+    if planes == "s16":
+        gen = torch.Generator(device=cuda_device).manual_seed(n)
+        wide = lambda: torch.rand(16, n, generator=gen, device=cuda_device)  # noqa: E731
+        st = st._replace(throughput=wide(), radiance=wide())
+        pack = pack._replace(contrib=wide())
+    monkeypatch.setattr(tsort, "PASS_BYTES", pass_bytes)
+    key = tsort.sort_key(st.origin, st.direction, st.alive, st.pixel, (-1.0, 0.0, -1.0),
+                         (0.5, 0.5, 0.5))
+    skey, perm = torch.sort(key, stable=True)
+    items = [*st, *pack]
+    at = {"pixel": twf.PathState._fields.index("pixel"),
+          "alive": twf.PathState._fields.index("alive")}
+    g0 = tsort.gather_planes.launches
+    got = tsort.gather_planes(items, perm, skey, **at)
+    assert tsort.gather_planes.launches == g0 + 1
+    want = tsort.gather_planes_plain(items, perm)
+    for k, (a, b) in enumerate(zip(got, want)):
+        _same(a, b, f"plane {k}")
+    for k, (a, b) in enumerate(zip(tsort.gather_planes(items, perm), want)):
+        _same(a, b, f"plane {k} without the key")
+    with pytest.raises(ValueError):  # a pixel plane that is not int64 (N,)
+        tsort.gather_planes(items, perm, skey, pixel=at["alive"])
+
+
 @pytest.mark.parametrize("kw", [{}, {"sort_rays": False}, {"fuse_shadow_walk": True},
                                 {"prefix_sort": True, "secondary_tile": 64},
                                 {"env": True}, {"spectral": True},
@@ -818,7 +892,8 @@ def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     img = r.image()
     monkeypatch.setattr(tshade, "shade_bounce", tshade.shade_bounce_plain)
     monkeypatch.setattr(tsort, "sort_key", tsort.sort_key_plain)
-    monkeypatch.setattr(tsort, "gather_planes", tsort.gather_planes_plain)
+    monkeypatch.setattr(tsort, "gather_planes",
+                        lambda planes, perm, *key, **at: tsort.gather_planes_plain(planes, perm))
     r.reset()
     r.run(frames)
     assert np.isfinite(img).all() and np.array_equal(img, r.image())

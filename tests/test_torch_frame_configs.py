@@ -1,7 +1,9 @@
 """Whole frames of tpu_pathtracer_torch against the reference's on the
-configurations ROADMAP.md queue 3 item 1 had checked only by hand, traversal
-side: the LBVH builder, the leaf-8 layout, the MT test with the fused walk,
-the any-hit walk without an environment, minwalk and the sweep.
+configurations ROADMAP.md queue 3 item 1 had checked only by hand: on the
+traversal side the LBVH builder, the leaf-8 layout, the MT test with the
+fused walk, the any-hit walk without an environment, minwalk and the sweep;
+then the thin lens, hbm_tables="on", the r2 sampler at 2 spp, the turntable
+at t = 0.7 and still noise (animate_noise=False).
 
 Each case: the port's Renderer on the CPU (the kernels' plain versions)
 against the reference's Renderer on the CPU, Water-plastic, 24x32, depth 4,
@@ -26,6 +28,11 @@ CASES = {
     "anyhit-no-env": ({"occlusion_anyhit": "on"}, {}),
     "minwalk": ({"traversal_kernel": "minwalk"}, {}),
     "sweep": ({"traversal_kernel": "sweep"}, {}),
+    "thin-lens": ({}, {"camera": {"aperture": 0.05, "focus": 3.0}}),
+    "hbm-tables-on": ({"hbm_tables": "on"}, {}),
+    "r2-2spp": ({"sampler": "r2", "samples_per_frame": 2}, {}),
+    "turntable": ({}, {"camera": {"t": 0.7}}),
+    "still-noise": ({"animate_noise": False}, {}),
 }
 
 

@@ -32,6 +32,7 @@ from tpu_pathtracer.scene import scene_path
 from tpu_pathtracer_torch import RenderConfig, interop
 from tpu_pathtracer_torch.config import PI
 from tpu_pathtracer_torch.models.envlight import PI as ENV_PI
+from tpu_pathtracer_torch.models.envlight import build_env, env_to, radiance_max
 from tpu_pathtracer_torch.ops import shade as tshade
 from tpu_pathtracer_torch.ops import wavefront_sort as tsort
 from tpu_pathtracer_torch.ops.intersect import HitShade
@@ -134,6 +135,8 @@ def test_shade_params_mirror_the_kernel_struct():
     mirror = [(name, kinds[t]) for name, t in tshade._ShadeParams._fields_]
     assert mirror == _c_fields(path, "ShadeParams")
     assert len(mirror) > 80
+    # the env map's check: its largest entry, +inf where the check fails
+    assert mirror[-1] == ("env_radiance_max", "float")
 
 
 @pytest.mark.parametrize("eps,aeps,floor,env_shape", [
@@ -352,3 +355,107 @@ def test_sort_wavefront_matches_reference():
                 continue
             np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(a.numpy().dtype),
                                           err_msg=name)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_key_planes_equal_gathered_pixel_and_alive(n):
+    """ops/wavefront_sort.py:key_planes_plain on the sorted key (what the
+    gather kernel reads for the pixel and alive planes) == the pixel and
+    alive planes gathered by the permutation (index_select), on
+    torch_parity.sort_inputs with pixel ids 0, 2^31 and up to 2^32 - 1
+    and dead lanes."""
+    o, d, alive, pixel = sort_inputs(n, seed=n + 3)
+    top = np.array([2 ** 32 - 1, 2 ** 32 - 2, 0, 2 ** 31, 2 ** 31 - 1], np.int64)
+    pixel[:min(n, top.size)] = top[:n]
+    alive[:min(n, 2)] = (False, True)[:n]
+    t = [torch.from_numpy(x) for x in (o, d, alive, pixel)]
+    key = tsort.sort_key_plain(*t, (-1.0, 0.0, -1.0), (0.5, 0.5, 0.5))
+    skey, perm = torch.sort(key, stable=True)
+    got_pixel, got_alive = tsort.key_planes_plain(skey)
+    want_pixel, want_alive = tsort.gather_planes_plain([t[3], t[2]], perm)
+    assert got_pixel.dtype == torch.int64 and got_alive.dtype == torch.bool
+    assert torch.equal(got_pixel, want_pixel) and torch.equal(got_alive, want_alive)
+    if n > 2:
+        assert int(got_pixel.max()) == 2 ** 32 - 1 and not bool(got_alive.all())
+        # dead lanes sort last
+        assert not bool(got_alive[-1]) and bool(got_alive[0])
+
+
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+@pytest.mark.parametrize("bad,value", [(None, None), ("nan", np.nan), ("+inf", np.inf),
+                                       ("-inf", -np.inf), ("negative", -1e-3),
+                                       ("-0", -0.0), ("zeros", 0.0)])
+def test_env_radiance_max_checks_the_map(bad, value):
+    """models/envlight.py: env_to derives radiance_max once from the map --
+    its largest entry when every entry is finite with its sign bit clear,
+    else None (a NaN, an infinity, a negative texel or a -0: the shading
+    kernel then reads the texel on every lane, as the plain version) -- and
+    build_env's and the reference's tables on a clean map pass the check."""
+    rad = np.random.default_rng(5).uniform(0.0, 3.0, (3, 4, 8)).astype(np.float32)
+    rad[1, 2, 3] = 7.5
+    if bad == "zeros":
+        rad[:] = value
+    elif bad is not None:
+        rad[2, 1, 5] = value
+    fields = {"radiance": rad, "pdf_sa": np.ones((4, 8), np.float32),
+              "alias_p": np.ones(32, np.float32), "alias_i": np.arange(32),
+              "select_p": np.float32(0.5), "rotation": np.float32(0.0)}
+    env = env_to(fields, "cpu")
+    want = {None: 7.5, "zeros": 0.0}.get(bad)
+    assert env.radiance_max == want == radiance_max(env.radiance.numpy())
+    assert np.array_equal(env.radiance.numpy().view(np.uint32), rad.view(np.uint32))
+    if bad is None:
+        sky = np.random.default_rng(2).uniform(0.0, 40.0, (8, 16, 3)).astype(np.float32)
+        for s in (3, 16):
+            e = build_env(sky, samples=s, device="cpu")
+            assert e.radiance_max == float(e.radiance.max())
+        ref = jattach_env(jload_scene(scene_path("cornellbox")), sky).env
+        carried = interop.scene_from_arrays(arrays(
+            jload_scene(scene_path("cornellbox"))._replace(env=ref))).env
+        assert carried.radiance_max == float(np.asarray(ref.radiance).max())
+
+
+def test_env_zero_weight_term_is_throughput_times_zero():
+    """The identity the env-lit shading kernel relies on to read no texel on
+    a lane whose ray did not miss (csrc/shade.cu): there the BSDF arm adds
+    ``rad * thr * w`` with the weight w = +0.  For every radiance 0 <= rad
+    <= M with its sign bit clear (M the map's radiance_max) and every
+    throughput thr with ``M * thr`` finite -- the kernel's test -- that term
+    equals ``thr * 0`` bit for bit: ``rad * thr`` is then finite with thr's
+    sign, so the product is +0 or -0 as thr's sign says.  Checked case by
+    case in float32 over +-0, denormals, the float maximum, M from 0 to the
+    float maximum; and for infinite and NaN throughputs (which the kernel
+    sends to the texel anyway) the two are the same NaN.  Without the test
+    on M * thr the identity fails: rad * thr overflows to infinity and the
+    term becomes NaN where thr * 0 is a zero."""
+    f32 = np.float32
+    tiny = np.finfo(np.float32).smallest_subnormal
+    maxes = [0.0, float(tiny), 1e-30, 0.5, 1.0, 2.0, 825.65185546875, 1e30, _F32_MAX]
+    thrs = [0.0, -0.0, tiny, -tiny, 1e-38, -1e-38, 1e-30, 0.25, -1.0, 3.0, 1e20, -1e30,
+            1.7e38, -_F32_MAX, _F32_MAX, np.inf, -np.inf, np.nan, -np.nan]
+    bits = lambda x: np.asarray(x, f32).view(np.uint32)  # noqa: E731
+    zero = f32(0.0)
+    checked = overflowed = 0
+    with np.errstate(all="ignore"):
+        for m in map(f32, maxes):
+            rads = {f32(0.0), f32(tiny), m, m * f32(0.5), np.nextafter(m, f32(0.0))}
+            for rad in (r for r in map(f32, rads) if r <= m):
+                assert not np.signbit(rad)
+                for thr in map(f32, thrs):
+                    term = rad * thr * zero
+                    if np.isfinite(m * thr) or not np.isfinite(thr):
+                        assert bits(term) == bits(thr * zero), (m, rad, thr)
+                        checked += 1
+                    elif bits(term) != bits(thr * zero):
+                        overflowed += 1
+                        assert np.isfinite(thr) and np.isinf(rad * thr)
+    assert checked > 300 and overflowed > 0
+    # the same in torch's float32 arithmetic, the plain version's
+    rad = torch.tensor([0.0, float(tiny), 1.0, 825.65185546875], dtype=torch.float32)
+    thr = torch.tensor([0.0, -0.0, float(-tiny), 2.0, -1e30, float("inf"), float("nan")],
+                       dtype=torch.float32)
+    term = rad[:, None] * thr[None] * torch.zeros(())
+    want = (thr * torch.zeros(()))[None].expand_as(term)
+    assert torch.equal(term.view(torch.int32), want.contiguous().view(torch.int32))

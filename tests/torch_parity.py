@@ -201,18 +201,29 @@ def frames_against_reference(ref_scene, kw: dict, renderer_kw: dict, depth: int 
                              h: int = 24, w: int = 32, frames: int = 2, scene=None):
     """(the port's image, the reference's) after ``frames`` frames of one
     configuration: both Renderers on the CPU, ``kw`` RenderConfig fields and
-    ``renderer_kw`` Renderer arguments on both; ``ref_scene`` a bundled
-    scene's name or the reference's Scene, ``scene`` the port's when the
-    name is not shared."""
+    ``renderer_kw`` Renderer arguments on both (``"camera"``: a dict of
+    Camera fields -- t, aperture, focus -- made into each package's
+    Camera); ``ref_scene`` a bundled scene's name or the reference's Scene,
+    ``scene`` the port's when the name is not shared."""
+    import jax.numpy as jnp
+
     from tpu_pathtracer.config import RenderConfig as JConfig
+    from tpu_pathtracer.models.camera import Camera as JCamera
     from tpu_pathtracer.renderer import Renderer as JRenderer
     from tpu_pathtracer_torch import Renderer, RenderConfig
+    from tpu_pathtracer_torch.models.camera import Camera
 
     kw = {"max_path_length": depth, **kw}
-    ref = JRenderer(ref_scene, w, h, JConfig(**kw), **renderer_kw)
+    renderer_kw = dict(renderer_kw)
+    cam = renderer_kw.pop("camera", None)
+    ref_cam = port_cam = {}
+    if cam is not None:
+        ref_cam = {"camera": JCamera(**{**cam, "t": jnp.float32(cam.get("t", 0.0))})}
+        port_cam = {"camera": Camera(**cam)}
+    ref = JRenderer(ref_scene, w, h, JConfig(**kw), **renderer_kw, **ref_cam)
     ref.run(frames)
     got = Renderer(ref_scene if scene is None else scene, w, h, RenderConfig(**kw),
-                   device="cpu", **renderer_kw)
+                   device="cpu", **renderer_kw, **port_cam)
     got.run(frames)
     img = got.image()
     assert np.isfinite(img).all() and img.max() > 0

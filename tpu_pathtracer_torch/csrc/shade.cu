@@ -35,17 +35,25 @@
 // scalar is, on CUDA, ATen's multiply by the float32 reciprocal, so those
 // arrive as reciprocals.  The selects are the plain version's torch.where
 // chains, so a NaN in an arm that is not taken stays out; the env sample is
-// drawn only where NEE picks the env, and the env eval of the BSDF arm runs
-// on every lane, since its radiance times a zero weight still reaches the
-// radiance (the sign of a zero, a NaN).
+// drawn only where NEE picks the env.  The env eval of the BSDF arm adds
+// radiance * throughput * weight on every lane, the weight +0 on a lane whose
+// ray did not miss, and that product still reaches the radiance (the sign of
+// a zero, a NaN).  Where the map is clean (every entry finite with its sign
+// bit clear, at most env_radiance_max; +inf for any other map) and
+// env_radiance_max * throughput is finite, radiance * throughput is finite
+// with the throughput's sign, so
+// the product is throughput * +0 bit for bit: such a lane reads no texel and
+// computes no texel index (tests/test_torch_shade_kernel.py holds the
+// identity case by case).  Any other lane reads its texel as before.
 //
 // What bounds it on an H100: bytes.  A lane reads 113 + 8 C bytes (the
 // state, the hit record, six uniform rows) and writes 62 + 12 C (the new
 // state and the shadow pack; the inline form 12 more for the shadow origin):
 // 235 bytes at C = S = 3, 487 MB on 2,073,600 lanes, 0.145 ms at 3.35 TB/s.
-// Hero bins add 8 C a lane; the environment light its four uniform rows (16)
-// and the texel its eval reads (4 + 4 C), and on the lanes whose NEE picks
-// the env the alias slot (12) and the sampled texel (4 + 4 C).  Its ~300
+// Hero bins add 8 C a lane; the environment light its four uniform rows (16),
+// on each live lane that missed the texel its eval reads (4 + 4 C), and on
+// the lanes whose NEE picks the env the alias slot (12) and the sampled texel
+// (4 + 4 C).  Its ~300
 // float32 operations a lane (about 100 more with the env's transcendentals)
 // are below that.  The design: one thread a lane, one kernel instance a
 // feature set (env, hero, dispersion: a parity frame runs none of the
@@ -142,6 +150,10 @@ struct ShadeParams {
       inv_env_w, env_hf, env_wf, env_kf;
   int last_bounce, quirks, refract, cull_zero_nee;
   int env, hero, dispersion;
+  // the env radiance table's largest entry when every entry is finite with
+  // its sign bit clear (models/envlight.py:radiance_max), else +inf (every
+  // lane then reads its texel)
+  float env_radiance_max;
 };
 
 namespace {
@@ -294,12 +306,13 @@ __device__ __forceinline__ long long env_texel_index(const ShadeParams& p, V3 d,
 
 // One instance per feature set (the env light, hero bins, dispersion): a
 // frame's kernel carries only the arithmetic and registers its features need.
-// The instances without the env run four blocks an SM (64 registers): on
-// whole 1080p wavefronts that made the parity and hero forms 11% and 15%
-// faster than at the 74-80 registers ptxas chose, and the env's 3% slower,
-// so those keep ptxas's choice (PERF.md section 6).
+// Every instance runs four blocks an SM (64 registers): on whole 1080p
+// wavefronts that made the parity and hero forms 11% and 15% faster than at
+// the 74-80 registers ptxas chose, and, once the env-lit forms read no texel
+// off the misses, the env-lit form 3% and the hero form with the env 24%
+// faster than at its 80-96, spills and all (PERF.md section 6).
 template <bool kEnv, bool kHero, bool kDispersion>
-__global__ void __launch_bounds__(kThreads, kEnv ? 1 : 4) shade_bounce_kernel(ShadeParams p) {
+__global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   bool counted_path = false, counted_shadow = false;
   if (lane < p.n) {
@@ -424,16 +437,15 @@ __global__ void __launch_bounds__(kThreads, kEnv ? 1 : 4) shade_bounce_kernel(Sh
     const float emit_factor = p.quirks ? emit_weight * pdf_in : emit_weight;
     const float emit_scale = is_light ? emit_factor : 0.0f;
     // the env seen by a live lane whose ray escaped (models/envlight.py:
-    // eval_env), MIS-weighted against the env arm of NEE; its texel is read
-    // on every lane, as its radiance times a zero weight still reaches the
-    // radiance
-    long long m_idx = 0;
+    // eval_env), MIS-weighted against the env arm of NEE; on any other lane
+    // the weight is +0 and the texel (index -1: not yet computed) is read
+    // only where that product is not throughput * +0 (the header comment)
+    const bool miss = kEnv && alive && !isfinite(t);
+    long long m_idx = -1;
     float env_weight = 0.0f;
-    if (kEnv) {
+    if (miss) {
       m_idx = env_texel_index(p, w_i, rotation);
-      if (alive && !isfinite(t)) {
-        env_weight = power_heuristic(pdf_in, prev_diffuse * sel_p * p.env_pdf[m_idx]);
-      }
+      env_weight = power_heuristic(pdf_in, prev_diffuse * sel_p * p.env_pdf[m_idx]);
     }
 
     // ---- models/bsdf.py:sample_bounce ----
@@ -505,7 +517,14 @@ __global__ void __launch_bounds__(kThreads, kEnv ? 1 : 4) shade_bounce_kernel(Sh
       p.contrib[at] = contrib;
       any_contrib = any_contrib || contrib != 0.0f;
       float emit = m_emissive * thr * emit_scale;
-      if (kEnv) emit = emit + p.env_radiance[row * k + m_idx] * thr * env_weight;
+      if (kEnv) {
+        if (miss || !isfinite(p.env_radiance_max * thr)) {
+          if (m_idx < 0) m_idx = env_texel_index(p, w_i, rotation);
+          emit = emit + p.env_radiance[row * k + m_idx] * thr * env_weight;
+        } else {
+          emit = emit + thr * 0.0f;
+        }
+      }
       p.out_radiance[at] = p.radiance[at] + emit;
       p.out_throughput[at] = valid ? thr * scale : thr;
     }

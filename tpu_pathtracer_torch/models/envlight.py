@@ -33,6 +33,11 @@ class EnvLight(NamedTuple):
     alias_i: torch.Tensor    # (K,) int64 alias slot (int32 values)
     select_p: torch.Tensor   # () float32: probability NEE samples the env
     rotation: torch.Tensor   # () float32: radians added to phi
+    # the largest radiance entry (a host float) when every entry is finite
+    # with its sign bit clear, else None: derived from ``radiance`` once, by
+    # env_to (the shading kernel then reads no texel on a lane whose ray did
+    # not miss: ops/shade.py).  Replace ``radiance`` only through env_to.
+    radiance_max: float | None = None
 
 
 def _vose_alias(p: np.ndarray):
@@ -98,14 +103,26 @@ def build_env(image: np.ndarray, strength: float = 1.0, rotation: float = 0.0,
 def env_to(arrays: dict, device) -> EnvLight:
     """numpy field arrays (:func:`build_env`'s, or the reference's
     ``EnvLight._asdict()``) -> an :class:`EnvLight` on ``device``, every
-    field contiguous (the shading kernel reads the tables in place)."""
+    field contiguous (the shading kernel reads the tables in place), and its
+    ``radiance_max`` derived from the radiance (:func:`radiance_max`)."""
     def put(name):
         a = np.asarray(arrays[name])
         a = np.ascontiguousarray(a) if a.ndim else a
         dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
 
-    return EnvLight(**{name: put(name) for name in EnvLight._fields})
+    tables = {name: put(name) for name in EnvLight._fields if name != "radiance_max"}
+    return EnvLight(**tables, radiance_max=radiance_max(arrays["radiance"]))
+
+
+def radiance_max(radiance) -> float | None:
+    """The largest entry of a radiance table (numpy, as float32) when every
+    entry is finite with its sign bit clear (no NaN, no infinity, no
+    negative value, no -0), else None."""
+    a = np.asarray(radiance, np.float32)
+    if a.size == 0 or not np.isfinite(a).all() or np.signbit(a).any():
+        return None
+    return float(a.max())
 
 
 def _texel_dir(env: EnvLight, i, j, ju, jv):

@@ -97,8 +97,9 @@ _SIGNATURES = {
     "tpupt_shade_bounce": [_P, _P],
     # origin, direction, alive, pixel, wmin x3, winv x3, n, key, stream
     "tpupt_sort_key": [_P] * 4 + [_F] * 6 + [_I, _P, _P],
-    # planes (a host array of csrc/wavefront_sort.cu:Plane), count, perm, n, stream
-    "tpupt_gather_planes": [_P, _I, _P, _I, _P],
+    # planes (a host array of csrc/wavefront_sort.cu:Plane), count, perm, key
+    # (null: none), n, pass_bytes, stream
+    "tpupt_gather_planes": [_P, _I, _P, _P, _I, ctypes.c_longlong, _P],
     # rays, table0..3 (never read; null when absent), tile, n, out, stream
     "tpupt_noop": [_P] * 5 + [_I, _I, _P, _P],
     # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,

@@ -14,7 +14,11 @@ every frame but those with textures or a roughness table (the GGX types),
 at most MAX_SPECTRUM carried planes (C under hero sampling, S otherwise);
 the environment light, hero bins and dispersion are covered.
 render/wavefront.py:trace_bounce routes every other frame, and every CPU
-tensor, to the plain version.
+tensor, to the plain version.  With an environment light whose map is clean
+(``EnvLight.radiance_max``: every entry finite with its sign bit clear) the
+kernel reads the env's texel only on the lanes whose ray missed, and on a
+lane whose throughput times that maximum overflows; with any other map, on
+every lane, as the plain version does.
 
 ``folded_constants``: torch folds ``4.0 * eps``, ``1.0 / PI`` and ``PI *
 2.0`` in double from Python scalars and rounds the result (and ``eps``,
@@ -106,7 +110,7 @@ class _ShadeParams(ctypes.Structure):
             "inv_env_h", "inv_env_w", "env_hf", "env_wf", "env_kf")] + [
         (name, ctypes.c_int) for name in (
             "last_bounce", "quirks", "refract", "cull_zero_nee", "env", "hero",
-            "dispersion")]
+            "dispersion")] + [("env_radiance_max", ctypes.c_float)]
 
 
 def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, hit,
@@ -215,6 +219,10 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     p.cull_zero_nee = int(cfg.cull_zero_nee)
     p.env, p.hero, p.dispersion = int(env is not None), int(hero), int(
         scene.mat_ior_bins is not None)
+    # the map's check, made once when it reached the device
+    # (models/envlight.py:radiance_max): no texel read off the misses
+    clean = env is not None and env.radiance_max is not None
+    p.env_radiance_max = env.radiance_max if clean else float("inf")
     rc = load_library().tpupt_shade_bounce(ctypes.addressof(p),
                                            torch.cuda.current_stream(dev).cuda_stream)
     if rc:

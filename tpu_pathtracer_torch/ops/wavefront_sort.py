@@ -12,7 +12,9 @@ each.
 The wrappers ``sort_key`` and ``gather_planes`` launch the kernels of
 ``csrc/wavefront_sort.cu`` (one launch each, bit-equal to the plain
 versions), count their launches in ``.launches`` and raise on CPU tensors:
-render/wavefront.py takes the plain versions there.
+render/wavefront.py takes the plain versions there.  ``gather_planes``
+reads the pixel and alive planes from the sorted key where the caller
+passes it (``key_planes_plain`` is that reading in torch).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import torch
 from .cuda_build import load_library, plane_address
 
 MAX_PLANES = 16   # the most planes one gather takes (csrc/wavefront_sort.cu:kMaxPlanes)
+MAX_ROWS = 96     # the most rows of those planes (csrc/wavefront_sort.cu:kMaxRows)
 MAX_LANES = 2 ** 31 - 1
+# the source bytes one pass of the gather may read (csrc/wavefront_sort.cu)
+PASS_BYTES = 64 << 20
 
 
 def _morton5(q: torch.Tensor) -> torch.Tensor:
@@ -75,6 +80,14 @@ def gather_planes_plain(planes, perm: torch.Tensor) -> list:
     return [None if x is None else x.index_select(-1, perm) for x in planes]
 
 
+def key_planes_plain(key: torch.Tensor):
+    """The pixel ids and alive flags of the lanes whose sort keys are ``key``
+    (:func:`sort_key_plain`'s layout: the pixel id in the low 32 bits, the
+    dead bit at bit 62) -> ((N,) int64, (N,) bool).  Of a sorted key they are
+    the gathered pixel and alive planes, as ``gather_planes`` reads them."""
+    return key & 0xFFFFFFFF, ((key >> 62) & 1) == 0
+
+
 # ---------------------------------------------------------------------------
 # the kernels (csrc/wavefront_sort.cu) and their wrappers
 # ---------------------------------------------------------------------------
@@ -82,7 +95,7 @@ def gather_planes_plain(planes, perm: torch.Tensor) -> list:
 class _Plane(ctypes.Structure):
     # csrc/wavefront_sort.cu:Plane
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-                ("rows", ctypes.c_int), ("elem", ctypes.c_int)]
+                ("rows", ctypes.c_int), ("elem", ctypes.c_int), ("kind", ctypes.c_int)]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -114,31 +127,48 @@ def sort_key(origin, direction, alive, pixel, wmin, winv) -> torch.Tensor:
 sort_key.launches = 0
 
 
-def gather_planes(planes, perm: torch.Tensor) -> list:
+def gather_planes(planes, perm: torch.Tensor, key: torch.Tensor | None = None,
+                  pixel: int | None = None, alive: int | None = None) -> list:
     """Every plane of ``planes`` -- contiguous (N,) or (R, N) CUDA tensors of
-    1, 4 or 8-byte elements, or None -- taken through the (N,) int64
-    permutation ``perm`` (:func:`gather_planes_plain`), into fresh tensors in
-    one launch of ``tpupt_gather_planes``."""
+    1, 4 or 8-byte elements, at most MAX_ROWS rows in all, or None -- taken
+    through the (N,) int64 permutation ``perm`` (:func:`gather_planes_plain`),
+    into fresh tensors in one launch of ``tpupt_gather_planes``.  With
+    ``key``, the (N,) int64 sorted key (torch.sort's values, in the order of
+    ``perm``), the planes at the indices ``pixel`` ((N,) int64) and ``alive``
+    ((N,) bool) are read from it (:func:`key_planes_plain`) instead: the
+    same values when the key was made from those planes."""
     n, dev = perm.shape[0], perm.device
     if n > MAX_LANES:
         raise ValueError(f"gather_planes: {n} lanes, at most {MAX_LANES}")
     plane_address("gather_planes perm", perm, torch.int64, (n,), dev)
-    live = [x for x in planes if x is not None]
+    if key is not None:
+        plane_address("gather_planes key", key, torch.int64, (n,), dev)
+    kinds = {} if key is None else {k: kind for k, kind in ((pixel, 1), (alive, 2))
+                                    if k is not None}
+    live = [k for k, x in enumerate(planes) if x is not None]
     if len(live) > MAX_PLANES:
         raise ValueError(f"gather_planes: {len(live)} planes, at most {MAX_PLANES}")
+    rows = sum(1 if planes[k].dim() == 1 else planes[k].shape[0] for k in live)
+    if rows > MAX_ROWS:
+        raise ValueError(f"gather_planes: {rows} rows, at most {MAX_ROWS}")
     outs, table = [], (_Plane * MAX_PLANES)()
-    for k, x in enumerate(live):
+    for slot, k in enumerate(live):
+        x = planes[k]
         if x.dim() not in (1, 2) or x.shape[-1] != n or x.element_size() not in (1, 4, 8):
             raise ValueError(f"gather_planes: plane {k} of shape {tuple(x.shape)} and "
                              f"{x.dtype}: expected (N,) or (R, N) with N = {n} and "
                              f"1, 4 or 8-byte elements")
-        plane_address(f"gather_planes plane {k}", x, x.dtype, tuple(x.shape), dev)
+        kind = kinds.get(k, 0)
+        want = {1: torch.int64, 2: torch.bool}.get(kind, x.dtype)
+        plane_address(f"gather_planes plane {k}", x, want, (n,) if kind else tuple(x.shape),
+                      dev)
         out = torch.empty_like(x)
         outs.append(out)
-        table[k] = _Plane(x.data_ptr(), out.data_ptr(), 1 if x.dim() == 1 else x.shape[0],
-                          x.element_size())
+        table[slot] = _Plane(None if kind else x.data_ptr(), out.data_ptr(),
+                             1 if x.dim() == 1 else x.shape[0], x.element_size(), kind)
     rc = load_library().tpupt_gather_planes(
-        ctypes.addressof(table), len(live), perm.data_ptr(), n, _stream(perm))
+        ctypes.addressof(table), len(live), perm.data_ptr(),
+        None if key is None else key.data_ptr(), n, PASS_BYTES, _stream(perm))
     if rc:
         raise RuntimeError(f"gather_planes kernel launch failed: cudaError {rc}")
     gather_planes.launches += 1

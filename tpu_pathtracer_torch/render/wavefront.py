@@ -127,14 +127,21 @@ def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
     (C, N) ride as one more plane; the TPU's sort-operand limit, which made
     the reference pack them into uint32 planes, does not apply here.  On
     CUDA tensors the key and the gather are one kernel launch each
-    (csrc/wavefront_sort.cu); on the CPU their plain versions run."""
+    (csrc/wavefront_sort.cu), the gather reading pixel and alive from the
+    sorted key; on the CPU their plain versions run."""
     cuda = state.alive.is_cuda
     key = (sort_ops.sort_key if cuda else sort_ops.sort_key_plain)(
         state.origin, state.direction, state.alive, state.pixel, wmin, winv)
-    perm = torch.sort(key, stable=True).indices
-    planes = (sort_ops.gather_planes if cuda else sort_ops.gather_planes_plain)(
-        [*state, *pack], perm)
+    key, perm = torch.sort(key, stable=True)
+    if cuda:
+        planes = sort_ops.gather_planes([*state, *pack], perm, key, pixel=_PIXEL,
+                                        alive=_ALIVE)
+    else:
+        planes = sort_ops.gather_planes_plain([*state, *pack], perm)
     return PathState(*planes[:len(state)]), ShadowPack(*planes[len(state):])
+
+
+_PIXEL, _ALIVE = PathState._fields.index("pixel"), PathState._fields.index("alive")
 
 
 def _conductor_albedo(m_diffuse, m_type, w_i, out_dir):
