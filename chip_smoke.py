@@ -451,14 +451,15 @@ def phase_build() -> str:
 
 def kernel_registers(compiler_log: str, symbol: str) -> dict:
     """ptxas's registers and spill bytes of each instance of the kernel
-    ``symbol`` in the build output -> {its integer template arguments
-    joined by commas ("-" for none): {"registers": r, "spill_bytes": b}}."""
+    ``symbol`` in the build output -> {its integer and bool template
+    arguments joined by commas ("-" for none): {"registers": r,
+    "spill_bytes": b}}."""
     out, cur = {}, None
     for line in compiler_log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            m = re.search(rf"\d{symbol}(I(?:Li-?\d+E)+E)?", entry.group(1))
-            cur = (",".join(re.findall(r"Li(-?\d+)E", m.group(1) or "")) or "-") if m else None
+            m = re.search(rf"\d{symbol}(I(?:L[a-z]+-?\d+E)+E)?", entry.group(1))
+            cur = (",".join(re.findall(r"L[a-z]+(-?\d+)E", m.group(1) or "")) or "-") if m else None
             if cur:
                 out[cur] = {"registers": None, "spill_bytes": 0}
         elif cur and "spill stores" in line:
@@ -3994,19 +3995,125 @@ def nonfinite_map_scene(scene, st, hit):
     a hit look toward made NaN in every plane (every other table as it
     was): its radiance_max is None, so the shading kernel takes the
     every-lane path, and each such lane's radiance turns NaN."""
-    from tpu_pathtracer_torch.models.envlight import EnvLight, env_to, texel_index
+    from tpu_pathtracer_torch.models.envlight import TABLES, env_to, texel_index
 
     env = scene.env
     idx = texel_index(env, st.direction)[st.alive & torch.isfinite(hit.t)]
     common = int(torch.mode(idx).values)
     rad = env.radiance.cpu().numpy().copy()
     rad.reshape(rad.shape[0], -1)[:, common] = np.nan
-    arrays = {k: getattr(env, k).cpu().numpy() for k in EnvLight._fields
-              if k != "radiance_max"}
+    # env_to derives the records (and radiance_max) anew from the tables
+    arrays = {k: getattr(env, k).cpu().numpy() for k in TABLES}
     out = env_to({**arrays, "radiance": rad}, env.radiance.device)
     if out.radiance_max is not None:
         raise AssertionError("a map with a NaN texel passed the map check")
+    if not torch.isnan(out.texel_rec[common, :rad.shape[0]]).all():
+        raise AssertionError("the NaN texel did not reach the texel records")
     return scene._replace(env=out)
+
+
+ENV_LAYOUTS = ("plane-major", "records")  # env_sectors: the planes, the records
+
+
+def distinct_sectors(offs, lanes: int) -> tuple[int, int]:
+    """Byte offsets into one table, (R, N) with -1 where a lane reads
+    nothing -> (the distinct 32-byte sectors a warp of 32 consecutive lanes
+    reads, summed over the warps; the distinct sectors of the whole launch)."""
+    sec = torch.where(offs >= 0, offs // 32, -1)
+    w = lanes // 32 * 32
+    g = sec[:, :w].reshape(sec.shape[0], w // 32, 32).permute(1, 0, 2).reshape(w // 32, -1)
+    g = torch.sort(g, dim=1).values
+    new = torch.ones_like(g, dtype=torch.bool)
+    new[:, 1:] = g[:, 1:] != g[:, :-1]
+    per_warp = int((new & (g >= 0)).sum())
+    return per_warp, int(torch.unique(sec[sec >= 0]).numel())
+
+
+def lane_sectors(offs, mask) -> float:
+    """The distinct sectors a lane of ``mask`` reads from one table, on the
+    mean (no lane sharing a sector with another)."""
+    if not bool(mask.any()):
+        return 0.0
+    sec = torch.sort(torch.where(offs >= 0, offs // 32, -1)[:, mask], dim=0).values
+    new = torch.ones_like(sec, dtype=torch.bool)
+    new[1:] = sec[1:] != sec[:-1]
+    return float((new & (sec >= 0)).sum()) / int(mask.sum())
+
+
+def env_sectors(scene, st, hit, uni, inline: bool = False) -> dict:
+    """The 32-byte sectors one shading launch's env reads touch on these
+    lanes, in each layout of :data:`ENV_LAYOUTS`: "plane-major" (the
+    reference's tables as the kernel read them before the records: alias_p,
+    alias_i, pdf_sa and one radiance row a carried plane) and "records" (the
+    records of models/envlight.py:env_records, laid out as its texel_layout
+    and ALIAS_WORDS say).  A lane whose NEE picks the env reads the
+    alias slot and the chosen texel; a lane whose texel the eval needs
+    (a live lane that missed; on a map that fails the check, or where
+    radiance_max * throughput overflows, any lane) reads that texel.  For
+    each layout: the distinct sectors a pick and a miss read (their own),
+    the sectors of all warps (a warp's 32 consecutive lanes, each distinct
+    sector once: what L2 serves the SMs), the distinct sectors of the whole
+    launch (what device memory must serve at least once), and the sector
+    floor: those, with the bound's other bytes (:func:`shade_bound`
+    without its env texel and slot bytes), over 3.35 TB/s."""
+    from tpu_pathtracer_torch.models.envlight import ALIAS_WORDS, texel_index, texel_layout
+
+    env = scene.env
+    s = env.radiance.shape[0]
+    k = env.pdf_sa.numel()
+    n, c = st.alive.shape[0], st.throughput.shape[0]
+    dev = st.alive.device
+    rows = (st.bins if st.bins is not None
+            else torch.arange(c, device=dev)[:, None].expand(c, n))
+    x = uni["env_alias"] * float(np.float32(k))
+    slot = x.to(torch.int32).clamp(0, k - 1).long()
+    e_idx = torch.where(x - slot.float() >= env.alias_p[slot], env.alias_i[slot], slot)
+    pick = uni["env_select"] < env.select_p
+    rmax = float("inf") if env.radiance_max is None else env.radiance_max
+    miss = st.alive & ~torch.isfinite(hit.t)
+    read = miss | ~torch.isfinite(rmax * st.throughput).all(0)
+    m_idx = texel_index(env, st.direction)
+
+    def at(mask, off):
+        return torch.where(mask, off, -1).reshape(-1, n)
+
+    reads = {"plane-major": {
+        "pick": {"alias_p": at(pick, slot * 4), "alias_i": at(pick, slot * 8),
+                 "pdf_sa": at(pick, e_idx * 4), "radiance": at(pick, (rows * k + e_idx) * 4)},
+        "miss": {"pdf_sa": at(read, m_idx * 4), "radiance": at(read, (rows * k + m_idx) * 4)}}}
+    t, pdf_col = texel_layout(s)
+
+    def texel(idx, mask, pdf: bool):
+        if t == 4:  # one 16-byte load
+            return at(mask, idx * 16)
+        offs = [at(mask, (idx * t + rows) * 4)]
+        if pdf and pdf_col >= 0:
+            offs.append(at(mask, (idx * t + pdf_col) * 4))
+        return torch.cat(offs)
+
+    # a pick's pdf is in the slot's record; a miss's in its texel's, or pdf_sa
+    reads["records"] = {"pick": {"alias_rec": at(pick, slot * 4 * ALIAS_WORDS),
+                                 "texel_rec": texel(e_idx, pick, False)},
+                        "miss": {"texel_rec": texel(m_idx, read, True)}}
+    if pdf_col < 0:
+        reads["records"]["miss"]["pdf_sa"] = at(read, m_idx * 4)
+    picks, misses = int(pick.sum()), int(miss.sum())
+    base = (shade_bound(st, hit, uni, scene, inline)["bound_bytes"]
+            - picks * (16 + 4 * c) - misses * (4 + 4 * c))
+    out = {"picks": picks, "misses": misses, "texel_reads": int(read.sum())}
+    for name, r in reads.items():
+        tables = set(r["pick"]) | set(r["miss"])
+        warp = launch = 0
+        for tab in tables:
+            offs = torch.cat([r[w][tab] for w in ("pick", "miss") if tab in r[w]])
+            wp, ln = distinct_sectors(offs, n)
+            warp, launch = warp + wp, launch + ln
+        out[name] = {
+            "sectors_per_pick": sum(lane_sectors(o, pick) for o in r["pick"].values()),
+            "sectors_per_miss": sum(lane_sectors(o, read) for o in r["miss"].values()),
+            "warp_sector_mb": 32 * warp / 1e6, "launch_sector_mb": 32 * launch / 1e6,
+            "sector_floor_ms": (base + 32 * launch) / HBM_BYTES_PER_S * 1e3}
+    return out
 
 
 def env_miss_shares(scene) -> list[dict]:
@@ -4098,6 +4205,15 @@ def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
         log(f"  shade_bounce, {label}, bounce 1 with select_p {float(scene.env.select_p):.4f} "
             f"set to 0 (no lane samples the env) {arm[0.0]:.4f} ms and to 1 (every lane "
             f"does) {arm[1.0]:.4f} ms (queued; each bit-equal to its plain version)")
+        *_, st1, uni1, hit1 = args("bounce1", "full")
+        sectors = env_sectors(scene, st1, hit1, uni1)
+        log(f"  shade_bounce, {label}, bounce 1: the env reads' 32-byte sectors "
+            f"(chip_smoke.env_sectors; {sectors['picks']} lanes pick the env, "
+            f"{sectors['misses']} missed): " + "; ".join(
+                f"{name} {d['sectors_per_pick']:.2f} a pick, {d['sectors_per_miss']:.2f} a "
+                f"miss, warps {d['warp_sector_mb']:.1f} MB, launch {d['launch_sector_mb']:.1f} "
+                f"MB, sector floor {d['sector_floor_ms']:.4f} ms"
+                for name, d in ((n, sectors[n]) for n in ENV_LAYOUTS)))
     torch.cuda.synchronize()
     live = [int(v[0].alive.sum()) for v in shading.values()]
     small, full = args("bounce1", SAMPLE_LANES), args("bounce1", "full")
@@ -4129,10 +4245,11 @@ def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
         readings["select_p"] = float(scene.env.select_p)
         readings["misses"] = [int((v[0].alive & ~torch.isfinite(v[1].t)).sum())
                               for v in shading.values()]
+        readings["env_sectors"] = sectors
     return readings, sorts
 
 
-def phase_shade_sort(smi: str) -> list[dict]:
+def phase_shade_sort(smi: str, compiler_log: str) -> list[dict]:
     """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
     wavefront sort (csrc/wavefront_sort.cu).  The shading in each of its
     forms (:data:`SHADE_FORMS`: parity, env-lit, hero with dispersion, and
@@ -4160,6 +4277,17 @@ def phase_shade_sort(smi: str) -> list[dict]:
     forms, form_sorts = {}, {}
     for label, (which, kw) in SHADE_FORMS.items():
         forms[label], form_sorts[label] = shade_form(label, scenes[which], kw, gen)
+        if "env_sectors" in forms[label]:
+            f = forms[label]
+            floor = f["env_sectors"]["records"]["sector_floor_ms"]
+            log(f"  shade_bounce, {label}, bounce 1: {f['full_ms']:.4f} ms against the sector "
+                f"floor of the records {floor:.4f} ms = "
+                f"{100.0 * floor / f['full_ms']:.1f}% (bound "
+                f"{f['bound_full']['bound_ms']:.4f} ms = {f['full_pct_of_bound']:.1f}%)")
+    registers = kernel_registers(compiler_log, "shade_bounce_kernel")
+    log("  ptxas, shade_bounce_kernel<env, hero, dispersion>: " + "; ".join(
+        f"<{k}> {v['registers']} registers, {v['spill_bytes']} bytes spilled"
+        for k, v in sorted(registers.items())))
     shares = env_miss_shares(scenes["env"])
     forms["env-lit"]["miss_shares"] = shares
     log("  the env-lit path's lanes whose ray missed (their env texel the only one the "
@@ -4219,7 +4347,7 @@ def phase_shade_sort(smi: str) -> list[dict]:
         p["plain_ms"], p["full_ms"], p["bound"], plain_full_ms=p["plain_full_ms"],
         full_inline_ms=p["full_inline_ms"], bound_full_ms=p["bound_full"]["bound_ms"],
         bound_full_by=p["bound_full"]["bound_by"], full_pct_of_bound=p["full_pct_of_bound"],
-        bound_full_inline_ms=p["bound_full_inline_ms"],
+        bound_full_inline_ms=p["bound_full_inline_ms"], registers=registers,
         forms={k: v for k, v in forms.items() if k != "parity"})]
     s = scene.mat_diffuse.shape[0]
     st, pack = sort_args("bounce 2", "full")
@@ -4334,15 +4462,16 @@ def checkout_package(root: str, alias: str):
     return mod
 
 
-def forms_ab(root: str) -> int:
+def forms_ab(*roots: str) -> int:
     """The gather and the shading kernel of this tree against those of the
-    checkout at ``root`` (:func:`checkout_package`), in turns (old, new, new,
-    old; each call queued) on the same whole 1080p wavefronts: the gather on
-    the main path's sorts after bounces 1 and 2, the hero plane set's and
-    S = 16's (this tree reading pixel and alive from the sorted key, as the
-    frame calls it), the shading's parity, env-lit and hero forms on bounce
-    1 and the env-lit form on the camera wavefront; every output of both
-    bit-equal to the plain version's.  Prints an "A/B ..." line each.
+    checkouts at ``roots`` (:func:`checkout_package`; each named by the root
+    as given), in turns (the checkouts, then this tree, then back; each call
+    queued) on the same whole 1080p wavefronts: the gather on the main path's
+    sorts after bounces 1 and 2, the hero plane set's and S = 16's (this tree
+    reading pixel and alive from the sorted key, as the frame calls it), the
+    shading's parity, env-lit, hero and hero-with-env forms on bounce 1, the
+    env-lit form on the camera wavefront, and the env forms with select_p 1;
+    every output bit-equal to the plain version's.  Prints an "A/B ..." line each.
 
         python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.forms_ab('old'))"
     """
@@ -4350,16 +4479,19 @@ def forms_ab(root: str) -> int:
 
     smi = phase_device()
     phase_build()
-    old = checkout_package(root, "tpu_pathtracer_torch_ab")
-    old_sort = importlib.import_module("tpu_pathtracer_torch_ab.ops.wavefront_sort")
-    old_shade = importlib.import_module("tpu_pathtracer_torch_ab.ops.shade")
+    if len(set(roots)) < len(roots) or "new" in roots:
+        raise ValueError(f"forms_ab: each checkout once, none named 'new' (this tree): {roots}")
+    trees = {}
+    for i, root in enumerate(roots):
+        pkg = checkout_package(root, f"tpu_pathtracer_torch_ab{i}").__name__
+        trees[root] = tuple(importlib.import_module(f"{pkg}.{m}")
+                            for m in ("ops.wavefront_sort", "ops.shade"))
     from tpu_pathtracer_torch import Renderer, RenderConfig
     from tpu_pathtracer_torch.ops import shade
     from tpu_pathtracer_torch.ops import wavefront_sort as sort
     from tpu_pathtracer_torch.render.wavefront import scene_sort_bounds
 
-    log(f"A/B of this tree's gather and shading against {root} "
-        f"({old.__name__}) on {smi}")
+    log(f"A/B of this tree's gather and shading against {', '.join(roots)} on {smi}")
     scenes = shade_scenes()
     wmin, winv = scene_sort_bounds(scenes["main"])
 
@@ -4390,31 +4522,42 @@ def forms_ab(root: str) -> int:
                                                   st.pixel, wmin, winv), stable=True)
             items = [*st, *pack]
             want = sort.gather_planes_plain(items, perm)
-            fns = {"old": lambda: old_sort.gather_planes(items, perm),
-                   "new": lambda: sort_gather(items, perm, skey)}
+            fns = {name: (lambda m=m[0]: m.gather_planes(items, perm))
+                   for name, m in trees.items()}
+            fns["new"] = lambda: sort_gather(items, perm, skey)
             for k, f in fns.items():
                 same_bits(f"A/B gather {k}, {label}, sort at {which}", f(), want)
             line(f"gather_planes, {label}, sort at {which} ({perm.shape[0]} lanes)",
                  turns_ms(fns), gather_bound(items, perm.shape[0])["bound_ms"])
-    env = scenes["env"]
-    r = Renderer(env, WIDTH, HEIGHT)
-    sets["shading env-lit"] = (r.cfg, shade_inputs(r)[0])
-    del r
-    for label, scene in (("env-lit", env), ("S = 3", scenes["main"]),
-                         ("hero C = 4", scenes["spectral"])):
+    for label, (which, kw) in (("env-lit", ("env", {})),
+                               ("hero env", ("spectral env", SPECTRAL))):
+        r = Renderer(scenes[which], WIDTH, HEIGHT, RenderConfig(**kw))
+        sets[f"shading {label}"] = (r.cfg, shade_inputs(r)[0])
+        del r
+    for label, scene in (("env-lit", scenes["env"]), ("hero env", scenes["spectral env"]),
+                         ("S = 3", scenes["main"]), ("hero C = 4", scenes["spectral"])):
         cfg, shading = sets[f"shading {label}"]
-        for which in ("bounce1", "camera") if label == "env-lit" else ("bounce1",):
+        cases = [("bounce1", None)]
+        if label == "env-lit":
+            cases.append(("camera", None))
+        if scene.env is not None:
+            cases.append(("bounce1", 1.0))  # every lane's NEE picks the env
+        for which, sel in cases:
             st, hit, uni, b = shading[which]
-            a = (scene, cfg, b, st, uni, hit, False)
+            sc = scene if sel is None else scene._replace(env=scene.env._replace(
+                select_p=torch.full_like(scene.env.select_p, sel)))
+            a = (sc, cfg, b, st, uni, hit, False)
             want = shade.shade_bounce_plain(*a)
-            fns = {"old": lambda a=a: old_shade.shade_bounce(*a),
-                   "new": lambda a=a: shade.shade_bounce(*a)}
+            fns = {name: (lambda a=a, sh=m[1]: sh.shade_bounce(*a)) for name, m in trees.items()}
+            fns["new"] = lambda a=a: shade.shade_bounce(*a)
             for k, f in fns.items():
                 got = f()
                 same_bits(f"A/B shade_bounce {k}, {label}, {which}", (got[0][:8], got[1:]),
                           (want[0][:8], want[1:]))
-            line(f"shade_bounce, {label} form, {which} wavefront ({st.alive.shape[0]} lanes)",
-                 turns_ms(fns), shade_bound(st, hit, uni, scene, False)["bound_ms"])
+            what = which if sel is None else f"{which}, select_p {sel:g}"
+            line(f"shade_bounce, {label} form, {what} wavefront ({st.alive.shape[0]} lanes)",
+                 turns_ms(fns),
+                 shade_bound(st, hit, uni, sc, False)["bound_ms"])
     log("A/B done")
     return 0
 
@@ -4511,7 +4654,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mesh = phase_multi_device(tmp, smi)["launches_per_frame_mesh2x1"]
     kernels += phase_fused_stages(smi, priced)
-    kernels += phase_shade_sort(smi)
+    kernels += phase_shade_sort(smi, compiler_log)
     for k in kernels:
         k["launches"] = launches.get(k["name"])
         k["launches_per_frame"] = per_frame.get(k["name"])

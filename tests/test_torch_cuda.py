@@ -718,7 +718,7 @@ def test_shade_bounce_env_texel_rule_on_card(n, texel, cuda_device):
     float maximum, +-inf and NaN on lanes that hit, on a clean map and on
     maps whose most-seen texel is NaN, +inf, negative or -0 (the
     every-lane path)."""
-    from tpu_pathtracer_torch.models.envlight import EnvLight, env_to, texel_index
+    from tpu_pathtracer_torch.models.envlight import TABLES, env_to, texel_index
 
     scene, st, hit, uni = _card_shading(n, 3, "prng", cuda_device, ENV_MAP)
     thr = st.throughput.clone()
@@ -736,8 +736,9 @@ def test_shade_bounce_env_texel_rule_on_card(n, texel, cuda_device):
         rad = env.radiance.cpu().numpy().copy()
         rad.reshape(rad.shape[0], -1)[:, common] = {"nan": np.nan, "+inf": np.inf,
                                                     "negative": -0.5, "-0": -0.0}[texel]
-        env = env_to({**{k: getattr(env, k).cpu().numpy() for k in EnvLight._fields
-                         if k != "radiance_max"}, "radiance": rad}, cuda_device)
+        # env_to derives the records and radiance_max anew from the tables
+        env = env_to({**{k: getattr(env, k).cpu().numpy() for k in TABLES},
+                      "radiance": rad}, cuda_device)
         scene = scene._replace(env=env)
     assert (env.radiance_max is None) == (texel != "clean")
     cfg = RenderConfig()
@@ -749,15 +750,60 @@ def test_shade_bounce_env_texel_rule_on_card(n, texel, cuda_device):
         _same(a, b, f"pack.{f}")
 
 
+@pytest.mark.parametrize("spectrum,hero", [(3, 0), (16, 4)])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_shade_bounce_env_alias_picks_on_card(n, spectrum, hero, cuda_device):
+    """A sharply peaked map (one texel 1e5 times the rest), so that most of
+    the lanes whose NEE picks the env take their slot's alias: the kernel
+    reading the env records (models/envlight.py:env_records), S = 3 and
+    hero C = 4 of S = 16, bit-equal to the plain version."""
+    from tpu_pathtracer_torch.models.envlight import TABLES, env_to
+    from tpu_pathtracer_torch.scene import attach_env
+
+    scene, st, hit, uni = _card_shading(n, spectrum, "prng", cuda_device, ENV_MAP, hero=hero)
+    img = np.full((*ENV_MAP, 3), 0.01, np.float32)
+    img[4, 7] = 1e3
+    peak = attach_env(load_scene(scene_path("CornellBox-Water-plastic"), samples=spectrum,
+                                 device="cpu"), img).env
+    env = env_to({k: getattr(peak, k).numpy() for k in TABLES}, cuda_device)
+    scene = scene._replace(env=env)
+    k = env.pdf_sa.numel()
+    x = uni["env_alias"] * float(np.float32(k))
+    slot = x.to(torch.int32).clamp(0, k - 1).long()
+    picks = uni["env_select"] < env.select_p
+    take = (x - slot.float() >= env.alias_p[slot]) & picks
+    if n > 1000:
+        assert int(take.sum()) > 0.9 * int(picks.sum()) > 0
+    cfg = RenderConfig(spectrum_samples=spectrum, hero_wavelengths=hero)
+    got = tshade.shade_bounce(scene, cfg, 1, st, uni, hit, False)
+    want = tshade.shade_bounce_plain(scene, cfg, 1, st, uni, hit, False)
+    for f, a, b in zip(twf.PathState._fields, got[0], want[0]):
+        _same(a, b, f"state.{f}")
+    for f, a, b in zip(twf.ShadowPack._fields, got[1], want[1]):
+        _same(a, b, f"pack.{f}")
+    assert [int(x) for x in got[3]] == [int(x) for x in want[3]]
+
+
 def test_shade_bounce_checks_inputs(cuda_device):
     """The wrapper raises on what the kernel does not take: a frame it does
     not cover (a roughness table, textures, more than 16 carried planes: S
     = 17, or hero C = 17), refraction with dispersion (NotImplementedError,
-    as the plain version), a non-contiguous plane, a wrong dtype; it copies
+    as the plain version), a non-contiguous plane, a wrong dtype, an env
+    light of another spectrum than the frame's (S = 16 at S = 3, S = 3 at S
+    = 4: its records would be read as another layout); it copies
     nothing."""
+    from tpu_pathtracer_torch.models.envlight import build_env
+
     scene, st, hit, uni = _card_shading(64, 3, "prng", cuda_device)
     cfg = RenderConfig()
     n0 = tshade.shade_bounce.launches
+    sky = np.random.default_rng(8).uniform(0.0, 4.0, (*ENV_MAP, 3)).astype(np.float32)
+    for s, other in ((3, 16), (4, 3)):
+        env_scene, env_st, env_hit, env_uni = _card_shading(64, s, "prng", cuda_device, ENV_MAP)
+        env_scene = env_scene._replace(env=build_env(sky, samples=other, device=cuda_device))
+        with pytest.raises(ValueError):
+            tshade.shade_bounce(env_scene, RenderConfig(spectrum_samples=s), 0, env_st,
+                                env_uni, env_hit, False)
     for bad_scene, bad_cfg in (
             (scene._replace(mat_roughness=torch.zeros_like(scene.mat_ior)), cfg),
             (scene._replace(textures=object()), cfg),

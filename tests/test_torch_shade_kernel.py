@@ -32,11 +32,13 @@ from tpu_pathtracer.scene import scene_path
 from tpu_pathtracer_torch import RenderConfig, interop
 from tpu_pathtracer_torch.config import PI
 from tpu_pathtracer_torch.models.envlight import PI as ENV_PI
-from tpu_pathtracer_torch.models.envlight import build_env, env_to, radiance_max
+from tpu_pathtracer_torch.models.envlight import (ALIAS_WORDS, TABLES, build_env, env_to,
+                                                  radiance_max, record_layout, texel_layout)
 from tpu_pathtracer_torch.ops import shade as tshade
 from tpu_pathtracer_torch.ops import wavefront_sort as tsort
 from tpu_pathtracer_torch.ops.intersect import HitShade
 from tpu_pathtracer_torch.render import wavefront as twf
+from tpu_pathtracer_torch.parallel.tiles import to_device
 from torch_parity import arrays, one_torch_thread, shading_inputs, sort_inputs  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -459,3 +461,169 @@ def test_env_zero_weight_term_is_throughput_times_zero():
     term = rad[:, None] * thr[None] * torch.zeros(())
     want = (thr * torch.zeros(()))[None].expand_as(term)
     assert torch.equal(term.view(torch.int32), want.contiguous().view(torch.int32))
+
+
+def _bits32(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
+
+
+def _assert_records(env, src: dict) -> None:
+    """env's records hold ``src``'s tables (numpy, the reference's fields)
+    bit for bit, laid out as models/envlight.py:env_records says, and env's
+    own fields are ``src``'s."""
+    for name in TABLES:
+        got, want = getattr(env, name).cpu().numpy().reshape(-1), np.asarray(src[name])
+        if got.dtype == np.float32:
+            got, want = got.view(np.int32), _bits32(want).reshape(-1)
+        np.testing.assert_array_equal(got, want.reshape(-1), err_msg=name)
+    rad = np.asarray(src["radiance"], np.float32)
+    s = rad.shape[0]
+    pdf = np.asarray(src["pdf_sa"], np.float32).reshape(-1)
+    k = pdf.size
+    alias = np.asarray(src["alias_i"]).reshape(-1)
+    tex, rec = env.texel_rec.cpu().numpy(), env.alias_rec.cpu().numpy()
+    t, pdf_col = texel_layout(s)
+    assert record_layout(env, s) == (t, pdf_col)
+    assert tex.dtype == np.float32 and tex.shape == (k, t) and env.texel_rec.is_contiguous()
+    assert rec.dtype == np.int32 and rec.shape == (k, ALIAS_WORDS)
+    assert np.array_equal(tex[:, :s].view(np.int32), _bits32(rad.reshape(s, k).T))
+    if pdf_col >= 0:
+        assert np.array_equal(tex[:, pdf_col].view(np.int32), _bits32(pdf))
+    assert not tex[:, s + 1:].any()
+    assert np.array_equal(rec[:, 0], _bits32(src["alias_p"]).reshape(-1))
+    assert np.array_equal(rec[:, 1], alias)
+    assert np.array_equal(rec[:, 2], _bits32(pdf))
+    assert np.array_equal(rec[:, 3], _bits32(pdf[alias]))
+
+
+@pytest.mark.parametrize("case", ["S3", "S16", "interop", "to_device", "nan-texel"])
+def test_env_records_equal_their_tables(case):
+    """models/envlight.py:env_to derives the shading kernel's records once a
+    map -- each texel's S radiance bins side by side with its pdf where the
+    record has room, each alias slot's threshold and alias (int32) with the
+    pdf of the slot's texel and of its alias -- and they equal the tables
+    they come from on every texel and slot: build_env at S = 3 and 16, the
+    reference's EnvLight carried by interop, a scene moved by
+    parallel/tiles.to_device, and a map with a NaN texel (which the records
+    carry, so the kernel's every-lane path reads it)."""
+    sky = np.random.default_rng(4).uniform(0.0, 40.0, (8, 16, 3)).astype(np.float32)
+    sky[2, 5] = (900.0, 800.0, 700.0)
+    if case in ("S3", "S16"):
+        env = build_env(sky, samples=int(case[1:]), device="cpu")
+        src = {name: getattr(env, name).numpy() for name in TABLES}
+    elif case == "interop":
+        ref = jattach_env(jload_scene(scene_path("cornellbox"), samples=16), sky).env
+        src = {name: np.asarray(getattr(ref, name)) for name in TABLES}
+        carried = interop.scene_from_arrays(arrays(
+            jload_scene(scene_path("cornellbox"), samples=16)._replace(env=ref)))
+        env = carried.env
+    elif case == "to_device":
+        scene = interop.scene_from_arrays(arrays(
+            jattach_env(jload_scene(scene_path("cornellbox")), sky)))
+        src = {name: getattr(scene.env, name).numpy() for name in TABLES}
+        env = to_device(scene, torch.device("cpu")).env
+    else:
+        env = build_env(sky, device="cpu")
+        src = {name: getattr(env, name).numpy() for name in TABLES}
+        src["radiance"] = src["radiance"].copy()
+        src["radiance"][:, 3, 7] = np.nan
+        env = env_to(src, "cpu")
+        assert env.radiance_max is None
+        assert np.isnan(env.texel_rec[3 * 16 + 7, :3].numpy()).all()
+    assert env.texel_rec is not None and env.alias_rec is not None
+    _assert_records(env, src)
+
+
+@pytest.mark.parametrize("s,want", [(1, (4, 1)), (3, (4, 3)), (4, (4, -1)), (5, (8, 5)),
+                                    (16, (16, -1)), (17, (20, 17))])
+def test_texel_layout(s, want):
+    """A texel's record: its S bins rounded up to 16 bytes, its pdf at
+    column S where that leaves room (the kernel then reads no pdf plane)."""
+    assert texel_layout(s) == want
+
+
+def test_env_records_refuse_what_the_kernel_cannot_read():
+    """env_records raises on an alias outside the table, and record_layout
+    (which the shading wrapper calls) on a map of another spectrum than the
+    frame's, on records of another layout and on a map without records:
+    the kernel reads the records unchecked.  An env made at S = 16 in a
+    frame of S = 3 would read a radiance bin as the pdf; one made at S = 3
+    in a frame of S = 4 the pdf as a radiance bin (the same 16-byte
+    record)."""
+    from tpu_pathtracer_torch.models.envlight import env_records
+
+    rad, pdf = np.ones((3, 2, 4), np.float32), np.ones((2, 4), np.float32)
+    with pytest.raises(ValueError):
+        env_records(rad, pdf, np.ones(8, np.float32), np.arange(8) + 1)
+    sky = np.random.default_rng(5).uniform(0.0, 4.0, (2, 4, 3)).astype(np.float32)
+    env3, env16 = (build_env(sky, samples=s, device="cpu") for s in (3, 16))
+    assert record_layout(env3, 3) == (4, 3) and record_layout(env16, 16) == (16, -1)
+    for env, s in ((env16, 3), (env3, 4), (env3, 16)):
+        with pytest.raises(ValueError):
+            record_layout(env, s)
+    for bad in (env3._replace(texel_rec=env3.texel_rec[:, :3].contiguous()),
+                env3._replace(alias_rec=env3.alias_rec[:, :2].contiguous()),
+                env3._replace(texel_rec=None)):
+        with pytest.raises(ValueError):
+            record_layout(bad, 3)
+
+
+@pytest.mark.parametrize("spectrum,hero", [(3, 0), (16, 4)])
+def test_env_sectors_by_layout(spectrum, hero):
+    """chip_smoke.env_sectors: the distinct 32-byte sectors a lane's env
+    reads touch, by layout.  A pick reads, plane-major, alias_p, alias_i,
+    pdf_sa and one radiance row a carried plane (3 + C); in the records,
+    the alias slot's record (with the pdf) and the texel's: one 16-byte load
+    at S = 3; at S = 16 hero bins (h + 4j) mod 16 span every quarter of the
+    texel, 2 sectors of the 64-byte record.  A miss reads the texel (1 + C
+    plane-major; 1 at S = 3; 3 at S = 16, with pdf_sa beside the 64-byte
+    record)."""
+    import chip_smoke
+    from tpu_pathtracer_torch.scene import attach_env, load_scene
+
+    scene = load_scene(scene_path(SCENE), samples=spectrum, device="cpu")
+    sky = np.random.default_rng(6).uniform(0.2, 2.0, (8, 16, 3)).astype(np.float32)
+    scene = attach_env(scene, sky)
+    n = 640
+    inp = shading_inputs(scene, n, seed=3, hero=hero)
+    if hero:
+        h = np.random.default_rng(7).integers(0, spectrum, n)
+        inp["state"]["bins"] = (h[None] + np.arange(hero)[:, None] * (spectrum // hero)) % \
+            spectrum
+    st = twf.PathState(**{k: torch.from_numpy(v) for k, v in inp["state"].items()})
+    hit = HitShade(**{k: torch.from_numpy(v) for k, v in inp["hit"].items()})
+    u = torch.from_numpy(inp["u"])
+    uni = {"light_select": u[0], "light_bary": u[1:3], "lobe": u[3], "bounce_dir": u[4:6],
+           "env_select": u[6], "env_alias": u[7], "env_jit": u[8:10]}
+    got = chip_smoke.env_sectors(scene, st, hit, uni)
+    c = hero or spectrum
+    miss = st.alive & ~torch.isfinite(hit.t)
+    assert got["misses"] == got["texel_reads"] == int(miss.sum()) > 0
+    assert 0 < got["picks"] < n
+    want = {"plane-major": (3 + c, 1 + c), "records": (2, 1) if spectrum == 3 else (3, 3)}
+    for name, (pick, miss_sectors) in want.items():
+        d = got[name]
+        assert (d["sectors_per_pick"], d["sectors_per_miss"]) == (pick, miss_sectors), name
+        assert d["launch_sector_mb"] <= d["warp_sector_mb"]
+
+
+def test_kernel_registers_reads_bool_template_arguments():
+    """chip_smoke.kernel_registers keys each instance by its template
+    arguments, bools (the shading kernel's) as ints (the marches')."""
+    import chip_smoke
+
+    entry = "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{}' for 'sm_90a'"
+    log = "\n".join([
+        entry.format("19shade_bounce_kernelILb1ELb1ELb0EEEv11ShadeParams"),
+        "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers, 24 bytes cumulative stack size",
+        entry.format("19shade_bounce_kernelILb0ELb0ELb0EEEv11ShadeParams"),
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 0 barriers",
+        entry.format("18sweep_count_kernelILi4EEEvPKf"),
+        "ptxas info    : Used 112 registers"])
+    assert chip_smoke.kernel_registers(log, "shade_bounce_kernel") == {
+        "1,1,0": {"registers": 64, "spill_bytes": 40},
+        "0,0,0": {"registers": 56, "spill_bytes": 0}}
+    assert chip_smoke.kernel_registers(log, "sweep_count_kernel") == {
+        "4": {"registers": 112, "spill_bytes": 0}}

@@ -59,11 +59,21 @@
 // feature set (env, hero, dispersion: a parity frame runs none of the
 // others' code or registers), every plane read and written once by
 // consecutive lanes (coalesced), the scene tables (a few hundred bytes) read
-// through the cache, the env's tables (megabytes) gathered where a lane's
-// texel falls, no shared memory; the bounce's two counts are block sums
+// through the cache, no shared memory; the bounce's two counts are block sums
 // (__syncthreads_count) added into one int64 pair with one atomic a block.
-// The measured share of the bound: PERF.md section 6, the table of the
-// XLA-fused stages.
+// The env's tables (megabytes, past L2 at S = 16) are gathered where a
+// lane's texel falls, so what the env costs is scattered 32-byte sectors: a
+// lane reads them as the records models/envlight.py:env_records derives once
+// a map, not as the reference's planes (alias_p, alias_i, pdf_sa and one
+// radiance row a plane: 3 + C sectors a pick, 1 + C a miss).  A pick reads
+// its slot's record (16 bytes: the threshold, the alias and the pdf of
+// either texel, so no pdf read waits on the texel) and then the chosen
+// texel's record, its S bins side by side: 2 sectors at S = 3 (one 16-byte
+// load with the pdf), 3 at S = 16 (a 64-byte record); a miss its texel's
+// record (1 sector at S = 3; at S = 16 2, and the pdf plane).  The same
+// floats from other addresses: the result stays bit-equal.
+// chip_smoke.env_sectors counts the sectors; the measured share of the
+// bound: PERF.md section 6, the table of the XLA-fused stages.
 #include <cuda_runtime.h>
 
 // Everything one launch reads and writes (ops/shade.py:_ShadeParams mirrors
@@ -106,13 +116,17 @@ struct ShadeParams {
   const float* light_area;       // (num_lights + 1,)
   const long long* light_tri;    // (num_lights + 1,)
   const float* light_emissive;   // (S, num_lights + 1)
-  // the environment light (null without one): radiance (S, env_h * env_w),
-  // the solid-angle pdf and the alias table (env_h * env_w,), select_p and
-  // the rotation (0-d tensors, read on the card: no host sync)
-  const float* env_radiance;
+  // the environment light (null without one), as models/envlight.py:
+  // env_records derives it once a map: one record a texel, (env_h * env_w,
+  // env_texel_stride) floats, its S radiance bins side by side and its
+  // solid-angle pdf at column env_pdf_col (-1: none there); one record an
+  // alias slot, (env_h * env_w, 4) 32-bit words: alias_p's bits, alias_i,
+  // the pdf of the slot's texel and of its alias; the pdf (env_h * env_w,),
+  // read where a texel's record holds none; select_p and the rotation (0-d
+  // tensors, read on the card: no host sync)
+  const float* env_texel_rec;
+  const int* env_alias_rec;
   const float* env_pdf;
-  const float* env_alias_p;
-  const long long* env_alias_i;
   const float* env_select_p;
   const float* env_rotation;
   // the env's uniform rows (null without an env)
@@ -141,7 +155,7 @@ struct ShadeParams {
   unsigned char* ok;
   float* shadow_origin;   // (3, n) in the inline form, else null
   unsigned long long* stats;  // [live path lanes, live shadow lanes]
-  int n, s, m, num_lights, env_h, env_w;
+  int n, s, m, num_lights, env_h, env_w, env_texel_stride, env_pdf_col;
   float eps, aeps, four_eps, inv_pi, two_pi, pdf_floor;
   // the env's constants (models/envlight.py's PI is numpy's pi, not
   // config.py's 3.1415926) and the dispersion weights' floor, as torch
@@ -281,9 +295,9 @@ __device__ __forceinline__ float dispersion_weight(long long mtype, V3 n, V3 i, 
 }
 
 // models/envlight.py:_texel_dir: the jittered direction inside texel ``idx``.
-__device__ __forceinline__ V3 env_texel_dir(const ShadeParams& p, long long idx, float ju,
+__device__ __forceinline__ V3 env_texel_dir(const ShadeParams& p, int idx, float ju,
                                             float jv, float rotation) {
-  const long long ti = idx / p.env_w, tj = idx % p.env_w;
+  const int ti = idx / p.env_w, tj = idx % p.env_w;
   const float v = (static_cast<float>(ti) + jv) * p.inv_env_h;
   const float u = (static_cast<float>(tj) + ju) * p.inv_env_w;
   const float theta = v * p.env_pi;
@@ -293,26 +307,59 @@ __device__ __forceinline__ V3 env_texel_dir(const ShadeParams& p, long long idx,
 }
 
 // models/envlight.py:texel_index: the flat nearest texel toward ``d``.
-__device__ __forceinline__ long long env_texel_index(const ShadeParams& p, V3 d,
-                                                     float rotation) {
+__device__ __forceinline__ int env_texel_index(const ShadeParams& p, V3 d, float rotation) {
   const float phi = atan2f(d.z, d.x) - rotation;
   float u = (phi + p.env_pi) * p.env_inv_two_pi;
   u = u - floorf(u);
   const float v = acosf(clamp_nan(d.y, -1.0f, 1.0f)) * p.env_pi_recip;
   const int j = min(max(__float2int_rz(u * p.env_wf), 0), p.env_w - 1);
   const int i = min(max(__float2int_rz(v * p.env_hf), 0), p.env_h - 1);
-  return static_cast<long long>(i) * p.env_w + j;
+  return i * p.env_w + j;
+}
+
+// Texel ``idx``'s record as one 16-byte load where it is four floats (S <= 3
+// with its pdf) and ``kVec``, else zeros: env_word then reads the record word
+// by word.  The hero instances (S > 3: C of S bins a lane) take no vector.
+template <bool kVec>
+__device__ __forceinline__ float4 env_record4(const ShadeParams& p, long long idx) {
+  return kVec && p.env_texel_stride == 4
+             ? __ldg(reinterpret_cast<const float4*>(p.env_texel_rec) + idx)
+             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Word ``col`` of texel ``idx``'s record (``rec``: env_record4 of it).
+template <bool kVec>
+__device__ __forceinline__ float env_word(const ShadeParams& p, long long idx, size_t col,
+                                          float4 rec) {
+  if (kVec && p.env_texel_stride == 4) {
+    return col == 0 ? rec.x : col == 1 ? rec.y : col == 2 ? rec.z : rec.w;
+  }
+  return __ldg(p.env_texel_rec + idx * p.env_texel_stride + col);
+}
+
+// Texel ``idx``'s solid-angle pdf: from its record, or the pdf plane.
+template <bool kVec>
+__device__ __forceinline__ float env_texel_pdf(const ShadeParams& p, long long idx, float4 rec) {
+  return p.env_pdf_col < 0 ? __ldg(p.env_pdf + idx)
+                           : env_word<kVec>(p, idx, p.env_pdf_col, rec);
 }
 
 // One instance per feature set (the env light, hero bins, dispersion): a
 // frame's kernel carries only the arithmetic and registers its features need.
-// Every instance runs four blocks an SM (64 registers): on whole 1080p
-// wavefronts that made the parity and hero forms 11% and 15% faster than at
-// the 74-80 registers ptxas chose, and, once the env-lit forms read no texel
-// off the misses, the env-lit form 3% and the hero form with the env 24%
-// faster than at its 80-96, spills and all (PERF.md section 6).
+// Blocks an SM (ptxas -v, PERF.md section 6): four (64 registers) for every
+// instance but the env light's without hero bins, which runs three (80
+// registers).  At four the parity and hero forms ran 11% and 15% faster than
+// at the 72-96 registers ptxas chooses.  With the records the env instances
+// without hero bins spilled 232-344 bytes at 64 registers and spill none or
+// 40 at 80, where the env-lit form runs 2.3% faster; the hero instances with
+// the env spill 60-184 bytes at 64 registers and spilled none at 72-80, yet
+// ran 3% slower there.  Texel and slot indices are 32-bit (the hero form with the env 2%
+// faster than at 64-bit); the record's address is 64-bit.
+constexpr int blocks_per_sm(bool env, bool hero) { return env && !hero ? 3 : 4; }
+
 template <bool kEnv, bool kHero, bool kDispersion>
-__global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p) {
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
+    shade_bounce_kernel(ShadeParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   bool counted_path = false, counted_shadow = false;
   if (lane < p.n) {
@@ -375,15 +422,20 @@ __global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p
     const float sel_p = kEnv ? *p.env_select_p : 0.0f;
     const float rotation = kEnv ? *p.env_rotation : 0.0f;
     const bool use_env = kEnv && p.env_select[i] < sel_p;
-    long long e_idx = 0;
+    int e_idx = 0;
+    float4 e_rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (use_env) {
       const int k = p.env_h * p.env_w;
       const float x = p.env_alias[i] * p.env_kf;
-      const long long slot = min(max(__float2int_rz(x), 0), k - 1);
+      const int slot = min(max(__float2int_rz(x), 0), k - 1);
       const float frac = x - static_cast<float>(slot);
-      e_idx = frac >= p.env_alias_p[slot] ? p.env_alias_i[slot] : slot;
+      // the alias slot's record in one load, then the chosen texel's
+      const int4 a = __ldg(reinterpret_cast<const int4*>(p.env_alias_rec) + slot);
+      const bool take = frac >= __int_as_float(a.x);
+      e_idx = take ? a.y : slot;
+      e_rec = env_record4<!kHero>(p, e_idx);
       nee_dir = env_texel_dir(p, e_idx, p.env_jit0[i], p.env_jit1[i], rotation);
-      nee_pdf = p.env_pdf[e_idx] * sel_p;
+      nee_pdf = __int_as_float(take ? a.w : a.z) * sel_p;
       not_self = dot(nee_dir, hn) > 0.0f;
       shadow_cap = p.env_cap;
       target = -1;
@@ -441,11 +493,14 @@ __global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p
     // the weight is +0 and the texel (index -1: not yet computed) is read
     // only where that product is not throughput * +0 (the header comment)
     const bool miss = kEnv && alive && !isfinite(t);
-    long long m_idx = -1;
+    int m_idx = -1;
+    float4 m_rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float env_weight = 0.0f;
     if (miss) {
       m_idx = env_texel_index(p, w_i, rotation);
-      env_weight = power_heuristic(pdf_in, prev_diffuse * sel_p * p.env_pdf[m_idx]);
+      m_rec = env_record4<!kHero>(p, m_idx);
+      env_weight = power_heuristic(
+          pdf_in, prev_diffuse * sel_p * env_texel_pdf<!kHero>(p, m_idx, m_rec));
     }
 
     // ---- models/bsdf.py:sample_bounce ----
@@ -492,9 +547,11 @@ __global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p
     const float bounce_scale = nb_bsdf / safe_pdf;
 
     // ---- the spectral planes: NEE contribution, radiance, throughput; under
-    // hero sampling plane c reads the tables at the lane's bin ----
-    const size_t k = static_cast<size_t>(p.env_h) * p.env_w;
+    // hero sampling plane c reads the tables at the lane's bin (not unrolled:
+    // unrolled by 4 the hero form with the env ran 12% slower, and at nvcc's
+    // choice the parity instance spilled 36 bytes and ran 2.5% slower) ----
     bool any_contrib = false;
+#pragma unroll 1
     for (int c = 0; c < p.s; ++c) {
       const size_t at = c * n + i;
       const size_t row = kHero ? static_cast<size_t>(p.bins[at]) : c;
@@ -502,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p
       const float m_emissive = p.mat_emissive[row * p.m + mat];
       const float thr = p.throughput[at];
       const float nee_emit =
-          use_env ? p.env_radiance[row * k + e_idx] : p.light_emissive[row * lrow + li];
+          use_env ? env_word<!kHero>(p, e_idx, row, e_rec) : p.light_emissive[row * lrow + li];
       float contrib = nee_emit * m_diffuse * thr * nee_scale;
       float scale = m_diffuse * bounce_scale;
       if (kDispersion) {
@@ -519,8 +576,11 @@ __global__ void __launch_bounds__(kThreads, 4) shade_bounce_kernel(ShadeParams p
       float emit = m_emissive * thr * emit_scale;
       if (kEnv) {
         if (miss || !isfinite(p.env_radiance_max * thr)) {
-          if (m_idx < 0) m_idx = env_texel_index(p, w_i, rotation);
-          emit = emit + p.env_radiance[row * k + m_idx] * thr * env_weight;
+          if (m_idx < 0) {
+            m_idx = env_texel_index(p, w_i, rotation);
+            m_rec = env_record4<!kHero>(p, m_idx);
+          }
+          emit = emit + env_word<!kHero>(p, m_idx, row, m_rec) * thr * env_weight;
         } else {
           emit = emit + thr * 0.0f;
         }
@@ -578,7 +638,10 @@ extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
   const ShadeParams p = *params;
   if (p.s < 1 || p.s > kMaxSpectrum || p.n < 0 || (p.hero && p.bins == nullptr) ||
       (p.dispersion && p.mat_ior_bins == nullptr) ||
-      (p.env && (p.env_radiance == nullptr || p.env_h < 1 || p.env_w < 1))) {
+      (p.env && (p.env_texel_rec == nullptr || p.env_alias_rec == nullptr || p.env_h < 1 ||
+                 p.env_w < 1 || p.env_texel_stride < 1 || p.env_texel_stride % 4 != 0 ||
+                 p.env_pdf_col >= p.env_texel_stride ||
+                 (p.env_pdf_col < 0 && p.env_pdf == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

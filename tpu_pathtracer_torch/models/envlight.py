@@ -38,6 +38,18 @@ class EnvLight(NamedTuple):
     # env_to (the shading kernel then reads no texel on a lane whose ray did
     # not miss: ops/shade.py).  Replace ``radiance`` only through env_to.
     radiance_max: float | None = None
+    # the same tables as the shading kernel reads them, derived once a map by
+    # env_to (:func:`env_records`): one record a texel, (K, T) float32, and
+    # one an alias slot, (K, ALIAS_WORDS) int32
+    texel_rec: torch.Tensor | None = None
+    alias_rec: torch.Tensor | None = None
+
+
+# the reference's fields of EnvLight, which env_to takes; the rest it derives
+TABLES = ("radiance", "pdf_sa", "alias_p", "alias_i", "select_p", "rotation")
+# an alias slot's record: alias_p's bits, alias_i, the pdf of the slot's
+# texel and of its alias
+ALIAS_WORDS = 4
 
 
 def _vose_alias(p: np.ndarray):
@@ -102,17 +114,75 @@ def build_env(image: np.ndarray, strength: float = 1.0, rotation: float = 0.0,
 
 def env_to(arrays: dict, device) -> EnvLight:
     """numpy field arrays (:func:`build_env`'s, or the reference's
-    ``EnvLight._asdict()``) -> an :class:`EnvLight` on ``device``, every
-    field contiguous (the shading kernel reads the tables in place), and its
-    ``radiance_max`` derived from the radiance (:func:`radiance_max`)."""
-    def put(name):
-        a = np.asarray(arrays[name])
+    ``EnvLight._asdict()``; keys past :data:`TABLES` are ignored) -> an
+    :class:`EnvLight` on ``device``, every field contiguous, with its
+    ``radiance_max`` (:func:`radiance_max`) and its records
+    (:func:`env_records`) derived from the tables."""
+    def put(a, dtype=None):
+        a = np.asarray(a)
         a = np.ascontiguousarray(a) if a.ndim else a
-        dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+        if dtype is None:
+            dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
         return torch.tensor(a, dtype=dtype, device=device)
 
-    tables = {name: put(name) for name in EnvLight._fields if name != "radiance_max"}
-    return EnvLight(**tables, radiance_max=radiance_max(arrays["radiance"]))
+    texel, alias = env_records(*(arrays[name] for name in TABLES[:4]))
+    return EnvLight(**{name: put(arrays[name]) for name in TABLES},
+                    radiance_max=radiance_max(arrays["radiance"]), texel_rec=put(texel),
+                    alias_rec=put(alias, torch.int32))
+
+
+def texel_layout(s: int) -> tuple[int, int]:
+    """A texel's record at S radiance bins -> (its stride in floats: S
+    rounded up to a multiple of 4, so that a record starts on 16 bytes; the
+    column of its solid-angle pdf, S where the record has room, else -1)."""
+    t = 4 * -(-s // 4)
+    return t, (s if t > s else -1)
+
+
+def env_records(radiance, pdf_sa, alias_p, alias_i):
+    """The records the shading kernel reads (csrc/shade.cu), from the
+    reference's tables (numpy) -> (texel (K, T) float32, alias (K,
+    :data:`ALIAS_WORDS`) int32), K = Eh * Ew.  A texel's record holds its S
+    radiance bins side by side and its pdf where :func:`texel_layout` has
+    room (16 bytes at S = 3; at S = 16 64 bytes, the pdf not in it).  An
+    alias slot's record holds alias_p's bits, alias_i, and the pdf of the
+    slot's texel and of its alias (the pdf the NEE pick needs, either way).
+    Every value is the table's, bit for bit."""
+    rad = np.asarray(radiance, np.float32)
+    s = rad.shape[0]
+    pdf = np.asarray(pdf_sa, np.float32).reshape(-1)
+    prob = np.asarray(alias_p, np.float32).reshape(-1)
+    alias = np.asarray(alias_i).reshape(-1)
+    k = pdf.size
+    if alias.size and (alias.min() < 0 or alias.max() >= k):
+        raise ValueError(f"env_records: alias_i outside [0, {k})")
+    t, pdf_col = texel_layout(s)
+    texel = np.zeros((k, t), np.float32)
+    texel[:, :s] = rad.reshape(s, k).T
+    if pdf_col >= 0:
+        texel[:, pdf_col] = pdf
+    rec = np.stack([prob.view(np.int32), alias.astype(np.int32), pdf.view(np.int32),
+                    pdf[alias].view(np.int32)], axis=1)
+    return texel, rec
+
+
+def record_layout(env: EnvLight, s: int) -> tuple[int, int]:
+    """The layout of ``env``'s records as a frame of S spectral bins reads
+    them -> :func:`texel_layout` (S); ValueError unless the map is S bins
+    wide and its records are those :func:`env_records` derives at S (the
+    kernel reads them unchecked)."""
+    k = env.pdf_sa.numel()
+    t, pdf_col = texel_layout(s)
+    if env.texel_rec is None or env.alias_rec is None:
+        raise ValueError("the env light has no records (make it with "
+                         "models/envlight.py:env_to)")
+    if (env.radiance.shape[0] != s or tuple(env.texel_rec.shape) != (k, t)
+            or tuple(env.alias_rec.shape) != (k, ALIAS_WORDS)):
+        raise ValueError(
+            f"an env light of {env.radiance.shape[0]} bins with records "
+            f"{tuple(env.texel_rec.shape)} and {tuple(env.alias_rec.shape)} in a frame of "
+            f"{s} bins: expected {s} bins, ({k}, {t}) and ({k}, {ALIAS_WORDS})")
+    return t, pdf_col
 
 
 def radiance_max(radiance) -> float | None:

@@ -14,11 +14,14 @@ every frame but those with textures or a roughness table (the GGX types),
 at most MAX_SPECTRUM carried planes (C under hero sampling, S otherwise);
 the environment light, hero bins and dispersion are covered.
 render/wavefront.py:trace_bounce routes every other frame, and every CPU
-tensor, to the plain version.  With an environment light whose map is clean
-(``EnvLight.radiance_max``: every entry finite with its sign bit clear) the
-kernel reads the env's texel only on the lanes whose ray missed, and on a
-lane whose throughput times that maximum overflows; with any other map, on
-every lane, as the plain version does.
+tensor, to the plain version.  The kernel reads the environment light
+through the records ``EnvLight.texel_rec`` and ``alias_rec``, which
+models/envlight.py:env_to derives once a map (the same floats as the
+reference's tables, one record a texel and one an alias slot).  With a map
+that is clean (``EnvLight.radiance_max``: every entry finite with its sign
+bit clear) it reads the env's texel only on the lanes whose ray missed, and
+on a lane whose throughput times that maximum overflows; with any other
+map, on every lane, as the plain version does.
 
 ``folded_constants``: torch folds ``4.0 * eps``, ``1.0 / PI`` and ``PI *
 2.0`` in double from Python scalars and rounds the result (and ``eps``,
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import PI, RenderConfig
+from ..models.envlight import ALIAS_WORDS, record_layout
 from ..models.envlight import PI as ENV_PI
 from .cuda_build import load_library, plane_address
 
@@ -98,12 +102,13 @@ class _ShadeParams(ctypes.Structure):
         "light_bary0", "light_bary1", "lobe", "bounce_dir0", "bounce_dir1",
         "mat_diffuse", "mat_emissive", "mat_ior", "mat_type", "light_cdf", "light_p",
         "light_n", "light_pdf", "light_area", "light_tri", "light_emissive",
-        "env_radiance", "env_pdf", "env_alias_p", "env_alias_i", "env_select_p",
-        "env_rotation", "env_select", "env_alias", "env_jit0", "env_jit1", "bins",
-        "mat_ior_bins", "out_origin", "out_direction", "out_throughput", "out_radiance",
-        "out_pdf", "out_prev_diffuse", "out_ior", "out_alive", "to_light", "cap", "target",
+        "env_texel_rec", "env_alias_rec", "env_pdf", "env_select_p", "env_rotation",
+        "env_select", "env_alias", "env_jit0", "env_jit1", "bins", "mat_ior_bins",
+        "out_origin", "out_direction", "out_throughput", "out_radiance", "out_pdf",
+        "out_prev_diffuse", "out_ior", "out_alive", "to_light", "cap", "target",
         "contrib", "ok", "shadow_origin", "stats")] + [
-        (name, ctypes.c_int) for name in ("n", "s", "m", "num_lights", "env_h", "env_w")] + [
+        (name, ctypes.c_int) for name in ("n", "s", "m", "num_lights", "env_h", "env_w",
+                                          "env_texel_stride", "env_pdf_col")] + [
         (name, ctypes.c_float) for name in (
             "eps", "aeps", "four_eps", "inv_pi", "two_pi", "pdf_floor", "env_pi",
             "env_two_pi", "env_inv_two_pi", "env_pi_recip", "env_cap", "disp_floor",
@@ -174,12 +179,18 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
         ("light_emissive", scene.light_emissive, f32, (s_table, rows))]
     env = scene.env
     eh, ew = env.pdf_sa.shape if env is not None else (1, 1)
+    texel_stride = pdf_col = 0
     if env is not None:
+        # the records models/envlight.py:env_to derived once the map was made
+        texel_stride, pdf_col = record_layout(env, s_table)
         k = eh * ew
+        if k > MAX_LANES:
+            raise ValueError(f"shade_bounce: an env map of {k} texels (the kernel's texel "
+                             f"indices are 32-bit)")
         planes += [
-            ("env_radiance", env.radiance, f32, (s_table, eh, ew)),
-            ("env_pdf", env.pdf_sa, f32, (eh, ew)), ("env_alias_p", env.alias_p, f32, (k,)),
-            ("env_alias_i", env.alias_i, i64, (k,)),
+            ("env_texel_rec", env.texel_rec, f32, (k, texel_stride)),
+            ("env_alias_rec", env.alias_rec, torch.int32, (k, ALIAS_WORDS)),
+            ("env_pdf", env.pdf_sa, f32, (eh, ew)),
             ("env_select_p", env.select_p, f32, ()), ("env_rotation", env.rotation, f32, ()),
             ("env_select", uniforms["env_select"], f32, (n,)),
             ("env_alias", uniforms["env_alias"], f32, (n,)),
@@ -211,6 +222,7 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
         setattr(p, name, t.data_ptr())
     p.shadow_origin = shadow_origin.data_ptr() if inline else None
     p.n, p.s, p.m, p.num_lights, p.env_h, p.env_w = n, s, m, rows - 1, eh, ew
+    p.env_texel_stride, p.env_pdf_col = texel_stride, pdf_col
     for name, v in folded_constants(cfg, (eh, ew)).items():
         setattr(p, name, v)
     p.last_bounce = int(bounce + 1 >= cfg.max_path_length)
