@@ -1336,13 +1336,20 @@ def walk_ms(stages: dict) -> float:
     return sum(stages.get(k, 0.0) for k in ("walk_nearest", "walk_shadow", "walk_fused"))
 
 
+def sample_ms(stages: dict) -> float:
+    """A staged frame's wavefronts, in ms: their preparation, bounces and
+    restore (the sort bounds' two host reads aside)."""
+    return sum(stages.get(k, 0.0) for k in ("prepare", "bounce", "restore"))
+
+
 def stage_line(stages: dict) -> str:
     walks = walk_ms(stages)
-    other = stages["sample"] - stages.get("sort", 0.0) - walks
+    sample = sample_ms(stages)
+    other = sample - stages.get("sort", 0.0) - walks
     return ("  stages (ms, one frame): " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(stages.items()))
         + f", shading+rest {other:.2f}; walks {walks:.2f} = "
-        f"{walks / stages['sample']:.2%} of sample")
+        f"{walks / sample:.2%} of sample")
 
 
 def phase_main_path(renderer) -> tuple[dict, int]:
@@ -1448,26 +1455,26 @@ def frame_clock():
     "seconds": s}, filled in as frames run."""
     from tpu_pathtracer_torch.renderer import Renderer
 
-    step, sync = Renderer.step, Renderer.sync
+    step, sync = Renderer.step, Renderer._sync
     clock = {"frames": 0, "seconds": 0.0, "t0": None}
 
-    def timed_step(self):
+    def timed_step(self, timer=None):
         if clock["t0"] is None:
             clock["t0"] = time.perf_counter()
         clock["frames"] += 1
-        step(self)
+        step(self, timer)
 
-    def timed_sync(self):
+    def timed_sync(self, trace):
         waited = self._in_flight > 0
-        sync(self)
+        sync(self, trace)
         if waited and clock["t0"] is not None:
             clock["seconds"] = time.perf_counter() - clock["t0"]
 
-    Renderer.step, Renderer.sync = timed_step, timed_sync
+    Renderer.step, Renderer._sync = timed_step, timed_sync
     try:
         yield clock
     finally:
-        Renderer.step, Renderer.sync = step, sync
+        Renderer.step, Renderer._sync = step, sync
 
 
 def phase_cli_env(tmp: str) -> dict:
@@ -3960,7 +3967,8 @@ def shade_sort_turns(label: str, tmp: str, scene, kw: dict, want: dict) -> dict:
                                  f"the first turn's by {diff}")
         reading = {"ms": ms, "device_ms": dev, "kernels": count,
                    **{k: spans.get(k, 0.0) for k in ("sort", "walk_nearest", "walk_shadow",
-                                                     "walk_fused", "sample")}}
+                                                     "walk_fused")},
+                   "sample": sample_ms(spans)}
         out[which].append(reading)
         log(f"  shade/sort turn {label}, {which}: {ms:.2f} ms/frame, device {dev:.2f} ms in "
             f"{count} kernels a frame; spans sort {reading['sort']:.2f}, walk_nearest "

@@ -36,7 +36,7 @@ from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
 from tpu_pathtracer_torch.render.state import init_state, render_frame
 from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
-    arrays, assert_hits_agree, nee_shadow_rays, random_rays, one_torch_thread)
+    SpanLog, arrays, assert_hits_agree, nee_shadow_rays, random_rays, one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -245,26 +245,15 @@ def test_timed_frame_keeps_fused_walk(frames):
     frame does (the wrapper passes ``fused`` through as "walk_fused"), and a
     fused config with an intersector that has no fused walk raises instead
     of walking separately."""
-    import contextlib
-
     from tpu_pathtracer_torch.ops.rng import prng_key
     from tpu_pathtracer_torch.render.state import frame_rng_key, fused_wavefront_key
     from tpu_pathtracer_torch.render.wavefront import render_sample
-
-    class Names:
-        def __init__(self):
-            self.names = []
-
-        @contextlib.contextmanager
-        def span(self, name):
-            self.names.append(name)
-            yield
 
     scene = interop.scene_from_arrays(arrays(load_scene(scene_path("cornellbox"))))
     cfg = RenderConfig(max_path_length=3, fuse_shadow_walk=True)
     isect = ht.make_cuda_intersector(frames["tlay"], prepass=8)
     key = fused_wavefront_key(frame_rng_key(cfg, prng_key(0), 0))
-    timer = Names()
+    timer = SpanLog()
     timed = render_sample(scene, cfg, Camera(), 24, 32, key, 0, isect, timer=timer)
     plain = render_sample(scene, cfg, Camera(), 24, 32, key, 0, isect)
     assert torch.equal(timed, plain)

@@ -943,3 +943,128 @@ def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     r.reset()
     r.run(frames)
     assert np.isfinite(img).all() and np.array_equal(img, r.image())
+
+
+# the frames of the tracing tests: the main path, and the spectral CLI path
+# with the env (hero bins, dispersion, the env's records); 270x480 on the
+# default ladder (129,600 lanes: four rungs)
+TRACED_FRAMES = {"main": {}, "spectral-env": {"spectral": True, "env": True}}
+
+
+def _traced_renderer(kind: str, dev):
+    from tpu_pathtracer_torch.scene import attach_dispersion, attach_env
+
+    spectral = TRACED_FRAMES[kind].get("spectral", False)
+    cfg = RenderConfig(frames_in_flight=8, **({"spectrum_samples": 16, "hero_wavelengths": 4}
+                                              if spectral else {}))
+    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=dev,
+                       samples=cfg.spectrum_samples)
+    if spectral:
+        scene = attach_dispersion(scene, 0.0042)
+    if TRACED_FRAMES[kind].get("env"):
+        img = np.random.default_rng(7).uniform(0.2, 2.0, (16, 32, 3)).astype(np.float32)
+        scene = attach_env(scene, img)
+    return Renderer(scene, 480, 270, cfg, seed=3, device=dev)
+
+
+def _syncs(step) -> list[str]:
+    """The synchronising CUDA operations ``step()`` makes, as the sync debug
+    mode warns of them (the mode is switched on once before, so that a
+    notice torch gives the first time is not counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}: {w.message}" for w in seen
+            if "synchronizing" in str(w.message)]
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_host_reads_are_the_frames_syncs_on_card(kind, cuda_device):
+    """A traced frame's host_reads equal the synchronising operations that
+    torch.cuda.set_sync_debug_mode reports over the same frame, and an
+    untraced frame makes as many (tracing adds no host read): the camera's
+    three copies of host memory, the sort bounds' two reads and one ladder
+    read a secondary bounce."""
+    from tpu_pathtracer_torch.render.timing import StageTimer
+
+    r = _traced_renderer(kind, cuda_device)
+    r.step()
+    r.sync()
+    untraced = _syncs(r.step)
+    traced = _syncs(lambda: r.step(timer=StageTimer()))
+    rec = r.frame_records[-1]
+    assert rec["host_reads"] == len(traced) == len(untraced) == 3 + 2 + 7, (traced, untraced)
+
+
+@pytest.mark.parametrize("spectrum,hero", [(3, 0), (16, 4)])
+def test_shade_env_counts_on_card(spectrum, hero, cuda_device):
+    """The env-lit shading kernel's env picks and misses equal the torch
+    reductions chip_smoke.shade_bound prices (NEE picked the env; the lane
+    is live and its ray missed) on one wavefront, as the plain version's
+    do; without an env the kernel gives the two counts alone."""
+    cfg = RenderConfig(spectrum_samples=spectrum, hero_wavelengths=hero)
+    scene, st, hit, uni = _card_shading(65537, spectrum, "prng", cuda_device, ENV_MAP,
+                                        hero=hero)
+    got = tshade.shade_bounce(scene, cfg, 1, st, uni, hit, False)[3]
+    want = tshade.shade_bounce_plain(scene, cfg, 1, st, uni, hit, False)[3]
+    picks = int((uni["env_select"] < scene.env.select_p).sum())
+    misses = int((st.alive & ~torch.isfinite(hit.t)).sum())
+    assert [int(x) for x in got] == [int(x) for x in want]
+    assert [int(x) for x in got[2:]] == [picks, misses]
+    assert 0 < picks < 65537 and 0 < misses < 65537
+    plain, pst, phit, puni = _card_shading(4097, spectrum, "prng", cuda_device, None,
+                                           hero=hero)
+    assert len(tshade.shade_bounce(plain, cfg, 1, pst, puni, phit, False)[3]) == 2
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_tracing_launches_the_same_kernels_on_card(kind, cuda_device, monkeypatch):
+    """Under torch.profiler frames with their spans and counters and the
+    same frames with tracing forced off launch the same device activities
+    (kernels, copies, sets), name for name and in order.  Two frames are
+    profiled and their activities compared from the end, over at least one
+    and a half frames: a profile can come back without its first few
+    activities."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch.render import timing
+
+    def activities(traced: bool) -> list[str]:
+        r = _traced_renderer(kind, cuda_device)
+        r.step()
+        r.sync()
+        with monkeypatch.context() as m:
+            if not traced:
+                m.setattr(timing, "profiling", lambda: False)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                r.step()
+                r.step()
+                r.sync()
+        assert len(r.frame_records) == 2 * traced
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/trace.json"
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                ev = json.load(f)["traceEvents"]
+        dev = sorted((float(e["ts"]), e["name"]) for e in ev
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        return [n for _, n in dev]
+
+    on, off = activities(True), activities(False)
+    m = min(len(on), len(off))
+    assert m >= 0.75 * max(len(on), len(off)) and m > 200
+    assert on[-m:] == off[-m:]

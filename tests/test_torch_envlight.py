@@ -13,8 +13,6 @@ Tolerances, each with its reason:
     Pallas frame to against pure JAX.
 """
 
-import contextlib
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +38,7 @@ from tpu_pathtracer_torch.render import noise as tnoise
 from tpu_pathtracer_torch.render.state import frame_rng_key, fused_wavefront_key
 from tpu_pathtracer_torch.render.wavefront import render_sample
 from tpu_pathtracer_torch.scene import attach_env, load_scene
-from torch_parity import arrays, nee_shadow_rays, one_torch_thread  # noqa: F401 (a fixture)
+from torch_parity import SpanLog, arrays, nee_shadow_rays, one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -159,18 +157,6 @@ def test_anyhit_plain_matches_pallas(name):
     assert (got != ref)[act].mean() <= 2e-3
 
 
-class _SpanLog:
-    """A CPU stand-in for render/timing.StageTimer: records span names."""
-
-    def __init__(self):
-        self.names = []
-
-    @contextlib.contextmanager
-    def span(self, name):
-        self.names.append(name)
-        yield
-
-
 def test_timed_frame_keeps_anyhit():
     """A timed frame takes the same shadow route as an untimed one: the
     timer wrapper passes intersect.occlusion through as "walk_shadow", so the
@@ -193,7 +179,7 @@ def test_timed_frame_keeps_anyhit():
     key = fused_wavefront_key(frame_rng_key(r.cfg, r.state.key, 0))
     plain = render_sample(r.scene, r.cfg, r.camera, 16, 24, key, 0, isect)
     untimed = dict(calls)
-    timer = _SpanLog()
+    timer = SpanLog()
     timed = render_sample(r.scene, r.cfg, r.camera, 16, 24, key, 0, isect, timer=timer)
     assert untimed["occlusion"] > 0 and calls["capped"] == 0
     assert calls["occlusion"] == 2 * untimed["occlusion"]

@@ -1,8 +1,11 @@
 """Shared helpers of the tests that hold tpu_pathtracer_torch against
 tpu_pathtracer: numpy views of the reference's pytrees, seeded rays, the
-nearest-hit agreement rule, and the fixture of the tests that need a card."""
+nearest-hit agreement rule, a span log, and the fixture of the tests that
+need a card."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -83,6 +86,19 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+class SpanLog:
+    """A CPU stand-in for render/timing.StageTimer: records the span names
+    in the order they open."""
+
+    def __init__(self):
+        self.names = []
+
+    @contextlib.contextmanager
+    def span(self, name):
+        self.names.append(name)
+        yield
 
 
 @pytest.fixture

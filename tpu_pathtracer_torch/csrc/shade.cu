@@ -60,7 +60,9 @@
 // others' code or registers), every plane read and written once by
 // consecutive lanes (coalesced), the scene tables (a few hundred bytes) read
 // through the cache, no shared memory; the bounce's two counts are block sums
-// (__syncthreads_count) added into one int64 pair with one atomic a block.
+// (__syncthreads_count) added into int64 counts with one atomic a block; so
+// are, in the env-lit instances, the lanes whose NEE picked the env and the
+// live lanes whose ray missed (what the bound prices, chip_smoke.shade_bound).
 // The env's tables (megabytes, past L2 at S = 16) are gathered where a
 // lane's texel falls, so what the env costs is scattered 32-byte sectors: a
 // lane reads them as the records models/envlight.py:env_records derives once
@@ -154,7 +156,9 @@ struct ShadeParams {
   float* contrib;         // (s, n)
   unsigned char* ok;
   float* shadow_origin;   // (3, n) in the inline form, else null
-  unsigned long long* stats;  // [live path lanes, live shadow lanes]
+  // [live path lanes, live shadow lanes, env picks, env misses]; the env
+  // counts only in the kEnv instances (0 in the others)
+  unsigned long long* stats;
   int n, s, m, num_lights, env_h, env_w, env_texel_stride, env_pdf_col;
   float eps, aeps, four_eps, inv_pi, two_pi, pdf_floor;
   // the env's constants (models/envlight.py's PI is numpy's pi, not
@@ -361,7 +365,8 @@ template <bool kEnv, bool kHero, bool kDispersion>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     shade_bounce_kernel(ShadeParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  bool counted_path = false, counted_shadow = false;
+  bool counted_path = false, counted_shadow = false, counted_pick = false,
+       counted_miss = false;
   if (lane < p.n) {
     const size_t n = p.n, i = lane;
     const float eps = p.eps, aeps = p.aeps;
@@ -612,12 +617,18 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     }
     counted_path = alive;
     counted_shadow = light_ok;
+    counted_pick = use_env;
+    counted_miss = miss;
   }
   const int paths = __syncthreads_count(counted_path);
   const int shadows = __syncthreads_count(counted_shadow);
+  const int picks = kEnv ? __syncthreads_count(counted_pick) : 0;
+  const int misses = kEnv ? __syncthreads_count(counted_miss) : 0;
   if (threadIdx.x == 0) {
     if (paths) atomicAdd(p.stats, static_cast<unsigned long long>(paths));
     if (shadows) atomicAdd(p.stats + 1, static_cast<unsigned long long>(shadows));
+    if (picks) atomicAdd(p.stats + 2, static_cast<unsigned long long>(picks));
+    if (misses) atomicAdd(p.stats + 3, static_cast<unsigned long long>(misses));
   }
 }
 
@@ -632,7 +643,7 @@ const ShadeKernel kShadeKernels[8] = {
 
 }  // namespace
 
-// params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the two
+// params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the four
 // counts, then launches over params->n lanes.
 extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
   const ShadeParams p = *params;
@@ -645,7 +656,7 @@ extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(p.stats, 0, 2 * sizeof(unsigned long long), st);
+  cudaError_t err = cudaMemsetAsync(p.stats, 0, 4 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.n > 0) {
     const ShadeKernel kernel =

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.math3d import normalize
+from ..render.timing import span
 
 
 class Camera(NamedTuple):
@@ -31,20 +32,25 @@ class Camera(NamedTuple):
 
 def generate_rays_flat(camera: Camera, rows: torch.Tensor, cols: torch.Tensor,
                        jitter: torch.Tensor, full_height: int, full_width: int,
-                       lens_u: torch.Tensor | None = None):
+                       lens_u: torch.Tensor | None = None, trace=None):
     """Primary rays for an arbitrary pixel enumeration.
 
     ``rows``/``cols``: (N,) absolute pixel coordinates; ``jitter``: (2, N)
     AA uniforms (the reference's noiseSample.xy); ``lens_u``: (2, N)
     thin-lens disk uniforms, used only when ``camera.aperture > 0``.
-    Returns origins (3, N) and directions (3, N), float32."""
+    Returns origins (3, N) and directions (3, N), float32.  The three basis
+    vectors reach the device as copies from host memory, each of which waits
+    for the stream: ``trace`` (render/timing.py) spans each as a host read."""
     dev = jitter.device
     f32 = np.float32
     aspect = float(f32(full_height) / f32(full_width))
     ct, st = float(np.cos(f32(camera.t))), float(np.sin(f32(camera.t)))
-    side = torch.tensor([ct, 0.0, st], dtype=torch.float32, device=dev)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
-    view = torch.tensor([st, 0.0, -ct], dtype=torch.float32, device=dev)
+    with span(trace, "host_read"):
+        side = torch.tensor([ct, 0.0, st], dtype=torch.float32, device=dev)
+    with span(trace, "host_read"):
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    with span(trace, "host_read"):
+        view = torch.tensor([st, 0.0, -ct], dtype=torch.float32, device=dev)
 
     x = cols.to(torch.float32)
     y = float(full_height - 1) - rows.to(torch.float32)  # rows count bottom-up

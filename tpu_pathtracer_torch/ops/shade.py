@@ -124,7 +124,9 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     ``hit`` with the bounce's ``uniforms`` in one launch -> (new state,
     shadow pack, the shadow origin ``hp + hn * eps`` when ``inline`` else
     None, (live path lanes, live shadow lanes) as int64 tensors), as
-    :func:`shade_bounce_plain` returns them.  ``pixel`` and ``bins`` pass
+    :func:`shade_bounce_plain` returns them; with an environment light the
+    counts go on with its picks (lanes whose NEE picked it) and misses (live
+    lanes whose ray missed).  ``pixel`` and ``bins`` pass
     through.  CUDA tensors only, and only where :func:`shade_kernel_covers`
     holds; refract_dielectric with dispersion raises NotImplementedError, as
     the plain version does."""
@@ -213,7 +215,7 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     pack = ShadowPack(to_light=empty(3, n), cap=empty(n), target=empty(n, dtype=i64),
                       contrib=empty(s, n), ok=empty(n, dtype=b8))
     shadow_origin = empty(3, n) if inline else None
-    stats = empty(2, dtype=i64)
+    stats = empty(4, dtype=i64)
     for name, t in (("out_origin", new.origin), ("out_direction", new.direction),
                     ("out_throughput", new.throughput), ("out_radiance", new.radiance),
                     ("out_pdf", new.pdf), ("out_prev_diffuse", new.prev_diffuse),
@@ -240,7 +242,8 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     if rc:
         raise RuntimeError(f"shade_bounce kernel launch failed: cudaError {rc}")
     shade_bounce.launches += 1
-    return new, pack, shadow_origin, (stats[0], stats[1])
+    counts = tuple(stats.unbind()) if env is not None else (stats[0], stats[1])
+    return new, pack, shadow_origin, counts
 
 
 shade_bounce.launches = 0

@@ -33,6 +33,7 @@ import torch
 from ..config import RenderConfig
 from ..models.camera import Camera
 from ..render.state import RenderState, accumulate, sample_sum
+from ..render.timing import span
 from ..render.wavefront import make_brute_intersector
 
 
@@ -167,7 +168,7 @@ def replicate(scene, mesh: Mesh, intersect_factory=None) -> dict:
 
 
 def _render_tiles(state: RenderState, cfg: RenderConfig, mesh: Mesh,
-                  camera: Camera | None, replicas: dict) -> RenderState:
+                  camera: Camera | None, replicas: dict, trace=None) -> RenderState:
     camera = camera if camera is not None else Camera.reference_default()
     n_tiles, n_spp = mesh.shape["tiles"], mesh.shape["spp"]
     full_height, full_width = state.height, state.width
@@ -198,12 +199,13 @@ def _render_tiles(state: RenderState, cfg: RenderConfig, mesh: Mesh,
                                state.frame_index, intersect,
                                row0=t * tile_h + r * sub_h, full_height=full_height,
                                full_width=full_width, sample0=s * shard_spp,
-                               sample_count=shard_spp)
+                               sample_count=shard_spp, timer=trace)
                     for r in range(row_tiles)])
             part = part.to(home)
             total = part if total is None else total + part  # the sum over spp
-        tiles[t] = accumulate(tiles[t], state.frame_index,
-                              total / cfg.samples_per_frame, cfg.accumulate_image)
+        with span(trace, "accumulate"):
+            tiles[t] = accumulate(tiles[t], state.frame_index,
+                                  total / cfg.samples_per_frame, cfg.accumulate_image)
     return RenderState(accum=state.accum._replace(tiles=tuple(tiles)),
                        frame_index=state.frame_index + 1, key=state.key)
 
@@ -224,14 +226,15 @@ def render_frame_distributed(state: RenderState, scene, cfg: RenderConfig, mesh:
 def render_frame_distributed_jit(mesh: Mesh, cfg: RenderConfig,
                                  camera: Camera | None = None,
                                  intersect_factory=None):
-    """The distributed step ``step(state, scene) -> state`` (the reference's
-    name; nothing is compiled).  The step keeps the replicas of the last
+    """The distributed step ``step(state, scene, trace=None) -> state`` (the
+    reference's name; nothing is compiled; ``trace``: the frame's
+    render/timing.py:FrameTrace).  The step keeps the replicas of the last
     scene it was given, so the scene and layouts move once, not every frame."""
     held = {}
 
-    def step(state: RenderState, scene) -> RenderState:
+    def step(state: RenderState, scene, trace=None) -> RenderState:
         if held.get("scene") is not scene:
             held.update(scene=scene, replicas=replicate(scene, mesh, intersect_factory))
-        return _render_tiles(state, cfg, mesh, camera, held["replicas"])
+        return _render_tiles(state, cfg, mesh, camera, held["replicas"], trace)
 
     return step

@@ -19,6 +19,7 @@ from ..config import NoiseMode, RenderConfig, check_supported
 from ..models.camera import Camera
 from ..ops.rng import fold_in, key_data, prng_key
 from ..scene.scene import Scene
+from .timing import frame_trace, span
 from .wavefront import IntersectFn, render_sample
 
 
@@ -108,26 +109,30 @@ def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     ``pixel + sample * npix`` (render/wavefront.py), so every grouping draws
     the same paths.  TILED noise decodes the pixel from the id, so it
     traces one sample a wavefront under a per-sample key fold, as the
-    reference does."""
-    frame_key = frame_rng_key(cfg, key, frame_index)
+    reference does.  ``timer``: as render_sample's (the keys span here)."""
+    trace = frame_trace(timer)
     sample_count = cfg.samples_per_frame if sample_count is None else sample_count
-    kw = dict(row0=row0, full_height=full_height, full_width=full_width, timer=timer)
-    total = torch.zeros((height, width, cfg.spectrum_samples), device=scene.p0.device)
-    if cfg.noise_mode == NoiseMode.PRNG:
+    prng = cfg.noise_mode == NoiseMode.PRNG
+    if prng:
         npix = (full_height or height) * (full_width or width)
         if cfg.samples_per_frame * npix > 2 ** 32:
             raise ValueError("samples_per_frame * pixels must fit in uint32 for the "
                              "virtual-pixel-id RNG schedule")
-        wkey = fused_wavefront_key(frame_key)
-        for n, s0 in fused_chunks(cfg, sample_count, sample0):
-            total = total + render_sample(scene, cfg, camera, height, width, wkey,
-                                          frame_index, intersect, samples=n,
-                                          sample0=s0, **kw)
-        return total
-    for i in range(sample_count):
-        k = fold_in(frame_key, sample0 + i)
-        total = total + render_sample(scene, cfg, camera, height, width, k,
-                                      frame_index, intersect, **kw)
+    with span(trace, "keys"):
+        frame_key = frame_rng_key(cfg, key, frame_index)
+        if prng:
+            wkey = fused_wavefront_key(frame_key)
+            waves = [(wkey, dict(samples=n, sample0=s0))
+                     for n, s0 in fused_chunks(cfg, sample_count, sample0)]
+        else:
+            waves = [(fold_in(frame_key, sample0 + i), {}) for i in range(sample_count)]
+    kw = dict(row0=row0, full_height=full_height, full_width=full_width, timer=trace)
+    total = torch.zeros((height, width, cfg.spectrum_samples), device=scene.p0.device)
+    for k, wave in waves:
+        img = render_sample(scene, cfg, camera, height, width, k, frame_index, intersect,
+                            **wave, **kw)
+        with span(trace, "restore"):
+            total = total + img
     return total
 
 
@@ -137,8 +142,10 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
     """One progressive frame: trace cfg.samples_per_frame spp, in
     cfg.row_tiles sequential row tiles, and fold the mean into the
     accumulator.  The accumulator is a new tensor; ``state`` is left
-    unchanged."""
+    unchanged.  ``timer``: a StageTimer or the frame's FrameTrace
+    (render/timing.py)."""
     check_supported(cfg)
+    trace = frame_trace(timer)
     camera = camera if camera is not None else Camera.reference_default()
     height, width = state.height, state.width
     tiles = max(1, cfg.row_tiles)
@@ -146,7 +153,7 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
         raise ValueError(f"row_tiles {tiles} must divide height {height}")
     if tiles == 1:
         total = sample_sum(scene, cfg, camera, height, width, state.key,
-                           state.frame_index, intersect, timer=timer)
+                           state.frame_index, intersect, timer=trace)
     else:
         # sequential row tiles bound a wavefront's lanes; the RNG keys on
         # absolute pixel ids, so the image is the untiled one up to the
@@ -155,10 +162,11 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
         total = torch.cat([
             sample_sum(scene, cfg, camera, tile_h, width, state.key,
                        state.frame_index, intersect, row0=r * tile_h,
-                       full_height=height, full_width=width, timer=timer)
+                       full_height=height, full_width=width, timer=trace)
             for r in range(tiles)])
-    color = total / cfg.samples_per_frame
-    new_accum = accumulate(state.accum, state.frame_index, color,
-                           cfg.accumulate_image)
+    with span(trace, "accumulate"):
+        color = total / cfg.samples_per_frame
+        new_accum = accumulate(state.accum, state.frame_index, color,
+                               cfg.accumulate_image)
     return RenderState(accum=new_accum, frame_index=state.frame_index + 1,
                        key=state.key)

@@ -26,7 +26,6 @@ Estimator notes (reference-exact when ``cfg.reference_quirks``):
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, NamedTuple
 
 import torch
@@ -50,6 +49,7 @@ from ..ops.traverse import make_bvh_intersector
 from ..scene.scene import Scene
 from .noise import bounce_uniforms, camera_jitter, hero_bins, pids_from_order
 from .order import make_order
+from .timing import FrameTrace, frame_trace, span
 
 IntersectFn = Callable[..., HitShade]
 # (origins (3, N), directions (3, N), active (N,) bool, t_max=None,
@@ -110,13 +110,17 @@ def select_spectrum(table: torch.Tensor, idx: torch.Tensor, bins) -> torch.Tenso
     return apply_bins(table[:, idx], bins)
 
 
-def scene_sort_bounds(scene: Scene):
+def scene_sort_bounds(scene: Scene, trace: FrameTrace | None = None):
     """Scene-AABB (wmin, winv) of the sort key's spatial cell, as float32
-    values held in Python floats."""
+    values held in Python floats: two host reads."""
     lo = torch.minimum(torch.minimum(scene.p0, scene.p1), scene.p2).amin(dim=1)
     hi = torch.maximum(torch.maximum(scene.p0, scene.p1), scene.p2).amax(dim=1)
     inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
-    return tuple(lo.tolist()), tuple(inv.tolist())
+    with span(trace, "host_read"):
+        wmin = tuple(lo.tolist())
+    with span(trace, "host_read"):
+        winv = tuple(inv.tolist())
+    return wmin, winv
 
 
 def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
@@ -158,7 +162,8 @@ def _conductor_albedo(m_diffuse, m_type, w_i, out_dir):
 def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
                  bounce: int, state: PathState, uniforms: dict,
                  with_stats: bool = False, coherent: bool = False,
-                 defer_shadow: bool = False, hit: HitShade | None = None):
+                 defer_shadow: bool = False, hit: HitShade | None = None,
+                 trace: FrameTrace | None = None, live: int | None = None):
     """One wavefront stage group: intersect + shade + NEE sample + shadow
     (reference: renderer/Shaders.metal:105-231) -> the new state.
 
@@ -168,7 +173,9 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
     origin ``hp + hn * eps`` and resolved into the state.  ``with_stats``
     appends {"path": n, "shadow": n}, the rays the traversal processes.
     ``hit`` supplies a precomputed nearest hit (the fused path+shadow walk,
-    cfg.fuse_shadow_walk) instead of tracing here.
+    cfg.fuse_shadow_walk) instead of tracing here.  ``trace``
+    (render/timing.py) spans the shading as "shade" and counts its launch,
+    ``live`` the live lanes entering it where the caller read them.
 
     The shading after the intersect is one launch of ``csrc/shade.cu`` on
     CUDA tensors when ``ops/shade.py:shade_kernel_covers`` holds for the
@@ -178,11 +185,18 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
     if hit is None:
         hit = intersect(state.origin, state.direction, state.alive,
                         coherent=coherent)
-    shade = (shade_ops.shade_bounce
-             if state.alive.is_cuda and shade_ops.shade_kernel_covers(cfg, scene)
-             else _shade_plain)
-    new_state, pack, shadow_origin, (n_path, n_shadow) = shade(
-        scene, cfg, bounce, state, uniforms, hit, not defer_shadow)
+    kernel = state.alive.is_cuda and shade_ops.shade_kernel_covers(cfg, scene)
+    inline = not defer_shadow
+    with span(trace, "shade", bounce=bounce, lanes=state.alive.shape[0]):
+        if kernel:
+            new_state, pack, shadow_origin, counts = shade_ops.shade_bounce(
+                scene, cfg, bounce, state, uniforms, hit, inline)
+        else:
+            new_state, pack, shadow_origin, counts = _shade_plain(
+                scene, cfg, bounce, state, uniforms, hit, inline)
+    if trace is not None:
+        trace.shading(bounce, state, scene, live, inline, kernel, counts[2:] or None)
+    n_path, n_shadow = counts[:2]
     # rays the traversal processes (the reference's MPS skips lanes with
     # maxDistance < 0)
     stats = ({"path": n_path, "shadow": n_shadow},) if with_stats else ()
@@ -203,9 +217,10 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, bounce: int, state: PathState,
     """The shading of one bounce after its intersect, as torch ops: BSDF
     sampling, NEE with MIS, the BSDF-arm MIS on emitter hits -> (new state,
     shadow pack, the shadow origin ``hp + hn * eps`` when ``inline`` else
-    None, (live path lanes, live shadow lanes) as int64 tensors).  The plain
-    version of ``ops/shade.py:shade_bounce`` (csrc/shade.cu), and the
-    shading of every frame that kernel does not cover."""
+    None, (live path lanes, live shadow lanes and, with an environment
+    light, its picks and misses) as int64 tensors).  The plain version of
+    ``ops/shade.py:shade_bounce`` (csrc/shade.cu), and the shading of every
+    frame that kernel does not cover."""
     eps = cfg.distance_epsilon
     aeps = cfg.angle_epsilon
     # A hit nearer than DISTANCE_EPSILON (or a miss) kills the path
@@ -386,7 +401,10 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, bounce: int, state: PathState,
     pack = ShadowPack(to_light=nee_dir, cap=shadow_cap, target=target,
                       contrib=nee_contrib, ok=light_ok)
     shadow_origin = hp + hn * eps if inline else None
-    return new_state, pack, shadow_origin, (state.alive.sum(), light_ok.sum())
+    counts = (state.alive.sum(), light_ok.sum())
+    if env is not None:
+        counts += (use_env.sum(), miss_env.sum())
+    return new_state, pack, shadow_origin, counts
 
 
 def occlusion_clear(intersect: IntersectFn, o, d, ok, cap, target,
@@ -520,28 +538,6 @@ def _splice(full: NamedTuple, prefix: NamedTuple):
     return full
 
 
-def _timed_intersect(intersect: IntersectFn, timer) -> IntersectFn:
-    """``intersect`` with each query recorded as a timer span; the any-hit
-    ``occlusion`` hook passes through as "walk_shadow" and the fused walk
-    ``fused`` as "walk_fused", when present."""
-    def fn(o, d, active, t_max=None, coherent=False):
-        name = "walk_nearest" if t_max is None else "walk_shadow"
-        with timer.span(name):
-            return intersect(o, d, active, t_max=t_max, coherent=coherent)
-
-    def timed(name, hook):
-        def call(*args):
-            with timer.span(name):
-                return hook(*args)
-        return call
-
-    for attr, name in (("occlusion", "walk_shadow"), ("fused", "walk_fused")):
-        hook = getattr(intersect, attr, None)
-        if hook is not None:
-            setattr(fn, attr, timed(name, hook))
-    return fn
-
-
 def _rung(live: int, sizes: list[int]) -> int:
     """Index of the shortest ladder width that still holds ``live`` lanes."""
     return sum(live <= w for w in sizes[1:])
@@ -573,14 +569,17 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
 
     ``with_ray_count`` also returns the EXACT number of rays the traversal
     processed (live path rays per bounce + live NEE shadow rays) as an int64
-    tensor -- the Mrays/s numerator.  ``timer`` (render/timing.py) records
-    the sort, walks and whole sample as CUDA-event spans.  With
+    tensor -- the Mrays/s numerator.  ``timer``: a StageTimer or the
+    frame's FrameTrace (render/timing.py); with it, or while a profiler
+    records, the wavefront's stages run inside spans (prepare, each bounce
+    and its sort, walks, uniforms, shading and host reads, restore) and the
+    trace counts its shading launches and keeps its traced rays.  With
     cfg.fuse_shadow_walk each secondary bounce makes one ``intersect.fused``
     call for its nearest hit and the previous bounce's shadow query."""
     check_supported(cfg)
-    span = timer.span if timer is not None else lambda name: contextlib.nullcontext()
-    if timer is not None:
-        intersect = _timed_intersect(intersect, timer)
+    trace = frame_trace(timer)
+    if trace is not None:
+        intersect = trace.intersector(intersect)
     fused = getattr(intersect, "fused", None) if cfg.fuse_shadow_walk else None
     if cfg.fuse_shadow_walk and fused is None:
         # the reference warns and walks separately; the port computes no
@@ -598,7 +597,7 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     eps = cfg.distance_epsilon
     dev = scene.p0.device
     spectrum = cfg.spectrum_samples
-    with span("sample"):
+    with span(trace, "prepare"):
         order = make_order(height, width, row0, cfg.traversal_tile if pallas_path else None,
                            device=dev)
         pids = pids_from_order(order, full_width)
@@ -615,7 +614,7 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                                full_height, full_width)
         origins, directions = generate_rays_flat(camera, rows, cols, jitter[0:2],
                                                  full_height, full_width,
-                                                 lens_u=jitter[2:4])
+                                                 lens_u=jitter[2:4], trace=trace)
         hero = (cfg.hero_wavelengths
                 if spectrum > 3 and cfg.hero_wavelengths > 0 else 0)
         if hero:
@@ -624,72 +623,86 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
         else:
             state = initial_path_state(origins, directions, spectrum, pids)
 
-        def shade(b, st, coherent=False, hit=None):
+    def shade(b, st, coherent=False, hit=None, live=None):
+        with span(trace, "uniforms"):
             uniforms = bounce_uniforms(cfg, key, frame_index, b, st.pixel, full_height,
                                        full_width, with_env=scene.env is not None)
-            return trace_bounce(scene, cfg, intersect, b, st, uniforms, with_stats=True,
-                                coherent=coherent, defer_shadow=do_sort, hit=hit)
+        return trace_bounce(scene, cfg, intersect, b, st, uniforms, with_stats=True,
+                            coherent=coherent, defer_shadow=do_sort, hit=hit, trace=trace,
+                            live=live)
 
-        if not do_sort:
-            # bounce 0 is camera-coherent already
-            state, stats = shade(0, state, coherent=True)
-            nrays = stats["path"] + stats["shadow"]
-            for b in range(1, cfg.max_path_length):
+    def bounce(b, lanes):
+        return span(trace, "bounce", bounce=b, lanes=lanes)
+
+    n_lanes = state.alive.shape[0]
+    if not do_sort:
+        # bounce 0 is camera-coherent already; camera lanes all start live
+        with bounce(0, n_lanes):
+            state, stats = shade(0, state, coherent=True, live=n_lanes)
+        nrays = stats["path"] + stats["shadow"]
+        for b in range(1, cfg.max_path_length):
+            with bounce(b, n_lanes):
                 state, stats = shade(b, state)
-                nrays = nrays + stats["path"] + stats["shadow"]
-        else:
-            wmin, winv = scene_sort_bounds(scene)
+            nrays = nrays + stats["path"] + stats["shadow"]
+    else:
+        wmin, winv = scene_sort_bounds(scene, trace)
 
-            def stage(b, st, pk):
-                """Resolve the previous bounce's shadow pack and shade bounce
-                b; with the fused walk both queries share one launch (the
-                reference's two per-bounce intersection encodes,
-                renderer/Renderer.mm:519-523,545-553, collapsed)."""
-                if fused is None:
-                    return shade(b, resolve_shadow(intersect, st, pk, eps))
-                hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
-                                   pk.ok, pk.cap, pk.target)
-                st = st._replace(
-                    radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
-                return shade(b, st, hit=hit)
+        def stage(b, st, pk, live):
+            """Resolve the previous bounce's shadow pack and shade bounce
+            b; with the fused walk both queries share one launch (the
+            reference's two per-bounce intersection encodes,
+            renderer/Renderer.mm:519-523,545-553, collapsed)."""
+            if fused is None:
+                return shade(b, resolve_shadow(intersect, st, pk, eps), live=live)
+            hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
+                               pk.ok, pk.cap, pk.target)
+            st = st._replace(
+                radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
+            return shade(b, st, hit=hit, live=live)
 
-            def cut(st, pk, s):
-                return (st, pk) if s == sizes[0] else (_prefix(st, s), _prefix(pk, s))
+        def cut(st, pk, s):
+            return (st, pk) if s == sizes[0] else (_prefix(st, s), _prefix(pk, s))
 
-            # one sort carries the next path wavefront and the previous
-            # bounce's NEE pack (same hit point); the pack resolves after it
-            state, pack, stats = shade(0, state, coherent=True)
-            nrays = stats["path"] + stats["shadow"]
-            sizes = ladder_sizes(state.alive.shape[0], cfg)
-            prefix_sort = cfg.prefix_sort and len(sizes) > 1
-            skip = ({int(x) for x in cfg.sort_bounce_skip.split(",")}
-                    if cfg.sort_bounce_skip else set())
-            rung = 0
-            for b in range(1, cfg.max_path_length):
+        # one sort carries the next path wavefront and the previous
+        # bounce's NEE pack (same hit point); the pack resolves after it
+        with bounce(0, n_lanes):
+            state, pack, stats = shade(0, state, coherent=True, live=n_lanes)
+        nrays = stats["path"] + stats["shadow"]
+        sizes = ladder_sizes(n_lanes, cfg)
+        prefix_sort = cfg.prefix_sort and len(sizes) > 1
+        skip = ({int(x) for x in cfg.sort_bounce_skip.split(",")}
+                if cfg.sort_bounce_skip else set())
+        rung = 0
+        for b in range(1, cfg.max_path_length):
+            live = None
+            with bounce(b, sizes[rung]):
                 if prefix_sort:
                     # the sort runs at the rung's width: bounce b's live
                     # lanes sit in the prefix the previous sort compacted
                     # them into, and dead lanes never revive, so the next
                     # rung is known before this sort (it trails the eager
                     # ladder by at most one bounce)
-                    live = int(state.alive.sum())
+                    with span(trace, "host_read"):
+                        live = int(state.alive.sum())
                     s = sizes[rung]
                     st, pk = cut(state, pack, s)
-                    with span("sort"):
+                    with span(trace, "sort"):
                         st, pk = sort_wavefront(st, wmin, winv, pk)
                     rung = _rung(live, sizes)
                 else:
                     if b not in skip:
-                        with span("sort"):
+                        with span(trace, "sort"):
                             state, pack = sort_wavefront(state, wmin, winv, pack)
                         if len(sizes) > 1:
                             # every live lane sits in the sorted prefix
-                            rung = _rung(int(state.alive.sum()), sizes)
+                            with span(trace, "host_read"):
+                                live = int(state.alive.sum())
+                            rung = _rung(live, sizes)
                     # a skipped sort keeps the last sorted rung: a bounce
                     # only kills lanes, so every live lane is still inside it
                     s = sizes[rung]
                     st, pk = cut(state, pack, s)
-                st, pk, stats = stage(b, st, pk)
+                st, pk, stats = stage(b, st, pk, live)
                 nrays = nrays + stats["path"] + stats["shadow"]
                 if s == sizes[0]:
                     state, pack = st, pk
@@ -698,9 +711,12 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                     # update is alive-masked), so splicing the prefix back
                     # is exact
                     state, pack = _splice(state, st), _splice(pack, pk)
-            # the final bounce's pack is empty by construction: NEE is gated
-            # by bounce + 1 < max_path_length (renderer/Shaders.metal:158)
+        # the final bounce's pack is empty by construction: NEE is gated
+        # by bounce + 1 < max_path_length (renderer/Shaders.metal:158)
+    if trace is not None:
+        trace.rays(nrays)
 
+    with span(trace, "restore"):
         # raster restore: lane -> (sample, pixel of this tile) is unique in
         # every pipeline and lane order, so one scatter is exact; the samples
         # then sum in order

@@ -6,7 +6,9 @@ queries), drives the frame step on one device or over a ('tiles', 'spp')
 mesh (parallel/tiles.py), tracks the EMA performance HUD (reference:
 renderer/Renderer.mm:631-637), saves EXR and PNG images and checkpoints
 (a ``.npz`` file or a sharded directory), and captures ``torch.profiler``
-traces.
+traces.  A frame stepped while a profiler records, or with a timer, runs
+inside named spans and leaves a record in ``frame_records``
+(render/timing.py).
 
 Frames in flight: the frame step only enqueues work on the current CUDA
 stream; the host waits for the device when ``cfg.frames_in_flight`` steps
@@ -28,6 +30,7 @@ from .config import RenderConfig, check_supported
 from .models.camera import Camera
 from .parallel.multihost import gather_image
 from .parallel.tiles import render_frame_distributed_jit, shard_state, to_device
+from .render import timing
 from .render.state import init_state, render_frame
 from .render.wavefront import make_intersector
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
@@ -100,8 +103,8 @@ class Renderer:
             self._step = render_frame_distributed_jit(mesh, self.cfg, self.camera,
                                                       factory)
         else:
-            self._step = lambda state, scene: render_frame(
-                state, scene, self.cfg, self.camera, self._intersect)
+            self._step = lambda state, scene, trace: render_frame(
+                state, scene, self.cfg, self.camera, self._intersect, timer=trace)
         self.reset(width, height)
 
     # -- reference: mtkView:drawableSizeWillChange: (Renderer.mm:640-657) --
@@ -117,6 +120,22 @@ class Renderer:
         self._frame_count = 0
         self._in_flight = 0
         self._window_t0 = None
+        self._traces: list[timing.FrameTrace] = []
+
+    @property
+    def frame_records(self) -> list[dict]:
+        """One record a frame traced since the last reset (render/timing.py:
+        a frame traces while a torch.profiler records, or when stepped with
+        a timer), oldest first: ``frame`` (its index), ``host_reads`` and
+        ``host_read_s`` (the host transfers that wait for the device, and
+        the host seconds spent in them), ``traced_rays``, ``launches`` (one
+        dict a shading launch: ``bounce``, ``lanes``, ``live`` where the
+        ladder read it, ``planes``, ``hero``, ``inline``, ``env``,
+        ``dispersion``, ``kernel``, and on env-lit kernel launches
+        ``env_picks`` and ``env_misses``) and ``spans`` ([name, start ns,
+        end ns] on the host's wall clock).  The device counters are read
+        here, the first time a record is asked for."""
+        return timing.records(self._traces)
 
     @property
     def frame_index(self) -> int:
@@ -127,10 +146,14 @@ class Renderer:
     def sync(self) -> None:
         """Wait until every queued frame has run on the device, and fold the
         elapsed window into the HUD EMA."""
+        self._sync(timing.frame_trace())
+
+    def _sync(self, trace) -> None:
         if self._in_flight == 0:
             return
-        for dev in self._cards():
-            torch.cuda.synchronize(dev)
+        with timing.span(trace, "sync"):
+            for dev in self._cards():
+                torch.cuda.synchronize(dev)
         frame_time = (time.perf_counter() - self._window_t0) / self._in_flight
         pixels = self.state.height * self.state.width
         # EMA-smoothed HUD, same blend as the reference (Renderer.mm:631-637)
@@ -146,18 +169,24 @@ class Renderer:
                    else {self.device})
         return [d for d in devices if d.type == "cuda"]
 
-    def step(self) -> None:
+    def step(self, timer=None) -> None:
         """Queue one progressive frame (respects cfg.max_frames like the
-        reference's MAX_FRAMES gate, renderer/Renderer.mm:589-591)."""
+        reference's MAX_FRAMES gate, renderer/Renderer.mm:589-591).
+        ``timer`` (render/timing.py:StageTimer) times the frame's spans; with
+        it, or while a torch.profiler records, the frame is traced."""
         if self.cfg.max_frames and self._frame_count >= self.cfg.max_frames:
             return
-        if self._window_t0 is None:
-            self._window_t0 = time.perf_counter()
-        self.state = self._step(self.state, self.scene)
-        self._frame_count += 1
-        self._in_flight += 1
-        if self._in_flight >= max(1, self.cfg.frames_in_flight):
-            self.sync()
+        trace = timing.frame_trace(timer, self.state.frame_index)
+        with timing.span(trace, "frame"):
+            if self._window_t0 is None:
+                self._window_t0 = time.perf_counter()
+            self.state = self._step(self.state, self.scene, trace)
+            self._frame_count += 1
+            self._in_flight += 1
+            if self._in_flight >= max(1, self.cfg.frames_in_flight):
+                self._sync(trace)
+        if trace is not None:
+            self._traces.append(trace)
 
     def run(self, frames: int) -> None:
         for _ in range(frames):
@@ -222,7 +251,9 @@ class Renderer:
     def profile(self, trace_dir: str, frames: int = 3) -> None:
         """Run ``frames`` frames under ``torch.profiler`` and write a Chrome
         trace into ``trace_dir`` (the counterpart of the reference's
-        ``jax.profiler.trace``)."""
+        ``jax.profiler.trace``), ``trace.json``, and beside it ``frames.json``,
+        the frames' :attr:`frame_records`."""
+        import json
         import os
 
         from torch.profiler import ProfilerActivity, profile
@@ -231,6 +262,9 @@ class Renderer:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(trace_dir, exist_ok=True)
+        traced = len(self._traces)
         with profile(activities=activities) as prof:
             self.run(frames)
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        with open(os.path.join(trace_dir, "frames.json"), "w") as f:
+            json.dump(self.frame_records[traced:], f)
