@@ -993,9 +993,9 @@ def _syncs(step) -> list[str]:
 def test_host_reads_are_the_frames_syncs_on_card(kind, cuda_device):
     """A traced frame's host_reads equal the synchronising operations that
     torch.cuda.set_sync_debug_mode reports over the same frame, and an
-    untraced frame makes as many (tracing adds no host read): the camera's
-    three copies of host memory, the sort bounds' two reads and one ladder
-    read a secondary bounce."""
+    untraced frame makes as many (tracing adds no host read): one ladder
+    read a secondary bounce (the renderer's wavefront plan, built at reset,
+    holds the camera's basis and the sort bounds)."""
     from tpu_pathtracer_torch.render.timing import StageTimer
 
     r = _traced_renderer(kind, cuda_device)
@@ -1004,7 +1004,27 @@ def test_host_reads_are_the_frames_syncs_on_card(kind, cuda_device):
     untraced = _syncs(r.step)
     traced = _syncs(lambda: r.step(timer=StageTimer()))
     rec = r.frame_records[-1]
-    assert rec["host_reads"] == len(traced) == len(untraced) == 3 + 2 + 7, (traced, untraced)
+    assert rec["host_reads"] == len(traced) == len(untraced) == 7, (traced, untraced)
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_plan_frames_are_planless_frames_on_card(kind, cuda_device):
+    """On the card, three frames of a Renderer (made from its wavefront
+    plans) equal, bit for bit, the same frames made by render_frame with no
+    plans (each wavefront builds its own), and no frame writes into a
+    plan's tensors."""
+    from tpu_pathtracer_torch.render.state import render_frame
+
+    r = _traced_renderer(kind, cuda_device)
+    plans = [t for _, _, plan in r._plans._held.values() for t in (plan.pids, *plan.camera)]
+    before = [t.clone() for t in plans]
+    state = r.state
+    for _ in range(3):
+        r.step()
+        state = render_frame(state, r.scene, r.cfg, r.camera, r._intersect)
+    r.sync()
+    assert torch.equal(r.state.accum.view(torch.int32), state.accum.view(torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(plans, before))
 
 
 @pytest.mark.parametrize("spectrum,hero", [(3, 0), (16, 4)])

@@ -59,9 +59,10 @@ def _tree(events):
 @pytest.mark.parametrize("pipeline", ["sorted", "unsorted"])
 def test_profiled_frame_holds_the_spans_nested(pipeline, tmp_path):
     """Under torch.profiler (CPU activity) a frame's ranges are the
-    vocabulary of render/timing.py, nested as it says: keys, prepare (the
-    camera's three host transfers in it), the sort bounds' two reads, one
-    bounce per bounce, restore and accumulate inside frame;
+    vocabulary of render/timing.py, nested as it says: keys, prepare (no
+    host transfer in it: the renderer's wavefront plan holds the camera's
+    basis and the sort bounds), one bounce per bounce, restore and
+    accumulate inside frame;
     in each bounce one uniforms, one walk_nearest and one shade; on the
     sorted pipeline bounces 1.. also one sort, one ladder read and one
     walk_shadow (the deferred shadow query), on the unsorted one each bounce
@@ -75,14 +76,14 @@ def test_profiled_frame_holds_the_spans_nested(pipeline, tmp_path):
         sort = pipeline == "sorted"
         # restore twice: the wavefront's scatter, then its add to the frame's sum
         assert top == Counter({"keys": 1, "prepare": 1, "bounce": DEPTH, "restore": 2,
-                               "accumulate": 1, "sync": 1, "host_read": 2 * sort})
+                               "accumulate": 1, "sync": 1})
         assert [n for n, p in spans if p is None] == ["frame"]
         inner = Counter(n for n, p in spans if p == "bounce")
         reads = DEPTH - 1 if sort else 0
         assert inner == Counter({"uniforms": DEPTH, "walk_nearest": DEPTH, "shade": DEPTH,
                                  "sort": reads, "host_read": reads,
                                  "walk_shadow": DEPTH - 1 if sort else DEPTH})
-        assert Counter(n for n, p in spans if p == "prepare") == Counter({"host_read": 3})
+        assert Counter(n for n, p in spans if p == "prepare") == Counter()
         assert not [n for n, p in spans if p not in ("frame", "bounce", "prepare", None)]
 
 
@@ -113,7 +114,7 @@ def test_step_forwards_the_timer():
     rec, = r.frame_records
     assert Counter(timer.names) == Counter(s[0] for s in rec["spans"])
     assert timer.names[0] == "frame" and {"sync", "shade", "host_read"} <= set(timer.names)
-    assert rec["frame"] == 0 and rec["host_reads"] == 3 + 2 + DEPTH - 1
+    assert rec["frame"] == 0 and rec["host_reads"] == DEPTH - 1
     assert all(s[1] <= s[2] for s in rec["spans"])
 
 
@@ -144,8 +145,9 @@ def test_recorded_lanes_follow_the_ladder(pipeline):
     sort, with prefix sorts the rung of the bounce before's (the sort runs
     at the trailing rung); bounce 0 and every unsorted bounce run the whole
     wavefront.  The live count is the ladder's read, bounce 0's every lane,
-    and none where nothing was read; host reads are the camera's three
-    transfers, the sort bounds' two and one a secondary bounce."""
+    and none where nothing was read; host reads are one a secondary bounce
+    (the plan, built at reset, holds the camera's basis and the sort
+    bounds)."""
     cfg = RenderConfig(**PIPELINES[pipeline])
     r = _renderer(**PIPELINES[pipeline])
     r.step(timer=SpanLog())
@@ -172,7 +174,7 @@ def test_recorded_lanes_follow_the_ladder(pipeline):
         assert (x["planes"], x["hero"], x["env"], x["kernel"]) == (3, False, False, False)
         assert x["inline"] == (pipeline == "unsorted")
         assert x["env_picks"] is x["env_misses"] is None
-    assert rec["host_reads"] == 3 + (0 if pipeline == "unsorted" else 2 + DEPTH - 1)
+    assert rec["host_reads"] == (0 if pipeline == "unsorted" else DEPTH - 1)
     assert rec["host_read_s"] >= 0.0
 
 
@@ -218,7 +220,7 @@ def test_profile_writes_the_frame_records(tmp_path):
         got = json.load(f)
     assert [x["frame"] for x in got] == [1, 2]
     assert got == json.loads(json.dumps(r.frame_records[1:]))
-    assert all(x["traced_rays"] > 0 and x["host_reads"] == 3 + 2 + DEPTH - 1 for x in got)
+    assert all(x["traced_rays"] > 0 and x["host_reads"] == DEPTH - 1 for x in got)
     assert (tmp_path / "trace.json").exists()
 
 

@@ -20,7 +20,7 @@ from ..models.camera import Camera
 from ..ops.rng import fold_in, key_data, prng_key
 from ..scene.scene import Scene
 from .timing import frame_trace, span
-from .wavefront import IntersectFn, render_sample
+from .wavefront import IntersectFn, WavefrontPlans, render_sample
 
 
 class RenderState(NamedTuple):
@@ -99,7 +99,8 @@ def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                width: int, key, frame_index: int, intersect: IntersectFn,
                row0: int = 0, full_height: int | None = None,
                full_width: int | None = None, sample0: int = 0,
-               sample_count: int | None = None, timer=None) -> torch.Tensor:
+               sample_count: int | None = None, timer=None,
+               plans: WavefrontPlans | None = None) -> torch.Tensor:
     """Unnormalised radiance sum over the frame's samples for rows
     ``row0 .. row0 + height`` of a ``full_height`` x ``full_width`` image ->
     (height, width, S).
@@ -109,7 +110,8 @@ def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     ``pixel + sample * npix`` (render/wavefront.py), so every grouping draws
     the same paths.  TILED noise decodes the pixel from the id, so it
     traces one sample a wavefront under a per-sample key fold, as the
-    reference does.  ``timer``: as render_sample's (the keys span here)."""
+    reference does.  ``timer``, ``plans``: as render_sample's (the keys span
+    here)."""
     trace = frame_trace(timer)
     sample_count = cfg.samples_per_frame if sample_count is None else sample_count
     prng = cfg.noise_mode == NoiseMode.PRNG
@@ -126,7 +128,8 @@ def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                      for n, s0 in fused_chunks(cfg, sample_count, sample0)]
         else:
             waves = [(fold_in(frame_key, sample0 + i), {}) for i in range(sample_count)]
-    kw = dict(row0=row0, full_height=full_height, full_width=full_width, timer=trace)
+    kw = dict(row0=row0, full_height=full_height, full_width=full_width, timer=trace,
+              plans=plans)
     total = torch.zeros((height, width, cfg.spectrum_samples), device=scene.p0.device)
     for k, wave in waves:
         img = render_sample(scene, cfg, camera, height, width, k, frame_index, intersect,
@@ -138,12 +141,14 @@ def sample_sum(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
 
 def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
                  camera: Camera | None, intersect: IntersectFn,
-                 timer=None) -> RenderState:
+                 timer=None, plans: WavefrontPlans | None = None) -> RenderState:
     """One progressive frame: trace cfg.samples_per_frame spp, in
     cfg.row_tiles sequential row tiles, and fold the mean into the
     accumulator.  The accumulator is a new tensor; ``state`` is left
     unchanged.  ``timer``: a StageTimer or the frame's FrameTrace
-    (render/timing.py)."""
+    (render/timing.py).  ``plans``: the wavefronts' plans
+    (render/wavefront.py:WavefrontPlans, :func:`plan_frame`); without them
+    each wavefront builds its own."""
     check_supported(cfg)
     trace = frame_trace(timer)
     camera = camera if camera is not None else Camera.reference_default()
@@ -153,7 +158,7 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
         raise ValueError(f"row_tiles {tiles} must divide height {height}")
     if tiles == 1:
         total = sample_sum(scene, cfg, camera, height, width, state.key,
-                           state.frame_index, intersect, timer=trace)
+                           state.frame_index, intersect, timer=trace, plans=plans)
     else:
         # sequential row tiles bound a wavefront's lanes; the RNG keys on
         # absolute pixel ids, so the image is the untiled one up to the
@@ -162,7 +167,7 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
         total = torch.cat([
             sample_sum(scene, cfg, camera, tile_h, width, state.key,
                        state.frame_index, intersect, row0=r * tile_h,
-                       full_height=height, full_width=width, timer=trace)
+                       full_height=height, full_width=width, timer=trace, plans=plans)
             for r in range(tiles)])
     with span(trace, "accumulate"):
         color = total / cfg.samples_per_frame
@@ -170,3 +175,20 @@ def render_frame(state: RenderState, scene: Scene, cfg: RenderConfig,
                                cfg.accumulate_image)
     return RenderState(accum=new_accum, frame_index=state.frame_index + 1,
                        key=state.key)
+
+
+def plan_frame(plans: WavefrontPlans, scene: Scene, cfg: RenderConfig, camera: Camera,
+               height: int, width: int) -> None:
+    """Build in ``plans`` the plan of every wavefront :func:`render_frame`
+    traces at this size: one a row tile and fused chunk (one a row tile
+    with TILED noise, whose samples share their ids)."""
+    tiles = max(1, cfg.row_tiles)
+    if height % tiles:
+        return  # render_frame refuses the size
+    tile_h = height // tiles
+    waves = (fused_chunks(cfg, cfg.samples_per_frame) if cfg.noise_mode == NoiseMode.PRNG
+             else [(1, 0)])
+    for r in range(tiles):
+        for samples, sample0 in waves:
+            plans.get(scene, cfg, camera, tile_h, width, r * tile_h, height, width,
+                      samples, sample0)

@@ -12,13 +12,14 @@ Spans, one fixed vocabulary (``SPANS``), nested as::
 
     frame                    Renderer.step
       keys                   the host key schedule (frame_rng_key, fold_in)
-      prepare                a wavefront's host work: order, ids, jitter,
-                             camera rays, hero bins, the initial state
+      prepare                a wavefront's host work: its plan (the
+                             renderer's, or built here), jitter, camera
+                             rays, hero bins, the initial state
         host_read            every transfer of the frame path that waits
-                             for the device: the camera's three basis
-                             vectors (a copy from pageable host memory
-                             waits for the stream) ...
-      host_read              ... the sort bounds' two .tolist() ...
+                             for the device: where a plan is built, the
+                             camera's three basis vectors (a copy from
+                             pageable host memory waits for the stream)
+                             and the sort bounds' two .tolist() ...
       bounce                 each bounce (args: bounce, lanes)
         host_read            ... and the ladder's live count
         sort                 the wavefront sort
@@ -37,8 +38,10 @@ timer also the timer's CUDA-event pair (:meth:`StageTimer.totals`).
 
 Counters: a :class:`FrameTrace` keeps the frame's spans (name, start and end
 on the host's wall clock, ``time.time_ns``), its host reads and the seconds
-spent in them, one dict a shading launch (its lanes, the live lanes that
-entered it where the ladder read them, the carried planes, the form) and the
+spent in them, the wavefront plans it built (render/wavefront.py:
+``WavefrontPlans``; 0 in a steady frame), one dict a shading launch (its
+lanes, the live lanes that entered it where the ladder read them, the
+carried planes, the form) and the
 device tensors the frame computes anyway: each wavefront's traced rays and
 each env-lit launch's env picks and misses (the shading's counts).  :func:`records` reads those tensors once, after the frames, in one
 host read a device: tracing adds no launch and no host read to a frame.
@@ -95,6 +98,7 @@ class FrameTrace:
         self.spans: list[tuple[str, int, int]] = []
         self.host_reads = 0
         self.host_read_s = 0.0
+        self.plan_builds = 0
         self.launches: list[dict] = []
         self._rays: list[torch.Tensor] = []
         self._env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
@@ -152,6 +156,7 @@ class FrameTrace:
             launch["env_picks"], launch["env_misses"] = env[2 * k], env[2 * k + 1]
         self._record = {"frame": self.frame, "host_reads": self.host_reads,
                         "host_read_s": self.host_read_s,
+                        "plan_builds": self.plan_builds,
                         "traced_rays": sum(rays) if rays else None,
                         "launches": self.launches,
                         "spans": [list(s) for s in self.spans]}

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import IOR_AIR, NoiseMode, RenderConfig, check_supported
@@ -37,7 +38,7 @@ from ..core.sampling import balance_heuristic, barycentric, select_light_index
 from ..core.spectrum import apply_bins
 from ..models import bsdf as bsdf_lib
 from ..models import ggx
-from ..models.camera import Camera, generate_rays_flat
+from ..models.camera import Camera, CameraTerms, camera_rays, camera_terms
 from ..models.envlight import eval_env, sample_env
 from ..models.texture import diffuse_modulation
 from ..ops import shade as shade_ops
@@ -543,11 +544,82 @@ def _rung(live: int, sizes: list[int]) -> int:
     return sum(live <= w for w in sizes[1:])
 
 
+class WavefrontPlan(NamedTuple):
+    """A wavefront's inputs that depend on no frame (:func:`plan_wavefront`).
+    Read only: a frame writes none of its tensors."""
+
+    pids: torch.Tensor        # (N,) int64 lane ids: absolute pixel ids, and
+    #                           with PRNG noise + the sample's offset
+    camera: CameraTerms       # basis, origin, the lanes' pixel terms
+    bounds: tuple | None      # the sort key's (wmin, winv); None unsorted
+
+
+def _pipeline(cfg: RenderConfig) -> tuple[bool, bool]:
+    """(kernel path, sorted): block order, sorts, deferred NEE and the
+    ladder only on the kernel path (the reference's rule; the RNG keys on
+    absolute pixel ids, so the order never changes the image)."""
+    pallas_path = cfg.intersector == "bvh" and cfg.use_pallas
+    return pallas_path, cfg.sort_rays and pallas_path
+
+
+def plan_wavefront(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
+                   width: int, row0: int, full_height: int, full_width: int,
+                   samples: int, sample0: int, trace: FrameTrace | None = None
+                   ) -> WavefrontPlan:
+    """The :class:`WavefrontPlan` of :func:`render_sample`'s wavefront over
+    rows ``row0 .. row0 + height`` and ``samples`` samples from ``sample0``
+    (PRNG noise; one sample otherwise): the block order and its pixel ids,
+    the camera's terms and the sort bounds.  Its host reads (the camera's
+    three copies, the bounds' two reads) go through ``trace``."""
+    pallas_path, do_sort = _pipeline(cfg)
+    order = make_order(height, width, row0, cfg.traversal_tile if pallas_path else None,
+                       device=scene.p0.device)
+    pids = pids_from_order(order, full_width)
+    rows, cols = order.rows, order.cols
+    if cfg.noise_mode == NoiseMode.PRNG:
+        npix_full = full_height * full_width
+        pids = torch.cat([(pids + (sample0 + s) * npix_full) & 0xFFFFFFFF
+                          for s in range(samples)])
+        rows, cols = rows.repeat(samples), cols.repeat(samples)
+    terms = camera_terms(camera, rows, cols, full_height, full_width, trace)
+    return WavefrontPlan(pids, terms, scene_sort_bounds(scene, trace) if do_sort else None)
+
+
+class WavefrontPlans:
+    """A renderer's wavefront plans, one a (row0, samples, sample0) slot of
+    its frame.  :meth:`get` hands back the slot's plan while what it was
+    built from holds (the sizes, the order's tile, the noise mode and
+    pipeline, the camera's angle, the scene), and otherwise builds it anew
+    in place of the old one, counted in the frame's ``plan_builds``."""
+
+    def __init__(self):
+        self._held: dict[tuple, tuple] = {}
+
+    def get(self, scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
+            width: int, row0: int, full_height: int, full_width: int, samples: int,
+            sample0: int, trace: FrameTrace | None = None) -> WavefrontPlan:
+        pallas_path, do_sort = _pipeline(cfg)
+        key = (height, width, full_height, full_width,
+               cfg.traversal_tile if pallas_path else None, cfg.noise_mode, do_sort,
+               np.float32(camera.t).tobytes())
+        slot = (row0, samples, sample0)
+        held = self._held.get(slot)
+        if held is not None and held[0] == key and held[1] is scene:
+            return held[2]
+        plan = plan_wavefront(scene, cfg, camera, height, width, row0, full_height,
+                              full_width, samples, sample0, trace)
+        self._held[slot] = (key, scene, plan)
+        if trace is not None:
+            trace.plan_builds += 1
+        return plan
+
+
 def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                   width: int, key, frame_index: int, intersect: IntersectFn,
                   row0: int = 0, full_height: int | None = None,
                   full_width: int | None = None, with_ray_count: bool = False,
-                  samples: int = 1, sample0: int = 0, timer=None):
+                  samples: int = 1, sample0: int = 0, timer=None,
+                  plans: WavefrontPlans | None = None):
     """Trace ``samples`` samples per pixel of rows ``row0 .. row0 + height``
     of a ``full_height`` x ``full_width`` image in one wavefront -> their
     SUMMED (height, width, S) radiance.
@@ -575,7 +647,10 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     and its sort, walks, uniforms, shading and host reads, restore) and the
     trace counts its shading launches and keeps its traced rays.  With
     cfg.fuse_shadow_walk each secondary bounce makes one ``intersect.fused``
-    call for its nearest hit and the previous bounce's shadow query."""
+    call for its nearest hit and the previous bounce's shadow query.
+    ``plans``: the :class:`WavefrontPlans` that hold the wavefront's
+    frame-invariant inputs (a Renderer's); without it :func:`plan_wavefront`
+    builds them here."""
     check_supported(cfg)
     trace = frame_trace(timer)
     if trace is not None:
@@ -589,32 +664,23 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     full_height = full_height or height
     full_width = full_width or width
     npix_full = full_height * full_width
-    # block order, sorts, deferred NEE and the ladder only on the kernel
-    # path (the reference's rule; the RNG keys on absolute pixel ids, so
-    # the order never changes the image)
-    pallas_path = cfg.intersector == "bvh" and cfg.use_pallas
-    do_sort = cfg.sort_rays and pallas_path
+    if cfg.noise_mode != NoiseMode.PRNG:
+        if samples != 1:
+            raise ValueError("sample fusion requires PRNG noise")
+        sample0 = 0
+    _, do_sort = _pipeline(cfg)
     eps = cfg.distance_epsilon
     dev = scene.p0.device
     spectrum = cfg.spectrum_samples
     with span(trace, "prepare"):
-        order = make_order(height, width, row0, cfg.traversal_tile if pallas_path else None,
-                           device=dev)
-        pids = pids_from_order(order, full_width)
-        rows, cols = order.rows, order.cols
-        if cfg.noise_mode == NoiseMode.PRNG:
-            pids = torch.cat([(pids + (sample0 + s) * npix_full) & 0xFFFFFFFF
-                              for s in range(samples)])
-            rows, cols = rows.repeat(samples), cols.repeat(samples)
-        elif samples != 1:
-            raise ValueError("sample fusion requires PRNG noise")
-        else:
-            sample0 = 0
+        plan = (plan_wavefront if plans is None else plans.get)(
+            scene, cfg, camera, height, width, row0, full_height, full_width, samples,
+            sample0, trace)
+        pids = plan.pids
         jitter = camera_jitter(cfg, fold_in(key, 0xC0FFEE), frame_index, pids,
                                full_height, full_width)
-        origins, directions = generate_rays_flat(camera, rows, cols, jitter[0:2],
-                                                 full_height, full_width,
-                                                 lens_u=jitter[2:4], trace=trace)
+        origins, directions = camera_rays(camera, plan.camera, jitter[0:2], full_height,
+                                          full_width, lens_u=jitter[2:4])
         hero = (cfg.hero_wavelengths
                 if spectrum > 3 and cfg.hero_wavelengths > 0 else 0)
         if hero:
@@ -645,7 +711,7 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
                 state, stats = shade(b, state)
             nrays = nrays + stats["path"] + stats["shadow"]
     else:
-        wmin, winv = scene_sort_bounds(scene, trace)
+        wmin, winv = plan.bounds
 
         def stage(b, st, pk, live):
             """Resolve the previous bounce's shadow pack and shade bounce

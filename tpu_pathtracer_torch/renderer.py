@@ -31,8 +31,8 @@ from .models.camera import Camera
 from .parallel.multihost import gather_image
 from .parallel.tiles import render_frame_distributed_jit, shard_state, to_device
 from .render import timing
-from .render.state import init_state, render_frame
-from .render.wavefront import make_intersector
+from .render.state import init_state, plan_frame, render_frame
+from .render.wavefront import WavefrontPlans, make_intersector
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
 
 
@@ -104,7 +104,8 @@ class Renderer:
                                                       factory)
         else:
             self._step = lambda state, scene, trace: render_frame(
-                state, scene, self.cfg, self.camera, self._intersect, timer=trace)
+                state, scene, self.cfg, self.camera, self._intersect, timer=trace,
+                plans=self._plans)
         self.reset(width, height)
 
     # -- reference: mtkView:drawableSizeWillChange: (Renderer.mm:640-657) --
@@ -115,6 +116,12 @@ class Renderer:
                                 self.cfg.spectrum_samples, self.device)
         if self.mesh is not None:
             self.state = shard_state(self.state, self.mesh)
+        else:
+            # the wavefronts' frame-invariant inputs, built once a size; a
+            # frame rebuilds a plan only when what it was built from changes
+            # (a new camera angle)
+            self._plans = WavefrontPlans()
+            plan_frame(self._plans, self.scene, self.cfg, self.camera, height, width)
         self._avg_rays_per_sec = 0.0
         self._avg_frame_time = 0.0
         self._frame_count = 0
@@ -128,7 +135,9 @@ class Renderer:
         a frame traces while a torch.profiler records, or when stepped with
         a timer), oldest first: ``frame`` (its index), ``host_reads`` and
         ``host_read_s`` (the host transfers that wait for the device, and
-        the host seconds spent in them), ``traced_rays``, ``launches`` (one
+        the host seconds spent in them), ``plan_builds`` (the wavefront
+        plans the frame had to build: 0 unless what a plan was built from
+        changed, such as :attr:`camera`), ``traced_rays``, ``launches`` (one
         dict a shading launch: ``bounce``, ``lanes``, ``live`` where the
         ladder read it, ``planes``, ``hero``, ``inline``, ``env``,
         ``dispersion``, ``kernel``, and on env-lit kernel launches
