@@ -73,6 +73,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..accel.layout import BVHLayout
+from ..render.timing import span
 from .cuda_build import load_library
 from .intersect import HitShade
 from .traverse import Tally, latch, mt_rows, walk
@@ -556,12 +557,13 @@ def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
 def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
                          t_max=None, prepass: int = DEFAULT_PREPASS,
                          tritest: str = "bw", hbm: bool = False,
-                         resolve: bool = True) -> HitShade:
+                         resolve: bool = True, trace=None) -> HitShade:
     """(3, N) rays -> nearest-hit HitShade.  Nearest-hit queries
     (``resolve``) take the window walk with its payload epilogue
     (:func:`window_walk_resolve`, or on the HBM route ``window_walk_hbm(...,
     resolve=True)``); ``resolve=False`` takes the walk alone and the torch
-    resolve (:func:`resolve_window_payload`).  ``hbm`` launches through
+    resolve (:func:`resolve_window_payload`), inside ``trace``'s "resolve"
+    span (render/timing.py) when a frame traces.  ``hbm`` launches through
     :func:`window_walk_hbm`, the HBM route's wrapper."""
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
     pp = window_prepass(lay, prepass)
@@ -571,7 +573,8 @@ def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
         return payload_hit(out, t_max)
     walk_fn = window_walk_hbm if hbm else window_walk
     t, row = walk_fn(o, d, active, t_max, lay, t_min, pp, tritest)
-    return resolve_window_payload(lay, t, row, t_max, o, d, resolve)
+    with span(trace, "resolve"):
+        return resolve_window_payload(lay, t, row, t_max, o, d, resolve)
 
 
 def _nearest_inputs(o, d, active, t_max):
@@ -1080,7 +1083,10 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
     ``lay`` through :func:`window_walk_hbm` -- nearest hits as above with
     ``minwalk`` and ``sweep`` giving way, capped queries with ``t_max`` as
     the best_t seed, the prepass, and the unresolved payload
-    (``resolve=False``) -- and there is no any-hit hook.
+    (``resolve=False``) -- and there is no any-hit hook.  ``fn`` takes the
+    frame's trace (render/timing.py:FrameTrace.intersector passes it on this
+    route): each query counts in its ``hbm_walks``, and a capped query's
+    torch resolve runs in its "resolve" span.
 
     ``fn.fused(o, d, alive, sdir, sok, scap, target) -> (HitShade, clear)``
     is the fused path+shadow walk (cfg.fuse_shadow_walk): one 2N-lane launch
@@ -1103,12 +1109,14 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
     occl = lay_occl if lay_occl is not None else lay
     use_sweep = kernel == "sweep" and not hbm
 
-    def fn(o, d, active, t_max=None, coherent=False):
+    def fn(o, d, active, t_max=None, coherent=False, trace=None):
+        if hbm and trace is not None:
+            trace.hbm_walks += 1
         if t_max is not None:
             if hbm:
                 return intersect_bvh_window(o, d, lay, t_min, active, t_max=t_max,
                                             prepass=prepass, tritest=tritest,
-                                            hbm=True, resolve=False)
+                                            hbm=True, resolve=False, trace=trace)
             return intersect_bvh_capped(o, d, occl, active, t_max, t_min)
         if kernel == "minwalk" and not hbm:
             return intersect_bvh_minwalk(o, d, lay, t_min, active, prepass=prepass)

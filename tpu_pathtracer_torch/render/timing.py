@@ -24,6 +24,8 @@ Spans, one fixed vocabulary (``SPANS``), nested as::
         host_read            ... and the ladder's live count
         sort                 the wavefront sort
         walk_nearest | walk_shadow | walk_fused
+          resolve            on the HBM route, the torch resolve of a
+                             capped query's kernel rows (walk_shadow)
         uniforms             the bounce's random numbers
         shade                the shading (args: bounce, lanes)
       restore                the raster scatter and the sample sum, and
@@ -39,7 +41,9 @@ timer also the timer's CUDA-event pair (:meth:`StageTimer.totals`).
 Counters: a :class:`FrameTrace` keeps the frame's spans (name, start and end
 on the host's wall clock, ``time.time_ns``), its host reads and the seconds
 spent in them, the wavefront plans it built (render/wavefront.py:
-``WavefrontPlans``; 0 in a steady frame), one dict a shading launch (its
+``WavefrontPlans``; 0 in a steady frame), whether its intersector took the
+HBM route (``hbm_route``, 0 or 1) and the queries it sent down that route
+(``hbm_walks``), one dict a shading launch (its
 lanes, the live lanes that entered it where the ladder read them, the
 carried planes, the form) and the
 device tensors the frame computes anyway: each wavefront's traced rays and
@@ -56,7 +60,8 @@ import torch
 from torch.profiler import record_function
 
 SPANS = ("frame", "keys", "prepare", "host_read", "bounce", "sort", "walk_nearest",
-         "walk_shadow", "walk_fused", "uniforms", "shade", "restore", "accumulate", "sync")
+         "walk_shadow", "walk_fused", "resolve", "uniforms", "shade", "restore",
+         "accumulate", "sync")
 _OFF = contextlib.nullcontext()
 
 
@@ -99,6 +104,8 @@ class FrameTrace:
         self.host_reads = 0
         self.host_read_s = 0.0
         self.plan_builds = 0
+        self.hbm_route = 0
+        self.hbm_walks = 0
         self.launches: list[dict] = []
         self._rays: list[torch.Tensor] = []
         self._env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
@@ -111,10 +118,19 @@ class FrameTrace:
         """``intersect`` with each query inside a walk span: nearest queries
         "walk_nearest", capped ones "walk_shadow"; the any-hit ``occlusion``
         hook passes through as "walk_shadow" and the fused walk ``fused`` as
-        "walk_fused", when present."""
+        "walk_fused", when present.  An intersector on the HBM route
+        (``intersect.hbm``, ops/hopper_traverse.py:make_cuda_intersector)
+        sets ``hbm_route`` and gets this trace with each query, which it
+        counts in ``hbm_walks`` and in whose ``resolve`` span it resolves a
+        capped query."""
+        kw = {}
+        if getattr(intersect, "hbm", False):
+            self.hbm_route = 1
+            kw["trace"] = self
+
         def fn(o, d, active, t_max=None, coherent=False):
             with self.span("walk_nearest" if t_max is None else "walk_shadow"):
-                return intersect(o, d, active, t_max=t_max, coherent=coherent)
+                return intersect(o, d, active, t_max=t_max, coherent=coherent, **kw)
 
         def spanned(name, hook):
             def call(*a):
@@ -157,6 +173,7 @@ class FrameTrace:
         self._record = {"frame": self.frame, "host_reads": self.host_reads,
                         "host_read_s": self.host_read_s,
                         "plan_builds": self.plan_builds,
+                        "hbm_route": self.hbm_route, "hbm_walks": self.hbm_walks,
                         "traced_rays": sum(rays) if rays else None,
                         "launches": self.launches,
                         "spans": [list(s) for s in self.spans]}

@@ -137,7 +137,9 @@ class Renderer:
         ``host_read_s`` (the host transfers that wait for the device, and
         the host seconds spent in them), ``plan_builds`` (the wavefront
         plans the frame had to build: 0 unless what a plan was built from
-        changed, such as :attr:`camera`), ``traced_rays``, ``launches`` (one
+        changed, such as :attr:`camera`), ``hbm_route`` (1 when the frame's
+        intersector took the HBM route) and ``hbm_walks`` (the queries it
+        sent down it), ``traced_rays``, ``launches`` (one
         dict a shading launch: ``bounce``, ``lanes``, ``live`` where the
         ladder read it, ``planes``, ``hero``, ``inline``, ``env``,
         ``dispersion``, ``kernel``, and on env-lit kernel launches

@@ -5,6 +5,9 @@ The reference ships five OBJ scenes and nine Mitsuba-rendered golden EXRs
 (reference: renderer/Renderer.mm:17-21).  Here scenes are looked up by name at
 runtime from ``assets/`` at the repo root (copied scene *data*, not code; the
 meshes are public-domain Cornell-box data from graphics.cs.williams.edu).
+``spd-tetra8`` is generated here (scripts/spd_tetra.py): the Standard
+Procedural Databases' ``tetra`` at size factor 8 (262,144 triangles) in the
+Water-plastic box, a mesh past the table budget that takes the HBM route.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ SCENE_NAMES = (
     "CornellBox-Water",
     "CornellBox-Water-mirror",
     "CornellBox-Water-plastic",
+    "spd-tetra8",
 )
 
 DEFAULT_SCENE = "CornellBox-Water-plastic"  # reference: renderer/Renderer.mm:18
