@@ -709,11 +709,22 @@ def forms_equal_v1(label: str, lay, o, d, act, t_max, prepass: int, tritest: str
     for form, got in resolved.items():
         equal_on_every_lane(f"{form} vs window_walk_v1 + window_payload_rows, {label}",
                             got, rows)
+    capped = ""
+    if hbm:
+        # the capped epilogue: its 4 rows against the yardstick's resolved by
+        # window_capped_rows
+        equal_on_every_lane(
+            f"window_walk_hbm(capped=True) vs window_walk_v1 + window_capped_rows, {label}",
+            ht.window_walk_hbm(o, d, act, t_max, lay, prepass=prepass, tritest=tritest,
+                               capped=True),
+            ht.window_capped_rows(lay, *want, t_max, o, d))
+        capped = ("; window_walk_hbm(capped=True): all 4 rows == window_walk_v1 + "
+                  "window_capped_rows")
     torch.cuda.synchronize()
     query = "capped" if bool(torch.isfinite(t_max).any()) else "nearest"
     log(f"  {', '.join(forms)} == window_walk_v1 on all {o.shape[1]} lanes of {label} "
         f"({tritest}, {int(act.sum())} live, {query}); {', '.join(resolved)}: all 12 "
-        "rows == window_walk_v1 + window_payload_rows")
+        f"rows == window_walk_v1 + window_payload_rows{capped}")
 
 
 def sweep_bound(lay, act, tritest: str) -> dict:
@@ -1159,8 +1170,28 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
     capped = lambda t: torch.where(t < cap, t, torch.inf)  # noqa: E731
     errs.append(agree(f"window_walk_hbm/shadow capped ({tag})", capped(tk), rk,
                       capped(tp), rp))
+    # the route's capped queries take the capped epilogue: its 4 rows against
+    # the plain version (the plain walk plus window_capped_rows)
+    for tritest in ("bw", "mt"):
+        want = (ht.window_capped_rows(lay, tp, rp, cap, o, d) if tritest == "bw" else
+                ht.window_walk_hbm_plain(o, d, ok, cap, lay, prepass=pp, tritest="mt",
+                                         capped=True))
+        equal_on_every_lane(
+            f"window_walk_hbm(capped=True)/shadow ({tag}, {tritest}) vs plain",
+            ht.window_walk_hbm(o, d, ok, cap, lay, prepass=pp, tritest=tritest, capped=True),
+            want)
+    log(f"  window_walk_hbm(capped=True) == its plain version on all 4 rows of "
+        f"{SAMPLE_LANES} shadow lanes ({tag}, bw and mt)")
     h_in = (o, d, ok, cap, lay)
     so, sd, sok, scap, _ = waves["shadow"]
+    # the whole shadow pack: the (t, row) form and the capped epilogue in turns
+    pack = turns({"(t, row)": lambda: ht.window_walk_hbm(so, sd, sok, scap, lay,
+                                                         prepass=pp),
+                  "capped": lambda: ht.window_walk_hbm(so, sd, sok, scap, lay, prepass=pp,
+                                                       capped=True)})
+    log(f"  window_walk_hbm shadow pack ({tag}, {int(sok.sum())} live of "
+        f"{sok.shape[0]}), ms in turns: " + "; ".join(
+            f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in pack.items()))
     out["window_walk_hbm"] = kernel_entry(
         "window_walk_hbm", "window_walk.cu", 698, max(errs),
         cuda_ms(lambda: ht.window_walk_hbm(*h_in, prepass=pp)),
@@ -1171,7 +1202,8 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
                                                            inf["bounce1"], lay,
                                                            prepass=pp)),
         capped_walk_full_ms=cuda_ms(lambda: ht.capped_walk(so, sd, sok, scap,
-                                                           renderer.layout_occl)))
+                                                           renderer.layout_occl)),
+        capped_epilogue_full_ms=min(pack["capped"]))
 
     # every form against the per-thread yardstick on the whole wavefronts, and
     # the bounds of kernels 5 and 6 there
@@ -1260,9 +1292,10 @@ def kernel_home(name: str):
 def counted_run(yardsticks: bool = False):
     """Zero every kernel's launch counts and count plain-version calls on
     CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
-    ..., "launches_resolve": ..., "plain_cuda": ...}, filled in when the run
-    ends ("launches_mt": the Moller-Trumbore form's launches of the wrappers
-    that take tritest; "launches_resolve": the epilogue form's launches of
+    ..., "launches_resolve": ..., "launches_capped": ..., "plain_cuda": ...},
+    filled in when the run ends ("launches_mt": the Moller-Trumbore form's
+    launches of the wrappers that take tritest; "launches_resolve" and
+    "launches_capped": the payload and capped epilogue forms' launches of
     window_walk_hbm).  Unless ``yardsticks``, a run that launched one of
     YARDSTICKS fails: only the walk A/B may."""
     where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper, plain)
@@ -1290,9 +1323,9 @@ def counted_run(yardsticks: bool = False):
         setattr(mod, plain, counted(plain, fn))
     fns = {k: getattr(mod, attr) for k, (mod, attr, _) in where.items()}
     extra = {c: [k for k in KERNELS if hasattr(fns[k], c)]
-             for c in ("launches_mt", "launches_resolve")}
+             for c in ("launches_mt", "launches_resolve", "launches_capped")}
     for k in KERNELS:
-        for c in ("launches", "launches_mt", "launches_resolve"):
+        for c in ("launches", "launches_mt", "launches_resolve", "launches_capped"):
             if hasattr(fns[k], c):
                 setattr(fns[k], c, 0)
     out = {"plain_cuda": plain_cuda}
@@ -2386,11 +2419,14 @@ def phase_terrain_path(scene, label: str, timed: int = 3, **kw) -> tuple[dict, i
               if v and k not in ("window_walk_hbm", "uniforms", *SHADE_SORT)}
     if (launches["window_walk_hbm"] <= 0 or others or any(run["plain_cuda"].values())
             or min(launches[k] for k in SHADE_SORT) <= 0
-            or not 0 < run["launches_resolve"]["window_walk_hbm"] < launches[
-                "window_walk_hbm"]):
+            or min(run[c]["window_walk_hbm"] for c in ("launches_resolve",
+                                                       "launches_capped")) <= 0
+            or run["launches_resolve"]["window_walk_hbm"]
+            + run["launches_capped"]["window_walk_hbm"] != launches["window_walk_hbm"]):
         raise AssertionError(f"terrain {label}: expected only window_walk_hbm (nearest "
-                             f"queries through its epilogue form, capped ones "
-                             f"without), uniforms and {SHADE_SORT}: {run}")
+                             f"queries through its payload epilogue, capped ones "
+                             f"through its capped epilogue), uniforms and "
+                             f"{SHADE_SORT}: {run}")
     mt = launches["window_walk_hbm"] if r.cfg.tritest == "mt" else 0
     if run["launches_mt"]["window_walk_hbm"] != mt:
         raise AssertionError(f"terrain {label}: MT launches {run['launches_mt']}, "

@@ -16,7 +16,6 @@ triangle edge differs whole.  CPU only: the kernels' plain versions run.
 """
 
 import hashlib
-import importlib.util
 import os
 from collections import Counter
 
@@ -28,7 +27,10 @@ from tpu_pathtracer_torch import Renderer, RenderConfig
 from tpu_pathtracer_torch.render import wavefront as twf
 from tpu_pathtracer_torch.renderer import build_intersector
 from tpu_pathtracer_torch.scene import SCENE_NAMES, load_scene, scene_path
-from torch_parity import SpanLog, assert_frames_agree, assert_hits_agree, random_rays
+from tpu_pathtracer_torch.accel import build_layout
+from tpu_pathtracer_torch.ops import hopper_traverse as ht
+from torch_parity import (SpanLog, assert_frames_agree, assert_hits_agree, random_rays,
+                          spd_generator)
 from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -37,15 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, DEPTH, FRAMES = 24, 32, 4, 2
 
 
-def _generator():
-    spec = importlib.util.spec_from_file_location(
-        "spd_tetra", os.path.join(ROOT, "scripts", "spd_tetra.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-spd = _generator()
+spd = spd_generator()
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +167,55 @@ def test_hbm_route_hits_match_the_whole_table_route(tetra3):
                                   b.t.numpy()[live], b.tri.numpy()[live])
         assert agree.sum() > 500
         assert np.isinf(a.t.numpy()[~live]).all() and np.isinf(b.t.numpy()[~live]).all()
+
+
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+@pytest.mark.parametrize("name", ["tetra3", "CornellBox-Water-plastic"])
+def test_capped_rows_equal_the_torch_resolve(tetra3, name, tritest):
+    """The HBM route's capped epilogue, plain version
+    (window_walk_hbm_plain(capped=True), which the card's kernel is held to)
+    == the torch resolve's first half on the plain walk's (t, row): t_raw,
+    u, v and col 9 of the winning row of lay.tris, bit for bit, with dead
+    lanes, finite caps shorter and longer than the hits and infinite caps;
+    the capped query's HitShade (intersect_bvh_window, hbm=True,
+    resolve=False) == the one the torch resolve built, fill values included.
+    No launch on the CPU; one epilogue a launch; resolve=False is the HBM
+    route's alone."""
+    lay = build_layout(load_scene(tetra3 if name == "tetra3" else scene_path(name),
+                                  device="cpu"), 56)
+    n = 2000
+    o, d = (torch.from_numpy(x) for x in random_rays(n, 13))
+    lanes = torch.arange(n)
+    active = lanes % 9 != 4
+    t_max = torch.where(lanes % 3 == 0, 1.5,
+                        torch.where(lanes % 5 == 1, 0.05, torch.inf)).to(torch.float32)
+    pp = ht.window_prepass(lay, ht.DEFAULT_PREPASS)
+    kw = dict(prepass=pp, tritest=tritest)
+    before = (ht.window_walk_hbm.launches, ht.window_walk_hbm.launches_capped)
+    got = ht.window_walk_hbm(o, d, active, t_max, lay, **kw, capped=True)
+    assert (ht.window_walk_hbm.launches, ht.window_walk_hbm.launches_capped) == before
+    t, row = ht.window_walk_plain(o, d, active, t_max, lay, **kw)
+    t_hit, rows, u, v = ht._resolved_uv(lay, t, row, t_max, o, d)
+    assert got.shape == (4, n) and got.dtype == torch.float32
+    assert torch.equal(got, torch.stack([t, u, v, rows[:, 9]]))
+    assert torch.equal(got, ht.window_walk_hbm_plain(o, d, active, t_max, lay, **kw,
+                                                     capped=True))
+    hit = torch.isfinite(t_hit)
+    assert hit.any() and (~hit & active & torch.isfinite(t_max)).any()
+    assert not hit[~active].any() and torch.equal(got[0][~active], t_max[~active])
+    assert (got[1:][:, ~hit] == 0).all()
+
+    shade = ht.intersect_bvh_window(o, d, lay, active=active, t_max=t_max, prepass=pp,
+                                    tritest=tritest, hbm=True, resolve=False)
+    zeros = torch.zeros(n, dtype=torch.int64)
+    want = dict(t=t_hit, u=u, v=v, tri=rows[:, 9].to(torch.int64), mat=zeros,
+                light=zeros - 1, pos=torch.zeros((3, n)), normal=torch.zeros((3, n)))
+    for field, value in want.items():
+        assert torch.equal(getattr(shade, field), value), field
+    with pytest.raises(ValueError):
+        ht.window_walk_hbm(o, d, active, t_max, lay, resolve=True, capped=True)
+    with pytest.raises(ValueError):
+        ht.intersect_bvh_window(o, d, lay, active=active, t_max=t_max, resolve=False)
 
 
 def test_records_count_the_hbm_walks(tetra3):

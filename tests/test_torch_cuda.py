@@ -24,7 +24,7 @@ from tpu_pathtracer_torch.scene import load_scene, scene_path
 from tpu_pathtracer_torch.scripts import experimental_sweep as es
 from tpu_pathtracer_torch.scripts import perf_launch, perf_ophit_probe
 from torch_parity import (assert_hits_agree, cuda_device, nee_shadow_rays,  # noqa: F401
-                          random_rays, shading_inputs, sort_inputs)
+                          random_rays, shading_inputs, sort_inputs, spd_generator)
 from torch_terrain import terrain_scene
 
 pytestmark = pytest.mark.cuda
@@ -368,6 +368,65 @@ def test_window_walk_resolve_matches_plain_on_card(name, tritest, cuda_device):
                 lay, *ht.window_walk(*args, **kw), t_max, o, d))
             assert (ht.window_walk_resolve.launches,
                     ht.window_walk_hbm.launches_resolve) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.fixture(scope="module")
+def tetra3_obj(tmp_path_factory):
+    """The SPD tetra at size factor 3 (268 triangles with the box)."""
+    obj, _ = spd_generator().write(3, str(tmp_path_factory.mktemp("spd") / "spd-tetra3"))
+    return obj
+
+
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+@pytest.mark.parametrize("name", ["tetra3", "CornellBox-Water-plastic"])
+def test_window_walk_capped_matches_plain_on_card(name, tritest, tetra3_obj, cuda_device):
+    """The HBM route's capped epilogue (window_walk_hbm(..., capped=True)) ==
+    its plain version on all 4 rows, bit for bit, and == the HBM walk's (t,
+    row) plus the torch rows (window_capped_rows); lane counts around a warp
+    with every lane live, none and one a warp, dead lanes, finite caps
+    shorter and longer than the hits and infinite caps; one launch counted
+    in launches and in launches_capped a call."""
+    path = tetra3_obj if name == "tetra3" else scene_path(name)
+    lay = build_layout(load_scene(path, device=cuda_device), 56)
+    pp = ht.window_prepass(lay, ht.DEFAULT_PREPASS)
+    f = ht.window_walk_hbm
+    for n in (1, 33, 8192):
+        o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(n, seed=37 + n))
+        lanes = torch.arange(n, device=cuda_device)
+        t_max = torch.where(lanes % 3 == 0, 1.5,
+                            torch.where(lanes % 5 == 1, 0.05, torch.inf)).contiguous()
+        for act in (lanes % 9 != 4, lanes < 0, lanes % 32 == 7):
+            args = (o, d, act.contiguous(), t_max, lay)
+            kw = dict(prepass=pp, tritest=tritest)
+            n0 = (f.launches, f.launches_capped, f.launches_resolve)
+            got = f(*args, **kw, capped=True)
+            assert (f.launches, f.launches_capped, f.launches_resolve) == (
+                n0[0] + 1, n0[1] + 1, n0[2])
+            assert got.shape == (4, n)
+            assert torch.equal(got, ht.window_walk_hbm_plain(*args, **kw, capped=True))
+            assert torch.equal(got, ht.window_capped_rows(lay, *f(*args, **kw), t_max, o, d))
+
+
+def test_hbm_frame_launches_the_capped_form_on_card(tetra3_obj, cuda_device):
+    """A depth-8 frame on the HBM route launches the capped epilogue once a
+    shadow query (7) and the payload epilogue once a nearest query (8), and
+    the (t, row) form of the HBM walk never; on the whole-table route it
+    launches neither."""
+    scene = load_scene(tetra3_obj, device=cuda_device)
+    f = ht.window_walk_hbm
+    for hbm in ("on", "off"):
+        r = Renderer(scene, 64, 48, RenderConfig(max_path_length=8, hbm_tables=hbm),
+                     device=cuda_device)
+        assert r._intersect.hbm == (hbm == "on")
+        r.run(1)
+        r.sync()
+        n0 = (f.launches, f.launches_resolve, f.launches_capped)
+        r.run(1)
+        r.sync()
+        grew = tuple(a - b for a, b in zip((f.launches, f.launches_resolve,
+                                            f.launches_capped), n0))
+        assert grew == ((15, 8, 7) if hbm == "on" else (0, 0, 0))
+        assert np.isfinite(r.image()).all()
 
 
 @pytest.mark.parametrize("tritest", ["bw", "mt"])

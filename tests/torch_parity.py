@@ -1,7 +1,7 @@
 """Shared helpers of the tests that hold tpu_pathtracer_torch against
 tpu_pathtracer: numpy views of the reference's pytrees, seeded rays, the
-nearest-hit agreement rule, a span log, and the fixture of the tests that
-need a card."""
+SPD scene generator, the nearest-hit agreement rule, a span log, and the
+fixture of the tests that need a card."""
 
 from __future__ import annotations
 
@@ -39,6 +39,20 @@ def load_reference_script(name: str):
     finally:
         for k, v in saved.items():
             jax.config.update(k, v)
+    return mod
+
+
+def spd_generator():
+    """The SPD ``tetra`` scene's generator, ``scripts/spd_tetra.py`` (numpy
+    only), as a module: ``write(level, stem)`` -> (OBJ path, MTL path)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "spd_tetra", os.path.join(root, "scripts", "spd_tetra.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
     return mod
 
 

@@ -67,12 +67,19 @@
 //       build's --fmad=false keeps each multiply and add apart.
 //   Dead lanes walk a zero ray; their t stays t_max, so hit_ok is false and
 //   u = v = 0 whatever the ray, as in the torch resolve.
+// * kCapped (tpupt_window_walk_capped: the HBM route's t_max-capped shadow
+//   queries): the same epilogue cut to write_hit's first four rows, the
+//   capped walk's (4, n) layout: t (raw), u, v and the row's col 9, the
+//   original triangle id (0 on a miss, from the sentinel row, as the torch
+//   resolve's rows[:, 9]; not out_orig's -1).  Bit-equal to
+//   ops/hopper_traverse.py:window_capped_rows under the rules above.  A
+//   template instance of its own, so the other forms compile as before.
 //
 // The HBM route (hbm=True: the TPU streamed demanded row blocks from HBM
 // through double-buffered VMEM) needs no variant here: every table already
 // lives in device memory.  ops/hopper_traverse.py:window_walk_hbm launches
 // this same kernel on that route's queries: nearest ones with the payload
-// epilogue, t_max-capped ones without.
+// epilogue, t_max-capped ones with the capped epilogue.
 //
 // What bounds it on an H100, what the design does about it and the measured
 // share of its bound: walk_common.cuh and PERF.md section 6 (rows 1, 5-8).
@@ -81,15 +88,17 @@
 namespace {
 
 // Where a launch writes: (t, row) and the variants' extra rows, or with
-// `payload` only the epilogue's 12 rows.  Null pointers are not written.
+// `payload` only the epilogue's 12 rows, or in the kCapped instances only
+// the capped epilogue's 4 rows.  Null pointers are not written.
 struct Outs {
   float* t;
   int* row;
   int* orig;
   int* spent;
   int* useful;
-  const float* tris;  // lay.tris, read by the epilogue
+  const float* tris;  // lay.tris, read by the epilogues
   float* payload;     // (12, n)
+  float* capped = nullptr;  // (4, n), kCapped
 };
 
 // torch.clamp(x, 0, 1): NaN stays NaN.
@@ -97,7 +106,7 @@ __device__ __forceinline__ float clamp01(float x) {
   return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-template <bool kMT, bool kCounts, bool kStage, bool kCoop>
+template <bool kMT, bool kCounts, bool kStage, bool kCoop, bool kCapped>
 __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
     tpupt::WalkArgs a, Outs out) {
   using R = tpupt::Rows<kMT>;
@@ -128,31 +137,36 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
         out.spent[i] = a.n_prepass + slots;
         out.useful[i] = useful;
       }
-      if (out.payload != nullptr) {
-        // the epilogue: resolve_window_payload on the winner's MT row
+      if (kCapped || out.payload != nullptr) {
+        // the epilogues: resolve_window_payload on the winner's MT row
         const float* row = out.tris + 24 * best_row;
         float tt, u, v;
         tpupt::mt_row(row, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, a.t_min, &tt, &u, &v);
         // isfinite(t_raw < t_max ? t_raw : inf); t_max read again rather than
         // held in a register through the walk
         const bool hit_ok = best_t < a.t_max[i] && isfinite(best_t);
-        tpupt::write_payload(row, best_t, hit_ok ? clamp01(u) : 0.0f,
-                             hit_ok ? clamp01(v) : 0.0f, a.n, i, out.payload);
+        const float uc = hit_ok ? clamp01(u) : 0.0f;
+        const float vc = hit_ok ? clamp01(v) : 0.0f;
+        if constexpr (kCapped) {
+          tpupt::write_hit(row, best_t, uc, vc, a.n, i, out.capped);
+        } else {
+          tpupt::write_payload(row, best_t, uc, vc, a.n, i, out.payload);
+        }
       }
     }
   }
 }
 
-template <bool kMT, bool kCounts, bool kCoop>
+template <bool kMT, bool kCounts, bool kCoop, bool kCapped = false>
 int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, const Outs& out,
                  cudaStream_t stream) {
   if (a.n > 0) {
     if (s.stage) {
-      auto kernel = window_walk_kernel<kMT, kCounts, true, kCoop>;
+      auto kernel = window_walk_kernel<kMT, kCounts, true, kCoop, kCapped>;
       const size_t smem = static_cast<size_t>(a.num_nodes) * tpupt::kNodeBytes;
       kernel<<<tpupt::walk_blocks(kernel, s, smem, a.n), s.threads, smem, stream>>>(a, out);
     } else {
-      auto kernel = window_walk_kernel<kMT, kCounts, false, kCoop>;
+      auto kernel = window_walk_kernel<kMT, kCounts, false, kCoop, kCapped>;
       kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(a, out);
     }
   }
@@ -160,12 +174,12 @@ int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, const Outs
 }
 
 // The frame paths' launch: the kept shape, cooperative leaves.
-template <bool kCounts>
+template <bool kCounts, bool kCapped = false>
 int launch(const tpupt::WalkArgs& a, int mt, const Outs& out, void* stream) {
   const tpupt::WalkShape s = tpupt::kWalkShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mt ? launch_shape<true, kCounts, true>(a, s, out, st)
-            : launch_shape<false, kCounts, true>(a, s, out, st);
+  return mt ? launch_shape<true, kCounts, true, kCapped>(a, s, out, st)
+            : launch_shape<false, kCounts, true, kCapped>(a, s, out, st);
 }
 
 tpupt::WalkArgs walk_args(const float* o, const float* d, const unsigned char* active,
@@ -198,6 +212,19 @@ extern "C" int tpupt_window_walk_resolve(
                                  ay, az, num_nodes, num_tris, t_min, n),
                        mt, {nullptr, nullptr, nullptr, nullptr, nullptr, tris, out},
                        stream);
+}
+
+// The capped epilogue (kCapped): the arguments of tpupt_window_walk_resolve,
+// `out` of 4 rows.
+extern "C" int tpupt_window_walk_capped(
+    const float* o, const float* d, const unsigned char* active,
+    const float* t_max, const float* packed, const float* rows, const float* pre,
+    int n_prepass, float ax, float ay, float az, int num_nodes, int num_tris,
+    float t_min, int n, int mt, const float* tris, float* out, void* stream) {
+  return launch<false, true>(
+      walk_args(o, d, active, t_max, packed, rows, pre, n_prepass, ax, ay, az, num_nodes,
+                num_tris, t_min, n),
+      mt, {nullptr, nullptr, nullptr, nullptr, nullptr, tris, nullptr, out}, stream);
 }
 
 extern "C" int tpupt_window_walk_orig(

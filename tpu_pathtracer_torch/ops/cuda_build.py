@@ -42,6 +42,8 @@ _SIGNATURES = {
     # ... mt, tris (lay.tris: the 24-float MT rows the epilogue resolves),
     # out (12, n), stream
     "tpupt_window_walk_resolve": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
+    # ... mt, tris, out (4, n): the capped epilogue, stream
+    "tpupt_window_walk_capped": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
     # ... out_t, out_row, out_orig, stream
     "tpupt_window_walk_orig": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 4,
     # ... out_t, out_row, out_spent, out_useful, stream

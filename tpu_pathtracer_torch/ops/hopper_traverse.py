@@ -14,8 +14,11 @@ The counterpart of ``tpu_pathtracer/ops/pallas_traverse.py``:
   (the frame's nearest-hit queries, and ``window_walk_hbm(...,
   resolve=True)`` on the HBM route) runs that resolve as an epilogue of the
   same launch and returns minwalk's 12 payload rows, bit-equal to
-  :func:`window_payload_rows`; the fused walk's path half and the HBM
-  route's capped queries keep the torch resolve.  Two compile-time variants
+  :func:`window_payload_rows`.  The HBM route's capped queries take the
+  capped epilogue (``window_walk_hbm(..., capped=True)``): t, u, v and the
+  original triangle id, the first four of those rows, bit-equal to
+  :func:`window_capped_rows`; the fused walk's path half keeps the torch
+  resolve.  Two compile-time variants
   of the same source replace the TPU kernel's flags: ``window_walk_orig``
   (``with_orig``, the fused path+shadow walk) also latches the winner's
   original triangle id; ``window_walk_counts`` (``with_counts``, the
@@ -309,42 +312,57 @@ window_walk_steps.launches = 0
 
 def window_walk_hbm_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
                           prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
-                          tally: Tally | None = None, resolve: bool = False):
+                          tally: Tally | None = None, resolve: bool = False,
+                          capped: bool = False):
     """Plain version of the HBM route's window walk: the window walk's, or
-    with ``resolve`` :func:`window_walk_resolve_plain`."""
+    with ``resolve`` :func:`window_walk_resolve_plain`, or with ``capped``
+    the window walk's then :func:`window_capped_rows`."""
+    _check_epilogue(resolve, capped)
     if resolve:
         return window_walk_resolve_plain(o, d, active, t_max, lay, t_min, prepass, tritest,
                                          tally=tally)
-    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+    out = _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
+    return window_capped_rows(lay, *out, t_max, o, d) if capped else out
 
 
 def window_walk_hbm(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
                     prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
-                    resolve: bool = False):
+                    resolve: bool = False, capped: bool = False):
     """The window walk on the HBM route (replaces ``_window_kernel`` with
-    ``hbm=True``): the same kernel as :func:`window_walk` -> (t, row), or
-    with ``resolve`` (the route's nearest-hit queries) the epilogue form of
-    :func:`window_walk_resolve` -> (12, N) payload rows; counted apart so a
-    run shows which route it took (``launches_resolve``: the epilogue
-    form's).  The TPU streamed demanded row blocks from HBM through VMEM
-    scratch; on the card every table is in device memory already, and the
-    walk reads its rows through L1/L2."""
+    ``hbm=True``): the same kernel as :func:`window_walk` -> (t, row); with
+    ``resolve`` (the route's nearest-hit queries) the epilogue form of
+    :func:`window_walk_resolve` -> (12, N) payload rows; with ``capped`` (its
+    t_max-capped shadow queries) the capped epilogue -> (4, N) rows [t, u,
+    v, orig] (:func:`window_capped_rows`).  Counted apart so a run shows
+    which route it took (``launches_resolve``, ``launches_capped``: the
+    epilogue forms').  The TPU streamed demanded row blocks from HBM through
+    VMEM scratch; on the card every table is in device memory already, and
+    the walk reads its rows through L1/L2."""
     if o.device.type == "cpu":
         return window_walk_hbm_plain(o, d, active, t_max, lay, t_min, prepass, tritest,
-                                     resolve=resolve)
-    if resolve:
-        out = _launch_window_resolve(o, d, active, t_max, lay, t_min, prepass, tritest)
+                                     resolve=resolve, capped=capped)
+    _check_epilogue(resolve, capped)
+    if resolve or capped:
+        out = _launch_window_epilogue("window_walk_capped" if capped else
+                                      "window_walk_resolve", o, d, active, t_max, lay,
+                                      t_min, prepass, tritest)
     else:
         out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
                              tritest, 0)
     window_walk_hbm.launches += 1
     window_walk_hbm.launches_mt += tritest == "mt"
     window_walk_hbm.launches_resolve += resolve
+    window_walk_hbm.launches_capped += capped
     return out
 
 
 window_walk_hbm.launches = window_walk_hbm.launches_mt = 0
-window_walk_hbm.launches_resolve = 0
+window_walk_hbm.launches_resolve = window_walk_hbm.launches_capped = 0
+
+
+def _check_epilogue(resolve: bool, capped: bool) -> None:
+    if resolve and capped:
+        raise ValueError("resolve and capped: a launch takes one epilogue")
 
 
 def window_walk_resolve_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
@@ -356,21 +374,25 @@ def window_walk_resolve_plain(o, d, active, t_max, lay: BVHLayout, t_min: float 
     return window_payload_rows(lay, t, row, t_max, o, d)
 
 
-def _launch_window_resolve(o, d, active, t_max, lay: BVHLayout, t_min: float,
-                           prepass: int, tritest: str):
-    """Check the inputs and launch ``tpupt_window_walk_resolve`` -> (12, N)
-    float32."""
+_EPILOGUE_ROWS = {"window_walk_resolve": 12, "window_walk_capped": 4}
+
+
+def _launch_window_epilogue(variant: str, o, d, active, t_max, lay: BVHLayout,
+                            t_min: float, prepass: int, tritest: str):
+    """Check the inputs and launch ``tpupt_<variant>``, an epilogue form ->
+    (12, N) float32 payload rows (``window_walk_resolve``) or (4, N) capped
+    rows (``window_walk_capped``)."""
     n = o.shape[1]
     rs = _check_window(o, d, active, t_max, lay, prepass, tritest, ("nodes_packed", "tris"))
-    out = torch.empty((12, n), dtype=torch.float32, device=o.device)
+    out = torch.empty((_EPILOGUE_ROWS[variant], n), dtype=torch.float32, device=o.device)
     ax, ay, az = lay.anchor
-    rc = load_library().tpupt_window_walk_resolve(
+    rc = getattr(load_library(), f"tpupt_{variant}")(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
         lay.nodes_packed.data_ptr(), rs.table.data_ptr(), rs.prepass.data_ptr(), prepass,
         ax, ay, az, lay.num_nodes, lay.num_tris, t_min, n, int(tritest == "mt"),
         lay.tris.data_ptr(), out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"window_walk_resolve kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
     return out
 
 
@@ -384,7 +406,8 @@ def window_walk_resolve(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     version for CPU tensors.  Inputs as :func:`window_walk`."""
     if o.device.type == "cpu":
         return window_walk_resolve_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
-    out = _launch_window_resolve(o, d, active, t_max, lay, t_min, prepass, tritest)
+    out = _launch_window_epilogue("window_walk_resolve", o, d, active, t_max, lay, t_min,
+                                  prepass, tritest)
     window_walk_resolve.launches += 1
     window_walk_resolve.launches_mt += tritest == "mt"
     return out
@@ -525,6 +548,16 @@ def window_payload_rows(lay: BVHLayout, t_raw, row, t_max, o, d) -> torch.Tensor
                         nx * rlen, ny * rlen, nz * rlen])
 
 
+def window_capped_rows(lay: BVHLayout, t_raw, row, t_max, o, d) -> torch.Tensor:
+    """Kernel rows (t, row) -> the (4, N) float32 rows of the capped
+    epilogue, the capped walk's layout: t_raw, u, v and the original
+    triangle id (col 9 of the winning row of ``lay.tris``: 0 on a miss),
+    :func:`_resolved_uv`'s values (``csrc/window_walk.cu``'s kCapped form
+    mirrors it)."""
+    _, rows, u, v = _resolved_uv(lay, t_raw, row, t_max, o, d)
+    return torch.stack([t_raw, u, v, rows[:, 9]])
+
+
 def payload_hit(out: torch.Tensor, t_max) -> HitShade:
     """(12, N) payload rows (minwalk's, or the window walk's epilogue) ->
     HitShade: t beyond ``t_max`` a miss (inf), the ids as int64, light+1
@@ -534,24 +567,27 @@ def payload_hit(out: torch.Tensor, t_max) -> HitShade:
                     light=out[5].to(torch.int64) - 1, pos=out[6:9], normal=out[9:12])
 
 
-def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d,
-                           resolve: bool = True) -> HitShade:
-    """Kernel rows (t, row) -> HitShade through the torch resolve
-    (:func:`window_payload_rows`, then :func:`payload_hit`).
-    ``resolve=False`` (the HBM route's capped shadow queries) stops after t,
-    u, v and the original triangle id: mat 0, light -1, position and normal
-    0, the reference's fill values."""
-    if resolve:
-        return payload_hit(window_payload_rows(lay, t_raw, row, t_max, o, d), t_max)
-    t, rows, u, v = _resolved_uv(lay, t_raw, row, t_max, o, d)
-    n = t.shape[0]
+def capped_hit(out: torch.Tensor, t_max) -> HitShade:
+    """(4, N) capped rows (the window walk's capped epilogue) -> HitShade: t
+    beyond ``t_max`` a miss (inf), the id as int64, and for the payload a
+    shadow query does not resolve the reference's fill values: mat 0, light
+    -1, position and normal 0."""
+    n = out.shape[1]
+    dev = out.device
     return HitShade(
-        t=t, u=u, v=v, tri=rows[:, 9].to(torch.int64),
-        mat=torch.zeros(n, dtype=torch.int64, device=t.device),
-        light=torch.full((n,), -1, dtype=torch.int64, device=t.device),
-        pos=torch.zeros((3, n), device=t.device),
-        normal=torch.zeros((3, n), device=t.device),
+        t=torch.where(out[0] < t_max, out[0], torch.inf), u=out[1], v=out[2],
+        tri=out[3].to(torch.int64),
+        mat=torch.zeros(n, dtype=torch.int64, device=dev),
+        light=torch.full((n,), -1, dtype=torch.int64, device=dev),
+        pos=torch.zeros((3, n), device=dev),
+        normal=torch.zeros((3, n), device=dev),
     )
+
+
+def resolve_window_payload(lay: BVHLayout, t_raw, row, t_max, o, d) -> HitShade:
+    """Kernel rows (t, row) -> HitShade through the torch resolve
+    (:func:`window_payload_rows`, then :func:`payload_hit`)."""
+    return payload_hit(window_payload_rows(lay, t_raw, row, t_max, o, d), t_max)
 
 
 def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
@@ -561,20 +597,24 @@ def intersect_bvh_window(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
     """(3, N) rays -> nearest-hit HitShade.  Nearest-hit queries
     (``resolve``) take the window walk with its payload epilogue
     (:func:`window_walk_resolve`, or on the HBM route ``window_walk_hbm(...,
-    resolve=True)``); ``resolve=False`` takes the walk alone and the torch
-    resolve (:func:`resolve_window_payload`), inside ``trace``'s "resolve"
-    span (render/timing.py) when a frame traces.  ``hbm`` launches through
-    :func:`window_walk_hbm`, the HBM route's wrapper."""
+    resolve=True)``).  ``resolve=False``, the HBM route's t_max-capped
+    shadow queries (``hbm`` only), takes ``window_walk_hbm(...,
+    capped=True)``: u, v and the original triangle id come from the walk's
+    capped epilogue, and :func:`capped_hit` builds the HitShade inside
+    ``trace``'s "resolve" span (render/timing.py) when a frame traces.
+    ``hbm`` launches through :func:`window_walk_hbm`, the HBM route's
+    wrapper."""
+    if not (resolve or hbm):
+        raise ValueError("resolve=False is the HBM route's capped query: pass hbm=True")
     o, d, active, t_max = _nearest_inputs(o, d, active, t_max)
     pp = window_prepass(lay, prepass)
     if resolve:
         out = (window_walk_hbm(o, d, active, t_max, lay, t_min, pp, tritest, resolve=True)
                if hbm else window_walk_resolve(o, d, active, t_max, lay, t_min, pp, tritest))
         return payload_hit(out, t_max)
-    walk_fn = window_walk_hbm if hbm else window_walk
-    t, row = walk_fn(o, d, active, t_max, lay, t_min, pp, tritest)
+    out = window_walk_hbm(o, d, active, t_max, lay, t_min, pp, tritest, capped=True)
     with span(trace, "resolve"):
-        return resolve_window_payload(lay, t, row, t_max, o, d, resolve)
+        return capped_hit(out, t_max)
 
 
 def _nearest_inputs(o, d, active, t_max):
@@ -1082,11 +1122,12 @@ def make_cuda_intersector(lay: BVHLayout, lay_occl: BVHLayout | None = None,
     for scenes past the table budget): every query takes the window walk on
     ``lay`` through :func:`window_walk_hbm` -- nearest hits as above with
     ``minwalk`` and ``sweep`` giving way, capped queries with ``t_max`` as
-    the best_t seed, the prepass, and the unresolved payload
-    (``resolve=False``) -- and there is no any-hit hook.  ``fn`` takes the
-    frame's trace (render/timing.py:FrameTrace.intersector passes it on this
-    route): each query counts in its ``hbm_walks``, and a capped query's
-    torch resolve runs in its "resolve" span.
+    the best_t seed, the prepass, and the capped epilogue's t, u, v and
+    original id, the rest of the payload unresolved (``resolve=False``) --
+    and there is no any-hit hook.  ``fn`` takes the frame's trace
+    (render/timing.py:FrameTrace.intersector passes it on this route): each
+    query counts in its ``hbm_walks``, and a capped query's HitShade is
+    built in its "resolve" span.
 
     ``fn.fused(o, d, alive, sdir, sok, scap, target) -> (HitShade, clear)``
     is the fused path+shadow walk (cfg.fuse_shadow_walk): one 2N-lane launch

@@ -24,8 +24,8 @@ Spans, one fixed vocabulary (``SPANS``), nested as::
         host_read            ... and the ladder's live count
         sort                 the wavefront sort
         walk_nearest | walk_shadow | walk_fused
-          resolve            on the HBM route, the torch resolve of a
-                             capped query's kernel rows (walk_shadow)
+          resolve            on the HBM route, a capped query's HitShade
+                             from the walk's capped epilogue (walk_shadow)
         uniforms             the bounce's random numbers
         shade                the shading (args: bounce, lanes)
       restore                the raster scatter and the sample sum, and
@@ -121,8 +121,8 @@ class FrameTrace:
         "walk_fused", when present.  An intersector on the HBM route
         (``intersect.hbm``, ops/hopper_traverse.py:make_cuda_intersector)
         sets ``hbm_route`` and gets this trace with each query, which it
-        counts in ``hbm_walks`` and in whose ``resolve`` span it resolves a
-        capped query."""
+        counts in ``hbm_walks`` and in whose ``resolve`` span it builds a
+        capped query's HitShade."""
         kw = {}
         if getattr(intersect, "hbm", False):
             self.hbm_route = 1
