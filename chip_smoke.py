@@ -13,20 +13,21 @@ Phases (any failure raises, so the exit code is not 0):
    and shadow wavefronts (the any-hit walk on the shadow pack of the same
    frame lit by a synthetic 1024x2048 environment map); times both at that
    size and the kernel on the full wavefront, and the capped walk on the
-   full env-lit pack beside the any-hit walk; every form of the redesigned
-   window walk (default, original-id, counting; bw and mt rows) and minwalk
-   against the per-thread yardsticks (csrc/walk_v1.cu) on every lane of the
-   whole camera, bounce-1 and shadow wavefronts (t and row equal, minwalk's
-   12 rows equal); the window walk, the capped walk, minwalk and the sweep
+   full env-lit pack beside the any-hit walk; every form of the window walk
+   (original-id, counting, the payload epilogue; bw and mt rows) against the
+   (t, row) form on every lane of the whole camera, bounce-1 and shadow
+   wavefronts (t and row equal, the epilogue's 12 rows equal to the torch
+   payload rows over them), and minwalk against the MT epilogue form there
+   (t, id, material and light equal); the window walk, the capped walk,
+   minwalk and the sweep
    also get their bound on the whole wavefront (the plain walk run over it in
    chunks under one tally) beside their time there, and the any-hit walk on
    the whole env-lit pack; the capped walk's four rows equal its plain
    version's on every lane; then the edge shapes: 1, 31, 33 and 65,537
    lanes, every lane dead, one live lane a warp, prepass 0 and 32, and the
    leaf-16 and leaf-8 layouts, each form bit-equal to its plain version; the
-   two shadow walks and their per-thread yardsticks the same on the shadow
-   pack's lanes with environment lanes and infinite caps, on leaf 56, 16 and
-   8;
+   two shadow walks the same on the shadow pack's lanes with environment
+   lanes and infinite caps, on leaf 56, 16 and 8;
 4. main path: Renderer("CornellBox-Water-plastic", 1920, 1080), default
    config, 2 warm-up + 3 timed frames; exact traced rays, a per-stage CUDA
    event breakdown, and each kernel's launch count in that run (9 uniforms,
@@ -53,9 +54,10 @@ Phases (any failure raises, so the exit code is not 0):
     walk and its original-id and counting forms, the HBM route's window
     walk (nearest and t_max-capped), and at GRID 256 the MT sweep, each
     against its plain version and timed there and on the full wavefront;
-    every window-walk form (and the HBM route's wrapper) against the
-    per-thread yardstick on every lane of the whole camera, bounce-1 and
-    capped shadow wavefronts, bw and mt; the MT walk's and the HBM route's
+    every window-walk form (and the HBM route's wrapper, with both
+    epilogues) against the (t, row) form on every lane of the whole camera,
+    bounce-1 and capped shadow wavefronts, bw and mt; the MT walk's and the
+    HBM route's
     bounds on the whole wavefronts, and at GRID 256 those of the MT fused
     walk, counting walk and sweep;
 11. terrain path: Renderer(build_scene(terrain), 1920, 1080), default
@@ -81,16 +83,12 @@ Phases (any failure raises, so the exit code is not 0):
     (scripts/experimental_sweep.py) against their plain versions: counts
     and first leaves equal on every lane, t, u, v, row and orig equal; the
     count on the whole bounce-1 wavefront against its plain version on
-    every lane, both layouts, and both kernels' bounds there; then the
-    A/Bs: the first port's count (``sweep_count_v1``, csrc/march_v1.cu) and
-    the redesigned one in turns on the whole bounce-1 wavefronts of
-    Water-plastic (both layouts) and of the GRID 256 terrain (leaf 8: many
-    tiles of boxes), and the first port's targeted kernel
-    (``intersect_sweep1_v1``) and the redesigned one the same on those
-    wavefronts' lanes with at most one candidate, each equal to its
-    yardstick on every lane, ms and share of the bound, and the device time
-    of a call of the targeted kernel (its three launches, queued behind a
-    spin kernel);
+    every lane, both layouts, and both kernels' bounds there; the device
+    time of a call of the targeted kernel on Water-plastic's bounce-1 lanes
+    with at most one candidate (its three launches, queued behind a spin
+    kernel); then the GRID 256 terrain's whole bounce-1 wavefront on its
+    leaf-8 layout (many tiles of boxes): the count equal to its plain
+    version on every lane, both kernels timed beside their bounds;
 15. candidate split at full width: on the whole 2,073,600-lane camera and
     bounce-1 wavefronts of Water-plastic (both layouts) and on the GRID 256
     terrain (65,536 live lanes on both layouts, the whole wavefronts on
@@ -111,37 +109,10 @@ Phases (any failure raises, so the exit code is not 0):
     no plain version may have run on a CUDA tensor;
 17. row-test probe: each of the six variants against its plain version on
     65,536 lanes and, launched on the tool's own inputs at its 1080p lanes,
-    on every 32nd lane; the A/B: the first port's probe
-    (``rowtest_probe_v1``, csrc/march_v1.cu) and the redesigned one in
-    turns on the tool's inputs, every variant, each equal to the
-    yardstick on every lane, ms and share of the bound; then
-    ``scripts/perf_ophit_probe.main()`` with the default flags (1080p
-    lanes, 7112 rows), its ``ROW`` lines echoed;
-18. walk A/B: the redesigned nearest-hit walks against the per-thread
-    yardsticks ``window_walk_v1`` / ``minwalk_v1`` in turns (every version
-    first to last and back, so new and old read new, old, old, new), by CUDA
-    events, on the whole camera, bounce-1 and capped shadow wavefronts of
-    Water-plastic and both terrains, bw and mt, with each step of the design
-    between them through ``window_walk_steps`` (WALK_STEPS: the packed node
-    record alone, the node table staged in shared memory, persistent
-    blocks, other block sizes), every version equal to the yardstick on every lane, ms and share
-    of the whole wavefront's bound for both; the new walk on the leaf-56,
-    leaf-16 and leaf-8 layouts of Water-plastic (a measurement only); the
-    redesigned shadow walks against ``capped_walk_v1`` / ``anyhit_walk_v1``
-    in turns on the whole shadow packs (the main path's pack through the
-    capped walk, the env-lit pack through the any-hit walk and the capped
-    walk, both terrains' packs on their leaf-8 layouts), with the per-lane
-    leaf service (through ``capped_walk_steps`` / ``anyhit_walk_steps``)
-    beside the kept one, every version equal to the yardstick on every
-    lane, ms and share of each pack's bound (the env-lit capped run: ms
-    only); then
-    the main path and the minwalk path on the new kernels and on the
-    yardsticks in turns, 1 warm-up + 3 frames a turn: ms/frame, the
-    walk_nearest span and the frame's device time from torch.profiler; the
-    main path and the env-lit path the same with only the two shadow walks
-    swapped (the walk_shadow span); then the self-golden gate of phase 5
-    once more.  No counted run of another phase may launch a yardstick;
-19. frame modes: the reference's Mitsuba gates (assets/reference/,
+    on every 32nd lane; then ``scripts/perf_ophit_probe.main()`` with the
+    default flags (1080p lanes, 7112 rows), its ``ROW`` lines echoed, each
+    variant's time beside its bound;
+18. frame modes: the reference's Mitsuba gates (assets/reference/,
     cornellbox at depth 2 and 8 and white-box at depth 2; 75x100, 48 spp
     in one frame, fused two samples a wavefront; rel_mse < 0.05, 0.95 <
     mean_ratio < 1.05); at 1080p, depth 8, frame 0 of each mode against
@@ -160,7 +131,7 @@ Phases (any failure raises, so the exit code is not 0):
     profiled a turn): ms per frame and per sample, the walk and sort spans,
     device time and kernels a frame, and the launches a frame and a sample
     of the window and capped walks.
-20. spectral and material path: the user's spectral command,
+19. spectral and material path: the user's spectral command,
     ``cli.main`` at 1920x1080, depth 8, 5 frames with ``--spectrum 16
     --hero 4 --dispersion 0.0042`` (EXR + PNG; the EXR must read back
     finite, (1080, 1920, 3)), launching the window and capped walks and 8
@@ -178,7 +149,7 @@ Phases (any failure raises, so the exit code is not 0):
     ``bench --bake-materials`` with its counting walk; then S = 3, S = 16
     with hero 4 and S = 16 in turns (1 warm-up + 2 timed frames, one
     staged, one profiled a turn);
-21. multi-device: virtual meshes that name ``cuda:0`` more than once
+20. multi-device: virtual meshes that name ``cuda:0`` more than once
     (Water-plastic, 1080p, depth 8): 1x1 (3 frames) bit-equal to
     Renderer() with the same launches a frame, 2x1 bit-equal, 1x2 and 2x2
     at 2 spp within 2e-6 of Renderer() at 2 spp, the env-lit 2x1 mesh
@@ -193,22 +164,22 @@ Phases (any failure raises, so the exit code is not 0):
     1x1``; then no mesh, 1x1 and 2x1 in turns (1 warm-up + 2 timed frames
     and one profiled frame a turn): ms/frame, device ms and kernels a frame,
     walk launches a frame;
-22. the XLA-fused stages as hand kernels: ``uniforms`` (counts 1-10) and
+21. the XLA-fused stages as hand kernels: ``uniforms`` (counts 1-10) and
     ``uniforms_r2`` (counts 4, 6, 10) of csrc/rng.cu against their plain
     versions bit for bit on EDGE_LANES, 0 lanes and the frame's 2,073,600
     ids of a fused sample past 2^31, with frames, salts and bounces that
     wrap; the window walk's payload epilogue (``window_walk_resolve``)
     against its plain version on all 12 rows of 65,536 camera and bounce-1
-    lanes, BW and MT (every lane of the whole wavefronts against the
-    yardstick's walk plus the torch rows: phases 3 and 10, GRID 256 and 724
-    on the HBM route there too); each kernel's time at 65,536 and 2,073,600
+    lanes, BW and MT (every lane of the whole wavefronts against the (t,
+    row) walk plus the torch rows: phases 3 and 10, GRID 256 and 724 on the
+    HBM route there too); each kernel's time at 65,536 and 2,073,600
     lanes beside its bound and its plain version's, the epilogue in turns
     with the window walk alone; then the main path and the env-lit path
     (1080p, depth 8) with the kernels and with the plain versions put back
     (``plain_stages``), in turns: ms/frame, walk_nearest, device ms and
     kernels a frame, every frame bit-equal; and the self-golden gate at the
     default path's rel_mse 1.5807e-8 or better;
-23. the shading and the wavefront sort as hand kernels: ``shade_bounce``
+22. the shading and the wavefront sort as hand kernels: ``shade_bounce``
     (csrc/shade.cu, both forms of the bounce) in its parity, env-lit, hero
     and hero-with-env forms (the main path; the env-lit path; S = 16, hero 4
     and dispersion 0.0042, without and with the env), ``sort_key`` and
@@ -251,9 +222,8 @@ in an FMA's slot, so each counts 2.  Both count what these lanes need,
 from the plain version's walk (ops/traverse.py:Tally): each ray read once,
 each output written once, each distinct node and leaf row the walk read
 moved once (the sweep: every row), the prepass block once; a box test per
-node visit and a row test per row tested (a node is 40 bytes of ``nodes``
-and ``nodes_meta`` for the per-thread yardsticks, the 32 bytes of its
-``nodes_packed`` row for every other walk).  The targeted sweep ends at its
+node visit and a row test per row tested (a node is the 32 bytes of its
+``nodes_packed`` row).  The targeted sweep ends at its
 lowest candidate leaf, so its box tests are the ones up to that leaf (every
 leaf on a lane with no candidate); the count kernel needs every leaf.
 The uniforms move the int64 id in and ``count`` float32 rows out a lane,
@@ -272,7 +242,7 @@ The line before the last is the kernel table as JSON (launches: the run of
 the path that drives each kernel -- the main path for the epilogue form
 (``window_walk_resolve``), the uniforms, the capped walk, the shading and
 the sort's two kernels, the CLI env path for the any-hit walk, the r2 card
-frames of phase 19 for
+frames of phase 18 for
 ``uniforms_r2``, the launch probe's run for ``window_walk`` (the form without
 the epilogue, which no frame path launches: its all-dead lanes), the bench
 runs for the bench's four, the terrain path for the HBM route and, with tritest="mt", for the MT window walk and its
@@ -280,19 +250,18 @@ counting form, the tritest="mt" gates for the MT fused walk and sweep,
 which the terrain's HBM route does not run; the kernel-research tools are on
 no frame's path: ``sweep_count`` and ``sweep1`` count the split runs of phase
 15, ``noop`` the ``perf_launch.main()`` run and ``rowtest_probe`` the
-``perf_ophit_probe.main()`` run, the four per-thread walk yardsticks the
-Water-plastic part of the walk A/B and the three dense-march yardsticks their
-A/Bs of phases 14 and 17, none of them the launches that compare a kernel
-with its plain version or time it; the rows of the probe, the count and
-the targeted kernel carry their ptxas registers and spills per instance
-(``registers``) and their A/B readings (``ab_full_ms``); the epilogue form,
+``perf_ophit_probe.main()`` run, none of them the launches that compare a
+kernel with its plain version or time it; the rows of the probe, the count
+and the targeted kernel carry their ptxas registers and spills per instance
+(``registers``), the count's and the targeted kernel's also their times on
+the terrain's whole bounce-1 wavefront (``terrain_full_ms``); the epilogue form,
 the capped walk, the fused walk, the shading and the sort's two kernels also
 carry ``launches_per_sample_fuse2``, their launches a sample in a 2-spp frame
-at fuse 2, from phase 19, and the epilogue form, the capped and any-hit walks,
+at fuse 2, from phase 18, and the epilogue form, the capped and any-hit walks,
 the shading and the sort's kernels ``launches_per_frame_spectral``, their
-launches a frame on phase 20's spectral CLI path, and
-``launches_per_frame_mesh2x1``, their launches a frame on phase 21's 2x1
-mesh, the any-hit walk's env-lit; the shading's row carries phase 23's
+launches a frame on phase 19's spectral CLI path, and
+``launches_per_frame_mesh2x1``, their launches a frame on phase 20's 2x1
+mesh, the any-hit walk's env-lit; the shading's row carries phase 22's
 turns and its env-lit, hero and hero-with-env forms' readings (``forms``),
 the gather's row ATen's index_select time as ``library_ms``, its sector
 counts and its other plane sets' times); the last line is
@@ -323,19 +292,11 @@ ID_AGREE = 0.9999      # ids equal, or an equal-t tie, on at least this share
 T_RTOL = 1e-6          # t agreement; bit-equal expected under --fmad=false
 PARITY = (1e-3, 0.999, 1.001)  # rel_mse <, mean_ratio in (lo, hi)
 PARITY_FRAMES = 16
-WALK_YARDSTICKS = ("window_walk_v1", "minwalk_v1", "capped_walk_v1", "anyhit_walk_v1")
-MARCH_YARDSTICKS = ("rowtest_probe_v1", "sweep_count_v1", "sweep1_v1")
 KERNELS = ("window_walk", "capped_walk", "anyhit_walk", "minwalk", "sweep",
            "window_walk_orig", "window_walk_counts", "window_walk_hbm",
            "sweep_count", "sweep1", "noop", "rowtest_probe",
            "window_walk_resolve", "uniforms", "uniforms_r2",
-           "shade_bounce", "sort_key", "gather_planes",
-           *WALK_YARDSTICKS, *MARCH_YARDSTICKS,
-           "window_walk_steps", "capped_walk_steps", "anyhit_walk_steps")
-# the yardsticks of the A/Bs (phases 14, 17 and 18): no counted run of another
-# phase may launch them; the first port's kernels get rows of the kernel table
-YARDSTICKS = (*WALK_YARDSTICKS, *MARCH_YARDSTICKS, "window_walk_steps",
-              "capped_walk_steps", "anyhit_walk_steps")
+           "shade_bounce", "sort_key", "gather_planes")
 # the frame paths' nearest-hit wrapper (the window walk with its payload
 # epilogue), and the kernels of the main path's frame: nearest hits, shadow
 # rays, uniforms, the shading, the sort's key and gather
@@ -349,11 +310,6 @@ KERNEL_HOMES = {
     "sweep1": ("scripts.experimental_sweep", "intersect_sweep1", "intersect_sweep1_plain"),
     "noop": ("scripts.perf_launch", "noop", "noop_plain"),
     "rowtest_probe": ("scripts.perf_ophit_probe", "rowtest_probe", "rowtest_probe_plain"),
-    "rowtest_probe_v1": ("scripts.perf_ophit_probe", "rowtest_probe_v1",
-                         "rowtest_probe_plain"),
-    "sweep_count_v1": ("scripts.experimental_sweep", "sweep_count_v1", "sweep_count_plain"),
-    "sweep1_v1": ("scripts.experimental_sweep", "intersect_sweep1_v1",
-                  "intersect_sweep1_plain"),
     "uniforms": ("ops.rng", "uniforms", "uniforms_plain"),
     "uniforms_r2": ("ops.rng", "uniforms_r2", "uniforms_r2_plain"),
     "shade_bounce": ("ops.shade", "shade_bounce", "shade_bounce_plain"),
@@ -379,19 +335,7 @@ OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max, 3 compares
 OPS_ROW = {"bw": 38, "mt": 52}  # a Baldwin-Weber / Moller-Trumbore row test
 FULL_STRIDE = 32  # the row-test probe's full-width check holds every 32nd lane
 FULL_CHUNK = 524288  # lanes a plain walk takes at once when it prices a whole wavefront
-PACKED_NODE_BYTES = 32  # a node of the redesigned walks: one nodes_packed row
-# the steps of the nearest-hit walk's design that window_walk does not launch,
-# as window_walk_steps takes them (window_walk itself: stage=False, coop=True,
-# persist=False, threads=128)
-WALK_STEPS = {
-    "packed": dict(stage=False, coop=False, persist=False, threads=128),
-    "staged": dict(stage=True, coop=True, persist=False, threads=128),
-    "persistent": dict(stage=False, coop=True, persist=True, threads=512),
-    "persistent+staged": dict(stage=True, coop=True, persist=True, threads=512),
-    "64 threads": dict(stage=False, coop=True, persist=False, threads=64),
-    "256 threads": dict(stage=False, coop=True, persist=False, threads=256),
-}
-SHARED_LIMIT = 232448  # bytes of shared memory a block may ask for on an H100
+PACKED_NODE_BYTES = 32  # a node of the walks: one nodes_packed row
 EDGE_LANES = (1, 31, 33, 65537)
 LAUNCH_ROUNDS = 10  # rounds of turns of the no-op against zeros + copy_
 OPS_LEAF_BOX = OPS_BOX + 1  # a candidate sweep's box test and its first-leaf min
@@ -603,20 +547,17 @@ def row_bytes(table) -> int:
 RAY_BYTES = 12 + 12 + 1 + 4  # o, d, active, t_max (or cap) of one lane
 
 
-def walk_bound(lanes: int, in_bytes_per_lane: int, out_bytes_per_lane: int, lay,
-               rows, work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0,
-               node_bytes: int | None = None, lane_ops: int = 0) -> dict:
+def walk_bound(lanes: int, in_bytes_per_lane: int, out_bytes_per_lane: int, rows,
+               work: Work, row_ops: int, pre_rows=None, pre_tests: int = 0,
+               lane_ops: int = 0) -> dict:
     """A walk's bound on these lanes: rays and outputs moved once, each
-    distinct node (``nodes`` + ``nodes_meta``, or ``node_bytes`` for a walk
-    that reads the packed table) and leaf row of ``rows`` the walk read moved
-    once, and the ``pre_rows`` prepass block (tested ``pre_tests`` times); a
-    box test per node visit, a row test per row tested and ``lane_ops``
-    operations a lane."""
-    if node_bytes is None:
-        node_bytes = row_bytes(lay.nodes) + row_bytes(lay.nodes_meta)
+    distinct node (a ``nodes_packed`` row) and leaf row of ``rows`` the walk
+    read moved once, and the ``pre_rows`` prepass block (tested
+    ``pre_tests`` times); a box test per node visit, a row test per row
+    tested and ``lane_ops`` operations a lane."""
     pre = 0 if pre_rows is None else pre_rows.numel() * pre_rows.element_size()
-    return bound(lanes * (in_bytes_per_lane + out_bytes_per_lane) + work.nodes * node_bytes
-                 + work.rows * row_bytes(rows) + pre,
+    return bound(lanes * (in_bytes_per_lane + out_bytes_per_lane)
+                 + work.nodes * PACKED_NODE_BYTES + work.rows * row_bytes(rows) + pre,
                  work.visits * OPS_BOX + (work.tests + pre_tests) * row_ops
                  + lanes * lane_ops)
 
@@ -626,29 +567,24 @@ def window_bound(lay, act, work: Work, prepass: int, tritest: str, out_ints: int
     the first ``prepass`` rows of the prepass block; outputs t plus
     ``out_ints`` int32 rows."""
     rows, pre = (lay.tris8, lay.prepass) if tritest == "mt" else (lay.tris8bw, lay.prepassbw)
-    return walk_bound(act.shape[0], RAY_BYTES, 4 + 4 * out_ints, lay, rows, work,
-                      OPS_ROW[tritest], pre[:prepass], int(act.sum()) * prepass,
-                      node_bytes=PACKED_NODE_BYTES)
+    return walk_bound(act.shape[0], RAY_BYTES, 4 + 4 * out_ints, rows, work,
+                      OPS_ROW[tritest], pre[:prepass], int(act.sum()) * prepass)
 
 
 def minwalk_bound(lay, act, work: Work, prepass: int) -> dict:
     """Minwalk's bound on these lanes: the MT window walk's work on
     ``lay.tris``, 12 float32 output rows."""
-    return walk_bound(act.shape[0], RAY_BYTES, 48, lay, lay.tris, work, OPS_ROW["mt"],
-                      lay.prepass[:prepass], int(act.sum()) * prepass,
-                      node_bytes=PACKED_NODE_BYTES)
+    return walk_bound(act.shape[0], RAY_BYTES, 48, lay.tris, work, OPS_ROW["mt"],
+                      lay.prepass[:prepass], int(act.sum()) * prepass)
 
 
-def shadow_bound(lanes: int, walk: str, lay, work: Work, per_thread: bool = False) -> dict:
+def shadow_bound(lanes: int, walk: str, lay, work: Work) -> dict:
     """A shadow walk's bound on these lanes: o, d, active and the cap in
     (and the int32 target for the any-hit walk); 4 float32 rows (capped) or
-    one byte (any-hit) out; the MT rows of ``lay.tris``; each node a
-    ``nodes_packed`` row, or ``nodes`` + ``nodes_meta`` for the per-thread
-    yardsticks."""
+    one byte (any-hit) out; the MT rows of ``lay.tris``."""
     anyhit = walk == "anyhit"
-    return walk_bound(lanes, RAY_BYTES + 4 * anyhit, 1 if anyhit else 16, lay, lay.tris,
-                      work, OPS_ROW["mt"],
-                      node_bytes=None if per_thread else PACKED_NODE_BYTES)
+    return walk_bound(lanes, RAY_BYTES + 4 * anyhit, 1 if anyhit else 16, lay.tris, work,
+                      OPS_ROW["mt"])
 
 
 def full_work(fn, lanes, *rest, **kw) -> Work:
@@ -684,22 +620,20 @@ def equal_on_every_lane(what: str, got, want) -> None:
                                  f"{int((a != b).sum())} lanes")
 
 
-def forms_equal_v1(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
-                   hbm: bool = False) -> None:
-    """Every form of the redesigned window walk against the per-thread
-    yardstick on a whole wavefront: t and row equal on every lane (both are
-    exact)."""
+def forms_equal(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
+                hbm: bool = False) -> None:
+    """Every form of the window walk against its (t, row) form on a whole
+    wavefront: t and row equal on every lane, the payload epilogue's 12 rows
+    equal to the torch payload rows over that walk (window_payload_rows), and
+    with ``hbm`` the HBM route's wrapper in each form, its capped epilogue's
+    4 rows equal to window_capped_rows."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
-    want = ht.window_walk_v1(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
-    forms = ("window_walk", "window_walk_orig", "window_walk_counts") + (
-        ("window_walk_hbm",) if hbm else ())
+    want = ht.window_walk(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
+    forms = ("window_walk_orig", "window_walk_counts") + (("window_walk_hbm",) if hbm else ())
     for form in forms:
         got = getattr(ht, form)(o, d, act, t_max, lay, prepass=prepass, tritest=tritest)
-        equal_on_every_lane(f"{form} vs window_walk_v1, {label}", got[:2], want)
-    # the payload epilogue: its 12 rows against the yardstick's (t, row)
-    # resolved by the torch payload rows, which window_walk_resolve_plain adds
-    # to the plain walk
+        equal_on_every_lane(f"{form} vs window_walk, {label}", got[:2], want)
     rows = ht.window_payload_rows(lay, *want, t_max, o, d)
     resolved = {NEAREST: ht.window_walk_resolve(o, d, act, t_max, lay, prepass=prepass,
                                                 tritest=tritest)}
@@ -707,24 +641,22 @@ def forms_equal_v1(label: str, lay, o, d, act, t_max, prepass: int, tritest: str
         resolved["window_walk_hbm(resolve=True)"] = ht.window_walk_hbm(
             o, d, act, t_max, lay, prepass=prepass, tritest=tritest, resolve=True)
     for form, got in resolved.items():
-        equal_on_every_lane(f"{form} vs window_walk_v1 + window_payload_rows, {label}",
+        equal_on_every_lane(f"{form} vs window_walk + window_payload_rows, {label}",
                             got, rows)
     capped = ""
     if hbm:
-        # the capped epilogue: its 4 rows against the yardstick's resolved by
-        # window_capped_rows
         equal_on_every_lane(
-            f"window_walk_hbm(capped=True) vs window_walk_v1 + window_capped_rows, {label}",
+            f"window_walk_hbm(capped=True) vs window_walk + window_capped_rows, {label}",
             ht.window_walk_hbm(o, d, act, t_max, lay, prepass=prepass, tritest=tritest,
                                capped=True),
             ht.window_capped_rows(lay, *want, t_max, o, d))
-        capped = ("; window_walk_hbm(capped=True): all 4 rows == window_walk_v1 + "
+        capped = ("; window_walk_hbm(capped=True): all 4 rows == window_walk + "
                   "window_capped_rows")
     torch.cuda.synchronize()
     query = "capped" if bool(torch.isfinite(t_max).any()) else "nearest"
-    log(f"  {', '.join(forms)} == window_walk_v1 on all {o.shape[1]} lanes of {label} "
+    log(f"  {', '.join(forms)} == window_walk on all {o.shape[1]} lanes of {label} "
         f"({tritest}, {int(act.sum())} live, {query}); {', '.join(resolved)}: all 12 "
-        f"rows == window_walk_v1 + window_payload_rows{capped}")
+        f"rows == window_walk + window_payload_rows{capped}")
 
 
 def sweep_bound(lay, act, tritest: str) -> dict:
@@ -732,7 +664,7 @@ def sweep_bound(lay, act, tritest: str) -> dict:
     row moved once; outputs t and row."""
     rows = lay.tris8 if tritest == "mt" else lay.tris8bw
     work = Work(0, int(act.sum()) * lay.num_tris, 0, lay.num_tris)
-    return walk_bound(act.shape[0], RAY_BYTES, 8, lay, rows, work, OPS_ROW[tritest])
+    return walk_bound(act.shape[0], RAY_BYTES, 8, rows, work, OPS_ROW[tritest])
 
 
 def kernel_entry(name: str, source: str, line, err: float, ms: float,
@@ -786,13 +718,13 @@ def phase_kernels(renderer) -> tuple[list[dict], Priced]:
     log(f"  window_walk at {SAMPLE_LANES} bounce-1 lanes: kernel {ms_a:.3f} ms, "
         f"plain {plain_a:.3f} ms; full camera wavefront ({o.shape[1]} lanes): "
         f"{full_a:.3f} ms")
-    # every form against the per-thread yardstick on the whole wavefronts,
-    # nearest and capped, both row layouts
+    # every form against the (t, row) form on the whole wavefronts, nearest
+    # and capped, both row layouts
     so, sd, sok, scap, _ = waves["shadow"]
     for tritest in ("bw", "mt"):
         for which in ("camera", "bounce1"):
-            forms_equal_v1(f"{SCENE} {which}", lay, *waves[which], full_t, prepass, tritest)
-        forms_equal_v1(f"{SCENE} shadow pack", lay, so, sd, sok, scap, prepass, tritest)
+            forms_equal(f"{SCENE} {which}", lay, *waves[which], full_t, prepass, tritest)
+        forms_equal(f"{SCENE} shadow pack", lay, so, sd, sok, scap, prepass, tritest)
     priced = {w: full_work(ht.window_walk_plain, (*waves[w], full_t), lay, prepass=prepass)
               for w in ("camera", "bounce1")}
     full_extra = at_full_width("window_walk", "camera wavefront", full_a,
@@ -930,10 +862,15 @@ def phase_bench_kernels(renderer, priced: Priced) -> list[dict]:
         f"{full_a['bounce1']:.3f} ms (window walk on full bounce-1: {win_b1:.3f} ms)")
     min_extra = {}
     for w, what in (("bounce1", "bounce-1 wavefront"), ("camera", "camera wavefront")):
+        # the same walk as the MT epilogue form's on the same prepass: the rows
+        # the winner alone sets (t, id, material, light+1) equal; u and v
+        # differ in the epilogue's clamp
+        rows = [0, 3, 4, 5]
         equal_on_every_lane(
-            f"minwalk vs minwalk_v1, {w}",
-            (ht.minwalk(*waves[w], inf[w], lay, prepass=pp_min),),
-            (ht.minwalk_v1(*waves[w], inf[w], lay, prepass=pp_min),))
+            f"minwalk vs {NEAREST} (mt), {w}",
+            ht.minwalk(*waves[w], inf[w], lay, prepass=pp_min)[rows],
+            ht.window_walk_resolve(*waves[w], inf[w], lay, prepass=pp_min,
+                                   tritest="mt")[rows])
         extra = at_full_width(
             "minwalk", what, full_a[w],
             minwalk_bound(lay, waves[w][2],
@@ -941,8 +878,8 @@ def phase_bench_kernels(renderer, priced: Priced) -> list[dict]:
                                     prepass=pp_min), pp_min))
         min_extra.update(extra if w == "bounce1" else
                          {f"{k}_camera": v for k, v in extra.items()})
-    log(f"  minwalk == minwalk_v1 (all 12 rows) on every lane of the full camera and "
-        f"bounce-1 wavefronts")
+    log(f"  minwalk == {NEAREST} (mt) on t, id, material and light of every lane of the "
+        f"full camera and bounce-1 wavefronts")
 
     # kernel b: the sweep on bounce-1 lanes
     o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen)
@@ -1205,13 +1142,13 @@ def phase_terrain_kernels(renderer, grid: int) -> dict[str, dict]:
                                                            renderer.layout_occl)),
         capped_epilogue_full_ms=min(pack["capped"]))
 
-    # every form against the per-thread yardstick on the whole wavefronts, and
-    # the bounds of kernels 5 and 6 there
+    # every form against the (t, row) form on the whole wavefronts, and the
+    # bounds of kernels 5 and 6 there
     for tritest in ("bw", "mt"):
         for which in ("camera", "bounce1"):
-            forms_equal_v1(f"{which} ({tag})", lay, *waves[which], inf[which], pp, tritest,
-                           hbm=True)
-        forms_equal_v1(f"shadow pack ({tag})", lay, so, sd, sok, scap, pp, tritest, hbm=True)
+            forms_equal(f"{which} ({tag})", lay, *waves[which], inf[which], pp, tritest,
+                        hbm=True)
+        forms_equal(f"shadow pack ({tag})", lay, so, sd, sok, scap, pp, tritest, hbm=True)
     mt = out["window_walk_mt"]
     b1_work = full_work(ht.window_walk_plain, (*waves["bounce1"], inf["bounce1"]), lay,
                         prepass=pp, tritest="mt")
@@ -1289,17 +1226,16 @@ def kernel_home(name: str):
 
 
 @contextlib.contextmanager
-def counted_run(yardsticks: bool = False):
+def counted_run():
     """Zero every kernel's launch counts and count plain-version calls on
     CUDA tensors for the run inside; yields {"launches": ..., "launches_mt":
     ..., "launches_resolve": ..., "launches_capped": ..., "plain_cuda": ...},
     filled in when the run ends ("launches_mt": the Moller-Trumbore form's
     launches of the wrappers that take tritest; "launches_resolve" and
     "launches_capped": the payload and capped epilogue forms' launches of
-    window_walk_hbm).  Unless ``yardsticks``, a run that launched one of
-    YARDSTICKS fails: only the walk A/B may."""
+    window_walk_hbm)."""
     where = {k: kernel_home(k) for k in KERNELS}  # kernel -> (module, wrapper, plain)
-    plains = {(mod, plain) for mod, _, plain in where.values()}  # a yardstick shares one
+    plains = {(mod, plain) for mod, _, plain in where.values()}
     plain_cuda = {plain: 0 for _, plain in plains}
 
     def on_cuda(a) -> bool:
@@ -1337,9 +1273,6 @@ def counted_run(yardsticks: bool = False):
             out[c] = {k: getattr(fns[k], c) for k in ks}
         for (mod, plain), fn in saved.items():
             setattr(mod, plain, fn)
-    used = {k: out["launches"][k] for k in YARDSTICKS if out["launches"][k]}
-    if used and not yardsticks:
-        raise AssertionError(f"a yardstick kernel ran outside the walk A/B: {used}")
 
 
 def timed_frames(renderer, timed: int = 3) -> tuple[float, dict]:
@@ -2546,8 +2479,7 @@ def phase_edge_shapes(renderer) -> None:
     wrong, each against its plain version, bit for bit: lane counts around a
     warp (EDGE_LANES), every lane dead, one live lane a warp, prepass 0 and
     32, and the leaf-8 and leaf-16 layouts of the same scene; the shadow
-    walks (and their per-thread yardsticks, which no counted run sees here)
-    also with environment lanes and infinite caps."""
+    walks also with environment lanes and infinite caps."""
     from tpu_pathtracer_torch.accel import build_layout
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
 
@@ -2633,21 +2565,16 @@ def phase_edge_shapes(renderer) -> None:
                     want = ht.capped_walk_plain(o, d, live, c, lay)
                     equal_on_every_lane(f"{what}: capped_walk vs plain",
                                         (ht.capped_walk(o, d, live, c, lay),), (want,))
-                    equal_on_every_lane(f"{what}: capped_walk_v1 vs plain",
-                                        (ht.capped_walk_v1(o, d, live, c, lay),), (want,))
                     want = ht.anyhit_walk_plain(o, d, live, c, tgt, lay, eps)
                     equal_on_every_lane(f"{what}: anyhit_walk vs plain",
                                         (ht.anyhit_walk(o, d, live, c, tgt, lay, eps),),
-                                        (want,))
-                    equal_on_every_lane(f"{what}: anyhit_walk_v1 vs plain",
-                                        (ht.anyhit_walk_v1(o, d, live, c, tgt, lay, eps),),
                                         (want,))
                     cases += 1
     torch.cuda.synchronize()
     log(f"edge shapes, shadow walks: {cases} cases (lanes {EDGE_LANES}; live, all dead and "
         f"one live lane a warp; NEE caps with every fifth lane an environment lane, and "
-        f"infinite caps; leaf 56, 16 and 8): the capped and any-hit walks and their "
-        f"per-thread yardsticks bit-equal to their plain versions")
+        f"infinite caps; leaf 56, 16 and 8): the capped and any-hit walks bit-equal to "
+        f"their plain versions")
 
 
 def turns(fns: dict, iters: int = 5, rounds: int = 1) -> dict:
@@ -2661,138 +2588,6 @@ def turns(fns: dict, iters: int = 5, rounds: int = 1) -> dict:
     return out
 
 
-def walk_ab(label: str, lay, o, d, act, t_max, prepass: int, tritest: str,
-            steps: bool = True, work: Work | None = None) -> dict:
-    """The redesigned window walk against the per-thread yardstick on one
-    whole wavefront, in turns, with each step of the design between them
-    (those the layout allows: a node table past SHARED_LIMIT cannot be
-    staged); every version's t and row must equal the yardstick's.  With
-    ``steps``, the shares of the wavefront's bound, from ``work`` (the plain
-    walk's; walked here when None).  Returns {version: [ms, ms]}."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
-    args = (o, d, act, t_max, lay)
-    fns = {"v1": lambda: ht.window_walk_v1(*args, prepass=prepass, tritest=tritest)}
-    if steps:
-        fits = lay.num_nodes * PACKED_NODE_BYTES <= SHARED_LIMIT
-        for name, kw in WALK_STEPS.items():
-            if fits or not kw["stage"]:
-                fns[name] = (lambda kw=kw: ht.window_walk_steps(
-                    *args, prepass=prepass, tritest=tritest, **kw))
-    fns["new"] = lambda: ht.window_walk(*args, prepass=prepass, tritest=tritest)
-    want = fns["v1"]()
-    for name, fn in fns.items():
-        equal_on_every_lane(f"walk A/B {label}: {name} vs v1", fn(), want)
-    ms = turns(fns)
-    new, old = min(ms["new"]), min(ms["v1"])
-    line = (f"  A/B {label} ({tritest}, {o.shape[1]} lanes, {int(act.sum())} live), ms in "
-            "turns: " + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in ms.items())
-            + f"; v1/new {old / new:.2f}x")
-    if steps:  # the whole wavefront's bound (the leaf-size runs go without)
-        if work is None:
-            work = full_work(ht.window_walk_plain, (o, d, act, t_max), lay,
-                             prepass=prepass, tritest=tritest)
-        bnd = window_bound(lay, act, work, prepass, tritest, 1)
-        line += (f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): new "
-                 f"{100 * bnd['bound_ms'] / new:.2f}%, v1 {100 * bnd['bound_ms'] / old:.2f}% "
-                 "of bound")
-    log(line)
-    return ms
-
-
-def shadow_ab(label: str, walk: str, lay, pack, eps: float, work: Work | None = None,
-              price: bool = True) -> dict:
-    """A redesigned shadow walk (``walk`` "capped" or "anyhit") against its
-    per-thread yardstick on one whole shadow pack (o, d, ok, cap, target), in
-    turns: the yardstick, the per-lane leaf service only and the kept walk
-    (leaves served over the warp where that takes fewer slots); every
-    version must equal the yardstick on every lane.  Prints the ms and, with
-    ``price``, each one's share of the pack's bound from ``work`` (the plain
-    walk's on this pack; walked here when None; the new kernels read
-    ``nodes_packed``, the yardstick's share is of its own bound, 40-byte
-    nodes) -> {version: [ms, ms]}."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
-    o, d, ok, cap, tgt = pack
-    if walk == "capped":
-        args, extra, plain = (o, d, ok, cap, lay), (), ht.capped_walk_plain
-        v1, steps, new = ht.capped_walk_v1, ht.capped_walk_steps, ht.capped_walk
-    else:
-        args, extra, plain = (o, d, ok, cap, tgt, lay, eps), (eps,), ht.anyhit_walk_plain
-        v1, steps, new = ht.anyhit_walk_v1, ht.anyhit_walk_steps, ht.anyhit_walk
-    fns = {"v1": lambda: v1(*args), "per-lane": lambda: steps(*args, coop=False),
-           "new": lambda: new(*args)}
-    want = fns["v1"]()
-    for name, fn in fns.items():
-        equal_on_every_lane(f"shadow A/B {label}: {name} vs v1", (fn(),), (want,))
-    ms = turns(fns)
-    best = {k: min(v) for k, v in ms.items()}
-    line = (f"  A/B shadow {label} ({walk}, leaf {lay.max_leaf}, {o.shape[1]} lanes, "
-            f"{int(ok.sum())} live), ms in turns: "
-            + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in ms.items())
-            + f"; v1/new {best['v1'] / best['new']:.2f}x")
-    if price:
-        if work is None:
-            lanes = (o, d, ok, cap) if walk == "capped" else (o, d, ok, cap, tgt)
-            work = full_work(plain, lanes, lay, *extra)
-        bnd = shadow_bound(o.shape[1], walk, lay, work)
-        bnd_v1 = shadow_bound(o.shape[1], walk, lay, work, per_thread=True)
-        line += (f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}): "
-                 + ", ".join(f"{k} {100 * bnd['bound_ms'] / v:.2f}%" for k, v in best.items()
-                             if k != "v1")
-                 + f"; v1 {100 * bnd_v1['bound_ms'] / best['v1']:.2f}% of its bound "
-                 f"{bnd_v1['bound_ms']:.4f} ms")
-    log(line)
-    return ms
-
-
-def torch_resolved(walk):
-    """``window_walk_resolve``'s signature on a window walk that returns (t,
-    row) followed by the torch payload rows (``window_payload_rows``): the
-    epilogue form with its epilogue put back in torch."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
-    def fn(o, d, active, t_max, lay, t_min=0.0, prepass=ht.DEFAULT_PREPASS,
-           tritest="bw"):
-        t, row = walk(o, d, active, t_max, lay, t_min, prepass, tritest)
-        return ht.window_payload_rows(lay, t, row, t_max, o, d)
-
-    return fn
-
-
-@contextlib.contextmanager
-def per_thread_walks():
-    """The frame paths on the per-thread yardsticks for the run inside: the
-    wrappers ``window_walk_resolve`` and ``minwalk`` of ops/hopper_traverse.py
-    stand aside for ``window_walk_v1`` with the torch payload rows
-    (``window_payload_rows``: the yardstick has no epilogue) and
-    ``minwalk_v1`` (the default forms only: the A/B frames use no other)."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
-    saved = ht.window_walk_resolve, ht.minwalk
-    ht.window_walk_resolve = torch_resolved(ht.window_walk_v1)
-    ht.minwalk = ht.minwalk_v1
-    try:
-        yield
-    finally:
-        ht.window_walk_resolve, ht.minwalk = saved
-
-
-@contextlib.contextmanager
-def per_thread_shadow_walks():
-    """The frame paths with only the two shadow walks on their per-thread
-    yardsticks for the run inside: ``capped_walk`` and ``anyhit_walk`` stand
-    aside for ``capped_walk_v1`` and ``anyhit_walk_v1``."""
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-
-    saved = ht.capped_walk, ht.anyhit_walk
-    ht.capped_walk, ht.anyhit_walk = ht.capped_walk_v1, ht.anyhit_walk_v1
-    try:
-        yield
-    finally:
-        ht.capped_walk, ht.anyhit_walk = saved
-
-
 def device_ms(renderer, tmp: str) -> tuple[float, int]:
     """One frame under torch.profiler -> (device kernel ms, kernels), (nan,
     0) when the trace holds no device kernels."""
@@ -2800,152 +2595,6 @@ def device_ms(renderer, tmp: str) -> tuple[float, int]:
     with open(os.path.join(tmp, "trace.json")) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     return (sum(e["dur"] for e in events) / 1e3 if events else float("nan")), len(events)
-
-
-def frame_ab(label: str, tmp: str, scene=SCENE, swap=per_thread_walks,
-             span: str = "walk_nearest", walks=None, **kw) -> None:
-    """A frame path on the redesigned walks and, with ``swap``, on the
-    per-thread yardsticks in turns (new, v1, v1, new): 1 warm-up + 3 frames
-    a turn by the host clock, then the ``span`` of one staged frame and the
-    device time of one profiled frame.  ``walks``: {walk: its yardstick}
-    (the nearest-hit walks by default); a new turn must launch some of the
-    walks and none of their yardsticks, a v1 turn the reverse."""
-    from tpu_pathtracer_torch import Renderer, RenderConfig
-
-    walks = walks or {NEAREST: "window_walk_v1", "minwalk": "minwalk_v1"}
-    r = Renderer(scene, WIDTH, HEIGHT, RenderConfig(**kw))
-    rows = []
-    for which in ("new", "v1", "v1", "new"):
-        with counted_run(yardsticks=True) as run, (
-                swap() if which == "v1" else contextlib.nullcontext()):
-            r.run(1)
-            t0 = time.perf_counter()
-            r.run(3)
-            ms = (time.perf_counter() - t0) / 3 * 1e3
-            span_ms = staged_frame(r).get(span, float("nan"))
-            dev, count = device_ms(r, os.path.join(tmp, f"turn{len(rows)}"))
-        ran = {k: run["launches"][k] for k in walks}
-        ran_v1 = {k: run["launches"][k] for k in walks.values()}
-        if not any((ran_v1 if which == "v1" else ran).values()) or any(
-                (ran if which == "v1" else ran_v1).values()):
-            raise AssertionError(f"frame A/B {label}, {which} turn: launches {ran}, {ran_v1}")
-        rows.append(f"{which}: {ms:.2f} ms/frame, {span} {span_ms:.2f} ms, device "
-                    f"{dev:.2f} ms in {count} kernels")
-    log(f"frame A/B, {label} ({WIDTH}x{HEIGHT}, depth 8, 1 warm-up + 3 frames a turn): "
-        + "; ".join(rows))
-
-
-def phase_walk_ab(renderer, terrains: dict, smi: str,
-                  priced: Priced) -> tuple[list[dict], dict]:
-    """Phase 18: the redesigned nearest-hit and shadow walks against the
-    per-thread yardsticks inside one run, on phase 3's wavefronts and their
-    work (``priced``) -> (the yardsticks' rows of the kernel table, their
-    launches here)."""
-    from tpu_pathtracer_torch.accel import build_layout
-    from tpu_pathtracer_torch.ops import hopper_traverse as ht
-    from tpu_pathtracer_torch.scene import attach_env
-
-    log(f"walk A/B on {smi}")
-    lay, occl, cfg = renderer.layout, renderer.layout_occl, renderer.cfg
-    eps = cfg.distance_epsilon
-    waves, work = priced
-    env_scene = attach_env(renderer.scene, sky_map())
-    env_pack = waves["env_shadow"]
-    pp = ht.window_prepass(lay, cfg.traversal_prepass)
-    pm = min(cfg.traversal_prepass, lay.prepass.shape[0], lay.num_tris)
-    inf = torch.full_like(waves["camera"][0][0], torch.inf)
-    so, sd, sok, scap, _ = waves["shadow"]
-    with counted_run(yardsticks=True) as run:
-        # the shadow walks on the two frame paths' whole shadow packs (leaf-8
-        # layout); the env-lit pack also through the capped walk, its bound
-        # not priced
-        env = f"{SCENE} env-lit shadow pack"
-        shadow_ms = {
-            "capped": shadow_ab(f"{SCENE} shadow pack", "capped", occl, waves["shadow"], eps,
-                                work["shadow"]),
-            "anyhit": shadow_ab(env, "anyhit", occl, env_pack, eps, work["env_shadow"]),
-        }
-        shadow_ab(env, "capped", occl, env_pack, eps, price=False)
-        ab = {}
-        for tritest in ("bw", "mt"):
-            for which in ("camera", "bounce1"):
-                ab[which, tritest] = walk_ab(f"{SCENE} {which}", lay, *waves[which], inf,
-                                             pp, tritest,
-                                             work=work[which] if tritest == "bw" else None)
-        walk_ab(f"{SCENE} shadow pack, capped", lay, so, sd, sok, scap, pp, "bw")
-        min_ms = {}
-        for which in ("camera", "bounce1"):
-            args = (*waves[which], inf, lay)
-            min_ms[which] = turns({"new": lambda: ht.minwalk(*args, prepass=pm),
-                                   "v1": lambda: ht.minwalk_v1(*args, prepass=pm)})
-            log(f"  A/B minwalk {SCENE} {which}, ms in turns: "
-                + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in min_ms[which].items()))
-        # a measurement only: the cooperative walk on smaller leaves
-        for leaf in (56, 16, 8):
-            walk_ab(f"{SCENE} bounce1, leaf-{leaf} layout",
-                    lay if leaf == 56 else build_layout(renderer.scene, leaf),
-                    *waves["bounce1"], inf, pp, "bw", steps=False)
-    for grid, scene in terrains.items():
-        r = terrain_renderer(scene)
-        tw = wavefronts(r.scene, r.layout, r.layout_occl, r.cfg)
-        tpp = ht.window_prepass(r.layout, r.cfg.traversal_prepass)
-        so, sd, sok, scap, _ = tw["shadow"]
-        for tritest in ("bw", "mt"):
-            for which in ("camera", "bounce1"):
-                walk_ab(f"terrain grid {grid} {which}", r.layout, *tw[which], inf, tpp,
-                        tritest)
-        walk_ab(f"terrain grid {grid} shadow pack, capped", r.layout, so, sd, sok, scap,
-                tpp, "bw")
-        shadow_ab(f"terrain grid {grid} shadow pack", "capped", r.layout_occl, tw["shadow"],
-                  r.cfg.distance_epsilon)
-        del r, tw
-    with tempfile.TemporaryDirectory() as tmp:
-        frame_ab("main path", tmp)
-        frame_ab("minwalk path", tmp, traversal_kernel="minwalk")
-        shadow = dict(swap=per_thread_shadow_walks, span="walk_shadow",
-                      walks={"capped_walk": "capped_walk_v1",
-                             "anyhit_walk": "anyhit_walk_v1"})
-        frame_ab("main path, shadow walks", tmp, **shadow)
-        frame_ab("env-lit path, shadow walks", tmp, scene=env_scene, **shadow)
-    phase_parity()
-
-    # the yardsticks' rows: the numbers of the kernels they are held against
-    # (same inputs, same plain version), their own times
-    v1 = ab["bounce1", "bw"]
-    m1 = min_ms["bounce1"]
-    gen = torch.Generator().manual_seed(1234)
-    o, d, act = draw(waves["bounce1"], SAMPLE_LANES, gen)
-    t_max = torch.full_like(o[0], torch.inf)
-    rows = []
-    for name, fn, plain, prepass, full, line, bound_fn in (
-            ("window_walk_v1", ht.window_walk_v1, ht.window_walk_v1_plain, pp, v1["v1"],
-             698, lambda w: window_bound(lay, act, w, pp, "bw", 1)),
-            ("minwalk_v1", ht.minwalk_v1, ht.minwalk_v1_plain, pm, m1["v1"], 106,
-             lambda w: minwalk_bound(lay, act, w, pm))):
-        got = fn(o, d, act, t_max, lay, prepass=prepass)
-        want, work = plain_work(plain, o, d, act, t_max, lay, prepass=prepass)
-        got, want = (got, want) if name == "window_walk_v1" else ((got[:6],), (want[:6],))
-        equal_on_every_lane(f"{name} vs its plain version", got, want)
-        rows.append(kernel_entry(
-            name, "walk_v1.cu", line, 0.0,
-            cuda_ms(lambda: fn(o, d, act, t_max, lay, prepass=prepass)),
-            cuda_ms(lambda: plain(o, d, act, t_max, lay, prepass=prepass), iters=1),
-            min(full), bound_fn(work), yardstick_of=name[:-3]))
-    for name, fn, plain, pack, walk, line, extra in (
-            ("capped_walk_v1", ht.capped_walk_v1, ht.capped_walk_v1_plain,
-             draw(waves["shadow"], SAMPLE_LANES, gen)[:4], "capped", 106, ()),
-            ("anyhit_walk_v1", ht.anyhit_walk_v1, ht.anyhit_walk_v1_plain,
-             draw(env_pack, SAMPLE_LANES, gen), "anyhit", 274, (eps,))):
-        got = fn(*pack, occl, *extra)
-        want, work = plain_work(plain, *pack, occl, *extra)
-        equal_on_every_lane(f"{name} vs its plain version", (got,), (want,))
-        rows.append(kernel_entry(
-            name, "walk_v1.cu", line, 0.0, cuda_ms(lambda: fn(*pack, occl, *extra)),
-            cuda_ms(lambda: plain(*pack, occl, *extra), iters=1),
-            min(shadow_ms[walk]["v1"]),
-            shadow_bound(SAMPLE_LANES, walk, occl, work, per_thread=True),
-            yardstick_of=name[:-3]))
-    return rows, run["launches"]
 
 
 def max_diff(a, b) -> float:
@@ -2996,20 +2645,6 @@ def count_equals_plain(label: str, o, d, act, lay, pp: int, got) -> None:
     log(f"  sweep_count == its plain version on all {o.shape[1]} lanes of {label}")
 
 
-def count_ab(label: str, o, d, act, lay, pp: int, bnd_ms: float) -> dict:
-    """The count against the yardstick on one wavefront: equal on every
-    lane, then timed in turns -> {version: [ms, ms]}."""
-    from tpu_pathtracer_torch.scripts import experimental_sweep as es
-
-    equal_on_every_lane(f"sweep_count vs sweep_count_v1, {label}",
-                        es.sweep_count(o, d, lay, active=act, prepass=pp),
-                        es.sweep_count_v1(o, d, lay, active=act, prepass=pp))
-    fns = {"v1": lambda: es.sweep_count_v1(o, d, lay, active=act, prepass=pp),
-           "new": lambda: es.sweep_count(o, d, lay, active=act, prepass=pp)}
-    return march_ab(f"sweep_count {label} ({o.shape[1]} lanes, {int(act.sum())} live, "
-                    f"{lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
-
-
 def sweep1_work(lay, sel, first) -> tuple[int, int]:
     """The targeted kernel's work on the lanes ``sel``, unbounded, whose
     lowest candidate leaf is ``first`` (the count's) -> (leaf row tests,
@@ -3019,21 +2654,6 @@ def sweep1_work(lay, sel, first) -> tuple[int, int]:
     f = first[sel].to(torch.int64)
     tests = int(lay.leafmeta[f[f < lay.num_leaves], 1].sum())
     return tests, int(torch.clamp(f + 1, max=lay.num_leaves).sum())
-
-
-def sweep1_ab(label: str, o, d, sel, lay, pp: int, bnd_ms: float) -> dict:
-    """The targeted kernel against the yardstick on one wavefront's lanes
-    with at most one candidate: t, u, v, row and orig equal on every lane,
-    then timed in turns -> {version: [ms, ms]}."""
-    from tpu_pathtracer_torch.scripts import experimental_sweep as es
-
-    equal_on_every_lane(f"sweep1 vs sweep1_v1, {label}",
-                        es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)[0],
-                        es.intersect_sweep1_v1(o, d, lay, active=sel, prepass=pp)[0])
-    fns = {"v1": lambda: es.intersect_sweep1_v1(o, d, lay, active=sel, prepass=pp),
-           "new": lambda: es.intersect_sweep1(o, d, lay, active=sel, prepass=pp)}
-    return march_ab(f"sweep1 {label} ({o.shape[1]} lanes, {int(sel.sum())} with <= 1 "
-                    f"candidate, {lay.num_leaves} leaves, prepass {pp})", fns, bnd_ms)
 
 
 def sweep1_device_us(label: str, o, d, sel, lay, pp: int) -> float:
@@ -3048,19 +2668,17 @@ def sweep1_device_us(label: str, o, d, sel, lay, pp: int) -> float:
     return us
 
 
-def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict], dict]:
+def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> list[dict]:
     """The candidate-sweep pair against its plain versions on 65,536 lanes
     of the Water-plastic camera and bounce-1 wavefronts, on the leaf-56 and
     the leaf-8 layout, and the count on the whole bounce-1 wavefront; timed
     on the bounce-1 lanes (and the full bounce-1 wavefront) of the leaf-56
     layout, with the leaf-8 times beside; the bounds on the full wavefront
-    at both leaf sizes; the count against the first port's (the yardstick)
-    in turns on the whole bounce-1 wavefronts of Water-plastic (both
-    layouts) and of the terrain ``terrain`` (leaf 8: many tiles of boxes),
-    equal on every lane, and the targeted kernel against its first port the
-    same on those wavefronts' lanes with at most one candidate -> (the rows
-    of the kernel table: the pair's and the yardsticks'; the yardsticks'
-    launches in the A/Bs)."""
+    at both leaf sizes; the targeted kernel's device time a call there; then
+    the terrain ``terrain``'s whole bounce-1 wavefront on its leaf-8 layout
+    (many tiles of boxes): the count equal to its plain version on every
+    lane, both kernels timed beside their bounds -> the pair's rows of the
+    kernel table."""
     from tpu_pathtracer_torch.ops import hopper_traverse as ht
     from tpu_pathtracer_torch.ops.traverse import Tally
     from tpu_pathtracer_torch.scripts import experimental_sweep as es
@@ -3129,32 +2747,27 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}); full bounce-1 "
                 f"({fo.shape[1]} lanes) {r['full_ms']:.3f} ms")
-    # the A/Bs of the count and the targeted kernel: Water-plastic's whole
-    # bounce-1 wavefront on both layouts, then the terrain's on its leaf-8
-    # layout (many tiles of boxes)
-    ab, ab1, prof1 = {}, {}, {}
+    prof1 = {label: sweep1_device_us(f"{SCENE} bounce-1, {label}", fo, fd, fsels[label],
+                                     lay, pp)
+             for label, (_, _, _, _, lay, pp, _, _, _) in timed.items()}
+    # the terrain's whole bounce-1 wavefront on its leaf-8 layout
     tr = terrain_renderer(terrain)
     tw = wavefronts(tr.scene, tr.layout, tr.layout_occl, tr.cfg)["bounce1"]
-    tpp = ht.window_prepass(tr.layout_occl, tr.cfg.traversal_prepass)
-    with counted_run(yardsticks=True) as ab_run:
-        for label, (_, _, _, _, lay, pp, _, _, _) in timed.items():
-            ab[label] = count_ab(f"{SCENE} bounce-1, {label}", fo, fd, fact, lay, pp,
-                                 full_bounds[label][0]["bound_ms"])
-            ab1[label] = sweep1_ab(f"{SCENE} bounce-1, {label}", fo, fd, fsels[label], lay,
-                                   pp, full_bounds[label][1]["bound_ms"])
-            prof1[label] = sweep1_device_us(f"{SCENE} bounce-1, {label}", fo, fd, fsels[label],
-                                            lay, pp)
-        tag = f"terrain ({terrain.num_triangles} triangles) bounce-1, leaf 8"
-        tlay = tr.layout_occl
-        tc = es.sweep_count(tw[0], tw[1], tlay, active=tw[2], prepass=tpp)
-        count_equals_plain(tag, *tw, tlay, tpp, tc)
-        ab["terrain leaf 8"] = count_ab(
-            tag, *tw, tlay, tpp, sweep_bounds(tlay, tw[2], tc[1], tpp, 0, 0)[0]["bound_ms"])
-        tsel = tw[2] & (tc[0] <= 1)
-        ab1["terrain leaf 8"] = sweep1_ab(
-            tag, tw[0], tw[1], tsel, tlay, tpp,
-            sweep_bounds(tlay, tsel, tc[1], tpp, *sweep1_work(tlay, tsel, tc[1]))[1]["bound_ms"])
-        torch.cuda.synchronize()
+    tlay = tr.layout_occl
+    tpp = ht.window_prepass(tlay, tr.cfg.traversal_prepass)
+    tag = f"terrain ({terrain.num_triangles} triangles) bounce-1, leaf 8"
+    tc = es.sweep_count(tw[0], tw[1], tlay, active=tw[2], prepass=tpp)
+    count_equals_plain(tag, *tw, tlay, tpp, tc)
+    tsel = tw[2] & (tc[0] <= 1)
+    terrain_ms = (
+        march_ms(f"sweep_count {tag} ({tw[0].shape[1]} lanes, {int(tw[2].sum())} live, "
+                 f"{tlay.num_leaves} leaves, prepass {tpp})",
+                 lambda: es.sweep_count(tw[0], tw[1], tlay, active=tw[2], prepass=tpp),
+                 sweep_bounds(tlay, tw[2], tc[1], tpp, 0, 0)[0]["bound_ms"]),
+        march_ms(f"sweep1 {tag} ({int(tsel.sum())} lanes with <= 1 candidate)",
+                 lambda: es.intersect_sweep1(tw[0], tw[1], tlay, active=tsel, prepass=tpp),
+                 sweep_bounds(tlay, tsel, tc[1], tpp,
+                              *sweep1_work(tlay, tsel, tc[1]))[1]["bound_ms"]))
     del tr, tw, tlay, tc, tsel
     out = []
     for k, (name, line, err) in enumerate((("sweep_count", 82, err_count),
@@ -3167,33 +2780,18 @@ def phase_sweep_kernels(renderer, terrain, compiler_log: str) -> tuple[list[dict
                                    other["full_ms"], full_bounds["leaf 8"][k]))
         extra = {f"{x}_leaf8": v for x, v in other.items()
                  if x.endswith("ms") or x.endswith("_by") or x.endswith("pct_of_bound")}
+        extra["terrain_full_ms"] = terrain_ms[k]
         if name == "sweep_count":
-            extra.update(ab_full_ms=ab, k_lanes=es.K_LANES,
+            extra.update(k_lanes=es.K_LANES,
                          registers=kernel_registers(compiler_log, "sweep_count_kernel"))
         else:
-            extra.update(ab_full_ms=ab1, device_us=prof1, k_lanes=es.SWEEP1_K,
+            extra.update(device_us=prof1, k_lanes=es.SWEEP1_K,
                          threads=es.SWEEP1_THREADS,
                          registers=kernel_registers(compiler_log, "sweep1_kernel"))
         out.append(kernel_entry(
             name, "candidate_sweep.cu", f"experimental_pallas_sweep.py:{line}", err, ms,
             plain_ms, full_ms, main, **extra))
-    # the yardsticks' rows: their own times on the leaf-56 lanes, the bounds
-    # of the kernels they measure
-    o, d, act, sel, lay, pp, _, _, _ = timed["leaf 56"]
-    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
-    for k, (name, line, fn, abk, lanes) in enumerate((
-            ("sweep_count_v1", 82, es.sweep_count_v1, ab, act),
-            ("sweep1_v1", 156, es.intersect_sweep1_v1, ab1, sel))):
-        row = out[k]
-        yard = kernel_entry(
-            name, "march_v1.cu", f"experimental_pallas_sweep.py:{line}", 0.0,
-            cuda_ms(lambda: fn(o, d, lay, active=lanes, prepass=pp)), row["plain_ms"],
-            min(abk["leaf 56"]["v1"]), {x: row[x] for x in keys}, yardstick_of=row["name"],
-            registers=kernel_registers(compiler_log, f"{name}_kernel"))
-        yard.update(at_full_width(f"{name} (leaf 56)", "bounce-1 wavefront", yard["full_ms"],
-                                  full_bounds["leaf 56"][k]))
-        out.append(yard)
-    return out, {k: ab_run["launches"][k] for k in ("sweep_count_v1", "sweep1_v1")}
+    return out
 
 
 def split_run(label: str, o, d, act, lay, prepass: int) -> dict:
@@ -3377,25 +2975,21 @@ def probe_bound(lanes: int, rows: int, table_rows: int, ops_per_row: int) -> dic
     return bound(lanes * (32 + 8) + table_rows * 64, lanes * rows * ops_per_row)
 
 
-def march_ab(label: str, fns: dict, bnd_ms: float) -> dict:
-    """A dense march's versions in turns (``fns``: "v1", then "new") ->
-    {version: [ms, ms]}; logs each beside its share of the bound."""
-    ab = turns(fns, iters=3)
-    log(f"  A/B {label}, ms in turns (share of the {bnd_ms:.4f} ms bound): "
-        + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f} ({100 * bnd_ms / min(v):.1f}%)"
-                    for k, v in ab.items()))
-    return ab
+def march_ms(label: str, fn, bnd_ms: float) -> list[float]:
+    """A dense march timed twice by CUDA events, 3 launches a reading ->
+    [ms, ms]; logs them beside the share of the bound."""
+    ms = [cuda_ms(fn, iters=3) for _ in range(2)]
+    log(f"  {label}: {ms[0]:.3f}/{ms[1]:.3f} ms, {100 * bnd_ms / min(ms):.1f}% of the "
+        f"{bnd_ms:.4f} ms bound")
+    return ms
 
 
-def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
+def phase_rowtest_probe(compiler_log: str) -> tuple[dict, int]:
     """Each of the six probe variants against its plain version on 65,536
-    lanes and, at the tool's own width and inputs, on every 32nd lane; the
-    redesigned kernel against the first port's (the yardstick) in turns at
-    that width, equal on every lane; then the probe's ``main()`` with the
-    default flags -> (the rows of the kernel table: the probe's, with the
-    anchor variant's numbers and every variant's beside, and the
-    yardstick's; the probe's launches in ``main()`` and the yardstick's in
-    the A/B)."""
+    lanes and, at the tool's own width and inputs, on every 32nd lane; then
+    the probe's ``main()`` with the default flags -> (the probe's row of the
+    kernel table, with the anchor variant's numbers and every variant's
+    beside; the probe's launches in ``main()``)."""
     from tpu_pathtracer_torch.scripts import perf_ophit_probe as pp
 
     rays, tris = pp.probe_inputs(SAMPLE_LANES, pp.T8, "cuda", seed=1)
@@ -3431,22 +3025,7 @@ def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
     log(f"  rowtest_probe at {pp.N} lanes (the tool's inputs): all {len(pp.VARIANTS)} "
         f"variants bit-equal to their plain versions on one lane in {FULL_STRIDE} "
         f"({srays.shape[1]} lanes)")
-    del srays
-    # the A/B: the yardstick and the redesign in turns, on the tool's inputs
-    # at full width, equal on every lane
-    ab = {}
-    with counted_run(yardsticks=True) as ab_run:
-        for v in pp.VARIANTS:
-            equal_on_every_lane(f"rowtest_probe/{v} vs rowtest_probe_v1",
-                                pp.rowtest_probe(v, frays, ftris, tile, mtblock),
-                                pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock))
-            fns = {"v1": lambda: pp.rowtest_probe_v1(v, frays, ftris, tile, mtblock),
-                   "new": lambda: pp.rowtest_probe(v, frays, ftris, tile, mtblock)}
-            ab[v] = march_ab(f"rowtest_probe/{v} at {pp.N} lanes x {rows} rows", fns,
-                             probe_bound(pp.N, rows, pp.T8, pp.ROWTEST_OPS[v])["bound_ms"])
-        torch.cuda.synchronize()
-    log(f"  rowtest_probe == rowtest_probe_v1 on all {pp.N} lanes, every variant")
-    del frays, ftris
+    del srays, frays, ftris
     run, lines = echo_main(pp.main, "row-test probe")
     full = {m[1]: float(m[2]) for m in (re.match(r"ROW (\S+)\s+([0-9.]+) ms", ln)
                                         for ln in lines) if m}
@@ -3462,7 +3041,7 @@ def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
                        "full_ms": full[v], "bound_ms": per[v]["bound_ms"],
                        "bound_full_ms": bnd_full,
                        "full_pct_of_bound": 100.0 * bnd_full / full[v],
-                       "ab_full_ms": ab[v], "ops_per_rowtest": pp.ROWTEST_OPS[v]}
+                       "ops_per_rowtest": pp.ROWTEST_OPS[v]}
         log(f"  rowtest_probe/{v} at {pp.N} lanes (perf_ophit_probe.main): {full[v]:.1f} ms, "
             f"bound {bnd_full:.3f} ms, {variants[v]['full_pct_of_bound']:.1f}% of bound")
     entry = kernel_entry(
@@ -3473,18 +3052,7 @@ def phase_rowtest_probe(compiler_log: str) -> tuple[list[dict], dict]:
     entry.update(at_full_width("rowtest_probe/full-bw", f"{pp.N}-lane march",
                                full["full-bw"],
                                probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
-    # the yardstick's row: its own times on the same inputs, the probe's bound
-    v1_ms = cuda_ms(lambda: pp.rowtest_probe_v1("full-bw", rays, tris, tile, mtblock))
-    yard = kernel_entry(
-        "rowtest_probe_v1", "march_v1.cu", "perf_ophit_probe.py:101", 0.0, v1_ms,
-        anchor["plain_ms"], min(ab["full-bw"]["v1"]), {k: anchor[k] for k in keys},
-        yardstick_of="rowtest_probe",
-        registers=kernel_registers(compiler_log, "rowtest_probe_v1_kernel"))
-    yard.update(at_full_width("rowtest_probe_v1/full-bw", f"{pp.N}-lane march",
-                              yard["full_ms"],
-                              probe_bound(pp.N, rows, pp.T8, OPS_ROW["bw"])))
-    return [entry, yard], {"rowtest_probe": run["launches"]["rowtest_probe"],
-                           "rowtest_probe_v1": ab_run["launches"]["rowtest_probe_v1"]}
+    return entry, run["launches"]["rowtest_probe"]
 
 
 RNG_CASES = ((0, 0, 0), (7, -1, 0x80000001), (0xFFFFFFFF, 5, 0xFFFFFFFF))  # frame, bounce, salt
@@ -3513,9 +3081,9 @@ def resolve_bound(lay, act, work: Work, prepass: int) -> dict:
     """The epilogue form's bound on these lanes (BW rows): the window walk's
     work, 48 bytes of payload out instead of (t, row), one MT row of
     ``lay.tris`` read a lane and the resolve's operations a lane."""
-    return walk_bound(act.shape[0], RAY_BYTES + ROW_BYTES_MT, 48, lay, lay.tris8bw, work,
+    return walk_bound(act.shape[0], RAY_BYTES + ROW_BYTES_MT, 48, lay.tris8bw, work,
                       OPS_ROW["bw"], lay.prepassbw[:prepass], int(act.sum()) * prepass,
-                      node_bytes=PACKED_NODE_BYTES, lane_ops=OPS_RESOLVE)
+                      lane_ops=OPS_RESOLVE)
 
 
 QUEUE_SPIN_CYCLES = 100_000_000  # ~50 ms of a spin kernel: the host queues the calls meanwhile
@@ -3542,8 +3110,22 @@ def queued_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-RNG_RESOLVE_STAGES = ("rng", "resolve")  # the stages phase 22 puts back
-SHADE_SORT_STAGES = ("shade", "sort")   # the stages phase 23 puts back
+RNG_RESOLVE_STAGES = ("rng", "resolve")  # the stages phase 21 puts back
+SHADE_SORT_STAGES = ("shade", "sort")   # the stages phase 22 puts back
+
+
+def torch_resolved(walk):
+    """``window_walk_resolve``'s signature on a window walk that returns (t,
+    row) followed by the torch payload rows (``window_payload_rows``): the
+    epilogue form with its epilogue put back in torch."""
+    from tpu_pathtracer_torch.ops import hopper_traverse as ht
+
+    def fn(o, d, active, t_max, lay, t_min=0.0, prepass=ht.DEFAULT_PREPASS,
+           tritest="bw"):
+        t, row = walk(o, d, active, t_max, lay, t_min, prepass, tritest)
+        return ht.window_payload_rows(lay, t, row, t_max, o, d)
+
+    return fn
 
 
 @contextlib.contextmanager
@@ -3648,7 +3230,7 @@ def stage_turns(label: str, tmp: str, scene) -> dict:
 
 
 def phase_fused_stages(smi: str, priced: Priced) -> list[dict]:
-    """Phase 22: the hand kernels of the two XLA-fused stages.  The PCG4D
+    """Phase 21: the hand kernels of the two XLA-fused stages.  The PCG4D
     uniforms (csrc/rng.cu) against their plain versions bit for bit; the
     window walk's payload epilogue against its plain version (65,536 lanes
     of the camera and bounce-1 wavefronts, BW and MT; every lane of the
@@ -3695,7 +3277,7 @@ def phase_fused_stages(smi: str, priced: Priced) -> list[dict]:
         f"{int(lanes[f'1080p ids of sample {VIRTUAL_SAMPLE}'].max())})")
 
     # the epilogue against its plain version on drawn lanes (the whole
-    # wavefronts: phases 3 and 10, against the yardstick plus the torch rows)
+    # wavefronts: phases 3 and 10, against the (t, row) walk plus the torch rows)
     pp = ht.window_prepass(lay, cfg.traversal_prepass)
     draws = {}
     for which in ("camera", "bounce1"):
@@ -3801,7 +3383,7 @@ OPS_ENV_EVAL, OPS_ENV_SAMPLE, OPS_DISPERSION_PLANE = 60, 80, 60
 SORT_KEY_LANE_BYTES = 33 + 8  # origin, direction, alive, pixel in; the key out
 OPS_SORT_KEY = 90             # float and integer operations of one key
 SPECTRAL = {"spectrum_samples": 16, "hero_wavelengths": 4}  # the spectral CLI path
-SHADE_SORT_TURNS = {          # phase 23's frame paths: scene, config, launches a frame
+SHADE_SORT_TURNS = {          # phase 22's frame paths: scene, config, launches a frame
     "main path": ("main", {}, {"shade_bounce": 8, "sort_key": 7, "gather_planes": 7}),
     "unsorted": ("main", {"sort_rays": False},
                  {"shade_bounce": 8, "sort_key": 0, "gather_planes": 0}),
@@ -4015,7 +3597,7 @@ def shade_sort_turns(label: str, tmp: str, scene, kw: dict, want: dict) -> dict:
 
 
 def shade_scenes() -> dict:
-    """Phase 23's scenes: "main" (Water-plastic), "env" (with sky_map's
+    """Phase 22's scenes: "main" (Water-plastic), "env" (with sky_map's
     environment light), "spectral" (S = 16 with the spectral CLI's
     dispersion) and "spectral env" (both), as the CLI builds them."""
     from tpu_pathtracer_torch.scene import attach_dispersion, attach_env, load_scene
@@ -4028,7 +3610,7 @@ def shade_scenes() -> dict:
             "spectral env": attach_env(spectral, sky)}
 
 
-# phase 23's forms of the shading kernel: the frame path whose wavefronts
+# phase 22's forms of the shading kernel: the frame path whose wavefronts
 # it is held and timed on (a scene of shade_scenes and a config)
 SHADE_FORMS = {"parity": ("main", {}), "env-lit": ("env", {}), "hero": ("spectral", SPECTRAL),
                "hero env": ("spectral env", SPECTRAL)}
@@ -4294,7 +3876,7 @@ def shade_form(label: str, scene, kw: dict, gen) -> tuple[dict, dict]:
 
 
 def phase_shade_sort(smi: str, compiler_log: str) -> list[dict]:
-    """Phase 23: the hand kernels of the shading (csrc/shade.cu) and the
+    """Phase 22: the hand kernels of the shading (csrc/shade.cu) and the
     wavefront sort (csrc/wavefront_sort.cu).  The shading in each of its
     forms (:data:`SHADE_FORMS`: parity, env-lit, hero with dispersion, and
     that with the env; the env forms also on a map with a NaN texel) and the
@@ -4673,21 +4255,15 @@ def main() -> int:
     phase_lbvh(small, terrain_scene(TERRAIN_GRIDS[0], device="cpu"))
     phase_backend_parity(small)
     renderer = Renderer(SCENE, WIDTH, HEIGHT)
-    rows, counts = phase_sweep_kernels(renderer, small, compiler_log)
-    kernels += rows
-    launches.update(counts)
+    kernels += phase_sweep_kernels(renderer, small, compiler_log)
     launches.update(phase_split(renderer, small))
     entry, probe = phase_launch_probe(smi)
     kernels.append(entry)
     # the window walk without its epilogue: no frame path launches it, the
     # launch probe does (its all-dead lanes)
     launches.update(noop=probe["noop"], window_walk=probe["window_walk"])
-    rows, counts = phase_rowtest_probe(compiler_log)
-    kernels += rows
-    launches.update(counts)
-    rows, ab_launches = phase_walk_ab(renderer, terrains, smi, priced)
-    kernels += rows
-    launches.update({k: ab_launches[k] for k in WALK_YARDSTICKS})
+    entry, launches["rowtest_probe"] = phase_rowtest_probe(compiler_log)
+    kernels.append(entry)
     del renderer
     with tempfile.TemporaryDirectory() as tmp:
         modes = phase_frame_modes(tmp, smi)

@@ -283,8 +283,7 @@ def test_redesigned_walks_edge_shapes_on_card(n, leaf, cuda_device):
     lane live, every lane dead and one live lane a warp, prepass 0 and 32,
     on the leaf-56, leaf-16 and leaf-8 layouts: every form of the window walk
     and minwalk bit-equal to its plain version (minwalk's position and normal
-    to atol 1e-6: rsqrt), spent within its warp bounds, and the default form
-    equal to the per-thread yardsticks on every lane."""
+    to atol 1e-6: rsqrt) and spent within its warp bounds."""
     scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device)
     lay = build_layout(scene, leaf)
     o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(n, seed=23))
@@ -298,8 +297,7 @@ def test_redesigned_walks_edge_shapes_on_card(n, leaf, cuda_device):
         args = (o, d, act, t_max, lay)
         kw = dict(prepass=prepass, tritest=tritest)
         want = ht.window_walk_plain(*args, **kw)
-        for got in (ht.window_walk(*args, **kw), ht.window_walk_v1(*args, **kw),
-                    ht.window_walk_orig(*args, **kw)[:2]):
+        for got in (ht.window_walk(*args, **kw), ht.window_walk_orig(*args, **kw)[:2]):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert torch.equal(ht.window_walk_orig(*args, **kw)[2],
                            ht.window_walk_orig_plain(*args, **kw)[2])
@@ -311,7 +309,6 @@ def test_redesigned_walks_edge_shapes_on_card(n, leaf, cuda_device):
             mk = ht.minwalk(*args, prepass=prepass)
             mp = ht.minwalk_plain(*args, prepass=prepass)
             assert torch.equal(mk[:6], mp[:6])
-            assert torch.equal(mk, ht.minwalk_v1(*args, prepass=prepass))
             np.testing.assert_allclose(mk[6:].cpu().numpy(), mp[6:].cpu().numpy(),
                                        rtol=0, atol=1e-6)
     assert bool((want[1][~act] == lay.num_tris).all())
@@ -429,33 +426,6 @@ def test_hbm_frame_launches_the_capped_form_on_card(tetra3_obj, cuda_device):
         assert np.isfinite(r.image()).all()
 
 
-@pytest.mark.parametrize("tritest", ["bw", "mt"])
-def test_walk_steps_match_yardstick_on_card(tritest, cuda_device):
-    """Every step of the walk's design (node table staged or not, leaves
-    cooperative or per lane, blocks persistent or one a tile, 64 to 1024
-    threads) gives the per-thread yardstick's t and row on every lane; each
-    launch counted on its own wrapper; a block shape the kernel cannot take
-    raises."""
-    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device)
-    lay = build_layout(scene, 56)
-    o, d = (torch.from_numpy(a).to(cuda_device) for a in random_rays(40000, seed=29))
-    act = torch.arange(40000, device=cuda_device) % 9 != 4
-    t_max = torch.full((40000,), torch.inf, device=cuda_device)
-    n0 = (ht.window_walk_v1.launches, ht.window_walk_steps.launches, ht.window_walk.launches)
-    want = ht.window_walk_v1(o, d, act, t_max, lay, tritest=tritest)
-    shapes = [(s, c, p, t) for s in (False, True) for c in (False, True)
-              for p in (False, True) for t in (64, 128, 1024)]
-    for stage, coop, persist, threads in shapes:
-        got = ht.window_walk_steps(o, d, act, t_max, lay, tritest=tritest, stage=stage,
-                                   coop=coop, persist=persist, threads=threads)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert (ht.window_walk_v1.launches, ht.window_walk_steps.launches,
-            ht.window_walk.launches) == (n0[0] + 1, n0[1] + len(shapes), n0[2])
-    with pytest.raises(RuntimeError):
-        ht.window_walk_steps(o, d, act, t_max, lay, stage=False, coop=True, persist=False,
-                             threads=100)
-
-
 @pytest.mark.parametrize("leaf", [56, 16, 8])
 @pytest.mark.parametrize("n", [1, 31, 33, 65537])
 def test_shadow_walks_edge_shapes_on_card(n, leaf, cuda_device):
@@ -463,8 +433,7 @@ def test_shadow_walks_edge_shapes_on_card(n, leaf, cuda_device):
     with every lane live, every lane dead and one live lane a warp, on the
     leaf-56, leaf-16 and leaf-8 layouts, with the
     NEE caps (environment lanes: target -1, cap 1e30) and with infinite caps:
-    bit-equal to their plain versions and to the per-thread yardsticks on
-    every lane."""
+    bit-equal to their plain versions on every lane."""
     name = "CornellBox-Water-plastic"
     lay = build_layout(load_scene(scene_path(name), device=cuda_device), leaf)
     rays = nee_shadow_rays(load_scene(scene_path(name), device="cpu"), n, seed=31)
@@ -473,41 +442,12 @@ def test_shadow_walks_edge_shapes_on_card(n, leaf, cuda_device):
     masks = (torch.ones_like(act), torch.zeros_like(act), lanes % 32 == 7)
     for live in masks:
         for c in (cap, torch.full_like(cap, torch.inf)):
-            want = ht.capped_walk_plain(o, d, live, c, lay)
-            for got in (ht.capped_walk(o, d, live, c, lay),
-                        ht.capped_walk_v1(o, d, live, c, lay)):
-                assert torch.equal(got, want)
+            assert torch.equal(ht.capped_walk(o, d, live, c, lay),
+                               ht.capped_walk_plain(o, d, live, c, lay))
             want = ht.anyhit_walk_plain(o, d, live, c, tgt, lay, 1e-4)
-            for got in (ht.anyhit_walk(o, d, live, c, tgt, lay, 1e-4),
-                        ht.anyhit_walk_v1(o, d, live, c, tgt, lay, 1e-4)):
-                assert torch.equal(got, want)
+            assert torch.equal(ht.anyhit_walk(o, d, live, c, tgt, lay, 1e-4), want)
             assert not bool(want[~live].any())
     assert bool((ht.capped_walk(o, d, masks[1], cap, lay)[0] == cap).all())
-
-
-@pytest.mark.parametrize("leaf", [56, 8])
-def test_shadow_steps_match_yardstick_on_card(leaf, cuda_device):
-    """Both leaf services of the shadow walks (per-lane only, and the kept
-    one that serves a leaf over the warp where that takes fewer slots) give
-    the per-thread yardstick's outputs on every lane of NEE-shaped shadow
-    queries; each launch counted on its own wrapper."""
-    name = "CornellBox-Water-plastic"
-    lay = build_layout(load_scene(scene_path(name), device=cuda_device), leaf)
-    rays = nee_shadow_rays(load_scene(scene_path(name), device="cpu"), 40000, seed=37)
-    o, d, act, cap, tgt = (torch.from_numpy(a).to(cuda_device) for a in rays)
-    names = ("capped_walk", "capped_walk_v1", "capped_walk_steps", "anyhit_walk",
-             "anyhit_walk_v1", "anyhit_walk_steps")
-    n0 = [getattr(ht, k).launches for k in names]
-    want_c = ht.capped_walk_v1(o, d, act, cap, lay)
-    want_a = ht.anyhit_walk_v1(o, d, act, cap, tgt, lay, 1e-4)
-    assert 0 < int(want_a.sum()) < int(act.sum())
-    steps = [dict(coop=False), dict(coop=True)]
-    for kw in steps:
-        assert torch.equal(ht.capped_walk_steps(o, d, act, cap, lay, **kw), want_c)
-        assert torch.equal(ht.anyhit_walk_steps(o, d, act, cap, tgt, lay, 1e-4, **kw),
-                           want_a)
-    grew = [getattr(ht, k).launches - v for k, v in zip(names, n0)]
-    assert grew == [0, 1, len(steps), 0, 1, len(steps)]
 
 
 EDGE_LANES = (1, 31, 33, 65537)
@@ -520,7 +460,7 @@ def test_rowtest_probe_edge_shapes_on_card(n, cuda_device):
     tiles of 96 and 768 lanes, with mtblock 7 (the generic
     instance) and 16 (the unrolled one), on a table that is staged whole
     (200 rows) and one that is tiled (7,112 rows), bit-equal to its plain
-    version and to the first port's kernel on every lane; and a table whose
+    version on every lane; and a table whose
     rows put the reciprocal off its fast path (a plane or an edge scaled to
     denormal, past 2^126 or to zero), where the kernel takes 1 / x exactly."""
     for rows in (200, 7112, "extreme"):
@@ -533,8 +473,6 @@ def test_rowtest_probe_edge_shapes_on_card(n, cuda_device):
         for variant in perf_ophit_probe.VARIANTS:
             for mtblock in (7, 16):
                 tp, ip = perf_ophit_probe.rowtest_probe_plain(variant, rays, tris, mtblock)
-                tv, iv = perf_ophit_probe.rowtest_probe_v1(variant, rays, tris, 96, mtblock)
-                assert torch.equal(tv, tp) and torch.equal(iv, ip), (variant, mtblock, rows)
                 for tile in (96, 768):
                     tk, ik = perf_ophit_probe.rowtest_probe(variant, rays, tris, tile,
                                                             mtblock)
@@ -560,9 +498,9 @@ def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
     """The redesigned count (prepass and leaf boxes in shared memory, four
     lanes a thread) on lane counts around a warp and a block, with every
     lane live, every lane dead and one live lane a warp, prepass 32 and 0:
-    bit-equal to its plain version and to the first port's kernel
-    on every lane; and with prepass rows whose edges put the reciprocal off
-    its fast path (scaled to denormal, past 2^126 or to zero)."""
+    bit-equal to its plain version on every lane; and with prepass rows whose
+    edges put the reciprocal off its fast path (scaled to denormal, past
+    2^126 or to zero)."""
     base = count_layouts[which]
     pre = base.prepass.clone()
     pre[1::4, 3:6] *= 1e-39
@@ -575,8 +513,6 @@ def test_sweep_count_edge_shapes_on_card(which, n, count_layouts):
     for act in masks:
         for prepass, lay in ((32, base), (0, base), (32, base._replace(prepass=pre))):
             want = es.sweep_count_plain(o, d, lay, active=act, prepass=prepass)
-            got = es.sweep_count_v1(o, d, lay, active=act, prepass=prepass)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
             got = es.sweep_count(o, d, lay, active=act, prepass=prepass)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), prepass
             assert bool((want[0][~act] == 0).all() and (want[1][~act] == lay.num_leaves).all())
@@ -602,7 +538,7 @@ def test_sweep1_edge_shapes_on_card(which, n, sweep1_layouts):
     unbounded and capped (1.5 on every third lane), prepass 32 and 0, and
     prepass rows whose edges put the reciprocal off its fast path (scaled to
     denormal, past 2^126 or to zero): t, u, v, row and orig bit-equal to its
-    plain version and to the first port's kernel on every lane."""
+    plain version on every lane."""
     base = sweep1_layouts[which]
     pre = base.prepass.clone()
     pre[1::4, 3:6] *= 1e-39
@@ -614,20 +550,17 @@ def test_sweep1_edge_shapes_on_card(which, n, sweep1_layouts):
     masks = (torch.ones(n, dtype=torch.bool, device="cuda"),
              torch.zeros(n, dtype=torch.bool, device="cuda"), lanes % 32 == 7, some)
     caps = (None, torch.where(lanes % 3 == 0, 1.5, torch.inf))
-    n0 = (es.intersect_sweep1.launches, es.intersect_sweep1_v1.launches)
+    n0 = es.intersect_sweep1.launches
     for act in masks:
         for t_max in caps:
             for prepass, lay in ((32, base), (0, base), (32, base._replace(prepass=pre))):
                 kw = dict(active=act, prepass=prepass, t_max=t_max)
                 want, _ = es.intersect_sweep1_plain(o, d, lay, **kw)
-                v1, _ = es.intersect_sweep1_v1(o, d, lay, **kw)
                 got, _ = es.intersect_sweep1(o, d, lay, **kw)
-                for g, y, w in zip(got, v1, want):
-                    assert torch.equal(y, w), (prepass, t_max is None)
+                for g, w in zip(got, want):
                     assert torch.equal(g, w), (prepass, t_max is None)
                 assert bool((want.row[~act] == lay.num_tris).all())
-    assert (es.intersect_sweep1.launches - n0[0], es.intersect_sweep1_v1.launches - n0[1]) \
-        == (24 * es.SWEEP1_LAUNCHES, 24)
+    assert es.intersect_sweep1.launches - n0 == 24 * es.SWEEP1_LAUNCHES
     assert n < 65537 or bool(torch.isfinite(want.t[act]).any())
 
 

@@ -8,12 +8,15 @@ without a card:
     first occluder, target rows, equal t and environment lanes included
     (the capped walk's latch is the nearest-hit walks' one, which
     tests/test_torch_walk_redesign.py holds);
-  * the yardstick wrappers, and the step wrappers with either leaf service,
-    take the plain versions on CPU tensors and agree with the reference's
-    Pallas kernels in interpret mode as the wrappers they stand beside do
-    (t to rtol/atol 1e-6, ids equal except equal-t ties: XLA contracts
-    multiply-adds into FMAs, torch does not; clear masks equal on >= 99.8%
-    of the active lanes, the same band), on the leaf-8 and leaf-16 layouts.
+  * each form of the capped query (the capped walk, and the HBM route's
+    window walk with its capped epilogue, BW and MT rows) and each way a
+    frame answers a shadow query (the any-hit walk, the capped walk under
+    render/wavefront.py:occlusion_clear, the fused walk's clear) takes its
+    plain version on CPU tensors with no launch counted and agrees with the
+    reference's Pallas kernels in interpret mode (t to rtol/atol 1e-6, ids
+    equal except equal-t ties: XLA contracts multiply-adds into FMAs, torch
+    does not; u to atol 1e-5 where the ids agree; clear masks equal on >=
+    99.8% of the active lanes), on the leaf-8 and leaf-16 layouts.
 """
 
 import jax.numpy as jnp
@@ -28,6 +31,7 @@ from tpu_pathtracer.ops.intersect import intersect_brute as jbrute
 from tpu_pathtracer.scene import load_scene as jload_scene, scene_path
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.ops import hopper_traverse as ht
+from tpu_pathtracer_torch.render.wavefront import occlusion_clear
 from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
     arrays, assert_hits_agree, nee_shadow_rays, random_rays, one_torch_thread)
 
@@ -59,8 +63,8 @@ def _anyhit_flags(leaves, cap, target, eps):
 
 
 def _anyhit_rows(leaves, cap, target, eps):
-    """The per-thread walk (csrc/walk_v1.cu's any-hit walk): rows one after
-    another, the walk ends at the first occluder."""
+    """The one-thread-per-ray walk: rows one after another, the walk ends at
+    the first occluder."""
     thresh = np.float32(cap) - np.float32(4.0 * eps)
     occ = tgt = False
     for tt, acc, orig in leaves:
@@ -114,16 +118,25 @@ def cornell(request):
             "tscene": interop.scene_from_arrays(arrays(scene))}
 
 
-# a yardstick wrapper and its keywords
-YARDSTICKS = {"v1": {}, "steps, per-lane": {"coop": False}, "steps, coop": {"coop": True}}
+CAPPED_FORMS = ("capped_walk", "window_walk_hbm bw", "window_walk_hbm mt")
 
 
-@pytest.mark.parametrize("wrapper", list(YARDSTICKS))
-def test_capped_yardsticks_match_pallas(cornell, wrapper):
-    """On CPU tensors a capped-walk yardstick is the capped walk's plain
-    version: equal to it exactly, no launch counted, and in agreement with
-    _traverse_kernel(resolve=False, prepass=0) in interpret mode; caps past
-    the nearest hit on even lanes, short of it on odd lanes."""
+def _capped_query(form: str, o, d, active, cap, lay):
+    """A capped query through ``form`` -> ((4, N) rows [t, u, v, orig], the
+    wrapper whose launches it counts)."""
+    if form == "capped_walk":
+        return ht.capped_walk(o, d, active, cap, lay), ht.capped_walk
+    pp = ht.window_prepass(lay, ht.DEFAULT_PREPASS)
+    return ht.window_walk_hbm(o, d, active, cap, lay, prepass=pp, tritest=form[-2:],
+                              capped=True), ht.window_walk_hbm
+
+
+@pytest.mark.parametrize("form", CAPPED_FORMS)
+def test_capped_query_forms_match_pallas(cornell, form):
+    """The capped query's forms on CPU tensors: each its plain version, no
+    launch counted, and in agreement with _traverse_kernel(resolve=False,
+    prepass=0) in interpret mode on t, u and the original id; caps past the
+    nearest hit on even lanes, short of it on odd lanes."""
     n = 128
     o, d = random_rays(n, seed=11)
     sc = cornell["scene"]
@@ -135,38 +148,63 @@ def test_capped_yardsticks_match_pallas(cornell, wrapper):
         ref = pt.intersect_bvh_pallas(jnp.asarray(o), jnp.asarray(d), cornell["lay"],
                                       tile=128, t_max=jnp.asarray(cap),
                                       active=jnp.asarray(active), resolve=False, prepass=0)
-    args = tuple(torch.from_numpy(x) for x in (o, d, active, cap)) + (cornell["tlay"],)
-    fn = getattr(ht, "capped_walk_" + wrapper.split(",")[0])
-    kw = YARDSTICKS[wrapper]
-    n0 = fn.launches
-    out = fn(*args, **kw)
-    assert fn.launches == n0
-    assert torch.equal(out, ht.capped_walk_plain(*args))
+    lay = cornell["tlay"]
+    args = tuple(torch.from_numpy(x) for x in (o, d, active, cap)) + (lay,)
+    counts = lambda: (ht.capped_walk.launches, ht.window_walk_hbm.launches)  # noqa: E731
+    n0 = counts()
+    out, fn = _capped_query(form, *args)
+    assert counts() == n0
+    if fn is ht.capped_walk:
+        want = ht.capped_walk_plain(*args)
+    else:
+        pp = ht.window_prepass(lay, ht.DEFAULT_PREPASS)
+        want = ht.window_walk_hbm_plain(*args, prepass=pp, tritest=form[-2:], capped=True)
+    assert out.shape == (4, n) and torch.equal(out, want)
     t = np.where(out[0].numpy() < cap, out[0].numpy(), np.inf)
     assert np.isfinite(t).any() and not np.isfinite(t[~active]).any()
     same = assert_hits_agree(ref.t, ref.tri, t, out[3].numpy().astype(np.int64))
     np.testing.assert_allclose(out[1].numpy()[same], np.asarray(ref.u)[same], atol=1e-5)
 
 
-@pytest.mark.parametrize("wrapper", list(YARDSTICKS))
-def test_anyhit_yardsticks_match_pallas(cornell, wrapper):
-    """On CPU tensors an any-hit yardstick is the any-hit walk's plain
-    version: equal to it exactly, no launch counted, and its clear mask
-    agrees with the reference's occlusion_clear_anyhit in interpret mode on
-    NEE-shaped shadow rays with every fifth lane an environment sample."""
+def _clear(form: str, o, d, act, cap, tgt, lay):
+    """The (N,) bool clear mask of a shadow query through ``form``."""
+    if form == "anyhit_walk":
+        return ht.anyhit_walk(o, d, act, cap, tgt, lay, EPS).to(torch.bool)
+    if form == "occlusion_clear":  # an intersector without the any-hit hook
+        fn = ht.make_cuda_intersector(lay, lay, eps=EPS)
+        assert not hasattr(fn, "occlusion")
+        return occlusion_clear(fn, o, d, act, cap, tgt, EPS)
+    # the fused walk: [path | shadow] lanes from the same origins, one walk
+    # with the original-id latch, then the shadow half's rule
+    n = o.shape[1]
+    path = torch.from_numpy(random_rays(n, seed=19)[1])
+    t2, _, orig2 = ht.window_walk_orig(
+        torch.cat([o, o], dim=1), torch.cat([path, d], dim=1), torch.cat([act, act]),
+        torch.cat([torch.full((n,), torch.inf), cap]), lay,
+        prepass=ht.window_prepass(lay, ht.DEFAULT_PREPASS))
+    return ht.fused_clear(t2[n:], orig2[n:], act, cap, tgt, EPS)
+
+
+@pytest.mark.parametrize("form", ["anyhit_walk", "occlusion_clear", "fused_clear"])
+def test_shadow_clear_forms_match_pallas(cornell, form):
+    """Each way a frame answers a shadow query, on CPU tensors with no
+    launch counted: its clear mask agrees with the reference's
+    occlusion_clear_anyhit in interpret mode on NEE-shaped shadow rays with
+    every fifth lane an environment sample (equal on >= 99.8% of the active
+    lanes, both outcomes present); the any-hit walk's mask is its plain
+    version's."""
     o, d, act, cap, tgt = nee_shadow_rays(cornell["tscene"], 256, seed=17)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(pt.occlusion_clear_anyhit(
             jnp.asarray(o), jnp.asarray(d), cornell["lay"], jnp.asarray(act),
             jnp.asarray(cap), jnp.asarray(tgt), eps=EPS, tile=128)) & act
-    args = tuple(torch.from_numpy(x) for x in (o, d, act, cap, tgt)) + (cornell["tlay"],
-                                                                         EPS)
-    fn = getattr(ht, "anyhit_walk_" + wrapper.split(",")[0])
-    kw = YARDSTICKS[wrapper]
-    n0 = fn.launches
-    got = fn(*args, **kw)
-    assert fn.launches == n0
-    assert got.dtype == torch.uint8 and torch.equal(got, ht.anyhit_walk_plain(*args))
-    got = got.numpy().astype(bool)
-    assert not got[~act].any() and 0 < got.sum() < act.sum()
+    args = tuple(torch.from_numpy(x) for x in (o, d, act, cap, tgt)) + (cornell["tlay"],)
+    fns = (ht.anyhit_walk, ht.capped_walk, ht.window_walk_orig)
+    n0 = [f.launches for f in fns]
+    got = _clear(form, *args)
+    assert [f.launches for f in fns] == n0
+    if form == "anyhit_walk":
+        assert torch.equal(got, ht.anyhit_walk_plain(*args, EPS).to(torch.bool))
+    got = got.numpy()
+    assert got.dtype == bool and not got[~act].any() and 0 < got.sum() < act.sum()
     assert (got != ref)[act].mean() <= 2e-3

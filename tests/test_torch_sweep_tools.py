@@ -58,8 +58,7 @@ def setup(request):
 
 
 def _launches():
-    return (es.sweep_count.launches, es.intersect_sweep1.launches,
-            es.intersect_sweep1_v1.launches)
+    return es.sweep_count.launches, es.intersect_sweep1.launches
 
 
 def _rays(seed):
@@ -139,25 +138,6 @@ def test_sweep1_matches_reference(ps, setup):
         assert (got.row.numpy()[off] == lay.num_tris).all()
         np.testing.assert_array_equal(raw[3][off], np.float32(lay.num_tris))
         assert (got.orig.numpy()[off] == 0).all() and (got.u.numpy()[off] == 0).all()
-
-
-@pytest.mark.parametrize("capped", [False, True])
-def test_sweep1_v1_on_cpu_is_the_plain_version(setup, capped):
-    """The first port's targeted kernel, kept as a yardstick, takes the
-    plain version on CPU tensors with no launch: every output equal."""
-    lay = setup["built"]
-    o, d, active = _t(*_rays(25))
-    t_max = torch.where(torch.arange(N) % 3 == 0, 1.5, torch.inf) if capped else None
-    before = _launches()
-    got, gmax = es.intersect_sweep1_v1(o, d, lay, active=active, prepass=PREPASS,
-                                       t_max=t_max)
-    assert _launches() == before
-    want, wmax = es.intersect_sweep1_plain(o, d, lay, active=active, prepass=PREPASS,
-                                           t_max=t_max)
-    assert torch.equal(gmax, wmax)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert bool(torch.isfinite(got.t[active]).any())
 
 
 @pytest.mark.parametrize("which", ["carried", "built"])

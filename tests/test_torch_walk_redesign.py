@@ -1,6 +1,7 @@
 """The pieces of the redesigned nearest-hit walks (csrc/walk_common.cuh) that
 run without a card: the packed node table, the cooperative leaf reduction,
-the counting walk's new warp bounds, and the yardstick wrappers.
+the counting walk's new warp bounds, and the wrappers of every nearest-hit
+form.
 
   * the packed table unpacks to the reference's ``nodes`` and ``nodes_meta``
     exactly (integers' bits in float columns: no tolerance);
@@ -8,10 +9,15 @@ the counting walk's new warp bounds, and the yardstick wrappers.
     and k + 32, the minimum of an order-preserving key, the lowest row among
     equal t, then strict < against best_t) equals ``ops/traverse.py:latch``,
     the sequential strict-< latch, exactly, with forced ties;
-  * the yardstick wrappers take the plain versions on CPU tensors and agree
-    with the reference's Pallas kernels in interpret mode as the wrappers
-    they stand beside do (t to rtol/atol 1e-6, ids equal except equal-t ties:
-    XLA contracts multiply-adds into FMAs, torch does not).
+  * every form of the window walk (the (t, row) form, the original-id and
+    counting forms, the payload and capped epilogues) and minwalk take their
+    plain versions on CPU tensors with no launch counted, and agree with the
+    reference's Pallas kernels in interpret mode on the leaf-4 Cornell
+    layout with t_max caps (t to rtol/atol 1e-6, ids equal except equal-t
+    ties: XLA contracts multiply-adds into FMAs, torch does not; u, v,
+    position and normal to atol 1e-5 where the ids agree);
+  * every C entry point of ``csrc/*.cu`` has a signature in
+    ``ops/cuda_build.py`` and a caller in the package.
 """
 
 import os
@@ -29,7 +35,7 @@ from tpu_pathtracer.scene import SCENE_NAMES, load_scene as jload_scene, scene_p
 from tpu_pathtracer_torch import interop
 from tpu_pathtracer_torch.accel import build_layout
 from tpu_pathtracer_torch.accel.layout import pack_nodes, unpack_nodes
-from tpu_pathtracer_torch.ops import hopper_traverse as ht
+from tpu_pathtracer_torch.ops import cuda_build, hopper_traverse as ht
 from tpu_pathtracer_torch.ops.traverse import latch
 from tpu_pathtracer_torch.scene import load_scene
 from torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
@@ -149,31 +155,32 @@ def test_warp_spent_bounds_hand_made(useful, prepass, lo, hi):
     assert got_lo.tolist() == lo and got_hi.tolist() == hi
 
 
-def test_yardsticks_are_reached_only_from_hopper_traverse():
-    """No module of the package other than ops/hopper_traverse.py (and no
-    frame path inside it: the intersector, the nearest-hit and shadow
-    queries and the shadow walks' own wrappers) names the wrappers of the
-    per-thread or step yardsticks (ops/cuda_build.py lists their C entry
-    points, tpupt_*)."""
-    pattern = re.compile(r"(?<!tpupt_)\b(window_walk_v1|minwalk_v1|window_walk_steps"
-                         r"|capped_walk_v1|anyhit_walk_v1|capped_walk_steps"
-                         r"|anyhit_walk_steps)")
-    named = []
+def _named(key: str, src: str) -> bool:
+    """Whether a module's source names the C entry point ``key``: as the
+    symbol itself, or as the suffix a ``tpupt_{...}`` f-string completes."""
+    return bool(re.search(rf"\b{key}\b", src)) or (
+        'f"tpupt_{' in src and f'"{key[len("tpupt_"):]}"' in src)
+
+
+def test_every_entry_point_is_wrapped():
+    """Every ``extern "C" int tpupt_*`` of csrc/*.cu has a ctypes signature in
+    ops/cuda_build.py:_SIGNATURES, and every signature's entry point is named
+    by a module of the package other than cuda_build.py: no entry point is
+    built that nothing launches."""
+    exported = set()
+    for f in os.listdir(os.path.join(PKG, "csrc")):
+        if f.endswith(".cu"):
+            with open(os.path.join(PKG, "csrc", f)) as fh:
+                exported |= set(re.findall(r'extern "C" int (tpupt_\w+)\s*\(', fh.read()))
+    assert exported and exported == set(cuda_build._SIGNATURES)
+    sources = []
     for root, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith(".py"):
+            if f.endswith(".py") and f != "cuda_build.py":
                 with open(os.path.join(root, f)) as fh:
-                    if pattern.search(fh.read()):
-                        named.append(os.path.relpath(os.path.join(root, f), PKG))
-    assert named == [os.path.join("ops", "hopper_traverse.py")]
-    with open(os.path.join(PKG, "ops", "hopper_traverse.py")) as fh:
-        src = fh.read()
-    frame_paths = src[src.index("def make_cuda_intersector"):]
-    for fn in ("intersect_bvh_window", "intersect_bvh_minwalk", "intersect_bvh_capped",
-               "occlusion_clear_anyhit", "capped_walk", "anyhit_walk"):
-        start = src.index(f"def {fn}(")
-        frame_paths += src[start:src.index("\ndef ", start + 1)]
-    assert not pattern.search(frame_paths)
+                    sources.append(fh.read())
+    unnamed = [k for k in cuda_build._SIGNATURES if not any(_named(k, s) for s in sources)]
+    assert not unnamed
 
 
 @pytest.fixture(scope="module")
@@ -190,44 +197,105 @@ def _rays(seed, n=256):
     return o, d, active, t_max
 
 
-@pytest.mark.parametrize("wrapper", ["window_walk_v1", "window_walk_steps"])
-@pytest.mark.parametrize("tritest", ["bw", "mt"])
-def test_window_yardsticks_match_pallas(cornell, wrapper, tritest):
-    """On CPU tensors a yardstick is the window walk's plain version: equal
-    to it exactly, no launch counted, and in agreement with _window_kernel in
-    interpret mode."""
-    o, d, active, t_max = _rays(71)
+def _pallas_window(cornell, rays, tritest: str, **kw):
+    """The reference's window walk in interpret mode on ``rays`` (o, d,
+    active, t_max), tile 128, prepass 8."""
+    o, d, active, t_max = (jnp.asarray(x) for x in rays)
     with pltpu.force_tpu_interpret_mode():
-        raw, _ = pt.intersect_bvh_window(
-            jnp.asarray(o), jnp.asarray(d), cornell["lay"], tile=128, raw=True,
-            tritest=tritest, prepass=8, active=jnp.asarray(active),
-            t_max=jnp.asarray(t_max))
+        return pt.intersect_bvh_window(o, d, cornell["lay"], tile=128, tritest=tritest,
+                                       prepass=8, active=active, t_max=t_max, **kw)
+
+
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+@pytest.mark.parametrize("form", ["window_walk", "window_walk_orig", "window_walk_counts"])
+def test_window_forms_match_pallas(cornell, form, tritest):
+    """Each (t, row) form of the window walk on CPU tensors: t and row equal
+    to the plain walk's, no launch counted, and in agreement with
+    _window_kernel in interpret mode; the original-id form's id is the
+    winning row's (-1 on a miss, the reference's where the rows agree); the
+    counting form's useful rows are the plain walk's, its spent inside the
+    warp bounds."""
+    rays = _rays(71)
+    raw, _ = _pallas_window(cornell, rays, tritest, raw=True,
+                            with_orig=form == "window_walk_orig")
     raw = np.asarray(raw)
-    args = tuple(torch.from_numpy(x) for x in (o, d, active, t_max)) + (cornell["tlay"],)
-    fn = getattr(ht, wrapper)
-    kw = dict(stage=True, coop=True, persist=False, threads=128) if "steps" in wrapper else {}
-    n0 = fn.launches
-    t, row = fn(*args, prepass=8, tritest=tritest, **kw)
-    assert fn.launches == n0
+    lay = cornell["tlay"]
+    args = tuple(torch.from_numpy(x) for x in rays) + (lay,)
+    fn = getattr(ht, form)
+    n0 = (fn.launches, fn.launches_mt)
+    got = fn(*args, prepass=8, tritest=tritest)
+    assert (fn.launches, fn.launches_mt) == n0
+    t, row = got[:2]
     tp, rp = ht.window_walk_plain(*args, prepass=8, tritest=tritest)
     assert torch.equal(t, tp) and torch.equal(row, rp)
+    t_max = rays[3]
     hit = lambda x: np.where(x < t_max, x, np.inf)  # noqa: E731
-    assert_hits_agree(hit(raw[0]), raw[1].astype(np.int32), hit(t.numpy()), row.numpy())
-    assert np.isfinite(hit(t.numpy())).any()
+    same = assert_hits_agree(hit(raw[0]), raw[1].astype(np.int32), hit(t.numpy()),
+                             row.numpy())
+    assert np.isfinite(hit(t.numpy())).any() and not np.isfinite(hit(t.numpy()))[~rays[2]].any()
+    if form == "window_walk_orig":
+        won = row < lay.num_tris
+        want = torch.where(won, lay.tris[row.to(torch.int64), 9].to(torch.int32), -1)
+        assert got[2].dtype == torch.int32 and torch.equal(got[2], want)
+        np.testing.assert_array_equal(got[2].numpy()[same], raw[2][same].astype(np.int32))
+    if form == "window_walk_counts":
+        useful, spent = got[2:]
+        _, _, want, lo, hi = ht.window_walk_counts_plain(*args, prepass=8, tritest=tritest)
+        assert torch.equal(useful, want) and int(useful.sum()) > 0
+        assert bool(((lo <= spent) & (spent <= hi)).all())
 
 
-def test_minwalk_yardstick_matches_pallas(cornell):
-    """minwalk_v1 on CPU tensors is minwalk's plain version, and agrees with
-    _traverse_kernel(resolve=True) in interpret mode."""
+@pytest.mark.parametrize("tritest", ["bw", "mt"])
+@pytest.mark.parametrize("epilogue", ["resolve", "capped"])
+def test_epilogue_forms_match_pallas(cornell, epilogue, tritest):
+    """The window walk's epilogue forms on CPU tensors: window_walk_resolve's
+    12 payload rows and window_walk_hbm(capped=True)'s 4 capped rows equal
+    window_payload_rows / window_capped_rows over the plain walk, no launch
+    counted, and agree with the reference's resolved hit in interpret mode:
+    hit or miss, t and ids as assert_hits_agree, and where the ids agree u, v
+    (and the payload's material, light, position and normal)."""
+    rays = _rays(72)
+    ref = _pallas_window(cornell, rays, tritest)
+    lay = cornell["tlay"]
+    args = tuple(torch.from_numpy(x) for x in rays) + (lay,)
+    if epilogue == "resolve":
+        fn, kw, rows_of, n_rows = ht.window_walk_resolve, {}, ht.window_payload_rows, 12
+    else:
+        fn, kw, rows_of, n_rows = ht.window_walk_hbm, {"capped": True}, ht.window_capped_rows, 4
+    n0 = fn.launches
+    got = fn(*args, prepass=8, tritest=tritest, **kw)
+    assert fn.launches == n0
+    want = rows_of(lay, *ht.window_walk_plain(*args, prepass=8, tritest=tritest), args[3],
+                   args[0], args[1])
+    assert got.shape == (n_rows, rays[0].shape[1]) and torch.equal(got, want)
+    g = got.numpy()
+    t = np.where(g[0] < rays[3], g[0], np.inf)
+    same = assert_hits_agree(ref.t, ref.tri, t, g[3].astype(np.int64))
+    assert same.any()
+    np.testing.assert_allclose(g[1][same], np.asarray(ref.u)[same], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(g[2][same], np.asarray(ref.v)[same], rtol=0, atol=1e-5)
+    if epilogue == "resolve":
+        np.testing.assert_array_equal(g[4][same], np.asarray(ref.mat)[same])
+        np.testing.assert_array_equal(g[5][same] - 1, np.asarray(ref.light)[same])
+        np.testing.assert_allclose(g[6:9][:, same], np.asarray(ref.pos)[:, same], rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g[9:12][:, same], np.asarray(ref.normal)[:, same],
+                                   rtol=0, atol=1e-5)
+
+
+def test_minwalk_matches_pallas_with_caps(cornell):
+    """minwalk on CPU tensors is its plain version, no launch counted, and
+    agrees with _traverse_kernel(resolve=True) in interpret mode on rays with
+    t_max caps."""
     o, d, active, t_max = _rays(73)
     with pltpu.force_tpu_interpret_mode():
         ref = pt.intersect_bvh_pallas(jnp.asarray(o), jnp.asarray(d), cornell["lay"],
                                       tile=128, active=jnp.asarray(active),
                                       t_max=jnp.asarray(t_max), prepass=8)
     args = tuple(torch.from_numpy(x) for x in (o, d, active, t_max)) + (cornell["tlay"],)
-    n0 = ht.minwalk_v1.launches
-    out = ht.minwalk_v1(*args, prepass=8)
-    assert ht.minwalk_v1.launches == n0
+    n0 = ht.minwalk.launches
+    out = ht.minwalk(*args, prepass=8)
+    assert ht.minwalk.launches == n0
     assert torch.equal(out, ht.minwalk_plain(*args, prepass=8))
     t = np.where(out[0].numpy() < t_max, out[0].numpy(), np.inf)
     same = assert_hits_agree(ref.t, ref.tri, t, out[3].numpy().astype(np.int64))

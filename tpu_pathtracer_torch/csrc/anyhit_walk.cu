@@ -37,7 +37,6 @@
 
 namespace {
 
-template <bool kCoop>
 __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) anyhit_walk_kernel(
     tpupt::WalkArgs a, const int* __restrict__ target, float eps, float four_eps,
     unsigned char* __restrict__ out) {
@@ -50,34 +49,24 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) anyhit_walk_kernel(
     const bool live = tpupt::load_ray(a, i, &r);
     const float cap = live ? a.t_max[i] : 0.0f;
     const int tgt = live ? target[i] : -1;
-    const bool clear = tpupt::walk_anyhit<kCoop>(a, live, r, cap, tgt, eps, four_eps);
+    const bool clear = tpupt::walk_anyhit(a, live, r, cap, tgt, eps, four_eps);
     if (i < a.n) out[i] = (live && clear) ? 1 : 0;
   }
 }
 
-template <bool kCoop>
-void launch(const tpupt::WalkArgs& a, const int* target, float eps, float four_eps,
-            unsigned char* out, cudaStream_t stream) {
-  const tpupt::WalkShape s = tpupt::kWalkShape;
-  auto kernel = anyhit_walk_kernel<kCoop>;
-  kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(
-      a, target, eps, four_eps, out);
-}
-
 }  // namespace
 
-// coop: as tpupt_capped_walk's.
 extern "C" int tpupt_anyhit_walk(
     const float* o, const float* d, const unsigned char* active,
     const float* cap, const int* target, const float* packed, const float* tris,
-    int num_nodes, float t_min, float eps, float four_eps, int n, int coop,
-    unsigned char* out, void* stream) {
+    int num_nodes, float t_min, float eps, float four_eps, int n, unsigned char* out,
+    void* stream) {
   if (n > 0) {
     const tpupt::WalkArgs a = {o, d, active, cap, reinterpret_cast<const float4*>(packed),
                                tris, nullptr, 0, 0.0f, 0.0f, 0.0f, num_nodes, 0, t_min, n};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    coop ? launch<true>(a, target, eps, four_eps, out, s)
-         : launch<false>(a, target, eps, four_eps, out, s);
+    anyhit_walk_kernel<<<tpupt::walk_blocks(n), tpupt::kWalkThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, target, eps, four_eps,
+                                                              out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,8 +40,8 @@
 // primes again exactly.  The count needs every box: it sweeps them last
 // first, so that the lowest hit is a select.
 //
-// sweep1 (the first port's, one thread per lane of the whole wavefront with a
-// break at the first hit, is march_v1.cu's yardstick) adds three things:
+// sweep1 (the first port's ran one thread per lane of the whole wavefront
+// with a break at the first hit) adds three things:
 //   * a list: only the lanes with at most one candidate are active (19% of
 //     Water-plastic's bounce-1 wavefront at leaf 56, 35% at leaf 8), and they
 //     cluster, so blocks that compact their own tile get very uneven work.

@@ -31,7 +31,6 @@
 
 namespace {
 
-template <bool kCoop>
 __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) capped_walk_kernel(
     tpupt::WalkArgs a, float* __restrict__ out) {
   const int warps = blockDim.x >> 5;
@@ -44,8 +43,7 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) capped_walk_kernel(
     float best_t = i < a.n ? a.t_max[i] : 0.0f;
     int best_row = a.num_tris;
     int useful = 0, slots = 0;
-    tpupt::walk_nearest<true, false, false, kCoop>(a, a.nodes, live, r, &best_t, &best_row,
-                                                   &useful, &slots);
+    tpupt::walk_nearest<true, false>(a, live, r, &best_t, &best_row, &useful, &slots);
     if (i < a.n) {
       float u = 0.0f, v = 0.0f, orig = 0.0f;
       if (best_row < a.num_tris) {
@@ -62,28 +60,18 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) capped_walk_kernel(
   }
 }
 
-template <bool kCoop>
-void launch(const tpupt::WalkArgs& a, float* out, cudaStream_t stream) {
-  const tpupt::WalkShape s = tpupt::kWalkShape;
-  auto kernel = capped_walk_kernel<kCoop>;
-  kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(a, out);
-}
-
 }  // namespace
 
-// coop: 1 serves a leaf over the whole warp where that takes fewer row-test
-// slots than the per-lane loop (the frame path's wrapper), 0 the per-lane
-// loop only (a step of the design for the in-run A/B).
 extern "C" int tpupt_capped_walk(
     const float* o, const float* d, const unsigned char* active,
     const float* cap, const float* packed, const float* tris, int num_nodes,
-    int num_tris, float t_min, int n, int coop, float* out, void* stream) {
+    int num_tris, float t_min, int n, float* out, void* stream) {
   if (n > 0) {
     const tpupt::WalkArgs a = {o, d, active, cap, reinterpret_cast<const float4*>(packed),
                                tris, nullptr, 0, 0.0f, 0.0f, 0.0f, num_nodes, num_tris,
                                t_min, n};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    coop ? launch<true>(a, out, s) : launch<false>(a, out, s);
+    capped_walk_kernel<<<tpupt::walk_blocks(n), tpupt::kWalkThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

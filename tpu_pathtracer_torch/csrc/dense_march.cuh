@@ -3,8 +3,7 @@
 // row of one small table, in the same order (sweep1: up to its first hit).
 //
 // What bounds it on an H100: the float32 instruction rate.  The first port
-// (march_v1.cu, kept as the yardstick) ran one lane a thread and read each row
-// with __ldg: every lane issued a row's loads, its address increment, its
+// ran one lane a thread and read each row with __ldg: every lane issued a row's loads, its address increment, its
 // compare and its branch, though all 32 threads of a warp read the same row.
 // That put the row-test probe at 45% and the candidate count at 49% of their
 // operations bounds on whole wavefronts (PERF.md section 6).  The design:

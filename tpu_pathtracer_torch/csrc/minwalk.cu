@@ -21,7 +21,7 @@
 // The walk latches (t, row) only; u and v are recomputed from the winning
 // row with mt_row once the walk is over: the same operations on the same
 // values as the test that won (a prepass row is a copy of its leaf row), so
-// the same bits the per-thread kernel latched.
+// the same bits as the plain version's latch.
 //
 // What bounds it on an H100, what the design does about it and the measured
 // share of its bound: walk_common.cuh and PERF.md section 6 (row 3).
@@ -41,8 +41,7 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) minwalk_kernel(
     float best_t = i < a.n ? a.t_max[i] : 0.0f;
     int best_row = a.num_tris;
     int useful = 0, slots = 0;
-    tpupt::walk_nearest<true, false, false, true>(a, a.nodes, live, r, &best_t,
-                                                  &best_row, &useful, &slots);
+    tpupt::walk_nearest<true, false>(a, live, r, &best_t, &best_row, &useful, &slots);
     if (i < a.n) {
       // phase 2: the winning row's u, v and payload
       const float* row = a.rows + 24 * best_row;
@@ -66,8 +65,7 @@ extern "C" int tpupt_minwalk(
     const tpupt::WalkArgs a = {o, d, active, t_max,
                                reinterpret_cast<const float4*>(packed), tris, pre,
                                n_prepass, 0.0f, 0.0f, 0.0f, num_nodes, num_tris, t_min, n};
-    const tpupt::WalkShape s = tpupt::kWalkShape;
-    minwalk_kernel<<<tpupt::walk_blocks(minwalk_kernel, s, 0, n), s.threads, 0,
+    minwalk_kernel<<<tpupt::walk_blocks(n), tpupt::kWalkThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a, out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -27,8 +27,7 @@
 // updates the best once.  All accept t > 0.  best_t starts at inf and
 // best_i at -1.  Every variant, the wrong ones included, is a function of
 // its inputs and is held against its plain version
-// (scripts/perf_ophit_probe.py:rowtest_probe_plain) and against the first
-// port's kernel (march_v1.cu:tpupt_rowtest_probe_v1).
+// (scripts/perf_ophit_probe.py:rowtest_probe_plain).
 // The march is dense_march.cuh's: `tile` lanes a block, kProbeK lanes a
 // thread, the table's cols 0-11 staged in shared memory a tile of rows at a
 // time (the 455 KB table of the tool does not fit one block's shared memory).
@@ -68,7 +67,7 @@ constexpr int kProbeK = 2;
 constexpr int kRowUnroll = 16;
 
 // One row (cols 0-11 as a, b, c) against a ray -> accepted, *t_out; the
-// arithmetic of march_v1.cu:probe_row, the reciprocal through
+// arithmetic of rowtest_probe_plain, the reciprocal through
 // tpupt::recip_or_zero<kFast> (*slow: redo this test with kFast false).
 template <int V, bool kFast>
 __device__ __forceinline__ bool probe_test(const float4& a, const float4& b,

@@ -106,11 +106,10 @@ __device__ __forceinline__ float clamp01(float x) {
   return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-template <bool kMT, bool kCounts, bool kStage, bool kCoop, bool kCapped>
+template <bool kMT, bool kCounts, bool kCapped>
 __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
     tpupt::WalkArgs a, Outs out) {
   using R = tpupt::Rows<kMT>;
-  const float4* nodes = tpupt::stage_nodes<kStage>(a.nodes, a.num_nodes);
   const int warps = blockDim.x >> 5;
   const int tiles = (a.n + 31) >> 5;
   for (int tile = blockIdx.x * warps + (threadIdx.x >> 5); tile < tiles;
@@ -121,8 +120,7 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
     float best_t = i < a.n ? a.t_max[i] : 0.0f;
     int best_row = a.num_tris;
     int useful = 0, slots = 0;
-    tpupt::walk_nearest<kMT, kCounts, kStage, kCoop>(a, nodes, live, r, &best_t,
-                                                     &best_row, &useful, &slots);
+    tpupt::walk_nearest<kMT, kCounts>(a, live, r, &best_t, &best_row, &useful, &slots);
     if (i < a.n) {
       if (out.t != nullptr) {
         out.t[i] = best_t;
@@ -157,29 +155,16 @@ __global__ void __launch_bounds__(tpupt::kWalkMaxThreads, 1) window_walk_kernel(
   }
 }
 
-template <bool kMT, bool kCounts, bool kCoop, bool kCapped = false>
-int launch_shape(const tpupt::WalkArgs& a, const tpupt::WalkShape& s, const Outs& out,
-                 cudaStream_t stream) {
-  if (a.n > 0) {
-    if (s.stage) {
-      auto kernel = window_walk_kernel<kMT, kCounts, true, kCoop, kCapped>;
-      const size_t smem = static_cast<size_t>(a.num_nodes) * tpupt::kNodeBytes;
-      kernel<<<tpupt::walk_blocks(kernel, s, smem, a.n), s.threads, smem, stream>>>(a, out);
-    } else {
-      auto kernel = window_walk_kernel<kMT, kCounts, false, kCoop, kCapped>;
-      kernel<<<tpupt::walk_blocks(kernel, s, 0, a.n), s.threads, 0, stream>>>(a, out);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The frame paths' launch: the kept shape, cooperative leaves.
+// One launch of the kMT form `mt` picks.
 template <bool kCounts, bool kCapped = false>
 int launch(const tpupt::WalkArgs& a, int mt, const Outs& out, void* stream) {
-  const tpupt::WalkShape s = tpupt::kWalkShape;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mt ? launch_shape<true, kCounts, true, kCapped>(a, s, out, st)
-            : launch_shape<false, kCounts, true, kCapped>(a, s, out, st);
+  if (a.n > 0) {
+    auto kernel = mt ? window_walk_kernel<true, kCounts, kCapped>
+                     : window_walk_kernel<false, kCounts, kCapped>;
+    kernel<<<tpupt::walk_blocks(a.n), tpupt::kWalkThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(a, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 tpupt::WalkArgs walk_args(const float* o, const float* d, const unsigned char* active,
@@ -249,31 +234,4 @@ extern "C" int tpupt_window_walk_counts(
                                 ay, az, num_nodes, num_tris, t_min, n),
                       mt, {out_t, out_row, nullptr, out_spent, out_useful, nullptr, nullptr},
                       stream);
-}
-
-// The design's steps one by one, for the in-run A/B against walk_v1.cu
-// (chip_smoke.py's walk A/B phase): the default form with the launch shape
-// and the leaf service given, not derived.  stage: node table in shared
-// memory; coop: warp-cooperative leaves; persist: resident blocks with a grid
-// stride; threads: a block.  No frame path reaches it.
-extern "C" int tpupt_window_walk_steps(
-    const float* o, const float* d, const unsigned char* active,
-    const float* t_max, const float* packed, const float* rows, const float* pre,
-    int n_prepass, float ax, float ay, float az, int num_nodes, int num_tris,
-    float t_min, int n, int mt, int stage, int coop, int persist, int threads,
-    float* out_t, int* out_row, void* stream) {
-  if (threads < 32 || threads > tpupt::kWalkMaxThreads || threads % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const tpupt::WalkArgs a = walk_args(o, d, active, t_max, packed, rows, pre, n_prepass,
-                                      ax, ay, az, num_nodes, num_tris, t_min, n);
-  const tpupt::WalkShape s = {stage, persist, threads};
-  const Outs out = {out_t, out_row, nullptr, nullptr, nullptr, nullptr, nullptr};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (coop) {
-    return mt ? launch_shape<true, false, true>(a, s, out, st)
-              : launch_shape<false, false, true>(a, s, out, st);
-  }
-  return mt ? launch_shape<true, false, false>(a, s, out, st)
-            : launch_shape<false, false, false>(a, s, out, st);
 }

@@ -48,50 +48,27 @@ _SIGNATURES = {
     "tpupt_window_walk_orig": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 4,
     # ... out_t, out_row, out_spent, out_useful, stream
     "tpupt_window_walk_counts": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I, _I] + [_P] * 5,
-    # ... mt, stage, coop, persist, threads, out_t, out_row, stream
-    "tpupt_window_walk_steps": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _F, _I]
-                               + [_I] * 5 + [_P] * 3,
     # o, d, active, t_max, nodes_packed, tris, pre, n_prepass, num_nodes,
     # num_tris, t_min, n, out, stream
     "tpupt_minwalk": [_P] * 7 + [_I, _I, _I, _F, _I, _P, _P],
-    # the per-thread yardsticks (csrc/walk_v1.cu): o, d, active, t_max, nodes,
-    # meta, tris, pre, n_prepass, ax, ay, az, num_nodes, num_tris, t_min, n,
-    # mt, out_t, out_row, stream
-    "tpupt_window_walk_v1": [_P] * 8 + [_I, _F, _F, _F, _I, _I, _F, _I, _I, _P, _P, _P],
-    # o, d, active, t_max, nodes, meta, tris, pre, n_prepass, num_nodes,
-    # num_tris, t_min, n, out, stream
-    "tpupt_minwalk_v1": [_P] * 8 + [_I, _I, _I, _F, _I, _P, _P],
     # o, d, active, t_max, tris, ax, ay, az, num_tris, t_min, n, mt,
     # with_orig, out_t, out_row, out_orig, stream
     "tpupt_sweep": [_P] * 5 + [_F, _F, _F, _I, _F, _I, _I, _I, _P, _P, _P, _P],
     # o, d, active, cap, nodes_packed, tris, num_nodes, num_tris, t_min, n,
-    # coop (0 = per-lane leaves only), out, stream
-    "tpupt_capped_walk": [_P] * 6 + [_I, _I, _F, _I, _I, _P, _P],
+    # out, stream
+    "tpupt_capped_walk": [_P] * 6 + [_I, _I, _F, _I, _P, _P],
     # o, d, active, cap, target, nodes_packed, tris, num_nodes, t_min, eps,
-    # four_eps, n, coop, out, stream
-    "tpupt_anyhit_walk": [_P] * 7 + [_I, _F, _F, _F, _I, _I, _P, _P],
-    # the per-thread yardsticks (csrc/walk_v1.cu): o, d, active, cap, nodes,
-    # meta, tris, num_nodes, t_min, n, out, stream
-    "tpupt_capped_walk_v1": [_P] * 7 + [_I, _F, _I, _P, _P],
-    # o, d, active, cap, target, nodes, meta, tris, num_nodes, t_min, eps,
     # four_eps, n, out, stream
-    "tpupt_anyhit_walk_v1": [_P] * 8 + [_I, _F, _F, _F, _I, _P, _P],
+    "tpupt_anyhit_walk": [_P] * 7 + [_I, _F, _F, _F, _I, _P, _P],
     # o, d, active, leafbox, pre, n_prepass, num_leaves, t_min, tile, blocks,
     # threads, passes, tile_rows, smem (scripts/dense_march.py:march_shape), n,
     # out_count, out_first, stream
     "tpupt_sweep_count": [_P] * 5 + [_I, _I, _F] + [_I] * 7 + [_P] * 3,
-    # the first port's count (csrc/march_v1.cu, a yardstick): o, d, active,
-    # leafbox, pre, n_prepass, num_leaves, t_min, n, out_count, out_first, stream
-    "tpupt_sweep_count_v1": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
     # o, d, active, t_max, leafbox, leafmeta, tris8, pre, n_prepass,
     # num_leaves, num_tris, t_min, threads, tile_rows, smem
     # (scripts/dense_march.py:compact_shape), n, scratch, out_t, out_u, out_v,
     # out_row, out_orig, stream
     "tpupt_sweep1": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 4 + [_P] * 7,
-    # the first port's targeted kernel (csrc/march_v1.cu, a yardstick): o, d,
-    # active, t_max, leafbox, leafmeta, tris8, pre, n_prepass, num_leaves,
-    # num_tris, t_min, n, out_t, out_u, out_v, out_row, out_orig, stream
-    "tpupt_sweep1_v1": [_P] * 8 + [_I, _I, _I, _F, _I] + [_P] * 6,
     # pid (int64), keys (a host array: csrc/rng.cu), count, n, out, stream
     "tpupt_uniforms": [_P, _P, _I, _I, _P, _P],
     "tpupt_uniforms_r2": [_P, _P, _I, _I, _P, _P],
@@ -107,9 +84,6 @@ _SIGNATURES = {
     # rays, tris, variant, nblocks, mtblock, tile, blocks, threads, passes,
     # tile_rows, smem (scripts/dense_march.py:march_shape), n, out_t, out_i, stream
     "tpupt_rowtest_probe": [_P, _P] + [_I] * 10 + [_P] * 3,
-    # the first port's probe (csrc/march_v1.cu, a yardstick): rays, tris,
-    # variant, nblocks, mtblock, threads, n, out_t, out_i, stream
-    "tpupt_rowtest_probe_v1": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -51,14 +51,6 @@ contract is the outputs: the same nearest hit, strict ``<`` in visit order
 (prepass rows, then leaf rows in DFS order, ascending within a leaf), which
 is the winner the TPU kernels' lowest-row tie-break picks.
 
-``window_walk_v1``, ``minwalk_v1``, ``capped_walk_v1`` and ``anyhit_walk_v1``
-(``csrc/walk_v1.cu``, the first port's one-thread-per-ray walks) and
-``window_walk_steps``, ``capped_walk_steps`` and ``anyhit_walk_steps`` (the
-new walks with their launch shape or leaf service given by the caller) are
-yardsticks for timing the walks' design inside one run: ``chip_smoke.py``
-and the card tests call them, no frame path, CLI or bench does, and they are
-no fallback.
-
 Each kernel's wrapper takes its plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel (counting the launch in its
 ``launches`` attribute, and for the wrappers that take ``tritest`` the
@@ -214,24 +206,20 @@ def _check_window(o, d, active, t_max, lay: BVHLayout, prepass: int, tritest: st
 
 
 def _launch_window(variant: str, o, d, active, t_max, lay: BVHLayout,
-                   t_min: float, prepass: int, tritest: str, extra: int,
-                   steps: tuple = ()):
+                   t_min: float, prepass: int, tritest: str, extra: int):
     """Check the inputs and launch ``tpupt_<variant>`` -> (t, row, *extra
-    int32 rows).  The ``_v1`` yardstick reads ``nodes`` and ``nodes_meta``,
-    every other variant the packed node table; ``steps``: the ints
-    ``tpupt_window_walk_steps`` takes after ``mt``."""
+    int32 rows)."""
     n = o.shape[1]
-    nodes = ("nodes", "nodes_meta") if variant.endswith("_v1") else ("nodes_packed",)
-    rs = _check_window(o, d, active, t_max, lay, prepass, tritest, nodes)
+    rs = _check_window(o, d, active, t_max, lay, prepass, tritest, ("nodes_packed",))
     out_t = torch.empty(n, dtype=torch.float32, device=o.device)
     outs = [torch.empty(n, dtype=torch.int32, device=o.device) for _ in range(1 + extra)]
     ax, ay, az = lay.anchor
     rc = getattr(load_library(), f"tpupt_{variant}")(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        *(getattr(lay, name).data_ptr() for name in nodes), rs.table.data_ptr(),
-        rs.prepass.data_ptr(), prepass, ax, ay, az, lay.num_nodes,
-        lay.num_tris, t_min, n, int(tritest == "mt"), *steps, out_t.data_ptr(),
-        *(x.data_ptr() for x in outs), torch.cuda.current_stream(o.device).cuda_stream)
+        lay.nodes_packed.data_ptr(), rs.table.data_ptr(), rs.prepass.data_ptr(), prepass,
+        ax, ay, az, lay.num_nodes, lay.num_tris, t_min, n, int(tritest == "mt"),
+        out_t.data_ptr(), *(x.data_ptr() for x in outs),
+        torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
     return (out_t, *outs)
@@ -256,58 +244,6 @@ def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
 
 
 window_walk.launches = window_walk.launches_mt = 0
-
-
-def window_walk_v1_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                         prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
-                         tally: Tally | None = None):
-    """Plain version of the per-thread yardstick: the window walk's."""
-    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
-
-
-def window_walk_v1(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                   prepass: int = DEFAULT_PREPASS, tritest: str = "bw"):
-    """The first port's one-thread-per-ray window walk (``csrc/walk_v1.cu``),
-    kept as the yardstick :func:`window_walk` is timed against inside one run;
-    same inputs and outputs.  Not on any frame path."""
-    if o.device.type == "cpu":
-        return window_walk_v1_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
-    out = _launch_window("window_walk_v1", o, d, active, t_max, lay, t_min, prepass,
-                         tritest, 0)
-    window_walk_v1.launches += 1
-    return out
-
-
-window_walk_v1.launches = 0
-
-
-def window_walk_steps_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                            prepass: int = DEFAULT_PREPASS, tritest: str = "bw",
-                            tally: Tally | None = None, **steps):
-    """Plain version of the step yardstick: the window walk's, whatever the
-    ``steps``."""
-    del steps
-    return _window_plain(o, d, active, t_max, lay, t_min, prepass, tritest, tally=tally)
-
-
-def window_walk_steps(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                      prepass: int = DEFAULT_PREPASS, tritest: str = "bw", *,
-                      stage: bool, coop: bool, persist: bool, threads: int):
-    """:func:`window_walk` with the steps of its design switched by the caller,
-    for timing each against the one before inside one run: ``stage`` the
-    packed node table in shared memory, ``coop`` warp-cooperative leaves,
-    ``persist`` resident blocks with a grid stride, ``threads`` a block.  The
-    same outputs whatever the switches.  A yardstick like
-    :func:`window_walk_v1`; CPU tensors take the plain version."""
-    if o.device.type == "cpu":
-        return window_walk_steps_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
-    out = _launch_window("window_walk_steps", o, d, active, t_max, lay, t_min, prepass,
-                         tritest, 0, (int(stage), int(coop), int(persist), int(threads)))
-    window_walk_steps.launches += 1
-    return out
-
-
-window_walk_steps.launches = 0
 
 
 def window_walk_hbm_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
@@ -692,7 +628,7 @@ def minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     ``lay.prepass`` (MT rows, col 21 = the global row id)."""
     if o.device.type == "cpu":
         return minwalk_plain(o, d, active, t_max, lay, t_min, prepass)
-    out = _launch_minwalk("minwalk", o, d, active, t_max, lay, t_min, prepass)
+    out = _launch_minwalk(o, d, active, t_max, lay, t_min, prepass)
     minwalk.launches += 1
     return out
 
@@ -700,50 +636,25 @@ def minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
 minwalk.launches = 0
 
 
-def _launch_minwalk(variant: str, o, d, active, t_max, lay: BVHLayout, t_min: float,
-                    prepass: int):
-    """Check the inputs and launch ``tpupt_<variant>`` -> (12, N) float32; the
-    ``_v1`` yardstick reads ``nodes`` and ``nodes_meta``, minwalk the packed
-    node table."""
+def _launch_minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float, prepass: int):
+    """Check the inputs and launch ``tpupt_minwalk`` -> (12, N) float32."""
     n = o.shape[1]
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(t_max, torch.float32, (n,), "t_max")
-    nodes = ("nodes", "nodes_meta") if variant.endswith("_v1") else ("nodes_packed",)
-    _check_layout(lay, nodes + ("tris", "prepass"), o.device)
+    _check_layout(lay, ("nodes_packed", "tris", "prepass"), o.device)
     if not 0 <= prepass <= lay.prepass.shape[0]:
         raise ValueError(f"prepass={prepass} outside [0, {lay.prepass.shape[0]}]")
     out = torch.empty((12, n), dtype=torch.float32, device=o.device)
-    rc = getattr(load_library(), f"tpupt_{variant}")(
+    rc = load_library().tpupt_minwalk(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        *(getattr(lay, name).data_ptr() for name in nodes), lay.tris.data_ptr(),
-        lay.prepass.data_ptr(), prepass, lay.num_nodes, lay.num_tris, t_min, n,
-        out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+        lay.nodes_packed.data_ptr(), lay.tris.data_ptr(), lay.prepass.data_ptr(), prepass,
+        lay.num_nodes, lay.num_tris, t_min, n, out.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"minwalk kernel launch failed: cudaError {rc}")
     return out
-
-
-def minwalk_v1_plain(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-                     prepass: int = DEFAULT_PREPASS, tally: Tally | None = None):
-    """Plain version of the per-thread yardstick: minwalk's."""
-    return minwalk_plain(o, d, active, t_max, lay, t_min, prepass, tally=tally)
-
-
-def minwalk_v1(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
-               prepass: int = DEFAULT_PREPASS):
-    """The first port's one-thread-per-ray minwalk (``csrc/walk_v1.cu``), kept
-    as the yardstick :func:`minwalk` is timed against inside one run; same
-    inputs and outputs.  Not on any frame path."""
-    if o.device.type == "cpu":
-        return minwalk_v1_plain(o, d, active, t_max, lay, t_min, prepass)
-    out = _launch_minwalk("minwalk_v1", o, d, active, t_max, lay, t_min, prepass)
-    minwalk_v1.launches += 1
-    return out
-
-
-minwalk_v1.launches = 0
 
 
 def intersect_bvh_minwalk(o, d, lay: BVHLayout, t_min: float = 0.0, active=None,
@@ -854,29 +765,21 @@ def capped_walk_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
     return torch.stack(best)
 
 
-def _launch_capped(variant: str, o, d, active, cap, lay: BVHLayout, t_min: float,
-                   coop: bool | None = None):
-    """Check the inputs and launch ``tpupt_<variant>`` -> (4, N) float32; the
-    ``_v1`` yardstick (``coop`` None) reads ``nodes`` and ``nodes_meta``, the
-    capped walk the packed node table, its leaves served by the warp where
-    ``coop`` lets it."""
+def _launch_capped(o, d, active, cap, lay: BVHLayout, t_min: float):
+    """Check the inputs and launch ``tpupt_capped_walk`` -> (4, N) float32."""
     n = o.shape[1]
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(cap, torch.float32, (n,), "cap")
-    v1 = coop is None
-    nodes = ("nodes", "nodes_meta") if v1 else ("nodes_packed",)
-    _check_layout(lay, nodes + ("tris",), o.device)
+    _check_layout(lay, ("nodes_packed", "tris"), o.device)
     out = torch.empty((4, n), dtype=torch.float32, device=o.device)
-    sizes = (lay.num_nodes,) if v1 else (lay.num_nodes, lay.num_tris)
-    rc = getattr(load_library(), f"tpupt_{variant}")(
+    rc = load_library().tpupt_capped_walk(
         o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
-        *(getattr(lay, name).data_ptr() for name in nodes), lay.tris.data_ptr(),
-        *sizes, t_min, n, *(() if v1 else (int(coop),)), out.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
+        lay.nodes_packed.data_ptr(), lay.tris.data_ptr(), lay.num_nodes, lay.num_tris,
+        t_min, n, out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"capped_walk kernel launch failed: cudaError {rc}")
     return out
 
 
@@ -885,57 +788,12 @@ def capped_walk(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if o.device.type == "cpu":
         return capped_walk_plain(o, d, active, cap, lay, t_min)
-    out = _launch_capped("capped_walk", o, d, active, cap, lay, t_min, coop=True)
+    out = _launch_capped(o, d, active, cap, lay, t_min)
     capped_walk.launches += 1
     return out
 
 
 capped_walk.launches = 0
-
-
-def capped_walk_v1_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
-                         tally: Tally | None = None):
-    """Plain version of the per-thread yardstick: the capped walk's."""
-    return capped_walk_plain(o, d, active, cap, lay, t_min, tally=tally)
-
-
-def capped_walk_v1(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
-    """The first port's one-thread-per-ray capped walk (``csrc/walk_v1.cu``),
-    kept as the yardstick :func:`capped_walk` is timed against inside one
-    run; same inputs and outputs.  Not on any frame path."""
-    if o.device.type == "cpu":
-        return capped_walk_v1_plain(o, d, active, cap, lay, t_min)
-    out = _launch_capped("capped_walk_v1", o, d, active, cap, lay, t_min)
-    capped_walk_v1.launches += 1
-    return out
-
-
-capped_walk_v1.launches = 0
-
-
-def capped_walk_steps_plain(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0,
-                            tally: Tally | None = None, **steps):
-    """Plain version of the step yardstick: the capped walk's, whatever the
-    ``steps``."""
-    del steps
-    return capped_walk_plain(o, d, active, cap, lay, t_min, tally=tally)
-
-
-def capped_walk_steps(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0, *,
-                      coop: bool):
-    """:func:`capped_walk` with the leaf service given by the caller, for
-    timing each step of its design inside one run: ``coop`` False tests
-    every leaf lane by lane (the per-lane loop only), True is the kernel
-    :func:`capped_walk` launches.  The same outputs either way.  A yardstick
-    like :func:`capped_walk_v1`; CPU tensors take the plain version."""
-    if o.device.type == "cpu":
-        return capped_walk_steps_plain(o, d, active, cap, lay, t_min)
-    out = _launch_capped("capped_walk", o, d, active, cap, lay, t_min, coop)
-    capped_walk_steps.launches += 1
-    return out
-
-
-capped_walk_steps.launches = 0
 
 
 def intersect_bvh_capped(o, d, lay: BVHLayout, active, t_max,
@@ -985,30 +843,22 @@ def anyhit_walk_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
     return clear.to(torch.uint8)
 
 
-def _launch_anyhit(variant: str, o, d, active, cap, target, lay: BVHLayout, eps: float,
-                   t_min: float, coop: bool | None = None):
-    """Check the inputs and launch ``tpupt_<variant>`` -> (N,) uint8; the
-    ``_v1`` yardstick (``coop`` None) reads ``nodes`` and ``nodes_meta``, the
-    any-hit walk the packed node table, its leaves served by the warp where
-    ``coop`` lets it."""
+def _launch_anyhit(o, d, active, cap, target, lay: BVHLayout, eps: float, t_min: float):
+    """Check the inputs and launch ``tpupt_anyhit_walk`` -> (N,) uint8."""
     n = o.shape[1]
     _check(o, torch.float32, (3, n), "o")
     _check(d, torch.float32, (3, n), "d")
     _check(active, torch.bool, (n,), "active")
     _check(cap, torch.float32, (n,), "cap")
     _check(target, torch.int32, (n,), "target")
-    v1 = coop is None
-    nodes = ("nodes", "nodes_meta") if v1 else ("nodes_packed",)
-    _check_layout(lay, nodes + ("tris",), o.device)
+    _check_layout(lay, ("nodes_packed", "tris"), o.device)
     out = torch.empty(n, dtype=torch.uint8, device=o.device)
-    rc = getattr(load_library(), f"tpupt_{variant}")(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(),
-        target.data_ptr(), *(getattr(lay, name).data_ptr() for name in nodes),
-        lay.tris.data_ptr(), lay.num_nodes, t_min, eps, 4.0 * eps, n,
-        *(() if v1 else (int(coop),)), out.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
+    rc = load_library().tpupt_anyhit_walk(
+        o.data_ptr(), d.data_ptr(), active.data_ptr(), cap.data_ptr(), target.data_ptr(),
+        lay.nodes_packed.data_ptr(), lay.tris.data_ptr(), lay.num_nodes, t_min, eps,
+        4.0 * eps, n, out.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
-        raise RuntimeError(f"{variant} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"anyhit_walk kernel launch failed: cudaError {rc}")
     return out
 
 
@@ -1022,58 +872,12 @@ def anyhit_walk(o, d, active, cap, target, lay: BVHLayout, eps: float,
     sampled light, -1 for environment samples."""
     if o.device.type == "cpu":
         return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min)
-    out = _launch_anyhit("anyhit_walk", o, d, active, cap, target, lay, eps, t_min,
-                         coop=True)
+    out = _launch_anyhit(o, d, active, cap, target, lay, eps, t_min)
     anyhit_walk.launches += 1
     return out
 
 
 anyhit_walk.launches = 0
-
-
-def anyhit_walk_v1_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
-                         t_min: float = 0.0, tally: Tally | None = None):
-    """Plain version of the per-thread yardstick: the any-hit walk's."""
-    return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min, tally=tally)
-
-
-def anyhit_walk_v1(o, d, active, cap, target, lay: BVHLayout, eps: float,
-                   t_min: float = 0.0):
-    """The first port's one-thread-per-ray any-hit walk (``csrc/walk_v1.cu``),
-    kept as the yardstick :func:`anyhit_walk` is timed against inside one
-    run; same inputs and outputs.  Not on any frame path."""
-    if o.device.type == "cpu":
-        return anyhit_walk_v1_plain(o, d, active, cap, target, lay, eps, t_min)
-    out = _launch_anyhit("anyhit_walk_v1", o, d, active, cap, target, lay, eps, t_min)
-    anyhit_walk_v1.launches += 1
-    return out
-
-
-anyhit_walk_v1.launches = 0
-
-
-def anyhit_walk_steps_plain(o, d, active, cap, target, lay: BVHLayout, eps: float,
-                            t_min: float = 0.0, tally: Tally | None = None, **steps):
-    """Plain version of the step yardstick: the any-hit walk's, whatever the
-    ``steps``."""
-    del steps
-    return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min, tally=tally)
-
-
-def anyhit_walk_steps(o, d, active, cap, target, lay: BVHLayout, eps: float,
-                      t_min: float = 0.0, *, coop: bool):
-    """:func:`anyhit_walk` with the leaf service given by the caller, as
-    :func:`capped_walk_steps`.  A yardstick; CPU tensors take the plain
-    version."""
-    if o.device.type == "cpu":
-        return anyhit_walk_steps_plain(o, d, active, cap, target, lay, eps, t_min)
-    out = _launch_anyhit("anyhit_walk", o, d, active, cap, target, lay, eps, t_min,
-                         coop)
-    anyhit_walk_steps.launches += 1
-    return out
-
-
-anyhit_walk_steps.launches = 0
 
 
 def occlusion_clear_anyhit(o, d, lay: BVHLayout, active, t_max, target,

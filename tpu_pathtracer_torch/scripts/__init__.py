@@ -12,7 +12,5 @@ None of them is on a frame's path.  Each kernel (``csrc/candidate_sweep.cu``,
 ``csrc/probes.cu``) has a plain torch version beside its wrapper; a wrapper
 takes the plain version only for CPU tensors and launches or raises on CUDA
 tensors, counting its launches in ``.launches``.  The probe and the count
-share :mod:`.dense_march`'s launch shape; their first port's kernels
-(``csrc/march_v1.cu``) stay as yardsticks, ``rowtest_probe_v1`` and
-``sweep_count_v1``.
+share :mod:`.dense_march`'s launch shape.
 """

@@ -178,31 +178,6 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 sweep_count.launches = 0
 
 
-def sweep_count_v1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                   prepass: int = DEFAULT_PREPASS):
-    """The first port's count (``csrc/march_v1.cu``: one lane a thread, each
-    box read with ``__ldg``), kept as the yardstick :func:`sweep_count` is
-    timed against in turns; on no tool's path.  Its plain version is
-    :func:`sweep_count_plain`."""
-    if o.device.type == "cpu":
-        return sweep_count_plain(o, d, lay, active, t_min, prepass)
-    o, d, active, n = _count_inputs(o, d, lay, active)
-    count = torch.empty(n, dtype=torch.int32, device=o.device)
-    first = torch.empty(n, dtype=torch.int32, device=o.device)
-    rc = load_library().tpupt_sweep_count_v1(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), lay.leafbox.data_ptr(),
-        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves, t_min, n,
-        count.data_ptr(), first.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"sweep_count_v1 kernel launch failed: cudaError {rc}")
-    sweep_count_v1.launches += 1
-    return count, first
-
-
-sweep_count_v1.launches = 0
-
-
 def intersect_sweep1_plain(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
                            prepass: int = DEFAULT_PREPASS, t_max=None,
                            tally: Tally | None = None):
@@ -289,28 +264,3 @@ def intersect_sweep1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
 
 
 intersect_sweep1.launches = 0
-
-
-def intersect_sweep1_v1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
-                        prepass: int = DEFAULT_PREPASS, t_max=None):
-    """The first port's targeted kernel (``csrc/march_v1.cu``: one thread a
-    lane of the whole wavefront, each box read with ``__ldg``, a break at
-    the first hit, the leaf's rows tested alone), kept as the yardstick
-    :func:`intersect_sweep1` is timed against in turns; on no tool's path.
-    Its plain version is :func:`intersect_sweep1_plain`."""
-    if o.device.type == "cpu":
-        return intersect_sweep1_plain(o, d, lay, active, t_min, prepass, t_max)
-    o, d, active, t_max, n, outs = _sweep1_inputs(o, d, lay, active, t_max)
-    rc = load_library().tpupt_sweep1_v1(
-        o.data_ptr(), d.data_ptr(), active.data_ptr(), t_max.data_ptr(),
-        lay.leafbox.data_ptr(), lay.leafmeta.data_ptr(), lay.tris8.data_ptr(),
-        lay.prepass.data_ptr(), window_prepass(lay, prepass), lay.num_leaves,
-        lay.num_tris, t_min, n, *(x.data_ptr() for x in outs),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"sweep1_v1 kernel launch failed: cudaError {rc}")
-    intersect_sweep1_v1.launches += 1
-    return SweepRaw(*outs), t_max
-
-
-intersect_sweep1_v1.launches = 0

@@ -155,34 +155,6 @@ def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
 rowtest_probe.launches = 0
 
 
-def rowtest_probe_v1(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
-    """The first port's probe (``csrc/march_v1.cu``: one lane a thread, each
-    row read with ``__ldg``), kept as the yardstick :func:`rowtest_probe` is
-    timed against in turns; on no tool's path.  ``tile``: threads a block (a
-    multiple of 32 in [32, 1024]).  Its plain version is
-    :func:`rowtest_probe_plain`."""
-    if rays.device.type == "cpu":
-        return rowtest_probe_plain(variant, rays, tris, mtblock)
-    _check_probe_inputs(variant, rays, tris, mtblock)
-    if not (32 <= tile <= 1024 and tile % 32 == 0):
-        raise ValueError(f"tile={tile}: one thread a lane, so a block's thread count: "
-                         "a multiple of 32 in [32, 1024]")
-    n = rays.shape[-1]
-    out_t = torch.empty(n, dtype=torch.float32, device=rays.device)
-    out_i = torch.empty(n, dtype=torch.int32, device=rays.device)
-    rc = load_library().tpupt_rowtest_probe_v1(
-        rays.data_ptr(), tris.data_ptr(), VARIANTS.index(variant),
-        tris.shape[0] // mtblock, mtblock, tile, n, out_t.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(rays.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"rowtest_probe_v1 kernel launch failed: cudaError {rc}")
-    rowtest_probe_v1.launches += 1
-    return out_t, out_i
-
-
-rowtest_probe_v1.launches = 0
-
-
 def run_variant(variant, rays, tris, tile, mtblock, reps):
     """-> (ms, the minimum over ``reps`` launches; seconds of the first
     call).  On the card the launches are timed by CUDA events, the sync a
