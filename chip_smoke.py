@@ -3173,13 +3173,14 @@ def sort_gather(planes, perm, key):
                               alive=PathState._fields.index("alive"))
 
 
-def gather_planes_plain(planes, perm, key=None, pixel=None, alive=None):
+def gather_planes_plain(planes, perm, key=None, pixel=None, alive=None, out=None):
     """ops/wavefront_sort.py:gather_planes_plain in the place of the gather
     kernel's wrapper, whose call passes the sorted key (the plain version
-    gathers every plane, pixel and alive too)."""
+    gathers every plane, pixel and alive too) and, on the chain graphs'
+    path, the planes to write."""
     from tpu_pathtracer_torch.ops import wavefront_sort as sort
 
-    return sort.gather_planes_plain(planes, perm)
+    return sort.gather_planes_plain(planes, perm, out=out)
 
 
 def stage_turns(label: str, tmp: str, scene) -> dict:
@@ -3746,9 +3747,12 @@ def env_miss_shares(scene) -> list[dict]:
     """The lanes each bounce of one 1080p frame (after a warm-up frame) of
     the env-lit path shades, its live lanes and the live lanes whose ray
     missed (the only lanes whose env texel the shading must read) ->
-    [{"bounce", "lanes", "live", "misses", "share"}]."""
+    [{"bounce", "lanes", "live", "misses", "share"}].  The frame runs under a
+    StageTimer, so its bounces call the wrapper rather than replay a graph
+    (render/graphs.py)."""
     from tpu_pathtracer_torch import Renderer
     from tpu_pathtracer_torch.ops import shade
+    from tpu_pathtracer_torch.render.timing import StageTimer
 
     r = Renderer(scene, WIDTH, HEIGHT)
     r.run(1)
@@ -3764,7 +3768,7 @@ def env_miss_shares(scene) -> list[dict]:
     record.launches = 0  # the wrapper counts its launches here meanwhile
     shade.shade_bounce = record
     try:
-        r.run(1)
+        r.step(timer=StageTimer())
     finally:
         shade.shade_bounce = wrapper
     torch.cuda.synchronize()

@@ -930,8 +930,8 @@ def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     img = r.image()
     monkeypatch.setattr(tshade, "shade_bounce", tshade.shade_bounce_plain)
     monkeypatch.setattr(tsort, "sort_key", tsort.sort_key_plain)
-    monkeypatch.setattr(tsort, "gather_planes",
-                        lambda planes, perm, *key, **at: tsort.gather_planes_plain(planes, perm))
+    monkeypatch.setattr(tsort, "gather_planes", lambda planes, perm, *key, out=None, **at:
+                        tsort.gather_planes_plain(planes, perm, out=out))
     r.reset()
     r.run(frames)
     assert np.isfinite(img).all() and np.array_equal(img, r.image())
@@ -981,22 +981,44 @@ def _syncs(step) -> list[str]:
             if "synchronizing" in str(w.message)]
 
 
+def _steady(r, frames: int = 12) -> None:
+    """Step ``r`` until a frame captures no bounce chain (render/graphs.py):
+    every key its ladder meets has been met before."""
+    graphs = [g for g, _ in r._plans._graphs.values()]
+    for _ in range(frames):
+        before = sum(g.captures for g in graphs)
+        r.step()
+        if sum(g.captures for g in graphs) == before:
+            return
+    raise AssertionError(f"no frame of {frames} captured nothing")
+
+
 @pytest.mark.parametrize("kind", list(TRACED_FRAMES))
 def test_host_reads_are_the_frames_syncs_on_card(kind, cuda_device):
     """A traced frame's host_reads equal the synchronising operations that
     torch.cuda.set_sync_debug_mode reports over the same frame, and an
     untraced frame makes as many (tracing adds no host read): one ladder
     read a secondary bounce (the renderer's wavefront plan, built at reset,
-    holds the camera's basis and the sort bounds)."""
+    holds the camera's basis and the sort bounds), whether the bounces
+    replay as graphs (untraced, and under the profiler) or run from Python
+    (a StageTimer's frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from tpu_pathtracer_torch.render.timing import StageTimer
 
     r = _traced_renderer(kind, cuda_device)
-    r.step()
+    _steady(r)
     r.sync()
     untraced = _syncs(r.step)
-    traced = _syncs(lambda: r.step(timer=StageTimer()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        replayed = _syncs(r.step)
     rec = r.frame_records[-1]
-    assert rec["host_reads"] == len(traced) == len(untraced) == 7, (traced, untraced)
+    timed = _syncs(lambda: r.step(timer=StageTimer()))
+    eager = r.frame_records[-1]
+    assert rec["graph_replays"] + rec["graph_captures"] == 8
+    assert (eager["graph_replays"], eager["graph_captures"]) == (0, 0)
+    assert (rec["host_reads"] == eager["host_reads"] == len(replayed) == len(timed)
+            == len(untraced) == 7), (replayed, timed, untraced)
 
 
 @pytest.mark.parametrize("kind", list(TRACED_FRAMES))
@@ -1040,14 +1062,11 @@ def test_shade_env_counts_on_card(spectrum, hero, cuda_device):
     assert len(tshade.shade_bounce(plain, cfg, 1, pst, puni, phit, False)[3]) == 2
 
 
-@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
-def test_tracing_launches_the_same_kernels_on_card(kind, cuda_device, monkeypatch):
-    """Under torch.profiler frames with their spans and counters and the
-    same frames with tracing forced off launch the same device activities
-    (kernels, copies, sets), name for name and in order.  Two frames are
-    profiled and their activities compared from the end, over at least one
-    and a half frames: a profile can come back without its first few
-    activities."""
+def _device_activities(r, traced: bool, monkeypatch) -> list[tuple]:
+    """Two more frames of ``r`` under torch.profiler, with their spans and
+    counters or with tracing forced off -> their device activities
+    (kernels, copies, sets) in order, each (name, launched by a CUDA graph's
+    replay)."""
     import json
     import tempfile
 
@@ -1055,28 +1074,147 @@ def test_tracing_launches_the_same_kernels_on_card(kind, cuda_device, monkeypatc
 
     from tpu_pathtracer_torch.render import timing
 
+    with monkeypatch.context() as m:
+        if not traced:
+            m.setattr(timing, "profiling", lambda: False)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.step()
+            r.step()
+            r.sync()
+    assert len(r.frame_records) == 2 * traced
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ev = json.load(f)["traceEvents"]
+    graph = {e["args"]["correlation"] for e in ev
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "GraphLaunch" in e.get("name", "") and "correlation" in e.get("args", {})}
+    dev = sorted((float(e["ts"]), e["name"], e.get("args", {}).get("correlation") in graph)
+                 for e in ev if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return [(n, g) for _, n, g in dev]
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_tracing_launches_the_same_kernels_on_card(kind, cuda_device, monkeypatch):
+    """Under torch.profiler frames with their spans and counters and the
+    same frames with tracing forced off launch the same device activities
+    (kernels, copies, sets), name for name and in order, on the eager loop
+    (a renderer without a capturer: render/graphs.py).  Two frames are
+    profiled and their activities compared from the end, over at least one
+    and a half frames: a profile can come back without its first few
+    activities."""
+
     def activities(traced: bool) -> list[str]:
         r = _traced_renderer(kind, cuda_device)
+        r._capture = None
+        r.reset()
         r.step()
         r.sync()
-        with monkeypatch.context() as m:
-            if not traced:
-                m.setattr(timing, "profiling", lambda: False)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                r.step()
-                r.step()
-                r.sync()
-        assert len(r.frame_records) == 2 * traced
-        with tempfile.TemporaryDirectory() as tmp:
-            path = f"{tmp}/trace.json"
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                ev = json.load(f)["traceEvents"]
-        dev = sorted((float(e["ts"]), e["name"]) for e in ev
-                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-        return [n for _, n in dev]
+        return [n for n, _ in _device_activities(r, traced, monkeypatch)]
 
     on, off = activities(True), activities(False)
     m = min(len(on), len(off))
     assert m >= 0.75 * max(len(on), len(off)) and m > 200
     assert on[-m:] == off[-m:]
+
+
+def _graph_node(name: str, in_graph: bool) -> str:
+    """An activity's name, with the two names the trace gives one set node
+    of a replayed graph taken as one: across replays of one graph CUPTI
+    names the same node a ``Memset`` or a ``Memcpy DtoD``, and a memset's
+    memory ``Device`` or ``Unknown``."""
+    if in_graph and (name.startswith("Memset") or name.startswith("Memcpy DtoD")):
+        return "graph set node"
+    return name
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_tracing_launches_the_same_kernels_with_graphs_on_card(kind, cuda_device,
+                                                               monkeypatch):
+    """As test_tracing_launches_the_same_kernels_on_card for frames whose
+    bounces replay as CUDA graphs: the same device activities name for name
+    and in order, a set or copy node inside a replay named either way
+    (:func:`_graph_node`), every other activity -- the launches from Python
+    between the replays, the sorts among them -- by its own name.  Both
+    renderers step until a frame meets no new ladder width, and capture
+    after a profiler session has run in the process: a graph instantiated
+    before the process's first session reports its set and copy nodes as
+    kernels (``memset32``, ``memcpy32_post``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=cuda_device)
+
+    def activities(traced: bool) -> list[tuple]:
+        r = _traced_renderer(kind, cuda_device)
+        _steady(r)
+        r.sync()
+        got = _device_activities(r, traced, monkeypatch)
+        assert all(rec["graph_replays"] == 8 for rec in r.frame_records)
+        assert any(g for _, g in got) and not all(g for _, g in got)
+        return [(_graph_node(n, g), g) for n, g in got]
+
+    on, off = activities(True), activities(False)
+    m = min(len(on), len(off))
+    assert m >= 0.75 * max(len(on), len(off)) and m > 200
+    assert on[-m:] == off[-m:]
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_graph_frames_equal_eager_frames_on_card(kind, cuda_device):
+    """Five frames whose bounces replay as CUDA graphs (render/graphs.py)
+    equal, bit for bit, the same five frames of the eager loop (the same
+    renderer without a capturer), frame by frame; the graph renderer
+    replayed chains in the later frames."""
+    r = _traced_renderer(kind, cuda_device)
+    eager = _traced_renderer(kind, cuda_device)
+    eager._capture = None
+    eager.reset()
+    assert r._plans._graphs and not eager._plans._graphs
+    for _ in range(5):
+        r.step()
+        eager.step()
+        assert np.array_equal(r.image(), eager.image())
+    g, = [g for g, _ in r._plans._graphs.values()]
+    assert g.replays > 0 and g.captures + g.replays == 5 * 8
+
+
+@pytest.mark.parametrize("kind", list(TRACED_FRAMES))
+def test_steady_graph_frame_replays_a_chain_a_bounce_on_card(kind, cuda_device):
+    """A steady frame (every ladder width met before) captures nothing and
+    replays 8 chains, one a bounce; its record holds the eager frame's
+    shading launches (lanes, the ladder's live reads, planes, hero, env,
+    kernel, env picks and misses are read), one shade span a replay and the
+    7 sorts' spans between them; the wrappers' launch counters grow as the
+    eager loop's do (8 shadings and 8 payload walks a frame, counted from
+    the captures: ops/launch_count.py; 7 sort keys and gathers, launched
+    from Python)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counted = (tshade.shade_bounce, tsort.sort_key, tsort.gather_planes,
+               ht.window_walk_resolve)
+    r = _traced_renderer(kind, cuda_device)
+    _steady(r)
+    r.sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(5):  # until a profiled frame meets no new width too
+            n0 = [f.launches for f in counted]
+            r.step()
+            r.sync()
+            rec = r.frame_records[-1]
+            if not rec["graph_captures"]:
+                break
+    grew = [f.launches - n for f, n in zip(counted, n0)]
+    assert (rec["graph_captures"], rec["graph_replays"]) == (0, 8)
+    assert grew == [8, 7, 7, 8]
+    names = [x[0] for x in rec["spans"]]
+    assert (names.count("shade"), names.count("sort"), names.count("host_read")) == (8, 7, 7)
+    launches = rec["launches"]
+    assert [x["bounce"] for x in launches] == list(range(8))
+    assert launches[0]["live"] == launches[0]["lanes"] == 480 * 270
+    assert all(x["kernel"] and x["live"] <= x["lanes"] for x in launches)
+    assert rec["traced_rays"] > 480 * 270
+    if TRACED_FRAMES[kind].get("env"):
+        assert all(x["env_picks"] is not None and x["env_misses"] is not None
+                   for x in launches)

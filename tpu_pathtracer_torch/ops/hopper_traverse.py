@@ -69,6 +69,7 @@ import torch
 
 from ..accel.layout import BVHLayout
 from ..render.timing import span
+from . import launch_count
 from .cuda_build import load_library
 from .intersect import HitShade
 from .traverse import Tally, latch, mt_rows, walk
@@ -238,8 +239,7 @@ def window_walk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         return window_walk_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
     out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
                          tritest, 0)
-    window_walk.launches += 1
-    window_walk.launches_mt += tritest == "mt"
+    launch_count.count(window_walk, mt=tritest == "mt")
     return out
 
 
@@ -285,10 +285,7 @@ def window_walk_hbm(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     else:
         out = _launch_window("window_walk", o, d, active, t_max, lay, t_min, prepass,
                              tritest, 0)
-    window_walk_hbm.launches += 1
-    window_walk_hbm.launches_mt += tritest == "mt"
-    window_walk_hbm.launches_resolve += resolve
-    window_walk_hbm.launches_capped += capped
+    launch_count.count(window_walk_hbm, mt=tritest == "mt", resolve=resolve, capped=capped)
     return out
 
 
@@ -344,8 +341,7 @@ def window_walk_resolve(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         return window_walk_resolve_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
     out = _launch_window_epilogue("window_walk_resolve", o, d, active, t_max, lay, t_min,
                                   prepass, tritest)
-    window_walk_resolve.launches += 1
-    window_walk_resolve.launches_mt += tritest == "mt"
+    launch_count.count(window_walk_resolve, mt=tritest == "mt")
     return out
 
 
@@ -370,8 +366,7 @@ def window_walk_orig(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         return window_walk_orig_plain(o, d, active, t_max, lay, t_min, prepass, tritest)
     out = _launch_window("window_walk_orig", o, d, active, t_max, lay, t_min,
                          prepass, tritest, 1)
-    window_walk_orig.launches += 1
-    window_walk_orig.launches_mt += tritest == "mt"
+    launch_count.count(window_walk_orig, mt=tritest == "mt")
     return out
 
 
@@ -420,8 +415,7 @@ def window_walk_counts(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         return t, row, useful, lo
     t, row, spent, useful = _launch_window("window_walk_counts", o, d, active,
                                            t_max, lay, t_min, prepass, tritest, 2)
-    window_walk_counts.launches += 1
-    window_walk_counts.launches_mt += tritest == "mt"
+    launch_count.count(window_walk_counts, mt=tritest == "mt")
     return t, row, useful, spent
 
 
@@ -629,7 +623,7 @@ def minwalk(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
     if o.device.type == "cpu":
         return minwalk_plain(o, d, active, t_max, lay, t_min, prepass)
     out = _launch_minwalk(o, d, active, t_max, lay, t_min, prepass)
-    minwalk.launches += 1
+    launch_count.count(minwalk)
     return out
 
 
@@ -724,8 +718,7 @@ def sweep(o, d, active, t_max, lay: BVHLayout, t_min: float = 0.0,
         out_orig.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
-    sweep.launches += 1
-    sweep.launches_mt += tritest == "mt"
+    launch_count.count(sweep, mt=tritest == "mt")
     return (out_t, out_row, out_orig) if with_orig else (out_t, out_row)
 
 
@@ -789,7 +782,7 @@ def capped_walk(o, d, active, cap, lay: BVHLayout, t_min: float = 0.0):
     if o.device.type == "cpu":
         return capped_walk_plain(o, d, active, cap, lay, t_min)
     out = _launch_capped(o, d, active, cap, lay, t_min)
-    capped_walk.launches += 1
+    launch_count.count(capped_walk)
     return out
 
 
@@ -873,7 +866,7 @@ def anyhit_walk(o, d, active, cap, target, lay: BVHLayout, eps: float,
     if o.device.type == "cpu":
         return anyhit_walk_plain(o, d, active, cap, target, lay, eps, t_min)
     out = _launch_anyhit(o, d, active, cap, target, lay, eps, t_min)
-    anyhit_walk.launches += 1
+    launch_count.count(anyhit_walk)
     return out
 
 

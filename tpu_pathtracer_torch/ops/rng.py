@@ -33,6 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
+from . import launch_count
 from .cuda_build import load_library
 
 _M32 = 0xFFFFFFFF
@@ -73,9 +74,10 @@ def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniforms_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-                   count: int) -> torch.Tensor:
+                   count: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of ``csrc/rng.cu:tpupt_uniforms``: (N,) int64
-    pixel ids -> (count, N) independent uniforms in [0, 1).
+    pixel ids -> (count, N) independent uniforms in [0, 1), written into
+    ``out`` where given (as the kernel's wrapper takes it).
 
     ``salt`` folds the user seed in; ``frame``/``bounce`` are scalar
     counters.  Each group of 4 rows is one PCG4D evaluation re-keyed by the
@@ -91,7 +93,7 @@ def uniforms_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
             full(salt + group * 0x85EBCA6B),
         )
         outs.extend(_to_unit_float(x) for x in v)
-    return torch.stack(outs[:count])
+    return torch.stack(outs[:count], out=out)
 
 
 def _rd_alphas_u32(count: int) -> list[int]:
@@ -106,9 +108,10 @@ def _rd_alphas_u32(count: int) -> list[int]:
 
 
 def uniforms_r2_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-                      count: int) -> torch.Tensor:
+                      count: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of ``csrc/rng.cu:tpupt_uniforms_r2``: (N,) int64
-    pixel ids -> (count, N) low-discrepancy uniforms over
+    pixel ids -> (count, N) low-discrepancy uniforms (into ``out`` where
+    given) over
     frames: Cranley-Patterson-rotated R2 lattices in blocks of two
     dimensions, each block with its own per-(pixel, bounce, block) rotation
     and XOR index scramble, ``u_i = (rot_i + (frame ^ c_b) * alpha_i) mod
@@ -134,7 +137,7 @@ def uniforms_r2_plain(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int
                     break
                 bits = (rot[half * 2 + lane] + _mul32(idx, alphas2[lane])) & _M32
                 outs.append(_to_unit_float(bits))
-    return torch.stack(outs[:count])
+    return torch.stack(outs[:count], out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +175,16 @@ def uniform_r2_keys(frame: int, bounce: int, salt: int, count: int) -> list[int]
 
 
 def _launch_uniforms(symbol: str, pixel_id: torch.Tensor, keys: list[int],
-                     count: int) -> torch.Tensor:
-    """Launch ``tpupt_<symbol>`` -> (count, N) float32."""
+                     count: int, out: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``tpupt_<symbol>`` -> (count, N) float32, ``out`` where given."""
     n = pixel_id.shape[0]
-    out = torch.empty((count, n), dtype=torch.float32, device=pixel_id.device)
+    if out is None:
+        out = torch.empty((count, n), dtype=torch.float32, device=pixel_id.device)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (count, n)
+          or not out.is_contiguous() or out.device != pixel_id.device):
+        raise ValueError(f"out: expected a contiguous float32 {(count, n)} tensor on "
+                         f"{pixel_id.device}, got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device} contiguous={out.is_contiguous()}")
     block = (ctypes.c_uint32 * len(keys))(*keys)
     rc = getattr(load_library(), f"tpupt_{symbol}")(
         pixel_id.data_ptr(), ctypes.addressof(block), count, n, out.data_ptr(),
@@ -195,16 +204,17 @@ def _check_draw(pixel_id: torch.Tensor, count: int) -> None:
 
 
 def uniforms(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-             count: int) -> torch.Tensor:
+             count: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """(N,) int64 pixel ids -> (count, N) independent uniforms in [0, 1)
     (:func:`uniforms_plain`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``count``: 1 .. MAX_COUNT."""
+    version for CPU tensors.  ``count``: 1 .. MAX_COUNT; ``out``: a
+    contiguous (count, N) float32 tensor to write them into."""
     _check_draw(pixel_id, count)
     if pixel_id.device.type == "cpu":
-        return uniforms_plain(pixel_id, frame, bounce, salt, count)
+        return uniforms_plain(pixel_id, frame, bounce, salt, count, out)
     out = _launch_uniforms("uniforms", pixel_id, uniform_keys(frame, bounce, salt, count),
-                           count)
-    uniforms.launches += 1
+                           count, out)
+    launch_count.count(uniforms)
     return out
 
 
@@ -212,16 +222,17 @@ uniforms.launches = 0
 
 
 def uniforms_r2(pixel_id: torch.Tensor, frame: int, bounce: int, salt: int,
-                count: int) -> torch.Tensor:
+                count: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """(N,) int64 pixel ids -> (count, N) low-discrepancy uniforms
     (:func:`uniforms_r2_plain`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``count``: 1 .. MAX_COUNT."""
+    version for CPU tensors.  ``count``: 1 .. MAX_COUNT; ``out``: as
+    :func:`uniforms` takes it."""
     _check_draw(pixel_id, count)
     if pixel_id.device.type == "cpu":
-        return uniforms_r2_plain(pixel_id, frame, bounce, salt, count)
+        return uniforms_r2_plain(pixel_id, frame, bounce, salt, count, out)
     out = _launch_uniforms("uniforms_r2", pixel_id,
-                           uniform_r2_keys(frame, bounce, salt, count), count)
-    uniforms_r2.launches += 1
+                           uniform_r2_keys(frame, bounce, salt, count), count, out)
+    launch_count.count(uniforms_r2)
     return out
 
 

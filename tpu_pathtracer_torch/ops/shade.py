@@ -44,6 +44,7 @@ import torch
 from ..config import PI, RenderConfig
 from ..models.envlight import ALIAS_WORDS, record_layout
 from ..models.envlight import PI as ENV_PI
+from . import launch_count
 from .cuda_build import load_library, plane_address
 
 MAX_SPECTRUM = 16  # the most spectral planes the kernel takes (csrc/shade.cu:kMaxSpectrum)
@@ -241,7 +242,7 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
                                            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"shade_bounce kernel launch failed: cudaError {rc}")
-    shade_bounce.launches += 1
+    launch_count.count(shade_bounce)
     counts = tuple(stats.unbind()) if env is not None else (stats[0], stats[1])
     return new, pack, shadow_origin, counts
 

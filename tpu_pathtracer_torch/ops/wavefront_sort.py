@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from . import launch_count
 from .cuda_build import load_library, plane_address
 
 MAX_PLANES = 16   # the most planes one gather takes (csrc/wavefront_sort.cu:kMaxPlanes)
@@ -73,11 +74,14 @@ def sort_key_plain(origin, direction, alive, pixel, wmin, winv) -> torch.Tensor:
     return (ray_key_plain(origin, direction, alive, wmin, winv) << 32) | pixel
 
 
-def gather_planes_plain(planes, perm: torch.Tensor) -> list:
+def gather_planes_plain(planes, perm: torch.Tensor, out=None) -> list:
     """Plain torch version of ``csrc/wavefront_sort.cu:tpupt_gather_planes``:
-    each plane (..., N) taken through ``perm`` along its last axis; a None
-    plane (no hero bins) stays None."""
-    return [None if x is None else x.index_select(-1, perm) for x in planes]
+    each plane (..., N) taken through ``perm`` along its last axis, into the
+    plane of ``out`` at its index where given; a None plane (no hero bins)
+    stays None."""
+    out = [None] * len(planes) if out is None else out
+    return [None if x is None else torch.index_select(x, -1, perm, out=o)
+            for x, o in zip(planes, out)]
 
 
 def key_planes_plain(key: torch.Tensor):
@@ -120,7 +124,7 @@ def sort_key(origin, direction, alive, pixel, wmin, winv) -> torch.Tensor:
         _stream(alive))
     if rc:
         raise RuntimeError(f"sort_key kernel launch failed: cudaError {rc}")
-    sort_key.launches += 1
+    launch_count.count(sort_key)
     return key
 
 
@@ -128,11 +132,13 @@ sort_key.launches = 0
 
 
 def gather_planes(planes, perm: torch.Tensor, key: torch.Tensor | None = None,
-                  pixel: int | None = None, alive: int | None = None) -> list:
+                  pixel: int | None = None, alive: int | None = None, out=None) -> list:
     """Every plane of ``planes`` -- contiguous (N,) or (R, N) CUDA tensors of
     1, 4 or 8-byte elements, at most MAX_ROWS rows in all, or None -- taken
     through the (N,) int64 permutation ``perm`` (:func:`gather_planes_plain`),
-    into fresh tensors in one launch of ``tpupt_gather_planes``.  With
+    in one launch of ``tpupt_gather_planes``, into fresh tensors or, with
+    ``out``, into its contiguous plane of the same shape and type at each
+    plane's index.  With
     ``key``, the (N,) int64 sorted key (torch.sort's values, in the order of
     ``perm``), the planes at the indices ``pixel`` ((N,) int64) and ``alive``
     ((N,) bool) are read from it (:func:`key_planes_plain`) instead: the
@@ -162,16 +168,20 @@ def gather_planes(planes, perm: torch.Tensor, key: torch.Tensor | None = None,
         want = {1: torch.int64, 2: torch.bool}.get(kind, x.dtype)
         plane_address(f"gather_planes plane {k}", x, want, (n,) if kind else tuple(x.shape),
                       dev)
-        out = torch.empty_like(x)
-        outs.append(out)
-        table[slot] = _Plane(None if kind else x.data_ptr(), out.data_ptr(),
+        if out is None:
+            dst = torch.empty_like(x)
+        else:
+            dst = out[k]
+            plane_address(f"gather_planes out {k}", dst, x.dtype, tuple(x.shape), dev)
+        outs.append(dst)
+        table[slot] = _Plane(None if kind else x.data_ptr(), dst.data_ptr(),
                              1 if x.dim() == 1 else x.shape[0], x.element_size(), kind)
     rc = load_library().tpupt_gather_planes(
         ctypes.addressof(table), len(live), perm.data_ptr(),
         None if key is None else key.data_ptr(), n, PASS_BYTES, _stream(perm))
     if rc:
         raise RuntimeError(f"gather_planes kernel launch failed: cudaError {rc}")
-    gather_planes.launches += 1
+    launch_count.count(gather_planes)
     it = iter(outs)
     return [None if x is None else next(it) for x in planes]
 

@@ -89,13 +89,17 @@ def camera_jitter(cfg: RenderConfig, key, frame: int, pids: torch.Tensor,
 
 def bounce_uniforms(cfg: RenderConfig, key, frame: int, bounce: int,
                     pids: torch.Tensor, full_height: int, full_width: int,
-                    with_env: bool = False) -> dict:
+                    with_env: bool = False, out: torch.Tensor | None = None) -> dict:
     """Per-bounce uniforms for one wavefront of N rays: ``light_select``
     (N,), ``light_bary`` (2, N), ``lobe`` (N,), ``bounce_dir`` (2, N); with
     ``with_env`` (the scene carries an environment light) also
     ``env_select`` (N,), ``env_alias`` (N,) and ``env_jit`` (2, N), which
-    TILED mode also draws from the counter hash."""
+    TILED mode also draws from the counter hash.  ``out``: PRNG noise only,
+    a contiguous (:func:`uniform_count`, N) float32 tensor the draw writes,
+    whose rows the dict's are."""
     if cfg.noise_mode == NoiseMode.TILED:
+        if out is not None:
+            raise ValueError("bounce_uniforms: out takes PRNG noise")
         rows, cols = _rows_cols(pids, full_width)
         smp = _tile_lookup(cfg, _tile(cfg, key, bounce, pids.device), frame, bounce,
                            rows, cols, full_height)
@@ -110,17 +114,17 @@ def bounce_uniforms(cfg: RenderConfig, key, frame: int, bounce: int,
             ue = rng_ops.uniforms(pids, frame, bounce, key_salt(key) ^ _ENV_SALT, 4)
             out.update(env_select=ue[0], env_alias=ue[1], env_jit=ue[2:4])
         return out
-    n = 10 if with_env else 6
+    n = uniform_count(with_env)
     if cfg.sampler == "r2":
         # the semantic 2D pairs (barycentric warp, hemisphere warp, env
         # jitter) sit on whole lattice blocks
-        u = rng_ops.uniforms_r2(pids, frame, bounce, key_salt(key), n)
+        u = rng_ops.uniforms_r2(pids, frame, bounce, key_salt(key), n, out=out)
         out = {"light_bary": u[0:2], "bounce_dir": u[2:4], "light_select": u[4],
                "lobe": u[5]}
         if with_env:
             out.update(env_jit=u[6:8], env_select=u[8], env_alias=u[9])
         return out
-    u = rng_ops.uniforms(pids, frame, bounce, key_salt(key), n)
+    u = rng_ops.uniforms(pids, frame, bounce, key_salt(key), n, out=out)
     out = {
         "light_select": u[0],
         "light_bary": u[1:3],
@@ -130,3 +134,8 @@ def bounce_uniforms(cfg: RenderConfig, key, frame: int, bounce: int,
     if with_env:
         out.update(env_select=u[6], env_alias=u[7], env_jit=u[8:10])
     return out
+
+
+def uniform_count(with_env: bool) -> int:
+    """The rows a PRNG bounce draws: 6, 10 with an environment light."""
+    return 10 if with_env else 6

@@ -49,6 +49,18 @@ carried planes, the form) and the
 device tensors the frame computes anyway: each wavefront's traced rays and
 each env-lit launch's env picks and misses (the shading's counts).  :func:`records` reads those tensors once, after the frames, in one
 host read a device: tracing adds no launch and no host read to a frame.
+
+A bounce whose launches replay as a captured graph (render/graphs.py)
+launches nothing from Python, so nothing inside it spans or counts as it
+runs.  Its capture recorded them in a trace of its own, and each replay
+adds that record to the frame's (:meth:`FrameTrace.replayed`): the shading
+launches, with ``live`` from this frame's ladder read, and ``hbm_walks``;
+the replay call itself is spanned as the ``shade`` and ``sort`` it holds.
+The frame counts its replays in ``graph_replays`` and the graphs it had to
+capture in ``graph_captures`` (0 in a steady frame).  Such a frame copies
+its chains' device counters (traced rays, env picks and misses) out of the
+graphs' memory in one stack, traced or not, and a traced frame keeps the
+copies (:meth:`FrameTrace.settle`).
 """
 
 from __future__ import annotations
@@ -106,9 +118,12 @@ class FrameTrace:
         self.plan_builds = 0
         self.hbm_route = 0
         self.hbm_walks = 0
+        self.graph_replays = 0
+        self.graph_captures = 0
         self.launches: list[dict] = []
         self._rays: list[torch.Tensor] = []
         self._env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
+        self._replayed_env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
         self._record: dict | None = None
 
     def span(self, name: str, **args) -> "_Span":
@@ -163,6 +178,34 @@ class FrameTrace:
         """Keep a wavefront's traced rays (an int64 device scalar)."""
         self._rays.append(n)
 
+    def env_counters(self) -> list[torch.Tensor]:
+        """The env picks and misses of the shading launches kept so far, in
+        order (two int64 device scalars an env-lit kernel launch)."""
+        return [t for _, picks, misses in self._env for t in (picks, misses)]
+
+    def replayed(self, rec: "FrameTrace", live: int | None) -> None:
+        """One replay of the chain whose capture recorded ``rec``: its
+        shading launches, each with this frame's ``live`` read, and its HBM
+        queries; the env-lit launches' counts come at :meth:`settle`."""
+        self.graph_replays += 1
+        self.hbm_walks += rec.hbm_walks
+        with_env = {id(launch) for launch, _, _ in rec._env}
+        for launch in rec.launches:
+            copy = dict(launch, live=live)
+            self.launches.append(copy)
+            if id(launch) in with_env:
+                self._replayed_env.append(copy)
+
+    def settle(self, rays: list[torch.Tensor], env: list[torch.Tensor]) -> None:
+        """Keep a wavefront's traced rays, one int64 device scalar a bounce,
+        and the env picks and misses of the launches its replays added
+        (:meth:`replayed`), in order: the copies the frame made of them
+        before the next replay overwrites them."""
+        at = iter(env)
+        self._rays += rays
+        self._env += [(launch, next(at), next(at)) for launch in self._replayed_env]
+        self._replayed_env = []
+
     def _pending(self) -> list[torch.Tensor]:
         return self._rays + [t for _, picks, misses in self._env for t in (picks, misses)]
 
@@ -174,6 +217,8 @@ class FrameTrace:
                         "host_read_s": self.host_read_s,
                         "plan_builds": self.plan_builds,
                         "hbm_route": self.hbm_route, "hbm_walks": self.hbm_walks,
+                        "graph_replays": self.graph_replays,
+                        "graph_captures": self.graph_captures,
                         "traced_rays": sum(rays) if rays else None,
                         "launches": self.launches,
                         "spans": [list(s) for s in self.spans]}

@@ -6,7 +6,8 @@ sequence of the reference (renderer/Renderer.mm:500-585),
     rayGenerator -> [ intersect -> intersectionHandler -> shadow-intersect
                       -> lightSamplingHandler ] x MAX_PATH_LENGTH -> accumulate
 
-as eager torch ops on component-major SoA tensors.  On the kernel path
+as torch ops on component-major SoA tensors (on one card each bounce's
+launches replay as a CUDA graph, render/graphs.py).  On the kernel path
 each secondary bounce's wavefront is sorted (dead lanes last, then origin
 cell and direction bin) with the previous bounce's NEE shadow pack riding
 along; the pack resolves right after the sort (its origin is the same hit
@@ -48,7 +49,8 @@ from ..ops.intersect import HitShade, intersect_brute, shade_from_scene
 from ..ops.rng import fold_in
 from ..ops.traverse import make_bvh_intersector
 from ..scene.scene import Scene
-from .noise import bounce_uniforms, camera_jitter, hero_bins, pids_from_order
+from .graphs import ChainGraphs
+from .noise import bounce_uniforms, camera_jitter, hero_bins, pids_from_order, uniform_count
 from .order import make_order
 from .timing import FrameTrace, frame_trace, span
 
@@ -124,25 +126,29 @@ def scene_sort_bounds(scene: Scene, trace: FrameTrace | None = None):
     return wmin, winv
 
 
-def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack):
+def sort_wavefront(state: PathState, wmin, winv, pack: ShadowPack, out=None):
     """Re-order the wavefront and its shadow pack by the sort key
     (ops/wavefront_sort.py: dead bit, origin cell, direction bin), pixel id
     breaking ties: one int64 key ``(key << 32) | pixel`` sorted stably, then
-    every plane gathered by the permutation -> (state, pack).  Hero bins
-    (C, N) ride as one more plane; the TPU's sort-operand limit, which made
-    the reference pack them into uint32 planes, does not apply here.  On
-    CUDA tensors the key and the gather are one kernel launch each
+    every plane gathered by the permutation -> (state, pack), fresh tensors
+    or, with ``out``, the (state, pack) of the same shapes it writes.  Hero
+    bins (C, N) ride as one more plane; the TPU's sort-operand limit, which
+    made the reference pack them into uint32 planes, does not apply here.
+    On CUDA tensors the key and the gather are one kernel launch each
     (csrc/wavefront_sort.cu), the gather reading pixel and alive from the
     sorted key; on the CPU their plain versions run."""
     cuda = state.alive.is_cuda
     key = (sort_ops.sort_key if cuda else sort_ops.sort_key_plain)(
         state.origin, state.direction, state.alive, state.pixel, wmin, winv)
     key, perm = torch.sort(key, stable=True)
+    dst = None if out is None else [*out[0], *out[1]]
     if cuda:
         planes = sort_ops.gather_planes([*state, *pack], perm, key, pixel=_PIXEL,
-                                        alive=_ALIVE)
+                                        alive=_ALIVE, out=dst)
     else:
-        planes = sort_ops.gather_planes_plain([*state, *pack], perm)
+        planes = sort_ops.gather_planes_plain([*state, *pack], perm, out=dst)
+    if dst is not None and any(p is not o for p, o in zip(planes, dst)):
+        raise ValueError("sort_wavefront: the gather did not write the planes given as out")
     return PathState(*planes[:len(state)]), ShadowPack(*planes[len(state):])
 
 
@@ -531,10 +537,12 @@ def _prefix(tensors: NamedTuple, s: int):
 
 
 def _splice(full: NamedTuple, prefix: NamedTuple):
-    """Write the prefix lanes back in place (the full tensors are the sort's
-    fresh outputs, owned here); a None field (no hero bins) stays None."""
+    """Write the prefix lanes back in place (the full tensors are owned
+    here: the sort's fresh outputs, or a set of the chain graphs' buffers);
+    a None field (no hero bins) stays None, and a field the bounce handed
+    back as it was is not copied onto itself."""
     for f, p in zip(full, prefix):
-        if p is not None:
+        if p is not None and p is not f:
             f[..., :p.shape[-1]] = p
     return full
 
@@ -585,15 +593,81 @@ def plan_wavefront(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     return WavefrontPlan(pids, terms, scene_sort_bounds(scene, trace) if do_sort else None)
 
 
+class ChainBuffers(NamedTuple):
+    """The fixed buffers a wavefront's captured bounce chains run on
+    (render/graphs.py), allocated once a plan, outside every graph."""
+
+    sets: tuple        # two full-width (PathState, ShadowPack): each sort
+    #                    writes the set the bounce did not read
+    inputs: tuple      # the camera's origins and directions (3, N), the
+    #                    hero bins (C, N) or None: bounce 0's input
+    uniforms: torch.Tensor  # (uniform_count * N,) float32: a bounce's
+    #                    rows, drawn eagerly before its replay
+    live: torch.Tensor      # () int64: the live lanes the ladder reads
+
+
+def chains_cover(cfg: RenderConfig, scene: Scene) -> bool:
+    """Whether ``cfg``'s frames on ``scene`` can replay captured bounce
+    chains: the sorted pipeline without prefix sorts (a prefix sort hands
+    its bounce a fresh wavefront of the rung's width, which no fixed buffer
+    holds), PRNG noise (TILED draws a host-made tile every bounce) and the
+    shading kernel (ops/shade.py:shade_kernel_covers)."""
+    return (_pipeline(cfg)[1] and not cfg.prefix_sort
+            and cfg.noise_mode == NoiseMode.PRNG and shade_ops.shade_kernel_covers(cfg, scene))
+
+
+def _hero(cfg: RenderConfig) -> int:
+    """The hero bins C a lane carries (hero sampling: S > 3 with
+    cfg.hero_wavelengths > 0), else 0."""
+    return cfg.hero_wavelengths if cfg.spectrum_samples > 3 and cfg.hero_wavelengths > 0 else 0
+
+
+def chain_buffers(cfg: RenderConfig, scene: Scene, n_lanes: int) -> ChainBuffers:
+    """Allocate the :class:`ChainBuffers` of an ``n_lanes`` wavefront."""
+    dev = scene.p0.device
+    hero = _hero(cfg)
+    planes = hero or cfg.spectrum_samples
+
+    def f32(*shape):
+        return torch.empty(shape, device=dev)
+
+    def full_set():
+        state = PathState(
+            origin=f32(3, n_lanes), direction=f32(3, n_lanes),
+            throughput=f32(planes, n_lanes), radiance=f32(planes, n_lanes),
+            pdf=f32(n_lanes), prev_diffuse=f32(n_lanes), ior=f32(n_lanes),
+            alive=torch.empty(n_lanes, dtype=torch.bool, device=dev),
+            pixel=torch.empty(n_lanes, dtype=torch.int64, device=dev),
+            bins=torch.empty((hero, n_lanes), dtype=torch.int64, device=dev) if hero else None)
+        pack = ShadowPack(to_light=f32(3, n_lanes), cap=f32(n_lanes),
+                          target=torch.empty(n_lanes, dtype=torch.int64, device=dev),
+                          contrib=f32(planes, n_lanes),
+                          ok=torch.empty(n_lanes, dtype=torch.bool, device=dev))
+        return state, pack
+
+    bins = torch.empty((hero, n_lanes), dtype=torch.int64, device=dev) if hero else None
+    return ChainBuffers(
+        sets=(full_set(), full_set()), inputs=(f32(3, n_lanes), f32(3, n_lanes), bins),
+        uniforms=f32(uniform_count(scene.env is not None) * n_lanes),
+        live=torch.zeros((), dtype=torch.int64, device=dev))
+
+
 class WavefrontPlans:
     """A renderer's wavefront plans, one a (row0, samples, sample0) slot of
     its frame.  :meth:`get` hands back the slot's plan while what it was
     built from holds (the sizes, the order's tile, the noise mode and
     pipeline, the camera's angle, the scene), and otherwise builds it anew
-    in place of the old one, counted in the frame's ``plan_builds``."""
+    in place of the old one, counted in the frame's ``plan_builds``.
 
-    def __init__(self):
+    With ``capture`` (render/graphs.py: ``CudaCapture`` on the card) each
+    plan :func:`chains_cover` allows also gets its slot's
+    :class:`~tpu_pathtracer_torch.render.graphs.ChainGraphs` and their
+    buffers (:meth:`chains`): a rebuilt plan drops its slot's graphs."""
+
+    def __init__(self, capture=None):
+        self.capture = capture
         self._held: dict[tuple, tuple] = {}
+        self._graphs: dict[tuple, tuple] = {}   # slot -> (ChainGraphs, cfg)
 
     def get(self, scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
             width: int, row0: int, full_height: int, full_width: int, samples: int,
@@ -609,9 +683,19 @@ class WavefrontPlans:
         plan = plan_wavefront(scene, cfg, camera, height, width, row0, full_height,
                               full_width, samples, sample0, trace)
         self._held[slot] = (key, scene, plan)
+        self._graphs.pop(slot, None)
+        if self.capture is not None and chains_cover(cfg, scene):
+            self._graphs[slot] = (ChainGraphs(self.capture, chain_buffers(
+                cfg, scene, plan.pids.shape[0])), cfg)
         if trace is not None:
             trace.plan_builds += 1
         return plan
+
+    def chains(self, row0: int, samples: int, sample0: int, cfg: RenderConfig):
+        """The ChainGraphs of the slot's plan (:meth:`get` it first) where
+        its plan was built for ``cfg``, or None."""
+        held = self._graphs.get((row0, samples, sample0))
+        return None if held is None or held[1] != cfg else held[0]
 
 
 def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
@@ -639,24 +723,35 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     pixels run row-major, unsorted, with each bounce's shadow query traced
     in the bounce and no ladder.
 
+    On the sorted pipeline a secondary bounce sorts the wavefront and reads
+    the ladder, and every bounce draws its uniforms, then runs one chain --
+    the cut to the rung's width, the shadow resolve and the shading, the
+    splice back and the live count.  Where ``plans`` holds chain graphs for
+    the wavefront (:meth:`WavefrontPlans.chains`: a Renderer's on the card,
+    where :func:`chains_cover` allows) the chains run on the plan's fixed
+    buffers, the sort writing one set from the other, and replay as CUDA
+    graphs once captured (render/graphs.py), unless a StageTimer times the
+    frame.  The frames are bit-equal either way.
+
     ``with_ray_count`` also returns the EXACT number of rays the traversal
     processed (live path rays per bounce + live NEE shadow rays) as an int64
     tensor -- the Mrays/s numerator.  ``timer``: a StageTimer or the
     frame's FrameTrace (render/timing.py); with it, or while a profiler
     records, the wavefront's stages run inside spans (prepare, each bounce
     and its sort, walks, uniforms, shading and host reads, restore) and the
-    trace counts its shading launches and keeps its traced rays.  With
-    cfg.fuse_shadow_walk each secondary bounce makes one ``intersect.fused``
-    call for its nearest hit and the previous bounce's shadow query.
-    ``plans``: the :class:`WavefrontPlans` that hold the wavefront's
-    frame-invariant inputs (a Renderer's); without it :func:`plan_wavefront`
-    builds them here."""
+    trace counts its shading launches and keeps its traced rays; a replayed
+    chain adds what its capture recorded.  With cfg.fuse_shadow_walk each
+    secondary bounce makes one ``intersect.fused`` call for its nearest hit
+    and the previous bounce's shadow query.  ``plans``: the
+    :class:`WavefrontPlans` that hold the wavefront's frame-invariant
+    inputs (a Renderer's); without it :func:`plan_wavefront` builds them
+    here."""
     check_supported(cfg)
     trace = frame_trace(timer)
+    raw = intersect
     if trace is not None:
         intersect = trace.intersector(intersect)
-    fused = getattr(intersect, "fused", None) if cfg.fuse_shadow_walk else None
-    if cfg.fuse_shadow_walk and fused is None:
+    if cfg.fuse_shadow_walk and getattr(intersect, "fused", None) is None:
         # the reference warns and walks separately; the port computes no
         # other configuration than the one asked for
         raise ValueError("cfg.fuse_shadow_walk needs an intersector with a "
@@ -672,114 +767,199 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
     eps = cfg.distance_epsilon
     dev = scene.p0.device
     spectrum = cfg.spectrum_samples
+    hero = _hero(cfg)
+    carried = hero or spectrum   # the planes a lane carries: C hero bins or S
+    with_env = scene.env is not None
     with span(trace, "prepare"):
         plan = (plan_wavefront if plans is None else plans.get)(
             scene, cfg, camera, height, width, row0, full_height, full_width, samples,
             sample0, trace)
+        graphs = None if plans is None else plans.chains(row0, samples, sample0, cfg)
+        # the chains replay as graphs unless a StageTimer times the frame
+        # (it synchronises inside its spans); it then runs them from here,
+        # on the same buffers
+        replay = graphs is not None and (trace is None or trace.timer is None)
         pids = plan.pids
         jitter = camera_jitter(cfg, fold_in(key, 0xC0FFEE), frame_index, pids,
                                full_height, full_width)
         origins, directions = camera_rays(camera, plan.camera, jitter[0:2], full_height,
                                           full_width, lens_u=jitter[2:4])
-        hero = (cfg.hero_wavelengths
-                if spectrum > 3 and cfg.hero_wavelengths > 0 else 0)
-        if hero:
-            bins = hero_bins(cfg, key, frame_index, pids)  # (C, N)
-            state = initial_path_state(origins, directions, hero, pids, bins)
-        else:
-            state = initial_path_state(origins, directions, spectrum, pids)
+        bins = hero_bins(cfg, key, frame_index, pids) if hero else None  # (C, N)
+        inputs = (origins, directions, bins)
+        buf = None if graphs is None else graphs.buffers
+        if buf is not None:
+            # bounce 0's chain reads the camera's rays from the fixed buffers
+            for dst, src in zip(buf.inputs, inputs):
+                if src is not None:
+                    dst.copy_(src)
+            inputs = buf.inputs
+        if not do_sort:
+            state = initial_path_state(origins, directions, carried, pids, bins)
 
-    def shade(b, st, coherent=False, hit=None, live=None):
+    def draw(b, pixel, out=None):
         with span(trace, "uniforms"):
-            uniforms = bounce_uniforms(cfg, key, frame_index, b, st.pixel, full_height,
-                                       full_width, with_env=scene.env is not None)
-        return trace_bounce(scene, cfg, intersect, b, st, uniforms, with_stats=True,
-                            coherent=coherent, defer_shadow=do_sort, hit=hit, trace=trace,
+            return bounce_uniforms(cfg, key, frame_index, b, pixel, full_height, full_width,
+                                   with_env=with_env, out=out)
+
+    def shade(b, st, uniforms, tr, isect, coherent=False, hit=None, live=None):
+        return trace_bounce(scene, cfg, isect, b, st, uniforms, with_stats=True,
+                            coherent=coherent, defer_shadow=do_sort, hit=hit, trace=tr,
                             live=live)
 
     def bounce(b, lanes):
         return span(trace, "bounce", bounce=b, lanes=lanes)
 
-    n_lanes = state.alive.shape[0]
+    n_lanes = pids.shape[0]
     if not do_sort:
         # bounce 0 is camera-coherent already; camera lanes all start live
         with bounce(0, n_lanes):
-            state, stats = shade(0, state, coherent=True, live=n_lanes)
+            state, stats = shade(0, state, draw(0, state.pixel), trace, intersect,
+                                 coherent=True, live=n_lanes)
         nrays = stats["path"] + stats["shadow"]
         for b in range(1, cfg.max_path_length):
             with bounce(b, n_lanes):
-                state, stats = shade(b, state)
+                state, stats = shade(b, state, draw(b, state.pixel), trace, intersect)
             nrays = nrays + stats["path"] + stats["shadow"]
     else:
         wmin, winv = plan.bounds
-
-        def stage(b, st, pk, live):
-            """Resolve the previous bounce's shadow pack and shade bounce
-            b; with the fused walk both queries share one launch (the
-            reference's two per-bounce intersection encodes,
-            renderer/Renderer.mm:519-523,545-553, collapsed)."""
-            if fused is None:
-                return shade(b, resolve_shadow(intersect, st, pk, eps), live=live)
-            hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
-                               pk.ok, pk.cap, pk.target)
-            st = st._replace(
-                radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
-            return shade(b, st, hit=hit, live=live)
-
-        def cut(st, pk, s):
-            return (st, pk) if s == sizes[0] else (_prefix(st, s), _prefix(pk, s))
-
-        # one sort carries the next path wavefront and the previous
-        # bounce's NEE pack (same hit point); the pack resolves after it
-        with bounce(0, n_lanes):
-            state, pack, stats = shade(0, state, coherent=True, live=n_lanes)
-        nrays = stats["path"] + stats["shadow"]
+        depth = cfg.max_path_length
         sizes = ladder_sizes(n_lanes, cfg)
         prefix_sort = cfg.prefix_sort and len(sizes) > 1
         skip = ({int(x) for x in cfg.sort_bounce_skip.split(",")}
                 if cfg.sort_bounce_skip else set())
-        rung = 0
-        for b in range(1, cfg.max_path_length):
+
+        def reads(b):
+            """Whether the ladder reads the live lanes before bounce b: after
+            each sort (every bounce with prefix sorts)."""
+            return 0 < b < depth and len(sizes) > 1 and (prefix_sort or b not in skip)
+
+        def sorts(b):
+            """Whether bounce b starts with a sort of the whole wavefront
+            (with prefix sorts each bounce sorts its own cut)."""
+            return 0 < b < depth and not prefix_sort and b not in skip
+
+        def stage(b, st, pk, uniforms, live, tr, isect):
+            """Resolve the previous bounce's shadow pack and shade bounce
+            b; with the fused walk both queries share one launch (the
+            reference's two per-bounce intersection encodes,
+            renderer/Renderer.mm:519-523,545-553, collapsed)."""
+            fused = getattr(isect, "fused", None) if cfg.fuse_shadow_walk else None
+            if fused is None:
+                return shade(b, resolve_shadow(isect, st, pk, eps), uniforms, tr, isect,
+                             live=live)
+            hit, clear = fused(st.origin, st.direction, st.alive, pk.to_light,
+                               pk.ok, pk.cap, pk.target)
+            st = st._replace(
+                radiance=st.radiance + torch.where(clear[None], pk.contrib, 0.0))
+            return shade(b, st, uniforms, tr, isect, hit=hit, live=live)
+
+        def chain(b, s, src, into, uniforms, live, tr, isect):
+            """Bounce b on ``s`` lanes -> (the (state, pack) it leaves at
+            full width, its traced rays, the live lanes counted where the
+            ladder reads them next, else None): the bounce's launches after
+            its sort, its ladder read and its uniforms, one graph on the
+            chain graphs' path.
+
+            Bounce 0 starts from the camera's ``inputs``, a later one from
+            ``src`` cut to its ``s`` lanes.  The result is spliced back into
+            the full-width (state, pack) ``into`` -- on the chain graphs'
+            path always the set ``src`` is, so that the state stays in their
+            buffers -- or, where None, is the full-width state itself."""
+            if b == 0:
+                st = initial_path_state(inputs[0], inputs[1], carried, pids, inputs[2])
+                st, pk, stats = shade(0, st, uniforms, tr, isect, coherent=True,
+                                      live=n_lanes)
+            else:
+                st, pk = (src if src[0].alive.shape[-1] == s
+                          else (_prefix(src[0], s), _prefix(src[1], s)))
+                st, pk, stats = stage(b, st, pk, uniforms, live, tr, isect)
+            if into is not None:
+                # dead suffix lanes are untouched by a bounce (every update
+                # is alive-masked), so splicing the prefix back is exact
+                st, pk = _splice(into[0], st), _splice(into[1], pk)
+            count = None
+            if reads(b + 1):
+                count = torch.sum(st.alive, 0, out=None if buf is None else buf.live)
+            return (st, pk), stats["path"] + stats["shadow"], count
+
+        def step(b, rung, count):
+            """The ladder before bounce b -> (the bounce's width, the rung
+            after the read, the live lanes it read: every lane at bounce 0,
+            None where it does not read)."""
+            if b == 0:
+                return n_lanes, 0, n_lanes
             live = None
+            if reads(b):
+                with span(trace, "host_read"):
+                    live = int(count)
+            s = sizes[rung]
+            if live is not None:
+                rung = _rung(live, sizes)
+            # a skipped sort keeps the last sorted rung (a bounce only kills
+            # lanes, so every live lane is still inside it); with prefix
+            # sorts the bounce runs on the rung read a bounce earlier (it
+            # trails the eager ladder by at most one bounce)
+            return (s if prefix_sort else sizes[rung]), rung, live
+
+        rung, count, cur, side, counters = 0, None, None, 0, []
+        rows = uniform_count(with_env)
+        for b in range(depth):
             with bounce(b, sizes[rung]):
-                if prefix_sort:
+                if sorts(b):
+                    # one sort carries the path wavefront and the previous
+                    # bounce's NEE pack (same hit point); the pack resolves
+                    # after it.  It runs from here on every path, into the
+                    # other set of the chain graphs' buffers
+                    with span(trace, "sort"):
+                        cur = sort_wavefront(cur[0], wmin, winv, cur[1],
+                                             out=None if buf is None else buf.sets[1 - side])
+                    side = 1 - side
+                s, rung, live = step(b, rung, count)
+                src = cur
+                if prefix_sort and b > 0:
                     # the sort runs at the rung's width: bounce b's live
                     # lanes sit in the prefix the previous sort compacted
-                    # them into, and dead lanes never revive, so the next
-                    # rung is known before this sort (it trails the eager
-                    # ladder by at most one bounce)
-                    with span(trace, "host_read"):
-                        live = int(state.alive.sum())
-                    s = sizes[rung]
-                    st, pk = cut(state, pack, s)
+                    # them into, and dead lanes never revive
+                    part = cur if s == n_lanes else (_prefix(cur[0], s), _prefix(cur[1], s))
                     with span(trace, "sort"):
-                        st, pk = sort_wavefront(st, wmin, winv, pk)
-                    rung = _rung(live, sizes)
+                        src = sort_wavefront(part[0], wmin, winv, part[1])
+                if buf is not None:
+                    into = buf.sets[side]
                 else:
-                    if b not in skip:
-                        with span(trace, "sort"):
-                            state, pack = sort_wavefront(state, wmin, winv, pack)
-                        if len(sizes) > 1:
-                            # every live lane sits in the sorted prefix
-                            with span(trace, "host_read"):
-                                live = int(state.alive.sum())
-                            rung = _rung(live, sizes)
-                    # a skipped sort keeps the last sorted rung: a bounce
-                    # only kills lanes, so every live lane is still inside it
-                    s = sizes[rung]
-                    st, pk = cut(state, pack, s)
-                st, pk, stats = stage(b, st, pk, live)
-                nrays = nrays + stats["path"] + stats["shadow"]
-                if s == sizes[0]:
-                    state, pack = st, pk
+                    into = None if s == n_lanes else cur
+                uniforms = draw(b, pids if b == 0 else src[0].pixel[:s],
+                                None if buf is None else buf.uniforms[:rows * s].view(rows, s))
+
+                def run(tr, isect, b=b, s=s, src=src, into=into, uniforms=uniforms,
+                        live=live):
+                    return chain(b, s, src, into, uniforms, live, tr, isect)
+
+                if replay:
+                    # the slot's graphs were built for this cfg and scene (chains)
+                    counters.append(graphs.run(
+                        (b, s, raw), lambda tr, isect, run=run: run(tr, isect)[1], trace,
+                        intersect, raw, live, (("shade", {"bounce": b, "lanes": s}),)))
+                    cur, count = into, buf.live
                 else:
-                    # dead suffix lanes are untouched by a bounce (every
-                    # update is alive-masked), so splicing the prefix back
-                    # is exact
-                    state, pack = _splice(state, st), _splice(pack, pk)
+                    cur, rays, count = run(trace, intersect)
+                    counters.append((rays,))
+        state = cur[0]
+        if replay:
+            # the chains' counters out of the graphs' memory, traced or not:
+            # tracing adds no launch
+            snap = iter(torch.stack([t for c in counters for t in c]).unbind())
+            rays, env = [], []
+            for c in counters:
+                rays.append(next(snap))
+                env += [next(snap) for _ in c[1:]]
+            if trace is not None:
+                trace.settle(rays, env)
+            nrays = sum(rays[1:], rays[0]) if with_ray_count else None
+        else:
+            nrays = sum((c[0] for c in counters[1:]), counters[0][0])
         # the final bounce's pack is empty by construction: NEE is gated
         # by bounce + 1 < max_path_length (renderer/Shaders.metal:158)
-    if trace is not None:
+    if trace is not None and not replay:
         trace.rays(nrays)
 
     with span(trace, "restore"):

@@ -15,7 +15,8 @@ stream; the host waits for the device when ``cfg.frames_in_flight`` steps
 are queued, or when an image or the HUD needs the result — the reference's
 triple buffering (renderer/Renderer.mm:16,593-600).  Each bounce reads its
 live-lane count on the host (the live-prefix ladder), so in this version a
-queued frame still waits for the device once per bounce.
+queued frame still waits for the device once per bounce; on one card the
+launches between two reads replay as one CUDA graph (render/graphs.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from .models.camera import Camera
 from .parallel.multihost import gather_image
 from .parallel.tiles import render_frame_distributed_jit, shard_state, to_device
 from .render import timing
+from .render.graphs import CudaCapture
 from .render.state import init_state, plan_frame, render_frame
 from .render.wavefront import WavefrontPlans, make_intersector
 from .scene import DEFAULT_SCENE, Scene, load_scene, scene_path
@@ -90,6 +92,10 @@ class Renderer:
         self.layout, self.layout_occl, self._intersect = build_intersector(
             self.scene, self.cfg, leaf_size, builder)
         self._seed = seed
+        # a single card replays each bounce's launches as a CUDA graph
+        # (render/graphs.py); the mesh and the CPU run them eagerly
+        self._capture = (CudaCapture(self.device) if mesh is None and self.device.type == "cuda"
+                         else None)
         if mesh is not None:
             # each distinct device of the mesh gets the same intersection
             # pipeline, on the layouts built once above and moved there
@@ -117,10 +123,11 @@ class Renderer:
         if self.mesh is not None:
             self.state = shard_state(self.state, self.mesh)
         else:
-            # the wavefronts' frame-invariant inputs, built once a size; a
-            # frame rebuilds a plan only when what it was built from changes
-            # (a new camera angle)
-            self._plans = WavefrontPlans()
+            # the wavefronts' frame-invariant inputs, built once a size, and
+            # on the card their chain graphs' buffers; a frame rebuilds a
+            # plan, and drops its graphs, only when what it was built from
+            # changes (a new camera angle)
+            self._plans = WavefrontPlans(self._capture)
             plan_frame(self._plans, self.scene, self.cfg, self.camera, height, width)
         self._avg_rays_per_sec = 0.0
         self._avg_frame_time = 0.0
@@ -143,7 +150,9 @@ class Renderer:
         dict a shading launch: ``bounce``, ``lanes``, ``live`` where the
         ladder read it, ``planes``, ``hero``, ``inline``, ``env``,
         ``dispersion``, ``kernel``, and on env-lit kernel launches
-        ``env_picks`` and ``env_misses``) and ``spans`` ([name, start ns,
+        ``env_picks`` and ``env_misses``), ``graph_replays`` and
+        ``graph_captures`` (the bounce chains the frame replayed and
+        captured, render/graphs.py) and ``spans`` ([name, start ns,
         end ns] on the host's wall clock).  The device counters are read
         here, the first time a record is asked for."""
         return timing.records(self._traces)

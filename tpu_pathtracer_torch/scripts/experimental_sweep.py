@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from ..accel.layout import BVHLayout
+from ..ops import launch_count
 from ..ops.cuda_build import load_library
 from ..ops.hopper_traverse import (DEFAULT_PREPASS, _check, _check_layout,
                                    _nearest_inputs, window_prepass)
@@ -171,7 +172,7 @@ def sweep_count(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
         first.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep_count kernel launch failed: cudaError {rc}")
-    sweep_count.launches += 1
+    launch_count.count(sweep_count)
     return count, first
 
 
@@ -259,7 +260,7 @@ def intersect_sweep1(o, d, lay: BVHLayout, active=None, t_min: float = 0.0,
         torch.cuda.current_stream(o.device).cuda_stream)
     if rc:
         raise RuntimeError(f"sweep1 kernel launch failed: cudaError {rc}")
-    intersect_sweep1.launches += SWEEP1_LAUNCHES
+    launch_count.count(intersect_sweep1, SWEEP1_LAUNCHES)
     return SweepRaw(*outs), t_max
 
 

@@ -44,6 +44,7 @@ import torch
 from ..accel import build_layout
 from ..device import device_for, device_label
 from ..ops import hopper_traverse as ht
+from ..ops import launch_count
 from ..ops.cuda_build import load_library
 from ..scene import load_scene, scene_path
 
@@ -85,7 +86,7 @@ def noop(rays, tables=(), tile: int = 768):
                                    torch.cuda.current_stream(rays.device).cuda_stream)
     if rc:
         raise RuntimeError(f"noop kernel launch failed: cudaError {rc}")
-    noop.launches += 1
+    launch_count.count(noop)
     return out
 
 

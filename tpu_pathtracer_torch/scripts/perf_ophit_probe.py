@@ -48,6 +48,7 @@ import time
 import torch
 
 from ..device import device_for, device_label
+from ..ops import launch_count
 from ..ops.cuda_build import load_library
 from ..ops.hopper_traverse import _bw
 from ..ops.traverse import latch, mt_rows
@@ -148,7 +149,7 @@ def rowtest_probe(variant: str, rays, tris, tile: int = 768, mtblock: int = 16):
         torch.cuda.current_stream(rays.device).cuda_stream)
     if rc:
         raise RuntimeError(f"rowtest_probe kernel launch failed: cudaError {rc}")
-    rowtest_probe.launches += 1
+    launch_count.count(rowtest_probe)
     return out_t, out_i
 
 
