@@ -44,6 +44,13 @@ PATH_NEUTRAL = {
 }
 
 
+def rough_materials(config: dict) -> bool:
+    """The configuration's material model: ``scene.rough_materials`` true
+    classifies a roughness strictly inside (0, 1) to the GGX types, on both
+    sides; absent, the reference app's diffuse fallback."""
+    return bool(config["scene"].get("rough_materials", False))
+
+
 def spec_of(config: dict, traffic: dict, height: int, width: int) -> dict:
     render = traffic.get("render", {})
     unknown = set(render) - PATH_NEUTRAL
@@ -66,7 +73,8 @@ def reference_image(config: dict, traffic: dict, spec: dict, env_image, pixels,
     -> (P, S) float64."""
     mesh = reference.parse_obj(scenes.obj_path(config["scene"]["obj"]))
     sc = reference.Scene(mesh, spec["s"], device, dtype=dtype,
-                         dispersion=traffic.get("dispersion"), env_image=env_image)
+                         dispersion=traffic.get("dispersion"), env_image=env_image,
+                         rough_materials=rough_materials(config))
     return reference.render_pixels(sc, spec, pixels, frames, seed)
 
 

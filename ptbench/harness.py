@@ -94,7 +94,7 @@ class Run:
         from tpu_pathtracer_torch.scene import attach_dispersion, attach_env, load_scene
 
         scene = load_scene(scenes.obj_path(self.config["scene"]["obj"]), samples=samples,
-                           device=self.device)
+                           rough_materials=check.rough_materials(self.config), device=self.device)
         if self.env_image is not None:
             scene = attach_env(scene, self.env_image)
         if self.traffic.get("dispersion") is not None:

@@ -3,10 +3,12 @@
 A straightforward path tracer over the same inputs as the program, in plain
 PyTorch and NumPy: it imports nothing of the program, of JAX or of the JAX
 package, and reads nothing the program made.  It parses the OBJ/MTL itself,
-classifies the materials by the reference app's channel rules, builds the
-light table and its CDF, the environment map's alias table, and a BVH of
-its own (Morton-ordered, balanced, leaves of 8, walked with a per-ray
-stack), and traces the paths of chosen pixels over every frame of a run.
+classifies the materials by the reference app's channel rules (with
+``rough_materials``, a roughness strictly inside (0, 1) selects a GGX
+type), decodes each ``map_Kd`` PNG itself, builds the light table and its
+CDF, the environment map's alias table, and a BVH of its own
+(Morton-ordered, balanced, leaves of 8, walked with a per-ray stack), and
+traces the paths of chosen pixels over every frame of a run.
 
 The renderer's random numbers are a counter hash of (pixel, frame, bounce,
 seed) (PCG4D over a threefry key schedule), so one pixel's paths do not
@@ -15,10 +17,12 @@ each through every frame the run accumulated, and returns their running
 means.  Paths follow the renderer's estimator as the reference app defines
 it (its BSDF quirks, NEE with the power heuristic, the x-pdf emitter weight,
 the unified area/env NEE of the env extension, hero wavelengths and
-dispersive Fresnel).  The shadow query is resolved inside its bounce, the
-nearest hit within the cap must be the sampled light triangle (nothing may
-be hit for an env sample); the wavefront sort, the ladder and the deferred
-queries of the renderer change no path.
+dispersive Fresnel; the GGX extension's rough conductor, plastic and
+dielectric, and bilinear ``map_Kd`` texels on Kd).  The shadow query is
+resolved inside its bounce, the nearest hit within the cap must be the
+sampled light triangle (nothing may be hit for an env sample); the
+wavefront sort, the ladder and the deferred queries of the renderer change
+no path.
 
 ``dtype`` computes every float in another precision (the control of
 ptbench/check.py runs it in bfloat16); random integers stay exact.
@@ -27,6 +31,7 @@ ptbench/check.py runs it in bfloat16); random integers stay exact.
 from __future__ import annotations
 
 import os
+import zlib
 
 import numpy as np
 import torch
@@ -39,6 +44,8 @@ AEPS = 0.00003807693583          # ANGLE_EPSILON
 PDF_FLOOR = 1e-20
 LEAF = 8
 DIFFUSE, MIRROR, PLASTIC, DIELECTRIC = 0, 1, 2, 3
+ROUGH_CONDUCTOR, ROUGH_PLASTIC, ROUGH_DIELECTRIC = 4, 5, 6
+GGX_EPS = 1e-7
 _CAMERA_SALT, _HERO_SALT = 0x5CA1AB1E, 0x4E20
 
 
@@ -48,10 +55,12 @@ _CAMERA_SALT, _HERO_SALT = 0x5CA1AB1E, 0x4E20
 
 def parse_obj(path: str) -> dict:
     """OBJ + MTL -> {"p": (T, 3, 3) corner positions, "n": (T, 3, 3) corner
-    normals, "mat": (T,) material index, "materials": [{"kd", "ka", "ks"}]}.
-    Faces are fans; a face's material is the last ``usemtl``."""
+    normals, "uv": (T, 3, 2) corner texcoords (NaN where a corner has
+    none), "mat": (T,) material index, "materials": [{"kd", "ka", "ks",
+    "map_kd"}], "path"}.  Faces are fans; a face's material is the last
+    ``usemtl``; a face's indices resolve as it is read."""
     base = os.path.dirname(os.path.abspath(path))
-    v, vn, p, n, mat, names, mtl = [], [], [], [], [], {}, {}
+    v, vn, vt, p, n, uv, mat, names, mtl = [], [], [], [], [], [], [], {}, {}
     cur = None
     with open(path, errors="replace") as fh:
         for line in fh:
@@ -63,6 +72,8 @@ def parse_obj(path: str) -> dict:
                 v.append([float(x) for x in parts[1:4]])
             elif key == "vn":
                 vn.append([float(x) for x in parts[1:4]])
+            elif key == "vt":
+                vt.append([float(parts[1]), float(parts[2]) if len(parts) > 2 else 0.0])
             elif key == "mtllib":
                 mtl.update(parse_mtl(os.path.join(base, " ".join(parts[1:]))))
             elif key == "usemtl":
@@ -73,23 +84,31 @@ def parse_obj(path: str) -> dict:
                 for tok in parts[1:]:
                     f = tok.split("/")
                     vi, ni = int(f[0]), int(f[2])
+                    ti = int(f[1]) if f[1] else 0
                     corners.append((vi - 1 if vi > 0 else len(v) + vi,
-                                    ni - 1 if ni > 0 else len(vn) + ni))
+                                    ni - 1 if ni > 0 else len(vn) + ni,
+                                    ti - 1 if ti > 0 else (len(vt) + ti if ti else None)))
                 if cur is None:
                     cur = names.setdefault("", len(names))
                 for i in range(1, len(corners) - 1):
                     tri = (corners[0], corners[i], corners[i + 1])
                     p.append([v[c[0]] for c in tri])
                     n.append([vn[c[1]] for c in tri])
+                    uv.append([[np.nan, np.nan] if c[2] is None else vt[c[2]] for c in tri])
                     mat.append(cur)
     materials = [mtl.get(name, {"kd": (1.0, 1.0, 1.0), "ka": (0.0, 0.0, 0.0),
-                                "ks": (1.0, 0.0, 0.0)})
+                                "ks": (1.0, 0.0, 0.0), "map_kd": None})
                  for name in sorted(names, key=names.get)]
     return {"p": np.asarray(p, np.float32), "n": np.asarray(n, np.float32),
-            "mat": np.asarray(mat, np.int64), "materials": materials}
+            "uv": np.asarray(uv, np.float32).reshape(-1, 3, 2),
+            "mat": np.asarray(mat, np.int64), "materials": materials,
+            "path": os.path.abspath(path)}
 
 
 def parse_mtl(path: str) -> dict:
+    """MTL -> {name: {"kd", "ka", "ks", "map_kd"}}; ``map_kd`` is the path
+    of the map's last word, relative to the MTL."""
+    base = os.path.dirname(os.path.abspath(path))
     out, cur = {}, None
     with open(path, errors="replace") as fh:
         for line in fh:
@@ -97,24 +116,102 @@ def parse_mtl(path: str) -> dict:
             if not parts or parts[0].startswith("#"):
                 continue
             if parts[0] == "newmtl":
-                cur = {"kd": (1.0, 1.0, 1.0), "ka": (0.0, 0.0, 0.0), "ks": (1.0, 0.0, 0.0)}
+                cur = {"kd": (1.0, 1.0, 1.0), "ka": (0.0, 0.0, 0.0), "ks": (1.0, 0.0, 0.0),
+                       "map_kd": None}
                 out[parts[1] if len(parts) > 1 else ""] = cur
             elif cur is not None and parts[0] in ("Kd", "Ka", "Ks") and len(parts) >= 4:
                 cur[parts[0].lower()] = tuple(float(x) for x in parts[1:4])
+            elif cur is not None and parts[0].lower() == "map_kd" and len(parts) > 1:
+                cur["map_kd"] = os.path.join(base, parts[-1])
     return out
 
 
-def classify(m: dict) -> tuple[int, float]:
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced gray, RGB or RGBA PNG -> (H, W, 3) float32,
+    linear (the sRGB EOTF applied); any other PNG raises ValueError naming
+    the file."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, ihdr, data = 8, None, []
+    while pos + 8 <= len(blob):
+        size = int.from_bytes(blob[pos:pos + 4], "big")
+        tag, body = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + size]
+        pos += 12 + size
+        if tag == b"IHDR":
+            ihdr = (int.from_bytes(body[0:4], "big"), int.from_bytes(body[4:8], "big"),
+                    body[8], body[9], body[12])
+        elif tag == b"IDAT":
+            data.append(body)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR")
+    w, h, depth, ctype, interlace = ihdr
+    ch = {0: 1, 2: 3, 6: 4}.get(ctype)
+    if depth != 8 or interlace != 0 or ch is None:
+        raise ValueError(f"{path}: the reference reads 8-bit non-interlaced gray, RGB or RGBA "
+                         f"PNGs (depth {depth}, colour type {ctype}, interlace {interlace})")
+    raw = np.frombuffer(zlib.decompress(b"".join(data)), np.uint8)
+    stride = w * ch
+    rows = raw[:h * (stride + 1)].reshape(h, stride + 1)
+    img = np.zeros((h, stride), np.int64)
+    prev = np.zeros(stride, np.int64)
+    for r in range(h):
+        kind, line = int(rows[r, 0]), rows[r, 1:].astype(np.int64)
+        if kind == 0:
+            cur = line
+        elif kind == 2:
+            cur = (line + prev) & 0xFF
+        elif kind == 1:
+            cur = line.copy()
+            for c in range(ch):
+                cur[c::ch] = np.cumsum(line[c::ch]) & 0xFF
+        elif kind in (3, 4):
+            cur = line.copy()
+            for i in range(stride):
+                a = int(cur[i - ch]) if i >= ch else 0
+                b = int(prev[i])
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = int(prev[i - ch]) if i >= ch else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+        else:
+            raise ValueError(f"{path}: filter type {kind}")
+        img[r] = cur
+        prev = cur
+    img = img.reshape(h, w, ch)
+    rgb = img.repeat(3, axis=2) if ch == 1 else img[..., :3]
+    srgb = rgb.astype(np.float32) / np.float32(255.0)
+    return np.where(srgb <= 0.04045, srgb / 12.92,
+                    ((srgb + 0.055) / 1.055) ** 2.4).astype(np.float32)
+
+
+def classify(m: dict, rough_materials: bool = False) -> tuple[int, float, float]:
     """The reference app's material rules (Renderer.mm:278-329) ->
-    (type, ior): Ks = (roughness, metalness, +-ior)."""
+    (type, ior, roughness): Ks = (roughness, metalness, +-ior).  With
+    ``rough_materials`` a roughness strictly inside (0, 1), which the app
+    leaves diffuse, selects the GGX type of the same branch; the roughness
+    is kept for those types alone."""
     rough, metal, ior = m["ks"]
+    ggx = rough_materials and 0.0 < rough < 1.0
     if metal > 0.0:
-        return (MIRROR if rough == 0.0 else DIFFUSE), ior
+        if rough == 0.0:
+            return MIRROR, ior, 0.0
+        return (ROUGH_CONDUCTOR, ior, rough) if ggx else (DIFFUSE, ior, 0.0)
     if rough == 1.0:
-        return DIFFUSE, ior
+        return DIFFUSE, ior, 0.0
     if ior <= 0.0:
-        return (PLASTIC if rough == 0.0 else DIFFUSE), abs(ior)
-    return (DIELECTRIC if rough == 0.0 else DIFFUSE), ior
+        if rough == 0.0:
+            return PLASTIC, abs(ior), 0.0
+        return (ROUGH_PLASTIC, abs(ior), rough) if ggx else (DIFFUSE, abs(ior), 0.0)
+    if rough == 0.0:
+        return DIELECTRIC, ior, 0.0
+    return (ROUGH_DIELECTRIC, ior, rough) if ggx else (DIFFUSE, ior, 0.0)
 
 
 def wavelengths(s: int) -> np.ndarray:
@@ -188,7 +285,8 @@ class Scene:
     """Tensors of one scene at S spectral bins, floats in ``dtype``."""
 
     def __init__(self, mesh: dict, s: int, device, dtype=torch.float32,
-                 dispersion: float | None = None, env_image: np.ndarray | None = None):
+                 dispersion: float | None = None, env_image: np.ndarray | None = None,
+                 rough_materials: bool = False):
         def f(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
 
@@ -198,13 +296,19 @@ class Scene:
         self.n = [f(n[:, k].T) for k in range(3)]
         mat = mesh["mat"].astype(np.int64)
         self.mat = torch.as_tensor(mat, device=device)
-        kinds = [classify(m) for m in mesh["materials"]]
+        kinds = [classify(m, rough_materials) for m in mesh["materials"]]
         kd = np.asarray([m["kd"] for m in mesh["materials"]], np.float32)
         ka = np.asarray([m["ka"] for m in mesh["materials"]], np.float32)
         mtype = np.asarray([k[0] for k in kinds], np.int64)
         ior = np.asarray([k[1] for k in kinds], np.float32)
         self.m_type = torch.as_tensor(mtype, device=device)
         self.m_ior = f(ior)
+        # a scene with a GGX type: its lanes' lobes, and the emitter hits'
+        # conventional MIS weight (the x-pdf quirk is bounded only by a
+        # diffuse pdf), for every material of the scene
+        self.rough = bool((mtype >= ROUGH_CONDUCTOR).any())
+        self.m_rough = f(np.asarray([k[2] for k in kinds], np.float32)) if self.rough else None
+        self.textures = self._textures(mesh, mat, f)
         self.m_diffuse = f(from_rgb(kd, s).T)
         self.m_emissive = f(from_rgb(ka, s).T)
         self.m_ior_bins = None
@@ -241,6 +345,29 @@ class Scene:
             self.env = self._env(np.asarray(env_image, np.float32),
                                  float((lum * area).sum() * np.pi), f)
         self.bvh = BVH(self.p, LEAF)
+
+    def _textures(self, mesh, mat, f):
+        """The used materials' ``map_Kd`` maps -> None, or {"maps": (K, TH,
+        TW, 3), "of_mat": (M,) map index or -1, "uv": three (2, T) corner
+        texcoords}.  What the reference does not model raises ValueError:
+        maps of differing sizes, a textured face without texcoords."""
+        paths = [m["map_kd"] for m in mesh["materials"]]
+        if not any(paths):
+            return None
+        files = sorted({q for q in paths if q})
+        maps = [read_png(q) for q in files]
+        if len({m.shape for m in maps}) > 1:
+            raise ValueError("the reference samples maps of one size: " + ", ".join(
+                f"{q} {m.shape[1]}x{m.shape[0]}" for q, m in zip(files, maps)))
+        of_mat = np.asarray([files.index(q) if q else -1 for q in paths], np.int64)
+        uv = mesh["uv"]
+        bare = (of_mat[mat] >= 0) & np.isnan(uv).any(axis=(1, 2))
+        if bare.any():
+            raise ValueError(f"{mesh['path']}: {int(bare.sum())} textured triangles have no "
+                             f"texcoords (the first: {int(np.argmax(bare))})")
+        uv = np.nan_to_num(uv)
+        return {"maps": f(np.stack(maps)), "of_mat": torch.as_tensor(of_mat, device=self.device),
+                "uv": [f(uv[:, k].T) for k in range(3)]}
 
     def _env(self, img, light_power, f):
         eh, ew = img.shape[:2]
@@ -528,12 +655,8 @@ def _pick(mtype, diffuse, mirror, plastic, dielectric):
         mtype == MIRROR, mirror, torch.where(mtype == PLASTIC, plastic, dielectric)))
 
 
-def cosine_dir(u, n):
-    """Cosine-hemisphere direction around n: u[1] -> cos theta, u[0] -> phi,
-    on the branchless Pixar basis."""
-    cos_t = torch.sqrt(u[1])
-    phi = u[0] * (PI_R * 2.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+def basis(n):
+    """The branchless Pixar tangent basis (bu, bv) of unit normals n."""
     nx, ny, nz = n[0], n[1], n[2]
     neg = nz < 0.0
     a = 1.0 / torch.where(neg, 1.0 - nz, 1.0 + nz)
@@ -541,7 +664,144 @@ def cosine_dir(u, n):
     bu = torch.stack([1.0 - nx * nx * a, -b, torch.where(neg, nx, -nx)])
     bv = torch.stack([torch.where(neg, b, -b),
                       torch.where(neg, ny * ny * a - 1.0, 1.0 - ny * ny * a), -ny])
+    return bu, bv
+
+
+def cosine_dir(u, n):
+    """Cosine-hemisphere direction around n: u[1] -> cos theta, u[0] -> phi,
+    on the branchless Pixar basis."""
+    cos_t = torch.sqrt(u[1])
+    phi = u[0] * (PI_R * 2.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    bu, bv = basis(n)
     return (bu * torch.cos(phi)[None] + bv * torch.sin(phi)[None]) * sin_t[None] + n * cos_t[None]
+
+
+# ---------------------------------------------------------------------------
+# the GGX extension: D, height-correlated Smith G2, VNDF sampling (Heitz
+# 2018); the lobe is scalar (F = 1), the conductor's Schlick a throughput
+# factor; v = -w_i, alpha = roughness^2
+# ---------------------------------------------------------------------------
+
+def ggx_lambda(cos_t, alpha):
+    c2 = torch.clamp(cos_t * cos_t, GGX_EPS, 1.0)
+    return 0.5 * (-1.0 + torch.sqrt(1.0 + alpha * alpha * ((1.0 - c2) / c2)))
+
+
+def ggx_d(cos_m, alpha):
+    a2 = alpha * alpha
+    den = (cos_m * cos_m) * (a2 - 1.0) + 1.0
+    return torch.where(cos_m > 0.0, a2 / torch.clamp(np.pi * den * den, min=GGX_EPS),
+                       torch.zeros_like(cos_m))
+
+
+def ggx_g1(cos_v, alpha):
+    return 1.0 / (1.0 + ggx_lambda(cos_v, alpha))
+
+
+def ggx_g2(cos_v, cos_l, alpha):
+    return 1.0 / (1.0 + ggx_lambda(cos_v, alpha) + ggx_lambda(cos_l, alpha))
+
+
+def ggx_eval(w_i, w_o, n, alpha):
+    """(f cos, pdf) of the lobe toward w_o: D G2 / (4 cos_v) and the VNDF
+    density D G1 / (4 cos_v); 0 where v, l or v.m lies below."""
+    v = -w_i
+    cos_v, cos_l = dot(v, n), dot(w_o, n)
+    h = v + w_o
+    m = h / torch.sqrt(torch.clamp(dot(h, h), min=GGX_EPS * GGX_EPS))[None]
+    cos_vm = dot(v, m)
+    d = ggx_d(dot(m, n), alpha)
+    ok = (cos_v > GGX_EPS) & (cos_l > GGX_EPS) & (cos_vm > GGX_EPS)
+    inv = 1.0 / torch.clamp(4.0 * cos_v, min=GGX_EPS)
+    zero = torch.zeros_like(cos_v)
+    return (torch.where(ok, d * ggx_g2(cos_v, cos_l, alpha) * inv, zero),
+            torch.where(ok, d * ggx_g1(cos_v, alpha) * inv, zero))
+
+
+def ggx_sample(w_i, n, alpha, u):
+    """A VNDF sample from the uniform pair u (u[0] -> the disk radius, u[1]
+    -> its angle) -> (w_o, weight G2/G1, pdf); weight and pdf 0 where v,
+    l or v.m lies below."""
+    v = -w_i
+    bu, bv = basis(n)
+    vz = dot(v, n)
+    sx, sy = alpha * dot(v, bu), alpha * dot(v, bv)
+    slen = torch.sqrt(torch.clamp(sx * sx + sy * sy + vz * vz, min=GGX_EPS * GGX_EPS))
+    hx, hy, hz = sx / slen, sy / slen, vz / slen
+    lensq = hx * hx + hy * hy
+    inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=GGX_EPS * GGX_EPS))
+    side = lensq > GGX_EPS
+    t1x = torch.where(side, -hy * inv, torch.ones_like(hy))
+    t1y = torch.where(side, hx * inv, torch.zeros_like(hx))
+    t2x, t2y, t2z = -hz * t1y, hz * t1x, hx * t1y - hy * t1x
+    r = torch.sqrt(u[0])
+    phi = 2.0 * np.pi * u[1]
+    p1, p2 = r * torch.cos(phi), r * torch.sin(phi)
+    s = 0.5 * (1.0 + hz)
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    mx = alpha * (p1 * t1x + p2 * t2x + pz * hx)
+    my = alpha * (p1 * t1y + p2 * t2y + pz * hy)
+    mz = torch.clamp(p2 * t2z + pz * hz, min=0.0)
+    mlen = torch.sqrt(torch.clamp(mx * mx + my * my + mz * mz, min=GGX_EPS * GGX_EPS))
+    mx, my, mz = mx / mlen, my / mlen, mz / mlen
+    m = mx[None] * bu + my[None] * bv + mz[None] * n
+    w_o = reflect(w_i, m)
+    cos_l = dot(w_o, n)
+    ok = (vz > GGX_EPS) & (cos_l > GGX_EPS) & (dot(v, m) > GGX_EPS)
+    zero = torch.zeros_like(vz)
+    weight = torch.where(ok, ggx_g2(vz, cos_l, alpha) * (1.0 + ggx_lambda(vz, alpha)), zero)
+    pdf = torch.where(ok, ggx_d(mz, alpha) * ggx_g1(vz, alpha)
+                      / torch.clamp(4.0 * vz, min=GGX_EPS), zero)
+    return w_o, weight, pdf
+
+
+def conductor_albedo(m_diffuse, m_type, w_i, w_o):
+    """The rough conductor's throughput factor, Schlick at the half vector
+    of v and w_o with F0 = the lane's albedo; other lanes keep the albedo."""
+    h = w_o - w_i
+    hlen = torch.sqrt(torch.clamp(dot(h, h), min=1e-12))
+    cos_vm = torch.clamp(-dot(w_i, h) / hlen, 0.0, 1.0)
+    schlick = m_diffuse + (1.0 - m_diffuse) * ((1.0 - cos_vm) ** 5)[None]
+    return torch.where((m_type == ROUGH_CONDUCTOR)[None], schlick, m_diffuse)
+
+
+def _pick_rough(mtype, parity, conductor, plastic, dielectric):
+    return torch.where(mtype == ROUGH_CONDUCTOR, conductor, torch.where(
+        mtype == ROUGH_PLASTIC, plastic, torch.where(mtype == ROUGH_DIELECTRIC, dielectric,
+                                                     parity)))
+
+
+def texel(tex, tri, bu, bv, mat, s):
+    """The bilinear ``map_Kd`` texel at barycentrics (bu, bv) of triangles
+    tri, lifted to S bins -> (S, N); 1 where the material has no map.
+    Wrap addressing, v = 0 at the bottom row, texel centres at +0.5."""
+    w = (1.0 - bu - bv, bu, bv)
+    tu, tv = sum(tex["uv"][k][:, tri] * w[k][None] for k in range(3))
+    maps = tex["maps"]
+    k, th, tw, _ = maps.shape
+    x = (tu - torch.floor(tu)) * tw - 0.5
+    y = (1.0 - (tv - torch.floor(tv))) * th - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+    idx = tex["of_mat"][mat]
+    flat = maps.reshape(-1, 3)
+
+    def at(xi, yi):
+        xi = torch.remainder(xi.to(torch.int64), tw)
+        yi = torch.remainder(yi.to(torch.int64), th)
+        return flat[(torch.clamp(idx, min=0) * th + yi) * tw + xi]
+
+    top = at(x0, y0) * (1.0 - fx) + at(x0 + 1, y0) * fx
+    bot = at(x0, y0 + 1) * (1.0 - fx) + at(x0 + 1, y0 + 1) * fx
+    rgb = torch.where((idx >= 0)[:, None], top * (1.0 - fy) + bot * fy,
+                      torch.ones_like(top))
+    if s == 3:
+        return rgb.T
+    lam = torch.as_tensor(wavelengths(s), device=rgb.device)[:, None]
+    return torch.where(lam < 490.0, rgb[:, 2][None],
+                       torch.where(lam < 580.0, rgb[:, 1][None], rgb[:, 0][None]))
 
 
 def dispersion(mtype, ior, bins_ior, w_i, n, lobe_u, eta_out):
@@ -551,7 +811,8 @@ def dispersion(mtype, ior, bins_ior, w_i, n, lobe_u, eta_out):
     second = (f_h < lobe_u)[None]
     w = torch.where(second, (1.0 - f_b) / torch.clamp(1.0 - f_h, min=1e-6)[None],
                     f_b / torch.clamp(f_h, min=1e-6)[None])
-    has = ((mtype == PLASTIC) | (mtype == DIELECTRIC))[None]
+    has = ((mtype == PLASTIC) | (mtype == DIELECTRIC) | (mtype == ROUGH_PLASTIC)
+           | (mtype == ROUGH_DIELECTRIC))[None]
     return torch.where(has, w, torch.ones_like(w))
 
 
@@ -634,6 +895,11 @@ def trace_lanes(sc: Scene, spec: dict, pid, frame, salts, cam_salts, hero_salts)
         mat = sc.mat[tri0]
         m_diffuse, m_emissive = spectral(sc.m_diffuse, mat), spectral(sc.m_emissive, mat)
         m_ior, m_type = sc.m_ior[mat], sc.m_type[mat]
+        if sc.textures is not None:
+            tx = texel(sc.textures, tri0, uu, vv, mat, s)
+            m_diffuse = m_diffuse * (tx if bins is None else torch.gather(tx, 0, bins))
+        if sc.rough:
+            alpha = sc.m_rough[mat] * sc.m_rough[mat]
         u = uniforms(pid, frame, b, salts, 10 if env is not None else 6, dt)
         lobe_u = u[3]
         # next-event estimation toward a light triangle (Shaders.metal:149-176)
@@ -681,10 +947,18 @@ def trace_lanes(sc: Scene, spec: dict, pid, frame, salts, cam_salts, hero_salts)
                          torch.where(second, zero, mirror_b))
         nee_mpdf = _pick(m_type, diff_v, one, torch.where(second, diff_v, one),
                          torch.where(second, zero, one))
+        nee_albedo = m_diffuse
+        if sc.rough:
+            g_f, g_p = ggx_eval(direction, nee_dir, hn, alpha)
+            nee_bsdf = _pick_rough(m_type, nee_bsdf, g_f, torch.where(second, diff_v, g_f),
+                                   torch.where(second, zero, g_f))
+            nee_mpdf = _pick_rough(m_type, nee_mpdf, g_p, torch.where(second, diff_v, g_p),
+                                   torch.where(second, zero, g_p))
+            nee_albedo = conductor_albedo(m_diffuse, m_type, direction, nee_dir)
         light_ok = valid & (l_pdf > 0.0) & not_self & (b + 1 < depth)
         nee_scale = torch.where(light_ok, power_heuristic(l_pdf, nee_mpdf) * nee_bsdf
                                 / torch.where(light_ok, l_pdf, one), zero)
-        nee_c = nee_emit * m_diffuse * thr * nee_scale[None]
+        nee_c = nee_emit * nee_albedo * thr * nee_scale[None]
         if sc.m_ior_bins is not None:
             bins_ior = spectral(sc.m_ior_bins, mat)
             nee_c = nee_c * dispersion(m_type, m_ior, bins_ior, direction, hn, lobe_u, 1.0)
@@ -702,7 +976,8 @@ def trace_lanes(sc: Scene, spec: dict, pid, frame, salts, cam_salts, hero_salts)
         if env is not None:
             e_lpdf = e_lpdf * env["one_minus"]
         e_w = power_heuristic(pdf, prev_diffuse * e_lpdf)
-        emit = m_emissive * thr * torch.where(is_light, e_w * pdf, zero)[None]
+        emit = m_emissive * thr * torch.where(is_light, e_w if sc.rough else e_w * pdf,
+                                              zero)[None]
         if env is not None:
             miss = alive & ~hit_any
             eidx = env_lookup(env, direction)
@@ -723,9 +998,23 @@ def trace_lanes(sc: Scene, spec: dict, pid, frame, salts, cam_salts, hero_salts)
                         torch.where(second, one, mirror_cos))
         nb_pdf = _pick(m_type, diff_b, one, torch.where(second, diff_b, one), one)
         nb_ior = torch.where((m_type == DIELECTRIC) & second, m_ior, cur_ior)
+        finite = (m_type == DIFFUSE).to(dt)
+        albedo = m_diffuse
+        if sc.rough:
+            g_d, g_w, g_p = ggx_sample(direction, hn, alpha, u[4:6])
+            g_f = g_w * g_p
+            w_o = _pick_rough(m_type[None], w_o, g_d, torch.where(s3, diff_d, g_d),
+                              torch.where(s3, direction, g_d))
+            nb_bsdf = _pick_rough(m_type, nb_bsdf, g_f, torch.where(second, diff_b, g_f),
+                                  torch.where(second, one, g_f))
+            nb_pdf = _pick_rough(m_type, nb_pdf, g_p, torch.where(second, diff_b, g_p),
+                                 torch.where(second, one, g_p))
+            nb_ior = torch.where((m_type == ROUGH_DIELECTRIC) & second, m_ior, nb_ior)
+            finite = _pick_rough(m_type, finite, one, one, torch.where(second, zero, one))
+            albedo = conductor_albedo(m_diffuse, m_type, direction, w_o)
         safe = torch.where(torch.abs(nb_pdf) > PDF_FLOOR, nb_pdf,
                            torch.full_like(nb_pdf, PDF_FLOOR))
-        scale = m_diffuse * (nb_bsdf / safe)[None]
+        scale = albedo * (nb_bsdf / safe)[None]
         if sc.m_ior_bins is not None:
             scale = scale * dispersion(m_type, m_ior, bins_ior, direction, hn, lobe_u, cur_ior)
         # the shadow query, inside its bounce
@@ -741,7 +1030,7 @@ def trace_lanes(sc: Scene, spec: dict, pid, frame, salts, cam_salts, hero_salts)
         direction = torch.where(v3, w_o, direction)
         thr = torch.where(v3, thr * scale, thr)
         pdf = torch.where(valid, nb_pdf, pdf)
-        prev_diffuse = torch.where(valid, (m_type == DIFFUSE).to(dt), prev_diffuse)
+        prev_diffuse = torch.where(valid, finite, prev_diffuse)
         cur_ior = torch.where(valid, nb_ior, cur_ior)
         alive = valid
     if not hero:
