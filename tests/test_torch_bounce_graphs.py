@@ -2,7 +2,8 @@
 the CPU, through a stand-in capturer that runs a chain where a graph would
 replay it: frames through the chains are bit-equal to the eager loop (rgb;
 S = 16 with C = 4, dispersion and a sky map; fused 2 spp; a ladder over
-three rungs and more; the fused walk; skipped sorts), a frame meets one key
+three rungs and more; the fused walk; skipped sorts; the GGX and textured
+box, water-ggx-textured), a frame meets one key
 a bounce and a steady frame captures nothing, no tensor a chain allocates
 reaches the next chain, the sort's two sets alternate, a traced frame's
 record holds what the eager frame's does, a timed frame runs the chains
@@ -41,6 +42,7 @@ CASES = {
     "spp2-fuse2": dict(LADDER, samples_per_frame=2, fuse_samples=2),
     "fused-walk": dict(LADDER, fuse_shadow_walk=True),
     "skip": dict(LADDER, sort_bounce_skip="2"),
+    "ggx-textured": LADDER,
 }
 
 
@@ -121,6 +123,8 @@ class StandIn(TorchDispatchMode):
 
 
 def _scene(case: str):
+    if case == "ggx-textured":
+        return load_scene(scene_path("water-ggx-textured"), device="cpu", rough_materials=True)
     scene = load_scene(scene_path("cornellbox"), device="cpu",
                        samples=CASES[case].get("spectrum_samples", 3))
     if case == "spectral-env":
@@ -232,12 +236,13 @@ def test_a_frame_meets_a_key_a_bounce_and_a_steady_frame_captures_nothing(stand_
     assert steady and all(rec["graph_replays"] == DEPTH for rec in steady)
 
 
-@pytest.mark.parametrize("case", ["rgb", "spectral-env", "spp2-fuse2"])
+@pytest.mark.parametrize("case", ["rgb", "spectral-env", "spp2-fuse2", "ggx-textured"])
 def test_a_traced_frame_through_the_chains_records_what_the_eager_frame_does(case,
                                                                               stand_in):
     """A traced frame whose chains replay keeps the record the eager frame
     keeps: its shading launches (lanes, the ladder's live read, planes,
-    hero, env, kernel, env picks and misses), traced rays and host reads;
+    hero, env, rough, textured, kernel, env picks and misses, GGX and
+    textured lanes), traced rays and host reads;
     and it holds a shade span a replay and a sort span a sorting replay."""
     eager = _renderer(case)
     r = _renderer(case, stand_in)
@@ -249,6 +254,8 @@ def test_a_traced_frame_through_the_chains_records_what_the_eager_frame_does(cas
         DEPTH * len(_graphs(r)))
     for k in ("host_reads", "traced_rays", "launches", "hbm_walks", "plan_builds"):
         assert got[k] == want[k], k
+    if case == "ggx-textured":
+        assert all(x["ggx_lanes"] > 0 and x["tex_lanes"] > 0 for x in got["launches"][:2])
     names = [s[0] for s in got["spans"]]
     assert names.count("shade") == DEPTH * len(_graphs(r))
     assert names.count("sort") == (DEPTH - 1) * len(_graphs(r))

@@ -606,8 +606,37 @@ def _same(got, want, what: str) -> None:
         what, int((_bits(got) != _bits(want)).sum()))
 
 
+def _with_materials(scene, materials: str):
+    """``scene`` with the materials of the kernel's kMaterials instances:
+    "ggx" the seven types in turn over its materials and a drawn roughness
+    table, "tex" a drawn (2, 12, 20, 3) texture stack on every other
+    material (the rest untextured) and drawn texcoords from -1.5 to 2.5 (so
+    that they wrap both ways), "ggx+tex" both."""
+    gen = np.random.default_rng(11)
+    m, t = scene.mat_type.shape[0], scene.p0.shape[1]
+    if "ggx" in materials:
+        scene = scene._replace(
+            mat_type=torch.arange(m) % 7,
+            mat_roughness=torch.from_numpy(gen.uniform(0.05, 0.95, m).astype(np.float32)))
+    if "tex" in materials:
+        scene = scene._replace(
+            textures=torch.from_numpy(gen.random((2, 12, 20, 3), dtype=np.float32)),
+            mat_tex=torch.tensor([k % 3 - 1 for k in range(m)]),
+            tri_uv=torch.from_numpy(gen.uniform(-1.5, 2.5, (6, t)).astype(np.float32)))
+    return scene
+
+
+def _cpu_shading(n: int, spectrum: int, env=None, dispersion: bool = False, hero: int = 0,
+                 materials: str = ""):
+    """:func:`_cpu_shading_parity` with ``materials`` (:func:`_with_materials`)
+    on the same inputs."""
+    scene, inp = _cpu_shading_parity(n, spectrum, env, dispersion, hero)
+    return _with_materials(scene, materials), inp
+
+
 @functools.lru_cache(maxsize=None)
-def _cpu_shading(n: int, spectrum: int, env=None, dispersion: bool = False, hero: int = 0):
+def _cpu_shading_parity(n: int, spectrum: int, env=None, dispersion: bool = False,
+                        hero: int = 0):
     """A Water-plastic scene on the CPU with the four parity types in turn
     over its materials, a seeded (Eh, Ew) = ``env`` environment map and
     Cauchy IoR bins (``dispersion``) where asked, and its shading_inputs
@@ -636,12 +665,12 @@ def _to(x, dev):
 
 
 def _card_shading(n: int, spectrum: int, form: str, dev, env=None, dispersion=False,
-                  hero: int = 0):
+                  hero: int = 0, materials: str = ""):
     """:func:`_cpu_shading` on the card -> (scene, state, hit, uniforms); the
     uniform rows as the frame lays them out: row views of one (6, N) block,
     (10, N) with an env (PRNG, r2), or TILED's stacked rows and the env's
     own (4, N) block."""
-    scene, inp = _cpu_shading(n, spectrum, env, dispersion, hero)
+    scene, inp = _cpu_shading(n, spectrum, env, dispersion, hero, materials)
     scene = _to(scene, dev)
     st = twf.PathState(**{k: torch.from_numpy(v).to(dev) for k, v in inp["state"].items()})
     hit = HitShade(**{k: torch.from_numpy(v).to(dev) for k, v in inp["hit"].items()})
@@ -699,6 +728,64 @@ def test_shade_bounce_matches_plain_on_card(n, spectrum, case, cuda_device):
     if "env" in ext and n > 1000:
         env_lanes = got[1].target == -1
         assert 0 < int(env_lanes.sum()) < n and bool(got[1].ok[env_lanes].any())
+
+
+# the kMaterials instances' cases: (config fields, inline form, the uniform
+# rows' layout, the scene's extensions), each over every combination of the
+# GGX types and textures; hero_wavelengths takes effect at S = 16
+MATERIAL_CASES = {
+    "parity": ({}, False, "prng", {}),
+    "inline-no-quirks-r2": ({"reference_quirks": False}, True, "r2", {}),
+    "refract-cull": ({"refract_dielectric": True, "cull_zero_nee": True, "pdf_floor": 1e-3},
+                     False, "prng", {}),
+    "last-bounce": ({"max_path_length": 3}, True, "prng", {}),
+    "env": ({}, False, "prng", {"env": ENV_MAP}),
+    "hero": ({"hero_wavelengths": 4}, False, "prng", {}),
+    "hero-env": ({"hero_wavelengths": 4}, True, "prng", {"env": ENV_MAP}),
+    "dispersion": ({}, False, "prng", {"dispersion": True}),
+    "env-hero-dispersion": ({"hero_wavelengths": 2}, False, "prng",
+                            {"env": (16, 32), "dispersion": True}),
+}
+
+
+@pytest.mark.parametrize("materials", ["ggx", "tex", "ggx+tex"])
+@pytest.mark.parametrize("case", list(MATERIAL_CASES))
+@pytest.mark.parametrize("spectrum", [3, 16])
+@pytest.mark.parametrize("n", SHADE_LANES)
+def test_shade_bounce_materials_match_plain_on_card(n, spectrum, case, materials,
+                                                    cuda_device):
+    """The kMaterials instances of csrc/shade.cu == render/wavefront.py:
+    _shade_plain bit for bit on every output and count: the seven material
+    types over the scene's materials with a drawn roughness table (the GGX
+    lobes' evaluation and VNDF sample, the rough conductor's Schlick albedo
+    on both arms, the scalar-Fresnel lobe choice of rough plastic and
+    dielectric, the per-lobe emitter-hit flag, the conventional emitter-hit
+    weight), a drawn texture stack on some materials with texcoords that
+    wrap (the bilinear taps, the texel lifted to S = 16's bands and to hero
+    bins), and both together; with the parity form, the env light, hero
+    bins, hero bins with the env, dispersion and all three, quirks off,
+    refraction, culling and the last bounce.  The counts go on with the
+    lanes that hit a GGX type and those that hit a textured material."""
+    kw, inline, form, ext = MATERIAL_CASES[case]
+    cfg = RenderConfig(spectrum_samples=spectrum, **kw)
+    hero = cfg.hero_wavelengths if spectrum > 3 else 0
+    scene, st, hit, uni = _card_shading(n, spectrum, form, cuda_device, ext.get("env"),
+                                        ext.get("dispersion", False), hero, materials)
+    assert tshade.shade_kernel_covers(cfg, scene) and tshade.has_materials(scene)
+    got = tshade.shade_bounce(scene, cfg, 2, st, uni, hit, inline)
+    want = tshade.shade_bounce_plain(scene, cfg, 2, st, uni, hit, inline)
+    for f, a, b in zip(twf.PathState._fields, got[0], want[0]):
+        _same(a, b, f"state.{f}")
+    for f, a, b in zip(twf.ShadowPack._fields, got[1], want[1]):
+        _same(a, b, f"pack.{f}")
+    _same(got[2], want[2], "shadow origin")
+    counts = [int(x) for x in got[3]]
+    assert counts == [int(x) for x in want[3]]
+    assert len(counts) == (6 if "env" in ext else 4)
+    ggx_lanes, tex_lanes = counts[-2:]
+    if n > 1000:
+        assert (ggx_lanes > 0) == ("ggx" in materials) and (tex_lanes > 0) == ("tex" in materials)
+        assert max(ggx_lanes, tex_lanes) < counts[0]
 
 
 @pytest.mark.parametrize("texel", ["clean", "nan", "+inf", "negative", "-0"])
@@ -778,8 +865,9 @@ def test_shade_bounce_env_alias_picks_on_card(n, spectrum, hero, cuda_device):
 
 def test_shade_bounce_checks_inputs(cuda_device):
     """The wrapper raises on what the kernel does not take: a frame it does
-    not cover (a roughness table, textures, more than 16 carried planes: S
-    = 17, or hero C = 17), refraction with dispersion (NotImplementedError,
+    not cover (more than 16 carried planes: S = 17, or hero C = 17), a
+    roughness table of another dtype, a texture stack of another shape,
+    refraction with dispersion (NotImplementedError,
     as the plain version), a non-contiguous plane, a wrong dtype, an env
     light of another spectrum than the frame's (S = 16 at S = 3, S = 3 at S
     = 4: its records would be read as another layout); it copies
@@ -797,8 +885,9 @@ def test_shade_bounce_checks_inputs(cuda_device):
             tshade.shade_bounce(env_scene, RenderConfig(spectrum_samples=s), 0, env_st,
                                 env_uni, env_hit, False)
     for bad_scene, bad_cfg in (
-            (scene._replace(mat_roughness=torch.zeros_like(scene.mat_ior)), cfg),
-            (scene._replace(textures=object()), cfg),
+            (scene._replace(mat_roughness=torch.zeros_like(scene.mat_ior).double()), cfg),
+            (scene._replace(textures=scene.mat_diffuse, mat_tex=scene.mat_type,
+                            tri_uv=scene.p0), cfg),
             (scene, RenderConfig(spectrum_samples=17)),
             (scene, RenderConfig(spectrum_samples=32, hero_wavelengths=17))):
         with pytest.raises(ValueError):
@@ -896,24 +985,28 @@ def test_gather_planes_from_key_matches_plain_on_card(n, planes, pass_bytes, cud
 @pytest.mark.parametrize("kw", [{}, {"sort_rays": False}, {"fuse_shadow_walk": True},
                                 {"prefix_sort": True, "secondary_tile": 64},
                                 {"env": True}, {"spectral": True},
-                                {"spectral": True, "env": True}],
+                                {"spectral": True, "env": True}, {"ggx": True},
+                                {"ggx": True, "spectral": True, "env": True}],
                          ids=("sorted", "unsorted", "fused", "prefix", "env-lit", "spectral",
-                              "spectral-env"))
+                              "spectral-env", "ggx-textured", "ggx-textured-spectral-env"))
 def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     """A Water-plastic frame (96x64, depth 8) through the shading and sort
     kernels == the same frame with their plain versions put back, bit for
     bit; the kernels launch 8 shadings and, on the sorted pipeline, 7 keys
     and gathers a frame.  Also env-lit (a seeded 16x32 map) and the
     spectral CLI configuration (S = 16, hero 4, dispersion 0.0042), without
-    and with the env."""
+    and with the env; and the GGX and textured box (water-ggx-textured, the
+    kMaterials instances), alone and in the spectral CLI configuration with
+    the env."""
     from tpu_pathtracer_torch.scene import attach_dispersion, attach_env
 
     kw = dict(kw)
-    env, spectral = kw.pop("env", False), kw.pop("spectral", False)
+    env, spectral, ggx = kw.pop("env", False), kw.pop("spectral", False), kw.pop("ggx", False)
     cfg = RenderConfig(**kw, **({"spectrum_samples": 16, "hero_wavelengths": 4}
                                 if spectral else {}))
-    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=cuda_device,
-                       samples=cfg.spectrum_samples)
+    scene = load_scene(scene_path("water-ggx-textured" if ggx else "CornellBox-Water-plastic"),
+                       device=cuda_device, samples=cfg.spectrum_samples, rough_materials=ggx)
+    assert tshade.has_materials(scene) == ggx
     if spectral:
         scene = attach_dispersion(scene, 0.0042)
     if env:
@@ -932,25 +1025,33 @@ def test_frame_kernels_match_plain_stages_on_card(kw, cuda_device, monkeypatch):
     monkeypatch.setattr(tsort, "sort_key", tsort.sort_key_plain)
     monkeypatch.setattr(tsort, "gather_planes", lambda planes, perm, *key, out=None, **at:
                         tsort.gather_planes_plain(planes, perm, out=out))
+    if ggx:
+        # the plain texel lift at S > 3 copies its band masks from the host,
+        # which a graph capture refuses: the plain stages run eagerly (the
+        # program captures a chain only where the kernel shades it)
+        r._capture = None
     r.reset()
     r.run(frames)
     assert np.isfinite(img).all() and np.array_equal(img, r.image())
 
 
-# the frames of the tracing tests: the main path, and the spectral CLI path
-# with the env (hero bins, dispersion, the env's records); 270x480 on the
-# default ladder (129,600 lanes: four rungs)
-TRACED_FRAMES = {"main": {}, "spectral-env": {"spectral": True, "env": True}}
+# the frames of the tracing tests: the main path, the spectral CLI path with
+# the env (hero bins, dispersion, the env's records) and the GGX and
+# textured box (the kMaterials instances); 270x480 on the default ladder
+# (129,600 lanes: four rungs)
+TRACED_FRAMES = {"main": {}, "spectral-env": {"spectral": True, "env": True},
+                 "ggx-textured": {"ggx": True}}
 
 
 def _traced_renderer(kind: str, dev):
     from tpu_pathtracer_torch.scene import attach_dispersion, attach_env
 
     spectral = TRACED_FRAMES[kind].get("spectral", False)
+    ggx = TRACED_FRAMES[kind].get("ggx", False)
     cfg = RenderConfig(frames_in_flight=8, **({"spectrum_samples": 16, "hero_wavelengths": 4}
                                               if spectral else {}))
-    scene = load_scene(scene_path("CornellBox-Water-plastic"), device=dev,
-                       samples=cfg.spectrum_samples)
+    scene = load_scene(scene_path("water-ggx-textured" if ggx else "CornellBox-Water-plastic"),
+                       device=dev, samples=cfg.spectrum_samples, rough_materials=ggx)
     if spectral:
         scene = attach_dispersion(scene, 0.0042)
     if TRACED_FRAMES[kind].get("env"):
@@ -1218,3 +1319,9 @@ def test_steady_graph_frame_replays_a_chain_a_bounce_on_card(kind, cuda_device):
     if TRACED_FRAMES[kind].get("env"):
         assert all(x["env_picks"] is not None and x["env_misses"] is not None
                    for x in launches)
+    if TRACED_FRAMES[kind].get("ggx"):
+        # the kMaterials counts, read from the replays' copies
+        assert all(x["rough"] and x["textured"] and x["ggx_lanes"] is not None
+                   and x["tex_lanes"] is not None for x in launches)
+        assert all(0 < x["ggx_lanes"] < x["live"] and 0 < x["tex_lanes"] < x["live"]
+                   for x in launches[:2])

@@ -14,6 +14,7 @@ sentinel light row, where an ulp is 4e-6, and 1e30 on an env sample);
 flags, ids and counts exactly.  The sort keys and the sorted planes
 exactly."""
 
+import math
 import os
 import re
 
@@ -74,8 +75,8 @@ def scenes():
 @pytest.mark.parametrize("change,covered", [
     ({}, True),
     ({"env": object()}, True),
-    ({"textures": object()}, False),
-    ({"mat_roughness": object()}, False),
+    ({"textures": object()}, True),
+    ({"mat_roughness": object()}, True),
     ({"mat_ior_bins": object()}, True),
     ({"cfg": {"spectrum_samples": 16, "hero_wavelengths": 4}}, True),
     ({"cfg": {"spectrum_samples": 3, "hero_wavelengths": 2}}, True),
@@ -85,7 +86,7 @@ def scenes():
     ({"cfg": {"spectrum_samples": 32, "hero_wavelengths": 17}}, False),
     ({"env": object(), "mat_ior_bins": object(),
       "cfg": {"spectrum_samples": 8, "hero_wavelengths": 2}}, True),
-    ({"env": object(), "textures": object()}, False),
+    ({"env": object(), "textures": object()}, True),
     ({"cfg": {"reference_quirks": False, "refract_dielectric": True,
               "cull_zero_nee": True, "sort_rays": False}}, True),
 ], ids=("parity", "env", "textures", "roughness", "dispersion", "hero", "hero-at-S3",
@@ -93,10 +94,10 @@ def scenes():
         "modes"))
 def test_shade_kernel_covers(change, covered, scenes):
     """The one routing rule: every scene field and config field it reads.
-    The environment light, dispersion and hero bins are covered; textures
-    and a roughness table are not, nor more than MAX_SPECTRUM carried
-    planes: C under hero sampling (S = 17 with hero 4 carries 4; hero 17
-    carries 17), S otherwise.  A hero config at S = 3 traces every bin
+    The environment light, dispersion, hero bins, textures and a roughness
+    table are covered; more than MAX_SPECTRUM carried planes are not: C
+    under hero sampling (S = 17 with hero 4 carries 4; hero 17 carries 17),
+    S otherwise.  A hero config at S = 3 traces every bin
     (render_sample's rule), so it carries 3; the frame modes do not change
     the rule."""
     change = dict(change)
@@ -137,8 +138,10 @@ def test_shade_params_mirror_the_kernel_struct():
     mirror = [(name, kinds[t]) for name, t in tshade._ShadeParams._fields_]
     assert mirror == _c_fields(path, "ShadeParams")
     assert len(mirror) > 80
-    # the env map's check: its largest entry, +inf where the check fails
-    assert mirror[-1] == ("env_radiance_max", "float")
+    # the env map's check: its largest entry, +inf where the check fails;
+    # the materials' fields after it, so the other instances' offsets stay
+    assert ("env_radiance_max", "float") in mirror
+    assert mirror[-1] == ("tex_hf", "float")
 
 
 @pytest.mark.parametrize("eps,aeps,floor,env_shape", [
@@ -153,7 +156,8 @@ def test_folded_constants_equal_torch(eps, aeps, floor, env_shape):
     quotient of 1 by the rounded scalar, as the CPU's true division of a
     one gives it; the card tests hold the multiply itself)."""
     cfg = RenderConfig(distance_epsilon=eps, angle_epsilon=aeps, pdf_floor=floor)
-    c = tshade.folded_constants(cfg, env_shape)
+    tex_shape = (env_shape[0] + 5, env_shape[1] * 3)
+    c = tshade.folded_constants(cfg, env_shape, tex_shape)
     eh, ew = env_shape
     one, zero = torch.ones(1), torch.zeros(1)
     assert float(one * (1.0 / PI)) == c["inv_pi"]
@@ -171,12 +175,38 @@ def test_folded_constants_equal_torch(eps, aeps, floor, env_shape):
         c["env_hf"], c["env_wf"], c["env_kf"])
     assert float(torch.where(torch.tensor([True]), 1e30, one)) == c["env_cap"]
     assert float(torch.clamp(zero, min=1e-6)) == c["disp_floor"]
+    # models/ggx.py's math.pi (not config.py's PI), 2.0 * math.pi, _EPS and
+    # _EPS * _EPS, _conductor_albedo's floor, sample_bilinear's u * tw and
+    # (1 - v) * th
+    assert math.pi != PI and float(one * math.pi) == c["ggx_pi"]
+    assert float(one * (2.0 * math.pi)) == c["ggx_two_pi"]
+    assert float(torch.clamp(zero, min=1e-7)) == c["ggx_eps"]
+    assert float(torch.clamp(zero, min=1e-7 * 1e-7)) == c["ggx_eps2"] != c["ggx_eps"] ** 2
+    assert float(torch.clamp(zero, min=1e-12)) == c["albedo_floor"]
+    assert (float(one * tex_shape[1]), float(one * tex_shape[0])) == (c["tex_wf"], c["tex_hf"])
     for name, v in (("eps", eps), ("aeps", aeps), ("pdf_floor", floor)):
         near = torch.from_numpy(np.nextafter(np.float32(c[name]),
                                              np.float32([0.0, np.inf, c[name]])))
         near = torch.cat([near, torch.tensor([c[name]], dtype=torch.float32)])
         assert torch.equal(near < v, near < c[name])
         assert torch.equal(near >= v, near >= c[name])
+
+
+@pytest.mark.parametrize("s", [3, 4, 8, 16, 31])
+def test_texel_bands_are_from_rgbs(s):
+    """ops/shade.py:texel_bands, the kernel's rule for the channel a bin of an
+    S-bin table takes from a texel: bin c reads channel c at S = 3, else
+    blue below the first edge, green below the second, red after; the
+    channel core/spectrum.py:from_rgb lifts to each bin."""
+    from tpu_pathtracer_torch.core.spectrum import from_rgb
+
+    rgb = torch.tensor([[0.25, 0.5, 0.75]])
+    lifted = from_rgb(rgb, s)[0].tolist()
+    b0, b1 = tshade.texel_bands(s)
+    for row in range(s):
+        ch = row if b0 < 0 else 2 if row < b0 else 1 if row < b1 else 0
+        assert lifted[row] == rgb[0, ch], (s, row)
+    assert (b0 < 0) == (s == 3)
 
 
 def test_wrappers_raise_on_cpu(scenes):

@@ -13,10 +13,10 @@
 // (render/wavefront.py:_shade_plain) issues some 300 elementwise torch
 // launches a bounce.
 //
-// Coverage: what ops/shade.py:shade_kernel_covers admits, every frame but
-// those with a roughness table (the GGX types) or textures, at 1 to
-// kMaxSpectrum carried planes (C under hero sampling, S otherwise); the
-// environment light, hero bins and dispersion each on or off;
+// Coverage: what ops/shade.py:shade_kernel_covers admits, every frame at 1
+// to kMaxSpectrum carried planes (C under hero sampling, S otherwise); the
+// environment light, hero bins, dispersion and the scene's materials (a
+// roughness table, the GGX types, and/or map_Kd textures) each on or off;
 // reference_quirks, refract_dielectric and cull_zero_nee on or off, the last
 // bounce's NEE gate.  refract_dielectric with dispersion is refused by the
 // wrapper, as the plain version refuses it.
@@ -76,6 +76,22 @@
 // floats from other addresses: the result stays bit-equal.
 // chip_smoke.env_sectors counts the sectors; the measured share of the
 // bound: PERF.md section 6, the table of the XLA-fused stages.
+//
+// The scene's materials (the kMaterials instances, a scene with a roughness
+// table and/or map_Kd textures; every other instance compiles without this
+// code): render/wavefront.py:_shade_plain's GGX lobes (models/ggx.py's
+// evaluation toward the NEE sample and its VNDF sample, ~275 operations on
+// a lane whose material is a GGX type, branched on that type), the rough
+// conductor's Schlick albedo on both arms, the conventional emitter-hit
+// weight of such a scene, and the map_Kd texel (models/texture.py:
+// diffuse_modulation: the texcoords at the hit's u and v, wrapped, four
+// taps of the (k, h, w, 3) stack, bilinear, lifted to the bins) on a lane
+// whose material has a texture.  A textured lane reads 40 bytes more (its
+// texcoord row, u and v, the texture index) and its four taps, which
+// neighbouring lanes share through L2 (ptbench/material_shade_bounds.py
+// prices no tap).
+#include <climits>
+
 #include <cuda_runtime.h>
 
 // Everything one launch reads and writes (ops/shade.py:_ShadeParams mirrors
@@ -172,6 +188,26 @@ struct ShadeParams {
   // its sign bit clear (models/envlight.py:radiance_max), else +inf (every
   // lane then reads its texel)
   float env_radiance_max;
+  // the scene's materials (the kMaterials instances; each null where the
+  // scene has none): the roughness of the GGX types (m,); the hit's
+  // barycentric u and v (n,); the texcoords (6, num_tris), each material's
+  // texture (m,) (-1: none) and the (k, tex_h, tex_w, 3) texture stack
+  const float* mat_roughness;
+  const float* hit_u;
+  const float* hit_v;
+  const float* tri_uv;
+  const long long* mat_tex;
+  const float* textures;
+  // num_tris: tri_uv's row length; a texel's channel by the table's bin:
+  // bins below tex_band0 blue, below tex_band1 green, the rest red
+  // (core/spectrum.py:from_rgb), tex_band0 -1 at S = 3 (bin c reads
+  // channel c); materials: the kMaterials instance
+  int num_tris, tex_h, tex_w, tex_band0, tex_band1, materials;
+  // models/ggx.py's _EPS and its square, its math.pi and 2.0 * math.pi,
+  // render/wavefront.py:_conductor_albedo's 1e-12 floor, and the texture
+  // stack's width and height as models/texture.py:sample_bilinear scales by
+  // them (ops/shade.py:folded_constants)
+  float ggx_eps, ggx_eps2, ggx_pi, ggx_two_pi, albedo_floor, tex_wf, tex_hf;
 };
 
 namespace {
@@ -184,6 +220,7 @@ constexpr long long kDiffuse = 0;
 constexpr long long kMirror = 1;
 constexpr long long kPlastic = 2;
 constexpr long long kDielectric = 3;
+constexpr long long kRoughConductor = 4;
 constexpr long long kRoughPlastic = 5;
 constexpr long long kRoughDielectric = 6;
 
@@ -252,17 +289,23 @@ __device__ __forceinline__ float fresnel(V3 n, V3 i, float eta_out, float eta_in
   return sin_t_sq < 1.0f ? 0.5f * (r_s * r_s + r_p * r_p) : 1.0f;
 }
 
+// core/sampling.py:build_orthonormal_basis (branchless) -> its u and v.
+__device__ __forceinline__ void onb(V3 n, V3* u, V3* v) {
+  const bool negz = n.z < 0.0f;
+  const float a = 1.0f / (negz ? 1.0f - n.z : 1.0f + n.z);
+  const float b = n.x * n.y * a;
+  *u = {1.0f - n.x * n.x * a, -b, negz ? n.x : -n.x};
+  *v = {negz ? b : -b, negz ? n.y * n.y * a - 1.0f : 1.0f - n.y * n.y * a, -n.y};
+}
+
 // core/sampling.py:generate_diffuse_bounce (the cosine-hemisphere warp with
 // the branchless ONB of build_orthonormal_basis).
 __device__ __forceinline__ V3 diffuse_bounce(float u0, float u1, V3 n, float two_pi) {
   const float cos_theta = sqrtf(u1);
   const float phi = u0 * two_pi;
   const float sin_theta = sqrtf(clamp_min(1.0f - cos_theta * cos_theta, 0.0f));
-  const bool negz = n.z < 0.0f;
-  const float a = 1.0f / (negz ? 1.0f - n.z : 1.0f + n.z);
-  const float b = n.x * n.y * a;
-  const V3 u = {1.0f - n.x * n.x * a, -b, negz ? n.x : -n.x};
-  const V3 v = {negz ? b : -b, negz ? n.y * n.y * a - 1.0f : 1.0f - n.y * n.y * a, -n.y};
+  V3 u, v;
+  onb(n, &u, &v);
   const float c = cosf(phi);
   const float s = sinf(phi);
   return {(u.x * c + v.x * s) * sin_theta + n.x * cos_theta,
@@ -296,6 +339,174 @@ __device__ __forceinline__ float dispersion_weight(long long mtype, V3 n, V3 i, 
   const bool has_fresnel_lobe = mtype == kPlastic || mtype == kDielectric ||
                                 mtype == kRoughPlastic || mtype == kRoughDielectric;
   return has_fresnel_lobe ? (second ? w_sec : w_spec) : 1.0f;
+}
+
+// ---- the GGX lobe (models/ggx.py), in its operation order: a Python
+// scalar meets a float32 tensor as the float32 it rounds to (math.pi,
+// 2.0 * math.pi, _EPS, _EPS * _EPS: ShadeParams' ggx_*), ``1.0 / x`` is
+// ATen's reciprocal (1.0f / x, times 1), a tensor over a tensor IEEE
+// division ----
+
+// models/ggx.py:_lambda.
+__device__ __forceinline__ float ggx_lambda(float cos_t, float alpha, float eps) {
+  const float c2 = clamp_nan(cos_t * cos_t, eps, 1.0f);
+  const float tan2 = (1.0f - c2) / c2;
+  return 0.5f * (sqrtf(1.0f + alpha * alpha * tan2) + -1.0f);
+}
+
+// models/ggx.py:ndf.
+__device__ __forceinline__ float ggx_ndf(float cos_m, float alpha, float pi, float eps) {
+  const float c2 = cos_m * cos_m;
+  const float a2 = alpha * alpha;
+  const float denom = c2 * (a2 - 1.0f) + 1.0f;
+  return cos_m > 0.0f ? a2 / clamp_min(pi * denom * denom, eps) : 0.0f;
+}
+
+// models/ggx.py:g1 and g2 from the lambdas.
+__device__ __forceinline__ float ggx_g1(float lambda_v) { return 1.0f / (1.0f + lambda_v); }
+
+__device__ __forceinline__ float ggx_g2(float lambda_v, float lambda_l) {
+  return 1.0f / (1.0f + lambda_v + lambda_l);
+}
+
+// models/ggx.py:eval_lobe at (v = -w_i, l = w_o) -> f*cos and the VNDF pdf.
+__device__ __forceinline__ void ggx_eval(const ShadeParams& p, V3 w_i, V3 w_o, V3 n, float alpha,
+                                         float* fcos, float* pdf) {
+  const float eps = p.ggx_eps;
+  const V3 v = neg(w_i);
+  const float cos_v = dot(v, n);
+  const float cos_l = dot(w_o, n);
+  const V3 h = {v.x + w_o.x, v.y + w_o.y, v.z + w_o.z};
+  const float hlen = sqrtf(clamp_min(dot(h, h), p.ggx_eps2));
+  const V3 m = {h.x / hlen, h.y / hlen, h.z / hlen};
+  const float cos_m = dot(m, n);
+  const float cos_vm = dot(v, m);
+  const float d = ggx_ndf(cos_m, alpha, p.ggx_pi, eps);
+  const bool ok = cos_v > eps && cos_l > eps && cos_vm > eps;
+  const float inv4cv = 1.0f / clamp_min(4.0f * cos_v, eps);
+  const float lambda_v = ggx_lambda(cos_v, alpha, eps);
+  *fcos = ok ? d * ggx_g2(lambda_v, ggx_lambda(cos_l, alpha, eps)) * inv4cv : 0.0f;
+  *pdf = ok ? d * ggx_g1(lambda_v) * inv4cv : 0.0f;
+}
+
+// models/ggx.py:sample_lobe -> w_o, and f*cos = weight * pdf and the pdf
+// (models/bsdf.py:sample_bounce's g_fcos, g_pdf).
+__device__ __forceinline__ V3 ggx_sample(const ShadeParams& p, V3 w_i, V3 n, float alpha, float u0,
+                                         float u1, float* fcos, float* pdf) {
+  const float eps = p.ggx_eps, eps2 = p.ggx_eps2;
+  const V3 v = neg(w_i);
+  V3 t1, t2;
+  onb(n, &t1, &t2);
+  const float vx = dot(v, t1);
+  const float vy = dot(v, t2);
+  const float vz = dot(v, n);
+  // stretch to the hemisphere of the alpha = 1 VNDF
+  const float sx = alpha * vx, sy = alpha * vy, sz = vz;
+  const float slen = sqrtf(clamp_min(sx * sx + sy * sy + sz * sz, eps2));
+  const float vhx = sx / slen, vhy = sy / slen, vhz = sz / slen;
+  // orthonormal frame around vh
+  const float lensq = vhx * vhx + vhy * vhy;
+  const float inv = 1.0f / sqrtf(clamp_min(lensq, eps2));
+  const float t1x = lensq > eps ? -vhy * inv : 1.0f;
+  const float t1y = lensq > eps ? vhx * inv : 0.0f;
+  const float t2x = vhy * 0.0f - vhz * t1y;
+  const float t2y = vhz * t1x - vhx * 0.0f;
+  const float t2z = vhx * t1y - vhy * t1x;
+  // disk sample, warped toward the hemisphere top
+  const float r = sqrtf(u0);
+  const float phi = p.ggx_two_pi * u1;
+  const float p1 = r * cosf(phi);
+  float p2 = r * sinf(phi);
+  const float s = 0.5f * (1.0f + vhz);
+  p2 = (1.0f - s) * sqrtf(clamp_min(1.0f - p1 * p1, 0.0f)) + s * p2;
+  const float pz = sqrtf(clamp_min(1.0f - p1 * p1 - p2 * p2, 0.0f));
+  const float nhx = p1 * t1x + p2 * t2x + pz * vhx;
+  const float nhy = p1 * t1y + p2 * t2y + pz * vhy;
+  const float nhz = p1 * 0.0f + p2 * t2z + pz * vhz;
+  // unstretch
+  float mx = alpha * nhx, my = alpha * nhy, mz = clamp_min(nhz, 0.0f);
+  const float mlen = sqrtf(clamp_min(mx * mx + my * my + mz * mz, eps2));
+  mx = mx / mlen;
+  my = my / mlen;
+  mz = mz / mlen;
+  const V3 m = {mx * t1.x + my * t2.x + mz * n.x, mx * t1.y + my * t2.y + mz * n.y,
+                mx * t1.z + my * t2.z + mz * n.z};
+  const V3 w_o = reflect(w_i, m);
+  const float cos_v = vz;
+  const float cos_l = dot(w_o, n);
+  const float cos_vm = dot(v, m);
+  const bool ok = cos_v > eps && cos_l > eps && cos_vm > eps;
+  const float lambda_v = ggx_lambda(cos_v, alpha, eps);
+  const float weight =
+      ok ? ggx_g2(lambda_v, ggx_lambda(cos_l, alpha, eps)) * (1.0f + lambda_v) : 0.0f;
+  const float d = ggx_ndf(mz, alpha, p.ggx_pi, eps);
+  *pdf = ok ? d * ggx_g1(lambda_v) / clamp_min(4.0f * cos_v, eps) : 0.0f;
+  *fcos = weight * *pdf;
+  return w_o;
+}
+
+// render/wavefront.py:_conductor_albedo's Schlick weight at the half vector
+// of w_i and ``out_dir``: (1 - clamp(cos_vm, 0, 1)) ** 5 (ATen's pow by a
+// scalar 5: powf).
+__device__ __forceinline__ float schlick_weight(V3 w_i, V3 out_dir, float floor) {
+  const V3 hv = {out_dir.x - w_i.x, out_dir.y - w_i.y, out_dir.z - w_i.z};
+  const float hlen = sqrtf(clamp_min(dot(hv, hv), floor));
+  const float cos_vm = clamp_nan(-dot(w_i, hv) / hlen, 0.0f, 1.0f);
+  return powf(1.0f - clamp_nan(cos_vm, 0.0f, 1.0f), 5.0f);
+}
+
+// torch.remainder of an int64 by ``m`` > 0 (the sign of the divisor) after
+// the float-to-int64 cast of ``x`` (a truncating cvt, as ATen's).
+__device__ __forceinline__ long long wrap_index(float x, int m) {
+  const long long k = static_cast<long long>(x);
+  long long r;
+  if (k >= INT_MIN && k <= INT_MAX) {
+    r = static_cast<int>(k) % m;
+  } else {
+    r = k % m;
+  }
+  return r < 0 ? r + m : r;
+}
+
+// models/texture.py:diffuse_modulation's texel before from_rgb: the hit's
+// texcoords interpolated at (u, v) on triangle ``tri``, wrapped, and
+// texture ``tex``'s bilinear filter of its four taps -> rgb.
+__device__ __forceinline__ void texel_rgb(const ShadeParams& p, long long tri, long long tex,
+                                          float hu, float hv, float* rgb) {
+  const size_t nt = p.num_tris, t = tri;
+  const float* uvr = p.tri_uv;
+  const float w0 = 1.0f - hu - hv;
+  const float tu = uvr[t] * w0 + uvr[2 * nt + t] * hu + uvr[4 * nt + t] * hv;
+  const float tv = uvr[nt + t] * w0 + uvr[3 * nt + t] * hu + uvr[5 * nt + t] * hv;
+  const float uu = tu - floorf(tu);
+  const float vv = tv - floorf(tv);
+  const float x = uu * p.tex_wf - 0.5f;
+  const float y = (1.0f - vv) * p.tex_hf - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const long long xa = wrap_index(x0, p.tex_w), xb = wrap_index(x0 + 1.0f, p.tex_w);
+  const long long ya = wrap_index(y0, p.tex_h), yb = wrap_index(y0 + 1.0f, p.tex_h);
+  const long long row = tex * p.tex_h;
+  const float* c00 = p.textures + ((row + ya) * p.tex_w + xa) * 3;
+  const float* c10 = p.textures + ((row + ya) * p.tex_w + xb) * 3;
+  const float* c01 = p.textures + ((row + yb) * p.tex_w + xa) * 3;
+  const float* c11 = p.textures + ((row + yb) * p.tex_w + xb) * 3;
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float top = __ldg(c00 + ch) * gx + __ldg(c10 + ch) * fx;
+    const float bot = __ldg(c01 + ch) * gx + __ldg(c11 + ch) * fx;
+    rgb[ch] = top * gy + bot * fy;
+  }
+}
+
+// The channel of a texel that bin ``row`` of the scene's table takes
+// (core/spectrum.py:from_rgb: S = 3 is RGB itself; else by the bin's band).
+__device__ __forceinline__ int texel_channel(const ShadeParams& p, size_t row) {
+  const int r = static_cast<int>(row);
+  return p.tex_band0 < 0 ? r : r < p.tex_band0 ? 2 : r < p.tex_band1 ? 1 : 0;
 }
 
 // models/envlight.py:_texel_dir: the jittered direction inside texel ``idx``.
@@ -358,15 +569,23 @@ __device__ __forceinline__ float env_texel_pdf(const ShadeParams& p, long long i
 // 40 at 80, where the env-lit form runs 2.3% faster; the hero instances with
 // the env spill 60-184 bytes at 64 registers and spilled none at 72-80, yet
 // ran 3% slower there.  Texel and slot indices are 32-bit (the hero form with the env 2%
-// faster than at 64-bit); the record's address is 64-bit.
-constexpr int blocks_per_sm(bool env, bool hero) { return env && !hero ? 3 : 4; }
+// faster than at 64-bit); the record's address is 64-bit.  The kMaterials
+// instances run three (80 registers; the rgb cell's <false, false, false,
+// true> spills nothing there, the others 8-258 bytes).
+constexpr int blocks_per_sm(bool env, bool hero, bool materials) {
+  return materials || (env && !hero) ? 3 : 4;
+}
 
-template <bool kEnv, bool kHero, bool kDispersion>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
+// kMaterials: the scene has a roughness table (the GGX types of
+// models/bsdf.py, models/ggx.py) and/or map_Kd textures (models/texture.py);
+// which of the two, the instance reads from the pointers.  Every other
+// instance compiles without that code.
+template <bool kEnv, bool kHero, bool kDispersion, bool kMaterials>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero, kMaterials))
     shade_bounce_kernel(ShadeParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   bool counted_path = false, counted_shadow = false, counted_pick = false,
-       counted_miss = false;
+       counted_miss = false, counted_ggx = false, counted_tex = false;
   if (lane < p.n) {
     const size_t n = p.n, i = lane;
     const float eps = p.eps, aeps = p.aeps;
@@ -386,6 +605,24 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     const float pdf_in = p.pdf[i];
     const float ior_in = p.ior[i];
     const size_t lrow = static_cast<size_t>(p.num_lights) + 1;
+    // the scene's materials: a GGX type's alpha = roughness^2, and the
+    // map_Kd texel at the hit (white where the material has none)
+    bool ggx = false, textured = false;
+    float alpha = 0.0f;
+    float texel[3] = {1.0f, 1.0f, 1.0f};
+    if constexpr (kMaterials) {
+      if (p.mat_roughness != nullptr) {
+        ggx = m_type == kRoughConductor || m_type == kRoughPlastic ||
+              m_type == kRoughDielectric;
+        const float rough = p.mat_roughness[mat];
+        alpha = rough * rough;
+      }
+      if (p.textures != nullptr) {
+        const long long tex = p.mat_tex[mat];
+        textured = tex >= 0;
+        if (textured) texel_rgb(p, tri, tex, p.hit_u[i], p.hit_v[i], texel);
+      }
+    }
 
     // ---- next-event estimation ----
     const long long li = upper_bound(p.light_cdf + 1, p.num_lights, p.light_select[i]);
@@ -465,6 +702,25 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
                          second_nee ? diffuse_val : mirror_bsdf, second_nee ? 0.0f : mirror_bsdf);
       nee_mpdf = select4(m_type, diffuse_val, 1.0f, second_nee ? diffuse_val : 1.0f,
                          second_nee ? 0.0f : 1.0f);
+      if constexpr (kMaterials) {
+        // models/bsdf.py:eval_material's GGX lobes: the rough conductor
+        // the lobe itself, rough plastic and dielectric the specular arm of
+        // the scalar-Fresnel lobe choice
+        if (ggx) {
+          float gfcos, gpdf;
+          ggx_eval(p, w_i, nee_dir, hn, alpha, &gfcos, &gpdf);
+          if (m_type == kRoughConductor) {
+            nee_bsdf = gfcos;
+            nee_mpdf = gpdf;
+          } else if (m_type == kRoughPlastic) {
+            nee_bsdf = second_nee ? diffuse_val : gfcos;
+            nee_mpdf = second_nee ? diffuse_val : gpdf;
+          } else {
+            nee_bsdf = second_nee ? 0.0f : gfcos;
+            nee_mpdf = second_nee ? 0.0f : gpdf;
+          }
+        }
+      }
     }
     const float nee_weight = power_heuristic(nee_pdf, nee_mpdf);
     bool light_ok = valid && nee_pdf > 0.0f && not_self;
@@ -491,7 +747,11 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     const float prev_diffuse = p.prev_diffuse[i];
     emit_lpdf = prev_diffuse * emit_lpdf;
     const float emit_weight = power_heuristic(pdf_in, emit_lpdf);
-    const float emit_factor = p.quirks ? emit_weight * pdf_in : emit_weight;
+    // a scene with a roughness table weights emitter hits conventionally
+    // (a GGX lane's pdf is the unbounded VNDF density)
+    bool emit_quirk = p.quirks;
+    if constexpr (kMaterials) emit_quirk = emit_quirk && p.mat_roughness == nullptr;
+    const float emit_factor = emit_quirk ? emit_weight * pdf_in : emit_weight;
     const float emit_scale = is_light ? emit_factor : 0.0f;
     // the env seen by a live lane whose ray escaped (models/envlight.py:
     // eval_env), MIS-weighted against the env arm of NEE; on any other lane
@@ -541,13 +801,47 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
       diel_bsdf = dsl ? eta * eta : refl_w;
       diel_ior = dsl ? eta_t : ior_in;
     }
-    const V3 w_o = select4(m_type, diffuse_dir, mirror_dir,
-                           sel(second, diffuse_dir, mirror_dir), diel_dir);
-    const float nb_bsdf = select4(m_type, diffuse_val, mirror_cos,
-                                  second ? diffuse_val : mirror_cos, diel_bsdf);
-    const float nb_pdf = select4(m_type, diffuse_val, 1.0f, second ? diffuse_val : 1.0f, 1.0f);
-    const float nb_ior = select4(m_type, ior_in, ior_in, ior_in, diel_ior);
-    const float nb_finite = m_type == kDiffuse ? 1.0f : 0.0f;
+    V3 w_o = select4(m_type, diffuse_dir, mirror_dir, sel(second, diffuse_dir, mirror_dir),
+                     diel_dir);
+    float nb_bsdf = select4(m_type, diffuse_val, mirror_cos, second ? diffuse_val : mirror_cos,
+                            diel_bsdf);
+    float nb_pdf = select4(m_type, diffuse_val, 1.0f, second ? diffuse_val : 1.0f, 1.0f);
+    float nb_ior = select4(m_type, ior_in, ior_in, ior_in, diel_ior);
+    float nb_finite = m_type == kDiffuse ? 1.0f : 0.0f;
+    // the rough conductor's Schlick weights at the NEE and bounce half
+    // vectors (render/wavefront.py:_conductor_albedo)
+    float schlick_nee = 0.0f, schlick_bounce = 0.0f;
+    if constexpr (kMaterials) {
+      // models/bsdf.py:sample_bounce's GGX lobes, VNDF-sampled from the
+      // diffuse warp's uniform pair
+      if (ggx) {
+        float g_fcos, g_pdf;
+        const V3 g_dir = ggx_sample(p, w_i, hn, alpha, p.bounce_dir0[i], p.bounce_dir1[i],
+                                    &g_fcos, &g_pdf);
+        if (m_type == kRoughConductor) {
+          w_o = g_dir;
+          nb_bsdf = g_fcos;
+          nb_pdf = g_pdf;
+          nb_ior = ior_in;
+          nb_finite = 1.0f;
+          schlick_nee = schlick_weight(w_i, nee_dir, p.albedo_floor);
+          schlick_bounce = schlick_weight(w_i, w_o, p.albedo_floor);
+        } else if (m_type == kRoughPlastic) {
+          w_o = sel(second, diffuse_dir, g_dir);
+          nb_bsdf = second ? diffuse_val : g_fcos;
+          nb_pdf = second ? diffuse_val : g_pdf;
+          nb_ior = ior_in;
+          nb_finite = 1.0f;
+        } else {
+          // straight-through transmission on the second lobe
+          w_o = sel(second, w_i, g_dir);
+          nb_bsdf = second ? 1.0f : g_fcos;
+          nb_pdf = second ? 1.0f : g_pdf;
+          nb_ior = second ? m_ior : ior_in;
+          nb_finite = second ? 0.0f : 1.0f;
+        }
+      }
+    }
     const float safe_pdf = fabsf(nb_pdf) > p.pdf_floor ? nb_pdf : p.pdf_floor;
     const float bounce_scale = nb_bsdf / safe_pdf;
 
@@ -560,13 +854,25 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     for (int c = 0; c < p.s; ++c) {
       const size_t at = c * n + i;
       const size_t row = kHero ? static_cast<size_t>(p.bins[at]) : c;
-      const float m_diffuse = p.mat_diffuse[row * p.m + mat];
+      float m_diffuse = p.mat_diffuse[row * p.m + mat];
+      float nee_albedo = m_diffuse, bounce_albedo = m_diffuse;
+      if constexpr (kMaterials) {
+        // Kd times the texel's channel of this bin; the rough conductor's
+        // Schlick Fresnel with F0 = that albedo
+        if (p.textures != nullptr) {
+          const int ch = texel_channel(p, row);
+          m_diffuse = m_diffuse * (ch == 0 ? texel[0] : ch == 1 ? texel[1] : texel[2]);
+        }
+        const bool rc = ggx && m_type == kRoughConductor;
+        nee_albedo = rc ? m_diffuse + (1.0f - m_diffuse) * schlick_nee : m_diffuse;
+        bounce_albedo = rc ? m_diffuse + (1.0f - m_diffuse) * schlick_bounce : m_diffuse;
+      }
       const float m_emissive = p.mat_emissive[row * p.m + mat];
       const float thr = p.throughput[at];
       const float nee_emit =
           use_env ? env_word<!kHero>(p, e_idx, row, e_rec) : p.light_emissive[row * lrow + li];
-      float contrib = nee_emit * m_diffuse * thr * nee_scale;
-      float scale = m_diffuse * bounce_scale;
+      float contrib = nee_emit * nee_albedo * thr * nee_scale;
+      float scale = bounce_albedo * bounce_scale;
       if (kDispersion) {
         // the NEE arm at the reference's eta_out = 1, the bounce arm at the
         // ray's tracked IoR
@@ -619,31 +925,41 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kEnv, kHero))
     counted_shadow = light_ok;
     counted_pick = use_env;
     counted_miss = miss;
+    counted_ggx = valid && ggx;
+    counted_tex = valid && textured;
   }
   const int paths = __syncthreads_count(counted_path);
   const int shadows = __syncthreads_count(counted_shadow);
   const int picks = kEnv ? __syncthreads_count(counted_pick) : 0;
   const int misses = kEnv ? __syncthreads_count(counted_miss) : 0;
+  const int ggx_lanes = kMaterials ? __syncthreads_count(counted_ggx) : 0;
+  const int tex_lanes = kMaterials ? __syncthreads_count(counted_tex) : 0;
   if (threadIdx.x == 0) {
     if (paths) atomicAdd(p.stats, static_cast<unsigned long long>(paths));
     if (shadows) atomicAdd(p.stats + 1, static_cast<unsigned long long>(shadows));
     if (picks) atomicAdd(p.stats + 2, static_cast<unsigned long long>(picks));
     if (misses) atomicAdd(p.stats + 3, static_cast<unsigned long long>(misses));
+    if (ggx_lanes) atomicAdd(p.stats + 4, static_cast<unsigned long long>(ggx_lanes));
+    if (tex_lanes) atomicAdd(p.stats + 5, static_cast<unsigned long long>(tex_lanes));
   }
 }
 
 using ShadeKernel = void (*)(ShadeParams);
 
-// the instances, indexed by env * 4 + hero * 2 + dispersion
-const ShadeKernel kShadeKernels[8] = {
-    shade_bounce_kernel<false, false, false>, shade_bounce_kernel<false, false, true>,
-    shade_bounce_kernel<false, true, false>,  shade_bounce_kernel<false, true, true>,
-    shade_bounce_kernel<true, false, false>,  shade_bounce_kernel<true, false, true>,
-    shade_bounce_kernel<true, true, false>,   shade_bounce_kernel<true, true, true>};
+// the instances, indexed by materials * 8 + env * 4 + hero * 2 + dispersion
+const ShadeKernel kShadeKernels[16] = {
+    shade_bounce_kernel<false, false, false, false>, shade_bounce_kernel<false, false, true, false>,
+    shade_bounce_kernel<false, true, false, false>,  shade_bounce_kernel<false, true, true, false>,
+    shade_bounce_kernel<true, false, false, false>,  shade_bounce_kernel<true, false, true, false>,
+    shade_bounce_kernel<true, true, false, false>,   shade_bounce_kernel<true, true, true, false>,
+    shade_bounce_kernel<false, false, false, true>,  shade_bounce_kernel<false, false, true, true>,
+    shade_bounce_kernel<false, true, false, true>,   shade_bounce_kernel<false, true, true, true>,
+    shade_bounce_kernel<true, false, false, true>,   shade_bounce_kernel<true, false, true, true>,
+    shade_bounce_kernel<true, true, false, true>,    shade_bounce_kernel<true, true, true, true>};
 
 }  // namespace
 
-// params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the four
+// params: a host ShadeParams (ops/shade.py:_ShadeParams); zeroes the six
 // counts, then launches over params->n lanes.
 extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
   const ShadeParams p = *params;
@@ -652,15 +968,19 @@ extern "C" int tpupt_shade_bounce(const ShadeParams* params, void* stream) {
       (p.env && (p.env_texel_rec == nullptr || p.env_alias_rec == nullptr || p.env_h < 1 ||
                  p.env_w < 1 || p.env_texel_stride < 1 || p.env_texel_stride % 4 != 0 ||
                  p.env_pdf_col >= p.env_texel_stride ||
-                 (p.env_pdf_col < 0 && p.env_pdf == nullptr)))) {
+                 (p.env_pdf_col < 0 && p.env_pdf == nullptr))) ||
+      (p.materials && p.mat_roughness == nullptr && p.textures == nullptr) ||
+      (p.textures != nullptr &&
+       (!p.materials || p.hit_u == nullptr || p.hit_v == nullptr || p.tri_uv == nullptr ||
+        p.mat_tex == nullptr || p.num_tris < 1 || p.tex_h < 1 || p.tex_w < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(p.stats, 0, 4 * sizeof(unsigned long long), st);
+  cudaError_t err = cudaMemsetAsync(p.stats, 0, 6 * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.n > 0) {
-    const ShadeKernel kernel =
-        kShadeKernels[(p.env ? 4 : 0) + (p.hero ? 2 : 0) + (p.dispersion ? 1 : 0)];
+    const ShadeKernel kernel = kShadeKernels[(p.materials ? 8 : 0) + (p.env ? 4 : 0) +
+                                             (p.hero ? 2 : 0) + (p.dispersion ? 1 : 0)];
     kernel<<<(p.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());

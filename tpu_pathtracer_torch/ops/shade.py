@@ -10,24 +10,26 @@ launches in ``.launches`` and raises on CPU tensors and on any dtype or
 layout the kernel does not take; it never copies an input.
 
 ``shade_kernel_covers`` is the one rule for which frames take the kernel:
-every frame but those with textures or a roughness table (the GGX types),
-at most MAX_SPECTRUM carried planes (C under hero sampling, S otherwise);
-the environment light, hero bins and dispersion are covered.
-render/wavefront.py:trace_bounce routes every other frame, and every CPU
-tensor, to the plain version.  The kernel reads the environment light
-through the records ``EnvLight.texel_rec`` and ``alias_rec``, which
-models/envlight.py:env_to derives once a map (the same floats as the
-reference's tables, one record a texel and one an alias slot).  With a map
-that is clean (``EnvLight.radiance_max``: every entry finite with its sign
-bit clear) it reads the env's texel only on the lanes whose ray missed, and
-on a lane whose throughput times that maximum overflows; with any other
-map, on every lane, as the plain version does.
+every frame of at most MAX_SPECTRUM carried planes (C under hero sampling, S
+otherwise); the environment light, hero bins, dispersion, the GGX types (a
+roughness table) and map_Kd textures are covered, the last two in the
+kernel's ``kMaterials`` instances.  render/wavefront.py:trace_bounce routes
+every other frame, and every CPU tensor, to the plain version.  The kernel
+reads the environment light through the records ``EnvLight.texel_rec`` and
+``alias_rec``, which models/envlight.py:env_to derives once a map (the same
+floats as the reference's tables, one record a texel and one an alias slot).
+With a map that is clean (``EnvLight.radiance_max``: every entry finite with
+its sign bit clear) it reads the env's texel only on the lanes whose ray
+missed, and on a lane whose throughput times that maximum overflows; with
+any other map, on every lane, as the plain version does.
 
 ``folded_constants``: torch folds ``4.0 * eps``, ``1.0 / PI`` and ``PI *
 2.0`` in double from Python scalars and rounds the result (and ``eps``,
 ``angle_epsilon``, ``pdf_floor``, the env's ``PI`` -- numpy's pi, where
-config.py's is 3.1415926 -- its ``1e30`` shadow cap and the dispersion
-weights' ``1e-6`` floor) to float32 where it meets a float32 tensor; on
+config.py's is 3.1415926 -- its ``1e30`` shadow cap, the dispersion weights'
+``1e-6`` floor, models/ggx.py's ``math.pi``, ``2.0 * math.pi``, ``_EPS`` and
+``_EPS * _EPS``, the conductor albedo's ``1e-12`` floor and the texture
+stack's width and height) to float32 where it meets a float32 tensor; on
 CUDA a float32 tensor divided by a Python scalar is ATen's multiply by the
 scalar's float32 reciprocal (``/ (2.0 * PI)``, ``/ PI``, ``/ eh``, ``/ ew``
 in models/envlight.py).  The host rounds them the same way, so the kernel
@@ -37,13 +39,17 @@ gets the same bits.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
 
 from ..config import PI, RenderConfig
+from ..core.spectrum import bin_wavelengths
 from ..models.envlight import ALIAS_WORDS, record_layout
 from ..models.envlight import PI as ENV_PI
+from ..models.ggx import _EPS as GGX_EPS
 from . import launch_count
 from .cuda_build import load_library, plane_address
 
@@ -53,21 +59,43 @@ MAX_LANES = 2 ** 31 - 1
 
 def shade_kernel_covers(cfg: RenderConfig, scene) -> bool:
     """Whether frames of ``cfg`` on ``scene`` shade in the kernel on the card:
-    no textures and no roughness table (the GGX types), and at most
-    MAX_SPECTRUM carried planes: the C hero bins under hero sampling (S > 3
-    with hero_wavelengths > 0, render_sample's rule), else the S spectral
-    planes.  The environment light, hero bins and dispersion are covered."""
+    at most MAX_SPECTRUM carried planes, the C hero bins under hero sampling
+    (S > 3 with hero_wavelengths > 0, render_sample's rule), else the S
+    spectral planes.  The environment light, hero bins, dispersion, a
+    roughness table (the GGX types) and textures are covered."""
+    del scene  # every scene's materials and lights are covered
     hero = cfg.spectrum_samples > 3 and cfg.hero_wavelengths > 0
     planes = cfg.hero_wavelengths if hero else cfg.spectrum_samples
-    return scene.textures is None and scene.mat_roughness is None and planes <= MAX_SPECTRUM
+    return planes <= MAX_SPECTRUM
 
 
-def folded_constants(cfg: RenderConfig, env_shape: tuple[int, int] = (1, 1)) -> dict:
+def has_materials(scene) -> bool:
+    """Whether ``scene`` shades in the kernel's ``kMaterials`` instances: it
+    has a roughness table (the GGX types) or map_Kd textures."""
+    return scene.mat_roughness is not None or scene.textures is not None
+
+
+@functools.lru_cache(maxsize=None)
+def texel_bands(samples: int) -> tuple[int, int]:
+    """(the first green bin, the first red bin) of an S-bin table, where
+    core/spectrum.py:from_rgb lifts a texel's blue, green and red channels
+    to the bins of their bands; (-1, -1) at S = 3, where bin c is channel
+    c."""
+    if samples == 3:
+        return -1, -1
+    lam = bin_wavelengths(samples)
+    return int((lam < 490.0).sum()), int((lam < 580.0).sum())
+
+
+def folded_constants(cfg: RenderConfig, env_shape: tuple[int, int] = (1, 1),
+                     tex_shape: tuple[int, int] = (1, 1)) -> dict:
     """The float32 values of the Python constants the shading applies to
     float32 tensors, rounded as torch rounds them; ``env_shape`` (Eh, Ew) of
-    the environment light's map gives its texel constants."""
+    the environment light's map gives its texel constants, ``tex_shape``
+    (TH, TW) of the texture stack its scales."""
     f32 = np.float32
     eh, ew = env_shape
+    th, tw = tex_shape
     consts = {"eps": f32(cfg.distance_epsilon), "aeps": f32(cfg.angle_epsilon),
               "four_eps": f32(4.0 * cfg.distance_epsilon), "inv_pi": f32(1.0 / PI),
               "two_pi": f32(PI * 2.0), "pdf_floor": f32(cfg.pdf_floor),
@@ -78,7 +106,13 @@ def folded_constants(cfg: RenderConfig, env_shape: tuple[int, int] = (1, 1)) -> 
               "env_pi_recip": f32(1.0) / f32(ENV_PI),
               "inv_env_h": f32(1.0) / f32(eh), "inv_env_w": f32(1.0) / f32(ew),
               "env_cap": f32(1e30), "disp_floor": f32(1e-6), "env_hf": f32(eh),
-              "env_wf": f32(ew), "env_kf": f32(eh * ew)}
+              "env_wf": f32(ew), "env_kf": f32(eh * ew),
+              # models/ggx.py (math.pi in ndf, 2.0 * math.pi in sample_lobe),
+              # render/wavefront.py:_conductor_albedo and
+              # models/texture.py:sample_bilinear's u * tw, (1 - v) * th
+              "ggx_eps": f32(GGX_EPS), "ggx_eps2": f32(GGX_EPS * GGX_EPS),
+              "ggx_pi": f32(math.pi), "ggx_two_pi": f32(2.0 * math.pi),
+              "albedo_floor": f32(1e-12), "tex_wf": f32(tw), "tex_hf": f32(th)}
     return {k: float(v) for k, v in consts.items()}
 
 
@@ -116,7 +150,13 @@ class _ShadeParams(ctypes.Structure):
             "inv_env_h", "inv_env_w", "env_hf", "env_wf", "env_kf")] + [
         (name, ctypes.c_int) for name in (
             "last_bounce", "quirks", "refract", "cull_zero_nee", "env", "hero",
-            "dispersion")] + [("env_radiance_max", ctypes.c_float)]
+            "dispersion")] + [("env_radiance_max", ctypes.c_float)] + [
+        (name, _P) for name in ("mat_roughness", "hit_u", "hit_v", "tri_uv", "mat_tex",
+                                "textures")] + [
+        (name, ctypes.c_int) for name in ("num_tris", "tex_h", "tex_w", "tex_band0",
+                                          "tex_band1", "materials")] + [
+        (name, ctypes.c_float) for name in ("ggx_eps", "ggx_eps2", "ggx_pi", "ggx_two_pi",
+                                            "albedo_floor", "tex_wf", "tex_hf")]
 
 
 def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, hit,
@@ -127,7 +167,9 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     None, (live path lanes, live shadow lanes) as int64 tensors), as
     :func:`shade_bounce_plain` returns them; with an environment light the
     counts go on with its picks (lanes whose NEE picked it) and misses (live
-    lanes whose ray missed).  ``pixel`` and ``bins`` pass
+    lanes whose ray missed), then in a scene with materials
+    (:func:`has_materials`) with the lanes that hit a GGX type and those
+    that hit a textured material.  ``pixel`` and ``bins`` pass
     through.  CUDA tensors only, and only where :func:`shade_kernel_covers`
     holds; refract_dielectric with dispersion raises NotImplementedError, as
     the plain version does."""
@@ -203,6 +245,17 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
         planes.append(("bins", state.bins, i64, (s, n)))
     if scene.mat_ior_bins is not None:
         planes.append(("mat_ior_bins", scene.mat_ior_bins, f32, (s_table, m)))
+    materials = has_materials(scene)
+    if scene.mat_roughness is not None:
+        planes.append(("mat_roughness", scene.mat_roughness, f32, (m,)))
+    th = tw = 1
+    if scene.textures is not None:
+        k, th, tw, _ = scene.textures.shape
+        t = scene.tri_uv.shape[1]
+        planes += [("hit_u", hit.u, f32, (n,)), ("hit_v", hit.v, f32, (n,)),
+                   ("tri_uv", scene.tri_uv, f32, (6, t)),
+                   ("mat_tex", scene.mat_tex, i64, (m,)),
+                   ("textures", scene.textures, f32, (k, th, tw, 3))]
     p = _ShadeParams()
     for name, t, dtype, shape in planes:
         setattr(p, name, plane_address(f"shade_bounce {name}", t, dtype, shape, dev))
@@ -216,7 +269,7 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     pack = ShadowPack(to_light=empty(3, n), cap=empty(n), target=empty(n, dtype=i64),
                       contrib=empty(s, n), ok=empty(n, dtype=b8))
     shadow_origin = empty(3, n) if inline else None
-    stats = empty(4, dtype=i64)
+    stats = empty(6, dtype=i64)
     for name, t in (("out_origin", new.origin), ("out_direction", new.direction),
                     ("out_throughput", new.throughput), ("out_radiance", new.radiance),
                     ("out_pdf", new.pdf), ("out_prev_diffuse", new.prev_diffuse),
@@ -226,7 +279,7 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     p.shadow_origin = shadow_origin.data_ptr() if inline else None
     p.n, p.s, p.m, p.num_lights, p.env_h, p.env_w = n, s, m, rows - 1, eh, ew
     p.env_texel_stride, p.env_pdf_col = texel_stride, pdf_col
-    for name, v in folded_constants(cfg, (eh, ew)).items():
+    for name, v in folded_constants(cfg, (eh, ew), (th, tw)).items():
         setattr(p, name, v)
     p.last_bounce = int(bounce + 1 >= cfg.max_path_length)
     p.quirks = int(cfg.reference_quirks)
@@ -238,12 +291,17 @@ def shade_bounce(scene, cfg: RenderConfig, bounce: int, state, uniforms: dict, h
     # (models/envlight.py:radiance_max): no texel read off the misses
     clean = env is not None and env.radiance_max is not None
     p.env_radiance_max = env.radiance_max if clean else float("inf")
+    p.materials = int(materials)
+    if scene.textures is not None:
+        p.num_tris, p.tex_h, p.tex_w = scene.tri_uv.shape[1], th, tw
+        p.tex_band0, p.tex_band1 = texel_bands(s_table)
     rc = load_library().tpupt_shade_bounce(ctypes.addressof(p),
                                            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"shade_bounce kernel launch failed: cudaError {rc}")
     launch_count.count(shade_bounce)
-    counts = tuple(stats.unbind()) if env is not None else (stats[0], stats[1])
+    counts = stats.unbind()
+    counts = (counts[:4] if env is not None else counts[:2]) + (counts[4:] if materials else ())
     return new, pack, shadow_origin, counts
 
 

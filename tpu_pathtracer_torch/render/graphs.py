@@ -89,8 +89,9 @@ class ChainGraphs:
             spans: tuple = ()):
         """This frame's run of the chain ``chain(trace, intersect) -> its
         traced rays`` (an int64 device scalar) -> its device counters: the
-        rays, then, where it replayed, the env picks and misses of the
-        shading launches it added to ``trace`` (FrameTrace.replayed).  A
+        rays, then, where it replayed, the counts of the shading launches
+        it added to ``trace`` (FrameTrace.replayed: env picks and misses,
+        GGX and textured lanes).  A
         key met before replays its graph inside ``spans`` ((name, args)
         each), adds what its capture recorded to ``trace`` (``live``: this
         frame's ladder read) and to the kernel wrappers' launch counters
@@ -117,10 +118,10 @@ class ChainGraphs:
 
         def captured():
             # the chain's device counters: its rays, then its shading
-            # launches' env picks and misses, which the replays rewrite
+            # launches' counts, which the replays rewrite
             rec = FrameTrace()
             recs.append(rec)
-            return (chain(rec, rec.intersector(raw)), *rec.env_counters())
+            return (chain(rec, rec.intersector(raw)), *rec.counters())
 
         with launch_count.recording() as counted:
             replay, held = self.capture(captured)

@@ -45,10 +45,15 @@ spent in them, the wavefront plans it built (render/wavefront.py:
 HBM route (``hbm_route``, 0 or 1) and the queries it sent down that route
 (``hbm_walks``), one dict a shading launch (its
 lanes, the live lanes that entered it where the ladder read them, the
-carried planes, the form) and the
+carried planes, the form: hero, inline, env, dispersion, ``rough`` for a
+roughness table and ``textured`` for map_Kd textures, kernel) and the
 device tensors the frame computes anyway: each wavefront's traced rays and
-each env-lit launch's env picks and misses (the shading's counts).  :func:`records` reads those tensors once, after the frames, in one
-host read a device: tracing adds no launch and no host read to a frame.
+the shading's counts (``COUNTERS``): each env-lit launch's env picks and
+misses, and in a scene with a roughness table or textures its
+``ggx_lanes`` (live lanes that hit a GGX type) and ``tex_lanes`` (live
+lanes that hit a textured material).  :func:`records` reads those tensors
+once, after the frames, in one host read a device: tracing adds no launch
+and no host read to a frame.
 
 A bounce whose launches replay as a captured graph (render/graphs.py)
 launches nothing from Python, so nothing inside it spans or counts as it
@@ -58,7 +63,7 @@ launches, with ``live`` from this frame's ladder read, and ``hbm_walks``;
 the replay call itself is spanned as the ``shade`` and ``sort`` it holds.
 The frame counts its replays in ``graph_replays`` and the graphs it had to
 capture in ``graph_captures`` (0 in a steady frame).  Such a frame copies
-its chains' device counters (traced rays, env picks and misses) out of the
+its chains' device counters (traced rays, the shading's counts) out of the
 graphs' memory in one stack, traced or not, and a traced frame keeps the
 copies (:meth:`FrameTrace.settle`).
 """
@@ -74,6 +79,8 @@ from torch.profiler import record_function
 SPANS = ("frame", "keys", "prepare", "host_read", "bounce", "sort", "walk_nearest",
          "walk_shadow", "walk_fused", "resolve", "uniforms", "shade", "restore",
          "accumulate", "sync")
+# a shading launch's device counts, by name (None where the launch has none)
+COUNTERS = ("env_picks", "env_misses", "ggx_lanes", "tex_lanes")
 _OFF = contextlib.nullcontext()
 
 
@@ -122,8 +129,8 @@ class FrameTrace:
         self.graph_captures = 0
         self.launches: list[dict] = []
         self._rays: list[torch.Tensor] = []
-        self._env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
-        self._replayed_env: list[tuple[dict, torch.Tensor, torch.Tensor]] = []
+        self._counted: list[tuple[dict, dict[str, torch.Tensor]]] = []
+        self._replayed: list[tuple[dict, tuple[str, ...]]] = []
         self._record: dict | None = None
 
     def span(self, name: str, **args) -> "_Span":
@@ -160,59 +167,63 @@ class FrameTrace:
         return fn
 
     def shading(self, bounce: int, state, scene, live: int | None, inline: bool,
-                kernel: bool, env_counts=None) -> None:
+                kernel: bool, counts: dict | None = None) -> None:
         """Count one shading launch over the wavefront ``state`` (its lanes,
-        carried planes and hero bins; the scene's env and dispersion);
-        ``env_counts``: an env-lit launch's (picks, misses) int64 device
-        scalars, read later."""
+        carried planes and hero bins; the scene's env, dispersion, roughness
+        table and textures); ``counts``: the launch's int64 device scalars
+        by their ``COUNTERS`` name, read later."""
         launch = {"bounce": bounce, "lanes": state.alive.shape[0], "live": live,
                   "planes": state.throughput.shape[0], "hero": state.bins is not None,
                   "inline": inline, "env": scene.env is not None,
-                  "dispersion": scene.mat_ior_bins is not None, "kernel": kernel,
-                  "env_picks": None, "env_misses": None}
+                  "dispersion": scene.mat_ior_bins is not None,
+                  "rough": scene.mat_roughness is not None,
+                  "textured": scene.textures is not None, "kernel": kernel,
+                  **dict.fromkeys(COUNTERS)}
         self.launches.append(launch)
-        if env_counts is not None:
-            self._env.append((launch, *env_counts))
+        if counts:
+            self._counted.append((launch, counts))
 
     def rays(self, n: torch.Tensor) -> None:
         """Keep a wavefront's traced rays (an int64 device scalar)."""
         self._rays.append(n)
 
-    def env_counters(self) -> list[torch.Tensor]:
-        """The env picks and misses of the shading launches kept so far, in
-        order (two int64 device scalars an env-lit kernel launch)."""
-        return [t for _, picks, misses in self._env for t in (picks, misses)]
+    def counters(self) -> list[torch.Tensor]:
+        """The counts of the shading launches kept so far, in order (int64
+        device scalars: two an env-lit launch, two a launch on a scene with
+        materials)."""
+        return [t for _, counts in self._counted for t in counts.values()]
 
     def replayed(self, rec: "FrameTrace", live: int | None) -> None:
         """One replay of the chain whose capture recorded ``rec``: its
         shading launches, each with this frame's ``live`` read, and its HBM
-        queries; the env-lit launches' counts come at :meth:`settle`."""
+        queries; the launches' counts come at :meth:`settle`."""
         self.graph_replays += 1
         self.hbm_walks += rec.hbm_walks
-        with_env = {id(launch) for launch, _, _ in rec._env}
+        names = {id(launch): tuple(counts) for launch, counts in rec._counted}
         for launch in rec.launches:
             copy = dict(launch, live=live)
             self.launches.append(copy)
-            if id(launch) in with_env:
-                self._replayed_env.append(copy)
+            if id(launch) in names:
+                self._replayed.append((copy, names[id(launch)]))
 
-    def settle(self, rays: list[torch.Tensor], env: list[torch.Tensor]) -> None:
+    def settle(self, rays: list[torch.Tensor], counts: list[torch.Tensor]) -> None:
         """Keep a wavefront's traced rays, one int64 device scalar a bounce,
-        and the env picks and misses of the launches its replays added
-        (:meth:`replayed`), in order: the copies the frame made of them
-        before the next replay overwrites them."""
-        at = iter(env)
+        and the counts of the launches its replays added (:meth:`replayed`),
+        in order: the copies the frame made of them before the next replay
+        overwrites them."""
+        at = iter(counts)
         self._rays += rays
-        self._env += [(launch, next(at), next(at)) for launch in self._replayed_env]
-        self._replayed_env = []
+        self._counted += [(launch, {name: next(at) for name in names})
+                          for launch, names in self._replayed]
+        self._replayed = []
 
     def _pending(self) -> list[torch.Tensor]:
-        return self._rays + [t for _, picks, misses in self._env for t in (picks, misses)]
+        return self._rays + self.counters()
 
     def _fill(self, values: list[int]) -> dict:
-        rays, env = values[:len(self._rays)], values[len(self._rays):]
-        for k, (launch, _, _) in enumerate(self._env):
-            launch["env_picks"], launch["env_misses"] = env[2 * k], env[2 * k + 1]
+        rays, counts = values[:len(self._rays)], iter(values[len(self._rays):])
+        for launch, names in self._counted:
+            launch.update((name, next(counts)) for name in names)
         self._record = {"frame": self.frame, "host_reads": self.host_reads,
                         "host_read_s": self.host_read_s,
                         "plan_builds": self.plan_builds,
@@ -222,7 +233,7 @@ class FrameTrace:
                         "traced_rays": sum(rays) if rays else None,
                         "launches": self.launches,
                         "spans": [list(s) for s in self.spans]}
-        self._rays, self._env = [], []
+        self._rays, self._counted = [], []
         return self._record
 
 

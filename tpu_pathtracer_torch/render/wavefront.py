@@ -186,9 +186,9 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
 
     The shading after the intersect is one launch of ``csrc/shade.cu`` on
     CUDA tensors when ``ops/shade.py:shade_kernel_covers`` holds for the
-    config and scene (env-lit, hero and dispersive frames included);
-    otherwise (the CPU, and on the card the textured and GGX frames)
-    :func:`_shade_plain`."""
+    config and scene (env-lit, hero, dispersive, GGX and textured frames
+    included); otherwise (the CPU, and on the card more than 16 carried
+    planes) :func:`_shade_plain`."""
     if hit is None:
         hit = intersect(state.origin, state.direction, state.alive,
                         coherent=coherent)
@@ -202,7 +202,9 @@ def trace_bounce(scene: Scene, cfg: RenderConfig, intersect: IntersectFn,
             new_state, pack, shadow_origin, counts = _shade_plain(
                 scene, cfg, bounce, state, uniforms, hit, inline)
     if trace is not None:
-        trace.shading(bounce, state, scene, live, inline, kernel, counts[2:] or None)
+        names = ((("env_picks", "env_misses") if scene.env is not None else ())
+                 + (("ggx_lanes", "tex_lanes") if shade_ops.has_materials(scene) else ()))
+        trace.shading(bounce, state, scene, live, inline, kernel, dict(zip(names, counts[2:])))
     n_path, n_shadow = counts[:2]
     # rays the traversal processes (the reference's MPS skips lanes with
     # maxDistance < 0)
@@ -225,7 +227,9 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, bounce: int, state: PathState,
     sampling, NEE with MIS, the BSDF-arm MIS on emitter hits -> (new state,
     shadow pack, the shadow origin ``hp + hn * eps`` when ``inline`` else
     None, (live path lanes, live shadow lanes and, with an environment
-    light, its picks and misses) as int64 tensors).  The plain version of
+    light, its picks and misses, and in a scene with a roughness table or
+    textures the lanes that hit a GGX type and those that hit a textured
+    material) as int64 tensors).  The plain version of
     ``ops/shade.py:shade_bounce`` (csrc/shade.cu), and the shading of every
     frame that kernel does not cover."""
     eps = cfg.distance_epsilon
@@ -411,6 +415,11 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, bounce: int, state: PathState,
     counts = (state.alive.sum(), light_ok.sum())
     if env is not None:
         counts += (use_env.sum(), miss_env.sum())
+    if shade_ops.has_materials(scene):
+        none = torch.zeros_like(valid)
+        ggx_type = m_type >= bsdf_lib.MATERIAL_ROUGH_CONDUCTOR if m_rough is not None else none
+        textured = scene.mat_tex[mat] >= 0 if scene.textures is not None else none
+        counts += ((valid & ggx_type).sum(), (valid & textured).sum())
     return new_state, pack, shadow_origin, counts
 
 
@@ -611,7 +620,9 @@ def chains_cover(cfg: RenderConfig, scene: Scene) -> bool:
     chains: the sorted pipeline without prefix sorts (a prefix sort hands
     its bounce a fresh wavefront of the rung's width, which no fixed buffer
     holds), PRNG noise (TILED draws a host-made tile every bounce) and the
-    shading kernel (ops/shade.py:shade_kernel_covers)."""
+    shading kernel (ops/shade.py:shade_kernel_covers: GGX and textured
+    scenes too, whose kernel reads the nearest hit's u and v, made inside
+    the same chain)."""
     return (_pipeline(cfg)[1] and not cfg.prefix_sort
             and cfg.noise_mode == NoiseMode.PRNG and shade_ops.shade_kernel_covers(cfg, scene))
 
@@ -948,12 +959,12 @@ def render_sample(scene: Scene, cfg: RenderConfig, camera: Camera, height: int,
             # the chains' counters out of the graphs' memory, traced or not:
             # tracing adds no launch
             snap = iter(torch.stack([t for c in counters for t in c]).unbind())
-            rays, env = [], []
+            rays, counts = [], []
             for c in counters:
                 rays.append(next(snap))
-                env += [next(snap) for _ in c[1:]]
+                counts += [next(snap) for _ in c[1:]]
             if trace is not None:
-                trace.settle(rays, env)
+                trace.settle(rays, counts)
             nrays = sum(rays[1:], rays[0]) if with_ray_count else None
         else:
             nrays = sum((c[0] for c in counters[1:]), counters[0][0])
